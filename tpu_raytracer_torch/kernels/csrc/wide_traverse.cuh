@@ -1,0 +1,195 @@
+// Per-ray nearest-hit traversal of the 4-wide BVH (kernel K1).
+//
+// Replaces the TPU kernel tpu_raytracer/kernels/dual.py:_dual_kernel
+// (wide mode, nearest hit) with its leaf test
+// tpu_raytracer/kernels/traversal.py:make_test_tri. It computes what that
+// kernel computes — for each ray the nearest accepted triangle (t, tri,
+// inst) over every instance, carrying t across instances — but as one
+// thread per ray with a private stack instead of 4096-ray packets sharing
+// one stack.
+//
+// What bounds it on an H100: every step is a dependent global load (a
+// node's 4 codes and 24 box floats, then each leaf's 16-float triangle
+// records) followed by a few dozen flops, so the walk is latency-bound on
+// those loads, and neighbouring rays that take different paths diverge
+// within a warp. The simple design relies on coherence rather than
+// fighting it: primary rays of neighbouring pixels walk nearly the same
+// nodes, so a warp's loads mostly hit the same L1/L2 lines (the whole
+// flagship scene, ~5 MB of tables, fits in the 50 MB L2), and enough
+// resident warps hide the load latency. Packets, treelets in shared
+// memory and persistent threads are later work.
+//
+// The header is plain C++ usable from both nvcc and a host compiler, so
+// the traversal itself is tested on the CPU (csrc/wide_traverse_host.cpp)
+// before any card runs it. Build with --fmad=false (nvcc) or
+// -ffp-contract=off (g++): the math below keeps make_test_tri's f32
+// operation order, and a fused multiply-add would round differently from
+// the plain PyTorch version.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#if defined(__CUDACC__)
+#define WT_HD __host__ __device__ __forceinline__
+#else
+#define WT_HD static inline
+#endif
+
+namespace wt {
+
+constexpr int kStack = 192;           // kernels/wide4.py STACK_SIZE
+constexpr float kBig = 3.0e38f;       // t_best start (dual.py BIG)
+constexpr float kFltMax = 3.4028235e38f;  // miss sentinel
+constexpr float kParallelEps = 1e-6f;
+constexpr float kEdgeLo = -1e-3f;     // -EDGE_EPS
+constexpr float kEdgeHi = 1.001f;     // f32(1 + EDGE_EPS)
+constexpr float kTiny = 1e-30f;
+
+struct Scene {
+  const int32_t* wcode;    // [W, 4]
+  const float* wbox;       // [W, 32]
+  const float* tri_rec;    // [T, 16]: v0, n, rA, rB, 4 spare
+  const float* inst_tab;   // [I, 12]: quat wxyz, position, inverse scale
+  const int32_t* inst_root;  // [I] wide root per instance
+  int num_instances;
+};
+
+struct Hit {
+  float t;
+  int32_t tri;
+  int32_t inst;
+};
+
+// quat_rot of tpu_raytracer/kernels/traversal.py:_quat_rot, same op order.
+WT_HD void quat_rot(const float* q, float vx, float vy, float vz,
+                    float* rx, float* ry, float* rz) {
+  const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
+  const float a = -vx * qx - vy * qy - vz * qz;
+  const float b = vx * qw + vy * qz - vz * qy;
+  const float c = vy * qw + vz * qx - vx * qz;
+  const float d = vz * qw + vx * qy - vy * qx;
+  *rx = qw * b - qx * a - qy * d + qz * c;
+  *ry = qw * c - qy * a - qz * b + qx * d;
+  *rz = qw * d - qz * a - qx * c + qy * b;
+}
+
+WT_HD float safe_inv(float v) {
+  const float s = fabsf(v) < kTiny ? (v < 0.0f ? -kTiny : kTiny) : v;
+  return 1.0f / s;
+}
+
+WT_HD float max_nan(float a, float b) { return (a != a || a > b) ? a : b; }
+WT_HD float min_nan(float a, float b) { return (a != a || a < b) ? a : b; }
+
+// Slab test of child box `b` (6 floats): entry distance, or kBig on a miss.
+WT_HD float child_entry(const float* b, const float* o, const float* inv,
+                        float t_cap) {
+  const float t1x = (b[0] - o[0]) * inv[0];
+  const float t2x = (b[3] - o[0]) * inv[0];
+  const float t1y = (b[1] - o[1]) * inv[1];
+  const float t2y = (b[4] - o[1]) * inv[1];
+  const float t1z = (b[2] - o[2]) * inv[2];
+  const float t2z = (b[5] - o[2]) * inv[2];
+  const float near_ = max_nan(max_nan(fminf(t1x, t2x), fminf(t1y, t2y)),
+                              fminf(t1z, t2z));
+  const float far_ = min_nan(min_nan(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                             fmaxf(t1z, t2z));
+  const bool hit = (far_ >= near_) && (far_ > 0.0f) && (near_ < t_cap);
+  return hit ? near_ : kBig;
+}
+
+// make_test_tri for one (ray, triangle): strict t < best->t update.
+WT_HD void test_tri(const float* r, const float* o, const float* d,
+                    int32_t k, int32_t inst, Hit* best) {
+  const float denom = d[0] * r[3] + d[1] * r[4] + d[2] * r[5];
+  const float cx = r[0] - o[0];
+  const float cy = r[1] - o[1];
+  const float cz = r[2] - o[2];
+  const float num = cx * r[3] + cy * r[4] + cz * r[5];
+  const float t = num / denom;
+  const float e2x = t * d[0] - cx;
+  const float e2y = t * d[1] - cy;
+  const float e2z = t * d[2] - cz;
+  const float u = r[6] * e2x + r[7] * e2y + r[8] * e2z;
+  const float v = r[9] * e2x + r[10] * e2y + r[11] * e2z;
+  const bool ok = (denom <= -kParallelEps) && (u >= kEdgeLo) &&
+                  (v >= kEdgeLo) && (u + v <= kEdgeHi) && (t >= 0.0f) &&
+                  (t < best->t);
+  if (ok) {
+    best->t = t;
+    best->tri = k;
+    best->inst = inst;
+  }
+}
+
+// Walk instance `i` for one world ray, updating `best`.
+WT_HD void walk_instance(const Scene& s, int i, const float* wo,
+                         const float* wd, Hit* best) {
+  const float* q = s.inst_tab + 12 * i;
+  const float px = q[4], py = q[5], pz = q[6];
+  const float sx = q[7], sy = q[8], sz = q[9];
+  float d[3], o[3], inv[3];
+  quat_rot(q, wd[0], wd[1], wd[2], &d[0], &d[1], &d[2]);
+  d[0] = d[0] * sx;
+  d[1] = d[1] * sy;
+  d[2] = d[2] * sz;
+  quat_rot(q, wo[0] - px, wo[1] - py, wo[2] - pz, &o[0], &o[1], &o[2]);
+  o[0] = o[0] * sx;
+  o[1] = o[1] * sy;
+  o[2] = o[2] * sz;
+  inv[0] = safe_inv(d[0]);
+  inv[1] = safe_inv(d[1]);
+  inv[2] = safe_inv(d[2]);
+  const int32_t inst_val = s.num_instances == 1 ? -1 : i;
+
+  int32_t stack[kStack];
+  int sp = 0;
+  stack[sp++] = s.inst_root[i];
+  while (sp > 0) {
+    const int32_t node = stack[--sp];
+    const float* box = s.wbox + 32 * node;
+    const int32_t* code = s.wcode + 4 * node;
+    float dist[4];
+    for (int c = 0; c < 4; ++c) dist[c] = child_entry(box + 6 * c, o, inv, best->t);
+    // rank children near-first, ties by child index (dual.py box_phase_wide)
+    int order[4];
+    int count = 0;
+    for (int c = 0; c < 4; ++c) {
+      int r = 0;
+      for (int k = 0; k < 4; ++k) {
+        if (k != c && (dist[k] < dist[c] || (dist[k] == dist[c] && k < c))) ++r;
+      }
+      order[r] = c;
+      count += dist[c] < kBig ? 1 : 0;
+    }
+    // internal children pushed farthest first, so the nearest pops next
+    for (int p = count - 1; p >= 0; --p) {
+      const int32_t cc = code[order[p]];
+      if (cc >= 0) stack[sp++] = cc;
+    }
+    // leaf children tested nearest first, ascending triangle index
+    for (int p = 0; p < count; ++p) {
+      const int32_t cc = code[order[p]];
+      if (cc >= 0) continue;
+      const int32_t packed = -cc - 1;
+      const int32_t start = packed >> 10;
+      const int32_t n = packed & 1023;
+      for (int32_t k = start; k < start + n; ++k) {
+        test_tri(s.tri_rec + 16 * k, o, d, k, inst_val, best);
+      }
+    }
+  }
+}
+
+// Nearest hit of one world ray over every instance. A single-instance
+// scene reports inst 0 on a hit (dual.py output stage).
+WT_HD Hit trace_ray(const Scene& s, const float* wo, const float* wd) {
+  Hit best{kBig, -1, -1};
+  for (int i = 0; i < s.num_instances; ++i) walk_instance(s, i, wo, wd, &best);
+  if (s.num_instances == 1) best.inst = best.tri >= 0 ? 0 : -1;
+  if (best.t >= kBig) best.t = kFltMax;
+  return best;
+}
+
+}  // namespace wt

@@ -1,0 +1,274 @@
+"""Nearest-hit casts over the 4-wide BVH: kernel K1, its plain PyTorch
+version, and the router.
+
+Counterpart of ``tpu_raytracer/kernels/traversal.py:cast_rays_pallas``
+(the router) and ``kernels/dual.py:cast_rays_dual`` (the wide,
+nearest-hit kernel it routes the primary path to).
+
+  * ``cast_rays_cuda`` is K1's wrapper: for CUDA tensors it launches
+    the hand-written kernel (``csrc/wide_traverse.cu``) and counts the
+    launch in ``LAUNCHES``; for CPU tensors it calls the plain version.
+    A CUDA tensor never reaches the plain version and a failed build or
+    launch raises.
+  * ``cast_rays_wide_torch`` is the plain version: the same per-ray
+    stack walk over the same tables, vectorised over rays — same child
+    ranking, same leaf order, same f32 operation order as the kernel, so
+    the two agree bit for bit.
+  * ``cast_rays`` is the router: it raises for what is not ported yet
+    (scenes without wide tables, scenes with two or more instances).
+
+Both casts return the JAX package's hit record: ``t`` (FLT_MAX on a
+miss), ``tri`` and ``inst`` (-1 on a miss).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import transforms as T
+from ..core.vecmath import FLT_MAX
+from ..render.intersect import EDGE_EPS, PARALLEL_EPS, safe_reciprocal
+from .wide4 import STACK_SIZE
+
+BIG = 3.0e38  # initial t_best; never a hit distance
+LEAF_BITS = 10
+MAX_LEAF_TRIS = (1 << LEAF_BITS) - 1
+
+# Rays the plain walk handles at once: bounds its [rays, leaf, 16]
+# record gathers to a few hundred MB at the flagship's 2M rays.
+PLAIN_CHUNK = 1 << 18
+
+# Launches of the K1 kernel since the count was last reset (CPU casts,
+# which run the plain version, do not count).
+LAUNCHES = 0
+
+
+def _hit(t, tri, inst, shape):
+    from ..render.renderer import Hit  # local: renderer imports this module
+
+    return Hit(t=t.reshape(shape), tri=tri.reshape(shape), inst=inst.reshape(shape))
+
+
+def instance_table(scene) -> torch.Tensor:
+    """[I, 12] f32 per-instance rows: quaternion (w, x, y, z) of the
+    pose's euler angles, position, inverse scale, 2 zero lanes."""
+    quat = T.euler2quat(scene.inst_pose[:, 3:6])
+    pad = torch.zeros(scene.num_instances, 2, dtype=torch.float32,
+                      device=scene.device)
+    return torch.cat(
+        [quat, scene.inst_pose[:, 0:3], scene.inst_inv_scale, pad], dim=1
+    ).contiguous()
+
+
+def _wide_tables(scene):
+    if scene.wide4 is None:
+        raise NotImplementedError(
+            "scene has no 4-wide tables: beyond-budget scenes route to the "
+            "paged kernels K4-K6, which are not ported yet (ROADMAP item 14)")
+    return scene.wide4
+
+
+def _split_rays(origin, directions):
+    directions = torch.as_tensor(directions, dtype=torch.float32)
+    origin = torch.as_tensor(origin, dtype=torch.float32)
+    if origin.device != directions.device:
+        raise ValueError(f"origin on {origin.device}, directions on {directions.device}")
+    if directions.shape[-1] != 3:
+        raise ValueError(f"directions must be [..., 3], got {tuple(directions.shape)}")
+    if origin.shape != (3,) and origin.shape != directions.shape:
+        raise ValueError(
+            f"origin must be [3] or match directions {tuple(directions.shape)}, "
+            f"got {tuple(origin.shape)}")
+    return origin, directions
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _walk_instance(tables, q, root, inst_val, o, d, best):
+    """Walk one instance for rays ``o``/``d`` [n, 3] (world space),
+    updating ``best`` = [t, tri, inst] in place."""
+    t_b, tri_b, in_b = best
+    n = d.shape[0]
+    dev = d.device
+    s = q[7:10]
+    od = T.apply_quat(q[0:4], d) * s
+    oo = T.apply_quat(q[0:4], o - q[4:7]) * s
+    inv = safe_reciprocal(od)
+
+    stack = torch.zeros((n, STACK_SIZE), dtype=torch.int32, device=dev)
+    stack[:, 0] = root
+    sp = torch.ones(n, dtype=torch.int64, device=dev)
+    lane = torch.arange(4, device=dev)
+    tie_mask = lane[None, :] < lane[:, None]  # [c, k]: k < c
+
+    while True:
+        idx = torch.nonzero(sp > 0).squeeze(1)
+        if idx.numel() == 0:
+            return
+        spn = sp[idx] - 1
+        node = stack[idx, spn].long()
+        box = tables.wbox[node][:, :24].reshape(-1, 4, 6)
+        oi = oo[idx][:, None, :]
+        ii = inv[idx][:, None, :]
+        tb = t_b[idx]
+        t1 = (box[:, :, 0:3] - oi) * ii
+        t2 = (box[:, :, 3:6] - oi) * ii
+        fmn = torch.fmin(t1, t2)
+        fmx = torch.fmax(t1, t2)
+        near = torch.maximum(torch.maximum(fmn[..., 0], fmn[..., 1]), fmn[..., 2])
+        far = torch.minimum(torch.minimum(fmx[..., 0], fmx[..., 1]), fmx[..., 2])
+        hit = (far >= near) & (far > 0.0) & (near < tb[:, None])
+        dist = torch.where(hit, near, torch.full_like(near, BIG))
+
+        # near-first rank, ties by child index; order[p] = child of rank p
+        dc = dist[:, :, None]
+        dk = dist[:, None, :]
+        rank = ((dk < dc) | ((dk == dc) & tie_mask)).sum(-1)
+        order = torch.empty_like(rank).scatter_(1, rank, lane.expand(rank.shape[0], 4))
+        count = hit.sum(1)
+        codes = tables.wcode[node].gather(1, order)  # code of rank p
+
+        # internal children pushed farthest first
+        for p in range(3, -1, -1):
+            c = codes[:, p]
+            push = (count > p) & (c >= 0)
+            stack[idx, spn] = torch.where(push, c, stack[idx, spn])
+            spn = spn + push.long()
+        sp[idx] = spn
+
+        # leaf children tested nearest first, ascending triangle index
+        oi = oi[:, 0, :]
+        di = od[idx]
+        tri_i = tri_b[idx]
+        in_i = in_b[idx]
+        for p in range(4):
+            c = codes[:, p]
+            packed = -c - 1
+            cnt = torch.where((count > p) & (c < 0), packed & MAX_LEAF_TRIS,
+                              torch.zeros_like(c))
+            width = int(cnt.max())
+            if width == 0:
+                continue
+            j = torch.arange(width, device=dev)
+            live = j[None, :] < cnt[:, None]
+            k = torch.where(live, (packed >> LEAF_BITS)[:, None] + j[None, :], 0)
+            t, ok = _test_tris(tables.tri_rec[k.long()], oi[:, None, :], di[:, None, :])
+            cand = torch.where(live & ok, t, torch.full_like(t, float("inf")))
+            t_min, first = cand.min(dim=1)
+            better = t_min < tb
+            tb = torch.where(better, t_min, tb)
+            tri_i = torch.where(better, k.gather(1, first[:, None])[:, 0].to(torch.int32), tri_i)
+            if inst_val >= 0:
+                in_i = torch.where(better, torch.full_like(in_i, inst_val), in_i)
+        t_b[idx] = tb
+        tri_b[idx] = tri_i
+        in_b[idx] = in_i
+
+
+def _test_tris(rec, o, d):
+    """``make_test_tri`` without the ``t < t_best`` term: (t, ok) for
+    records ``rec [..., 16]`` against rays ``o``/``d`` [..., 3]."""
+    denom = d[..., 0] * rec[..., 3] + d[..., 1] * rec[..., 4] + d[..., 2] * rec[..., 5]
+    cx = rec[..., 0] - o[..., 0]
+    cy = rec[..., 1] - o[..., 1]
+    cz = rec[..., 2] - o[..., 2]
+    num = cx * rec[..., 3] + cy * rec[..., 4] + cz * rec[..., 5]
+    t = num / denom
+    e2x = t * d[..., 0] - cx
+    e2y = t * d[..., 1] - cy
+    e2z = t * d[..., 2] - cz
+    u = rec[..., 6] * e2x + rec[..., 7] * e2y + rec[..., 8] * e2z
+    v = rec[..., 9] * e2x + rec[..., 10] * e2y + rec[..., 11] * e2z
+    ok = ((denom <= -PARALLEL_EPS) & (u >= -EDGE_EPS) & (v >= -EDGE_EPS)
+          & (u + v <= 1.0 + EDGE_EPS) & (t >= 0.0))
+    return t, ok
+
+
+def cast_rays_wide_torch(scene, origin, directions, chunk: int = PLAIN_CHUNK):
+    """Plain PyTorch version of K1: nearest hit of every ray over the
+    scene's 4-wide tables, for any number of instances."""
+    origin, directions = _split_rays(origin, directions)
+    tables = _wide_tables(scene)
+    shape = directions.shape[:-1]
+    d_all = directions.reshape(-1, 3)
+    o_all = origin.expand(directions.shape).reshape(-1, 3)
+    inst_tab = instance_table(scene)
+    roots = tables.wroot[scene.inst_mesh.long()].tolist()
+    num_inst = scene.num_instances
+    dev = d_all.device
+    r = d_all.shape[0]
+    t = torch.full((r,), BIG, dtype=torch.float32, device=dev)
+    tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    for lo in range(0, r, chunk):
+        sl = slice(lo, min(lo + chunk, r))
+        best = (t[sl], tri[sl], inst[sl])  # views: updated in place
+        for i in range(num_inst):
+            _walk_instance(tables, inst_tab[i], roots[i], i if num_inst > 1 else -1,
+                           o_all[sl], d_all[sl], best)
+    if num_inst == 1:
+        inst = torch.where(tri >= 0, 0, -1).to(torch.int32)
+    t = torch.where(t >= BIG, torch.full_like(t, FLT_MAX), t)
+    return _hit(t, tri, inst, shape)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper and router
+# ---------------------------------------------------------------------------
+
+
+def cast_rays_cuda(scene, origin, directions):
+    """K1: nearest hit over the 4-wide tables. CUDA tensors launch the
+    kernel on the current stream; CPU tensors run the plain version."""
+    global LAUNCHES
+    origin, directions = _split_rays(origin, directions)
+    if directions.device.type == "cpu":
+        return cast_rays_wide_torch(scene, origin, directions)
+    if directions.device.type != "cuda":
+        raise ValueError(f"K1 runs on cuda or cpu tensors, got {directions.device}")
+    tables = _wide_tables(scene)
+    if scene.device != directions.device:
+        raise ValueError(f"scene on {scene.device}, rays on {directions.device}")
+    for name, x, dtype in (
+        ("directions", directions, torch.float32), ("origin", origin, torch.float32),
+        ("wcode", tables.wcode, torch.int32), ("wbox", tables.wbox, torch.float32),
+        ("tri_rec", tables.tri_rec, torch.float32),
+    ):
+        if x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype}, got "
+                             f"{x.dtype} contiguous={x.is_contiguous()}")
+    shape = directions.shape[:-1]
+    r = directions.numel() // 3
+    inst_tab = instance_table(scene)
+    inst_root = tables.wroot[scene.inst_mesh.long()].to(torch.int32).contiguous()
+    t = torch.empty(r, dtype=torch.float32, device=directions.device)
+    tri = torch.empty(r, dtype=torch.int32, device=directions.device)
+    inst = torch.empty(r, dtype=torch.int32, device=directions.device)
+    from .build import load
+
+    lib = load("cuda")
+    stream = torch.cuda.current_stream(directions.device).cuda_stream
+    err = lib.wt_launch(
+        tables.wcode.data_ptr(), tables.wbox.data_ptr(), tables.tri_rec.data_ptr(),
+        inst_tab.data_ptr(), inst_root.data_ptr(), scene.num_instances,
+        origin.data_ptr(), 0 if origin.dim() == 1 else 3, directions.data_ptr(), r,
+        t.data_ptr(), tri.data_ptr(), inst.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed with CUDA error {err}")
+    LAUNCHES += 1
+    return _hit(t, tri, inst, shape)
+
+
+def cast_rays(scene, origin, directions):
+    """The primary cast (counterpart of ``cast_rays_pallas``): routes to
+    K1 and raises for the routes whose kernels are not ported yet."""
+    _wide_tables(scene)
+    if scene.num_instances >= 2:
+        raise NotImplementedError(
+            "scenes with 2 or more instances route to the TLAS kernel K3, "
+            "which is not ported yet (ROADMAP item 10)")
+    return cast_rays_cuda(scene, origin, directions)

@@ -1,0 +1,105 @@
+"""Tables of the 4-wide BVH traversal (kernel K1).
+
+Counterpart of ``tpu_raytracer/kernels/wide4.py`` (``build_wide4``) and
+of the triangle records of ``kernels/traversal.py:_scene_kernel_inputs``,
+laid out for one thread per ray instead of 128-lane TPU rows:
+
+  * ``wcode [W, 4] i32``: child c of wide node w — internal -> wide
+    child id; leaf -> -(start * 1024 + count) - 1; absent -> -1 (a
+    count-0 leaf). From ``tpu_raytracer.accel.wide.collapse4``.
+  * ``wbox [W, 32] f32``: child c's box (min xyz, max xyz) in lanes
+    c*6 .. c*6+5 with the watertight NUDGE baked in; absent children
+    carry inverted boxes. Lanes 24..31 are zero.
+  * ``tri_rec [T, 16] f32``: v0, face normal, rA, rB (the affine
+    barycentric rows of ``intersect.barycentric_rows``) and 4 zero lanes.
+  * ``wroot [M] i32`` (wide root per mesh), ``max_leaf`` (largest leaf
+    triangle count) and ``depth`` (wide-tree depth, which bounds the
+    per-ray stack).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tpu_raytracer.accel.wide import collapse4
+
+from ..render.intersect import WATERTIGHT_NUDGE, barycentric_rows
+
+NUDGE = WATERTIGHT_NUDGE
+REC32 = 32  # f32 lanes per wide-node record
+STACK_SIZE = 192  # per-ray traversal stack (csrc/wide_traverse.cuh)
+
+
+def stack_needed(depth: int) -> int:
+    """Stack slots a depth-``depth`` wide tree can need: each pop takes
+    one node and pushes at most four, so the stack holds at most three
+    siblings per level on the current path, plus slack."""
+    return 3 * depth + 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Wide4Tables:
+    wcode: torch.Tensor  # [W, 4] i32
+    wbox: torch.Tensor  # [W, 32] f32
+    tri_rec: torch.Tensor  # [T, 16] f32
+    wroot: torch.Tensor  # [M] i32
+    max_leaf: int
+    depth: int
+
+    def to(self, device) -> "Wide4Tables":
+        return dataclasses.replace(
+            self, wcode=self.wcode.to(device), wbox=self.wbox.to(device),
+            tri_rec=self.tri_rec.to(device), wroot=self.wroot.to(device),
+        )
+
+
+def _wide_depth(wcode: np.ndarray, wroot: np.ndarray) -> int:
+    """Depth of the deepest wide node below any root (a root alone is 1)."""
+    depth = 0
+    level = np.unique(wroot)
+    while level.size:
+        depth += 1
+        codes = wcode[level].reshape(-1)
+        level = codes[codes >= 0]
+    return depth
+
+
+def build_wide4(scene) -> Wide4Tables:
+    """Collapse the scene's binary BVH and pack the K1 tables, on the
+    scene's device. Host work, once per scene."""
+    f = lambda name: getattr(scene, name).cpu().numpy()
+    w = collapse4(
+        f("node_child_a"), f("node_child_b"), f("node_leaf_start"),
+        f("node_leaf_count"), f("node_min"), f("node_max"), f("mesh_root"),
+    )
+    n = w.num_nodes
+    wbox = np.zeros((n, REC32), np.float32)
+    for c in range(4):
+        wbox[:, 6 * c:6 * c + 3] = w.wbox_min[:, c] - np.float32(NUDGE)
+        wbox[:, 6 * c + 3:6 * c + 6] = w.wbox_max[:, c] + np.float32(NUDGE)
+    wcode = w.wcode.reshape(n, 4)
+    depth = _wide_depth(wcode, w.wroot)
+    if stack_needed(depth) > STACK_SIZE:
+        raise ValueError(
+            f"wide BVH depth {depth} needs {stack_needed(depth)} stack slots; "
+            f"the traversal kernel has {STACK_SIZE}")
+    is_leaf = f("node_child_a") < 0
+    counts = f("node_leaf_count")[is_leaf]
+
+    v0 = scene.tri_v0.cpu()
+    ra, rb = barycentric_rows(v0, scene.tri_v1.cpu(), scene.tri_v2.cpu())
+    tri_rec = torch.cat(
+        [v0, scene.tri_normal.cpu(), ra, rb, torch.zeros(v0.shape[0], 4)], dim=1
+    ).contiguous()
+    dev = scene.device
+    return Wide4Tables(
+        wcode=torch.from_numpy(np.ascontiguousarray(wcode, np.int32)).to(dev),
+        wbox=torch.from_numpy(wbox).to(dev),
+        tri_rec=tri_rec.to(dev),
+        wroot=torch.from_numpy(w.wroot.astype(np.int32)).to(dev),
+        max_leaf=int(counts.max()) if counts.size else 0,
+        depth=depth,
+    )

@@ -1,0 +1,20 @@
+from .camera import Camera, default_intrinsics, generate_rays, reference_calibration
+from .pipeline import RenderConfig, render, render_image
+from .renderer import Hit, HitAttributes, cast_rays_brute, get_cast_fn, hit_attributes
+from .shade import shade_primary
+
+__all__ = [
+    "Camera",
+    "Hit",
+    "HitAttributes",
+    "RenderConfig",
+    "cast_rays_brute",
+    "default_intrinsics",
+    "generate_rays",
+    "get_cast_fn",
+    "hit_attributes",
+    "reference_calibration",
+    "render",
+    "render_image",
+    "shade_primary",
+]

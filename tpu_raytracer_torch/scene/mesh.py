@@ -1,0 +1,90 @@
+"""MeshPrimitive: triangle soup plus its BVH, on the host in numpy.
+
+Counterpart of ``tpu_raytracer/scene/mesh.py``. The tree comes from the
+JAX package's jax-free host builders (``tpu_raytracer.accel``): the
+sweep-SAH build with the same defaults (``min_leaf_size=16``,
+``max_depth=48``), native when the C++ library loads and numpy
+otherwise — the two give identical trees, so triangle and node ids equal
+the JAX package's. Triangles are stored in BVH-leaf order.
+
+Not ported yet (ROADMAP item 15): the on-disk BVH cache, presplit for
+beyond-budget meshes, and per-corner vertex normals.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from tpu_raytracer.accel import native
+from tpu_raytracer.accel.bvh import BVHArrays, build_bvh
+
+# The JAX package hands meshes of at least this many triangles to the
+# native builder; smaller ones build faster in numpy.
+_NATIVE_MIN_TRIS = 4096
+# The JAX package's tree defaults: leaves of up to 16 triangles fit the
+# kernels' 8-triangle rows; depth 48 covers deep grid scenes.
+MIN_LEAF_SIZE = 16
+MAX_DEPTH = 48
+
+
+def _build_tree(v0, v1, v2) -> BVHArrays:
+    if len(v0) >= _NATIVE_MIN_TRIS and native.native_available():
+        return native.build_bvh_native(
+            v0, v1, v2, max_depth=MAX_DEPTH, min_leaf_size=MIN_LEAF_SIZE,
+            mode="sweep",
+        )
+    return build_bvh(
+        v0, v1, v2, max_depth=MAX_DEPTH, min_leaf_size=MIN_LEAF_SIZE,
+        mode="sweep",
+    )
+
+
+def _normalize_host(v: np.ndarray) -> np.ndarray:
+    sq = np.sum(v * v, axis=-1, keepdims=True).astype(np.float32)
+    return (v * (1.0 / np.sqrt(sq))).astype(np.float32)
+
+
+@dataclasses.dataclass
+class MeshPrimitive:
+    """Triangle mesh with UVs, face normals and a built BVH, all in BVH
+    leaf order (``bvh.order`` applied)."""
+
+    v0: np.ndarray  # [T, 3] f32
+    v1: np.ndarray
+    v2: np.ndarray
+    normal: np.ndarray  # [T, 3] f32 face normals
+    uv0: np.ndarray  # [T, 2] f32
+    uv1: np.ndarray
+    uv2: np.ndarray
+    bvh: BVHArrays
+
+    @classmethod
+    def from_triangles(cls, v0, v1, v2, normal=None, uv0=None, uv1=None,
+                       uv2=None) -> "MeshPrimitive":
+        """Build from raw triangle arrays; face normals default to the
+        normalized winding cross product."""
+        v0 = np.asarray(v0, np.float32).reshape(-1, 3)
+        v1 = np.asarray(v1, np.float32).reshape(-1, 3)
+        v2 = np.asarray(v2, np.float32).reshape(-1, 3)
+        num = len(v0)
+        if normal is None:
+            normal = _normalize_host(np.cross(v1 - v0, v2 - v0))
+        else:
+            normal = np.asarray(normal, np.float32).reshape(-1, 3)
+        zeros_uv = np.zeros((num, 2), np.float32)
+        uv0 = zeros_uv if uv0 is None else np.asarray(uv0, np.float32).reshape(-1, 2)
+        uv1 = zeros_uv if uv1 is None else np.asarray(uv1, np.float32).reshape(-1, 2)
+        uv2 = zeros_uv if uv2 is None else np.asarray(uv2, np.float32).reshape(-1, 2)
+
+        bvh = _build_tree(v0, v1, v2)
+        p = bvh.order
+        return cls(
+            v0=v0[p], v1=v1[p], v2=v2[p], normal=normal[p],
+            uv0=uv0[p], uv1=uv1[p], uv2=uv2[p], bvh=bvh,
+        )
+
+    @property
+    def num_triangles(self) -> int:
+        return len(self.v0)

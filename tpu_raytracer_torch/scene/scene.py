@@ -1,0 +1,333 @@
+"""Scene container and its compilation to flat tensors.
+
+Counterpart of ``tpu_raytracer/scene/scene.py``. ``Scene.compile``
+flattens meshes, BVHs, instances, materials and textures into one
+``SceneTensors`` — a plain dataclass of tensors on one ``device`` —
+reproducing the JAX compile field by field:
+
+  * each mesh's leaves are re-packed 8-aligned with all-zero padding
+    triangles, so triangle ids equal the JAX ids;
+  * node boxes are out-rounded by ``BOX_PAD_ULP`` of their magnitude;
+  * textures (with their mip chains) are packed into one i32 atlas,
+    one ``r | g << 8 | b << 16`` word per texel.
+
+``from_scene_arrays`` is the other way in: it takes a JAX-compiled
+``SceneArrays`` as a dict of numpy arrays, so the two packages can be
+run on the identical scene.
+
+Not ported yet (ROADMAP item 15): ``flattened``, ``update_instance``,
+sky maps, vertex normals, save/load and the paging tables.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .instance import MeshInstance
+from .material import Material
+from .mesh import MeshPrimitive
+
+# Relative out-rounding of BVH node boxes (the JAX compile's default):
+# the f32 triangle test accepts grazing hits ~1 coordinate ulp outside
+# a triangle, and tight boxes would cull them.
+BOX_PAD_ULP = 2.0 ** -21
+
+# Array fields of SceneTensors, in the JAX SceneArrays' names and order.
+ARRAY_FIELDS = (
+    "tri_v0", "tri_v1", "tri_v2", "tri_normal", "tri_uv0", "tri_uv1",
+    "tri_uv2", "tri_mesh", "tri_mat",
+    "node_min", "node_max", "node_child_a", "node_child_b",
+    "node_leaf_start", "node_leaf_count", "mesh_root",
+    "inst_mesh", "inst_material", "inst_pose", "inst_inv_pose",
+    "inst_scale", "inst_inv_scale",
+    "mat_albedo", "mat_roughness", "mat_metallic", "mat_illumination",
+    "mat_reflectivity", "mat_tex_start", "mat_tex_w", "mat_tex_h",
+    "tex_atlas", "mat_tex_mip_start", "sky_tex_start", "sky_tex_w",
+    "sky_tex_h",
+)
+
+
+def _mip_downsample(level: np.ndarray) -> np.ndarray:
+    """One mip level down: 2x2 box filter, floor halving, edge repeat
+    for a dimension that is already 1."""
+    h, w, _ = level.shape
+    nh, nw = max(h // 2, 1), max(w // 2, 1)
+    src = level[: 2 * nh if h > 1 else 1, : 2 * nw if w > 1 else 1]
+    if h == 1:
+        src = np.repeat(src, 2, axis=0)
+    if w == 1:
+        src = np.repeat(src, 2, axis=1)
+    f = src.astype(np.float32).reshape(nh, 2, nw, 2, 3).mean(axis=(1, 3))
+    return np.round(f).astype(np.uint8)
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneTensors:
+    """Flat scene: every tensor the render path needs, on ``device``.
+    Field meanings are those of the JAX ``SceneArrays``."""
+
+    tri_v0: torch.Tensor  # [T, 3] f32, BVH-leaf order, 8-aligned leaves
+    tri_v1: torch.Tensor
+    tri_v2: torch.Tensor
+    tri_normal: torch.Tensor
+    tri_uv0: torch.Tensor  # [T, 2] f32
+    tri_uv1: torch.Tensor
+    tri_uv2: torch.Tensor
+    tri_mesh: torch.Tensor  # [T] i32
+    tri_mat: torch.Tensor  # [T] i32, -1 = the instance's material
+    node_min: torch.Tensor  # [N, 3] f32
+    node_max: torch.Tensor
+    node_child_a: torch.Tensor  # [N] i32, -1 = leaf
+    node_child_b: torch.Tensor
+    node_leaf_start: torch.Tensor
+    node_leaf_count: torch.Tensor
+    mesh_root: torch.Tensor  # [M] i32
+    inst_mesh: torch.Tensor  # [I] i32
+    inst_material: torch.Tensor
+    inst_pose: torch.Tensor  # [I, 6] f32 lre
+    inst_inv_pose: torch.Tensor
+    inst_scale: torch.Tensor  # [I, 3] f32
+    inst_inv_scale: torch.Tensor
+    mat_albedo: torch.Tensor  # [K, 3] f32
+    mat_roughness: torch.Tensor  # [K] f32
+    mat_metallic: torch.Tensor
+    mat_illumination: torch.Tensor
+    mat_reflectivity: torch.Tensor
+    mat_tex_start: torch.Tensor  # [K] i32, -1 = untextured
+    mat_tex_w: torch.Tensor
+    mat_tex_h: torch.Tensor
+    tex_atlas: torch.Tensor  # [P] i32 packed texels
+    mat_tex_mip_start: torch.Tensor  # [K, L] i32
+    sky_tex_start: torch.Tensor  # [] i32, -1 = flat sky
+    sky_tex_w: torch.Tensor
+    sky_tex_h: torch.Tensor
+    has_sky: bool = False
+    has_textures: bool = True
+    has_emissive: bool = True
+    # 4-wide traversal tables (kernels/wide4.py Wide4Tables). Every
+    # compiled scene has them; None marks a scene that would need the
+    # paged kernels, which are not ported.
+    wide4: object | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_v0.device
+
+    @property
+    def num_triangles(self) -> int:
+        return self.tri_v0.shape[0]
+
+    @property
+    def num_instances(self) -> int:
+        return self.inst_mesh.shape[0]
+
+    def to(self, device) -> "SceneTensors":
+        """The same scene with every tensor on ``device``."""
+        moved = {f: getattr(self, f).to(device) for f in ARRAY_FIELDS}
+        wide4 = None if self.wide4 is None else self.wide4.to(device)
+        return dataclasses.replace(self, wide4=wide4, **moved)
+
+    def numpy_fields(self) -> dict[str, np.ndarray]:
+        """Array fields as host numpy arrays, keyed by field name."""
+        return {f: getattr(self, f).cpu().numpy() for f in ARRAY_FIELDS}
+
+
+def from_scene_arrays(fields: dict[str, np.ndarray], device="cpu") -> SceneTensors:
+    """Build ``SceneTensors`` from a JAX-compiled ``SceneArrays`` given
+    as numpy arrays keyed by field name (missing mip or sky fields take
+    the JAX defaults for pre-mip and skyless scenes). The wide tables
+    are rebuilt from the binary BVH exactly as the JAX compile builds
+    them."""
+    if fields.get("tri_vnorm") is not None:
+        raise NotImplementedError(
+            "vertex-normal scenes are not ported yet (ROADMAP item 8)")
+    kw = {}
+    for name in ARRAY_FIELDS:
+        if name in fields:
+            kw[name] = np.asarray(fields[name])
+    kw.setdefault("mat_tex_mip_start", kw["mat_tex_start"][:, None])
+    kw.setdefault("sky_tex_start", np.int32(-1))
+    kw.setdefault("sky_tex_w", np.int32(0))
+    kw.setdefault("sky_tex_h", np.int32(0))
+    return _assemble(kw, device)
+
+
+def _assemble(kw: dict[str, np.ndarray], device) -> SceneTensors:
+    from ..kernels.wide4 import build_wide4
+
+    tensors = {k: torch.from_numpy(np.array(v)).to(device) for k, v in kw.items()}
+    scene = SceneTensors(
+        **tensors,
+        has_sky=bool(kw["sky_tex_start"] >= 0),
+        has_textures=bool((kw["mat_tex_start"] >= 0).any()),
+        has_emissive=bool((kw["mat_illumination"] > 0).any()),
+    )
+    return dataclasses.replace(scene, wide4=build_wide4(scene))
+
+
+class Scene:
+    """Host-side scene builder."""
+
+    def __init__(self):
+        self.materials: list[Material] = []
+        self.meshes: list[MeshPrimitive] = []
+        self.mesh_instances: list[MeshInstance] = []
+
+    def add_material(self, material: Material) -> int:
+        self.materials.append(material)
+        return len(self.materials) - 1
+
+    def add_mesh(self, mesh: MeshPrimitive) -> int:
+        self.meshes.append(mesh)
+        return len(self.meshes) - 1
+
+    def add_mesh_instance(self, instance: MeshInstance) -> int:
+        self.mesh_instances.append(instance)
+        return len(self.mesh_instances) - 1
+
+    def compile(self, device="cpu") -> SceneTensors:
+        """Flatten to ``SceneTensors`` on ``device``, with the 4-wide
+        traversal tables attached."""
+        if not self.meshes or not self.mesh_instances or not self.materials:
+            raise ValueError("scene needs at least one mesh, instance and material")
+
+        tri_parts = {k: [] for k in ("v0", "v1", "v2", "normal", "uv0", "uv1", "uv2")}
+        node_parts = {k: [] for k in ("min", "max", "ca", "cb", "ls", "lc")}
+        tri_mesh, tri_mat_parts, mesh_root = [], [], []
+        tri_off = node_off = 0
+        for mesh_id, mesh in enumerate(self.meshes):
+            b = mesh.bvh
+            internal = b.child_a >= 0
+            idx = np.nonzero(internal)[0]
+            if not (b.child_a[idx] == idx + 1).all():
+                raise ValueError("BVH not DFS preorder")
+            if not b.leaf_count.max(initial=0) < 1024:
+                raise ValueError(
+                    f"leaf with {b.leaf_count.max()} triangles exceeds the "
+                    "kernel's 10-bit leaf size (degenerate mesh?)"
+                )
+            # 8-aligned leaf layout: every leaf block starts at a multiple
+            # of 8; gaps hold all-zero triangles (normal 0 fails every
+            # denominator test) that no leaf count covers.
+            leaves = np.nonzero(~internal)[0]
+            leaves = leaves[np.argsort(b.leaf_start[leaves], kind="stable")]
+            counts = b.leaf_count[leaves].astype(np.int64)
+            aligned = (counts + 7) // 8 * 8
+            new_starts = np.concatenate(([0], np.cumsum(aligned)[:-1]))
+            new_total = int(aligned.sum())
+            leaf_of_pos = np.repeat(np.arange(len(leaves)), aligned)
+            off_in_leaf = np.arange(new_total) - new_starts[leaf_of_pos]
+            src = b.leaf_start[leaves][leaf_of_pos] + off_in_leaf
+            pad = off_in_leaf >= counts[leaf_of_pos]
+            src = np.where(pad, 0, src)
+
+            tri_mesh.append(np.full(new_total, mesh_id, np.int32))
+            tri_mat_parts.append(np.full(new_total, -1, np.int32))
+            for k, arr in (
+                ("v0", mesh.v0), ("v1", mesh.v1), ("v2", mesh.v2),
+                ("normal", mesh.normal),
+                ("uv0", mesh.uv0), ("uv1", mesh.uv1), ("uv2", mesh.uv2),
+            ):
+                tri_parts[k].append(np.where(pad[:, None], np.float32(0.0), arr[src]))
+            ls = np.zeros(b.num_nodes, np.int64)
+            ls[leaves] = new_starts
+
+            node_parts["min"].append(b.node_min)
+            node_parts["max"].append(b.node_max)
+            node_parts["ca"].append(np.where(internal, b.child_a + node_off, -1).astype(np.int32))
+            node_parts["cb"].append(np.where(internal, b.child_b + node_off, -1).astype(np.int32))
+            node_parts["ls"].append((ls + tri_off).astype(np.int32))
+            node_parts["lc"].append(b.leaf_count)
+            mesh_root.append(node_off)
+            tri_off += new_total
+            node_off += b.num_nodes
+
+        inv = [inst.build_inv() for inst in self.mesh_instances]
+
+        # texture atlas with mip chains (levels past a chain repeat its
+        # last 1x1 start)
+        atlas_parts, tex_start, tex_w, tex_h, mip_chains = [], [], [], [], []
+        p = 0
+        for m in self.materials:
+            if m.texture is None:
+                tex_start.append(-1)
+                tex_w.append(0)
+                tex_h.append(0)
+                mip_chains.append([-1])
+                continue
+            h, w, _ = m.texture.shape
+            chain = []
+            level = m.texture
+            while True:
+                chain.append(p)
+                atlas_parts.append(level.reshape(-1, 3))
+                p += level.shape[0] * level.shape[1]
+                if level.shape[0] <= 1 and level.shape[1] <= 1:
+                    break
+                level = _mip_downsample(level)
+            tex_start.append(chain[0])
+            tex_w.append(w)
+            tex_h.append(h)
+            mip_chains.append(chain)
+        max_mips = max(len(c) for c in mip_chains)
+        mip_start = np.full((len(self.materials), max_mips), -1, np.int32)
+        for k, chain in enumerate(mip_chains):
+            if chain[0] >= 0:
+                mip_start[k] = chain + [chain[-1]] * (max_mips - len(chain))
+        atlas_u8 = (
+            np.concatenate(atlas_parts, axis=0) if atlas_parts
+            else np.zeros((1, 3), np.uint8)
+        )
+        a32 = atlas_u8.astype(np.int32)
+        atlas = a32[:, 0] | (a32[:, 1] << 8) | (a32[:, 2] << 16)
+
+        cat = np.concatenate
+        node_min = cat(node_parts["min"])
+        node_max = cat(node_parts["max"])
+        pad = np.maximum(np.abs(node_min), np.abs(node_max)) * np.float32(BOX_PAD_ULP)
+        node_min = node_min - pad
+        node_max = node_max + pad
+
+        f32 = lambda x: np.asarray(x, np.float32)
+        i32 = lambda x: np.asarray(x, np.int32)
+        kw = dict(
+            tri_v0=f32(cat(tri_parts["v0"])),
+            tri_v1=f32(cat(tri_parts["v1"])),
+            tri_v2=f32(cat(tri_parts["v2"])),
+            tri_normal=f32(cat(tri_parts["normal"])),
+            tri_uv0=f32(cat(tri_parts["uv0"])),
+            tri_uv1=f32(cat(tri_parts["uv1"])),
+            tri_uv2=f32(cat(tri_parts["uv2"])),
+            tri_mesh=i32(cat(tri_mesh)),
+            tri_mat=i32(cat(tri_mat_parts)),
+            node_min=f32(node_min),
+            node_max=f32(node_max),
+            node_child_a=i32(cat(node_parts["ca"])),
+            node_child_b=i32(cat(node_parts["cb"])),
+            node_leaf_start=i32(cat(node_parts["ls"])),
+            node_leaf_count=i32(cat(node_parts["lc"])),
+            mesh_root=i32(mesh_root),
+            inst_mesh=i32([inst.mesh_index for inst in self.mesh_instances]),
+            inst_material=i32([inst.material_index for inst in self.mesh_instances]),
+            inst_pose=f32([d["pose"] for d in inv]),
+            inst_inv_pose=f32([d["inv_pose"] for d in inv]),
+            inst_scale=f32([d["scale"] for d in inv]),
+            inst_inv_scale=f32([d["inv_scale"] for d in inv]),
+            mat_albedo=f32([m.albedo for m in self.materials]),
+            mat_roughness=f32([m.roughness for m in self.materials]),
+            mat_metallic=f32([m.metallic for m in self.materials]),
+            mat_illumination=f32([m.illumination for m in self.materials]),
+            mat_reflectivity=f32([m.reflectivity for m in self.materials]),
+            mat_tex_start=i32(tex_start),
+            mat_tex_w=i32(tex_w),
+            mat_tex_h=i32(tex_h),
+            tex_atlas=i32(atlas),
+            mat_tex_mip_start=mip_start,
+            sky_tex_start=i32(-1),
+            sky_tex_w=i32(0),
+            sky_tex_h=i32(0),
+        )
+        return _assemble(kw, device)
