@@ -107,10 +107,22 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting():
 
 
 def test_router_raises_for_unported_routes():
+    """Two or more instances with a TLAS route to K3, others to K1; a
+    scene without wide tables raises for the paged kernels K4-K6."""
+    from tpu_raytracer_torch.kernels import tlas
+
     scene = port_scene("two_instance")
     o, d = port_rays("two_instance")
-    with pytest.raises(NotImplementedError, match="K3"):
-        traversal.cast_rays(scene, o, d)
+    assert scene.tlas is not None and port_scene("cube").tlas is None
+    for occlusion in (False, True):
+        got = traversal.cast_rays(scene, o, d, occlusion=occlusion)
+        want = tlas.cast_rays_tlas_torch(scene, o, d, occlusion=occlusion)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    no_tlas = dataclasses.replace(scene, tlas=None)
+    got = traversal.cast_rays(no_tlas, o, d)
+    for a, b in zip(got, traversal.cast_rays_wide_torch(scene, o, d)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
     no_wide = dataclasses.replace(port_scene("cube"), wide4=None)
     with pytest.raises(NotImplementedError, match="K4"):
         traversal.cast_rays(no_wide, *port_rays("cube"))
@@ -118,7 +130,7 @@ def test_router_raises_for_unported_routes():
         traversal.cast_rays_cuda(port_scene("cube"), torch.zeros(2), port_rays("cube")[1])
 
 
-def host_trace(scene, origin, directions):
+def host_trace(scene, origin, directions, occlusion=False):
     """K1's traversal header, built for the host, over every ray."""
     lib = build.load("host")
     tables = scene.wide4
@@ -133,7 +145,7 @@ def host_trace(scene, origin, directions):
     rc = lib.wt_trace_host(
         tables.wcode.data_ptr(), tables.wbox.data_ptr(), tables.tri_rec.data_ptr(),
         inst_tab.data_ptr(), inst_root.data_ptr(), ctypes.c_int(scene.num_instances),
-        o.data_ptr(), 0 if o.dim() == 1 else 3, d.data_ptr(), r,
+        o.data_ptr(), 0 if o.dim() == 1 else 3, d.data_ptr(), r, int(occlusion),
         t.data_ptr(), tri.data_ptr(), inst.data_ptr(),
     )
     assert rc == 0

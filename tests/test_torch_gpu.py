@@ -1,4 +1,4 @@
-"""Kernel K1 on a CUDA card against its plain PyTorch version.
+"""Kernels K1 and K3 on a CUDA card against their plain PyTorch versions.
 
 Marked ``gpu``: every test skips without a card. On a machine with one
 (and no JAX), run from the repository root with
@@ -6,8 +6,12 @@ Marked ``gpu``: every test skips without a card. On a machine with one
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 (``--noconftest``: tests/conftest.py configures JAX, which this file
-does not use). K1 is built with --fmad=false, so it must equal the plain
-version bit for bit; the cube must equal its exact CPU golden.
+does not use). K1 and K3 are built with --fmad=false, so they must equal
+their plain versions bit for bit; their any-hit answers must equal the
+nearest-hit casts' blocked/clear answers. The cube must equal its exact
+CPU golden; the config 4 Whitted image may differ from its CPU golden in
+at most 4 pixels, since PyTorch's CUDA rsqrt and pow need not round as
+the CPU's do (the JAX package allows its TPU the same 4).
 """
 
 import os
@@ -16,14 +20,21 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_raytracer_torch.app.scenes import scene_cube
-from tpu_raytracer_torch.kernels import traversal
-from tpu_raytracer_torch.render import Camera, generate_rays, render
+from tpu_raytracer_torch.app.scenes import scene_cube, scene_instances
+from tpu_raytracer_torch.core.vecmath import FLT_MAX, normalize
+from tpu_raytracer_torch.kernels import tlas, traversal
+from tpu_raytracer_torch.render import (
+    Camera, RenderConfig, generate_rays, hit_attributes, render, render_image_whitted,
+)
+from tpu_raytracer_torch.render.integrators import _reflect
+from tpu_raytracer_torch.render.shade import DEFAULT_LIGHT_DIRECTION, SHADOW_EPS
+from tpu_raytracer_torch.render.sorted_cast import park_dead_rays
 from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene, procgen
 
 pytestmark = pytest.mark.gpu
 
-GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "config1_cube_64.npy")
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
+GOLDEN = os.path.join(GOLDEN_DIR, "config1_cube_64.npy")
 
 
 @pytest.fixture
@@ -87,3 +98,55 @@ def test_wrapper_rejects_bad_inputs(cuda):
         traversal.cast_rays_cuda(scene, o.cpu(), d)
     with pytest.raises(ValueError):
         traversal.cast_rays_cuda(scene.to("cpu"), o, d)
+
+
+def _secondary_rays(scene, o, d, hit):
+    """(reflection, shadow) rays from the primary hits, dead rays parked."""
+    attrs = hit_attributes(scene, o, d, hit)
+    rd = normalize(_reflect(d, attrs.normal))
+    refl = park_dead_rays(attrs.location + rd * SHADOW_EPS, rd, attrs.hit)
+    ldir = normalize(torch.tensor(DEFAULT_LIGHT_DIRECTION, dtype=torch.float32, device=d.device))
+    shadow = park_dead_rays(attrs.location + ldir * SHADOW_EPS,
+                            ldir.expand(attrs.location.shape), attrs.hit)
+    return refl, shadow
+
+
+def test_k3_matches_plain_version_bitwise(cuda):
+    scene, cam = scene_instances(256, 256, device=cuda)
+    o, d = _rays(cam, cuda)
+    before = tlas.LAUNCHES
+    got = tlas.cast_rays_tlas_cuda(scene, o, d)
+    torch.cuda.synchronize()
+    assert tlas.LAUNCHES == before + 1
+    refl, _ = _secondary_rays(scene, o, d, got)
+    for ro, rd, hit in ((o, d, got), (*refl, tlas.cast_rays_tlas_cuda(scene, *refl))):
+        want = tlas.cast_rays_tlas_torch(scene, ro, rd)
+        assert (hit.tri >= 0).any()
+        assert torch.equal(hit.t.view(torch.int32), want.t.view(torch.int32))
+        assert torch.equal(hit.tri, want.tri)
+        assert torch.equal(hit.inst, want.inst)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+def test_any_hit_matches_nearest_hit(cuda, kernel):
+    scene, cam = scene_instances(256, 256, device=cuda)
+    o, d = _rays(cam, cuda)
+    cast = traversal.cast_rays_cuda if kernel == "K1" else tlas.cast_rays_tlas_cuda
+    _, (so, sd) = _secondary_rays(scene, o, d, cast(scene, o, d))
+    nearest = cast(scene, so, sd)
+    occ = cast(scene, so, sd, occlusion=True)
+    blocked = nearest.t < FLT_MAX
+    assert blocked.any() and not blocked.all()
+    assert torch.equal(occ.t < 0, blocked)
+    assert torch.equal(occ.t >= FLT_MAX, ~blocked)
+
+
+def test_config4_whitted_within_four_pixels_of_cpu_golden(cuda):
+    scene, cam = scene_instances(64, 64, device=cuda)
+    p = cam.ray_params(cuda)
+    before = tlas.LAUNCHES
+    img = render_image_whitted(RenderConfig(64, 64), scene, p["K_inv"], p["D"], p["pose"],
+                               p["inv_pose"])
+    assert tlas.LAUNCHES >= before + 3
+    golden = np.load(os.path.join(GOLDEN_DIR, "config4_instances_whitted_64.npy"))
+    assert (img.cpu().numpy() != golden).any(-1).sum() <= 4

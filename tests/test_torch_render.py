@@ -90,8 +90,10 @@ def test_driver_writes_png_and_rejects_demo(tmp_path, capsys):
     assert capsys.readouterr().out.count("FPS:") == 2
     assert out.read_bytes() == encode_png(img.numpy())
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
-    with pytest.raises(NotImplementedError, match="K3"):
-        run("demo", 64, 64, frames=1, out=str(out), device="cpu")
+    # the default scene is the two-instance demo, which routes to K3
+    demo = run(out=str(out), width=32, height=32, frames=1, device="cpu")
+    assert tuple(demo.shape) == (32, 32, 3)
+    assert (demo.numpy() != np.array([255, 204, 153], np.uint8)).any()
 
 
 def test_unported_routes_raise():

@@ -1,12 +1,16 @@
-"""Application driver: N timed primary-ray frames, FPS printed per frame,
-the last frame written as a PNG (counterpart of
-``tpu_raytracer/app/driver.py`` in primary, flat mode).
+"""Application driver: N timed frames, FPS printed per frame, the last
+frame written as a PNG (counterpart of ``tpu_raytracer/app/driver.py``
+in its primary and Whitted modes).
 
-    python -m tpu_raytracer_torch.app.driver --scene bunny --frames 10
+    python -m tpu_raytracer_torch.app.driver --scene demo --frames 10
+    python -m tpu_raytracer_torch.app.driver --scene instances --mode whitted
 
-Frames render on ``--device`` (default ``cuda``; ``cpu`` runs K1's plain
-version). The JAX driver's default two-instance ``demo`` scene needs the
-TLAS kernel K3 and is not ported yet (ROADMAP item 10).
+Frames render on ``--device`` (default ``cuda``; ``cpu`` runs the
+kernels' plain versions). The default ``demo`` scene is the reference
+app's: a textured cube and board under the reference fisheye calibration
+at 1920x1088, with the cube (instance 0) spinning through
+``update_instance`` every frame. The FPS text overlay of the JAX driver
+is not ported.
 """
 
 from __future__ import annotations
@@ -14,32 +18,55 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
-from ..render import RenderConfig, render_image
+from ..render import Camera, RenderConfig, reference_calibration, render_image
+from ..render.pipeline import render_image_whitted
+from ..scene import MeshInstance
 from ..utils import save_png
-from .scenes import SCENES
+from .scenes import SCENES, build_demo_scene
+
+MODES = {"primary": render_image, "whitted": render_image_whitted}
 
 
-def run(scene_name: str = "bunny", width: int = 1920, height: int = 1088,
-        frames: int = 10, out: str = "out.png", device: str = "cuda"):
+def run(scene_name: str = "demo", width: int = 1920, height: int = 1088,
+        frames: int = 10, out: str = "out.png", device: str = "cuda",
+        mode: str = "primary", lighting: str = "flat", animate: bool = True):
     """Render ``frames`` frames, printing FPS and Mrays/s per frame;
-    returns the last frame as a host uint8 tensor."""
+    returns the last frame as a host uint8 tensor. ``animate`` spins the
+    demo's cube."""
+    if mode in ("path", "ao"):
+        raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP item 12)")
+    if scene_name == "colonnade":
+        raise NotImplementedError("the colonnade (config 5) is not ported yet "
+                                  "(ROADMAP items 12 and 14)")
+    render_fn = MODES[mode]
     if scene_name == "demo":
-        raise NotImplementedError(
-            "the demo scene has 2 instances and needs the TLAS kernel K3, "
-            "which is not ported yet (ROADMAP item 10)")
-    if scene_name == "cube":
-        scene, camera = SCENES["cube"](min(width, height), device=device)
+        scene = build_demo_scene().compile(device)
+        if (width, height) == (1920, 1088):
+            K, D = reference_calibration(width, height)
+            camera = Camera(width, height, K, D)
+        else:
+            camera = Camera.looking(width, height, fov_deg=60.0)
+        camera.pose = np.array([-1.0, -4.0, 2.0, 0, 0, 0], np.float32)
+    elif scene_name in ("cube", "cornell"):
+        scene, camera = SCENES[scene_name](min(width, height), device=device)
     else:
         scene, camera = SCENES[scene_name](width, height, device=device)
-    config = RenderConfig(camera.width, camera.height, backend="cuda")
+    config = RenderConfig(camera.width, camera.height, backend="cuda", lighting=lighting)
     p = camera.ray_params(scene.device)
     cuda = scene.device.type == "cuda"
+    angle = 0.0
     img = None
     for _ in range(frames):
+        angle += 0.005
+        if animate and scene_name == "demo":
+            spun = MeshInstance(0, 2)
+            spun.pose = np.array([0, 0, 0, angle, 0, 0], np.float32)
+            scene = scene.update_instance(0, spun)
         start = time.perf_counter()
-        img = render_image(config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+        img = render_fn(config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
         if cuda:
             torch.cuda.synchronize(scene.device)
         elapsed = time.perf_counter() - start
@@ -51,16 +78,21 @@ def run(scene_name: str = "bunny", width: int = 1920, height: int = 1088,
 
 
 def main():
-    ap = argparse.ArgumentParser(description="tpu_raytracer_torch primary-ray app")
-    ap.add_argument("--scene", default="bunny", choices=["demo", *SCENES])
+    ap = argparse.ArgumentParser(description="tpu_raytracer_torch demo app")
+    ap.add_argument("--scene", default="demo", choices=["demo", *SCENES])
+    ap.add_argument("--mode", default="primary", choices=list(MODES))
+    ap.add_argument("--lighting", default="flat",
+                    choices=["flat", "lambert", "lambert_shadow", "blinn_phong"])
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1088)
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--out", default="out.png")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--no-animate", action="store_true")
     args = ap.parse_args()
-    run(scene_name=args.scene, width=args.width, height=args.height,
-        frames=args.frames, out=args.out, device=args.device)
+    run(scene_name=args.scene, width=args.width, height=args.height, frames=args.frames,
+        out=args.out, device=args.device, mode=args.mode, lighting=args.lighting,
+        animate=not args.no_animate)
 
 
 if __name__ == "__main__":

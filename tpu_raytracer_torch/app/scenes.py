@@ -1,10 +1,21 @@
-"""Scene builders of the ported primary path (counterpart of
-``tpu_raytracer/app/scenes.py``): BASELINE config 1 (the textured cube)
-and config 3's mesh (the 82k-triangle displaced blob). The Cornell box,
-instanced and colonnade scenes wait for their kernels (ROADMAP items
-8, 10 and 14)."""
+"""Scene builders of the ported paths (counterpart of
+``tpu_raytracer/app/scenes.py``), BASELINE configs 1-4:
+
+| # | config | builder |
+|---|--------|---------|
+| 1 | cube, pinhole, flat | scene_cube |
+| 2 | Cornell box, Lambert + hard shadows | scene_cornell |
+| 3 | 82k-triangle displaced blob, 1080p | scene_bunny |
+| 4 | posed, scaled instances + Whitted reflections | scene_instances |
+|   | 16 instances, the TLAS scene | scene_instances16 |
+
+The colonnade (config 5) waits for path tracing and the paged kernels
+(ROADMAP items 12 and 14); flattening static instances waits for item 15.
+"""
 
 from __future__ import annotations
+
+import numpy as np
 
 from ..render import Camera
 from ..scene import Material, MeshInstance, MeshPrimitive, Scene, objloader, procgen
@@ -21,6 +32,26 @@ def scene_cube(size: int = 256, device="cpu"):
     return scene.compile(device), cam
 
 
+def scene_cornell(size: int = 512, mirror: bool = False, device="cpu"):
+    """Config 2: five walls and a cube, six instances."""
+    scene = Scene()
+    white = scene.add_material(Material(albedo=(0.9, 0.9, 0.9)))
+    red = scene.add_material(Material(albedo=(0.1, 0.1, 0.9)))
+    green = scene.add_material(Material(albedo=(0.1, 0.9, 0.1)))
+    box_mat = scene.add_material(
+        Material(albedo=(0.95, 0.95, 0.95), reflectivity=0.7 if mirror else 0.0))
+    mats = {"floor": white, "ceiling": white, "back": white, "left": red, "right": green}
+    for name, tris in procgen.cornell_box().items():
+        mid = scene.add_mesh(MeshPrimitive.from_triangles(tris[:, 0], tris[:, 1], tris[:, 2]))
+        scene.add_mesh_instance(MeshInstance(mid, mats[name]))
+    cube = scene.add_mesh(objloader.loads(procgen.cube_obj(0.6)))
+    inst = MeshInstance(cube, box_mat)
+    inst.pose = np.array([1.0, 1.2, 0.3, 0.4, 0, 0], np.float32)
+    scene.add_mesh_instance(inst)
+    cam = Camera.looking(size, size, fov_deg=70.0, pose=[1.0, -0.8, 1.0, 0, 0, 0])
+    return scene.compile(device), cam
+
+
 def scene_bunny(width: int = 1920, height: int = 1088, subdivisions: int = 6,
                 device="cpu"):
     scene = Scene()
@@ -33,4 +64,92 @@ def scene_bunny(width: int = 1920, height: int = 1088, subdivisions: int = 6,
     return scene.compile(device), cam
 
 
-SCENES = {"cube": scene_cube, "bunny": scene_bunny}
+def scene_instances(width: int = 512, height: int = 512, device="cpu"):
+    """Config 4: a textured floor board, a mirror sphere, a scaled cube
+    and a small sphere — four posed instances."""
+    scene = Scene()
+    matte = scene.add_material(Material(albedo=(0.9, 0.9, 0.9)))
+    blue = scene.add_material(Material(albedo=(0.9, 0.2, 0.1)))
+    mirror = scene.add_material(Material(albedo=(0.95, 0.95, 0.95), reflectivity=0.8))
+    tex = Material()
+    tex.set_texture(procgen.checkerboard_texture(128, 8))
+    texid = scene.add_material(tex)
+
+    sphere = scene.add_mesh(MeshPrimitive.from_triangles(*procgen.icosphere(4)))
+    cube = scene.add_mesh(objloader.loads(procgen.cube_obj()))
+    board = scene.add_mesh(objloader.loads(procgen.board_obj(8, 8)))
+
+    floor = MeshInstance(board, texid)
+    floor.pose = np.array([0, 2, -1.2, 0, 0, np.pi], np.float32)  # face up
+    scene.add_mesh_instance(floor)
+    a = MeshInstance(sphere, mirror)
+    a.pose = np.array([-1.2, 2.5, 0.0, 0, 0, 0], np.float32)
+    scene.add_mesh_instance(a)
+    b = MeshInstance(cube, blue)
+    b.pose = np.array([1.1, 2.0, -0.6, 0.5, 0, 0], np.float32)
+    b.scale = np.array([0.8, 0.8, 1.4], np.float32)
+    scene.add_mesh_instance(b)
+    c = MeshInstance(sphere, matte)
+    c.pose = np.array([0.3, 3.5, -0.7, 0, 0, 0], np.float32)
+    c.scale = np.array([0.5, 0.5, 0.5], np.float32)
+    scene.add_mesh_instance(c)
+    cam = Camera.looking(width, height, fov_deg=60.0, pose=[0, -1.5, 0.3, 0, 0, 0])
+    return scene.compile(device), cam
+
+
+def scene_instances16(width: int = 512, height: int = 512, n: int = 16, device="cpu"):
+    """16 posed, scaled instances of a cube and a sphere in a grid: the
+    TLAS scene."""
+    scene = Scene()
+    matte = scene.add_material(Material(albedo=(0.9, 0.9, 0.9)))
+    red = scene.add_material(Material(albedo=(0.9, 0.2, 0.1)))
+    sphere = scene.add_mesh(MeshPrimitive.from_triangles(*procgen.icosphere(4)))
+    cube = scene.add_mesh(objloader.loads(procgen.cube_obj()))
+    rng = np.random.default_rng(11)
+    side = int(np.ceil(np.sqrt(n)))
+    for k in range(n):
+        inst = MeshInstance(sphere if k % 2 else cube, matte if k % 2 else red)
+        gx, gz = k % side, k // side
+        inst.pose = np.array(
+            [(gx - (side - 1) / 2) * 2.4, 4.0 + rng.uniform(-0.8, 0.8),
+             (gz - (side - 1) / 2) * 2.4, rng.uniform(0, 3), rng.uniform(0, 1), 0.0],
+            np.float32,
+        )
+        inst.scale = np.full(3, rng.uniform(0.7, 1.1), np.float32)
+        scene.add_mesh_instance(inst)
+    cam = Camera.looking(width, height, fov_deg=75.0, pose=[0, -8.0, 0.0, 0, 0, 0])
+    return scene.compile(device), cam
+
+
+def build_demo_scene() -> Scene:
+    """The reference app's scene: a textured cube and a textured board
+    posed in front of a fisheye camera, with procedural stand-ins for its
+    image and mesh assets (``tpu_raytracer/app/driver.py``)."""
+    scene = Scene()
+    scene.add_material(Material(albedo=(0.1, 0.2, 0.9), roughness=0.01))
+    scene.add_material(Material(albedo=(0.9, 0.9, 0.9), roughness=0.3))
+    cube_mat = Material()
+    cube_mat.set_texture(procgen.checkerboard_texture(256, 16))
+    scene.add_material(cube_mat)
+    board_mat = Material()
+    board_mat.set_texture(procgen.checkerboard_texture(256, 8))
+    scene.add_material(board_mat)
+
+    scene.add_mesh(objloader.loads(procgen.cube_obj()))
+    scene.add_mesh(objloader.loads(procgen.board_obj()))
+
+    scene.add_mesh_instance(MeshInstance(0, 2))
+    board_instance = MeshInstance(1, 3)
+    board_instance.pose = np.array([-0.6, 1.48, 0.73, 0, 0, 0], np.float32)
+    scene.add_mesh_instance(board_instance)
+    return scene
+
+
+# builders taking (width, height) except cube and cornell, which take one size
+SCENES = {
+    "cube": scene_cube,
+    "cornell": scene_cornell,
+    "bunny": scene_bunny,
+    "instances": scene_instances,
+    "instances16": scene_instances16,
+}

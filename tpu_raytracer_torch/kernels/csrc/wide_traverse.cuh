@@ -1,12 +1,18 @@
-// Per-ray nearest-hit traversal of the 4-wide BVH (kernel K1).
+// Per-ray traversal of the 4-wide BVH (kernel K1), nearest or any hit.
 //
 // Replaces the TPU kernel tpu_raytracer/kernels/dual.py:_dual_kernel
-// (wide mode, nearest hit) with its leaf test
+// (wide mode) with its leaf test
 // tpu_raytracer/kernels/traversal.py:make_test_tri. It computes what that
 // kernel computes — for each ray the nearest accepted triangle (t, tri,
 // inst) over every instance, carrying t across instances — but as one
 // thread per ray with a private stack instead of 4096-ray packets sharing
 // one stack.
+//
+// Any-hit mode (make_test_tri's `occlusion`, for shadow rays): the first
+// accepted triangle sets the ray's t to -kBig. The TPU kernel can only
+// mask the lane off after that; a thread returns at once, with the same
+// result. Output t is then -kBig (occluded) or kFltMax (clear); tri and
+// inst are whatever the walk reached and carry no meaning.
 //
 // What bounds it on an H100: every step is a dependent global load (a
 // node's 4 codes and 24 box floats, then each leaf's 16-float triangle
@@ -20,7 +26,7 @@
 // memory and persistent threads are later work.
 //
 // The header is plain C++ usable from both nvcc and a host compiler, so
-// the traversal itself is tested on the CPU (csrc/wide_traverse_host.cpp)
+// the traversal itself is tested on the CPU (csrc/traverse_host.cpp)
 // before any card runs it. Build with --fmad=false (nvcc) or
 // -ffp-contract=off (g++): the math below keeps make_test_tri's f32
 // operation order, and a fused multiply-add would round differently from
@@ -45,6 +51,16 @@ constexpr float kParallelEps = 1e-6f;
 constexpr float kEdgeLo = -1e-3f;     // -EDGE_EPS
 constexpr float kEdgeHi = 1.001f;     // f32(1 + EDGE_EPS)
 constexpr float kTiny = 1e-30f;
+// Boxes are culled against t_best widened by this factor (8 ulps). The
+// slab entry of a flat box (an axis-aligned wall: pad 0, NUDGE lost in
+// rounding) can round an ulp or two past the t of a triangle lying on
+// it, and a strict near < t_best test would then cull a box that holds
+// an exact-t tie. With the lower-instance tie rule of test_tri, the
+// widened cap makes cross-instance ties resolve as the linear instance
+// loop does, whatever order the instances are visited in. It only adds
+// visits, so t never changes; an any-hit ray's cap -kBig stays below
+// every entry distance.
+constexpr float kCapSlack = 1.0f + 1.0f / 1048576.0f;
 
 struct Scene {
   const int32_t* wcode;    // [W, 4]
@@ -82,7 +98,8 @@ WT_HD float safe_inv(float v) {
 WT_HD float max_nan(float a, float b) { return (a != a || a > b) ? a : b; }
 WT_HD float min_nan(float a, float b) { return (a != a || a < b) ? a : b; }
 
-// Slab test of child box `b` (6 floats): entry distance, or kBig on a miss.
+// Slab test of child box `b` (6 floats) against a ray whose best hit is
+// at t_cap: entry distance, or kBig on a miss.
 WT_HD float child_entry(const float* b, const float* o, const float* inv,
                         float t_cap) {
   const float t1x = (b[0] - o[0]) * inv[0];
@@ -95,13 +112,18 @@ WT_HD float child_entry(const float* b, const float* o, const float* inv,
                               fminf(t1z, t2z));
   const float far_ = min_nan(min_nan(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
                              fmaxf(t1z, t2z));
-  const bool hit = (far_ >= near_) && (far_ > 0.0f) && (near_ < t_cap);
+  const bool hit = (far_ >= near_) && (far_ > 0.0f) && (near_ < t_cap * kCapSlack);
   return hit ? near_ : kBig;
 }
 
-// make_test_tri for one (ray, triangle): strict t < best->t update.
-WT_HD void test_tri(const float* r, const float* o, const float* d,
-                    int32_t k, int32_t inst, Hit* best) {
+// make_test_tri for one (ray, triangle): strict t < best->t update, and
+// at an exact-t tie the lower instance id wins. That tie rule is the
+// linear instance loop's (instances in index order, strict <), so the
+// result does not depend on the order instances are visited in: K1
+// visits them in index order, where the rule never fires, and K3 in its
+// TLAS's spatial order. Returns whether the triangle was accepted.
+WT_HD bool test_tri(const float* r, const float* o, const float* d,
+                    int32_t k, int32_t inst, bool any_hit, Hit* best) {
   const float denom = d[0] * r[3] + d[1] * r[4] + d[2] * r[5];
   const float cx = r[0] - o[0];
   const float cy = r[1] - o[1];
@@ -115,17 +137,19 @@ WT_HD void test_tri(const float* r, const float* o, const float* d,
   const float v = r[9] * e2x + r[10] * e2y + r[11] * e2z;
   const bool ok = (denom <= -kParallelEps) && (u >= kEdgeLo) &&
                   (v >= kEdgeLo) && (u + v <= kEdgeHi) && (t >= 0.0f) &&
-                  (t < best->t);
+                  (t < best->t || (t == best->t && inst < best->inst));
   if (ok) {
-    best->t = t;
+    best->t = any_hit ? -kBig : t;
     best->tri = k;
     best->inst = inst;
   }
+  return ok;
 }
 
-// Walk instance `i` for one world ray, updating `best`.
+// Walk instance `i` for one world ray, updating `best`. In any-hit mode
+// it returns at the first accepted triangle.
 WT_HD void walk_instance(const Scene& s, int i, const float* wo,
-                         const float* wd, Hit* best) {
+                         const float* wd, bool any_hit, Hit* best) {
   const float* q = s.inst_tab + 12 * i;
   const float px = q[4], py = q[5], pz = q[6];
   const float sx = q[7], sy = q[8], sz = q[9];
@@ -176,17 +200,24 @@ WT_HD void walk_instance(const Scene& s, int i, const float* wo,
       const int32_t start = packed >> 10;
       const int32_t n = packed & 1023;
       for (int32_t k = start; k < start + n; ++k) {
-        test_tri(s.tri_rec + 16 * k, o, d, k, inst_val, best);
+        if (test_tri(s.tri_rec + 16 * k, o, d, k, inst_val, any_hit, best) &&
+            any_hit) {
+          return;
+        }
       }
     }
   }
 }
 
-// Nearest hit of one world ray over every instance. A single-instance
-// scene reports inst 0 on a hit (dual.py output stage).
-WT_HD Hit trace_ray(const Scene& s, const float* wo, const float* wd) {
+// Nearest (or any) hit of one world ray over every instance. A
+// single-instance scene reports inst 0 on a hit (dual.py output stage).
+WT_HD Hit trace_ray(const Scene& s, const float* wo, const float* wd,
+                    bool any_hit) {
   Hit best{kBig, -1, -1};
-  for (int i = 0; i < s.num_instances; ++i) walk_instance(s, i, wo, wd, &best);
+  for (int i = 0; i < s.num_instances; ++i) {
+    walk_instance(s, i, wo, wd, any_hit, &best);
+    if (any_hit && best.t < 0.0f) break;
+  }
   if (s.num_instances == 1) best.inst = best.tri >= 0 ? 0 : -1;
   if (best.t >= kBig) best.t = kFltMax;
   return best;

@@ -1,0 +1,245 @@
+"""Two-level casts for scenes of two or more instances: the TLAS tables,
+kernel K3, and its plain PyTorch version.
+
+Counterpart of ``tpu_raytracer/kernels/tlas.py``: a binary BVH over the
+instances' world-space boxes (the TLAS) is walked nearest instance
+first; reaching a leaf walks that instance's 4-wide BLAS in object
+space, with one shared ``t`` per ray, so a close hit culls the farther
+instances at their TLAS box.
+
+  * ``build_tlas`` builds the tables on the host, as the JAX build does;
+    ``Scene.compile`` and ``from_scene_arrays`` attach them to scenes of
+    two or more instances, and ``SceneTensors.update_instance`` rebuilds
+    them after a pose change.
+  * ``cast_rays_tlas_cuda`` is K3's wrapper: for CUDA tensors it launches
+    the hand-written kernel (``csrc/tlas_traverse.cu``) and counts the
+    launch in ``LAUNCHES``; for CPU tensors it calls the plain version. A
+    CUDA tensor never reaches the plain version and a failed build or
+    launch raises.
+  * ``cast_rays_tlas_torch`` is the plain version: the same two-level
+    walk vectorised over rays (a per-ray TLAS stack; rays grouped by the
+    instance they reach, then K1's plain BLAS walk), in the kernel's
+    visit order, so the two agree bit for bit in ``t``, ``tri`` and
+    ``inst``.
+
+At an exact-``t`` tie between two instances, ``tri``/``inst`` follow
+the TLAS's spatial visit order, which may differ from the brute cast's
+instance order; ``t`` never differs (``tpu_raytracer/kernels/tlas.py``
+tie note).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tpu_raytracer.accel.bvh import build_bvh
+
+from ..core import transforms as T
+from ..core.vecmath import FLT_MAX
+from ..render.intersect import safe_reciprocal
+from .traversal import (
+    BIG,
+    LEAF_BITS,
+    MAX_LEAF_TRIS,
+    PLAIN_CHUNK,
+    _hit,
+    _split_rays,
+    _wide_tables,
+    as_occlusion,
+    child_entry,
+    instance_table,
+    launch,
+    walk_instance,
+)
+from .wide4 import NUDGE
+
+TLAS_STACK = 48  # per-ray TLAS stack (csrc/tlas_traverse.cuh kTlasStack)
+
+# Launches of the K3 kernel since the count was last reset (CPU casts,
+# which run the plain version, do not count).
+LAUNCHES = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TlasTables:
+    """The TLAS in a layout for one thread per ray."""
+
+    code: torch.Tensor  # [Nt] i32: internal -> child b (child a = node + 1); leaf -> -(start*1024+count)-1
+    box: torch.Tensor  # [Nt, 12] f32: child a's box, child b's box (min xyz, max xyz, NUDGE baked in)
+    inst_ids: torch.Tensor  # [I] i32: leaf position -> instance id
+    depth: int  # nodes on the longest root-to-leaf path
+
+    def to(self, device) -> "TlasTables":
+        return dataclasses.replace(self, code=self.code.to(device), box=self.box.to(device),
+                                   inst_ids=self.inst_ids.to(device))
+
+
+def _depth(code: np.ndarray) -> int:
+    depth, level = 0, np.array([0])
+    while level.size:
+        depth += 1
+        c = code[level]
+        inner = level[c >= 0]
+        level = np.concatenate([inner + 1, c[c >= 0]])
+    return depth
+
+
+def build_tlas(scene) -> TlasTables:
+    """Host build: each instance's world box is its mesh root box's 8
+    corners mapped to world space (``apply_lre(inv_pose, corner *
+    scale)``, conservative: it includes the compile-time box pad), then
+    the SAH builder over those boxes with leaves of one."""
+    mr = scene.mesh_root[scene.inst_mesh.long()].long()
+    bmin = scene.node_min[mr].cpu().numpy()  # [I, 3] object-space root box
+    bmax = scene.node_max[mr].cpu().numpy()
+    sel = np.array([[(c >> a) & 1 for a in range(3)] for c in range(8)], np.float32)
+    corners = bmin[:, None, :] * (1.0 - sel) + bmax[:, None, :] * sel
+    world = T.apply_lre(scene.inst_inv_pose.cpu()[:, None, :],
+                        torch.from_numpy(corners) * scene.inst_scale.cpu()[:, None, :]).numpy()
+    wmin = world.min(axis=1).astype(np.float32)
+    wmax = world.max(axis=1).astype(np.float32)
+    # the builder grows node boxes over its three "vertex" arrays, so
+    # (min corner, max corner, center) gives exact box unions with
+    # centroid splits at box centers
+    bvh = build_bvh(wmin, wmax, (wmin + wmax) * 0.5, max_depth=32, min_leaf_size=1)
+    if bvh.leaf_count.max(initial=0) > MAX_LEAF_TRIS:
+        raise ValueError("TLAS leaf exceeds the 10-bit count field")
+    internal = bvh.child_a >= 0
+    idx = np.nonzero(internal)[0]
+    if not (bvh.child_a[idx] == idx + 1).all():
+        raise ValueError("TLAS not DFS preorder")
+    packed_leaf = bvh.leaf_start * (1 << LEAF_BITS) + bvh.leaf_count
+    code = np.where(internal, bvh.child_b, -packed_leaf - 1).astype(np.int32)
+    depth = _depth(code)
+    if depth >= TLAS_STACK:
+        raise ValueError(f"TLAS depth {depth} exceeds the kernel's {TLAS_STACK}-slot stack")
+    ca = np.maximum(bvh.child_a, 0)
+    cb = np.maximum(bvh.child_b, 0)
+    nudge = np.float32(NUDGE)
+    box = np.concatenate([bvh.node_min[ca] - nudge, bvh.node_max[ca] + nudge,
+                          bvh.node_min[cb] - nudge, bvh.node_max[cb] + nudge], axis=1)
+    dev = scene.device
+    return TlasTables(
+        code=torch.from_numpy(code).to(dev),
+        box=torch.from_numpy(np.ascontiguousarray(box, np.float32)).to(dev),
+        inst_ids=torch.from_numpy(bvh.order.astype(np.int32)).to(dev),
+        depth=depth,
+    )
+
+
+def _tlas_tables(scene) -> TlasTables:
+    if scene.tlas is None:
+        raise ValueError("scene has no TLAS (scenes of one instance have none)")
+    return scene.tlas
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _walk_tlas(tables, tl, inst_tab, roots, o, d, best):
+    """Two-level walk of rays ``o``/``d`` [n, 3], updating ``best`` = [t,
+    tri, inst] in place. Each round pops every live ray's TLAS stack
+    down to its next leaf (internal nodes push their hit children, the
+    nearer last), then walks that leaf's instances in ``inst_ids`` order
+    for the rays that reached it, grouped by instance."""
+    t_b, tri_b, in_b = best
+    n = d.shape[0]
+    dev = d.device
+    inv = safe_reciprocal(d)
+    code_t = tl.code.long()
+    stack = torch.zeros((n, TLAS_STACK), dtype=torch.int64, device=dev)
+    sp = torch.ones(n, dtype=torch.int64, device=dev)
+    while True:
+        leaf = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        while True:
+            idx = torch.nonzero((sp > 0) & (leaf < 0)).squeeze(1)
+            if idx.numel() == 0:
+                break
+            spn = sp[idx] - 1
+            node = stack[idx, spn]
+            code = code_t[node]
+            internal = code >= 0
+            leaf[idx] = torch.where(internal, -1, node)
+            dist = child_entry(tl.box[node].reshape(-1, 2, 6), o[idx][:, None, :],
+                               inv[idx][:, None, :], t_b[idx][:, None])
+            da, db = dist[:, 0], dist[:, 1]
+            a_near = da <= db
+            ca = node + 1
+            # the farther child is pushed first, the nearer last
+            for child, pushed in (
+                (torch.where(a_near, code, ca), torch.where(a_near, db, da) < BIG),
+                (torch.where(a_near, ca, code), torch.where(a_near, da, db) < BIG),
+            ):
+                push = internal & pushed
+                stack[idx, spn] = torch.where(push, child, stack[idx, spn])
+                spn = spn + push.long()
+            sp[idx] = spn
+        rays = torch.nonzero(leaf >= 0).squeeze(1)
+        if rays.numel() == 0:
+            return
+        packed = -code_t[leaf[rays]] - 1
+        start = packed >> LEAF_BITS
+        count = packed & MAX_LEAF_TRIS
+        for p in range(int(count.max())):
+            at = count > p
+            ids = tl.inst_ids[start[at] + p].long()
+            for i in torch.unique(ids).tolist():
+                sub = rays[at][ids == i]
+                part = (t_b[sub], tri_b[sub], in_b[sub])
+                walk_instance(tables, inst_tab[i], roots[i], i, o[sub], d[sub], part)
+                t_b[sub], tri_b[sub], in_b[sub] = part
+
+
+def cast_rays_tlas_torch(scene, origin, directions, occlusion: bool = False,
+                         chunk: int = PLAIN_CHUNK):
+    """Plain PyTorch version of K3: nearest hit of every ray through the
+    TLAS and the instances' 4-wide tables (any hit with ``occlusion``)."""
+    origin, directions = _split_rays(origin, directions)
+    tables = _wide_tables(scene)
+    tl = _tlas_tables(scene)
+    shape = directions.shape[:-1]
+    d_all = directions.reshape(-1, 3)
+    o_all = origin.expand(directions.shape).reshape(-1, 3)
+    inst_tab = instance_table(scene)
+    roots = tables.wroot[scene.inst_mesh.long()].tolist()
+    dev = d_all.device
+    r = d_all.shape[0]
+    t = torch.full((r,), BIG, dtype=torch.float32, device=dev)
+    tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    for lo in range(0, r, chunk):
+        sl = slice(lo, min(lo + chunk, r))
+        _walk_tlas(tables, tl, inst_tab, roots, o_all[sl], d_all[sl],
+                   (t[sl], tri[sl], inst[sl]))
+    t = torch.where(t >= BIG, torch.full_like(t, FLT_MAX), t)
+    hit = _hit(t, tri, inst, shape)
+    return as_occlusion(hit) if occlusion else hit
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def cast_rays_tlas_cuda(scene, origin, directions, occlusion: bool = False):
+    """K3: nearest (or, with ``occlusion``, any) hit through the TLAS.
+    CUDA tensors launch the kernel on the current stream; CPU tensors run
+    the plain version."""
+    global LAUNCHES
+    origin, directions = _split_rays(origin, directions)
+    if directions.device.type == "cpu":
+        return cast_rays_tlas_torch(scene, origin, directions, occlusion)
+    tl = _tlas_tables(scene)
+    for name, x, dtype in (("tlas code", tl.code, torch.int32), ("tlas box", tl.box, torch.float32),
+                           ("tlas inst_ids", tl.inst_ids, torch.int32)):
+        if x.dtype != dtype or not x.is_contiguous() or x.device != directions.device:
+            raise ValueError(f"{name} must be contiguous {dtype} on {directions.device}")
+    hit = launch("tlas_launch", scene, origin, directions, occlusion,
+                 (tl.code.data_ptr(), tl.box.data_ptr(), tl.inst_ids.data_ptr()))
+    LAUNCHES += 1
+    return hit

@@ -1,9 +1,9 @@
-"""Nearest-hit casts over the 4-wide BVH: kernel K1, its plain PyTorch
-version, and the router.
+"""Casts over the 4-wide BVH: kernel K1, its plain PyTorch version, and
+the router.
 
 Counterpart of ``tpu_raytracer/kernels/traversal.py:cast_rays_pallas``
-(the router) and ``kernels/dual.py:cast_rays_dual`` (the wide,
-nearest-hit kernel it routes the primary path to).
+(the router) and ``kernels/dual.py:cast_rays_dual`` (the wide kernel it
+routes single-instance scenes to).
 
   * ``cast_rays_cuda`` is K1's wrapper: for CUDA tensors it launches
     the hand-written kernel (``csrc/wide_traverse.cu``) and counts the
@@ -14,11 +14,18 @@ nearest-hit kernel it routes the primary path to).
     stack walk over the same tables, vectorised over rays — same child
     ranking, same leaf order, same f32 operation order as the kernel, so
     the two agree bit for bit.
-  * ``cast_rays`` is the router: it raises for what is not ported yet
-    (scenes without wide tables, scenes with two or more instances).
+  * ``cast_rays`` is the router: scenes with two or more instances and
+    a TLAS go to K3 (``kernels/tlas.py``), every other scene to K1; it
+    raises for scenes without wide tables (the paged kernels K4-K6 are
+    not ported).
 
-Both casts return the JAX package's hit record: ``t`` (FLT_MAX on a
-miss), ``tri`` and ``inst`` (-1 on a miss).
+Every cast returns the JAX package's hit record: ``t`` (FLT_MAX on a
+miss), ``tri`` and ``inst`` (-1 on a miss). With ``occlusion=True`` it
+is the any-hit record of shadow rays (``make_test_tri``'s occlusion
+mode): ``t`` is -BIG where the ray is blocked and FLT_MAX where it is
+clear; ``tri``/``inst`` carry no meaning. The kernels stop a ray at its
+first accepted triangle; the plain versions map the nearest hit, which
+gives the same answer because boxes are conservative.
 """
 
 from __future__ import annotations
@@ -31,6 +38,9 @@ from ..render.intersect import EDGE_EPS, PARALLEL_EPS, safe_reciprocal
 from .wide4 import STACK_SIZE
 
 BIG = 3.0e38  # initial t_best; never a hit distance
+# Boxes are culled against t_best times this (8 ulps): csrc/wide_traverse.cuh
+# kCapSlack says why.
+CAP_SLACK = 1.0 + 2.0 ** -20
 LEAF_BITS = 10
 MAX_LEAF_TRIS = (1 << LEAF_BITS) - 1
 
@@ -39,7 +49,7 @@ MAX_LEAF_TRIS = (1 << LEAF_BITS) - 1
 PLAIN_CHUNK = 1 << 18
 
 # Launches of the K1 kernel since the count was last reset (CPU casts,
-# which run the plain version, do not count).
+# which run the plain version, do not count; K3 counts in tlas.LAUNCHES).
 LAUNCHES = 0
 
 
@@ -87,7 +97,22 @@ def _split_rays(origin, directions):
 # ---------------------------------------------------------------------------
 
 
-def _walk_instance(tables, q, root, inst_val, o, d, best):
+def child_entry(box, o, inv, t_cap):
+    """Slab entry distance of boxes ``box [..., 6]`` (min xyz, max xyz)
+    for rays whose best hit is at ``t_cap``, BIG on a miss:
+    ``child_entry`` of ``csrc/wide_traverse.cuh``, same f32 operation
+    order."""
+    t1 = (box[..., 0:3] - o) * inv
+    t2 = (box[..., 3:6] - o) * inv
+    fmn = torch.fmin(t1, t2)
+    fmx = torch.fmax(t1, t2)
+    near = torch.maximum(torch.maximum(fmn[..., 0], fmn[..., 1]), fmn[..., 2])
+    far = torch.minimum(torch.minimum(fmx[..., 0], fmx[..., 1]), fmx[..., 2])
+    hit = (far >= near) & (far > 0.0) & (near < t_cap * CAP_SLACK)
+    return torch.where(hit, near, torch.full_like(near, BIG))
+
+
+def walk_instance(tables, q, root, inst_val, o, d, best):
     """Walk one instance for rays ``o``/``d`` [n, 3] (world space),
     updating ``best`` = [t, tri, inst] in place."""
     t_b, tri_b, in_b = best
@@ -112,23 +137,15 @@ def _walk_instance(tables, q, root, inst_val, o, d, best):
         node = stack[idx, spn].long()
         box = tables.wbox[node][:, :24].reshape(-1, 4, 6)
         oi = oo[idx][:, None, :]
-        ii = inv[idx][:, None, :]
         tb = t_b[idx]
-        t1 = (box[:, :, 0:3] - oi) * ii
-        t2 = (box[:, :, 3:6] - oi) * ii
-        fmn = torch.fmin(t1, t2)
-        fmx = torch.fmax(t1, t2)
-        near = torch.maximum(torch.maximum(fmn[..., 0], fmn[..., 1]), fmn[..., 2])
-        far = torch.minimum(torch.minimum(fmx[..., 0], fmx[..., 1]), fmx[..., 2])
-        hit = (far >= near) & (far > 0.0) & (near < tb[:, None])
-        dist = torch.where(hit, near, torch.full_like(near, BIG))
+        dist = child_entry(box, oi, inv[idx][:, None, :], tb[:, None])
 
         # near-first rank, ties by child index; order[p] = child of rank p
         dc = dist[:, :, None]
         dk = dist[:, None, :]
         rank = ((dk < dc) | ((dk == dc) & tie_mask)).sum(-1)
         order = torch.empty_like(rank).scatter_(1, rank, lane.expand(rank.shape[0], 4))
-        count = hit.sum(1)
+        count = (dist < BIG).sum(1)
         codes = tables.wcode[node].gather(1, order)  # code of rank p
 
         # internal children pushed farthest first
@@ -158,7 +175,8 @@ def _walk_instance(tables, q, root, inst_val, o, d, best):
             t, ok = _test_tris(tables.tri_rec[k.long()], oi[:, None, :], di[:, None, :])
             cand = torch.where(live & ok, t, torch.full_like(t, float("inf")))
             t_min, first = cand.min(dim=1)
-            better = t_min < tb
+            # strict t < t_best; at an exact-t tie the lower instance wins
+            better = (t_min < tb) | ((t_min == tb) & (inst_val < in_i))
             tb = torch.where(better, t_min, tb)
             tri_i = torch.where(better, k.gather(1, first[:, None])[:, 0].to(torch.int32), tri_i)
             if inst_val >= 0:
@@ -187,9 +205,19 @@ def _test_tris(rec, o, d):
     return t, ok
 
 
-def cast_rays_wide_torch(scene, origin, directions, chunk: int = PLAIN_CHUNK):
+def as_occlusion(hit):
+    """The any-hit record of a nearest-hit record: t = -BIG where the
+    ray hit something, FLT_MAX where it is clear."""
+    blocked = hit.t < FLT_MAX
+    t = torch.where(blocked, torch.full_like(hit.t, -BIG), torch.full_like(hit.t, FLT_MAX))
+    return hit._replace(t=t)
+
+
+def cast_rays_wide_torch(scene, origin, directions, occlusion: bool = False,
+                         chunk: int = PLAIN_CHUNK):
     """Plain PyTorch version of K1: nearest hit of every ray over the
-    scene's 4-wide tables, for any number of instances."""
+    scene's 4-wide tables, for any number of instances (any hit with
+    ``occlusion``)."""
     origin, directions = _split_rays(origin, directions)
     tables = _wide_tables(scene)
     shape = directions.shape[:-1]
@@ -207,28 +235,27 @@ def cast_rays_wide_torch(scene, origin, directions, chunk: int = PLAIN_CHUNK):
         sl = slice(lo, min(lo + chunk, r))
         best = (t[sl], tri[sl], inst[sl])  # views: updated in place
         for i in range(num_inst):
-            _walk_instance(tables, inst_tab[i], roots[i], i if num_inst > 1 else -1,
-                           o_all[sl], d_all[sl], best)
+            walk_instance(tables, inst_tab[i], roots[i], i if num_inst > 1 else -1,
+                          o_all[sl], d_all[sl], best)
     if num_inst == 1:
         inst = torch.where(tri >= 0, 0, -1).to(torch.int32)
     t = torch.where(t >= BIG, torch.full_like(t, FLT_MAX), t)
-    return _hit(t, tri, inst, shape)
+    hit = _hit(t, tri, inst, shape)
+    return as_occlusion(hit) if occlusion else hit
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrapper and router
+# Kernel wrappers and router
 # ---------------------------------------------------------------------------
 
 
-def cast_rays_cuda(scene, origin, directions):
-    """K1: nearest hit over the 4-wide tables. CUDA tensors launch the
-    kernel on the current stream; CPU tensors run the plain version."""
-    global LAUNCHES
-    origin, directions = _split_rays(origin, directions)
-    if directions.device.type == "cpu":
-        return cast_rays_wide_torch(scene, origin, directions)
+def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=()):
+    """Check the inputs and launch ``entry`` of the kernel library (K1's
+    ``wt_launch`` or K3's ``tlas_launch``, whose TLAS table pointers come
+    in ``tlas_args``) on the current stream; returns the Hit record.
+    Raises on a CUDA error at launch."""
     if directions.device.type != "cuda":
-        raise ValueError(f"K1 runs on cuda or cpu tensors, got {directions.device}")
+        raise ValueError(f"{entry} runs on cuda tensors, got {directions.device}")
     tables = _wide_tables(scene)
     if scene.device != directions.device:
         raise ValueError(f"scene on {scene.device}, rays on {directions.device}")
@@ -249,26 +276,39 @@ def cast_rays_cuda(scene, origin, directions):
     inst = torch.empty(r, dtype=torch.int32, device=directions.device)
     from .build import load
 
-    lib = load("cuda")
+    fn = getattr(load("cuda"), entry)
     stream = torch.cuda.current_stream(directions.device).cuda_stream
-    err = lib.wt_launch(
+    err = fn(
         tables.wcode.data_ptr(), tables.wbox.data_ptr(), tables.tri_rec.data_ptr(),
-        inst_tab.data_ptr(), inst_root.data_ptr(), scene.num_instances,
+        inst_tab.data_ptr(), inst_root.data_ptr(), scene.num_instances, *tlas_args,
         origin.data_ptr(), 0 if origin.dim() == 1 else 3, directions.data_ptr(), r,
-        t.data_ptr(), tri.data_ptr(), inst.data_ptr(), stream,
+        int(occlusion), t.data_ptr(), tri.data_ptr(), inst.data_ptr(), stream,
     )
     if err != 0:
-        raise RuntimeError(f"K1 launch failed with CUDA error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{entry} failed with CUDA error {err}")
     return _hit(t, tri, inst, shape)
 
 
-def cast_rays(scene, origin, directions):
-    """The primary cast (counterpart of ``cast_rays_pallas``): routes to
-    K1 and raises for the routes whose kernels are not ported yet."""
+def cast_rays_cuda(scene, origin, directions, occlusion: bool = False):
+    """K1: nearest (or, with ``occlusion``, any) hit over the 4-wide
+    tables. CUDA tensors launch the kernel on the current stream; CPU
+    tensors run the plain version."""
+    global LAUNCHES
+    origin, directions = _split_rays(origin, directions)
+    if directions.device.type == "cpu":
+        return cast_rays_wide_torch(scene, origin, directions, occlusion)
+    hit = launch("wt_launch", scene, origin, directions, occlusion)
+    LAUNCHES += 1
+    return hit
+
+
+def cast_rays(scene, origin, directions, occlusion: bool = False):
+    """The cast of the ``cuda`` backend (counterpart of
+    ``cast_rays_pallas``): K3 for scenes with two or more instances and
+    a TLAS, K1 otherwise; raises for scenes without wide tables."""
     _wide_tables(scene)
-    if scene.num_instances >= 2:
-        raise NotImplementedError(
-            "scenes with 2 or more instances route to the TLAS kernel K3, "
-            "which is not ported yet (ROADMAP item 10)")
-    return cast_rays_cuda(scene, origin, directions)
+    if scene.num_instances >= 2 and scene.tlas is not None:
+        from .tlas import cast_rays_tlas_cuda
+
+        return cast_rays_tlas_cuda(scene, origin, directions, occlusion)
+    return cast_rays_cuda(scene, origin, directions, occlusion)

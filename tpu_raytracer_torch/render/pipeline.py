@@ -1,11 +1,11 @@
 """Top-level render pipeline: raygen -> cast -> attributes -> shade.
 
 Counterpart of ``tpu_raytracer/render/pipeline.py`` for primary rays
-with flat shading. PyTorch runs eagerly, so ``render_image`` is a plain
-function; every tensor lives on the scene's device, and the returned
-image too. Lighting modes, texture filters, supersampling, the Whitted,
-path and AO integrators and the AOV pass are not ported yet (ROADMAP
-items 8, 9, 11 and 12).
+(flat and lit shading) and the Whitted integrator. PyTorch runs eagerly,
+so the entry points are plain functions; every tensor lives on the
+scene's device, and the returned image too. Texture filters,
+supersampling and the AOV pass (ROADMAP item 9), point lights (item 8)
+and the path and AO integrators (item 12) are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,30 +16,41 @@ import torch
 
 from .camera import Camera, generate_rays
 from .renderer import get_cast_fn, hit_attributes
-from .shade import shade_primary
+from .shade import DEFAULT_LIGHT_DIRECTION, shade_primary
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Render options of the ported primary path."""
+    """Render options of the ported paths."""
 
     width: int
     height: int
     backend: str = "cuda"  # brute | cuda
+    lighting: str = "flat"  # flat | lambert | lambert_shadow | blinn_phong
+    light_direction: tuple | None = DEFAULT_LIGHT_DIRECTION
+    exact_math: bool = True  # False: the reference's q_rsqrt normalize
+    # HDR -> display mapping of the Whitted integrator (the primary pass
+    # keeps the reference's raw truncating cast): none | reinhard | aces
+    tonemap: str = "none"
+    exposure: float = 1.0
+
+
+def _rays(config: RenderConfig, scene, K_inv, D, pose, inv_pose):
+    dev = scene.device
+    return generate_rays(config.width, config.height, K_inv.to(dev), D.to(dev),
+                         pose.to(dev), inv_pose.to(dev), exact=config.exact_math)
 
 
 def render_image(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,
                  pose: torch.Tensor, inv_pose: torch.Tensor) -> torch.Tensor:
     """Render one frame -> uint8 [H, W, 3] (reference channel order) on
     the scene's device."""
-    dev = scene.device
-    origin, directions = generate_rays(
-        config.width, config.height, K_inv.to(dev), D.to(dev), pose.to(dev),
-        inv_pose.to(dev),
-    )
+    origin, directions = _rays(config, scene, K_inv, D, pose, inv_pose)
     hit = get_cast_fn(config.backend)(scene, origin, directions)
-    attrs = hit_attributes(scene, origin, directions, hit)
-    return shade_primary(scene, attrs)
+    attrs = hit_attributes(scene, origin, directions, hit, exact=config.exact_math)
+    return shade_primary(scene, attrs, config.light_direction, config.lighting,
+                         exact=config.exact_math, backend=config.backend,
+                         directions=directions)
 
 
 def render(camera: Camera, scene, config: RenderConfig | None = None, **kw) -> torch.Tensor:
@@ -48,3 +59,16 @@ def render(camera: Camera, scene, config: RenderConfig | None = None, **kw) -> t
         config = RenderConfig(width=camera.width, height=camera.height, **kw)
     p = camera.ray_params(scene.device)
     return render_image(config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+
+
+def render_image_whitted(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,
+                         pose: torch.Tensor, inv_pose: torch.Tensor, max_bounces: int = 2,
+                         shadows: bool = True) -> torch.Tensor:
+    """Whitted reflective render -> uint8 [H, W, 3] (BASELINE config 4)."""
+    from .integrators import render_whitted, to_u8, tonemap
+
+    origin, directions = _rays(config, scene, K_inv, D, pose, inv_pose)
+    radiance = render_whitted(scene, origin, directions, max_bounces=max_bounces,
+                              backend=config.backend, light_direction=config.light_direction,
+                              shadows=shadows, exact=config.exact_math)
+    return to_u8(tonemap(radiance, config.tonemap, config.exposure))

@@ -5,13 +5,14 @@ the compact ``Hit`` (t, tri, inst); ``hit_attributes`` rebuilds the
 shading inputs (world location, normal, uv, material) from it.
 
 Backends: ``brute`` (the oracle, every triangle against every ray) and
-``cuda`` (kernel K1 through ``kernels/traversal.cast_rays``; on CPU
-tensors that runs K1's plain version). The XLA ``bvh`` walk of the JAX
-package is not ported: K1's plain version takes its place.
+``cuda`` (kernels K1 and K3 through ``kernels/traversal.cast_rays``; on
+CPU tensors that runs their plain versions). The XLA ``bvh`` walk of the
+JAX package is not ported: the kernels' plain versions take its place.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -95,13 +96,18 @@ def cast_rays_brute(scene, origin, directions, tri_chunk: int = BRUTE_TRI_CHUNK)
                inst=in_best.reshape(shape))
 
 
-def hit_attributes(scene, origin, directions, hit: Hit) -> HitAttributes:
+def hit_attributes(scene, origin, directions, hit: Hit, exact: bool = True,
+                   normal_mode: str = "reference") -> HitAttributes:
     """Shading inputs from (t, tri, inst): re-runs the plane and
     barycentric math for the selected triangle of each ray and maps the
     point and normal to world space. The normal follows the JAX
     package's ``normal_mode="reference"`` (rotated, then multiplied by
-    the instance scale); the inverse-transpose mode is not ported yet
+    the instance scale) and is normalised exactly or, with ``exact``
+    False, by ``q_rsqrt``; the inverse-transpose mode is not ported yet
     (ROADMAP item 8)."""
+    if normal_mode != "reference":
+        raise NotImplementedError(
+            f"normal_mode={normal_mode!r} is not ported yet (ROADMAP item 8)")
     directions = torch.as_tensor(directions, dtype=torch.float32)
     origin = torch.as_tensor(origin, dtype=torch.float32).expand(directions.shape)
     ok = hit.t < FLT_MAX
@@ -127,13 +133,25 @@ def hit_attributes(scene, origin, directions, hit: Hit) -> HitAttributes:
     uv = bary_interp(u_b, v_b, scene.tri_uv0[tri], scene.tri_uv1[tri],
                      scene.tri_uv2[tri])
     location = T.apply_lre(inst_inv_pose, point * scale)
-    normal = normalize(T.apply_euler(inst_inv_pose[..., 3:6], tnormal) * scale)
+    normal = normalize(T.apply_euler(inst_inv_pose[..., 3:6], tnormal) * scale,
+                       exact=exact)
     tmat = scene.tri_mat[tri].long()
     imat = scene.inst_material.long()
     imat = imat[0] if scene.num_instances == 1 else imat[inst]
     material = torch.where(tmat >= 0, tmat, imat)
     return HitAttributes(hit=ok, t=hit.t, location=location, normal=normal,
                          uv=uv, material=material, inst=inst)
+
+
+def occlusion_cast_fn(backend: str):
+    """The any-hit cast for boolean shadow queries (occluded iff t <
+    FLT_MAX): on ``cuda``, K1's or K3's any-hit mode, which stops a ray
+    at its first accepted triangle; ``brute`` returns its nearest-hit
+    cast, which gives the same answer."""
+    cast = get_cast_fn(backend)
+    if backend == "cuda":
+        return functools.partial(cast, occlusion=True)
+    return cast
 
 
 def get_cast_fn(backend: str):

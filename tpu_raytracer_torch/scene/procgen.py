@@ -1,8 +1,9 @@
 """Procedural test geometry and textures, in numpy.
 
-Counterpart of ``tpu_raytracer/scene/procgen.py`` for the scenes of the
-primary-ray slice: the unit cube, the flat board, icospheres, the
-displaced blob (the 82k-triangle bench mesh) and the checker texture.
+Counterpart of ``tpu_raytracer/scene/procgen.py`` for the ported
+scenes: the unit cube, the flat board, the Cornell box walls,
+icospheres, the displaced blob (the 82k-triangle bench mesh) and the
+checker texture.
 Each function keeps the JAX package's exact numpy arithmetic, so both
 packages build bit-identical triangles.
 """
@@ -52,6 +53,24 @@ def board_obj(w: float = 1.0, h: float = 1.0) -> str:
         "f 1/1 2/2 3/3 4/4",
     ]
     return "\n".join(lines) + "\n"
+
+
+def cornell_box() -> dict[str, np.ndarray]:
+    """Cornell-box walls as [2, 3, 3] triangle arrays keyed by wall name,
+    each wall wound to face the box interior. The box spans [0, 2]^3 with
+    the opening toward -y (the camera side); world is y-forward, z-up."""
+
+    def quad(a, b, c, d):
+        a, b, c, d = (np.asarray(p, np.float32) for p in (a, b, c, d))
+        return np.stack([np.stack([a, b, c]), np.stack([a, c, d])])
+
+    return {
+        "floor": quad((0, 0, 0), (2, 0, 0), (2, 2, 0), (0, 2, 0)),  # z=0, normal +z
+        "ceiling": quad((0, 0, 2), (0, 2, 2), (2, 2, 2), (2, 0, 2)),  # z=2, normal -z
+        "back": quad((0, 2, 0), (2, 2, 0), (2, 2, 2), (0, 2, 2)),  # y=2, normal -y
+        "left": quad((0, 0, 0), (0, 2, 0), (0, 2, 2), (0, 0, 2)),  # x=0, normal +x
+        "right": quad((2, 0, 0), (2, 0, 2), (2, 2, 2), (2, 2, 0)),  # x=2, normal -x
+    }
 
 
 def icosphere(subdivisions: int = 3, radius: float = 1.0) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

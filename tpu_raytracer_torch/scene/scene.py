@@ -13,10 +13,12 @@ reproducing the JAX compile field by field:
 
 ``from_scene_arrays`` is the other way in: it takes a JAX-compiled
 ``SceneArrays`` as a dict of numpy arrays, so the two packages can be
-run on the identical scene.
+run on the identical scene. Both attach the 4-wide tables of K1 and,
+for two or more instances, the TLAS of K3; ``update_instance`` is the
+functional pose update that rebuilds the TLAS.
 
-Not ported yet (ROADMAP item 15): ``flattened``, ``update_instance``,
-sky maps, vertex normals, save/load and the paging tables.
+Not ported yet (ROADMAP item 15): ``flattened``, sky maps, vertex
+normals, save/load and the paging tables.
 """
 
 from __future__ import annotations
@@ -111,6 +113,9 @@ class SceneTensors:
     # compiled scene has them; None marks a scene that would need the
     # paged kernels, which are not ported.
     wide4: object | None = None
+    # instance-level BVH (kernels/tlas.py TlasTables), attached to
+    # scenes of two or more instances
+    tlas: object | None = None
 
     @property
     def device(self) -> torch.device:
@@ -127,8 +132,32 @@ class SceneTensors:
     def to(self, device) -> "SceneTensors":
         """The same scene with every tensor on ``device``."""
         moved = {f: getattr(self, f).to(device) for f in ARRAY_FIELDS}
-        wide4 = None if self.wide4 is None else self.wide4.to(device)
-        return dataclasses.replace(self, wide4=wide4, **moved)
+        for f in ("wide4", "tlas"):
+            moved[f] = None if getattr(self, f) is None else getattr(self, f).to(device)
+        return dataclasses.replace(self, **moved)
+
+    def update_instance(self, index: int, instance: MeshInstance) -> "SceneTensors":
+        """Functional single-instance update (pose, scale, mesh and
+        material), the cheap animation path: the per-mesh wide tables
+        stay, and the TLAS, where the scene has one, is rebuilt on the
+        host."""
+        inv = instance.build_inv()
+        values = {
+            "inst_pose": inv["pose"], "inst_inv_pose": inv["inv_pose"],
+            "inst_scale": inv["scale"], "inst_inv_scale": inv["inv_scale"],
+            "inst_mesh": instance.mesh_index, "inst_material": instance.material_index,
+        }
+        fields = {}
+        for name, value in values.items():
+            x = getattr(self, name).clone()
+            x[index] = torch.as_tensor(value, dtype=x.dtype)
+            fields[name] = x
+        new = dataclasses.replace(self, tlas=None, **fields)
+        if self.tlas is not None:
+            from ..kernels.tlas import build_tlas
+
+            new = dataclasses.replace(new, tlas=build_tlas(new))
+        return new
 
     def numpy_fields(self) -> dict[str, np.ndarray]:
         """Array fields as host numpy arrays, keyed by field name."""
@@ -156,6 +185,7 @@ def from_scene_arrays(fields: dict[str, np.ndarray], device="cpu") -> SceneTenso
 
 
 def _assemble(kw: dict[str, np.ndarray], device) -> SceneTensors:
+    from ..kernels.tlas import build_tlas
     from ..kernels.wide4 import build_wide4
 
     tensors = {k: torch.from_numpy(np.array(v)).to(device) for k, v in kw.items()}
@@ -165,7 +195,10 @@ def _assemble(kw: dict[str, np.ndarray], device) -> SceneTensors:
         has_textures=bool((kw["mat_tex_start"] >= 0).any()),
         has_emissive=bool((kw["mat_illumination"] > 0).any()),
     )
-    return dataclasses.replace(scene, wide4=build_wide4(scene))
+    scene = dataclasses.replace(scene, wide4=build_wide4(scene))
+    if scene.num_instances >= 2:
+        scene = dataclasses.replace(scene, tlas=build_tlas(scene))
+    return scene
 
 
 class Scene:
@@ -190,7 +223,8 @@ class Scene:
 
     def compile(self, device="cpu") -> SceneTensors:
         """Flatten to ``SceneTensors`` on ``device``, with the 4-wide
-        traversal tables attached."""
+        traversal tables and, for two or more instances, the TLAS
+        attached."""
         if not self.meshes or not self.mesh_instances or not self.materials:
             raise ValueError("scene needs at least one mesh, instance and material")
 
