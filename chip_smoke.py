@@ -4,17 +4,21 @@
     python3 chip_smoke.py
 
 Drives the port's paths (``tpu_raytracer_torch``) through kernels K1 (the
-4-wide BVH cast) and K3 (the two-level TLAS cast) in phases, one line
+4-wide BVH cast), K3 (the two-level TLAS cast) and the paged kernels K4
+(4-wide pages), K5 (binary pages) and K6 (page-major) in phases, one line
 each:
 
   1. device: the card's name and power limit;
-  2. build: K1 (``kernels/csrc/wide_traverse.cu``) and K3
-     (``kernels/csrc/tlas_traverse.cu``) compiled with one nvcc command
-     for sm_90a, with ptxas's register, stack and spill report;
+  2. build: K1 (``kernels/csrc/wide_traverse.cu``), K3
+     (``kernels/csrc/tlas_traverse.cu``), K4/K5
+     (``kernels/csrc/paged_traverse.cu``) and K6
+     (``kernels/csrc/paged_major.cu``) compiled for sm_90a by one nvcc
+     per source, all started together, and linked into one library, with
+     ptxas's register, stack and spill report;
   3. the flagship, BASELINE config 3 (the 81,920-triangle
      ``procgen.blob(subdivisions=6)`` mesh, one instance, 1920x1088
      camera, flat shading): K1 against its plain PyTorch version, t
-     bitwise (else the max ulp distance), tri/inst at non-tied t, hit
+     bitwise (else the max ulp distance), tri and inst equal, hit
      fraction;
   4. the primary main path, ``render_image(backend="cuda")`` on the
      flagship: K1's launch count in that run, and its image against the
@@ -34,7 +38,41 @@ each:
      1920x1088: K3's launch count;
  11. times from CUDA events: the casts of K1, K1 any-hit and K3 beside
      their plain versions, the flagship and Whitted frames, and the
-     stages of each frame.
+     stages of each frame;
+ 12. the paged path on config 5, the colonnade of ``bench_paged.py``
+     (``scene_colonnade(columns=18, segs=40)``: ~1.04M triangles, one
+     instance): host build seconds (the native BVH builder), triangle,
+     page and top-tree counts, 4-wide and binary page tables;
+ 13. K4, K5 and K6 against their plain versions on the 1920x1088 rays (t
+     bitwise, tri and inst equal), and against K1 casting the same
+     unpaged scene: equal but on a few rays in 10^5, each explained by
+     the order of box tests (``traversal.unexplained_differences``: a
+     hit accepted up to EDGE_EPS outside its triangle can lie outside
+     its leaf box, and a walk that has lowered t_best first culls it);
+ 14. 192 sampled 512x512 rays (``bench_paged.py``'s sample) through K4,
+     K5 and K6 against ``cast_rays_brute``: t within 1e-5, or a hit the
+     brute cast finds up to EDGE_EPS outside its triangle and leaf box,
+     which the walks cull (``brute_unexplained``);
+ 15. K6 on the two-instance colonnade (``bench_paged.py:
+     instanced_page_major``) at 512x512, from that recipe's camera (which
+     sees instance 0 only) and from an aerial camera that sees both
+     instances: against its plain version, K1, and 96 sampled rays
+     against the brute cast;
+ 16. the paged main paths: ``render_image`` on the colonnade at
+     1920x1088 through the ``paged`` backend (4-wide tables: K4; binary:
+     K5) and ``paged_major`` (K6), each kernel's launch count in that
+     frame and the image against the plain casts' image;
+ 17. times: K4, K5, K6 and K1 per cast on the colonnade at 512x512 and
+     1920x1088, and each frame.
+
+Every kernel's bound is the larger of its f32 operations over 67 TFLOP/s
+and its bytes over 3.35 TB/s (the H100's published peaks): operations
+from the node pops and triangle tests its plain version counts on this
+run's rays (``stats=True``), times the f32 operations of one pop and one
+triangle test counted from the kernels' ``.cuh`` code (``OPS_*`` below);
+bytes are the rays, the outputs and every node table the kernel reads,
+each once, and one 64-byte record per real triangle (the 8-aligned leaf
+padding is never read), at most one per triangle test.
 
 Then one JSON line of the kernels, the card line, and the result line
 ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero and
@@ -62,6 +100,40 @@ GOLDEN_MAX_MISMATCH = 4
 # same geometry (BENCH_r05.json): a property of the geometry
 FLAGSHIP_HIT_FRACTION = 0.6712
 HIT_FRACTION_TOL = 0.002
+# sampled rays against the brute cast: bench_paged.py's tolerance (the
+# brute cast's plane-and-barycentric math is not the kernels' test_tri)
+BRUTE_RTOL = 1e-5
+# the pair's second camera: over the gap between the two instances,
+# looking down, so that its rays hit both
+PAIR_AERIAL_POSE = [18.0, 38.0, 30.0, 0.0, -1.2, 0.0]
+# K4-K6 against K1 on the same scene: every difference must come from
+# the order of box tests (traversal.unexplained_differences), and t may
+# differ on at most this share of the rays (25 of 2,088,960 for K4 on
+# the colonnade; 0-2 of 76,800 on a 156k-triangle colonnade on the CPU)
+ORDER_DIFFS_MAX = 1e-4
+
+# The H100's published peaks (NVIDIA's data sheet, SXM, 700 W).
+F32_FLOPS = 67e12
+HBM_BYTES_S = 3.35e12
+# f32 operations of the kernels' per-ray code, counted from
+# kernels/csrc/wide_traverse.cuh and paged_traverse.cuh (an add, multiply,
+# divide, min, max or compare counts one):
+#   child_entry, one child box: 6 subtracts + 6 multiplies, 6 fminf/fmaxf,
+#   4 NaN-aware max/min, the cap multiply and 3 compares;
+OPS_SLAB = 26
+#   a pop of an arity-A node: A slab tests, the near-first rank (2
+#   compares per ordered child pair) and the hit count;
+OPS_POP = {A: OPS_SLAB * A + 2 * A * (A - 1) + A for A in (2, 4)}
+#   a TLAS or top-tree pop: two slab tests and 3 compares;
+OPS_TOP_POP = 2 * OPS_SLAB + 3
+#   test_tri: denominator 5, c 3, numerator 5, divide 1, e2 6, u 5, v 5,
+#   8 compares;
+OPS_TRI = 38
+#   object_ray, once per instance (or page-major item) and ray: two
+#   quat_rot (42 each), 9 for the scale and offset, 3 safe reciprocals.
+OPS_RAY = 2 * 42 + 9 + 9
+# bytes of one triangle record (tri_rec row: 16 f32)
+TRI_REC_BYTES = 64
 
 
 def phase(tag, **fields):
@@ -92,15 +164,32 @@ def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def compare_hits(hk, hp):
-    """Kernel hit record against the plain version's: (t bit
-    differences, max ulp, max abs error, untied tri diffs, untied inst
-    diffs, tri flips at tied t)."""
-    t_diff = hk.t.view(torch.int32) != hp.t.view(torch.int32)
-    tied = ~t_diff
-    return (int(t_diff.sum()), int(ulp_distance(hk.t, hp.t).max()),
+    """Kernel hit record against the plain version's, which visits each
+    ray's nodes and triangles in the same order, so all three outputs
+    must agree exactly: (t bit differences, max ulp, max abs error, tri
+    differences, inst differences)."""
+    return (int((hk.t.view(torch.int32) != hp.t.view(torch.int32)).sum()),
+            int(ulp_distance(hk.t, hp.t).max()),
             float((hk.t.double() - hp.t.double()).abs().max()),
-            int(((hk.tri != hp.tri) & ~tied).sum()), int(((hk.inst != hp.inst) & ~tied).sum()),
-            int(((hk.tri != hp.tri) & tied).sum()))
+            int((hk.tri != hp.tri).sum()), int((hk.inst != hp.inst).sum()))
+
+
+def device_ms(fn, kernel: str, n: int = 10) -> float:
+    """Device milliseconds per call of ``fn`` spent in CUDA kernels whose
+    name contains ``kernel``, from a ``torch.profiler`` trace of ``n``
+    calls: the kernel's own time, without the host work around its
+    launch (which the CUDA-event times of a call include whenever the
+    host is slower than the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if kernel in e.key)
+    check(us > 0, f"the profiler saw no device time in {kernel}")
+    return us / n / 1e3
 
 
 def best_and_median_ms(fn, loops: int = 5, n: int = 10):
@@ -145,12 +234,12 @@ def main():
     log = build.build_log(lib_path).splitlines()
     ptxas = [ln.strip() for ln in log
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    phase("build", kernels="K1+K3", seconds=f"{time.perf_counter() - t0:.2f}",
-          lib=lib_path.name, command=repr(log[0]), ptxas=repr(" | ".join(ptxas)))
-    check("code=sm_90a" in log[0] and "--fmad=false" in log[0],
-          "K1/K3 were not built for sm_90a with --fmad=false")
-    check("tlas_traverse.cu" in log[0] and "wide_traverse.cu" in log[0],
-          "K1 and K3 were not built into one library")
+    compiles = [ln for ln in log if ln.split(" ", 1)[0].endswith("nvcc") and " -c " in ln]
+    phase("build", kernels="K1+K3+K4/K5+K6", seconds=f"{time.perf_counter() - t0:.2f}",
+          lib=lib_path.name, commands=repr(compiles), ptxas=repr(" | ".join(ptxas)))
+    for src in build.CUDA_SOURCES:
+        check(any(ln.endswith(src) and "code=sm_90a" in ln and "--fmad=false" in ln
+                  for ln in compiles), f"{src} was not built for sm_90a with --fmad=false")
 
     # 3. K1 against the plain version on the flagship -------------------
     t0 = time.perf_counter()
@@ -162,13 +251,13 @@ def main():
     origin, dirs = generate_rays(cam.width, cam.height, p["K_inv"], p["D"],
                                  p["pose"], p["inv_pose"])
     hk = traversal.cast_rays_cuda(scene, origin, dirs)
-    hp = traversal.cast_rays_wide_torch(scene, origin, dirs)
+    hp, k1_stats = traversal.cast_rays_wide_torch(scene, origin, dirs, stats=True)
     torch.cuda.synchronize()
-    n_t, max_ulp, max_abs, n_tri, n_inst, n_tie_flips = compare_hits(hk, hp)
+    n_t, max_ulp, max_abs, n_tri, n_inst = compare_hits(hk, hp)
     hit_frac = float((hk.tri >= 0).float().mean())
     phase("k1_vs_plain", rays=hk.t.numel(), t_bitwise_diff=n_t, max_ulp=max_ulp,
-          max_abs_err=max_abs, tri_diff_untied=n_tri, inst_diff_untied=n_inst,
-          tri_flips_at_tied_t=n_tie_flips, hit_fraction=f"{hit_frac:.4f}")
+          max_abs_err=max_abs, tri_diff=n_tri, inst_diff=n_inst,
+          hit_fraction=f"{hit_frac:.4f}")
     check(max_ulp <= T_MAX_ULP, f"K1 t differs from the plain walk by {max_ulp} ulp")
     check(n_tri == 0 and n_inst == 0, "K1 tri/inst differ from the plain walk")
     check(abs(hit_frac - FLAGSHIP_HIT_FRACTION) <= HIT_FRACTION_TOL,
@@ -227,20 +316,20 @@ def main():
     k3_sets = {"config4_primary": (inst4, o4, d4), "config4_reflection": (inst4, *refl4),
                "instances16_primary": (inst16, o16, d16)}
     k3_max_abs = 0.0
+    k3_stats = {}
     for tag, (sc, ro, rd) in k3_sets.items():
         hk3 = tlas.cast_rays_tlas_cuda(sc, ro, rd)
-        hp3 = tlas.cast_rays_tlas_torch(sc, ro, rd)
+        hp3, k3_stats[tag] = tlas.cast_rays_tlas_torch(sc, ro, rd, stats=True)
         torch.cuda.synchronize()
-        n_t, max_ulp, max_abs, n_tri, n_inst, n_flip = compare_hits(hk3, hp3)
+        n_t, max_ulp, max_abs, n_tri, n_inst = compare_hits(hk3, hp3)
         k3_max_abs = max(k3_max_abs, max_abs)
         phase("k3_vs_plain", rays=tag, n=hk3.t.numel(), instances=sc.num_instances,
               tlas_nodes=sc.tlas.code.shape[0], tlas_depth=sc.tlas.depth,
               t_bitwise_diff=n_t, max_ulp=max_ulp, max_abs_err=max_abs,
-              tri_diff=int((hk3.tri != hp3.tri).sum()), inst_diff=int((hk3.inst != hp3.inst).sum()),
+              tri_diff=n_tri, inst_diff=n_inst,
               hit_fraction=f"{float((hk3.tri >= 0).float().mean()):.4f}")
         check(n_t == 0, f"K3 t differs from the plain walk on {tag}")
-        check(torch.equal(hk3.tri, hp3.tri) and torch.equal(hk3.inst, hp3.inst),
-              f"K3 tri/inst differ from the plain walk on {tag}")
+        check(n_tri == 0 and n_inst == 0, f"K3 tri/inst differ from the plain walk on {tag}")
 
     # 7. any hit --------------------------------------------------------
     ldir = normalize(torch.tensor(DEFAULT_LIGHT_DIRECTION, dtype=torch.float32, device=dev))
@@ -252,14 +341,14 @@ def main():
 
     shadow1 = shadow_rays(scene, origin, dirs, hk)
     shadow4 = shadow_rays(inst4, o4, d4, h4)
-    occ_err = {}
+    occ_err, occ_stats = {}, {}
     for tag, sc, rays, cast, plain in (
         ("K1_flagship", scene, shadow1, traversal.cast_rays_cuda, traversal.cast_rays_wide_torch),
         ("K3_config4", inst4, shadow4, tlas.cast_rays_tlas_cuda, tlas.cast_rays_tlas_torch),
     ):
         occ = cast(sc, *rays, occlusion=True)
         near = cast(sc, *rays)
-        plain_occ = plain(sc, *rays, occlusion=True)
+        plain_occ, occ_stats[tag] = plain(sc, *rays, occlusion=True, stats=True)
         torch.cuda.synchronize()
         blocked = plain_occ.t < 0
         n_bad = int(((occ.t < 0) != blocked).sum() + ((near.t < FLT_MAX) != blocked).sum())
@@ -332,10 +421,12 @@ def main():
     for fn in (cast, frame):
         fn()
     cast_ms = min(event_ms(cast, 10) for _ in range(5))
+    k1_kernel_ms = device_ms(cast, "wide_traverse_kernel")
     frame_ms = sorted(event_ms(frame, 10) for _ in range(5))
     plain_ms = event_ms(lambda: traversal.cast_rays_wide_torch(scene, origin, dirs), 1)
     rays = cam.width * cam.height
     phase("time", card=repr(card), k1_cast_ms=f"{cast_ms:.4f}",
+          k1_kernel_ms=f"{k1_kernel_ms:.4f}",
           k1_mrays_s=f"{rays / cast_ms / 1e3:.2f}",
           frame_ms_best=f"{frame_ms[0]:.4f}", frame_ms_median=f"{frame_ms[2]:.4f}",
           fps=f"{1e3 / frame_ms[0]:.2f}", plain_cast_ms=f"{plain_ms:.2f}")
@@ -357,11 +448,14 @@ def main():
         fn()
     k1_any_ms = min(event_ms(k1_any, 10) for _ in range(5))
     k3_ms = min(event_ms(k3_cast, 10) for _ in range(5))
+    k1_any_kernel_ms = device_ms(k1_any, "wide_traverse_kernel")
+    k3_kernel_ms = device_ms(k3_cast, "tlas_traverse_kernel")
     w_best, w_median = best_and_median_ms(wframe)
     k1_any_plain_ms = event_ms(
         lambda: traversal.cast_rays_wide_torch(scene, *shadow1, occlusion=True), 1)
     k3_plain_ms = event_ms(lambda: tlas.cast_rays_tlas_torch(inst4, o4, d4), 1)
     phase("time2", card=repr(card), k3_cast_ms=f"{k3_ms:.4f}",
+          k3_kernel_ms=f"{k3_kernel_ms:.4f}", k1_any_hit_kernel_ms=f"{k1_any_kernel_ms:.4f}",
           k3_mrays_s=f"{d4.numel() // 3 / k3_ms / 1e3:.2f}",
           k3_plain_ms=f"{k3_plain_ms:.2f}", k1_any_hit_ms=f"{k1_any_ms:.4f}",
           k1_any_hit_plain_ms=f"{k1_any_plain_ms:.2f}",
@@ -369,44 +463,321 @@ def main():
           whitted_fps=f"{1e3 / w_best:.2f}")
     phase("whitted_stages", card=repr(card), **_whitted_stages(traversal, wframe))
 
+    paged_kernels = paged_phases(dev, card)
+
+    wide = scene.wide4
+    k1_bound = bound("K1", k1_stats, 4, rays, (dirs, origin, wide.wcode, wide.wbox, *hk),
+                     real_tri_rows(scene))
+    k1_any_bound = bound("K1 any-hit", occ_stats["K1_flagship"], 4, shadow1[1].numel() // 3,
+                         (*shadow1, wide.wcode, wide.wbox, *hk), real_tri_rows(scene))
+    t4 = inst4.tlas
+    k3_bound = bound("K3", k3_stats["config4_primary"], 4, d4.numel() // 3,
+                     (o4, d4, inst4.wide4.wcode, inst4.wide4.wbox, t4.code, t4.box, *h4),
+                     real_tri_rows(inst4))
     check("jax" not in sys.modules or sys.modules["jax"] is None, "jax was imported")
     print(json.dumps({"kernels": [
         {
-            "name": "K1 wide_traverse (4-wide BVH nearest hit)",
+            "name": "K1 wide_traverse (4-wide BVH nearest hit; launches: the flagship frame)",
             "route": "cuda",
             "source": "tpu_raytracer_torch/kernels/csrc/wide_traverse.cu",
             "replaces": "tpu_raytracer/kernels/dual.py:147",
             "launches": launches,
             "max_abs_err": max_abs,
-            "ms": cast_ms,
+            "ms": k1_kernel_ms,
             "plain_ms": plain_ms,
+            **k1_bound,
         },
         {
             "name": "K1 wide_traverse any-hit mode (shadow rays; launches: the shadowed "
-                    "flagship frame, primary + shadow cast)",
+                    "flagship frame, primary + shadow cast; bound from the nearest-hit "
+                    "walk's counts, more than the any-hit walk does)",
             "route": "cuda",
             "source": "tpu_raytracer_torch/kernels/csrc/wide_traverse.cu",
             "replaces": "tpu_raytracer/kernels/dual.py:147",
             "launches": k1_shadow_launches,
             "max_abs_err": occ_err["K1_flagship"],
-            "ms": k1_any_ms,
+            "ms": k1_any_kernel_ms,
             "plain_ms": k1_any_plain_ms,
+            **k1_any_bound,
         },
         {
             "name": "K3 tlas_traverse (TLAS + 4-wide BLAS, nearest and any hit; launches: "
-                    "the config 4 Whitted frame)",
+                    "the config 4 Whitted frame; bound: config 4 primary rays)",
             "route": "cuda",
             "source": "tpu_raytracer_torch/kernels/csrc/tlas_traverse.cu",
             "replaces": "tpu_raytracer/kernels/tlas.py:176",
             "launches": k3_launches,
             "max_abs_err": max(k3_max_abs, occ_err["K3_config4"]),
-            "ms": k3_ms,
+            "ms": k3_kernel_ms,
             "plain_ms": k3_plain_ms,
+            **k3_bound,
         },
+        *paged_kernels,
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def real_tri_rows(scene) -> int:
+    """Triangle records the leaves own: the scene's triangles without the
+    8-aligned leaf padding, which no walk reads."""
+    return int(scene.node_leaf_count[scene.node_child_a < 0].sum())
+
+
+def bound(tag, counters, arity, n_rays, tensors, tri_rows):
+    """The kernel's bound on this run's rays: the larger of its f32
+    operations (from the plain version's visit counters) over the card's
+    f32 rate and its bytes over its memory rate: ``tensors`` (rays, node
+    tables, outputs, each read or written once) and the records of
+    ``tri_rows`` real triangles, at most one per triangle test. Prints
+    the counts."""
+    pops, top, tests = (int(counters[k].sum()) for k in ("pops", "top_pops", "tests"))
+    ops = pops * OPS_POP[arity] + top * OPS_TOP_POP + tests * OPS_TRI
+    ops += n_rays * OPS_RAY
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    nbytes += min(tri_rows, tests) * TRI_REC_BYTES
+    t_ops, t_bytes = ops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    phase("bound", kernel=tag, rays=n_rays, pops=pops, top_pops=top, tests=tests,
+          tri_rows=tri_rows,
+          pops_per_ray=f"{pops / n_rays:.3f}", tests_per_ray=f"{tests / n_rays:.3f}",
+          gflop=f"{ops / 1e9:.4f}", mbytes=f"{nbytes / 1e6:.3f}", ops_ms=f"{t_ops:.6f}",
+          bytes_ms=f"{t_bytes:.6f}", bound_by=by)
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": by, "library_ms": None}
+
+
+def timed(fn):
+    """(result, milliseconds) of one call, CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def brute_unexplained(scene, origin, dirs, hit, brute):
+    """(rays whose t is not within BRUTE_RTOL of the brute cast's, those
+    of them not explained by box culling): the brute cast tests every
+    triangle, so it also finds the hits that lie up to EDGE_EPS outside
+    a triangle and outside its leaf box, which a walk may cull
+    (``traversal.unexplained_differences``)."""
+    from tpu_raytracer_torch.kernels import traversal
+    from tpu_raytracer_torch.render import Hit
+
+    far = ~torch.isclose(hit.t, brute.t, rtol=BRUTE_RTOL, atol=BRUTE_RTOL)
+    sub = lambda h: Hit(*(x[far] for x in h))
+    return int(far.sum()), traversal.unexplained_differences(scene, origin, dirs[far],
+                                                            sub(hit), sub(brute))
+
+
+def paged_phases(dev, card) -> list:
+    """Phases 12-17: the colonnade through the paged kernels; returns
+    their entries of the kernels line."""
+    from tpu_raytracer_torch.app.scenes import scene_colonnade, scene_colonnade_pair
+    from tpu_raytracer_torch.kernels import paged, paged_major, tlas, traversal
+    from tpu_raytracer_torch.render import (
+        Camera, RenderConfig, generate_rays, hit_attributes, render_image, shade_primary,
+    )
+    from tpu_raytracer_torch.render.renderer import cast_rays_brute
+
+    # 12. host build ----------------------------------------------------
+    t0 = time.perf_counter()
+    col, cam = scene_colonnade(1920, 1088, columns=18, segs=40, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide_sc = col.with_paging()
+    wide_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bin_sc = col.with_paging(wide=False)
+    bin_s = time.perf_counter() - t0
+    pw, pb = wide_sc.paged, bin_sc.paged
+    mb = lambda *ts: f"{sum(t.numel() * t.element_size() for t in ts) / 1e6:.2f}"
+    col_rows = real_tri_rows(col)
+    phase("colonnade", triangles=col.num_triangles, real_triangles=col_rows, bvh_nodes=col.node_child_a.shape[0],
+          wide_nodes=col.wide4.wcode.shape[0], wide_depth=col.wide4.depth,
+          host_build_s=f"{build_s:.2f}", paging_wide_s=f"{wide_s:.2f}",
+          paging_binary_s=f"{bin_s:.2f}", pages=pw.num_pages, top_nodes=pw.top_code.shape[0],
+          top_depth=pw.top_depth, page_nodes_wide=pw.code.shape[0], page_depth_wide=pw.depth,
+          page_nodes_binary=pb.code.shape[0], page_depth_binary=pb.depth,
+          tri_rec_mb=mb(col.wide4.tri_rec), k1_tables_mb=mb(col.wide4.wcode, col.wide4.wbox),
+          k4_tables_mb=mb(pw.code, pw.box, pw.top_code, pw.top_box),
+          k5_tables_mb=mb(pb.code, pb.box, pb.top_code, pb.top_box))
+    check(col_rows > 1_000_000, "the colonnade has fewer than 1M triangles")
+    check(build_s < 120, f"the colonnade's host build took {build_s:.1f} s")
+
+    # 13. K4, K5, K6 against their plain versions and K1 ----------------
+    p = cam.ray_params(dev)
+    args = (p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    o, d = generate_rays(cam.width, cam.height, *args)
+    n_rays = d.numel() // 3
+    k1 = traversal.cast_rays_cuda(col, o, d)
+    cases = {
+        "K4": (wide_sc, paged.cast_rays_paged_cuda, paged.cast_rays_paged_torch, 4),
+        "K5": (bin_sc, paged.cast_rays_paged_cuda, paged.cast_rays_paged_torch, 2),
+        "K6": (wide_sc, paged_major.cast_rays_paged_major_cuda,
+               paged_major.cast_rays_paged_major_torch, 4),
+    }
+    res = {}
+    for k, (sc, cast, plain, arity) in cases.items():
+        hk = cast(sc, o, d)
+        torch.cuda.synchronize()
+        (hp, counters), plain_ms = timed(lambda: plain(sc, o, d, stats=True))
+        n_t, max_ulp, max_abs, n_tri, n_inst = compare_hits(hk, hp)
+        t_vs_k1 = int((hk.t.view(torch.int32) != k1.t.view(torch.int32)).sum())
+        tri_vs_k1 = int(((hk.tri != k1.tri) | (hk.inst != k1.inst)).sum())
+        untied_vs_k1 = traversal.unexplained_differences(col, o, d, hk, k1)
+        phase("paged_vs_plain", kernel=k, rays=n_rays, t_bitwise_diff=n_t, max_ulp=max_ulp,
+              tri_diff=n_tri, inst_diff=n_inst, plain_ms=f"{plain_ms:.2f}", t_bitwise_diff_vs_k1=t_vs_k1,
+              tri_or_inst_diff_vs_k1=tri_vs_k1, unexplained_vs_k1=untied_vs_k1,
+              hit_fraction=f"{float((hk.tri >= 0).float().mean()):.4f}")
+        check(n_t == 0 and n_tri == 0 and n_inst == 0, f"{k} differs from its plain version")
+        check(untied_vs_k1 == 0, f"{k} differs from K1 on the unpaged scene for another "
+              "reason than the order of box tests (traversal.unexplained_differences)")
+        check(t_vs_k1 <= ORDER_DIFFS_MAX * n_rays, f"{k}'s t differs from K1's on {t_vs_k1} rays")
+        pg = sc.paged
+        tables = (pg.code, pg.box, pg.node_base, pg.page_tri0)
+        if k != "K6":
+            tables += (pg.top_code, pg.top_box)
+        res[k] = {"hit": hp, "max_abs": max_abs, "plain_ms": plain_ms,
+                  "bound": bound(k, counters, arity, n_rays, (o, d, *tables, *hk), col_rows)}
+    _, k1_counters = traversal.cast_rays_wide_torch(col, o, d, stats=True)
+    bound("K1 on the colonnade", k1_counters, 4, n_rays,
+          (o, d, col.wide4.wcode, col.wide4.wbox, *k1), col_rows)
+
+    # 14. 192 sampled rays against the brute cast -----------------------
+    cam512 = Camera.looking(512, 512, fov_deg=65.0, pose=cam.pose)  # scene_colonnade's camera
+    p512 = cam512.ray_params(dev)
+    args512 = (p512["K_inv"], p512["D"], p512["pose"], p512["inv_pose"])
+    o512, d512 = generate_rays(512, 512, *args512)
+    rng = np.random.default_rng(0)
+    ys = rng.integers(0, 512, 192)
+    xs = rng.integers(0, 512, 192)
+    ys[:64] = 256  # degenerate axis-aligned rays
+    xs[64:128] = 256
+    sample = d512[torch.from_numpy(ys).to(dev), torch.from_numpy(xs).to(dev)]
+    brute = cast_rays_brute(col, o512, sample, tri_chunk=1 << 16)
+    for k, (sc, cast, _, _) in cases.items():
+        h = cast(sc, o512, sample)
+        far = brute_unexplained(col, o512, sample, h, brute)
+        phase("brute_sample", kernel=k, rays=192, t_not_close=far[0], unexplained=far[1],
+              tri_diffs=int((h.tri != brute.tri).sum()), hits=int((brute.tri >= 0).sum()))
+        check(far[1] == 0, f"{k} t differs from the brute cast on the 192-ray sample")
+
+    # 15. K6 on the two-instance colonnade ------------------------------
+    t0 = time.perf_counter()
+    pair, pcam = scene_colonnade_pair(512, 512, device=dev)
+    pair = pair.with_paging()
+    pair_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    for view, pose in (("recipe", pcam.pose), ("aerial", PAIR_AERIAL_POSE)):
+        pp = Camera.looking(512, 512, fov_deg=65.0, pose=pose).ray_params(dev)
+        po, pd = generate_rays(512, 512, pp["K_inv"], pp["D"], pp["pose"], pp["inv_pose"])
+        hk6 = paged_major.cast_rays_paged_major_cuda(pair, po, pd)
+        hp6 = paged_major.cast_rays_paged_major_torch(pair, po, pd)
+        hl = traversal.cast_rays_cuda(pair, po, pd)  # K1: every instance in turn
+        torch.cuda.synchronize()
+        n_t, _, pair_abs, n_tri, n_inst = compare_hits(hk6, hp6)
+        t_vs_k1 = int((hk6.t.view(torch.int32) != hl.t.view(torch.int32)).sum())
+        untied_vs_k1 = traversal.unexplained_differences(pair, po, pd, hk6, hl)
+        _, _, mask = paged_major.page_major_plan(pair, *paged_major._tile_rays(po, pd)[1:])
+        ys = torch.from_numpy(rng.integers(0, 512, 96)).to(dev)
+        xs = torch.from_numpy(rng.integers(0, 512, 96)).to(dev)
+        sample = pd[ys, xs]
+        hs = paged_major.cast_rays_paged_major_cuda(pair, po, sample)
+        bs = cast_rays_brute(pair, po, sample, tri_chunk=1 << 16)
+        far = brute_unexplained(pair, po, sample, hs, bs)
+        hits = {i: int((hk6.inst == i).sum()) for i in range(pair.num_instances)}
+        phase("k6_pair", view=view, triangles=pair.num_triangles,
+              instances=pair.num_instances, build_s=f"{pair_s:.2f}",
+              items_streamed=mask.shape[0], item_grid=pair.num_instances * pair.paged.num_pages,
+              t_bitwise_diff=n_t, tri_diff=n_tri, inst_diff=n_inst,
+              t_bitwise_diff_vs_k1=t_vs_k1, unexplained_vs_k1=untied_vs_k1,
+              hits_per_instance=hits, sample_t_not_close=far[0], sample_unexplained=far[1],
+              sample_inst_diffs=int((hs.inst != bs.inst).sum()))
+        check(n_t == 0 and n_tri == 0 and n_inst == 0,
+              f"K6 differs from its plain version (pair, {view} camera)")
+        check(untied_vs_k1 == 0 and t_vs_k1 <= ORDER_DIFFS_MAX * pd.numel() // 3,
+              "K6 differs from K1 on the two-instance colonnade beyond the order of box tests")
+        check(far[1] == 0, f"K6 t differs from the brute cast on the pair's {view} sample")
+        res["K6"]["max_abs"] = max(res["K6"]["max_abs"], pair_abs)
+    check(min(hits.values()) > 0, "the aerial camera did not hit both instances")
+
+    # 16. the paged main paths ------------------------------------------
+    def reset():
+        traversal.LAUNCHES = tlas.LAUNCHES = 0
+        paged.LAUNCHES_K4 = paged.LAUNCHES_K5 = paged_major.LAUNCHES = 0
+
+    def counts():
+        return {"K1": traversal.LAUNCHES, "K3": tlas.LAUNCHES, "K4": paged.LAUNCHES_K4,
+                "K5": paged.LAUNCHES_K5, "K6": paged_major.LAUNCHES}
+
+    img_k1 = render_image(RenderConfig(1920, 1088, backend="cuda"), col, *args)
+    frames = {}
+    for k, backend in (("K4", "paged"), ("K5", "paged"), ("K6", "paged_major")):
+        sc = cases[k][0]
+        config = RenderConfig(1920, 1088, backend=backend)
+        reset()
+        img = render_image(config, sc, *args)
+        torch.cuda.synchronize()
+        n = counts()
+        img_plain = shade_primary(sc, hit_attributes(sc, o, d, res[k]["hit"]))
+        n_img = int((img != img_plain).any(-1).sum())
+        phase("paged_main_path", kernel=k, backend=backend, launches=n,
+              pixels_vs_plain=n_img, pixels_vs_cuda_backend=int((img != img_k1).any(-1).sum()))
+        check(n[k] == 1 and sum(n.values()) == 1, f"the {backend} frame did not launch {k} once")
+        check(n_img == 0, f"{n_img} pixels of the {backend} frame differ from the plain casts'")
+        res[k]["launches"] = n[k]
+        frames[k] = lambda config=config, sc=sc: render_image(config, sc, *args)
+
+    # 17. times ---------------------------------------------------------
+    casts = {"K1": (col, traversal.cast_rays_cuda)}
+    casts.update({k: (sc, cast) for k, (sc, cast, _, _) in cases.items()})
+    kernel_names = {"K1": "wide_traverse_kernel", "K4": "paged_kernel", "K5": "paged_kernel",
+                    "K6": "paged_major_kernel"}
+    out = {}
+    for size, (ro, rd) in (("512", (o512, d512)), ("1920x1088", (o, d))):
+        for k, (sc, cast) in casts.items():
+            fn = lambda sc=sc, cast=cast: cast(sc, ro, rd)
+            fn()
+            out[f"{k}_{size}_ms"] = min(event_ms(fn, 10) for _ in range(5))
+            out[f"{k}_{size}_kernel_ms"] = device_ms(fn, kernel_names[k])
+    wo, wd = paged_major._tile_rays(o, d)[1:]
+    plan = lambda: paged_major.page_major_plan(wide_sc, wo, wd)
+    plan()
+    out["K6_plan_1920x1088_ms"] = min(event_ms(plan, 10) for _ in range(3))
+    frames["K1"] = lambda: render_image(RenderConfig(1920, 1088), col, *args)
+    for k, fn in frames.items():
+        fn()
+        best, median = best_and_median_ms(fn, loops=3, n=5)
+        out[f"frame_{k}_best_ms"], out[f"frame_{k}_median_ms"] = best, median
+    phase("paged_time", card=repr(card), **{k: f"{v:.4f}" for k, v in out.items()})
+
+    names = {
+        "K4": ("K4 paged_traverse, 4-wide pages (launches: the colonnade frame through "
+               "the paged backend; ms: the kernel, 1920x1088 rays)", "tpu_raytracer/kernels/paged_wide.py:242"),
+        "K5": ("K5 paged_traverse, binary pages (launches: the colonnade frame through "
+               "the paged backend on binary tables; ms: the kernel, 1920x1088 rays)",
+               "tpu_raytracer/kernels/paged.py:106"),
+        "K6": ("K6 paged_major (launches: the colonnade frame through the paged_major "
+               "backend; ms: the kernel, 1920x1088 rays)",
+               "tpu_raytracer/kernels/paged_major.py:130"),
+    }
+    src = {"K4": "paged_traverse.cu", "K5": "paged_traverse.cu", "K6": "paged_major.cu"}
+    return [{
+        "name": names[k][0],
+        "route": "cuda",
+        "source": f"tpu_raytracer_torch/kernels/csrc/{src[k]}",
+        "replaces": names[k][1],
+        "launches": res[k]["launches"],
+        "max_abs_err": res[k]["max_abs"],
+        "ms": out[f"{k}_1920x1088_kernel_ms"],
+        "plain_ms": res[k]["plain_ms"],
+        **res[k]["bound"],
+    } for k in ("K4", "K5", "K6")]
 
 
 def _plain_router(traversal, tlas):

@@ -35,7 +35,7 @@ torch.set_num_threads(1)
 
 
 def port_scene(name):
-    return from_scene_arrays(jax_fields(compiled(name, "jax")[0]))
+    return from_scene_arrays(jax_fields(compiled(name, "jax")[0]), device="cpu")
 
 
 def port_rays(name):

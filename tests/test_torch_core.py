@@ -120,7 +120,7 @@ def test_generate_rays_matches_jax(w, h, fov, pose, exact):
     jc = jcam.Camera.looking(w, h, fov_deg=fov, pose=pose)
     pc = pcam.Camera.looking(w, h, fov_deg=fov, pose=pose)
     close(pc.K_inv, jc.K_inv)
-    jp, pp = jc.ray_params(), pc.ray_params()
+    jp, pp = jc.ray_params(), pc.ray_params(device="cpu")
     jo, jd = jcam.generate_rays(w, h, jp["K_inv"], jp["D"], jp["pose"], jp["inv_pose"],
                                 exact=exact)
     po, pd = pcam.generate_rays(w, h, pp["K_inv"], pp["D"], pp["pose"], pp["inv_pose"],
@@ -137,7 +137,7 @@ def test_generate_rays_fisheye_calibration_matches_jax():
     np.testing.assert_array_equal(pD, D)
     jc = jcam.Camera(96, 54, K, D, pose=[0, -3, 0.2, 0.1, 0, 0])
     pc = pcam.Camera(96, 54, pK, pD, pose=[0, -3, 0.2, 0.1, 0, 0])
-    jp, pp = jc.ray_params(), pc.ray_params()
+    jp, pp = jc.ray_params(), pc.ray_params(device="cpu")
     _, jd = jcam.generate_rays(96, 54, jp["K_inv"], jp["D"], jp["pose"], jp["inv_pose"])
     _, pd = pcam.generate_rays(96, 54, pp["K_inv"], pp["D"], pp["pose"], pp["inv_pose"])
     close(pd, jd, rtol=0.0, atol=1e-6)

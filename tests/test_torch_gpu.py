@@ -1,4 +1,5 @@
-"""Kernels K1 and K3 on a CUDA card against their plain PyTorch versions.
+"""Kernels K1, K3 and K4-K6 on a CUDA card against their plain PyTorch
+versions.
 
 Marked ``gpu``: every test skips without a card. On a machine with one
 (and no JAX), run from the repository root with
@@ -6,8 +7,8 @@ Marked ``gpu``: every test skips without a card. On a machine with one
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 (``--noconftest``: tests/conftest.py configures JAX, which this file
-does not use). K1 and K3 are built with --fmad=false, so they must equal
-their plain versions bit for bit; their any-hit answers must equal the
+does not use). The kernels are built with --fmad=false, so they must
+equal their plain versions bit for bit; their any-hit answers must equal the
 nearest-hit casts' blocked/clear answers. The cube must equal its exact
 CPU golden; the config 4 Whitted image may differ from its CPU golden in
 at most 4 pixels, since PyTorch's CUDA rsqrt and pow need not round as
@@ -20,9 +21,11 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_raytracer_torch.app.scenes import scene_cube, scene_instances
+from tpu_raytracer_torch.app.scenes import (
+    scene_colonnade, scene_colonnade_pair, scene_cube, scene_instances,
+)
 from tpu_raytracer_torch.core.vecmath import FLT_MAX, normalize
-from tpu_raytracer_torch.kernels import tlas, traversal
+from tpu_raytracer_torch.kernels import paged, paged_major, tlas, traversal
 from tpu_raytracer_torch.render import (
     Camera, RenderConfig, generate_rays, hit_attributes, render, render_image_whitted,
 )
@@ -150,3 +153,50 @@ def test_config4_whitted_within_four_pixels_of_cpu_golden(cuda):
     assert tlas.LAUNCHES >= before + 3
     golden = np.load(os.path.join(GOLDEN_DIR, "config4_instances_whitted_64.npy"))
     assert (img.cpu().numpy() != golden).any(-1).sum() <= 4
+
+
+PAGED = {
+    "K4": (True, paged.cast_rays_paged_cuda, paged.cast_rays_paged_torch),
+    "K5": (False, paged.cast_rays_paged_cuda, paged.cast_rays_paged_torch),
+    "K6": (True, paged_major.cast_rays_paged_major_cuda, paged_major.cast_rays_paged_major_torch),
+}
+
+
+def _launches():
+    return {"K4": paged.LAUNCHES_K4, "K5": paged.LAUNCHES_K5, "K6": paged_major.LAUNCHES}
+
+
+@pytest.mark.parametrize("which", ["colonnade", "pair"])
+@pytest.mark.parametrize("kernel", sorted(PAGED))
+def test_paged_kernels_match_plain_versions_bitwise(cuda, kernel, which):
+    wide, cast, plain = PAGED[kernel]
+    if which == "colonnade":
+        scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
+    else:
+        scene, cam = scene_colonnade_pair(96, 64, columns=3, segs=8, device=cuda)
+    scene = scene.with_paging(page_tris=512, page_nodes=256, wide=wide)
+    o, d = _rays(cam, cuda)
+    refl, _ = _secondary_rays(scene, o, d, traversal.cast_rays_cuda(scene, o, d))
+    for ro, rd in ((o, d), refl):
+        before = _launches()[kernel]
+        got = cast(scene, ro, rd)
+        torch.cuda.synchronize()
+        assert _launches()[kernel] == before + 1
+        want = plain(scene, ro, rd)
+        assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
+        assert torch.equal(got.tri, want.tri) and torch.equal(got.inst, want.inst)
+        k1 = traversal.cast_rays_cuda(scene, ro, rd)
+        assert traversal.unexplained_differences(scene, ro, rd, got, k1) == 0
+    assert (got.tri >= 0).any()
+
+
+@pytest.mark.parametrize("backend", ["paged", "paged_major"])
+def test_colonnade_renders_through_paged_backends_as_through_cuda(cuda, backend):
+    scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
+    p = cam.ray_params(cuda)
+    args = (p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    from tpu_raytracer_torch.render import render_image
+
+    want = render_image(RenderConfig(128, 96), scene, *args)
+    got = render_image(RenderConfig(128, 96, backend=backend), scene.with_paging(), *args)
+    assert torch.equal(got, want)

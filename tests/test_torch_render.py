@@ -43,7 +43,7 @@ def test_render_matches_cpu_golden(recipe, golden, backend):
 
 
 def test_app_scene_cube_is_config1():
-    scene, cam = port_scenes.scene_cube(64)
+    scene, cam = port_scenes.scene_cube(64, device="cpu")
     img = render(cam, scene)
     np.testing.assert_array_equal(
         img.numpy(), np.load(os.path.join(GOLDEN_DIR, "config1_cube_64.npy")))
@@ -57,7 +57,7 @@ def test_flagship_mesh_matches_jax_bvh_render():
     p = jcam.ray_params()
     want = np.asarray(jr.render_image(jr.RenderConfig(64, 64, backend="bvh"), ja,
                                       p["K_inv"], p["D"], p["pose"], p["inv_pose"]))
-    q = pcam.ray_params()
+    q = pcam.ray_params(device="cpu")
     got = render_image(RenderConfig(64, 64, backend="cuda"), pa,
                        q["K_inv"], q["D"], q["pose"], q["inv_pose"])
     np.testing.assert_array_equal(got.numpy(), want)
@@ -71,7 +71,7 @@ def test_render_runs_without_jax(tmp_path):
         "import numpy as np\n"
         "from tpu_raytracer_torch.app.scenes import scene_cube\n"
         "from tpu_raytracer_torch.render import render\n"
-        "scene, cam = scene_cube(64)\n"
+        "scene, cam = scene_cube(64, device='cpu')\n"
         "img = render(cam, scene, backend='cuda').numpy()\n"
         f"assert (img == np.load({os.path.join(GOLDEN_DIR, 'config1_cube_64.npy')!r})).all()\n"
         "assert sys.modules['jax'] is None\n"
@@ -105,4 +105,4 @@ def test_unported_routes_raise():
     fields = scene.numpy_fields()
     fields["tri_vnorm"] = np.zeros((scene.num_triangles, 10), np.float32)
     with pytest.raises(NotImplementedError, match="vertex-normal"):
-        from_scene_arrays(fields)
+        from_scene_arrays(fields, device="cpu")

@@ -68,7 +68,7 @@ def scene_and_rays(name):
     p = cam.ray_params()
     o, d = jax_generate_rays(cam.width, cam.height, p["K_inv"], p["D"], p["pose"],
                              p["inv_pose"])
-    return (from_scene_arrays(jax_fields(ja)), torch.from_numpy(np.array(o)),
+    return (from_scene_arrays(jax_fields(ja), device="cpu"), torch.from_numpy(np.array(o)),
             torch.from_numpy(np.array(d)))
 
 

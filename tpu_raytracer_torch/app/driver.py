@@ -4,13 +4,16 @@ in its primary and Whitted modes).
 
     python -m tpu_raytracer_torch.app.driver --scene demo --frames 10
     python -m tpu_raytracer_torch.app.driver --scene instances --mode whitted
+    python -m tpu_raytracer_torch.app.driver --scene colonnade --backend paged
 
 Frames render on ``--device`` (default ``cuda``; ``cpu`` runs the
-kernels' plain versions). The default ``demo`` scene is the reference
-app's: a textured cube and board under the reference fisheye calibration
-at 1920x1088, with the cube (instance 0) spinning through
-``update_instance`` every frame. The FPS text overlay of the JAX driver
-is not ported.
+kernels' plain versions) through ``--backend``: ``cuda`` (K1/K3),
+``paged`` (K4), ``paged_major`` (K6) or ``brute``; the paged backends
+attach the scene's page tables once, before the first frame. The
+default ``demo`` scene is the reference app's: a textured cube and
+board under the reference fisheye calibration at 1920x1088, with the
+cube (instance 0) spinning through ``update_instance`` every frame. The
+FPS text overlay of the JAX driver is not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from ..render import Camera, RenderConfig, reference_calibration, render_image
 from ..render.pipeline import render_image_whitted
+from ..render.renderer import BACKENDS
 from ..scene import MeshInstance
 from ..utils import save_png
 from .scenes import SCENES, build_demo_scene
@@ -32,15 +36,13 @@ MODES = {"primary": render_image, "whitted": render_image_whitted}
 
 def run(scene_name: str = "demo", width: int = 1920, height: int = 1088,
         frames: int = 10, out: str = "out.png", device: str = "cuda",
-        mode: str = "primary", lighting: str = "flat", animate: bool = True):
+        mode: str = "primary", lighting: str = "flat", animate: bool = True,
+        backend: str = "cuda"):
     """Render ``frames`` frames, printing FPS and Mrays/s per frame;
     returns the last frame as a host uint8 tensor. ``animate`` spins the
     demo's cube."""
     if mode in ("path", "ao"):
         raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP item 12)")
-    if scene_name == "colonnade":
-        raise NotImplementedError("the colonnade (config 5) is not ported yet "
-                                  "(ROADMAP items 12 and 14)")
     render_fn = MODES[mode]
     if scene_name == "demo":
         scene = build_demo_scene().compile(device)
@@ -54,7 +56,9 @@ def run(scene_name: str = "demo", width: int = 1920, height: int = 1088,
         scene, camera = SCENES[scene_name](min(width, height), device=device)
     else:
         scene, camera = SCENES[scene_name](width, height, device=device)
-    config = RenderConfig(camera.width, camera.height, backend="cuda", lighting=lighting)
+    if backend in ("paged", "paged_major"):
+        scene = scene.with_paging()
+    config = RenderConfig(camera.width, camera.height, backend=backend, lighting=lighting)
     p = camera.ray_params(scene.device)
     cuda = scene.device.type == "cuda"
     angle = 0.0
@@ -81,6 +85,7 @@ def main():
     ap = argparse.ArgumentParser(description="tpu_raytracer_torch demo app")
     ap.add_argument("--scene", default="demo", choices=["demo", *SCENES])
     ap.add_argument("--mode", default="primary", choices=list(MODES))
+    ap.add_argument("--backend", default="cuda", choices=list(BACKENDS))
     ap.add_argument("--lighting", default="flat",
                     choices=["flat", "lambert", "lambert_shadow", "blinn_phong"])
     ap.add_argument("--width", type=int, default=1920)
@@ -92,7 +97,7 @@ def main():
     args = ap.parse_args()
     run(scene_name=args.scene, width=args.width, height=args.height, frames=args.frames,
         out=args.out, device=args.device, mode=args.mode, lighting=args.lighting,
-        animate=not args.no_animate)
+        animate=not args.no_animate, backend=args.backend)
 
 
 if __name__ == "__main__":

@@ -8,9 +8,11 @@
 | 3 | 82k-triangle displaced blob, 1080p | scene_bunny |
 | 4 | posed, scaled instances + Whitted reflections | scene_instances |
 |   | 16 instances, the TLAS scene | scene_instances16 |
+| 5 | the colonnade: ~1.04M triangles at 18x18 columns, 40 segments | scene_colonnade |
+|   | two posed instances of that colonnade, the page-major scene | scene_colonnade_pair |
 
-The colonnade (config 5) waits for path tracing and the paged kernels
-(ROADMAP items 12 and 14); flattening static instances waits for item 15.
+Path tracing on the colonnade waits for ROADMAP item 12; flattening
+static instances waits for item 15.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from ..render import Camera
 from ..scene import Material, MeshInstance, MeshPrimitive, Scene, objloader, procgen
 
 
-def scene_cube(size: int = 256, device="cpu"):
+def scene_cube(size: int = 256, device="cuda"):
     scene = Scene()
     mat = Material()
     mat.set_texture(procgen.checkerboard_texture(128, 8))
@@ -32,7 +34,7 @@ def scene_cube(size: int = 256, device="cpu"):
     return scene.compile(device), cam
 
 
-def scene_cornell(size: int = 512, mirror: bool = False, device="cpu"):
+def scene_cornell(size: int = 512, mirror: bool = False, device="cuda"):
     """Config 2: five walls and a cube, six instances."""
     scene = Scene()
     white = scene.add_material(Material(albedo=(0.9, 0.9, 0.9)))
@@ -53,7 +55,7 @@ def scene_cornell(size: int = 512, mirror: bool = False, device="cpu"):
 
 
 def scene_bunny(width: int = 1920, height: int = 1088, subdivisions: int = 6,
-                device="cpu"):
+                device="cuda"):
     scene = Scene()
     scene.add_material(Material(albedo=(0.8, 0.3, 0.2)))
     v0, v1, v2 = procgen.blob(subdivisions=subdivisions)
@@ -64,7 +66,7 @@ def scene_bunny(width: int = 1920, height: int = 1088, subdivisions: int = 6,
     return scene.compile(device), cam
 
 
-def scene_instances(width: int = 512, height: int = 512, device="cpu"):
+def scene_instances(width: int = 512, height: int = 512, device="cuda"):
     """Config 4: a textured floor board, a mirror sphere, a scaled cube
     and a small sphere — four posed instances."""
     scene = Scene()
@@ -97,7 +99,7 @@ def scene_instances(width: int = 512, height: int = 512, device="cpu"):
     return scene.compile(device), cam
 
 
-def scene_instances16(width: int = 512, height: int = 512, n: int = 16, device="cpu"):
+def scene_instances16(width: int = 512, height: int = 512, n: int = 16, device="cuda"):
     """16 posed, scaled instances of a cube and a sphere in a grid: the
     TLAS scene."""
     scene = Scene()
@@ -118,6 +120,39 @@ def scene_instances16(width: int = 512, height: int = 512, n: int = 16, device="
         inst.scale = np.full(3, rng.uniform(0.7, 1.1), np.float32)
         scene.add_mesh_instance(inst)
     cam = Camera.looking(width, height, fov_deg=75.0, pose=[0, -8.0, 0.0, 0, 0, 0])
+    return scene.compile(device), cam
+
+
+def scene_colonnade(width: int = 1024, height: int = 1024, columns: int = 10,
+                    segs: int = 32, device="cuda"):
+    """Config 5: a Sponza-class hall of columns; ``columns=18, segs=40``
+    is the ~1.04M-triangle scene of the paged path
+    (``tpu_raytracer/app/scenes.py:scene_colonnade``)."""
+    scene = Scene()
+    scene.add_material(Material(albedo=(0.85, 0.8, 0.75)))
+    v0, v1, v2 = procgen.colonnade(columns, columns, segs)
+    scene.add_mesh(MeshPrimitive.from_triangles(v0, v1, v2))
+    scene.add_mesh_instance(MeshInstance(0, 0))
+    cam = Camera.looking(width, height, fov_deg=65.0, pose=[1.0, -2.0, 1.6, 0, 0, 0])
+    return scene.compile(device), cam
+
+
+def scene_colonnade_pair(width: int = 512, height: int = 512, columns: int = 18,
+                         segs: int = 40, device="cuda"):
+    """Two instances of the colonnade mesh, the second posed and scaled:
+    the two-instance page-major scene of the JAX package's
+    ``bench_paged.py:instanced_page_major`` (which builds its mesh with
+    ``segs=40`` at any column count)."""
+    scene = Scene()
+    scene.add_material(Material(albedo=(0.85, 0.8, 0.75)))
+    v0, v1, v2 = procgen.colonnade(columns, columns, segs)
+    scene.add_mesh(MeshPrimitive.from_triangles(v0, v1, v2))
+    b = MeshInstance(0, 0)
+    b.pose = np.array([3.0, 40.0, 0.0, 0.0, 0.0, 0.6], np.float32)
+    b.scale = np.array([0.9, 1.1, 0.8], np.float32)
+    scene.add_mesh_instance(MeshInstance(0, 0))
+    scene.add_mesh_instance(b)
+    cam = Camera.looking(width, height, fov_deg=65.0, pose=[1.0, -2.0, 1.6, 0, 0, 0])
     return scene.compile(device), cam
 
 
@@ -152,4 +187,5 @@ SCENES = {
     "bunny": scene_bunny,
     "instances": scene_instances,
     "instances16": scene_instances16,
+    "colonnade": scene_colonnade,
 }

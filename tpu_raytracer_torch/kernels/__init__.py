@@ -4,7 +4,12 @@
 |---|---|---|---|
 | K1 4-wide BVH traversal, nearest and any hit | ``kernels/dual.py:_dual_kernel`` (+ ``traversal.py:make_test_tri``) | ``csrc/wide_traverse.cu``, ``csrc/wide_traverse.cuh`` | ``traversal.cast_rays_cuda`` / ``traversal.cast_rays_wide_torch`` |
 | K3 TLAS + 4-wide BLAS traversal, nearest and any hit | ``kernels/tlas.py:_tlas_kernel`` | ``csrc/tlas_traverse.cu``, ``csrc/tlas_traverse.cuh`` | ``tlas.cast_rays_tlas_cuda`` / ``tlas.cast_rays_tlas_torch`` |
+| K4 paged traversal, 4-wide pages | ``kernels/paged_wide.py:_paged_wide_kernel`` | ``csrc/paged_traverse.cu``, ``csrc/paged_traverse.cuh`` | ``paged.cast_rays_paged_cuda`` / ``paged.cast_rays_paged_torch`` |
+| K5 paged traversal, binary pages (K4's arity-2 case) | ``kernels/paged.py:_paged_kernel`` | ``csrc/paged_traverse.cu``, ``csrc/paged_traverse.cuh`` | as K4, on binary tables |
+| K6 page-major paged traversal | ``kernels/paged_major.py:_page_major_kernel`` | ``csrc/paged_major.cu``, ``csrc/paged_traverse.cuh`` | ``paged_major.cast_rays_paged_major_cuda`` / ``paged_major.cast_rays_paged_major_torch`` |
 
-Both are built into one library by one nvcc command (``build.py``).
-The other TPU kernels (K2, K4-K6 in ROADMAP.md) are not ported yet.
+All are built into one library, one nvcc per source (``build.py``). K2,
+the single-packet binary kernel, is not ported yet (ROADMAP Queue 2):
+it is ``walk_tree<2>`` of ``csrc/wide_traverse.cuh`` over a whole
+binary tree.
 """

@@ -1,9 +1,12 @@
-"""Build and load the hand-written kernels from ``kernels/csrc``.
+"""Build and load the hand-written kernels from ``kernels/csrc`` and the
+native BVH builder from ``accel/csrc``.
 
-The CUDA sources of K1 and K3 are compiled with one ``nvcc`` command for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds). The host
-build of the same traversal headers (``g++``) serves the CPU tests. Libraries go to
+The CUDA sources of K1, K3, K4/K5 and K6 are compiled for ``sm_90a`` by
+one ``nvcc`` process per source, all started together, and linked into
+one shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds). The host build of the same
+traversal headers (``g++``) serves the CPU tests, and the BVH builder
+(``accel/csrc/bvh_builder.cpp``) is a ``g++`` build too. Libraries go to
 ``kernels/_build/<name>-<hash>/``, keyed by a hash of the sources and
 flags, built at first use; the directory is listed in ``.gitignore``.
 Every failure raises: nothing falls back to another build.
@@ -20,13 +23,19 @@ import subprocess
 import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BVH_CSRC = pathlib.Path(__file__).resolve().parent.parent / "accel" / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
 
+CUDA_SOURCES = ("wide_traverse.cu", "tlas_traverse.cu", "paged_traverse.cu", "paged_major.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
+NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 GXX_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
+# the BVH builder's f32 arithmetic must match the numpy builder bit for
+# bit: no FMA contraction (native/Makefile of the JAX package)
+BVH_GXX_FLAGS = ("-O3", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
 
 
 def find_nvcc() -> str:
@@ -37,12 +46,27 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _build(name: str, compiler: str, flags: tuple, sources: tuple) -> pathlib.Path:
-    """Compile ``csrc/<sources>`` into ``lib<name>.so`` unless a build of
-    the same sources and flags exists; returns the library path. The
-    compiler's output is kept beside the library as ``build.log``."""
-    h = hashlib.sha256(" ".join((compiler,) + flags).encode())
-    for f in sorted(CSRC.iterdir()):
+def _run(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands concurrently; returns their results in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    out = []
+    for c, p in zip(cmds, procs):
+        stdout, _ = p.communicate(timeout=600)
+        out.append(subprocess.CompletedProcess(c, p.returncode, stdout, ""))
+    return out
+
+
+def _build(name: str, compiler: str, flags: tuple, sources: tuple,
+           src_dir: pathlib.Path = CSRC, link_flags: tuple | None = None) -> pathlib.Path:
+    """Compile ``src_dir/<sources>`` into ``lib<name>.so`` unless a build
+    of the same sources and flags exists; returns the library path. With
+    ``link_flags`` each source is compiled to an object by its own
+    process, all at once, and the objects are linked with those flags;
+    without, one command builds the library. Every command and the
+    compiler's output are kept beside the library as ``build.log``."""
+    h = hashlib.sha256(" ".join((compiler,) + flags + (link_flags or ())).encode())
+    for f in sorted(src_dir.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     out_dir = BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}"
@@ -51,11 +75,23 @@ def _build(name: str, compiler: str, flags: tuple, sources: tuple) -> pathlib.Pa
         return lib
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     tmp = pathlib.Path(tempfile.mkdtemp(prefix=f"{name}-", dir=BUILD_ROOT))
-    cmd = [compiler, *flags, "-o", str(tmp / lib.name), *(str(CSRC / s) for s in sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    (tmp / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {' '.join(sources)} failed:\n{proc.stdout}{proc.stderr}")
+    if link_flags is None:
+        steps = [[[compiler, *flags, "-o", str(tmp / lib.name),
+                   *(str(src_dir / s) for s in sources)]]]
+    else:
+        objs = [str(tmp / (s + ".o")) for s in sources]
+        steps = [[[compiler, *flags, "-c", "-o", o, str(src_dir / s)]
+                  for s, o in zip(sources, objs)],
+                 [[compiler, *link_flags, "-o", str(tmp / lib.name), *objs]]]
+    log = []
+    for cmds in steps:
+        for proc in _run(cmds):
+            log.append(" ".join(proc.args) + "\n" + proc.stdout)
+            if proc.returncode != 0:
+                (tmp / "build.log").write_text("".join(log))
+                raise RuntimeError(f"building lib{name}.so failed:\n{' '.join(proc.args)}\n"
+                                   f"{proc.stdout}")
+    (tmp / "build.log").write_text("".join(log))
     try:
         tmp.rename(out_dir)
     except OSError:  # a concurrent build finished first; use its library
@@ -68,33 +104,57 @@ def build_log(lib: pathlib.Path) -> str:
 
 
 def build_cuda() -> pathlib.Path:
-    """One nvcc build of K1 (``csrc/wide_traverse.cu``) and K3
-    (``csrc/tlas_traverse.cu``) for sm_90a."""
-    return _build("traverse", find_nvcc(), NVCC_FLAGS,
-                  ("wide_traverse.cu", "tlas_traverse.cu"))
+    """The kernels K1, K3, K4/K5 and K6 for sm_90a: one nvcc per source,
+    started together, linked into ``libtraverse.so``."""
+    return _build("traverse", find_nvcc(), NVCC_FLAGS, CUDA_SOURCES,
+                  link_flags=NVCC_LINK_FLAGS)
 
 
-def build_host() -> pathlib.Path:
-    """g++ build of the K1 and K3 traversal headers for the CPU tests."""
+def _gxx() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
-    return _build("traverse_host", gxx, GXX_FLAGS, ("traverse_host.cpp",))
+    return gxx
+
+
+def build_host() -> pathlib.Path:
+    """g++ build of the kernels' traversal headers for the CPU tests."""
+    return _build("traverse_host", _gxx(), GXX_FLAGS, ("traverse_host.cpp",))
+
+
+def build_bvh_builder() -> pathlib.Path:
+    """g++ build of the native BVH builder (``accel/csrc``)."""
+    return _build("bvh_builder", _gxx(), BVH_GXX_FLAGS, ("bvh_builder.cpp",),
+                  src_dir=BVH_CSRC)
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_I64 = ctypes.c_int64
 # wcode, wbox, tri_rec, inst_tab, inst_root, num_instances
 _SCENE_ARGS = [_P, _P, _P, _P, _P, _I]
 # origin, origin_stride, dirs, num_rays, occlusion, t_out, tri_out, inst_out
-_RAY_ARGS = [_P, _I, _P, ctypes.c_int64, _I, _P, _P, _P]
+_RAY_ARGS = [_P, _I, _P, _I64, _I, _P, _P, _P]
 # tlas code, box, inst_ids
 _TLAS_ARGS = [_P, _P, _P]
+# arity, page code, page box, page_node_base, page_tri0, tri_rec, inst_tab,
+# num_instances
+_PAGE_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I]
+# top_code, top_box, inst_top_root
+_TOP_ARGS = [_P, _P, _P]
+# item_pid, item_iid, num_items, mask, num_tiles
+_PLAN_ARGS = [_P, _P, _I, _P, _I]
+# origin, origin_stride, dirs, num_rays, t_out, tri_out, inst_out
+_NEAREST_RAY_ARGS = [_P, _I, _P, _I64, _P, _P, _P]
 _ENTRY_ARGS = {
     "cuda": {"wt_launch": _SCENE_ARGS + _RAY_ARGS + [_P],  # + stream
-             "tlas_launch": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_P]},
+             "tlas_launch": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_P],
+             "paged_launch": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS + [_P],
+             "paged_major_launch": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS + [_P]},
     "host": {"wt_trace_host": _SCENE_ARGS + _RAY_ARGS,
-             "tlas_trace_host": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS},
+             "tlas_trace_host": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS,
+             "paged_trace_host": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS,
+             "paged_major_trace_host": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -146,14 +146,13 @@ WT_HD bool test_tri(const float* r, const float* o, const float* d,
   return ok;
 }
 
-// Walk instance `i` for one world ray, updating `best`. In any-hit mode
-// it returns at the first accepted triangle.
-WT_HD void walk_instance(const Scene& s, int i, const float* wo,
-                         const float* wd, bool any_hit, Hit* best) {
-  const float* q = s.inst_tab + 12 * i;
+// Object-space ray of the instance whose 12-float row is `q`
+// (quaternion wxyz, position, inverse scale): direction d, origin o and
+// the safe reciprocal direction inv.
+WT_HD void object_ray(const float* q, const float* wo, const float* wd,
+                      float* o, float* d, float* inv) {
   const float px = q[4], py = q[5], pz = q[6];
   const float sx = q[7], sy = q[8], sz = q[9];
-  float d[3], o[3], inv[3];
   quat_rot(q, wd[0], wd[1], wd[2], &d[0], &d[1], &d[2]);
   d[0] = d[0] * sx;
   d[1] = d[1] * sy;
@@ -165,23 +164,44 @@ WT_HD void walk_instance(const Scene& s, int i, const float* wo,
   inv[0] = safe_inv(d[0]);
   inv[1] = safe_inv(d[1]);
   inv[2] = safe_inv(d[2]);
-  const int32_t inst_val = s.num_instances == 1 ? -1 : i;
+}
 
+// Floats per node record of a tree of arity kArity: the 4-wide tables
+// keep K1's 32-float records (24 box floats and 8 zero lanes), the
+// arity-2 tables 12 floats (two boxes).
+WT_HD constexpr int box_stride(int arity) { return arity == 4 ? 32 : 6 * arity; }
+
+// Walk one tree in the child-code layout of arity kArity (accel/wide.py:
+// node w's child c has code code[kArity*w + c] and box
+// box[box_stride*w + 6c .. +5]) from node `root`, for an object-space
+// ray, updating `best`. Leaf codes carry starts relative to `tri_base`,
+// which is added to give global triangle ids. Returns true when an
+// any-hit walk accepted a triangle (and stopped there).
+//
+// Arity 4 is K1's walk of the whole 4-wide tree (tri_base 0) and K4's
+// walk of one page; arity 2 is K5's binary walk of one page and, over a
+// whole binary tree, the walk of K2.
+template <int kArity>
+WT_HD bool walk_tree(const int32_t* code, const float* box, int32_t root,
+                     int32_t tri_base, const float* tri_rec, const float* o,
+                     const float* d, const float* inv, int32_t inst_val,
+                     bool any_hit, Hit* best) {
+  constexpr int kBox = box_stride(kArity);
   int32_t stack[kStack];
   int sp = 0;
-  stack[sp++] = s.inst_root[i];
+  stack[sp++] = root;
   while (sp > 0) {
     const int32_t node = stack[--sp];
-    const float* box = s.wbox + 32 * node;
-    const int32_t* code = s.wcode + 4 * node;
-    float dist[4];
-    for (int c = 0; c < 4; ++c) dist[c] = child_entry(box + 6 * c, o, inv, best->t);
+    const float* b = box + kBox * node;
+    const int32_t* cd = code + kArity * node;
+    float dist[kArity];
+    for (int c = 0; c < kArity; ++c) dist[c] = child_entry(b + 6 * c, o, inv, best->t);
     // rank children near-first, ties by child index (dual.py box_phase_wide)
-    int order[4];
+    int order[kArity];
     int count = 0;
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < kArity; ++c) {
       int r = 0;
-      for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < kArity; ++k) {
         if (k != c && (dist[k] < dist[c] || (dist[k] == dist[c] && k < c))) ++r;
       }
       order[r] = c;
@@ -189,28 +209,47 @@ WT_HD void walk_instance(const Scene& s, int i, const float* wo,
     }
     // internal children pushed farthest first, so the nearest pops next
     for (int p = count - 1; p >= 0; --p) {
-      const int32_t cc = code[order[p]];
+      const int32_t cc = cd[order[p]];
       if (cc >= 0) stack[sp++] = cc;
     }
     // leaf children tested nearest first, ascending triangle index
     for (int p = 0; p < count; ++p) {
-      const int32_t cc = code[order[p]];
+      const int32_t cc = cd[order[p]];
       if (cc >= 0) continue;
       const int32_t packed = -cc - 1;
-      const int32_t start = packed >> 10;
+      const int32_t start = (packed >> 10) + tri_base;
       const int32_t n = packed & 1023;
       for (int32_t k = start; k < start + n; ++k) {
-        if (test_tri(s.tri_rec + 16 * k, o, d, k, inst_val, any_hit, best) &&
+        if (test_tri(tri_rec + 16 * k, o, d, k, inst_val, any_hit, best) &&
             any_hit) {
-          return;
+          return true;
         }
       }
     }
   }
+  return false;
 }
 
-// Nearest (or any) hit of one world ray over every instance. A
-// single-instance scene reports inst 0 on a hit (dual.py output stage).
+// Walk instance `i` for one world ray, updating `best`. In any-hit mode
+// it returns at the first accepted triangle.
+WT_HD void walk_instance(const Scene& s, int i, const float* wo,
+                         const float* wd, bool any_hit, Hit* best) {
+  float o[3], d[3], inv[3];
+  object_ray(s.inst_tab + 12 * i, wo, wd, o, d, inv);
+  const int32_t inst_val = s.num_instances == 1 ? -1 : i;
+  walk_tree<4>(s.wcode, s.wbox, s.inst_root[i], 0, s.tri_rec, o, d, inv,
+               inst_val, any_hit, best);
+}
+
+// The output record: a single-instance scene reports inst 0 on a hit
+// (dual.py output stage), and a miss reports t = FLT_MAX.
+WT_HD Hit finish_hit(Hit best, int num_instances) {
+  if (num_instances == 1) best.inst = best.tri >= 0 ? 0 : -1;
+  if (best.t >= kBig) best.t = kFltMax;
+  return best;
+}
+
+// Nearest (or any) hit of one world ray over every instance.
 WT_HD Hit trace_ray(const Scene& s, const float* wo, const float* wd,
                     bool any_hit) {
   Hit best{kBig, -1, -1};
@@ -218,9 +257,7 @@ WT_HD Hit trace_ray(const Scene& s, const float* wo, const float* wd,
     walk_instance(s, i, wo, wd, any_hit, &best);
     if (any_hit && best.t < 0.0f) break;
   }
-  if (s.num_instances == 1) best.inst = best.tri >= 0 ? 0 : -1;
-  if (best.t >= kBig) best.t = kFltMax;
-  return best;
+  return finish_hit(best, s.num_instances);
 }
 
 }  // namespace wt

@@ -35,23 +35,21 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_raytracer.accel.bvh import build_bvh
-
+from ..accel.bvh import build_bvh
 from ..core import transforms as T
-from ..core.vecmath import FLT_MAX
 from ..render.intersect import safe_reciprocal
 from .traversal import (
     BIG,
     LEAF_BITS,
     MAX_LEAF_TRIS,
     PLAIN_CHUNK,
-    _hit,
     _split_rays,
     _wide_tables,
-    as_occlusion,
     child_entry,
+    finish_plain,
     instance_table,
     launch,
+    new_stats,
     walk_instance,
 )
 from .wide4 import NUDGE
@@ -103,8 +101,10 @@ def build_tlas(scene) -> TlasTables:
     wmax = world.max(axis=1).astype(np.float32)
     # the builder grows node boxes over its three "vertex" arrays, so
     # (min corner, max corner, center) gives exact box unions with
-    # centroid splits at box centers
-    bvh = build_bvh(wmin, wmax, (wmin + wmax) * 0.5, max_depth=32, min_leaf_size=1)
+    # centroid splits at box centers; the reference search gives the JAX
+    # package's TLAS
+    bvh = build_bvh(wmin, wmax, (wmin + wmax) * 0.5, max_depth=32, min_leaf_size=1,
+                    mode="reference")
     if bvh.leaf_count.max(initial=0) > MAX_LEAF_TRIS:
         raise ValueError("TLAS leaf exceeds the 10-bit count field")
     internal = bvh.child_a >= 0
@@ -141,12 +141,13 @@ def _tlas_tables(scene) -> TlasTables:
 # ---------------------------------------------------------------------------
 
 
-def _walk_tlas(tables, tl, inst_tab, roots, o, d, best):
+def _walk_tlas(tables, tl, inst_tab, roots, o, d, best, stats=None):
     """Two-level walk of rays ``o``/``d`` [n, 3], updating ``best`` = [t,
     tri, inst] in place. Each round pops every live ray's TLAS stack
     down to its next leaf (internal nodes push their hit children, the
     nearer last), then walks that leaf's instances in ``inst_ids`` order
-    for the rays that reached it, grouped by instance."""
+    for the rays that reached it, grouped by instance. ``stats``
+    (``traversal.new_stats``) counts internal TLAS pops as top pops."""
     t_b, tri_b, in_b = best
     n = d.shape[0]
     dev = d.device
@@ -165,6 +166,8 @@ def _walk_tlas(tables, tl, inst_tab, roots, o, d, best):
             code = code_t[node]
             internal = code >= 0
             leaf[idx] = torch.where(internal, -1, node)
+            if stats is not None:
+                stats["top_pops"][idx] += internal.long()
             dist = child_entry(tl.box[node].reshape(-1, 2, 6), o[idx][:, None, :],
                                inv[idx][:, None, :], t_b[idx][:, None])
             da, db = dist[:, 0], dist[:, 1]
@@ -191,14 +194,20 @@ def _walk_tlas(tables, tl, inst_tab, roots, o, d, best):
             for i in torch.unique(ids).tolist():
                 sub = rays[at][ids == i]
                 part = (t_b[sub], tri_b[sub], in_b[sub])
-                walk_instance(tables, inst_tab[i], roots[i], i, o[sub], d[sub], part)
+                sub_stats = None if stats is None else {k: v[sub] for k, v in stats.items()}
+                walk_instance(tables, inst_tab[i], roots[i], i, o[sub], d[sub], part, sub_stats)
                 t_b[sub], tri_b[sub], in_b[sub] = part
+                if stats is not None:
+                    for k, v in sub_stats.items():
+                        stats[k][sub] = v
 
 
 def cast_rays_tlas_torch(scene, origin, directions, occlusion: bool = False,
-                         chunk: int = PLAIN_CHUNK):
+                         chunk: int = PLAIN_CHUNK, stats: bool = False):
     """Plain PyTorch version of K3: nearest hit of every ray through the
-    TLAS and the instances' 4-wide tables (any hit with ``occlusion``)."""
+    TLAS and the instances' 4-wide tables (any hit with ``occlusion``).
+    With ``stats`` it returns ``(hit, counters)`` (``traversal.new_stats``,
+    of the nearest-hit walk)."""
     origin, directions = _split_rays(origin, directions)
     tables = _wide_tables(scene)
     tl = _tlas_tables(scene)
@@ -212,13 +221,13 @@ def cast_rays_tlas_torch(scene, origin, directions, occlusion: bool = False,
     t = torch.full((r,), BIG, dtype=torch.float32, device=dev)
     tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
     inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    counters = new_stats(r, dev) if stats else None
     for lo in range(0, r, chunk):
         sl = slice(lo, min(lo + chunk, r))
+        part = None if counters is None else {k: v[sl] for k, v in counters.items()}
         _walk_tlas(tables, tl, inst_tab, roots, o_all[sl], d_all[sl],
-                   (t[sl], tri[sl], inst[sl]))
-    t = torch.where(t >= BIG, torch.full_like(t, FLT_MAX), t)
-    hit = _hit(t, tri, inst, shape)
-    return as_occlusion(hit) if occlusion else hit
+                   (t[sl], tri[sl], inst[sl]), part)
+    return finish_plain(t, tri, inst, shape, scene.num_instances, occlusion, counters)
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,11 @@ routes single-instance scenes to).
     stack walk over the same tables, vectorised over rays — same child
     ranking, same leaf order, same f32 operation order as the kernel, so
     the two agree bit for bit.
-  * ``cast_rays`` is the router: scenes with two or more instances and
-    a TLAS go to K3 (``kernels/tlas.py``), every other scene to K1; it
-    raises for scenes without wide tables (the paged kernels K4-K6 are
-    not ported).
+  * ``cast_rays`` is the router of the ``cuda`` backend: scenes with two
+    or more instances and a TLAS go to K3 (``kernels/tlas.py``), every
+    other scene, whatever its size, to K1. The paged kernels K4-K6
+    (``kernels/paged.py``, ``kernels/paged_major.py``) are the ``paged``
+    and ``paged_major`` backends, chosen by the caller.
 
 Every cast returns the JAX package's hit record: ``t`` (FLT_MAX on a
 miss), ``tri`` and ``inst`` (-1 on a miss). With ``occlusion=True`` it
@@ -73,8 +74,8 @@ def instance_table(scene) -> torch.Tensor:
 def _wide_tables(scene):
     if scene.wide4 is None:
         raise NotImplementedError(
-            "scene has no 4-wide tables: beyond-budget scenes route to the "
-            "paged kernels K4-K6, which are not ported yet (ROADMAP item 14)")
+            "scene has no 4-wide tables (every compiled scene has them); the paged "
+            "kernels K4-K6 are the 'paged' and 'paged_major' backends")
     return scene.wide4
 
 
@@ -112,21 +113,51 @@ def child_entry(box, o, inv, t_cap):
     return torch.where(hit, near, torch.full_like(near, BIG))
 
 
-def walk_instance(tables, q, root, inst_val, o, d, best):
-    """Walk one instance for rays ``o``/``d`` [n, 3] (world space),
-    updating ``best`` = [t, tri, inst] in place."""
-    t_b, tri_b, in_b = best
-    n = d.shape[0]
-    dev = d.device
+def box_stride(arity: int) -> int:
+    """Floats per node record of a tree of ``arity`` (``box_stride`` of
+    ``csrc/wide_traverse.cuh``)."""
+    return 32 if arity == 4 else 6 * arity
+
+
+def object_ray(q, o, d):
+    """World rays ``o``/``d`` [n, 3] in the object space of the instance
+    whose row of ``instance_table`` is ``q``: (origin, direction, safe
+    reciprocal direction), ``object_ray`` of ``csrc/wide_traverse.cuh``."""
     s = q[7:10]
     od = T.apply_quat(q[0:4], d) * s
     oo = T.apply_quat(q[0:4], o - q[4:7]) * s
-    inv = safe_reciprocal(od)
+    return oo, od, safe_reciprocal(od)
 
+
+def new_stats(n: int, device) -> dict:
+    """Per-ray visit counters of the plain walks: ``pops`` (nodes of a
+    BVH or page tree popped), ``top_pops`` (internal TLAS or top-tree
+    nodes popped, two child boxes each) and ``tests`` (triangles
+    tested). They mirror the JAX package's ``TRT_KERNEL_STATS``
+    counters; the plain walks keep each ray's visit order, so they are
+    the kernels' counts."""
+    return {k: torch.zeros(n, dtype=torch.int64, device=device)
+            for k in ("pops", "top_pops", "tests")}
+
+
+def walk_tree(code, box, arity, tri_rec, base, root, tri_base, o, d, inv, inst_val,
+              best, stats=None):
+    """``walk_tree`` of ``csrc/wide_traverse.cuh`` for ``n`` object-space
+    rays ``o``/``d``/``inv`` [n, 3]: each ray walks the tree whose nodes
+    are rows ``base + id`` of ``code [N, arity]`` / ``box``, from node id
+    ``root``, with leaf starts relative to ``tri_base``, and ``inst_val``
+    recorded on accepts. ``base``, ``root``, ``tri_base`` and
+    ``inst_val`` are ints or [n] tensors. ``best`` = (t, tri, inst) [n]
+    and the ``stats`` counters are updated in place."""
+    t_b, tri_b, in_b = best
+    n = d.shape[0]
+    dev = d.device
+    per_ray = lambda v: torch.as_tensor(v, device=dev).long().expand(n)
+    base, tri_base, inst_val = per_ray(base), per_ray(tri_base), per_ray(inst_val)
     stack = torch.zeros((n, STACK_SIZE), dtype=torch.int32, device=dev)
-    stack[:, 0] = root
+    stack[:, 0] = per_ray(root)
     sp = torch.ones(n, dtype=torch.int64, device=dev)
-    lane = torch.arange(4, device=dev)
+    lane = torch.arange(arity, device=dev)
     tie_mask = lane[None, :] < lane[:, None]  # [c, k]: k < c
 
     while True:
@@ -134,56 +165,70 @@ def walk_instance(tables, q, root, inst_val, o, d, best):
         if idx.numel() == 0:
             return
         spn = sp[idx] - 1
-        node = stack[idx, spn].long()
-        box = tables.wbox[node][:, :24].reshape(-1, 4, 6)
-        oi = oo[idx][:, None, :]
+        node = stack[idx, spn].long() + base[idx]
+        boxes = box[node][:, :6 * arity].reshape(-1, arity, 6)
+        oi = o[idx][:, None, :]
         tb = t_b[idx]
-        dist = child_entry(box, oi, inv[idx][:, None, :], tb[:, None])
+        dist = child_entry(boxes, oi, inv[idx][:, None, :], tb[:, None])
 
         # near-first rank, ties by child index; order[p] = child of rank p
         dc = dist[:, :, None]
         dk = dist[:, None, :]
         rank = ((dk < dc) | ((dk == dc) & tie_mask)).sum(-1)
-        order = torch.empty_like(rank).scatter_(1, rank, lane.expand(rank.shape[0], 4))
+        order = torch.empty_like(rank).scatter_(1, rank, lane.expand(rank.shape[0], arity))
         count = (dist < BIG).sum(1)
-        codes = tables.wcode[node].gather(1, order)  # code of rank p
+        codes = code[node].gather(1, order).long()  # code of rank p
 
         # internal children pushed farthest first
-        for p in range(3, -1, -1):
+        for p in range(arity - 1, -1, -1):
             c = codes[:, p]
             push = (count > p) & (c >= 0)
-            stack[idx, spn] = torch.where(push, c, stack[idx, spn])
+            stack[idx, spn] = torch.where(push, c, stack[idx, spn].long()).to(torch.int32)
             spn = spn + push.long()
         sp[idx] = spn
 
         # leaf children tested nearest first, ascending triangle index
         oi = oi[:, 0, :]
-        di = od[idx]
+        di = d[idx]
         tri_i = tri_b[idx]
         in_i = in_b[idx]
-        for p in range(4):
+        iv = inst_val[idx]
+        start0 = tri_base[idx]
+        tested = torch.zeros_like(count)
+        for p in range(arity):
             c = codes[:, p]
             packed = -c - 1
             cnt = torch.where((count > p) & (c < 0), packed & MAX_LEAF_TRIS,
                               torch.zeros_like(c))
+            tested = tested + cnt
             width = int(cnt.max())
             if width == 0:
                 continue
             j = torch.arange(width, device=dev)
             live = j[None, :] < cnt[:, None]
-            k = torch.where(live, (packed >> LEAF_BITS)[:, None] + j[None, :], 0)
-            t, ok = _test_tris(tables.tri_rec[k.long()], oi[:, None, :], di[:, None, :])
+            k = torch.where(live, ((packed >> LEAF_BITS) + start0)[:, None] + j[None, :], 0)
+            t, ok = _test_tris(tri_rec[k], oi[:, None, :], di[:, None, :])
             cand = torch.where(live & ok, t, torch.full_like(t, float("inf")))
             t_min, first = cand.min(dim=1)
             # strict t < t_best; at an exact-t tie the lower instance wins
-            better = (t_min < tb) | ((t_min == tb) & (inst_val < in_i))
+            better = (t_min < tb) | ((t_min == tb) & (iv < in_i))
             tb = torch.where(better, t_min, tb)
             tri_i = torch.where(better, k.gather(1, first[:, None])[:, 0].to(torch.int32), tri_i)
-            if inst_val >= 0:
-                in_i = torch.where(better, torch.full_like(in_i, inst_val), in_i)
+            in_i = torch.where(better, iv.to(torch.int32), in_i)
         t_b[idx] = tb
         tri_b[idx] = tri_i
         in_b[idx] = in_i
+        if stats is not None:
+            stats["pops"][idx] += 1
+            stats["tests"][idx] += tested
+
+
+def walk_instance(tables, q, root, inst_val, o, d, best, stats=None):
+    """Walk one instance's 4-wide tree for world rays ``o``/``d`` [n, 3],
+    updating ``best`` = [t, tri, inst] (and ``stats``) in place."""
+    oo, od, inv = object_ray(q, o, d)
+    walk_tree(tables.wcode, tables.wbox, 4, tables.tri_rec, 0, root, 0, oo, od, inv,
+              inst_val, best, stats)
 
 
 def _test_tris(rec, o, d):
@@ -214,10 +259,12 @@ def as_occlusion(hit):
 
 
 def cast_rays_wide_torch(scene, origin, directions, occlusion: bool = False,
-                         chunk: int = PLAIN_CHUNK):
+                         chunk: int = PLAIN_CHUNK, stats: bool = False):
     """Plain PyTorch version of K1: nearest hit of every ray over the
     scene's 4-wide tables, for any number of instances (any hit with
-    ``occlusion``)."""
+    ``occlusion``). With ``stats`` it returns ``(hit, counters)``, the
+    per-ray counters of ``new_stats`` (of the nearest-hit walk, which
+    the any-hit walk cuts short)."""
     origin, directions = _split_rays(origin, directions)
     tables = _wide_tables(scene)
     shape = directions.shape[:-1]
@@ -231,17 +278,72 @@ def cast_rays_wide_torch(scene, origin, directions, occlusion: bool = False,
     t = torch.full((r,), BIG, dtype=torch.float32, device=dev)
     tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
     inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    counters = new_stats(r, dev) if stats else None
     for lo in range(0, r, chunk):
         sl = slice(lo, min(lo + chunk, r))
         best = (t[sl], tri[sl], inst[sl])  # views: updated in place
+        part = None if counters is None else {k: v[sl] for k, v in counters.items()}
         for i in range(num_inst):
             walk_instance(tables, inst_tab[i], roots[i], i if num_inst > 1 else -1,
-                          o_all[sl], d_all[sl], best)
-    if num_inst == 1:
+                          o_all[sl], d_all[sl], best, part)
+    return finish_plain(t, tri, inst, shape, num_inst, occlusion, counters)
+
+
+def finish_plain(t, tri, inst, shape, num_instances: int, occlusion: bool = False,
+                 counters=None):
+    """The plain walks' output record (``finish_hit`` of
+    ``csrc/wide_traverse.cuh``), as an any-hit record with ``occlusion``,
+    and with ``counters`` beside it when they were kept."""
+    if num_instances == 1:
         inst = torch.where(tri >= 0, 0, -1).to(torch.int32)
     t = torch.where(t >= BIG, torch.full_like(t, FLT_MAX), t)
     hit = _hit(t, tri, inst, shape)
-    return as_occlusion(hit) if occlusion else hit
+    hit = as_occlusion(hit) if occlusion else hit
+    return hit if counters is None else (hit, counters)
+
+
+def unexplained_differences(scene, origin, directions, a, b) -> int:
+    """Rays where two nearest-hit casts of one scene disagree for a
+    reason other than a visit order, for checking one traversal against
+    another (K4-K6 against K1); 0 when every difference is explained.
+
+    The triangle test accepts hits up to EDGE_EPS outside a triangle, so
+    such a hit can lie outside its leaf's box, and a walk that tests that
+    box against a t_best it already lowered culls it: which of two
+    accepted hits a walk keeps then depends on the order it tests boxes
+    in. A difference is explained when every hit either cast reports is
+    accepted by the triangle test at the t it reports, and, where the two
+    t differ, the nearer hit (the one the other cast lost) lies outside
+    its leaf's padded box. A hit inside that box enters every box above
+    it at or before its t, so no walk order can lose it."""
+    diff = ((a.t.view(torch.int32) != b.t.view(torch.int32)) | (a.tri != b.tri)
+            | (a.inst != b.inst)).reshape(-1)
+    idx = torch.nonzero(diff).squeeze(1)
+    if idx.numel() == 0:
+        return 0
+    d = directions.reshape(-1, 3)[idx]
+    o = origin.expand(directions.shape).reshape(-1, 3)[idx]
+    t_a, t_b = a.t.reshape(-1)[idx], b.t.reshape(-1)[idx]
+    ok = torch.ones_like(t_a, dtype=torch.bool)
+    inst_tab = instance_table(scene)
+    leaves = torch.nonzero(scene.node_child_a < 0).squeeze(1)
+    leaves = leaves[torch.argsort(scene.node_leaf_start[leaves], stable=True)]
+    starts = scene.node_leaf_start[leaves].contiguous()
+    for hit, t, lost in ((a, t_a, t_a < t_b), (b, t_b, t_b < t_a)):
+        tri = hit.tri.reshape(-1)[idx]
+        inst = hit.inst.reshape(-1)[idx].clamp(min=0)
+        hits = tri >= 0
+        for i in torch.unique(inst).tolist():
+            sel = (inst == i) & hits
+            oo, od, _ = object_ray(inst_tab[i], o[sel], d[sel])
+            k = tri[sel].long()
+            tt, acc = _test_tris(scene.wide4.tri_rec[k], oo, od)
+            leaf = leaves[torch.searchsorted(starts, tri[sel], right=True) - 1]
+            p = oo + t[sel][:, None] * od
+            outside = ((p < scene.node_min[leaf]) | (p > scene.node_max[leaf])).any(-1)
+            ok[sel] &= acc & (tt == t[sel]) & (outside | ~lost[sel])
+        ok &= hits | (t >= FLT_MAX)
+    return int((~ok).sum())
 
 
 # ---------------------------------------------------------------------------

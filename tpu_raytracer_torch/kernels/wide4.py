@@ -6,7 +6,7 @@ laid out for one thread per ray instead of 128-lane TPU rows:
 
   * ``wcode [W, 4] i32``: child c of wide node w — internal -> wide
     child id; leaf -> -(start * 1024 + count) - 1; absent -> -1 (a
-    count-0 leaf). From ``tpu_raytracer.accel.wide.collapse4``.
+    count-0 leaf). From ``accel/wide.py:collapse4``.
   * ``wbox [W, 32] f32``: child c's box (min xyz, max xyz) in lanes
     c*6 .. c*6+5 with the watertight NUDGE baked in; absent children
     carry inverted boxes. Lanes 24..31 are zero.
@@ -24,8 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_raytracer.accel.wide import collapse4
-
+from ..accel.wide import collapse4
 from ..render.intersect import WATERTIGHT_NUDGE, barycentric_rows
 
 NUDGE = WATERTIGHT_NUDGE

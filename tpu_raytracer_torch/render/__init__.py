@@ -1,5 +1,7 @@
 from .camera import Camera, default_intrinsics, generate_rays, reference_calibration
-from .pipeline import RenderConfig, render, render_image, render_image_whitted
+from .pipeline import (
+    RenderConfig, render, render_image, render_image_paged, render_image_whitted,
+)
 from .renderer import Hit, HitAttributes, cast_rays_brute, get_cast_fn, hit_attributes
 from .shade import shade_primary
 
@@ -16,6 +18,7 @@ __all__ = [
     "reference_calibration",
     "render",
     "render_image",
+    "render_image_paged",
     "render_image_whitted",
     "shade_primary",
 ]

@@ -77,7 +77,7 @@ class Camera:
             cam.pose = np.asarray(pose, np.float32).reshape(6)
         return cam
 
-    def ray_params(self, device="cpu") -> dict:
+    def ray_params(self, device="cuda") -> dict:
         """Per-frame ray parameters as tensors on ``device``; the inverse
         pose is computed on the host per call."""
         pose = torch.from_numpy(self.pose)

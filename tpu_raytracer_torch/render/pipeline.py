@@ -25,7 +25,9 @@ class RenderConfig:
 
     width: int
     height: int
-    backend: str = "cuda"  # brute | cuda
+    # brute | cuda (K1/K3) | paged (K4 on 4-wide pages, K5 on binary) |
+    # paged_major (K6)
+    backend: str = "cuda"
     lighting: str = "flat"  # flat | lambert | lambert_shadow | blinn_phong
     light_direction: tuple | None = DEFAULT_LIGHT_DIRECTION
     exact_math: bool = True  # False: the reference's q_rsqrt normalize
@@ -51,6 +53,16 @@ def render_image(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tens
     return shade_primary(scene, attrs, config.light_direction, config.lighting,
                          exact=config.exact_math, backend=config.backend,
                          directions=directions)
+
+
+def render_image_paged(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,
+                       pose: torch.Tensor, inv_pose: torch.Tensor) -> torch.Tensor:
+    """Primary render through the paged kernel (K4 on 4-wide page
+    tables, K5 on binary ones): ``render_image`` with the ``paged``
+    backend. The scene carries its page tables: attach them once with
+    ``scene.with_paging()``."""
+    return render_image(dataclasses.replace(config, backend="paged"), scene, K_inv, D, pose,
+                        inv_pose)
 
 
 def render(camera: Camera, scene, config: RenderConfig | None = None, **kw) -> torch.Tensor:

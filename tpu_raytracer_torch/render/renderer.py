@@ -4,9 +4,13 @@ Counterpart of ``tpu_raytracer/render/renderer.py``. Every cast returns
 the compact ``Hit`` (t, tri, inst); ``hit_attributes`` rebuilds the
 shading inputs (world location, normal, uv, material) from it.
 
-Backends: ``brute`` (the oracle, every triangle against every ray) and
-``cuda`` (kernels K1 and K3 through ``kernels/traversal.cast_rays``; on
-CPU tensors that runs their plain versions). The XLA ``bvh`` walk of the
+Backends: ``brute`` (the oracle, every triangle against every ray),
+``cuda`` (kernels K1 and K3 through ``kernels/traversal.cast_rays``),
+``paged`` (K4 on 4-wide page tables, K5 on binary ones) and
+``paged_major`` (K6); on CPU tensors the kernel backends run their plain
+versions. The paged backends use the scene's page tables, attached
+once with ``SceneTensors.with_paging`` (``paged_major`` needs 4-wide
+ones), and raise on a scene without them. The XLA ``bvh`` walk of the
 JAX package is not ported: the kernels' plain versions take its place.
 """
 
@@ -146,21 +150,34 @@ def hit_attributes(scene, origin, directions, hit: Hit, exact: bool = True,
 def occlusion_cast_fn(backend: str):
     """The any-hit cast for boolean shadow queries (occluded iff t <
     FLT_MAX): on ``cuda``, K1's or K3's any-hit mode, which stops a ray
-    at its first accepted triangle; ``brute`` returns its nearest-hit
-    cast, which gives the same answer."""
+    at its first accepted triangle; the other backends return their
+    nearest-hit cast, which gives the same answer (the paged kernels,
+    like the JAX package's, have no any-hit mode)."""
     cast = get_cast_fn(backend)
     if backend == "cuda":
         return functools.partial(cast, occlusion=True)
     return cast
 
 
+BACKENDS = ("brute", "cuda", "paged", "paged_major")
+
+
 def get_cast_fn(backend: str):
-    """The nearest-hit cast of ``backend``: ``brute`` or ``cuda``."""
+    """The nearest-hit cast of ``backend``: ``brute``, ``cuda``,
+    ``paged`` or ``paged_major``."""
     if backend == "brute":
         return cast_rays_brute
     if backend == "cuda":
         from ..kernels.traversal import cast_rays
 
         return cast_rays
+    if backend == "paged":
+        from ..kernels.paged import cast_rays_paged_cuda
+
+        return cast_rays_paged_cuda
+    if backend == "paged_major":
+        from ..kernels.paged_major import cast_rays_paged_major_cuda
+
+        return cast_rays_paged_major_cuda
     raise NotImplementedError(
-        f"backend {backend!r} is not ported; the port has 'brute' and 'cuda'")
+        f"backend {backend!r} is not ported; the port has {', '.join(BACKENDS)}")

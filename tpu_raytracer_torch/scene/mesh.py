@@ -1,14 +1,17 @@
 """MeshPrimitive: triangle soup plus its BVH, on the host in numpy.
 
 Counterpart of ``tpu_raytracer/scene/mesh.py``. The tree comes from the
-JAX package's jax-free host builders (``tpu_raytracer.accel``): the
-sweep-SAH build with the same defaults (``min_leaf_size=16``,
-``max_depth=48``), native when the C++ library loads and numpy
-otherwise — the two give identical trees, so triangle and node ids equal
-the JAX package's. Triangles are stored in BVH-leaf order.
+port's own host builders (``accel/``): the sweep-SAH build with the JAX
+package's defaults (``min_leaf_size=16``, ``max_depth=48``), in C++
+(``accel/native.py``, built with g++ at first use) for meshes of at
+least ``_NATIVE_MIN_TRIS`` triangles and in numpy below. The two give
+identical trees, equal to the JAX package's, so triangle and node ids
+equal its ids. A failed native build raises; it never falls back to the
+numpy builder, which takes minutes on a million triangles. Triangles
+are stored in BVH-leaf order.
 
-Not ported yet (ROADMAP item 15): the on-disk BVH cache, presplit for
-beyond-budget meshes, and per-corner vertex normals.
+Not ported yet (ROADMAP items 14 and 15): the on-disk BVH cache,
+presplit for beyond-budget meshes, and per-corner vertex normals.
 """
 
 from __future__ import annotations
@@ -17,11 +20,11 @@ import dataclasses
 
 import numpy as np
 
-from tpu_raytracer.accel import native
-from tpu_raytracer.accel.bvh import BVHArrays, build_bvh
+from ..accel import native
+from ..accel.bvh import BVHArrays, build_bvh
 
-# The JAX package hands meshes of at least this many triangles to the
-# native builder; smaller ones build faster in numpy.
+# Meshes of at least this many triangles go to the native builder (the
+# JAX package's threshold); smaller ones build fast enough in numpy.
 _NATIVE_MIN_TRIS = 4096
 # The JAX package's tree defaults: leaves of up to 16 triangles fit the
 # kernels' 8-triangle rows; depth 48 covers deep grid scenes.
@@ -30,15 +33,10 @@ MAX_DEPTH = 48
 
 
 def _build_tree(v0, v1, v2) -> BVHArrays:
-    if len(v0) >= _NATIVE_MIN_TRIS and native.native_available():
-        return native.build_bvh_native(
-            v0, v1, v2, max_depth=MAX_DEPTH, min_leaf_size=MIN_LEAF_SIZE,
-            mode="sweep",
-        )
-    return build_bvh(
-        v0, v1, v2, max_depth=MAX_DEPTH, min_leaf_size=MIN_LEAF_SIZE,
-        mode="sweep",
-    )
+    if len(v0) >= _NATIVE_MIN_TRIS:
+        return native.build_bvh_native(v0, v1, v2, max_depth=MAX_DEPTH,
+                                       min_leaf_size=MIN_LEAF_SIZE)
+    return build_bvh(v0, v1, v2, max_depth=MAX_DEPTH, min_leaf_size=MIN_LEAF_SIZE)
 
 
 def _normalize_host(v: np.ndarray) -> np.ndarray:

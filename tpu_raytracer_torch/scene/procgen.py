@@ -2,8 +2,8 @@
 
 Counterpart of ``tpu_raytracer/scene/procgen.py`` for the ported
 scenes: the unit cube, the flat board, the Cornell box walls,
-icospheres, the displaced blob (the 82k-triangle bench mesh) and the
-checker texture.
+icospheres, the displaced blob (the 82k-triangle bench mesh), the
+colonnade (the ~1M-triangle paged-path scene) and the checker texture.
 Each function keeps the JAX package's exact numpy arithmetic, so both
 packages build bit-identical triangles.
 """
@@ -137,6 +137,69 @@ def blob(subdivisions: int = 6, radius: float = 1.0, seed: int = 7) -> tuple[np.
         return (v + n * d[:, None]).astype(np.float32)
 
     return displace(v0), displace(v1), displace(v2)
+
+
+def colonnade(
+    columns_x: int = 10,
+    columns_y: int = 10,
+    segs: int = 32,
+    bands: int = 40,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Sponza-class stress scene: a hall of fluted, entasis-profiled
+    cylinders on a floor slab. Triangles ~= columns_x * columns_y *
+    bands * segs * 2 (10x10x40x32 -> 256k)."""
+    theta = np.linspace(0, 2 * np.pi, segs, endpoint=False)
+    cos_t, sin_t = np.cos(theta), np.sin(theta)
+    flute = 0.05 * np.cos(theta * 8)
+
+    heights = np.linspace(0.0, 3.2, bands + 1)
+    # entasis: slight bulge toward the lower third, flared capitals
+    prof = 0.3 + 0.03 * np.sin(np.pi * heights / 3.2)
+    prof[0] *= 1.15
+    prof[-1] *= 1.15
+
+    # ring vertices per column template: [bands+1, segs, 3] (local)
+    radii = prof[:, None] + flute[None, :]
+    local = np.stack(
+        [
+            radii * cos_t[None, :],
+            radii * sin_t[None, :],
+            np.broadcast_to(heights[:, None], radii.shape),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+
+    s2 = (np.arange(segs) + 1) % segs
+    a = local[:-1, :, :]  # [bands, segs, 3]
+    b = local[:-1, s2, :]
+    c = local[1:, s2, :]
+    d = local[1:, :, :]
+    # two triangles per quad, outward winding
+    t1 = np.stack([a, b, c], axis=2).reshape(-1, 3, 3)
+    t2 = np.stack([a, c, d], axis=2).reshape(-1, 3, 3)
+    template = np.concatenate([t1, t2])  # [bands*segs*2, 3, 3]
+
+    offsets = np.stack(
+        np.meshgrid(
+            np.arange(columns_x) * 2.0 + 1.0,
+            np.arange(columns_y) * 2.0 + 1.0,
+            indexing="ij",
+        ),
+        axis=-1,
+    ).reshape(-1, 2)
+    tris = template[None, :, :, :] + np.concatenate(
+        [offsets, np.zeros((len(offsets), 1))], axis=1
+    ).astype(np.float32)[:, None, None, :]
+    tris = tris.reshape(-1, 3, 3)
+
+    # floor slab
+    w, h = columns_x * 2.0, columns_y * 2.0
+    floor = np.asarray(
+        [[(0, 0, 0), (w, 0, 0), (w, h, 0)], [(0, 0, 0), (w, h, 0), (0, h, 0)]],
+        np.float32,
+    )
+    tris = np.concatenate([floor, tris])
+    return tris[:, 0].copy(), tris[:, 1].copy(), tris[:, 2].copy()
 
 
 def checkerboard_texture(size: int = 256, squares: int = 8) -> np.ndarray:

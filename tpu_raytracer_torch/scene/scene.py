@@ -15,10 +15,14 @@ reproducing the JAX compile field by field:
 ``SceneArrays`` as a dict of numpy arrays, so the two packages can be
 run on the identical scene. Both attach the 4-wide tables of K1 and,
 for two or more instances, the TLAS of K3; ``update_instance`` is the
-functional pose update that rebuilds the TLAS.
+functional pose update that rebuilds the TLAS, and ``with_paging``
+attaches the page tables of the paged kernels K4-K6. Nothing pages a
+scene automatically: the ``cuda`` backend casts every scene with K1 or
+K3, and the ``paged`` and ``paged_major`` backends are chosen by the
+caller (ROADMAP item 14 holds the routing question).
 
 Not ported yet (ROADMAP item 15): ``flattened``, sky maps, vertex
-normals, save/load and the paging tables.
+normals and save/load.
 """
 
 from __future__ import annotations
@@ -109,13 +113,16 @@ class SceneTensors:
     has_sky: bool = False
     has_textures: bool = True
     has_emissive: bool = True
-    # 4-wide traversal tables (kernels/wide4.py Wide4Tables). Every
-    # compiled scene has them; None marks a scene that would need the
-    # paged kernels, which are not ported.
+    # 4-wide traversal tables (kernels/wide4.py Wide4Tables); every
+    # compiled scene has them, and the paged kernels read their triangle
+    # records
     wide4: object | None = None
     # instance-level BVH (kernels/tlas.py TlasTables), attached to
     # scenes of two or more instances
     tlas: object | None = None
+    # page tables of the paged kernels (kernels/paged.py PagedTables),
+    # attached by with_paging
+    paged: object | None = None
 
     @property
     def device(self) -> torch.device:
@@ -132,7 +139,7 @@ class SceneTensors:
     def to(self, device) -> "SceneTensors":
         """The same scene with every tensor on ``device``."""
         moved = {f: getattr(self, f).to(device) for f in ARRAY_FIELDS}
-        for f in ("wide4", "tlas"):
+        for f in ("wide4", "tlas", "paged"):
             moved[f] = None if getattr(self, f) is None else getattr(self, f).to(device)
         return dataclasses.replace(self, **moved)
 
@@ -159,12 +166,24 @@ class SceneTensors:
             new = dataclasses.replace(new, tlas=build_tlas(new))
         return new
 
+    def with_paging(self, page_tris: int | None = None, page_nodes: int | None = None,
+                    wide: bool = True) -> "SceneTensors":
+        """The same scene with page tables attached (``kernels/paged.py
+        prepare_paged``; default capacities the JAX package's): 4-wide
+        pages for K4 and K6 with ``wide``, binary pages for K5 without.
+        Host work, once per scene."""
+        from ..kernels.paged import prepare_paged
+
+        kw = {k: v for k, v in (("page_tris", page_tris), ("page_nodes", page_nodes))
+              if v is not None}
+        return dataclasses.replace(self, paged=prepare_paged(self, wide=wide, **kw))
+
     def numpy_fields(self) -> dict[str, np.ndarray]:
         """Array fields as host numpy arrays, keyed by field name."""
         return {f: getattr(self, f).cpu().numpy() for f in ARRAY_FIELDS}
 
 
-def from_scene_arrays(fields: dict[str, np.ndarray], device="cpu") -> SceneTensors:
+def from_scene_arrays(fields: dict[str, np.ndarray], device="cuda") -> SceneTensors:
     """Build ``SceneTensors`` from a JAX-compiled ``SceneArrays`` given
     as numpy arrays keyed by field name (missing mip or sky fields take
     the JAX defaults for pre-mip and skyless scenes). The wide tables
@@ -221,7 +240,7 @@ class Scene:
         self.mesh_instances.append(instance)
         return len(self.mesh_instances) - 1
 
-    def compile(self, device="cpu") -> SceneTensors:
+    def compile(self, device="cuda") -> SceneTensors:
         """Flatten to ``SceneTensors`` on ``device``, with the 4-wide
         traversal tables and, for two or more instances, the TLAS
         attached."""
