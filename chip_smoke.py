@@ -4,12 +4,12 @@
     python3 chip_smoke.py
 
 Drives the port's paths (``tpu_raytracer_torch``) through kernels K1 (the
-4-wide BVH cast), K3 (the two-level TLAS cast) and the paged kernels K4
-(4-wide pages), K5 (binary pages) and K6 (page-major) in phases, one line
-each:
+4-wide BVH cast), K2 (the binary BVH cast), K3 (the two-level TLAS cast)
+and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
+(page-major) in phases, one line each:
 
   1. device: the card's name and power limit;
-  2. build: K1 (``kernels/csrc/wide_traverse.cu``), K3
+  2. build: K1 and K2 (``kernels/csrc/wide_traverse.cu``), K3
      (``kernels/csrc/tlas_traverse.cu``), K4/K5
      (``kernels/csrc/paged_traverse.cu``) and K6
      (``kernels/csrc/paged_major.cu``) compiled for sm_90a by one nvcc
@@ -63,7 +63,29 @@ each:
      K5) and ``paged_major`` (K6), each kernel's launch count in that
      frame and the image against the plain casts' image;
  17. times: K4, K5, K6 and K1 per cast on the colonnade at 512x512 and
-     1920x1088, and each frame.
+     1920x1088, and each frame;
+ 18. config 5 as ``bench_all.py`` runs it: ``scene_colonnade`` at its
+     defaults (256,002 triangles), 512x512, 2 samples, 2 bounces, a
+     5-pose ``fly_through`` with key k for frame k; the binary depth;
+ 19. K2 against its plain version (t bitwise, tri and inst equal), its
+     any-hit answers against its nearest hits, and K1 on the same rays
+     (every difference explained by box order), on the flagship's
+     primary rays and on frame 0's first bounce rays ([2, 512, 512]),
+     with K2's and K1's kernel times, and K1's on the bounce rays in
+     pixel order and in the coherence sort's order;
+ 20. the path main path, ``render_image_path_traced`` over the
+     fly-through through ``bvh`` (K2) and ``cuda`` (K1): launches per
+     frame (3: primary, batched bounce, any-hit tail; 6 with
+     ``path_lights``), frame 0 against the plain casts' frame, the
+     sorted bounce casts of ``cuda`` against unsorted, bvh against cuda;
+ 21. ``config5_colonnade_path_64`` against its CPU golden;
+ 22. ``render_image_ao`` (8 samples) and the path frame denoised (3
+     iterations) against their plain-cast frames;
+ 23. times: the path frame at 512x512 (config 5) and at 1920x1088 (the
+     driver's 3 bounces, 4 samples) through both backends, and its
+     stages: primary, bounce and tail casts (sorted and unsorted on
+     ``cuda``), NEE shadow casts, attributes, sampling, the rest, and
+     the denoiser.
 
 Every kernel's bound is the larger of its f32 operations over 67 TFLOP/s
 and its bytes over 3.35 TB/s (the H100's published peaks): operations
@@ -80,6 +102,7 @@ prints no result; without CUDA it exits 2 before importing the port.
 The port runs without JAX: ``jax`` is blocked from being imported.
 """
 
+import contextlib
 import json
 import os
 import sys
@@ -111,6 +134,20 @@ PAIR_AERIAL_POSE = [18.0, 38.0, 30.0, 0.0, -1.2, 0.0]
 # differ on at most this share of the rays (25 of 2,088,960 for K4 on
 # the colonnade; 0-2 of 76,800 on a 156k-triangle colonnade on the CPU)
 ORDER_DIFFS_MAX = 1e-4
+
+# config 5 (bench_all.py:config_colonnade_path): the colonnade at its
+# defaults (256,002 triangles) at 512x512, 2 samples and 2 bounces over a
+# 5-pose fly-through, key k for frame k; the driver's path defaults (3
+# bounces, 4 samples) are timed at 1920x1088; AO takes 8 samples
+PATH_SIZE, PATH_SAMPLES, PATH_BOUNCES, FLY_FRAMES = 512, 2, 2, 5
+AO_SAMPLES = 8
+# (label, width, height, bounces, samples) of the path frames timed
+PATH_TIMES = (("512x512", 512, 512, PATH_BOUNCES, PATH_SAMPLES),
+              ("1920x1088", 1920, 1088, 3, 4))
+# config5_colonnade_path_64 against the port: at most this many pixels
+# differ (tests/test_torch_path.py GOLDEN5_MAX_MISMATCH; 9 of 4,096 on the
+# CPU, bounce rays that directions a few ulps off send elsewhere)
+GOLDEN5_MAX_MISMATCH = 16
 
 # The H100's published peaks (NVIDIA's data sheet, SXM, 700 W).
 F32_FLOPS = 67e12
@@ -235,7 +272,7 @@ def main():
     ptxas = [ln.strip() for ln in log
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     compiles = [ln for ln in log if ln.split(" ", 1)[0].endswith("nvcc") and " -c " in ln]
-    phase("build", kernels="K1+K3+K4/K5+K6", seconds=f"{time.perf_counter() - t0:.2f}",
+    phase("build", kernels="K1/K2+K3+K4/K5+K6", seconds=f"{time.perf_counter() - t0:.2f}",
           lib=lib_path.name, commands=repr(compiles), ptxas=repr(" | ".join(ptxas)))
     for src in build.CUDA_SOURCES:
         check(any(ln.endswith(src) and "code=sm_90a" in ln and "--fmad=false" in ln
@@ -464,6 +501,7 @@ def main():
     phase("whitted_stages", card=repr(card), **_whitted_stages(traversal, wframe))
 
     paged_kernels = paged_phases(dev, card)
+    k2_entry = path_phases(dev, card, (scene, origin, dirs))
 
     wide = scene.wide4
     k1_bound = bound("K1", k1_stats, 4, rays, (dirs, origin, wide.wcode, wide.wbox, *hk),
@@ -512,6 +550,7 @@ def main():
             "plain_ms": k3_plain_ms,
             **k3_bound,
         },
+        k2_entry,
         *paged_kernels,
     ]}))
     print(card)
@@ -603,6 +642,7 @@ def paged_phases(dev, card) -> list:
           paging_binary_s=f"{bin_s:.2f}", pages=pw.num_pages, top_nodes=pw.top_code.shape[0],
           top_depth=pw.top_depth, page_nodes_wide=pw.code.shape[0], page_depth_wide=pw.depth,
           page_nodes_binary=pb.code.shape[0], page_depth_binary=pb.depth,
+          binary_nodes=col.binary.code.shape[0], binary_depth=col.binary.depth,
           tri_rec_mb=mb(col.wide4.tri_rec), k1_tables_mb=mb(col.wide4.wcode, col.wide4.wbox),
           k4_tables_mb=mb(pw.code, pw.box, pw.top_code, pw.top_box),
           k5_tables_mb=mb(pb.code, pb.box, pb.top_code, pb.top_box))
@@ -778,6 +818,332 @@ def paged_phases(dev, card) -> list:
         "plain_ms": res[k]["plain_ms"],
         **res[k]["bound"],
     } for k in ("K4", "K5", "K6")]
+
+
+def path_phases(dev, card, flagship) -> dict:
+    """Phases 18-23: kernel K2 and the path-traced main path of config 5
+    through the ``bvh`` (K2) and ``cuda`` (K1) backends; returns K2's
+    entry of the kernels line. ``flagship`` is (scene, origin, dirs) of
+    phase 3."""
+    from tpu_raytracer_torch.app.controls import fly_through
+    from tpu_raytracer_torch.app.scenes import scene_colonnade
+    from tpu_raytracer_torch.kernels import binary, tlas, traversal
+    from tpu_raytracer_torch.render import (
+        Camera, RenderConfig, generate_rays, hit_attributes, integrators, render_image_ao,
+        render_image_path_traced, render_radiance_path_traced,
+    )
+    from tpu_raytracer_torch.render.denoise import atrous_denoise
+    from tpu_raytracer_torch.render.shade import SHADOW_EPS
+    from tpu_raytracer_torch.render.sorted_cast import (
+        cast_rays_sorted, park_dead_rays, ray_sort_keys,
+    )
+    from tpu_raytracer_torch.core.vecmath import FLT_MAX
+    from tpu_raytracer_torch.utils import prng
+
+    # 18. config 5: the colonnade at its defaults and its fly-through ---
+    t0 = time.perf_counter()
+    col, cam = scene_colonnade(PATH_SIZE, PATH_SIZE, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    poses = list(fly_through(cam.pose, frames=FLY_FRAMES, forward_per_frame=0.15))
+
+    def params(pose, w=PATH_SIZE, h=PATH_SIZE):
+        p = Camera.looking(w, h, fov_deg=65.0, pose=pose).ray_params(dev)
+        return p["K_inv"], p["D"], p["pose"], p["inv_pose"]
+
+    phase("config5", triangles=col.num_triangles, real_triangles=real_tri_rows(col),
+          binary_nodes=col.binary.code.shape[0], binary_depth=col.binary.depth,
+          wide_nodes=col.wide4.wcode.shape[0], host_build_s=f"{build_s:.2f}", poses=len(poses),
+          samples=PATH_SAMPLES, bounces=PATH_BOUNCES)
+
+    # 19. K2 against its plain version and K1 ---------------------------
+    # the first bounce rays of frame 0, as render_path_traced makes them:
+    # cosine samples off the primary hits with the frame key's first
+    # subkey, one per sample, dead rays parked
+    a0 = params(poses[0])
+    o5, d5 = generate_rays(PATH_SIZE, PATH_SIZE, *a0)
+    at = hit_attributes(col, o5, d5, binary.cast_rays_binary_cuda(col, o5, d5))
+    key_b = prng.split(prng.PRNGKey(0), PATH_BOUNCES + 1)[0].to(dev)
+    nd = integrators._cosine_sample(key_b, at.normal[None].expand((PATH_SAMPLES,) + at.normal.shape),
+                                    True)
+    bo, bd = park_dead_rays(at.location[None] + nd * SHADOW_EPS, nd,
+                            at.hit[None].expand(nd.shape[:-1]))
+    sets = {"flagship_primary": flagship, "config5_bounce1": (col, bo, bd)}
+    res = {}
+    for tag, (sc, ro, rd) in sets.items():
+        hk = binary.cast_rays_binary_cuda(sc, ro, rd)
+        torch.cuda.synchronize()
+        hp, counters = binary.cast_rays_binary_torch(sc, ro, rd, stats=True)
+        n_t, max_ulp, max_abs, n_tri, n_inst = compare_hits(hk, hp)
+        k1 = traversal.cast_rays_cuda(sc, ro, rd)
+        occ = binary.cast_rays_binary_cuda(sc, ro, rd, occlusion=True)
+        torch.cuda.synchronize()
+        t_vs_k1 = int((hk.t.view(torch.int32) != k1.t.view(torch.int32)).sum())
+        unexplained = traversal.unexplained_differences(sc, ro, rd, hk, k1)
+        occ_diff = int(((occ.t < 0) != (hk.t < FLT_MAX)).sum() + ((occ.t >= FLT_MAX)
+                                                                  != (hk.t >= FLT_MAX)).sum())
+        n_rays = rd.numel() // 3
+        phase("k2_vs_plain", rays=tag, n=n_rays, shape=tuple(rd.shape[:-1]),
+              t_bitwise_diff=n_t, max_ulp=max_ulp, max_abs_err=max_abs, tri_diff=n_tri,
+              inst_diff=n_inst, t_bitwise_diff_vs_k1=t_vs_k1,
+              tri_or_inst_diff_vs_k1=int(((hk.tri != k1.tri) | (hk.inst != k1.inst)).sum()),
+              unexplained_vs_k1=unexplained, any_hit_answer_diff=occ_diff,
+              hit_fraction=f"{float((hk.tri >= 0).float().mean()):.4f}")
+        check(n_t == 0 and n_tri == 0 and n_inst == 0, f"K2 differs from its plain version on {tag}")
+        check(unexplained == 0, f"K2 differs from K1 on {tag} for another reason than the "
+              "order of box tests (traversal.unexplained_differences)")
+        check(occ_diff == 0, f"K2's any-hit answers differ from its nearest hits on {tag}")
+        cast = lambda sc=sc, ro=ro, rd=rd: binary.cast_rays_binary_cuda(sc, ro, rd)
+        cast()
+        cast_ms = min(event_ms(cast, 10) for _ in range(3))
+        kernel_ms = device_ms(cast, "binary_traverse_kernel")
+        k1_ms = device_ms(lambda sc=sc, ro=ro, rd=rd: traversal.cast_rays_cuda(sc, ro, rd),
+                          "wide_traverse_kernel")
+        plain_ms = event_ms(lambda sc=sc, ro=ro, rd=rd: binary.cast_rays_binary_torch(sc, ro, rd),
+                            1)
+        phase("time_k2", card=repr(card), rays=tag, k2_kernel_ms=f"{kernel_ms:.4f}",
+              k2_cast_ms=f"{cast_ms:.4f}", k1_kernel_ms_same_rays=f"{k1_ms:.4f}",
+              k2_plain_ms=f"{plain_ms:.2f}")
+        tree = sc.binary
+        res[tag] = {"max_abs": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
+                    "t_vs_k1": t_vs_k1,
+                    "bound": bound(f"K2 {tag}", counters, 2, n_rays,
+                                   (ro, rd, tree.code, tree.box, *hk), real_tri_rows(sc))}
+
+    # the coherence sort of the cuda backend's bounce casts: K1's kernel
+    # on the bounce rays in pixel order and in sort order, and the whole
+    # casts, the sorted one with its argsort, gathers and scatter
+    order = torch.argsort(ray_sort_keys(bo.reshape(-1, 3), bd.reshape(-1, 3)), stable=True)
+    so, sd = bo.reshape(-1, 3)[order].contiguous(), bd.reshape(-1, 3)[order].contiguous()
+    unsorted_cast = lambda: traversal.cast_rays_cuda(col, bo, bd)
+    presorted_cast = lambda: traversal.cast_rays_cuda(col, so, sd)
+    sorted_cast = lambda: cast_rays_sorted(traversal.cast_rays_cuda, col, bo, bd)
+    phase("sort", card=repr(card), rays="config5_bounce1",
+          k1_kernel_ms_pixel_order=f"{device_ms(unsorted_cast, 'wide_traverse_kernel'):.4f}",
+          k1_kernel_ms_sort_order=f"{device_ms(presorted_cast, 'wide_traverse_kernel'):.4f}",
+          unsorted_cast_ms=f"{min(event_ms(unsorted_cast, 10) for _ in range(3)):.4f}",
+          sorted_cast_ms=f"{min(event_ms(sorted_cast, 10) for _ in range(3)):.4f}")
+
+    # 20. the path main path: the fly-through through bvh and cuda ------
+    def reset():
+        binary.LAUNCHES = traversal.LAUNCHES = tlas.LAUNCHES = 0
+
+    def counts():
+        return {"K1": traversal.LAUNCHES, "K2": binary.LAUNCHES, "K3": tlas.LAUNCHES}
+
+    def frame(backend, k, **kw):
+        config = RenderConfig(PATH_SIZE, PATH_SIZE, backend=backend, **kw.pop("config", {}))
+        return render_image_path_traced(config, col, *params(poses[k]), prng.PRNGKey(k),
+                                        PATH_BOUNCES, PATH_SAMPLES, **kw)
+
+    images, launches = {}, {}
+    for backend, kname in (("bvh", "K2"), ("cuda", "K1")):
+        per_frame, imgs = [], []
+        for k in range(FLY_FRAMES):
+            reset()
+            imgs.append(frame(backend, k))
+            torch.cuda.synchronize()
+            n = counts()
+            per_frame.append(n[kname])
+            launches.setdefault(kname, n[kname])
+            check(n[kname] == 3 and sum(n.values()) == 3,
+                  f"frame {k} through {backend} launched {n}, not {kname} 3 times")
+        with plain_casts():
+            n_plain = int((imgs[0] != frame(backend, 0)).any(-1).sum())
+        reset()
+        lit = frame(backend, 0, config={"path_lights": True})
+        torch.cuda.synchronize()
+        lit_launches = counts()[kname]
+        fields = {}
+        if backend == "cuda":  # the bounce and tail casts are sorted by default
+            fields["sorted_vs_unsorted_pixels"] = int(
+                (imgs[0] != frame("cuda", 0, sort_secondary=False)).any(-1).sum())
+            check(fields["sorted_vs_unsorted_pixels"] == 0, "the sort changed the path image")
+        phase("path", backend=backend, kernel=kname, shape=tuple(imgs[0].shape),
+              launches_per_frame=per_frame, launches_with_path_lights=lit_launches,
+              pixels_vs_plain=n_plain, bounce_casts_sorted=backend == "cuda", **fields,
+              image_mean=f"{float(torch.stack(imgs).float().mean()):.3f}")
+        check(n_plain == 0, f"{n_plain} pixels of the {backend} path frame differ from the "
+              "plain casts' frame")
+        check(lit_launches == 6, f"the NEE frame launched {kname} {lit_launches} times, not 6")
+        images[backend] = imgs
+    bvh_vs_cuda = [int((a != b).any(-1).sum()) for a, b in zip(images["bvh"], images["cuda"])]
+    phase("path_bvh_vs_cuda", pixels_per_frame=bvh_vs_cuda,
+          frame0_bounce1_rays_t_diff=res["config5_bounce1"]["t_vs_k1"],
+          note="K2 and K1 differ only by box order (k2_vs_plain unexplained_vs_k1=0)")
+
+    # 21. config 5 against its CPU golden -------------------------------
+    g_scene, g_cam = scene_colonnade(64, 64, columns=4, segs=8, device=dev)
+    g_p = g_cam.ray_params(dev)
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                          "config5_colonnade_path_64.npy")
+    mism = {b: _golden_mismatch(render_image_path_traced(
+        RenderConfig(64, 64, backend=b), g_scene, g_p["K_inv"], g_p["D"], g_p["pose"],
+        g_p["inv_pose"], prng.PRNGKey(7), 2, 2), golden) for b in ("bvh", "cuda")}
+    phase("golden5", **{f"{b}_mismatch": v for b, v in mism.items()},
+          bound=GOLDEN5_MAX_MISMATCH)
+    check(max(mism.values()) <= GOLDEN5_MAX_MISMATCH, f"config 5 golden mismatch {mism}")
+
+    # 22. AO and denoise against their plain-cast frames ----------------
+    ao_cfg = RenderConfig(PATH_SIZE, PATH_SIZE, backend="bvh")
+    reset()
+    ao = render_image_ao(ao_cfg, col, *a0, prng.PRNGKey(0), AO_SAMPLES, 1.0)
+    torch.cuda.synchronize()
+    ao_launches = counts()["K2"]
+    with plain_casts():
+        ao_plain = int((ao != render_image_ao(ao_cfg, col, *a0, prng.PRNGKey(0), AO_SAMPLES,
+                                              1.0)).any(-1).sum())
+    phase("ao", backend="bvh", samples=AO_SAMPLES, launches=ao_launches,
+          pixels_vs_plain=ao_plain, mean=f"{float(ao.float().mean()):.3f}")
+    check(ao_launches == AO_SAMPLES + 1 and ao_plain == 0, "the AO frame is off")
+    reset()
+    den = frame("bvh", 0, config={"denoise": 3})
+    torch.cuda.synchronize()
+    den_launches = counts()["K2"]
+    with plain_casts():
+        den_plain = int((den != frame("bvh", 0, config={"denoise": 3})).any(-1).sum())
+    phase("denoise", backend="bvh", iterations=3, launches=den_launches,
+          pixels_vs_plain=den_plain, pixels_vs_noisy=int((den != images["bvh"][0]).any(-1).sum()))
+    check(den_launches == 4 and den_plain == 0, "the denoised frame is off")
+
+    # 23. times of the path frame and its stages ------------------------
+    for size, w, h, bounces, samples in PATH_TIMES:
+        pa = params(poses[0], w, h)
+        out = {}
+        for backend in ("bvh", "cuda"):
+            cfg = RenderConfig(w, h, backend=backend)
+            fn = lambda cfg=cfg: render_image_path_traced(cfg, col, *pa, prng.PRNGKey(0),
+                                                          bounces, samples)
+            fn()
+            best, median = best_and_median_ms(fn, loops=3, n=2 if w > 512 else 5)
+            out[f"{backend}_best_ms"], out[f"{backend}_median_ms"] = f"{best:.4f}", f"{median:.4f}"
+        phase("path_time", card=repr(card), size=size, samples=samples, bounces=bounces,
+              rays_per_bounce=samples * w * h, **out)
+        for backend, sort, lights in (("bvh", False, False), ("cuda", True, False),
+                                      ("cuda", False, False), ("cuda", True, True)):
+            cfg = RenderConfig(w, h, backend=backend, path_lights=lights)
+            run = lambda cfg=cfg, sort=sort: render_radiance_path_traced(
+                cfg, col, *pa, prng.PRNGKey(0), bounces, samples, sort_secondary=sort)
+            run()
+            phase("path_stages", card=repr(card), size=size, backend=backend, sorted=sort,
+                  path_lights=lights, **_path_stages(integrators, run))
+        rad = render_radiance_path_traced(RenderConfig(w, h, backend="cuda"), col, *pa,
+                                          prng.PRNGKey(0), bounces, samples)
+        o_p, d_p = generate_rays(w, h, *pa)
+        g = hit_attributes(col, o_p, d_p, traversal.cast_rays_cuda(col, o_p, d_p))
+        guides = (torch.where(g.hit[..., None], g.normal, 0.0),
+                  torch.where(g.hit, g.t, torch.full_like(g.t, float("inf"))))
+        den_ms = min(event_ms(lambda: atrous_denoise(rad, *guides, iterations=3), 3)
+                     for _ in range(3))
+        phase("path_stages", card=repr(card), size=size, denoise_3_iterations_ms=f"{den_ms:.4f}")
+
+    flag = res["flagship_primary"]
+    return {
+        "name": "K2 binary_traverse (binary BVH, nearest and any hit; launches: a config 5 "
+                "path frame through the bvh backend, primary + bounce + any-hit tail; ms, "
+                "plain_ms, bound: the frame's first bounce rays [2, 512, 512]; on the "
+                f"flagship's primary rays {flag['ms']:.4f} ms, bound "
+                f"{flag['bound']['bound_ms']:.4f} ms)",
+        "route": "cuda",
+        "source": "tpu_raytracer_torch/kernels/csrc/wide_traverse.cu",
+        "replaces": "tpu_raytracer/kernels/traversal.py:308",
+        "launches": launches["K2"],
+        "max_abs_err": max(r["max_abs"] for r in res.values()),
+        "ms": res["config5_bounce1"]["ms"],
+        "plain_ms": res["config5_bounce1"]["plain_ms"],
+        **res["config5_bounce1"]["bound"],
+    }
+
+
+@contextlib.contextmanager
+def plain_casts():
+    """The ``bvh`` and ``cuda`` backends on the kernels' plain versions, on
+    the rays' own device, for every cast the integrators and pipeline make."""
+    from tpu_raytracer_torch.kernels import binary, tlas, traversal
+    from tpu_raytracer_torch.render import integrators, pipeline, renderer
+
+    real = renderer.get_cast_fn
+    cuda_plain = _plain_router(traversal, tlas)
+
+    def plain(backend):
+        if backend == "bvh":
+            return binary.cast_rays_binary_torch
+        return cuda_plain if backend == "cuda" else real(backend)
+
+    modules = (renderer, integrators, pipeline)
+    saved = [m.get_cast_fn for m in modules]
+    for m in modules:
+        m.get_cast_fn = plain
+    try:
+        yield
+    finally:
+        for m, f in zip(modules, saved):
+            m.get_cast_fn = f
+
+
+def _path_stages(integrators, run) -> dict:
+    """One path frame (``run``) with CUDA events around each cast — the
+    primary, the bounce casts (with their sort), the any-hit tail and the
+    NEE shadow casts — around ``hit_attributes`` and around the sampling
+    (``_cosine_sample`` with its threefry, and the lobe choice's draws).
+    The rest of the frame is shading and bookkeeping."""
+    from types import SimpleNamespace
+
+    names = ("get_cast_fn", "occlusion_cast_fn", "secondary_cast_fn", "hit_attributes",
+             "_cosine_sample", "prng")
+    saved = {n: getattr(integrators, n) for n in names}
+    marks, depth = [], [0]
+
+    def timed(fn, kind):
+        def call(*a, **kw):
+            if depth[0]:  # inside another timed call
+                return fn(*a, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            depth[0] += 1
+            try:
+                out = fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+            end.record()
+            marks.append((kind, start, end))
+            return out
+        call.kind = kind
+        return call
+
+    def secondary(cast, backend, sort=False):
+        kind = "tail" if getattr(cast, "kind", "") == "nee" else "bounce"
+        return timed(saved["secondary_cast_fn"](cast, backend, sort), kind)
+
+    prng = saved["prng"]
+    integrators.get_cast_fn = lambda b: timed(saved["get_cast_fn"](b), "primary")
+    integrators.occlusion_cast_fn = lambda b: timed(saved["occlusion_cast_fn"](b), "nee")
+    integrators.secondary_cast_fn = secondary
+    integrators.hit_attributes = timed(saved["hit_attributes"], "attrs")
+    integrators._cosine_sample = timed(saved["_cosine_sample"], "sampling")
+    integrators.prng = SimpleNamespace(
+        split=timed(prng.split, "sampling"), fold_in=timed(prng.fold_in, "sampling"),
+        uniform=timed(prng.uniform, "sampling"))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        start.record()
+        run()
+        end.record()
+    finally:
+        for n, f in saved.items():
+            setattr(integrators, n, f)
+    end.synchronize()
+    frame_ms = start.elapsed_time(end)
+    out = {"frame_ms": f"{frame_ms:.4f}"}
+    for kind in ("primary", "bounce", "tail", "nee"):
+        ms = [s.elapsed_time(e) for k, s, e in marks if k == kind]
+        out[f"{kind}_ms"] = "/".join(f"{m:.4f}" for m in ms) or "none"
+    for kind in ("attrs", "sampling"):
+        out[f"{kind}_ms"] = f"{sum(s.elapsed_time(e) for k, s, e in marks if k == kind):.4f}"
+    out["rest_ms"] = f"{frame_ms - sum(s.elapsed_time(e) for _, s, e in marks):.4f}"
+    return out
 
 
 def _plain_router(traversal, tlas):

@@ -143,6 +143,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert len(names) > 25, names\n"
+        "new = {'tpu_raytracer_torch.' + m for m in ('kernels.binary', 'utils.prng',\n"
+        "       'render.denoise', 'render.sorted_cast', 'app.controls')}\n"
+        "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -130,12 +130,16 @@ def test_router_raises_for_unported_routes():
         traversal.cast_rays_cuda(port_scene("cube"), torch.zeros(2), port_rays("cube")[1])
 
 
-def host_trace(scene, origin, directions, occlusion=False):
-    """K1's traversal header, built for the host, over every ray."""
+def host_trace(scene, origin, directions, occlusion=False, arity=4):
+    """The traversal header of K1 (``arity`` 4, the 4-wide tables) or K2
+    (2, the binary tables), built for the host, over every ray."""
     lib = build.load("host")
     tables = scene.wide4
+    code, box, root = tables.wcode, tables.wbox, tables.wroot
+    if arity == 2:
+        code, box, root = scene.binary.code, scene.binary.box, scene.binary.root
     inst_tab = traversal.instance_table(scene)
-    inst_root = tables.wroot[scene.inst_mesh.long()].to(torch.int32).contiguous()
+    inst_root = root[scene.inst_mesh.long()].to(torch.int32).contiguous()
     d = directions.contiguous()
     o = origin.contiguous()
     r = d.numel() // 3
@@ -143,7 +147,7 @@ def host_trace(scene, origin, directions, occlusion=False):
     tri = torch.empty(r, dtype=torch.int32)
     inst = torch.empty(r, dtype=torch.int32)
     rc = lib.wt_trace_host(
-        tables.wcode.data_ptr(), tables.wbox.data_ptr(), tables.tri_rec.data_ptr(),
+        arity, code.data_ptr(), box.data_ptr(), tables.tri_rec.data_ptr(),
         inst_tab.data_ptr(), inst_root.data_ptr(), ctypes.c_int(scene.num_instances),
         o.data_ptr(), 0 if o.dim() == 1 else 3, d.data_ptr(), r, int(occlusion),
         t.data_ptr(), tri.data_ptr(), inst.data_ptr(),

@@ -1,5 +1,5 @@
-"""Kernels K1, K3 and K4-K6 on a CUDA card against their plain PyTorch
-versions.
+"""Kernels K1-K6 on a CUDA card against their plain PyTorch versions,
+and the config 5 path frame through K2 and K1.
 
 Marked ``gpu``: every test skips without a card. On a machine with one
 (and no JAX), run from the repository root with
@@ -25,7 +25,7 @@ from tpu_raytracer_torch.app.scenes import (
     scene_colonnade, scene_colonnade_pair, scene_cube, scene_instances,
 )
 from tpu_raytracer_torch.core.vecmath import FLT_MAX, normalize
-from tpu_raytracer_torch.kernels import paged, paged_major, tlas, traversal
+from tpu_raytracer_torch.kernels import binary, paged, paged_major, tlas, traversal
 from tpu_raytracer_torch.render import (
     Camera, RenderConfig, generate_rays, hit_attributes, render, render_image_whitted,
 )
@@ -200,3 +200,88 @@ def test_colonnade_renders_through_paged_backends_as_through_cuda(cuda, backend)
     want = render_image(RenderConfig(128, 96), scene, *args)
     got = render_image(RenderConfig(128, 96, backend=backend), scene.with_paging(), *args)
     assert torch.equal(got, want)
+
+
+def test_k2_matches_plain_version_bitwise_in_both_modes(cuda):
+    scene, cam = _two_instance(cuda)
+    o, d = _rays(cam, cuda)
+    refl, shadow = _secondary_rays(scene, o, d, traversal.cast_rays_cuda(scene, o, d))
+    for ro, rd in ((o, d), refl):
+        before = binary.LAUNCHES
+        got = binary.cast_rays_binary_cuda(scene, ro, rd)
+        torch.cuda.synchronize()
+        assert binary.LAUNCHES == before + 1
+        want = binary.cast_rays_binary_torch(scene, ro, rd)
+        assert (got.tri >= 0).any()
+        assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
+        assert torch.equal(got.tri, want.tri) and torch.equal(got.inst, want.inst)
+        k1 = traversal.cast_rays_cuda(scene, ro, rd)
+        assert traversal.unexplained_differences(scene, ro, rd, got, k1) == 0
+    occ = binary.cast_rays_binary_cuda(scene, *shadow, occlusion=True)
+    plain = binary.cast_rays_binary_torch(scene, *shadow, occlusion=True)
+    near = binary.cast_rays_binary_cuda(scene, *shadow)
+    assert torch.equal(occ.t, plain.t)
+    assert torch.equal(occ.t < 0, near.t < FLT_MAX)
+
+
+def _plain_casts(monkeypatch):
+    """Route the bvh and cuda backends to their plain versions."""
+    from tpu_raytracer_torch.render import renderer
+
+    real = renderer.get_cast_fn
+
+    def plain(backend):
+        if backend == "bvh":
+            return binary.cast_rays_binary_torch
+        if backend == "cuda":
+            return lambda sc, o, d, occlusion=False: (
+                tlas.cast_rays_tlas_torch(sc, o, d, occlusion) if sc.num_instances >= 2
+                else traversal.cast_rays_wide_torch(sc, o, d, occlusion))
+        return real(backend)
+
+    from tpu_raytracer_torch.render import integrators
+
+    monkeypatch.setattr(renderer, "get_cast_fn", plain)
+    monkeypatch.setattr(integrators, "get_cast_fn", plain)
+
+
+@pytest.mark.parametrize("backend", ["bvh", "cuda"])
+def test_config5_path_frame_matches_plain_casts(cuda, backend, monkeypatch):
+    from tpu_raytracer_torch.render import render_image_path_traced
+    from tpu_raytracer_torch.utils import prng
+
+    scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
+    p = cam.ray_params(cuda)
+    args = (p["K_inv"], p["D"], p["pose"], p["inv_pose"], prng.PRNGKey(7), 2, 2)
+    config = RenderConfig(128, 96, backend=backend)
+    binary.LAUNCHES = traversal.LAUNCHES = 0
+    img = render_image_path_traced(config, scene, *args)
+    torch.cuda.synchronize()
+    assert (binary.LAUNCHES if backend == "bvh" else traversal.LAUNCHES) == 3
+    with monkeypatch.context() as m:
+        _plain_casts(m)
+        want = render_image_path_traced(config, scene, *args)
+    assert torch.equal(img, want)
+    golden = np.load(os.path.join(GOLDEN_DIR, "config5_colonnade_path_64.npy"))
+    scene64, cam64 = scene_colonnade(64, 64, columns=4, segs=8, device=cuda)
+    p64 = cam64.ray_params(cuda)
+    img64 = render_image_path_traced(RenderConfig(64, 64, backend=backend), scene64,
+                                     p64["K_inv"], p64["D"], p64["pose"], p64["inv_pose"],
+                                     prng.PRNGKey(7), 2, 2)
+    assert (img64.cpu().numpy() != golden).any(-1).sum() <= 16  # tests/test_torch_path.py
+
+
+def test_sorted_cast_equals_unsorted_cast_on_the_card(cuda):
+    from tpu_raytracer_torch.render.integrators import _cosine_sample
+    from tpu_raytracer_torch.render.sorted_cast import cast_rays_sorted
+    from tpu_raytracer_torch.utils import prng
+
+    scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
+    o, d = _rays(cam, cuda)
+    attrs = hit_attributes(scene, o, d, traversal.cast_rays_cuda(scene, o, d))
+    nd = _cosine_sample(prng.PRNGKey(1), attrs.normal, True)
+    ro, rd = park_dead_rays(attrs.location + nd * SHADOW_EPS, nd, attrs.hit)
+    want = traversal.cast_rays_cuda(scene, ro, rd)
+    got = cast_rays_sorted(traversal.cast_rays_cuda, scene, ro, rd)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

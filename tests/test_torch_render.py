@@ -98,8 +98,8 @@ def test_driver_writes_png_and_rejects_demo(tmp_path, capsys):
 
 def test_unported_routes_raise():
     scene, cam = compiled("cube", "torch")
-    with pytest.raises(NotImplementedError, match="bvh"):
-        render(cam, scene, backend="bvh")
+    with pytest.raises(NotImplementedError, match="bvh, cuda"):
+        render(cam, scene, backend="pallas")
     with pytest.raises(NotImplementedError, match="skies"):
         render(cam, dataclasses.replace(scene, has_sky=True))
     fields = scene.numpy_fields()

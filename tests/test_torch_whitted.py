@@ -200,11 +200,15 @@ def test_unported_lighting_options_raise():
                        normal_mode="inverse_transpose")
     with pytest.raises(NotImplementedError, match="item 9"):
         shade.surface_color(pa, pattrs, tex_filter="bilinear")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        secondary_cast_fn(traversal.cast_rays, sort_secondary=True)
+    # the coherence sort serves the cuda backend only; others pass through
+    assert secondary_cast_fn(traversal.cast_rays, "brute", sort_secondary=True) \
+        is traversal.cast_rays
+    from tpu_raytracer_torch.utils import prng
+
+    with pytest.raises(NotImplementedError, match="item 8"):
+        integrators.render_path_traced(pa, torch.zeros(3), torch.from_numpy(np.array(d)),
+                                       prng.PRNGKey(0), point_lights=(object(),))
     from tpu_raytracer_torch.app.driver import run
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run("cube", 16, 16, frames=1, device="cpu", mode="path")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run("cube", 16, 16, frames=1, device="cpu", mode="ao")
+    with pytest.raises(ValueError, match="mode"):
+        run("cube", 16, 16, frames=1, device="cpu", mode="aov")

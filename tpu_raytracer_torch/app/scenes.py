@@ -1,5 +1,5 @@
 """Scene builders of the ported paths (counterpart of
-``tpu_raytracer/app/scenes.py``), BASELINE configs 1-4:
+``tpu_raytracer/app/scenes.py``), BASELINE configs 1-5:
 
 | # | config | builder |
 |---|--------|---------|
@@ -8,11 +8,15 @@
 | 3 | 82k-triangle displaced blob, 1080p | scene_bunny |
 | 4 | posed, scaled instances + Whitted reflections | scene_instances |
 |   | 16 instances, the TLAS scene | scene_instances16 |
-| 5 | the colonnade: ~1.04M triangles at 18x18 columns, 40 segments | scene_colonnade |
+| 5 | the colonnade, path traced: 256k triangles at the defaults, ~1.04M at 18x18 columns, 40 segments | scene_colonnade |
 |   | two posed instances of that colonnade, the page-major scene | scene_colonnade_pair |
 
-Path tracing on the colonnade waits for ROADMAP item 12; flattening
-static instances waits for item 15.
+Config 5 is path tracing on the colonnade: BASELINE's run is
+``scene_colonnade(512, 512)`` at its defaults (10x10 columns, 32
+segments: 256,002 triangles), 2 samples and 2 bounces over a 5-pose
+``controls.fly_through`` (``render_image_path_traced``); the ~1.04M
+triangles at 18x18 columns and 40 segments are the paged kernels'
+scene. Flattening static instances waits for ROADMAP item 15.
 """
 
 from __future__ import annotations

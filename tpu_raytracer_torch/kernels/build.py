@@ -1,7 +1,7 @@
 """Build and load the hand-written kernels from ``kernels/csrc`` and the
 native BVH builder from ``accel/csrc``.
 
-The CUDA sources of K1, K3, K4/K5 and K6 are compiled for ``sm_90a`` by
+The CUDA sources of K1/K2, K3, K4/K5 and K6 are compiled for ``sm_90a`` by
 one ``nvcc`` process per source, all started together, and linked into
 one shared library with a plain C interface, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). The host build of the same
@@ -104,7 +104,7 @@ def build_log(lib: pathlib.Path) -> str:
 
 
 def build_cuda() -> pathlib.Path:
-    """The kernels K1, K3, K4/K5 and K6 for sm_90a: one nvcc per source,
+    """The kernels K1/K2, K3, K4/K5 and K6 for sm_90a: one nvcc per source,
     started together, linked into ``libtraverse.so``."""
     return _build("traverse", find_nvcc(), NVCC_FLAGS, CUDA_SOURCES,
                   link_flags=NVCC_LINK_FLAGS)
@@ -147,11 +147,11 @@ _PLAN_ARGS = [_P, _P, _I, _P, _I]
 # origin, origin_stride, dirs, num_rays, t_out, tri_out, inst_out
 _NEAREST_RAY_ARGS = [_P, _I, _P, _I64, _P, _P, _P]
 _ENTRY_ARGS = {
-    "cuda": {"wt_launch": _SCENE_ARGS + _RAY_ARGS + [_P],  # + stream
+    "cuda": {"wt_launch": [_I] + _SCENE_ARGS + _RAY_ARGS + [_P],  # arity + ... + stream
              "tlas_launch": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_P],
              "paged_launch": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS + [_P],
              "paged_major_launch": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS + [_P]},
-    "host": {"wt_trace_host": _SCENE_ARGS + _RAY_ARGS,
+    "host": {"wt_trace_host": [_I] + _SCENE_ARGS + _RAY_ARGS,
              "tlas_trace_host": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS,
              "paged_trace_host": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS,
              "paged_major_trace_host": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS},

@@ -1,5 +1,5 @@
 // Host builds of the traversal headers for the CPU tests: the same
-// per-ray code the CUDA kernels K1 (wide_traverse.cuh), K3
+// per-ray code the CUDA kernels K1 and K2 (wide_traverse.cuh), K3
 // (tlas_traverse.cuh) and K4-K6 (paged_traverse.cuh) run, looped over
 // rays.
 //
@@ -8,17 +8,19 @@
 #include "paged_traverse.cuh"
 #include "tlas_traverse.cuh"
 
-extern "C" int wt_trace_host(const int32_t* wcode, const float* wbox,
+extern "C" int wt_trace_host(int arity, const int32_t* wcode, const float* wbox,
                              const float* tri_rec, const float* inst_tab,
                              const int32_t* inst_root, int num_instances,
                              const float* origin, int origin_stride,
                              const float* dirs, int64_t num_rays,
                              int occlusion, float* t_out, int32_t* tri_out,
                              int32_t* inst_out) {
+  if (arity != 4 && arity != 2) return 1;
   const wt::Scene s{wcode, wbox, tri_rec, inst_tab, inst_root, num_instances};
   for (int64_t r = 0; r < num_rays; ++r) {
-    const wt::Hit h = wt::trace_ray(s, origin + r * origin_stride,
-                                    dirs + 3 * r, occlusion != 0);
+    const float* wo = origin + r * origin_stride;
+    const wt::Hit h = arity == 4 ? wt::trace_ray<4>(s, wo, dirs + 3 * r, occlusion != 0)
+                                 : wt::trace_ray<2>(s, wo, dirs + 3 * r, occlusion != 0);
     t_out[r] = h.t;
     tri_out[r] = h.tri;
     inst_out[r] = h.inst;

@@ -1,14 +1,18 @@
-// CUDA entry point of kernel K1: one thread per ray over the 4-wide BVH.
+// CUDA entry point of kernels K1 and K2: one thread per ray over the
+// 4-wide BVH (K1) or the binary BVH (K2).
 //
-// Replaces tpu_raytracer/kernels/dual.py:_dual_kernel (the pallas_call of
-// dual.py:_run_dual) in wide mode, nearest or any hit; the traversal
-// itself and the note on what bounds it live in wide_traverse.cuh.
+// K1 replaces tpu_raytracer/kernels/dual.py:_dual_kernel (the pallas_call
+// of dual.py:_run_dual) in wide mode, K2
+// tpu_raytracer/kernels/traversal.py:_traversal_kernel (the pallas_call of
+// traversal.py:_run_kernel), nearest or any hit; the traversal itself and
+// the note on what bounds it live in wide_traverse.cuh. K2 is the same
+// walk at arity 2, over the whole binary tree (kernels/binary.py), under
+// its own kernel name so that a profile tells the two apart.
 //
-// Built together with K3 (tlas_traverse.cu) into one library
-// (kernels/build.py):
+// Built together with K3-K6 into one library (kernels/build.py), one nvcc
+// per source:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-//        -shared -Xcompiler -fPIC -o libtraverse.so wide_traverse.cu
-//        tlas_traverse.cu
+//        -Xcompiler -fPIC -c wide_traverse.cu
 // The library has a plain C interface bound with ctypes: no PyTorch
 // headers, so it builds in seconds.
 #include <cuda_runtime.h>
@@ -19,7 +23,27 @@ namespace {
 
 constexpr int kThreads = 128;
 
-// kAnyHit is a template argument so the nearest-hit kernel compiles
+template <int kArity, bool kAnyHit>
+__device__ __forceinline__ void trace_one(const wt::Scene& s,
+                                          const float* __restrict__ origin,
+                                          int origin_stride,
+                                          const float* __restrict__ dirs,
+                                          int64_t num_rays, float* __restrict__ t_out,
+                                          int32_t* __restrict__ tri_out,
+                                          int32_t* __restrict__ inst_out) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= num_rays) return;
+  const float wo[3] = {origin[r * origin_stride + 0],
+                       origin[r * origin_stride + 1],
+                       origin[r * origin_stride + 2]};
+  const float wd[3] = {dirs[3 * r + 0], dirs[3 * r + 1], dirs[3 * r + 2]};
+  const wt::Hit h = wt::trace_ray<kArity>(s, wo, wd, kAnyHit);
+  t_out[r] = h.t;
+  tri_out[r] = h.tri;
+  inst_out[r] = h.inst;
+}
+
+// kAnyHit is a template argument so the nearest-hit kernels compile
 // without the any-hit branches.
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kThreads)
@@ -28,41 +52,53 @@ wide_traverse_kernel(wt::Scene s, const float* __restrict__ origin,
                      int64_t num_rays, float* __restrict__ t_out,
                      int32_t* __restrict__ tri_out,
                      int32_t* __restrict__ inst_out) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= num_rays) return;
-  const float wo[3] = {origin[r * origin_stride + 0],
-                       origin[r * origin_stride + 1],
-                       origin[r * origin_stride + 2]};
-  const float wd[3] = {dirs[3 * r + 0], dirs[3 * r + 1], dirs[3 * r + 2]};
-  const wt::Hit h = wt::trace_ray(s, wo, wd, kAnyHit);
-  t_out[r] = h.t;
-  tri_out[r] = h.tri;
-  inst_out[r] = h.inst;
+  trace_one<4, kAnyHit>(s, origin, origin_stride, dirs, num_rays, t_out, tri_out,
+                        inst_out);
+}
+
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kThreads)
+binary_traverse_kernel(wt::Scene s, const float* __restrict__ origin,
+                       int origin_stride, const float* __restrict__ dirs,
+                       int64_t num_rays, float* __restrict__ t_out,
+                       int32_t* __restrict__ tri_out,
+                       int32_t* __restrict__ inst_out) {
+  trace_one<2, kAnyHit>(s, origin, origin_stride, dirs, num_rays, t_out, tri_out,
+                        inst_out);
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() after the launch (0 on
-// success). `origin_stride` is 0 for one origin shared by every ray
-// (primary rays) and 3 for per-ray origins [R, 3]. `occlusion` != 0
-// selects the any-hit mode.
-extern "C" int wt_launch(const int32_t* wcode, const float* wbox,
+// Launch K1 (`arity` 4: the 4-wide tables) or K2 (`arity` 2: the binary
+// tables) on `stream`; returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for any other arity.
+// `origin_stride` is 0 for one origin shared by every ray (primary rays)
+// and 3 for per-ray origins [R, 3]. `occlusion` != 0 selects the any-hit
+// mode.
+extern "C" int wt_launch(int arity, const int32_t* wcode, const float* wbox,
                          const float* tri_rec, const float* inst_tab,
                          const int32_t* inst_root, int num_instances,
                          const float* origin, int origin_stride,
                          const float* dirs, int64_t num_rays, int occlusion,
                          float* t_out, int32_t* tri_out, int32_t* inst_out,
                          void* stream) {
+  if (arity != 4 && arity != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (num_rays <= 0) return 0;
   const wt::Scene s{wcode, wbox, tri_rec, inst_tab, inst_root, num_instances};
   const unsigned blocks =
       static_cast<unsigned>((num_rays + kThreads - 1) / kThreads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (occlusion) {
+  if (arity == 4 && occlusion) {
     wide_traverse_kernel<true><<<blocks, kThreads, 0, st>>>(
         s, origin, origin_stride, dirs, num_rays, t_out, tri_out, inst_out);
-  } else {
+  } else if (arity == 4) {
     wide_traverse_kernel<false><<<blocks, kThreads, 0, st>>>(
+        s, origin, origin_stride, dirs, num_rays, t_out, tri_out, inst_out);
+  } else if (occlusion) {
+    binary_traverse_kernel<true><<<blocks, kThreads, 0, st>>>(
+        s, origin, origin_stride, dirs, num_rays, t_out, tri_out, inst_out);
+  } else {
+    binary_traverse_kernel<false><<<blocks, kThreads, 0, st>>>(
         s, origin, origin_stride, dirs, num_rays, t_out, tri_out, inst_out);
   }
   return static_cast<int>(cudaGetLastError());

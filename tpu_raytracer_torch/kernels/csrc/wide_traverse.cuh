@@ -1,12 +1,13 @@
-// Per-ray traversal of the 4-wide BVH (kernel K1), nearest or any hit.
+// Per-ray traversal of the 4-wide BVH (kernel K1) and of the binary BVH
+// (kernel K2, the same walk at arity 2), nearest or any hit.
 //
-// Replaces the TPU kernel tpu_raytracer/kernels/dual.py:_dual_kernel
-// (wide mode) with its leaf test
-// tpu_raytracer/kernels/traversal.py:make_test_tri. It computes what that
-// kernel computes — for each ray the nearest accepted triangle (t, tri,
-// inst) over every instance, carrying t across instances — but as one
-// thread per ray with a private stack instead of 4096-ray packets sharing
-// one stack.
+// K1 replaces the TPU kernel tpu_raytracer/kernels/dual.py:_dual_kernel
+// (wide mode), K2 tpu_raytracer/kernels/traversal.py:_traversal_kernel,
+// both with the leaf test tpu_raytracer/kernels/traversal.py:make_test_tri.
+// They compute what those kernels compute — for each ray the nearest
+// accepted triangle (t, tri, inst) over every instance, carrying t across
+// instances — but as one thread per ray with a private stack instead of
+// 4096-ray packets sharing one stack.
 //
 // Any-hit mode (make_test_tri's `occlusion`, for shadow rays): the first
 // accepted triangle sets the ray's t to -kBig. The TPU kernel can only
@@ -23,7 +24,9 @@
 // nodes, so a warp's loads mostly hit the same L1/L2 lines (the whole
 // flagship scene, ~5 MB of tables, fits in the 50 MB L2), and enough
 // resident warps hide the load latency. Packets, treelets in shared
-// memory and persistent threads are later work.
+// memory and persistent threads are later work. K2 is bound the same way,
+// with about twice K1's dependent steps per ray: it pops twice as many
+// nodes, each two boxes and two codes (56 bytes) against K1's four.
 //
 // The header is plain C++ usable from both nvcc and a host compiler, so
 // the traversal itself is tested on the CPU (csrc/traverse_host.cpp)
@@ -62,12 +65,14 @@ constexpr float kTiny = 1e-30f;
 // every entry distance.
 constexpr float kCapSlack = 1.0f + 1.0f / 1048576.0f;
 
+// One scene's tables for a walk of arity A: K1 and K3 read the 4-wide
+// tables, K2 the binary tables (kernels/binary.py) in the same layout.
 struct Scene {
-  const int32_t* wcode;    // [W, 4]
-  const float* wbox;       // [W, 32]
+  const int32_t* wcode;    // [W, A] child codes
+  const float* wbox;       // [W, box_stride(A)] child boxes
   const float* tri_rec;    // [T, 16]: v0, n, rA, rB, 4 spare
   const float* inst_tab;   // [I, 12]: quat wxyz, position, inverse scale
-  const int32_t* inst_root;  // [I] wide root per instance
+  const int32_t* inst_root;  // [I] tree root per instance
   int num_instances;
 };
 
@@ -230,15 +235,18 @@ WT_HD bool walk_tree(const int32_t* code, const float* box, int32_t root,
   return false;
 }
 
-// Walk instance `i` for one world ray, updating `best`. In any-hit mode
-// it returns at the first accepted triangle.
+// Walk instance `i` for one world ray over the scene's tree of arity
+// kArity (the 4-wide tables of K1 and K3, or the whole binary tree of
+// K2), updating `best`. In any-hit mode it returns at the first accepted
+// triangle.
+template <int kArity = 4>
 WT_HD void walk_instance(const Scene& s, int i, const float* wo,
                          const float* wd, bool any_hit, Hit* best) {
   float o[3], d[3], inv[3];
   object_ray(s.inst_tab + 12 * i, wo, wd, o, d, inv);
   const int32_t inst_val = s.num_instances == 1 ? -1 : i;
-  walk_tree<4>(s.wcode, s.wbox, s.inst_root[i], 0, s.tri_rec, o, d, inv,
-               inst_val, any_hit, best);
+  walk_tree<kArity>(s.wcode, s.wbox, s.inst_root[i], 0, s.tri_rec, o, d, inv,
+                    inst_val, any_hit, best);
 }
 
 // The output record: a single-instance scene reports inst 0 on a hit
@@ -249,12 +257,14 @@ WT_HD Hit finish_hit(Hit best, int num_instances) {
   return best;
 }
 
-// Nearest (or any) hit of one world ray over every instance.
+// Nearest (or any) hit of one world ray over every instance, in index
+// order: K1 at arity 4, K2 at arity 2.
+template <int kArity>
 WT_HD Hit trace_ray(const Scene& s, const float* wo, const float* wd,
                     bool any_hit) {
   Hit best{kBig, -1, -1};
   for (int i = 0; i < s.num_instances; ++i) {
-    walk_instance(s, i, wo, wd, any_hit, &best);
+    walk_instance<kArity>(s, i, wo, wd, any_hit, &best);
     if (any_hit && best.t < 0.0f) break;
   }
   return finish_hit(best, s.num_instances);

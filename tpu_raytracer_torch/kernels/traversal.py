@@ -13,7 +13,9 @@ routes single-instance scenes to).
   * ``cast_rays_wide_torch`` is the plain version: the same per-ray
     stack walk over the same tables, vectorised over rays — same child
     ranking, same leaf order, same f32 operation order as the kernel, so
-    the two agree bit for bit.
+    the two agree bit for bit. ``cast_rays_tree_torch`` is that walk at
+    either arity; at arity 2 it is the plain version of K2
+    (``kernels/binary.py``), and ``launch`` launches K2 too.
   * ``cast_rays`` is the router of the ``cuda`` backend: scenes with two
     or more instances and a TLAS go to K3 (``kernels/tlas.py``), every
     other scene, whatever its size, to K1. The paged kernels K4-K6
@@ -265,13 +267,24 @@ def cast_rays_wide_torch(scene, origin, directions, occlusion: bool = False,
     ``occlusion``). With ``stats`` it returns ``(hit, counters)``, the
     per-ray counters of ``new_stats`` (of the nearest-hit walk, which
     the any-hit walk cuts short)."""
-    origin, directions = _split_rays(origin, directions)
     tables = _wide_tables(scene)
+    return cast_rays_tree_torch(scene, tables.wcode, tables.wbox, 4, tables.wroot, origin,
+                                directions, occlusion, chunk, stats)
+
+
+def cast_rays_tree_torch(scene, code, box, arity: int, mesh_root, origin, directions,
+                         occlusion: bool = False, chunk: int = PLAIN_CHUNK,
+                         stats: bool = False):
+    """``trace_ray<arity>`` of ``csrc/wide_traverse.cuh`` vectorised over
+    rays: each ray walks the tree of ``code``/``box`` (roots
+    ``mesh_root [M]``) of every instance in index order. The plain
+    version of K1 (4-wide tables) and K2 (binary tables)."""
+    origin, directions = _split_rays(origin, directions)
     shape = directions.shape[:-1]
     d_all = directions.reshape(-1, 3)
     o_all = origin.expand(directions.shape).reshape(-1, 3)
     inst_tab = instance_table(scene)
-    roots = tables.wroot[scene.inst_mesh.long()].tolist()
+    roots = mesh_root[scene.inst_mesh.long()].tolist()
     num_inst = scene.num_instances
     dev = d_all.device
     r = d_all.shape[0]
@@ -279,13 +292,15 @@ def cast_rays_wide_torch(scene, origin, directions, occlusion: bool = False,
     tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
     inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
     counters = new_stats(r, dev) if stats else None
+    tri_rec = _wide_tables(scene).tri_rec
     for lo in range(0, r, chunk):
         sl = slice(lo, min(lo + chunk, r))
         best = (t[sl], tri[sl], inst[sl])  # views: updated in place
         part = None if counters is None else {k: v[sl] for k, v in counters.items()}
         for i in range(num_inst):
-            walk_instance(tables, inst_tab[i], roots[i], i if num_inst > 1 else -1,
-                          o_all[sl], d_all[sl], best, part)
+            oo, od, inv = object_ray(inst_tab[i], o_all[sl], d_all[sl])
+            walk_tree(code, box, arity, tri_rec, 0, roots[i], 0, oo, od, inv,
+                      i if num_inst > 1 else -1, best, part)
     return finish_plain(t, tri, inst, shape, num_inst, occlusion, counters)
 
 
@@ -351,19 +366,28 @@ def unexplained_differences(scene, origin, directions, a, b) -> int:
 # ---------------------------------------------------------------------------
 
 
-def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=()):
-    """Check the inputs and launch ``entry`` of the kernel library (K1's
-    ``wt_launch`` or K3's ``tlas_launch``, whose TLAS table pointers come
-    in ``tlas_args``) on the current stream; returns the Hit record.
-    Raises on a CUDA error at launch."""
+def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
+           arity: int | None = None):
+    """Check the inputs and launch ``entry`` of the kernel library on the
+    current stream: ``wt_launch`` at ``arity`` 4 (K1, the 4-wide tables)
+    or 2 (K2, the binary tables of ``kernels/binary.py``), or K3's
+    ``tlas_launch`` (no arity; 4-wide tables), whose TLAS table pointers
+    come in ``tlas_args``. Returns the Hit record; raises on a CUDA error
+    at launch."""
     if directions.device.type != "cuda":
         raise ValueError(f"{entry} runs on cuda tensors, got {directions.device}")
     tables = _wide_tables(scene)
+    code, box, mesh_root = tables.wcode, tables.wbox, tables.wroot
+    if arity == 2:
+        from .binary import binary_tables
+
+        tree = binary_tables(scene)
+        code, box, mesh_root = tree.code, tree.box, tree.root
     if scene.device != directions.device:
         raise ValueError(f"scene on {scene.device}, rays on {directions.device}")
     for name, x, dtype in (
         ("directions", directions, torch.float32), ("origin", origin, torch.float32),
-        ("wcode", tables.wcode, torch.int32), ("wbox", tables.wbox, torch.float32),
+        ("code", code, torch.int32), ("box", box, torch.float32),
         ("tri_rec", tables.tri_rec, torch.float32),
     ):
         if x.dtype != dtype or not x.is_contiguous():
@@ -372,7 +396,7 @@ def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=())
     shape = directions.shape[:-1]
     r = directions.numel() // 3
     inst_tab = instance_table(scene)
-    inst_root = tables.wroot[scene.inst_mesh.long()].to(torch.int32).contiguous()
+    inst_root = mesh_root[scene.inst_mesh.long()].to(torch.int32).contiguous()
     t = torch.empty(r, dtype=torch.float32, device=directions.device)
     tri = torch.empty(r, dtype=torch.int32, device=directions.device)
     inst = torch.empty(r, dtype=torch.int32, device=directions.device)
@@ -380,8 +404,9 @@ def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=())
 
     fn = getattr(load("cuda"), entry)
     stream = torch.cuda.current_stream(directions.device).cuda_stream
+    head = () if arity is None else (arity,)
     err = fn(
-        tables.wcode.data_ptr(), tables.wbox.data_ptr(), tables.tri_rec.data_ptr(),
+        *head, code.data_ptr(), box.data_ptr(), tables.tri_rec.data_ptr(),
         inst_tab.data_ptr(), inst_root.data_ptr(), scene.num_instances, *tlas_args,
         origin.data_ptr(), 0 if origin.dim() == 1 else 3, directions.data_ptr(), r,
         int(occlusion), t.data_ptr(), tri.data_ptr(), inst.data_ptr(), stream,
@@ -399,7 +424,7 @@ def cast_rays_cuda(scene, origin, directions, occlusion: bool = False):
     origin, directions = _split_rays(origin, directions)
     if directions.device.type == "cpu":
         return cast_rays_wide_torch(scene, origin, directions, occlusion)
-    hit = launch("wt_launch", scene, origin, directions, occlusion)
+    hit = launch("wt_launch", scene, origin, directions, occlusion, arity=4)
     LAUNCHES += 1
     return hit
 

@@ -1,20 +1,27 @@
-"""Whitted reflections and the display mapping of float radiance.
+"""Multi-bounce integrators — Whitted reflections, path tracing and
+ambient occlusion — and the display mapping of float radiance.
 
-Counterpart of ``tpu_raytracer/render/integrators.py`` for the Whitted
-integrator (BASELINE config 4): each bounce casts the whole ray batch
-through the backend's nearest-hit cast, with terminated rays parked
-rather than compacted; the directional light's hard shadows use the
-any-hit cast. Colours are float [0, 1] until ``to_u8``. The ray-retiling
-and scene-sharded variants of the JAX integrator are not ported; point
-lights (ROADMAP item 8) and path tracing, AO and denoising (item 12)
-are not ported yet.
+Counterpart of ``tpu_raytracer/render/integrators.py``. Each bounce is a
+wavefront: the whole ray batch is cast through the backend's nearest-hit
+cast, with terminated rays parked rather than compacted; the directional
+light's hard shadows and the path tracer's final bounce use the any-hit
+cast. Random numbers come from ``utils/prng.py``, the JAX package's
+threefry streams: the same key draws the same numbers in both packages.
+Colours are float [0, 1] until ``to_u8``.
+
+Not ported: the ray-retiling and scene-sharded variants (multi-device,
+ROADMAP item 16), the TPU packet geometry of bounce casts, point lights
+(item 8).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.vecmath import FLT_MAX, dot, normalize
+from ..utils import prng
 from .renderer import get_cast_fn, hit_attributes, occlusion_cast_fn
 from .shade import (
     DEFAULT_LIGHT_DIRECTION, SHADOW_EPS, light_vector, sky_radiance, surface_color,
@@ -63,7 +70,7 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
     [0.4, 1] as in the primary pass, so shadow rays with a cosine at or
     below 0.4 park."""
     cast = get_cast_fn(backend)
-    cast2 = secondary_cast_fn(cast, sort_secondary)
+    cast2 = secondary_cast_fn(cast, backend, sort_secondary)
     occ_cast = occlusion_cast_fn(backend)
     directions = torch.as_tensor(directions, dtype=torch.float32)
     origin = torch.as_tensor(origin, dtype=torch.float32).expand(directions.shape).contiguous()
@@ -100,6 +107,187 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
         o = attrs.location + d * SHADOW_EPS
         o, d = park_dead_rays(o, d, active)
     return radiance
+
+
+def _cosine_sample(key, normal, exact):
+    """Cosine-weighted hemisphere sample around ``normal [..., 3]``."""
+    shape = normal.shape[:-1]
+    u = prng.uniform(key.to(normal.device), shape + (2,))
+    r = torch.sqrt(u[..., 0])
+    phi = 2.0 * math.pi * u[..., 1]
+    x = r * torch.cos(phi)
+    y = r * torch.sin(phi)
+    z = torch.sqrt(torch.clamp(1.0 - u[..., 0], min=0.0))
+    # orthonormal basis around n
+    n = normal
+    sign = torch.where(n[..., 2] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + n[..., 2])
+    b = n[..., 0] * n[..., 1] * a
+    t = torch.stack([1.0 + sign * n[..., 0] ** 2 * a, sign * b, -sign * n[..., 0]], -1)
+    bvec = torch.stack([b, sign + n[..., 1] ** 2 * a, -n[..., 1]], -1)
+    d = x[..., None] * t + y[..., None] * bvec + z[..., None] * n
+    return normalize(d, exact=exact)
+
+
+def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, samples: int = 4,
+                       backend: str = "cuda", sky_strength: float = 1.0, exact: bool = True,
+                       sort_secondary: bool = True, tex_filter: str = "nearest",
+                       lens_radius: float = 0.0, focus_distance: float = 4.0,
+                       light_direction=None, point_lights: tuple = (),
+                       sun_intensity: float = 1.0, normal_mode: str = "reference",
+                       sample_batch: bool = True, fast_tail: bool = True) -> torch.Tensor:
+    """Monte-Carlo path tracing -> float radiance ``[..., 3]``.
+
+    Lambertian BRDF with cosine-weighted sampling, emissive materials
+    through ``mat_illumination``, the sky as the ambient environment.
+    With probability ``mat_reflectivity`` a sample continues in the
+    glossy lobe (the mirror direction blended toward the cosine sample
+    by ``mat_roughness``), else in the diffuse one. ``light_direction``
+    turns on next-event estimation: at every bounce the diffuse lobe
+    adds the directional light's term through an any-hit shadow cast.
+    ``lens_radius > 0`` adds thin-lens depth of field, sampled per
+    sample on a lens disk perpendicular to the mean view axis.
+
+    ``sample_batch`` (the default; the JAX ``TRT_PATH_SAMPLE_BATCH``)
+    runs all samples as one ``(samples,) + shape`` wavefront after one
+    primary cast; without it, or with a lens, samples run one after
+    another. ``fast_tail`` (the JAX ``TRT_PATH_TAIL``): with no emissive
+    material and no NEE the last bounce's answer is hit or miss, so it
+    is cast with the any-hit cast. ``sort_secondary`` casts bounce rays
+    in coherence order on the ``cuda`` backend (``sorted_cast``); the
+    image does not change. ``key`` is a ``utils.prng`` key; the random
+    streams are the JAX package's."""
+    if point_lights:
+        raise NotImplementedError("point lights are not ported yet (ROADMAP item 8)")
+    cast = get_cast_fn(backend)
+    cast2 = secondary_cast_fn(cast, backend, sort_secondary)
+    occ_cast = occlusion_cast_fn(backend)
+    nee = light_direction is not None
+    fast_tail = fast_tail and not nee and not scene.has_emissive and max_bounces >= 1
+    tail_occ = secondary_cast_fn(occlusion_cast_fn(backend), backend, sort_secondary)
+    directions = torch.as_tensor(directions, dtype=torch.float32)
+    origin = torch.as_tensor(origin, dtype=torch.float32)
+    shape = directions.shape[:-1]
+    dev = directions.device
+    key = key.to(dev)
+    inv_pi = 1.0 / math.pi
+
+    def attrs_of(c, o, d):
+        # kernel wrappers take contiguous rays only (broadcast views are rejected)
+        o, d = o.contiguous(), d.contiguous()
+        return hit_attributes(scene, o, d, c(scene, o, d), exact=exact, normal_mode=normal_mode)
+
+    def bounce_from_attrs(state, attrs, key_b):
+        o, d, throughput, radiance, active = state
+        miss = active & ~attrs.hit
+        sky = sky_radiance(scene, d) * sky_strength
+        radiance = radiance + torch.where(miss[..., None], throughput * sky, 0.0)
+        live = active & attrs.hit
+        color = surface_color(scene, attrs, tex_filter)
+        emit = scene.mat_illumination[attrs.material]
+        refl = scene.mat_reflectivity[attrs.material]
+        rough = scene.mat_roughness[attrs.material][..., None]
+        radiance = radiance + torch.where(live[..., None], throughput * emit[..., None], 0.0)
+        throughput = throughput * torch.where(live[..., None], color, 1.0)
+        if nee:
+            # the light's term on the diffuse part of the lobe mix:
+            # T * (1 - refl) * albedo / pi * cos_i * vis * intensity
+            illum = _direct_illumination(scene, cast, attrs, light_direction, (), exact,
+                                         True, occ_cast=occ_cast, shadow_floor=0.0)
+            wgt = (1.0 - refl) * illum * (inv_pi * sun_intensity)
+            radiance = radiance + torch.where(live[..., None], throughput * wgt[..., None], 0.0)
+        d_diff = _cosine_sample(key_b, attrs.normal, exact)
+        # glossy lobe: the mirror blended toward the cosine sample by
+        # roughness, back to the cosine sample where it dips under the
+        # surface
+        mirror = _reflect(d, attrs.normal)
+        d_spec = normalize((1.0 - rough) * mirror + rough * d_diff, exact=exact)
+        d_spec = torch.where((dot(d_spec, attrs.normal) > 0.0)[..., None], d_spec, d_diff)
+        u = prng.uniform(prng.fold_in(key_b, 3), live.shape)
+        d_new = torch.where((u < refl)[..., None], d_spec, d_diff)
+        o_new = attrs.location + d_new * SHADOW_EPS
+        o_next, d_next = park_dead_rays(torch.where(live[..., None], o_new, o),
+                                        torch.where(live[..., None], d_new, d), live)
+        return o_next, d_next, throughput, radiance, live
+
+    def run_bounces(state, a0, keys):
+        """Bounce chain from the primary attributes to the radiance."""
+        state = bounce_from_attrs(state, a0, keys[0])
+        for b in range(1, max_bounces + 1):
+            o, d = state[0], state[1]
+            if fast_tail and b == max_bounces:
+                # final bounce: visibility of the sky is the whole answer
+                throughput, radiance, active = state[2], state[3], state[4]
+                sky = sky_radiance(scene, d) * sky_strength
+                miss = active & (tail_occ(scene, o.contiguous(), d.contiguous()).t >= FLT_MAX)
+                return radiance + torch.where(miss[..., None], throughput * sky, 0.0)
+            state = bounce_from_attrs(state, attrs_of(cast2, o, d), keys[b])
+        return state[3]
+
+    dof = lens_radius > 0.0
+    if samples > 1 and sample_batch and not dof:
+        # one primary cast; every sample's bounces in one wavefront
+        a0 = attrs_of(cast, origin, directions)
+        bc = lambda x: x[None].expand((samples,) + x.shape)
+        a0 = type(a0)(*(bc(x) for x in a0))
+        bshape = (samples,) + shape
+        state = (bc(origin.expand(directions.shape)), bc(directions),
+                 torch.ones(bshape + (3,), dtype=torch.float32, device=dev),
+                 torch.zeros(bshape + (3,), dtype=torch.float32, device=dev),
+                 torch.ones(bshape, dtype=torch.bool, device=dev))
+        return run_bounces(state, a0, prng.split(key, max_bounces + 1)).mean(dim=0)
+
+    if dof:
+        # lens basis perpendicular to the mean view axis
+        axis = normalize(directions.reshape(-1, 3).mean(dim=0), exact=exact)
+        ref = torch.tensor([0.0, 0.0, 1.0] if abs(float(axis[2])) < 0.9 else [1.0, 0.0, 0.0],
+                           dtype=torch.float32, device=dev)
+        right = normalize(torch.linalg.cross(axis, ref), exact=exact)
+        up = torch.linalg.cross(right, axis)
+    else:
+        attrs0 = attrs_of(cast, origin, directions)
+    total = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
+    for k in prng.split(key, samples):
+        keys = prng.split(k, max_bounces + 2)
+        o0, d0 = origin, directions
+        if dof:
+            r = torch.sqrt(prng.uniform(keys[-1], shape)) * lens_radius
+            # an independent angle stream folded from the same key
+            phi = prng.uniform(prng.fold_in(keys[-1], 1), shape, 0.0, 2.0 * math.pi)
+            off = (r * torch.cos(phi))[..., None] * right + (r * torch.sin(phi))[..., None] * up
+            focal = origin + directions * focus_distance
+            o0 = origin.expand(directions.shape) + off
+            d0 = normalize(focal - o0, exact=exact)
+            a0 = attrs_of(cast, o0, d0)
+        else:
+            a0 = attrs0
+        state = (o0, d0, torch.ones(shape + (3,), dtype=torch.float32, device=dev),
+                 torch.zeros(shape + (3,), dtype=torch.float32, device=dev),
+                 torch.ones(shape, dtype=torch.bool, device=dev))
+        total = total + run_bounces(state, a0, keys)
+    return total / samples
+
+
+def render_ao(scene, origin, directions, key, samples: int = 8, radius: float = 1.0,
+              backend: str = "cuda", exact: bool = True,
+              normal_mode: str = "reference") -> torch.Tensor:
+    """Ambient occlusion ``[...]`` f32 in [0, 1]: the share of ``samples``
+    cosine-weighted directions above each primary hit whose nearest hit
+    is not within ``radius`` (a distance-bounded query, so the
+    nearest-hit cast); miss pixels are fully open."""
+    cast = get_cast_fn(backend)
+    directions = torch.as_tensor(directions, dtype=torch.float32)
+    origin = torch.as_tensor(origin, dtype=torch.float32)
+    shape = directions.shape[:-1]
+    attrs = hit_attributes(scene, origin, directions, cast(scene, origin, directions),
+                           exact=exact, normal_mode=normal_mode)
+    total = torch.zeros(shape, dtype=torch.float32, device=directions.device)
+    for k in prng.split(key.to(directions.device), samples):
+        d = _cosine_sample(k, attrs.normal, exact)
+        o, dd = park_dead_rays(attrs.location + d * SHADOW_EPS, d, attrs.hit)
+        occluded = cast(scene, o, dd).t < radius
+        total = total + torch.where(attrs.hit, 1.0 - occluded.to(torch.float32), 1.0)
+    return total / samples
 
 
 def to_u8(radiance: torch.Tensor) -> torch.Tensor:

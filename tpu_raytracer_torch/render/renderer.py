@@ -5,13 +5,14 @@ the compact ``Hit`` (t, tri, inst); ``hit_attributes`` rebuilds the
 shading inputs (world location, normal, uv, material) from it.
 
 Backends: ``brute`` (the oracle, every triangle against every ray),
-``cuda`` (kernels K1 and K3 through ``kernels/traversal.cast_rays``),
-``paged`` (K4 on 4-wide page tables, K5 on binary ones) and
-``paged_major`` (K6); on CPU tensors the kernel backends run their plain
-versions. The paged backends use the scene's page tables, attached
-once with ``SceneTensors.with_paging`` (``paged_major`` needs 4-wide
-ones), and raise on a scene without them. The XLA ``bvh`` walk of the
-JAX package is not ported: the kernels' plain versions take its place.
+``bvh`` (kernel K2, the binary BVH walk, through
+``kernels/binary.cast_rays_binary_cuda``: the JAX package's ``bvh``
+backend and its binary packet kernel), ``cuda`` (kernels K1 and K3
+through ``kernels/traversal.cast_rays``), ``paged`` (K4 on 4-wide page
+tables, K5 on binary ones) and ``paged_major`` (K6); on CPU tensors the
+kernel backends run their plain versions. The paged backends use the
+scene's page tables, attached once with ``SceneTensors.with_paging``
+(``paged_major`` needs 4-wide ones), and raise on a scene without them.
 """
 
 from __future__ import annotations
@@ -149,24 +150,28 @@ def hit_attributes(scene, origin, directions, hit: Hit, exact: bool = True,
 
 def occlusion_cast_fn(backend: str):
     """The any-hit cast for boolean shadow queries (occluded iff t <
-    FLT_MAX): on ``cuda``, K1's or K3's any-hit mode, which stops a ray
-    at its first accepted triangle; the other backends return their
-    nearest-hit cast, which gives the same answer (the paged kernels,
-    like the JAX package's, have no any-hit mode)."""
+    FLT_MAX): on ``cuda`` and ``bvh``, the any-hit mode of K1/K3 or K2,
+    which stops a ray at its first accepted triangle; the other backends
+    return their nearest-hit cast, which gives the same answer (the
+    paged kernels, like the JAX package's, have no any-hit mode)."""
     cast = get_cast_fn(backend)
-    if backend == "cuda":
+    if backend in ("cuda", "bvh"):
         return functools.partial(cast, occlusion=True)
     return cast
 
 
-BACKENDS = ("brute", "cuda", "paged", "paged_major")
+BACKENDS = ("brute", "bvh", "cuda", "paged", "paged_major")
 
 
 def get_cast_fn(backend: str):
-    """The nearest-hit cast of ``backend``: ``brute``, ``cuda``,
+    """The nearest-hit cast of ``backend``: ``brute``, ``bvh``, ``cuda``,
     ``paged`` or ``paged_major``."""
     if backend == "brute":
         return cast_rays_brute
+    if backend == "bvh":
+        from ..kernels.binary import cast_rays_binary_cuda
+
+        return cast_rays_binary_cuda
     if backend == "cuda":
         from ..kernels.traversal import cast_rays
 

@@ -1,9 +1,20 @@
-"""Casts of secondary rays: dead-ray parking and the secondary-cast hook.
+"""Casts of secondary rays: dead-ray parking and the coherence sort.
 
-Counterpart of ``tpu_raytracer/render/sorted_cast.py`` without the
-coherence sort, which is off by default in the JAX package and not
-ported yet (ROADMAP item 11): ``secondary_cast_fn`` passes the cast
-through and raises if sorting is asked for.
+Counterpart of ``tpu_raytracer/render/sorted_cast.py``. Secondary rays
+(cosine-sampled path bounces above all) arrive in pixel order with
+scattered origins and directions. ``cast_rays_sorted`` casts them in the
+order of a coherence key — origin Morton code (top 15 bits), direction
+octant (3 bits), origin Morton code (low 15 bits) — and scatters the
+hits back to ray order, so that neighbouring threads of a kernel walk
+similar nodes. The sort is a permutation: every ray's hit is the one the
+unsorted cast gives, because the kernels walk each ray on its own.
+
+``secondary_cast_fn`` sorts for the ``cuda`` backend (K1 and K3, the
+counterpart of the JAX ``pallas`` route that sorts) when asked, and
+passes every other backend through, as the JAX package does. The JAX
+package's ``TRT_SORT_KEY`` and ``TRT_SORT_SECONDARY`` knobs are TPU
+experiments and are not ported: the default key only, and the choice is
+the ``sort_secondary`` argument.
 """
 
 from __future__ import annotations
@@ -31,11 +42,64 @@ def park_dead_rays(o: torch.Tensor, d: torch.Tensor, live: torch.Tensor):
     )
 
 
-def secondary_cast_fn(cast, sort_secondary: bool = False):
-    """The cast for secondary (shadow and bounce) rays: ``cast`` itself.
-    The coherence-sorted cast (``sort_secondary``) is not ported yet."""
-    if sort_secondary:
-        raise NotImplementedError(
-            "coherence-sorted secondary casts (ray_sort_keys, cast_rays_sorted) "
-            "are not ported yet (ROADMAP item 11)")
+def _part_bits10(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of ``x`` two zero bits apart."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def morton30(q: torch.Tensor) -> torch.Tensor:
+    """``[..., 3]`` int32 in [0, 1024) -> 30-bit Morton code."""
+    return (_part_bits10(q[..., 0]) | (_part_bits10(q[..., 1]) << 1)
+            | (_part_bits10(q[..., 2]) << 2))
+
+
+def ray_sort_keys(origin: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
+    """int32 coherence key per ray of ``[N, 3]`` origins and directions:
+    origin Morton code quantised over the batch's own bounds (top 15
+    bits), direction octant (3 bits), the Morton code's low 15 bits."""
+    lo = origin.amin(dim=0)
+    hi = origin.amax(dim=0)
+    # a tensor numerator: PyTorch computes ``scalar / x`` as the scalar
+    # times 1 / x, which rounds twice
+    scale = torch.full_like(lo, 1023.0) / torch.clamp(hi - lo, min=1e-12)
+    q = torch.clamp((origin - lo) * scale, 0.0, 1023.0).to(torch.int32)
+    m = morton30(q)
+    octant = ((directions[..., 0] < 0).to(torch.int32)
+              + 2 * (directions[..., 1] < 0).to(torch.int32)
+              + 4 * (directions[..., 2] < 0).to(torch.int32))
+    return ((m >> 15) << 18) | (octant << 15) | (m & 0x7FFF)
+
+
+def cast_rays_sorted(cast_fn, scene, origin, directions, **kw):
+    """``cast_fn`` over the rays in coherence-key order, hits returned in
+    the rays' own order: the same result as the unsorted cast."""
+    from .renderer import Hit
+
+    directions = torch.as_tensor(directions, dtype=torch.float32)
+    origin = torch.as_tensor(origin, dtype=torch.float32).expand(directions.shape)
+    shape = directions.shape[:-1]
+    flat_o = origin.reshape(-1, 3)
+    flat_d = directions.reshape(-1, 3)
+    order = torch.argsort(ray_sort_keys(flat_o, flat_d), stable=True)
+    hit = cast_fn(scene, flat_o[order], flat_d[order], **kw)
+
+    def unscatter(a):
+        out = torch.empty_like(a)
+        out[order] = a
+        return out.reshape(shape)
+
+    return Hit(*(unscatter(a) for a in hit))
+
+
+def secondary_cast_fn(cast, backend: str, sort_secondary: bool = False):
+    """The cast for secondary (shadow and bounce) rays: on the ``cuda``
+    backend with ``sort_secondary``, ``cast`` in coherence-sorted order
+    (``cast_rays_sorted``); otherwise ``cast`` itself."""
+    if sort_secondary and backend == "cuda":
+        return lambda scene, o, d, **kw: cast_rays_sorted(cast, scene, o, d, **kw)
     return cast

@@ -13,13 +13,15 @@ reproducing the JAX compile field by field:
 
 ``from_scene_arrays`` is the other way in: it takes a JAX-compiled
 ``SceneArrays`` as a dict of numpy arrays, so the two packages can be
-run on the identical scene. Both attach the 4-wide tables of K1 and,
-for two or more instances, the TLAS of K3; ``update_instance`` is the
-functional pose update that rebuilds the TLAS, and ``with_paging``
-attaches the page tables of the paged kernels K4-K6. Nothing pages a
+run on the identical scene. Both attach the 4-wide tables of K1, the
+binary tables of K2 and, for two or more instances, the TLAS of K3;
+``update_instance`` is the functional pose update that rebuilds the
+TLAS, and ``with_paging`` attaches the page tables of the paged kernels
+K4-K6. Nothing pages a
 scene automatically: the ``cuda`` backend casts every scene with K1 or
-K3, and the ``paged`` and ``paged_major`` backends are chosen by the
-caller (ROADMAP item 14 holds the routing question).
+K3, the ``bvh`` backend with K2, and the ``paged`` and ``paged_major``
+backends are chosen by the caller (ROADMAP item 14 holds the routing
+question).
 
 Not ported yet (ROADMAP item 15): ``flattened``, sky maps, vertex
 normals and save/load.
@@ -123,6 +125,9 @@ class SceneTensors:
     # page tables of the paged kernels (kernels/paged.py PagedTables),
     # attached by with_paging
     paged: object | None = None
+    # binary traversal tables of K2 (kernels/binary.py BinaryTables);
+    # every compiled scene has them
+    binary: object | None = None
 
     @property
     def device(self) -> torch.device:
@@ -139,14 +144,14 @@ class SceneTensors:
     def to(self, device) -> "SceneTensors":
         """The same scene with every tensor on ``device``."""
         moved = {f: getattr(self, f).to(device) for f in ARRAY_FIELDS}
-        for f in ("wide4", "tlas", "paged"):
+        for f in ("wide4", "tlas", "paged", "binary"):
             moved[f] = None if getattr(self, f) is None else getattr(self, f).to(device)
         return dataclasses.replace(self, **moved)
 
     def update_instance(self, index: int, instance: MeshInstance) -> "SceneTensors":
         """Functional single-instance update (pose, scale, mesh and
-        material), the cheap animation path: the per-mesh wide tables
-        stay, and the TLAS, where the scene has one, is rebuilt on the
+        material), the cheap animation path: the per-mesh wide and binary
+        tables stay, and the TLAS, where the scene has one, is rebuilt on the
         host."""
         inv = instance.build_inv()
         values = {
@@ -204,6 +209,7 @@ def from_scene_arrays(fields: dict[str, np.ndarray], device="cuda") -> SceneTens
 
 
 def _assemble(kw: dict[str, np.ndarray], device) -> SceneTensors:
+    from ..kernels.binary import build_binary
     from ..kernels.tlas import build_tlas
     from ..kernels.wide4 import build_wide4
 
@@ -214,7 +220,7 @@ def _assemble(kw: dict[str, np.ndarray], device) -> SceneTensors:
         has_textures=bool((kw["mat_tex_start"] >= 0).any()),
         has_emissive=bool((kw["mat_illumination"] > 0).any()),
     )
-    scene = dataclasses.replace(scene, wide4=build_wide4(scene))
+    scene = dataclasses.replace(scene, wide4=build_wide4(scene), binary=build_binary(scene))
     if scene.num_instances >= 2:
         scene = dataclasses.replace(scene, tlas=build_tlas(scene))
     return scene
