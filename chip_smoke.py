@@ -14,7 +14,11 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      (``kernels/csrc/paged_traverse.cu``) and K6
      (``kernels/csrc/paged_major.cu``) compiled for sm_90a by one nvcc
      per source, all started together, and linked into one library, with
-     ptxas's register, stack and spill report;
+     ptxas's report of each kernel (registers, stack frame, spills, static
+     shared memory) and its dynamic shared memory (K1's and K3's short
+     stack);
+     then K1's and K3's design (``[k1_k3_design]``: the short stack's
+     ring slots, persistent warps, the launch at 1920x1088);
   3. the flagship, BASELINE config 3 (the 81,920-triangle
      ``procgen.blob(subdivisions=6)`` mesh, one instance, 1920x1088
      camera, flat shading): K1 against its plain PyTorch version, t
@@ -38,7 +42,8 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      1920x1088: K3's launch count;
  11. times from CUDA events: the casts of K1, K1 any-hit and K3 beside
      their plain versions, the flagship and Whitted frames, and the
-     stages of each frame;
+     stages of each frame; K3's kernel time and bound on each kind of ray
+     the Whitted frame casts (primary, reflection, shadow: ``[time_k3]``);
  12. the paged path on config 5, the colonnade of ``bench_paged.py``
      (``scene_colonnade(columns=18, segs=40)``: ~1.04M triangles, one
      instance): host build seconds (the native BVH builder), triangle,
@@ -219,6 +224,8 @@ def device_ms(fn, kernel: str, n: int = 10) -> float:
     host is slower than the card)."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()  # warm up: a first launch inside the profiler can go unrecorded
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
@@ -248,6 +255,7 @@ def main():
     )
     from tpu_raytracer_torch.core.vecmath import FLT_MAX, normalize
     from tpu_raytracer_torch.kernels import build, tlas, traversal
+    from tpu_raytracer_torch.kernels.wide4 import SHORT_STACK
     from tpu_raytracer_torch.render import (
         Camera, RenderConfig, generate_rays, hit_attributes, render, render_image,
         render_image_whitted, shade_primary,
@@ -269,14 +277,28 @@ def main():
     lib_path = build.build_cuda()
     build.load("cuda")
     log = build.build_log(lib_path).splitlines()
-    ptxas = [ln.strip() for ln in log
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     compiles = [ln for ln in log if ln.split(" ", 1)[0].endswith("nvcc") and " -c " in ln]
+    report = build.ptxas_report(lib_path)
+    # the short stack's ring is dynamic shared memory, sized at launch
+    dyn = {kernel: traversal.launch_shape(k, occ, 1)["shared_bytes"]
+           for kernel, k, occ in (("wide_traverse_kernel<0>", "K1", False),
+                                  ("wide_traverse_kernel<1>", "K1", True),
+                                  ("tlas_traverse_kernel<0>", "K3", False),
+                                  ("tlas_traverse_kernel<1>", "K3", True))}
+    for kernel, r in report.items():
+        r["shared_dynamic"] = dyn.get(kernel, 0)
     phase("build", kernels="K1/K2+K3+K4/K5+K6", seconds=f"{time.perf_counter() - t0:.2f}",
-          lib=lib_path.name, commands=repr(compiles), ptxas=repr(" | ".join(ptxas)))
+          lib=lib_path.name, commands=repr(compiles),
+          ptxas=json.dumps(report, separators=(",", ":")))
     for src in build.CUDA_SOURCES:
         check(any(ln.endswith(src) and "code=sm_90a" in ln and "--fmad=false" in ln
                   for ln in compiles), f"{src} was not built for sm_90a with --fmad=false")
+
+    design = {f"{k}{'_any_hit' if occ else ''}": traversal.launch_shape(k, occ, 1920 * 1088)
+              for k, occ in (("K1", False), ("K1", True), ("K3", False), ("K3", True))}
+    phase("k1_k3_design", short_stack=SHORT_STACK, persistent_warps=True,
+          node_record="wnode [W, 32]: wbox lanes 0..23, codes in lanes 24..27",
+          launch_1920x1088=json.dumps(design, separators=(",", ":")))
 
     # 3. K1 against the plain version on the flagship -------------------
     t0 = time.perf_counter()
@@ -487,6 +509,28 @@ def main():
     k3_ms = min(event_ms(k3_cast, 10) for _ in range(5))
     k1_any_kernel_ms = device_ms(k1_any, "wide_traverse_kernel")
     k3_kernel_ms = device_ms(k3_cast, "tlas_traverse_kernel")
+    # K3 on each kind of ray the Whitted frame casts: primary, reflection
+    # (nearest) and shadow (any hit), each with its bound
+    t4 = inst4.tlas
+    k3_tables = (inst4.wide4.wnode, t4.code, t4.box)
+    k3_frame_sets = {
+        "primary": ((o4, d4), False, k3_stats["config4_primary"]),
+        "reflection": (refl4, False, k3_stats["config4_reflection"]),
+        "shadow": (shadow4, True, occ_stats["K3_config4"]),
+    }
+    k3_per_set = {}
+    for tag, (rays4, occ4, st4) in k3_frame_sets.items():
+        fn = lambda rays4=rays4, occ4=occ4: tlas.cast_rays_tlas_cuda(inst4, *rays4,
+                                                                     occlusion=occ4)
+        fn()
+        ms4 = device_ms(fn, "tlas_traverse_kernel")
+        n4 = rays4[1].numel() // 3
+        b4 = bound(f"K3 config4 {tag}", st4, 4, n4, (*rays4, *k3_tables, *h4),
+                   real_tri_rows(inst4))
+        k3_per_set[tag] = {"ms": ms4, **b4}
+        phase("time_k3", card=repr(card), rays=f"config4_{tag}", n=n4, any_hit=occ4,
+              kernel_ms=f"{ms4:.4f}", bound_ms=f"{b4['bound_ms']:.4f}",
+              share_of_bound=f"{b4['bound_ms'] / ms4:.4f}")
     w_best, w_median = best_and_median_ms(wframe)
     k1_any_plain_ms = event_ms(
         lambda: traversal.cast_rays_wide_torch(scene, *shadow1, occlusion=True), 1)
@@ -504,14 +548,11 @@ def main():
     k2_entry = path_phases(dev, card, (scene, origin, dirs))
 
     wide = scene.wide4
-    k1_bound = bound("K1", k1_stats, 4, rays, (dirs, origin, wide.wcode, wide.wbox, *hk),
+    k1_bound = bound("K1", k1_stats, 4, rays, (dirs, origin, wide.wnode, *hk),
                      real_tri_rows(scene))
     k1_any_bound = bound("K1 any-hit", occ_stats["K1_flagship"], 4, shadow1[1].numel() // 3,
-                         (*shadow1, wide.wcode, wide.wbox, *hk), real_tri_rows(scene))
-    t4 = inst4.tlas
-    k3_bound = bound("K3", k3_stats["config4_primary"], 4, d4.numel() // 3,
-                     (o4, d4, inst4.wide4.wcode, inst4.wide4.wbox, t4.code, t4.box, *h4),
-                     real_tri_rows(inst4))
+                         (*shadow1, wide.wnode, *hk), real_tri_rows(scene))
+    k3_bound = {k: v for k, v in k3_per_set["primary"].items() if k != "ms"}
     check("jax" not in sys.modules or sys.modules["jax"] is None, "jax was imported")
     print(json.dumps({"kernels": [
         {
@@ -540,7 +581,10 @@ def main():
         },
         {
             "name": "K3 tlas_traverse (TLAS + 4-wide BLAS, nearest and any hit; launches: "
-                    "the config 4 Whitted frame; bound: config 4 primary rays)",
+                    "the config 4 Whitted frame; ms and bound: config 4 primary rays; "
+                    "reflection " + ", shadow ".join(
+                        f"{k3_per_set[k]['ms']:.4f} ms, bound {k3_per_set[k]['bound_ms']:.4f} ms"
+                        for k in ("reflection", "shadow")) + ")",
             "route": "cuda",
             "source": "tpu_raytracer_torch/kernels/csrc/tlas_traverse.cu",
             "replaces": "tpu_raytracer/kernels/tlas.py:176",
@@ -685,8 +729,7 @@ def paged_phases(dev, card) -> list:
         res[k] = {"hit": hp, "max_abs": max_abs, "plain_ms": plain_ms,
                   "bound": bound(k, counters, arity, n_rays, (o, d, *tables, *hk), col_rows)}
     _, k1_counters = traversal.cast_rays_wide_torch(col, o, d, stats=True)
-    bound("K1 on the colonnade", k1_counters, 4, n_rays,
-          (o, d, col.wide4.wcode, col.wide4.wbox, *k1), col_rows)
+    bound("K1 on the colonnade", k1_counters, 4, n_rays, (o, d, col.wide4.wnode, *k1), col_rows)
 
     # 14. 192 sampled rays against the brute cast -----------------------
     cam512 = Camera.looking(512, 512, fov_deg=65.0, pose=cam.pose)  # scene_colonnade's camera
@@ -909,6 +952,11 @@ def path_phases(dev, card, flagship) -> dict:
                     "t_vs_k1": t_vs_k1,
                     "bound": bound(f"K2 {tag}", counters, 2, n_rays,
                                    (ro, rd, tree.code, tree.box, *hk), real_tri_rows(sc))}
+
+    # K1's bound on the bounce rays (its time: [sort] pixel order)
+    _, k1_counters = traversal.cast_rays_wide_torch(col, bo, bd, stats=True)
+    bound("K1 config5_bounce1", k1_counters, 4, bd.numel() // 3,
+          (bo, bd, col.wide4.wnode, *traversal.cast_rays_cuda(col, bo, bd)), real_tri_rows(col))
 
     # the coherence sort of the cuda backend's bounce casts: K1's kernel
     # on the bounce rays in pixel order and in sort order, and the whole

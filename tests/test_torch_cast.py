@@ -130,11 +130,16 @@ def test_router_raises_for_unported_routes():
         traversal.cast_rays_cuda(port_scene("cube"), torch.zeros(2), port_rays("cube")[1])
 
 
-def host_trace(scene, origin, directions, occlusion=False, arity=4):
-    """The traversal header of K1 (``arity`` 4, the 4-wide tables) or K2
-    (2, the binary tables), built for the host, over every ray."""
-    lib = build.load("host")
+def host_trace_spills(scene, origin, directions, occlusion=False, arity=4, short_stack=None,
+                      lib=None, wnode=None):
+    """The traversal header of K1 (``arity`` 4, the node records) or K2
+    (2, the binary tables), built for the host with ``short_stack`` ring
+    slots (default ``wide4.SHORT_STACK``), or the host library ``lib``
+    reading the node records ``wnode``, over every ray: (t, tri, inst,
+    entries K1's short stack spilled)."""
+    lib = lib or build.load("host", short_stack)
     tables = scene.wide4
+    wnode = tables.wnode if wnode is None else wnode
     code, box, root = tables.wcode, tables.wbox, tables.wroot
     if arity == 2:
         code, box, root = scene.binary.code, scene.binary.box, scene.binary.root
@@ -146,14 +151,27 @@ def host_trace(scene, origin, directions, occlusion=False, arity=4):
     t = torch.empty(r, dtype=torch.float32)
     tri = torch.empty(r, dtype=torch.int32)
     inst = torch.empty(r, dtype=torch.int32)
+    spills = ctypes.c_int64(-1)
     rc = lib.wt_trace_host(
         arity, code.data_ptr(), box.data_ptr(), tables.tri_rec.data_ptr(),
         inst_tab.data_ptr(), inst_root.data_ptr(), ctypes.c_int(scene.num_instances),
-        o.data_ptr(), 0 if o.dim() == 1 else 3, d.data_ptr(), r, int(occlusion),
-        t.data_ptr(), tri.data_ptr(), inst.data_ptr(),
+        wnode.data_ptr(), o.data_ptr(), 0 if o.dim() == 1 else 3, d.data_ptr(), r,
+        int(occlusion), t.data_ptr(), tri.data_ptr(), inst.data_ptr(), ctypes.byref(spills),
     )
     assert rc == 0
-    return t, tri, inst
+    return t, tri, inst, spills.value
+
+
+def host_trace(scene, origin, directions, occlusion=False, arity=4, short_stack=None):
+    """``host_trace_spills`` without the spill count."""
+    return host_trace_spills(scene, origin, directions, occlusion, arity, short_stack)[:3]
+
+
+def assert_bitwise(t, tri, inst, want):
+    np.testing.assert_array_equal(t.view(torch.int32).numpy(),
+                                  want.t.reshape(-1).view(torch.int32).numpy())
+    np.testing.assert_array_equal(tri.numpy(), want.tri.reshape(-1).numpy())
+    np.testing.assert_array_equal(inst.numpy(), want.inst.reshape(-1).numpy())
 
 
 @pytest.mark.parametrize("name", ["cube", "two_instance", "blob3"])
@@ -164,7 +182,108 @@ def test_kernel_header_host_build_matches_plain_walk(name):
     o, d = port_rays(name)
     want = traversal.cast_rays_wide_torch(scene, o, d)
     t, tri, inst = host_trace(scene, o, d)
-    np.testing.assert_array_equal(t.view(torch.int32).numpy(),
-                                  want.t.reshape(-1).view(torch.int32).numpy())
-    np.testing.assert_array_equal(tri.numpy(), want.tri.reshape(-1).numpy())
-    np.testing.assert_array_equal(inst.numpy(), want.inst.reshape(-1).numpy())
+    assert_bitwise(t, tri, inst, want)
+
+
+# a short stack of 1 ring slot spills on every scene whose walk ever
+# holds 2 entries (all but the cube, whose 12 triangles fill one node)
+TINY_STACK = 1
+
+
+@pytest.mark.parametrize("name", ["cube", "two_instance", "blob3", "blob4"])
+def test_host_build_with_tiny_short_stack_matches_plain_walk(name):
+    """K1's walk with its short stack cut to 1 ring slot, so that entries
+    go through the spill path, equals the plain walk bit for bit, nearest
+    and any hit; the spill count shows the path was taken."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    scene = port_scene(name)
+    o, d = port_rays(name)
+    assert build.load("host", TINY_STACK).wt_host_short_stack() == TINY_STACK
+    want = traversal.cast_rays_wide_torch(scene, o, d)
+    t, tri, inst, spills = host_trace_spills(scene, o, d, short_stack=TINY_STACK)
+    assert_bitwise(t, tri, inst, want)
+    assert (spills > 0) == (name != "cube")
+    occ = host_trace(scene, o, d, occlusion=True, short_stack=TINY_STACK)[0]
+    want_occ = traversal.cast_rays_wide_torch(scene, o, d, occlusion=True)
+    np.testing.assert_array_equal(occ.view(torch.int32).numpy(),
+                                  want_occ.t.reshape(-1).view(torch.int32).numpy())
+
+
+def test_wnode_unpacks_to_wcode_and_wbox():
+    """Lane for lane, the node records hold wbox's 24 box floats (child
+    c's coordinate k in lane 6c + k) and wcode's bits in lanes 24..27,
+    bit for bit, and zeros after them; they follow the scene to another
+    device."""
+    for name in ("cube", "two_instance", "blob3"):
+        w = port_scene(name).wide4
+        n = w.wcode.shape[0]
+        rec = w.wnode.numpy()
+        assert rec.shape == (n, 32) and rec.dtype == np.float32
+        np.testing.assert_array_equal(rec[:, :24].view(np.int32),
+                                      w.wbox.numpy()[:, :24].view(np.int32))
+        np.testing.assert_array_equal(rec[:, 24:28].view(np.int32), w.wcode.numpy())
+        assert not rec[:, 28:].view(np.int32).any() and not w.wbox.numpy()[:, 24:].any()
+        assert torch.equal(w.to("cpu").wnode.view(torch.int32), w.wnode.view(torch.int32))
+
+
+BIG = float(np.float32(traversal.BIG))
+SORT_CASES = [
+    [1.0, 2.0, 3.0, 4.0], [4.0, 3.0, 2.0, 1.0], [2.0, 2.0, 2.0, 2.0],
+    [BIG, BIG, BIG, BIG], [BIG, 1.0, BIG, 0.5], [0.0, -0.0, 0.0, -0.0],
+    [-0.0, 0.0, -1.0, 0.0], [3.0, 1.0, 3.0, 1.0], [1.0, BIG, 1.0, -2.0],
+    [-5.0, -5.0, BIG, -5.0], [0.5, 0.25, 0.25, 0.5], [BIG, -0.0, 0.0, BIG],
+]
+
+
+def test_sorting_network_matches_rank_loop():
+    """walk4's sorting network orders children as walk_tree's rank loop
+    (near first, ties by child index) on hand-made distances with ties,
+    signed zeros and BIG, and on every permutation-rich random vector."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    rng = np.random.default_rng(3)
+    pool = np.array([-1.0, -0.0, 0.0, 0.5, 1.0, BIG], np.float32)
+    dist = np.concatenate([np.array(SORT_CASES, np.float32),
+                           pool[rng.integers(0, pool.size, (4096, 4))]])
+    got = np.empty(dist.shape, np.int32)
+    assert build.load("host").wt_sort4_host(dist.ctypes.data, dist.shape[0], got.ctypes.data) == 0
+    # the rank loop: child c's rank is the count of k with d[k] < d[c] or
+    # d[k] == d[c] and k < c; order[rank] = c
+    dc, dk = dist[:, :, None], dist[:, None, :]
+    lane = np.arange(4)
+    rank = ((dk < dc) | ((dk == dc) & (lane[None, :] < lane[:, None]))).sum(-1)
+    want = np.empty_like(got)
+    np.put_along_axis(want, rank, np.broadcast_to(lane, rank.shape), axis=1)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_walk_ab_variants_patch_the_current_sources(tmp_path):
+    """Each source-patched variant of the K1/K3 A/B script
+    (``tpu_raytracer_torch/bench_walk.py``) finds the text it replaces in
+    the kernel sources, and its host build, on its own node records,
+    equals the plain walk bit for bit, nearest and any hit (the script
+    checks the same on the card against the earlier kernel)."""
+    from tpu_raytracer_torch import bench_walk
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    scene = port_scene("blob3")
+    o, d = port_rays("blob3")
+    want = traversal.cast_rays_wide_torch(scene, o, d)
+    want_occ = traversal.cast_rays_wide_torch(scene, o, d, occlusion=True)
+    for name, (patches, records) in bench_walk.PATCHED.items():
+        src = bench_walk._patched_sources(tmp_path, name)
+        for f, text, repl in patches:
+            assert text in (build.CSRC / f).read_text() and repl in (src / f).read_text()
+            assert (src / f).read_text() != (build.CSRC / f).read_text()
+        path = build._build(f"traverse_host_{name}", build._gxx(), build.GXX_FLAGS
+                            + ("-DWT_HOST_SHORT_STACK=8",), ("traverse_host.cpp",), src_dir=src)
+        lib = ctypes.CDLL(str(path))
+        for entry, argtypes in build._ENTRY_ARGS["host"].items():
+            getattr(lib, entry).argtypes = argtypes
+        rec = None if records is None else records(scene.wide4)
+        t, tri, inst, _ = host_trace_spills(scene, o, d, lib=lib, wnode=rec)
+        assert_bitwise(t, tri, inst, want)
+        occ = host_trace_spills(scene, o, d, occlusion=True, lib=lib, wnode=rec)[0]
+        assert torch.equal(occ.view(torch.int32), want_occ.t.reshape(-1).view(torch.int32))

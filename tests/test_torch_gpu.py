@@ -144,6 +144,37 @@ def test_any_hit_matches_nearest_hit(cuda, kernel):
     assert torch.equal(occ.t >= FLT_MAX, ~blocked)
 
 
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+def test_short_stack_spill_path_matches_plain_version(cuda, kernel):
+    """K1 and K3 with their short stack cut to 1 ring slot, so that every
+    ray holding two entries spills to local memory: bitwise equal to their
+    plain versions on primary and reflection rays, and any-hit answers
+    equal to the plain any-hit cast's."""
+    if kernel == "K1":
+        scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
+        cast, plain, counter = traversal.cast_rays_cuda, traversal.cast_rays_wide_torch, traversal
+    else:
+        scene, cam = scene_instances(256, 256, device=cuda)
+        cast, plain, counter = tlas.cast_rays_tlas_cuda, tlas.cast_rays_tlas_torch, tlas
+    o, d = _rays(cam, cuda)
+    refl, shadow = _secondary_rays(scene, o, d, cast(scene, o, d))
+    for ro, rd in ((o, d), refl):
+        before = counter.LAUNCHES
+        got = cast(scene, ro, rd, short_stack=1)
+        torch.cuda.synchronize()
+        assert counter.LAUNCHES == before + 1
+        want = plain(scene, ro, rd)
+        assert (got.tri >= 0).any()
+        assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
+        assert torch.equal(got.tri, want.tri) and torch.equal(got.inst, want.inst)
+    occ = cast(scene, *shadow, occlusion=True, short_stack=1)
+    want_occ = plain(scene, *shadow, occlusion=True)
+    assert torch.equal(occ.t, want_occ.t)
+    assert (occ.t < 0).any() and (occ.t >= FLT_MAX).any()
+    with pytest.raises(ValueError, match="short_stack"):
+        cast(scene, o, d, short_stack=3)
+
+
 def test_config4_whitted_within_four_pixels_of_cpu_golden(cuda):
     scene, cam = scene_instances(64, 64, device=cuda)
     p = cam.ray_params(cuda)

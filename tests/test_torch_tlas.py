@@ -18,6 +18,7 @@ TLAS boxes are within 2 ulps of the JAX build's: the world corners go
 through each package's own sin/cos, which may differ by an ulp.
 """
 
+import ctypes
 import dataclasses
 import functools
 import shutil
@@ -146,9 +147,11 @@ def test_plain_version_matches_linear_instance_loop(name, rays):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
-def host_trace(scene, origin, directions, occlusion=False):
-    """K3's traversal header, built for the host, over every ray."""
-    lib = build.load("host")
+def host_trace_spills(scene, origin, directions, occlusion=False, short_stack=None):
+    """K3's traversal header, built for the host with ``short_stack``
+    ring slots (default ``wide4.SHORT_STACK``), over every ray: (t, tri,
+    inst, entries spilled)."""
+    lib = build.load("host", short_stack)
     tables, tl = scene.wide4, scene.tlas
     inst_tab = traversal.instance_table(scene)
     inst_root = tables.wroot[scene.inst_mesh.long()].to(torch.int32).contiguous()
@@ -158,15 +161,21 @@ def host_trace(scene, origin, directions, occlusion=False):
     t = torch.empty(r, dtype=torch.float32)
     tri = torch.empty(r, dtype=torch.int32)
     inst = torch.empty(r, dtype=torch.int32)
+    spills = ctypes.c_int64(-1)
     rc = lib.tlas_trace_host(
         tables.wcode.data_ptr(), tables.wbox.data_ptr(), tables.tri_rec.data_ptr(),
-        inst_tab.data_ptr(), inst_root.data_ptr(), scene.num_instances,
+        inst_tab.data_ptr(), inst_root.data_ptr(), scene.num_instances, tables.wnode.data_ptr(),
         tl.code.data_ptr(), tl.box.data_ptr(), tl.inst_ids.data_ptr(),
         o.data_ptr(), 0 if o.dim() == 1 else 3, d.data_ptr(), r, int(occlusion),
-        t.data_ptr(), tri.data_ptr(), inst.data_ptr(),
+        t.data_ptr(), tri.data_ptr(), inst.data_ptr(), ctypes.byref(spills),
     )
     assert rc == 0
-    return t, tri, inst
+    return t, tri, inst, spills.value
+
+
+def host_trace(scene, origin, directions, occlusion=False, short_stack=None):
+    """``host_trace_spills`` without the spill count."""
+    return host_trace_spills(scene, origin, directions, occlusion, short_stack)[:3]
 
 
 @pytest.fixture
@@ -216,6 +225,50 @@ def test_any_hit_agrees_with_nearest_hit(gxx, kernel, name):
         t = t.reshape(-1)
         assert set(torch.unique(t).tolist()) <= {float(np.float32(-traversal.BIG)), FLT_MAX}
         np.testing.assert_array_equal((t < 0).numpy(), blocked.numpy())
+
+
+@pytest.mark.parametrize("name", sorted(JAX_SCENES))
+def test_host_build_with_tiny_short_stack_matches_plain_version(gxx, name):
+    """K3's walk with its one stack (TLAS entries below, BLAS above) cut
+    to 1 ring slot, so that entries go through the spill path on every
+    scene, equals the plain version bit for bit on primary and reflection
+    rays, nearest and any hit."""
+    from test_torch_cast import TINY_STACK
+
+    scene, sets = ray_sets(name)
+    for o, d in sets.values():
+        want = tlas.cast_rays_tlas_torch(scene, o, d)
+        t, tri, inst, spills = host_trace_spills(scene, o, d, short_stack=TINY_STACK)
+        assert spills > 0
+        np.testing.assert_array_equal(bits(t).numpy(), bits(want.t).numpy())
+        np.testing.assert_array_equal(tri.numpy(), want.tri.reshape(-1).numpy())
+        np.testing.assert_array_equal(inst.numpy(), want.inst.reshape(-1).numpy())
+        occ_t = host_trace(scene, o, d, occlusion=True, short_stack=TINY_STACK)[0]
+        want_occ = tlas.cast_rays_tlas_torch(scene, o, d, occlusion=True)
+        np.testing.assert_array_equal(bits(occ_t).numpy(), bits(want_occ.t).numpy())
+
+
+@pytest.mark.parametrize("kernel,name", [("K1", "blob3"), ("K1", "instances"),
+                                         ("K3", "instances"), ("K3", "cornell")])
+def test_unordered_any_hit_with_tiny_short_stack(gxx, kernel, name):
+    """The any-hit walk, which takes children in child order, with 1 ring
+    slot: its blocked/clear answer on shadow rays equals the nearest-hit
+    cast's on every ray."""
+    from test_torch_cast import TINY_STACK, port_rays
+    from test_torch_cast import host_trace as k1_host_trace
+
+    if name == "blob3":
+        scene, (o, d) = port_scene(name), port_rays(name)
+    else:
+        scene, o, d = scene_and_rays(name)
+    cast, trace = ((traversal.cast_rays_wide_torch, k1_host_trace) if kernel == "K1"
+                   else (tlas.cast_rays_tlas_torch, host_trace))
+    so, sd = shadow_rays(scene, o, d, cast)
+    blocked = (cast(scene, so, sd).t < FLT_MAX).reshape(-1)
+    assert blocked.any() and not blocked.all()
+    t = trace(scene, so, sd, occlusion=True, short_stack=TINY_STACK)[0].reshape(-1)
+    assert set(torch.unique(t).tolist()) <= {float(np.float32(-traversal.BIG)), FLT_MAX}
+    np.testing.assert_array_equal((t < 0).numpy(), blocked.numpy())
 
 
 def test_parked_rays_miss_without_inf_or_nan(gxx):

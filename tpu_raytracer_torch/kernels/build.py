@@ -18,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -103,6 +104,40 @@ def build_log(lib: pathlib.Path) -> str:
     return (lib.parent / "build.log").read_text()
 
 
+KERNEL_NAMES = ("paged_major_kernel", "binary_traverse_kernel", "wide_traverse_kernel",
+                "tlas_traverse_kernel", "paged_kernel")
+
+
+def ptxas_report(lib: pathlib.Path) -> dict[str, dict[str, int]]:
+    """ptxas's ``-v`` report of each kernel in ``lib``'s build log, keyed
+    ``name<template argument>`` (``wide_traverse_kernel<1>`` is K1's
+    any-hit kernel): registers, stack frame, spill stores and loads, and
+    static shared memory, in bytes."""
+    out: dict[str, dict[str, int]] = {}
+    cur = None
+    for ln in build_log(lib).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = next((k for k in KERNEL_NAMES if k in m.group(1)), m.group(1))
+            arg = re.search(r"IL[bi](\d+)E", m.group(1))
+            cur = out.setdefault(name + (f"<{arg.group(1)}>" if arg else ""), {})
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("stack_frame", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, ln)
+            if m:
+                cur[key] = int(m.group(1))
+        if "Used" in ln and "registers" in ln:
+            cur.setdefault("smem", 0)
+            cur = None
+    return out
+
+
 def build_cuda() -> pathlib.Path:
     """The kernels K1/K2, K3, K4/K5 and K6 for sm_90a: one nvcc per source,
     started together, linked into ``libtraverse.so``."""
@@ -117,9 +152,11 @@ def _gxx() -> str:
     return gxx
 
 
-def build_host() -> pathlib.Path:
-    """g++ build of the kernels' traversal headers for the CPU tests."""
-    return _build("traverse_host", _gxx(), GXX_FLAGS, ("traverse_host.cpp",))
+def build_host(short_stack: int) -> pathlib.Path:
+    """g++ build of the kernels' traversal headers for the CPU tests, with
+    ``short_stack`` ring slots in K1's and K3's short stack."""
+    return _build("traverse_host", _gxx(), GXX_FLAGS + (f"-DWT_HOST_SHORT_STACK={short_stack}",),
+                  ("traverse_host.cpp",))
 
 
 def build_bvh_builder() -> pathlib.Path:
@@ -131,8 +168,8 @@ def build_bvh_builder() -> pathlib.Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
-# wcode, wbox, tri_rec, inst_tab, inst_root, num_instances
-_SCENE_ARGS = [_P, _P, _P, _P, _P, _I]
+# wcode, wbox, tri_rec, inst_tab, inst_root, num_instances, wnode
+_SCENE_ARGS = [_P, _P, _P, _P, _P, _I, _P]
 # origin, origin_stride, dirs, num_rays, occlusion, t_out, tri_out, inst_out
 _RAY_ARGS = [_P, _I, _P, _I64, _I, _P, _P, _P]
 # tlas code, box, inst_ids
@@ -146,30 +183,43 @@ _TOP_ARGS = [_P, _P, _P]
 _PLAN_ARGS = [_P, _P, _I, _P, _I]
 # origin, origin_stride, dirs, num_rays, t_out, tri_out, inst_out
 _NEAREST_RAY_ARGS = [_P, _I, _P, _I64, _P, _P, _P]
+# occlusion, short_stack, num_rays, out[4]
+_SHAPE_ARGS = [_I, _I, _I64, _P]
 _ENTRY_ARGS = {
-    "cuda": {"wt_launch": [_I] + _SCENE_ARGS + _RAY_ARGS + [_P],  # arity + ... + stream
-             "tlas_launch": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_P],
+    # arity + ... + short_stack, counter, stream
+    "cuda": {"wt_launch": [_I] + _SCENE_ARGS + _RAY_ARGS + [_I, _P, _P],
+             "tlas_launch": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_I, _P, _P],
+             "wt_launch_shape": _SHAPE_ARGS,
+             "tlas_launch_shape": _SHAPE_ARGS,
              "paged_launch": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS + [_P],
              "paged_major_launch": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS + [_P]},
-    "host": {"wt_trace_host": [_I] + _SCENE_ARGS + _RAY_ARGS,
-             "tlas_trace_host": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS,
+    # ... + spills (one i64 out)
+    "host": {"wt_trace_host": [_I] + _SCENE_ARGS + _RAY_ARGS + [_P],
+             "tlas_trace_host": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_P],
+             "wt_sort4_host": [_P, _I64, _P],
+             "wt_host_short_stack": [],
              "paged_trace_host": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS,
              "paged_major_trace_host": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS},
 }
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
-def load(kind: str) -> ctypes.CDLL:
+def load(kind: str, short_stack: int | None = None) -> ctypes.CDLL:
     """Build (at first use) and load the ``cuda`` or ``host`` library,
-    with every entry point's argument types declared."""
-    if kind not in _loaded:
-        if kind not in _ENTRY_ARGS:
-            raise ValueError(f"unknown kernel library {kind!r}")
-        lib = ctypes.CDLL(str(build_cuda() if kind == "cuda" else build_host()))
+    with every entry point's argument types declared. The host build
+    takes the short stack's ring slots (``short_stack``, default
+    ``wide4.SHORT_STACK``) at compile time; the card's at launch."""
+    from .wide4 import SHORT_STACK
+
+    if kind not in _ENTRY_ARGS:
+        raise ValueError(f"unknown kernel library {kind!r}")
+    key = (kind, short_stack or SHORT_STACK) if kind == "host" else (kind,)
+    if key not in _loaded:
+        lib = ctypes.CDLL(str(build_cuda() if kind == "cuda" else build_host(key[1])))
         for entry, argtypes in _ENTRY_ARGS[kind].items():
             fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _loaded[kind] = lib
-    return _loaded[kind]
+        _loaded[key] = lib
+    return _loaded[key]

@@ -1,5 +1,5 @@
-// CUDA entry point of kernel K3: one thread per ray through the TLAS and
-// the reached instances' 4-wide BLAS.
+// CUDA entry point of kernel K3: the TLAS and the reached instances'
+// 4-wide BLAS, with K1's walk (walk4.cuh) and launch (walk4_launch.cuh).
 //
 // Replaces tpu_raytracer/kernels/tlas.py:_tlas_kernel (the pallas_call of
 // tlas.py:_run_tlas), nearest or any hit; the traversal itself and the
@@ -8,56 +8,50 @@
 #include <cuda_runtime.h>
 
 #include "tlas_traverse.cuh"
+#include "walk4_launch.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-
 template <bool kAnyHit>
-__global__ void __launch_bounds__(kThreads)
-tlas_traverse_kernel(wt::Scene s, wt::Tlas tl,
-                     const float* __restrict__ origin, int origin_stride,
-                     const float* __restrict__ dirs, int64_t num_rays,
-                     float* __restrict__ t_out, int32_t* __restrict__ tri_out,
-                     int32_t* __restrict__ inst_out) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= num_rays) return;
-  const float wo[3] = {origin[r * origin_stride + 0],
-                       origin[r * origin_stride + 1],
-                       origin[r * origin_stride + 2]};
-  const float wd[3] = {dirs[3 * r + 0], dirs[3 * r + 1], dirs[3 * r + 2]};
-  const wt::Hit h = wt::trace_ray_tlas(s, tl, wo, wd, kAnyHit);
-  t_out[r] = h.t;
-  tri_out[r] = h.tri;
-  inst_out[r] = h.inst;
+__global__ void __launch_bounds__(wt::kWalkThreads, wt::kK3MinBlocks)
+tlas_traverse_kernel(wt::Scene s, wt::Tlas tl, wt::Rays rays, int ring_mask,
+                     unsigned long long* counter) {
+  extern __shared__ int32_t ring[];
+  int32_t spill[wt::kStack];
+  wt::for_each_ray(rays.num_rays, counter, [&](int64_t r) {
+    float wo[3], wd[3];
+    rays.load(r, wo, wd);
+    wt::ShortStack st(ring + threadIdx.x, blockDim.x, ring_mask, spill);
+    rays.store(r, wt::trace_ray_tlas4<kAnyHit>(s, tl, wo, wd, st));
+  });
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 on
-// success). Arguments as wt_launch, plus the TLAS tables.
+// success). Arguments as wt_launch's for K1, plus the TLAS tables.
 extern "C" int tlas_launch(const int32_t* wcode, const float* wbox,
                            const float* tri_rec, const float* inst_tab,
                            const int32_t* inst_root, int num_instances,
-                           const int32_t* tlas_code, const float* tlas_box,
-                           const int32_t* tlas_inst_ids, const float* origin,
-                           int origin_stride, const float* dirs,
+                           const float* wnode, const int32_t* tlas_code,
+                           const float* tlas_box, const int32_t* tlas_inst_ids,
+                           const float* origin, int origin_stride, const float* dirs,
                            int64_t num_rays, int occlusion, float* t_out,
-                           int32_t* tri_out, int32_t* inst_out, void* stream) {
+                           int32_t* tri_out, int32_t* inst_out, int short_stack,
+                           unsigned long long* counter, void* stream) {
   if (num_rays <= 0) return 0;
-  const wt::Scene s{wcode, wbox, tri_rec, inst_tab, inst_root, num_instances};
+  const wt::Scene s{wcode, wbox, tri_rec, inst_tab, inst_root, num_instances, wnode};
   const wt::Tlas tl{tlas_code, tlas_box, tlas_inst_ids};
-  const unsigned blocks =
-      static_cast<unsigned>((num_rays + kThreads - 1) / kThreads);
+  const wt::Rays rays{origin, origin_stride, dirs, num_rays, t_out, tri_out, inst_out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (occlusion) {
-    tlas_traverse_kernel<true><<<blocks, kThreads, 0, st>>>(
-        s, tl, origin, origin_stride, dirs, num_rays, t_out, tri_out,
-        inst_out);
-  } else {
-    tlas_traverse_kernel<false><<<blocks, kThreads, 0, st>>>(
-        s, tl, origin, origin_stride, dirs, num_rays, t_out, tri_out,
-        inst_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return occlusion ? wt::launch_walk4(tlas_traverse_kernel<true>, num_rays, short_stack,
+                                      counter, st, s, tl, rays)
+                   : wt::launch_walk4(tlas_traverse_kernel<false>, num_rays, short_stack,
+                                      counter, st, s, tl, rays);
+}
+
+// K3's launch for `num_rays` rays, as wt_launch_shape gives K1's.
+extern "C" int tlas_launch_shape(int occlusion, int short_stack, int64_t num_rays, int* out) {
+  return occlusion ? wt::walk4_shape(tlas_traverse_kernel<true>, short_stack, num_rays, out)
+                   : wt::walk4_shape(tlas_traverse_kernel<false>, short_stack, num_rays, out);
 }

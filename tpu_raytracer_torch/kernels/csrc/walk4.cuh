@@ -1,0 +1,359 @@
+// The 4-wide walk of kernels K1 and K3, designed for the H100.
+//
+// K1 (wide_traverse.cu) walks every instance's 4-wide BVH in turn, K3
+// (tlas_traverse.cu) walks the instances its TLAS reaches; both walk each
+// BLAS with walk4 below. It computes what walk_tree<4> of
+// wide_traverse.cuh computes, event for event per ray, and differs in how:
+//
+//  * One 128-byte node record (kernels/wide4.py `wnode [W, 32]`): wbox's
+//    24 box floats (lane 6c + k holds child c's coordinate k: min xyz, max
+//    xyz) and the 4 child codes bit-cast into lanes 24..27. A pop is 7
+//    16-byte loads (6 float4, 1 int4) instead of 28 scalar ones from two
+//    tables, and a triangle test reads its record (tri_rec [T, 16]) as 3
+//    float4. The wrappers check every table for 16-byte alignment.
+//  * A short stack (ShortStack): the top S entries of each thread's stack
+//    in a ring of S slots in shared memory, laid out [slot][thread] so that
+//    a warp's pushes hit 32 banks; older entries spill to local memory in
+//    exact LIFO order. The nearest internal child is kept in a register as
+//    the next node instead of being pushed and popped at once, which is the
+//    same visit order: walk_tree pushes it last, so it pops next.
+//  * A 4-input sorting network on (entry distance, child index) keys in
+//    place of walk_tree's O(A^2) rank loop: the keys are distinct, so the
+//    network gives the rank loop's order, ties included (tested on the CPU
+//    through wt_sort4_host). fminf/fmaxf replace the NaN-aware max/min
+//    (slab_entry says why that is exact).
+//  * The triangle test leaves as soon as its outcome is known (test_tri4).
+//  * Any hit without order (walk4<true>): no sort; children are taken in
+//    child order, internal ones pushed, then the leaves tested, and the
+//    walk stops at the first accepted triangle.
+//    This is exact because the cap cannot change before the first accept:
+//    an any-hit ray's t is kBig until a triangle is accepted (the walk then
+//    returns), so every slab test and every triangle test until then is
+//    made against the same cap, and the set of boxes and triangles a walk
+//    reaches before its first accept is the same in every visit order. The
+//    ray is blocked exactly when that set holds an accepted triangle, which
+//    is the nearest walk's answer.
+//  * Persistent warps (for_each_ray): a grid of as many blocks as the SMs
+//    hold at once, each warp taking 32 rays at a time from a counter.
+//
+// Nearest mode keeps every ray's sequence of events: children ranked near
+// first with ties to the lower child index, internal children pushed
+// farthest first, leaf children tested right after the pushes, nearest
+// first, each in ascending triangle index; the f32 operation order of
+// child_entry and test_tri. So K1 and K3 equal their plain versions
+// (kernels/traversal.py, kernels/tlas.py) bit for bit in t, tri and inst.
+//
+// What bounds it on an H100 (PERF.md section 6 has the A/B against
+// walk_tree<4>): neither bytes (the tables sit in the 50 MB L2) nor f32
+// operations (it runs at 12-19% of that bound) but the instructions each
+// ray issues per pop and per triangle test, and the lanes that idle while
+// a warp's other rays pop more nodes or test more triangles. The 16-byte
+// loads, the short stack and the sorting network cut instructions; the
+// early exits of the triangle test cut most on shadow and reflection
+// rays; persistent warps cut idle lanes. What is left is divergence.
+// Replacing a warp's finished rays one lane at a time (Aila and Laine's
+// dynamic fetch) measured far slower here: lanes at different depths no
+// longer share a node's loads.
+//
+// What does not apply: tensor cores (wgmma) and TMA tile pipelines. The
+// slab and triangle tests are scalar f32 work per ray at data-dependent
+// addresses, and --fmad=false pins their rounding to the plain versions'.
+//
+// The per-ray logic is plain C++ for nvcc and g++ (traverse_host.cpp runs
+// it on the CPU for the tests, with S a compile-time parameter so that a
+// test can force the spill path); only the 16-byte loads, shared memory,
+// atomics and the persistent loop are CUDA's alone.
+#pragma once
+
+#include <string.h>
+
+#include "wide_traverse.cuh"
+
+#if defined(__CUDACC__)
+#define WT_UNROLL _Pragma("unroll")
+#define WT_HDM __host__ __device__ __forceinline__
+#else
+#define WT_UNROLL
+#define WT_HDM inline
+#endif
+
+namespace wt {
+
+constexpr int kNode = 32;      // f32 lanes per wnode record
+constexpr int kCodeLane = 24;  // first of the 4 child-code lanes
+
+// Lane of child c's box coordinate k (0-2 min xyz, 3-5 max xyz): per child,
+// wbox's own layout.
+WT_HD constexpr int box_lane(int c, int k) { return 6 * c + k; }
+
+// Four floats at a 16-byte-aligned address: one 128-bit read-only load on
+// the card.
+WT_HD void load4(const float* p, float* out) {
+#if defined(__CUDA_ARCH__)
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+#else
+  for (int i = 0; i < 4; ++i) out[i] = p[i];
+#endif
+}
+
+// The 24 box floats and 4 child codes of wnode record `rec`.
+WT_HD void load_node(const float* rec, float* box, int32_t* code) {
+  WT_UNROLL
+  for (int i = 0; i < 6; ++i) load4(rec + 4 * i, box + 4 * i);
+#if defined(__CUDA_ARCH__)
+  const int4 c = __ldg(reinterpret_cast<const int4*>(rec + kCodeLane));
+  code[0] = c.x;
+  code[1] = c.y;
+  code[2] = c.z;
+  code[3] = c.w;
+#else
+  memcpy(code, rec + kCodeLane, 4 * sizeof(int32_t));
+#endif
+}
+
+// child_entry of wide_traverse.cuh with fminf/fmaxf in place of max_nan and
+// min_nan, for `cap_slack` = t_best * kCapSlack. Exact here: safe_inv bounds
+// |inv| by 1e30 and boxes and origins are finite, so every (b - o) * inv is
+// finite or +-inf, never NaN, and on non-NaN operands fmaxf/fminf give the
+// value max_nan/min_nan give. Only the sign of a zero may differ (near may
+// come out -0 where it was +0); +0 and -0 compare equal in every test here
+// and in the sort, and an entry distance never reaches the output.
+WT_HD float slab_entry(float lx, float ly, float lz, float hx, float hy, float hz,
+                       const float* o, const float* inv, float cap_slack) {
+  const float t1x = (lx - o[0]) * inv[0];
+  const float t2x = (hx - o[0]) * inv[0];
+  const float t1y = (ly - o[1]) * inv[1];
+  const float t2y = (hy - o[1]) * inv[1];
+  const float t1z = (lz - o[2]) * inv[2];
+  const float t2z = (hz - o[2]) * inv[2];
+  const float near_ = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+  const float far_ = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+  const bool hit = (far_ >= near_) && (far_ > 0.0f) && (near_ < cap_slack);
+  return hit ? near_ : kBig;
+}
+
+// Compare-exchange of ranks a < b on (dist, child index) keys, carrying
+// the child codes along.
+WT_HD void cx(float* d, int* idx, int32_t* code, int a, int b) {
+  if (d[b] < d[a] || (d[b] == d[a] && idx[b] < idx[a])) {
+    const float td = d[a];
+    d[a] = d[b];
+    d[b] = td;
+    const int ti = idx[a];
+    idx[a] = idx[b];
+    idx[b] = ti;
+    const int32_t tc = code[a];
+    code[a] = code[b];
+    code[b] = tc;
+  }
+}
+
+// Sort 4 children near first, ties by child index: the optimal 4-input
+// network (0,1)(2,3) (0,2)(1,3) (1,2). Keys are distinct (the index breaks
+// ties), so the result is the one total order the rank loop of walk_tree
+// gives. Afterwards d[p], idx[p], code[p] are those of the child of rank p.
+WT_HD void sort4(float* d, int* idx, int32_t* code) {
+  cx(d, idx, code, 0, 1);
+  cx(d, idx, code, 2, 3);
+  cx(d, idx, code, 0, 2);
+  cx(d, idx, code, 1, 3);
+  cx(d, idx, code, 1, 2);
+}
+
+// A thread's traversal stack. The top S entries (S a power of two) live in
+// a ring of S slots, slot k at ring[k * stride] (on the card the thread's
+// column of a __shared__ [S][blockDim] array; on the host a local array);
+// entries below them live in `spill` (local memory), indexed by position.
+// A push onto a full ring first moves the ring's oldest entry to spill; a
+// pop takes the top from the ring or, once the ring has drained, from
+// spill. Entries leave in exact LIFO order. The total stays within kStack
+// (kernels/wide4.py stack_needed; K3 adds its TLAS depth, checked by its
+// wrapper).
+struct ShortStack {
+  int32_t* ring;
+  int stride;
+  int mask;  // S - 1
+  int32_t* spill;
+  int sp;      // entries in all
+  int lo;      // position of the oldest entry in the ring
+  int64_t spills;  // entries moved to spill (counted by the host build)
+
+  WT_HDM ShortStack(int32_t* ring_, int stride_, int mask_, int32_t* spill_)
+      : ring(ring_), stride(stride_), mask(mask_), spill(spill_), sp(0), lo(0), spills(0) {}
+
+  WT_HDM void push(int32_t v) {
+    if (sp - lo > mask) {
+      spill[lo] = ring[(lo & mask) * stride];
+      ++lo;
+#if !defined(__CUDA_ARCH__)
+      ++spills;
+#endif
+    }
+    ring[(sp & mask) * stride] = v;
+    ++sp;
+  }
+
+  WT_HDM int32_t pop() {
+    --sp;
+    if (sp >= lo) return ring[(sp & mask) * stride];
+    lo = sp;
+    return spill[sp];
+  }
+};
+
+// `next` becomes `child` and the node it held, if any, is pushed: called
+// farthest child first, it leaves the nearest in `next` and pushes the
+// others farthest first, as walk_tree's pushes do.
+WT_HD void defer(ShortStack& st, int32_t& next, int32_t child) {
+  if (next >= 0) st.push(next);
+  next = child;
+}
+
+// test_tri of wide_traverse.cuh with the same f32 operations in the same
+// order, leaving as soon as the outcome is known: at a back face or a ray
+// parallel to the plane before the division, at a t behind the origin or
+// not nearer than the best hit before the edge rows. Each early exit is a
+// conjunct of test_tri's acceptance failing (a NaN fails every one), so
+// the result is test_tri's; only arithmetic whose result is not needed is
+// skipped.
+WT_HD bool test_tri4(const float* r, const float* o, const float* d, int32_t k,
+                     int32_t inst, bool any_hit, Hit* best) {
+  const float denom = d[0] * r[3] + d[1] * r[4] + d[2] * r[5];
+  if (!(denom <= -kParallelEps)) return false;
+  const float cx = r[0] - o[0];
+  const float cy = r[1] - o[1];
+  const float cz = r[2] - o[2];
+  const float num = cx * r[3] + cy * r[4] + cz * r[5];
+  const float t = num / denom;
+  if (!((t >= 0.0f) && (t < best->t || (t == best->t && inst < best->inst)))) return false;
+  const float e2x = t * d[0] - cx;
+  const float e2y = t * d[1] - cy;
+  const float e2z = t * d[2] - cz;
+  const float u = r[6] * e2x + r[7] * e2y + r[8] * e2z;
+  const float v = r[9] * e2x + r[10] * e2y + r[11] * e2z;
+  if (!((u >= kEdgeLo) && (v >= kEdgeLo) && (u + v <= kEdgeHi))) return false;
+  best->t = any_hit ? -kBig : t;
+  best->tri = k;
+  best->inst = inst;
+  return true;
+}
+
+// The triangles of leaf code `cc`, in ascending index. Returns true when
+// an any-hit test accepted one.
+template <bool kAnyHit>
+WT_HD bool test_leaf(int32_t cc, const float* tri_rec, const float* o, const float* d,
+                     int32_t inst_val, Hit* best) {
+  const int32_t packed = -cc - 1;
+  const int32_t start = packed >> 10;
+  const int32_t n = packed & 1023;
+  for (int32_t k = start; k < start + n; ++k) {
+    float r[12];
+    const float* rec = tri_rec + 16 * static_cast<int64_t>(k);
+    load4(rec, r);
+    load4(rec + 4, r + 4);
+    load4(rec + 8, r + 8);
+    if (test_tri4(r, o, d, k, inst_val, kAnyHit, best) && kAnyHit) return true;
+  }
+  return false;
+}
+
+// Walk one 4-wide tree of `wnode` from node `root` for an object-space
+// ray, updating `best`, on top of whatever `st` holds (K3 keeps its TLAS
+// entries below). Returns true when an any-hit walk accepted a triangle
+// (and stopped there, leaving its entries on the stack).
+template <bool kAnyHit>
+WT_HD bool walk4(const float* wnode, int32_t root, const float* tri_rec, const float* o,
+                 const float* d, const float* inv, int32_t inst_val, ShortStack& st,
+                 Hit* best) {
+  const int base = st.sp;
+  int32_t node = root;
+  for (;;) {
+    float b[24];
+    int32_t code[4];
+    load_node(wnode + kNode * static_cast<int64_t>(node), b, code);
+    const float cap = best->t * kCapSlack;
+    float dist[4];
+    WT_UNROLL
+    for (int c = 0; c < 4; ++c) {
+      dist[c] = slab_entry(b[box_lane(c, 0)], b[box_lane(c, 1)], b[box_lane(c, 2)],
+                           b[box_lane(c, 3)], b[box_lane(c, 4)], b[box_lane(c, 5)], o, inv,
+                           cap);
+    }
+    int32_t next = -1;
+    if (!kAnyHit) {
+      int idx[4] = {0, 1, 2, 3};
+      sort4(dist, idx, code);
+    }
+    // children that hit, in rank order (nearest first) or, for any hit,
+    // in child order: internal ones deferred last to first, so that the
+    // first is the next node and the others are pushed farthest first;
+    // then the leaves, first to last
+    WT_UNROLL
+    for (int p = 3; p >= 0; --p) {
+      if (dist[p] < kBig && code[p] >= 0) defer(st, next, code[p]);
+    }
+    WT_UNROLL
+    for (int p = 0; p < 4; ++p) {
+      if (dist[p] < kBig && code[p] < 0 &&
+          test_leaf<kAnyHit>(code[p], tri_rec, o, d, inst_val, best)) {
+        return true;
+      }
+    }
+    if (next >= 0) {
+      node = next;
+    } else if (st.sp > base) {
+      node = st.pop();
+    } else {
+      return false;
+    }
+  }
+}
+
+// Walk instance `i`'s BLAS for one world ray. Returns true on an any-hit
+// accept.
+template <bool kAnyHit>
+WT_HD bool walk_instance4(const Scene& s, int i, const float* wo, const float* wd,
+                          ShortStack& st, Hit* best) {
+  float o[3], d[3], inv[3];
+  object_ray(s.inst_tab + 12 * i, wo, wd, o, d, inv);
+  return walk4<kAnyHit>(s.wnode, s.inst_root[i], s.tri_rec, o, d, inv,
+                        s.num_instances == 1 ? -1 : i, st, best);
+}
+
+// K1: nearest (or any) hit of one world ray over every instance in index
+// order, t carried across instances.
+template <bool kAnyHit>
+WT_HD Hit trace_ray4(const Scene& s, const float* wo, const float* wd, ShortStack& st) {
+  Hit best{kBig, -1, -1};
+  for (int i = 0; i < s.num_instances; ++i) {
+    if (walk_instance4<kAnyHit>(s, i, wo, wd, st, &best)) break;
+  }
+  return finish_hit(best, s.num_instances);
+}
+
+#if defined(__CUDACC__)
+// Calls trace(r) for each ray r of this thread, with persistent warps: the
+// grid holds as many blocks as the SMs keep resident, and each warp takes
+// the next 32 rays from the zeroed global counter once all its lanes have
+// finished theirs (Aila and Laine 2009), so a warp held by one slow ray
+// does not hold its block's slot on the SM.
+template <class F>
+__device__ __forceinline__ void for_each_ray(int64_t num_rays, unsigned long long* counter,
+                                             F&& trace) {
+  const unsigned lane = threadIdx.x & 31u;
+  for (;;) {
+    unsigned long long first = 0;
+    if (lane == 0) first = atomicAdd(counter, 32ull);
+    first = __shfl_sync(0xffffffffu, first, 0);
+    if (first >= static_cast<unsigned long long>(num_rays)) return;
+    const int64_t r = static_cast<int64_t>(first) + lane;
+    if (r < num_rays) trace(r);
+  }
+}
+#endif
+
+}  // namespace wt

@@ -1,13 +1,15 @@
-// Per-ray traversal of the 4-wide BVH (kernel K1) and of the binary BVH
-// (kernel K2, the same walk at arity 2), nearest or any hit.
+// Per-ray traversal of a BVH in the child-code layout, nearest or any
+// hit: walk_tree<A>, the walk of kernel K2 (the binary BVH, arity 2) and,
+// inside each page, of K4 and K5 (paged_traverse.cuh). K1 and K3 walk the
+// 4-wide BVH with walk4.cuh, built on the pieces here (constants, the
+// instance transform, test_tri, finish_hit).
 //
-// K1 replaces the TPU kernel tpu_raytracer/kernels/dual.py:_dual_kernel
-// (wide mode), K2 tpu_raytracer/kernels/traversal.py:_traversal_kernel,
-// both with the leaf test tpu_raytracer/kernels/traversal.py:make_test_tri.
-// They compute what those kernels compute — for each ray the nearest
-// accepted triangle (t, tri, inst) over every instance, carrying t across
-// instances — but as one thread per ray with a private stack instead of
-// 4096-ray packets sharing one stack.
+// K2 replaces the TPU kernel tpu_raytracer/kernels/traversal.py:
+// _traversal_kernel, with its leaf test make_test_tri. It computes what
+// that kernel computes — for each ray the nearest accepted triangle (t,
+// tri, inst) over every instance, carrying t across instances — as one
+// thread per ray with a private stack instead of 4096-ray packets sharing
+// one stack.
 //
 // Any-hit mode (make_test_tri's `occlusion`, for shadow rays): the first
 // accepted triangle sets the ray's t to -kBig. The TPU kernel can only
@@ -15,18 +17,14 @@
 // result. Output t is then -kBig (occluded) or kFltMax (clear); tri and
 // inst are whatever the walk reached and carry no meaning.
 //
-// What bounds it on an H100: every step is a dependent global load (a
-// node's 4 codes and 24 box floats, then each leaf's 16-float triangle
-// records) followed by a few dozen flops, so the walk is latency-bound on
-// those loads, and neighbouring rays that take different paths diverge
-// within a warp. The simple design relies on coherence rather than
-// fighting it: primary rays of neighbouring pixels walk nearly the same
-// nodes, so a warp's loads mostly hit the same L1/L2 lines (the whole
-// flagship scene, ~5 MB of tables, fits in the 50 MB L2), and enough
-// resident warps hide the load latency. Packets, treelets in shared
-// memory and persistent threads are later work. K2 is bound the same way,
-// with about twice K1's dependent steps per ray: it pops twice as many
-// nodes, each two boxes and two codes (56 bytes) against K1's four.
+// What bounds walk_tree on an H100: not the bytes (the flagship's ~5 MB
+// of tables sit in the 50 MB L2) nor the f32 operations, but the
+// instructions and dependent loads per ray — every pop reads a node's
+// codes and boxes as scalar loads from two tables, ranks the children with
+// a compare loop and pushes onto a 192-slot stack in local memory — and
+// the lanes of a warp that idle while its slowest ray walks. walk4.cuh
+// redesigns exactly that for K1 and K3 (PERF.md section 6 has the A/B);
+// K2, K4 and K5 move onto the same design later.
 //
 // The header is plain C++ usable from both nvcc and a host compiler, so
 // the traversal itself is tested on the CPU (csrc/traverse_host.cpp)
@@ -74,6 +72,7 @@ struct Scene {
   const float* inst_tab;   // [I, 12]: quat wxyz, position, inverse scale
   const int32_t* inst_root;  // [I] tree root per instance
   int num_instances;
+  const float* wnode;      // [W, 32] node records of K1 and K3 (walk4.cuh)
 };
 
 struct Hit {

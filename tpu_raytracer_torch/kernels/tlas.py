@@ -12,7 +12,8 @@ instances at their TLAS box.
     two or more instances, and ``SceneTensors.update_instance`` rebuilds
     them after a pose change.
   * ``cast_rays_tlas_cuda`` is K3's wrapper: for CUDA tensors it launches
-    the hand-written kernel (``csrc/tlas_traverse.cu``) and counts the
+    the hand-written kernel (``csrc/tlas_traverse.cu``, K1's walk of
+    ``csrc/walk4.cuh`` under the TLAS walk, one stack for both) and counts the
     launch in ``LAUNCHES``; for CPU tensors it calls the plain version. A
     CUDA tensor never reaches the plain version and a failed build or
     launch raises.
@@ -45,6 +46,7 @@ from .traversal import (
     PLAIN_CHUNK,
     _split_rays,
     _wide_tables,
+    check_aligned16,
     child_entry,
     finish_plain,
     instance_table,
@@ -52,9 +54,11 @@ from .traversal import (
     new_stats,
     walk_instance,
 )
-from .wide4 import NUDGE
+from .wide4 import NUDGE, STACK_SIZE, stack_needed
 
-TLAS_STACK = 48  # per-ray TLAS stack (csrc/tlas_traverse.cuh kTlasStack)
+# per-ray TLAS stack of the plain walk and the deepest TLAS build_tlas
+# makes; the kernel keeps TLAS entries in its one stack (csrc/walk4.cuh)
+TLAS_STACK = 48
 
 # Launches of the K3 kernel since the count was last reset (CPU casts,
 # which run the plain version, do not count).
@@ -235,10 +239,12 @@ def cast_rays_tlas_torch(scene, origin, directions, occlusion: bool = False,
 # ---------------------------------------------------------------------------
 
 
-def cast_rays_tlas_cuda(scene, origin, directions, occlusion: bool = False):
+def cast_rays_tlas_cuda(scene, origin, directions, occlusion: bool = False,
+                        short_stack: int | None = None):
     """K3: nearest (or, with ``occlusion``, any) hit through the TLAS.
-    CUDA tensors launch the kernel on the current stream; CPU tensors run
-    the plain version."""
+    CUDA tensors launch the kernel on the current stream, with
+    ``short_stack`` ring slots per thread (``traversal.launch``); CPU
+    tensors run the plain version."""
     global LAUNCHES
     origin, directions = _split_rays(origin, directions)
     if directions.device.type == "cpu":
@@ -248,7 +254,14 @@ def cast_rays_tlas_cuda(scene, origin, directions, occlusion: bool = False):
                            ("tlas inst_ids", tl.inst_ids, torch.int32)):
         if x.dtype != dtype or not x.is_contiguous() or x.device != directions.device:
             raise ValueError(f"{name} must be contiguous {dtype} on {directions.device}")
+    check_aligned16(tlas_box=tl.box)
+    # the TLAS entries (at most one per level) sit below the BLAS walk's
+    need = tl.depth + stack_needed(_wide_tables(scene).depth)
+    if need > STACK_SIZE:
+        raise ValueError(f"TLAS depth {tl.depth} with the BLAS's stack needs {need} "
+                         f"stack slots; the kernel has {STACK_SIZE}")
     hit = launch("tlas_launch", scene, origin, directions, occlusion,
-                 (tl.code.data_ptr(), tl.box.data_ptr(), tl.inst_ids.data_ptr()))
+                 (tl.code.data_ptr(), tl.box.data_ptr(), tl.inst_ids.data_ptr()),
+                 short_stack=short_stack)
     LAUNCHES += 1
     return hit

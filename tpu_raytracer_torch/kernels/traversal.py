@@ -6,7 +6,8 @@ Counterpart of ``tpu_raytracer/kernels/traversal.py:cast_rays_pallas``
 routes single-instance scenes to).
 
   * ``cast_rays_cuda`` is K1's wrapper: for CUDA tensors it launches
-    the hand-written kernel (``csrc/wide_traverse.cu``) and counts the
+    the hand-written kernel (``csrc/wide_traverse.cu``, the walk of
+    ``csrc/walk4.cuh`` over the node records ``wnode``) and counts the
     launch in ``LAUNCHES``; for CPU tensors it calls the plain version.
     A CUDA tensor never reaches the plain version and a failed build or
     launch raises.
@@ -38,7 +39,7 @@ import torch
 from ..core import transforms as T
 from ..core.vecmath import FLT_MAX
 from ..render.intersect import EDGE_EPS, PARALLEL_EPS, safe_reciprocal
-from .wide4 import STACK_SIZE
+from .wide4 import SHORT_STACK, STACK_SIZE
 
 BIG = 3.0e38  # initial t_best; never a hit distance
 # Boxes are culled against t_best times this (8 ulps): csrc/wide_traverse.cuh
@@ -367,12 +368,14 @@ def unexplained_differences(scene, origin, directions, a, b) -> int:
 
 
 def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
-           arity: int | None = None):
+           arity: int | None = None, short_stack: int | None = None):
     """Check the inputs and launch ``entry`` of the kernel library on the
-    current stream: ``wt_launch`` at ``arity`` 4 (K1, the 4-wide tables)
-    or 2 (K2, the binary tables of ``kernels/binary.py``), or K3's
-    ``tlas_launch`` (no arity; 4-wide tables), whose TLAS table pointers
-    come in ``tlas_args``. Returns the Hit record; raises on a CUDA error
+    current stream: ``wt_launch`` at ``arity`` 4 (K1, the node records
+    ``wnode``) or 2 (K2, the binary tables of ``kernels/binary.py``), or
+    K3's ``tlas_launch`` (no arity; node records), whose TLAS table
+    pointers come in ``tlas_args``. K1 and K3 take ``short_stack`` ring
+    slots per thread (default ``SHORT_STACK``) and a zeroed counter for
+    their persistent warps. Returns the Hit record; raises on a CUDA error
     at launch."""
     if directions.device.type != "cuda":
         raise ValueError(f"{entry} runs on cuda tensors, got {directions.device}")
@@ -388,11 +391,18 @@ def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
     for name, x, dtype in (
         ("directions", directions, torch.float32), ("origin", origin, torch.float32),
         ("code", code, torch.int32), ("box", box, torch.float32),
-        ("tri_rec", tables.tri_rec, torch.float32),
+        ("tri_rec", tables.tri_rec, torch.float32), ("wnode", tables.wnode, torch.float32),
     ):
         if x.dtype != dtype or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dtype}, got "
                              f"{x.dtype} contiguous={x.is_contiguous()}")
+    s = SHORT_STACK if short_stack is None else short_stack
+    counter = None
+    if arity != 2:
+        check_aligned16(wnode=tables.wnode, tri_rec=tables.tri_rec)
+        if not 1 <= s <= 64 or s & (s - 1):
+            raise ValueError(f"short_stack must be a power of two in [1, 64], got {s}")
+        counter = torch.zeros(1, dtype=torch.int64, device=directions.device)
     shape = directions.shape[:-1]
     r = directions.numel() // 3
     inst_tab = instance_table(scene)
@@ -407,24 +417,55 @@ def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
     head = () if arity is None else (arity,)
     err = fn(
         *head, code.data_ptr(), box.data_ptr(), tables.tri_rec.data_ptr(),
-        inst_tab.data_ptr(), inst_root.data_ptr(), scene.num_instances, *tlas_args,
+        inst_tab.data_ptr(), inst_root.data_ptr(), scene.num_instances,
+        tables.wnode.data_ptr(), *tlas_args,
         origin.data_ptr(), 0 if origin.dim() == 1 else 3, directions.data_ptr(), r,
-        int(occlusion), t.data_ptr(), tri.data_ptr(), inst.data_ptr(), stream,
+        int(occlusion), t.data_ptr(), tri.data_ptr(), inst.data_ptr(), s,
+        None if counter is None else counter.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {err}")
     return _hit(t, tri, inst, shape)
 
 
-def cast_rays_cuda(scene, origin, directions, occlusion: bool = False):
+def check_aligned16(**tensors):
+    """Raise unless every tensor starts on a 16-byte boundary, as the
+    16-byte loads of K1 and K3 need."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the kernel's 16-byte loads")
+
+
+def launch_shape(kernel: str, occlusion: bool, num_rays: int,
+                 short_stack: int | None = None) -> dict:
+    """The launch K1 (``kernel`` "K1") or K3 ("K3") makes for ``num_rays``
+    rays: blocks of its persistent grid, threads per block, dynamic shared
+    bytes (the short stack's ring) and resident blocks per SM."""
+    import ctypes
+
+    from .build import load
+
+    fn = getattr(load("cuda"), {"K1": "wt_launch_shape", "K3": "tlas_launch_shape"}[kernel])
+    out = (ctypes.c_int * 4)()
+    err = fn(int(occlusion), SHORT_STACK if short_stack is None else short_stack, num_rays, out)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch shape failed with CUDA error {err}")
+    return {"blocks": out[0], "threads": out[1], "shared_bytes": out[2],
+            "blocks_per_sm": out[3]}
+
+
+def cast_rays_cuda(scene, origin, directions, occlusion: bool = False,
+                   short_stack: int | None = None):
     """K1: nearest (or, with ``occlusion``, any) hit over the 4-wide
-    tables. CUDA tensors launch the kernel on the current stream; CPU
+    tables. CUDA tensors launch the kernel on the current stream, with
+    ``short_stack`` ring slots per thread (default ``SHORT_STACK``); CPU
     tensors run the plain version."""
     global LAUNCHES
     origin, directions = _split_rays(origin, directions)
     if directions.device.type == "cpu":
         return cast_rays_wide_torch(scene, origin, directions, occlusion)
-    hit = launch("wt_launch", scene, origin, directions, occlusion, arity=4)
+    hit = launch("wt_launch", scene, origin, directions, occlusion, arity=4,
+                 short_stack=short_stack)
     LAUNCHES += 1
     return hit
 

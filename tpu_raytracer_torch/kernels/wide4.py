@@ -10,6 +10,11 @@ laid out for one thread per ray instead of 128-lane TPU rows:
   * ``wbox [W, 32] f32``: child c's box (min xyz, max xyz) in lanes
     c*6 .. c*6+5 with the watertight NUDGE baked in; absent children
     carry inverted boxes. Lanes 24..31 are zero.
+  * ``wnode [W, 32] f32``: the record K1 and K3 read (``csrc/walk4.cuh``),
+    derived from the two above: ``wbox``'s 24 box floats with the 4 child
+    codes bit-cast into lanes 24..27. One 128-byte row per node, read as
+    16-byte loads. ``wcode`` and ``wbox`` stay as they are for K2, K4 and
+    K5.
   * ``tri_rec [T, 16] f32``: v0, face normal, rA, rB (the affine
     barycentric rows of ``intersect.barycentric_rows``) and 4 zero lanes.
   * ``wroot [M] i32`` (wide root per mesh), ``max_leaf`` (largest leaf
@@ -29,7 +34,11 @@ from ..render.intersect import WATERTIGHT_NUDGE, barycentric_rows
 
 NUDGE = WATERTIGHT_NUDGE
 REC32 = 32  # f32 lanes per wide-node record
-STACK_SIZE = 192  # per-ray traversal stack (csrc/wide_traverse.cuh)
+STACK_SIZE = 192  # per-ray traversal stack (csrc/wide_traverse.cuh kStack)
+# K1's and K3's short stack: ring slots per thread in shared memory
+# (csrc/walk4.cuh ShortStack; a power of two, at most 64). 4, 8, 16 and
+# 32 measured within 2% of each other on every ray set (PERF.md section 6).
+SHORT_STACK = 8
 
 
 def stack_needed(depth: int) -> int:
@@ -47,12 +56,22 @@ class Wide4Tables:
     wroot: torch.Tensor  # [M] i32
     max_leaf: int
     depth: int
+    wnode: torch.Tensor  # [W, 32] f32 (codes bit-cast)
 
     def to(self, device) -> "Wide4Tables":
         return dataclasses.replace(
             self, wcode=self.wcode.to(device), wbox=self.wbox.to(device),
             tri_rec=self.tri_rec.to(device), wroot=self.wroot.to(device),
+            wnode=self.wnode.to(device),
         )
+
+
+def node_records(wcode: np.ndarray, wbox: np.ndarray) -> np.ndarray:
+    """The ``wnode`` records of ``wcode [W, 4]`` and ``wbox [W, 32]``:
+    ``wbox`` with the child codes' bits in lanes 24..27."""
+    rec = wbox.copy()
+    rec[:, 24:28] = np.ascontiguousarray(wcode, np.int32).view(np.float32)
+    return rec
 
 
 def _wide_depth(wcode: np.ndarray, wroot: np.ndarray) -> int:
@@ -101,4 +120,5 @@ def build_wide4(scene) -> Wide4Tables:
         wroot=torch.from_numpy(w.wroot.astype(np.int32)).to(dev),
         max_leaf=int(counts.max()) if counts.size else 0,
         depth=depth,
+        wnode=torch.from_numpy(node_records(wcode, wbox)).to(dev),
     )
