@@ -15,10 +15,12 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      (``kernels/csrc/paged_major.cu``) compiled for sm_90a by one nvcc
      per source, all started together, and linked into one library, with
      ptxas's report of each kernel (registers, stack frame, spills, static
-     shared memory) and its dynamic shared memory (K1's and K3's short
-     stack);
-     then K1's and K3's design (``[k1_k3_design]``: the short stack's
-     ring slots, persistent warps, the launch at 1920x1088);
+     shared memory) and its dynamic shared memory (the short stack of
+     K1-K4);
+     then the design of K1-K4, which share the walk of
+     ``kernels/csrc/walk.cuh`` (``[walk_design]``: the short stack's ring
+     slots, persistent warps, the node records, each kernel's launch at
+     1920x1088);
   3. the flagship, BASELINE config 3 (the 81,920-triangle
      ``procgen.blob(subdivisions=6)`` mesh, one instance, 1920x1088
      camera, flat shading): K1 against its plain PyTorch version, t
@@ -76,8 +78,10 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      any-hit answers against its nearest hits, and K1 on the same rays
      (every difference explained by box order), on the flagship's
      primary rays and on frame 0's first bounce rays ([2, 512, 512]),
-     with K2's and K1's kernel times, and K1's on the bounce rays in
-     pixel order and in the coherence sort's order;
+     with K2's and K1's kernel times, K2's any-hit kernel time and bound
+     on the flagship's shadow rays (its answers against its nearest
+     hits), and K1's on the bounce rays in pixel order and in the
+     coherence sort's order;
  20. the path main path, ``render_image_path_traced`` over the
      fly-through through ``bvh`` (K2) and ``cuda`` (K1): launches per
      frame (3: primary, batched bounce, any-hit tail; 6 with
@@ -280,11 +284,15 @@ def main():
     compiles = [ln for ln in log if ln.split(" ", 1)[0].endswith("nvcc") and " -c " in ln]
     report = build.ptxas_report(lib_path)
     # the short stack's ring is dynamic shared memory, sized at launch
+    walk_kernels = (("wide_traverse_kernel<0>", "K1", False),
+                    ("wide_traverse_kernel<1>", "K1", True),
+                    ("binary_traverse_kernel<0>", "K2", False),
+                    ("binary_traverse_kernel<1>", "K2", True),
+                    ("tlas_traverse_kernel<0>", "K3", False),
+                    ("tlas_traverse_kernel<1>", "K3", True),
+                    ("paged_wide_kernel", "K4", False))
     dyn = {kernel: traversal.launch_shape(k, occ, 1)["shared_bytes"]
-           for kernel, k, occ in (("wide_traverse_kernel<0>", "K1", False),
-                                  ("wide_traverse_kernel<1>", "K1", True),
-                                  ("tlas_traverse_kernel<0>", "K3", False),
-                                  ("tlas_traverse_kernel<1>", "K3", True))}
+           for kernel, k, occ in walk_kernels}
     for kernel, r in report.items():
         r["shared_dynamic"] = dyn.get(kernel, 0)
     phase("build", kernels="K1/K2+K3+K4/K5+K6", seconds=f"{time.perf_counter() - t0:.2f}",
@@ -293,11 +301,15 @@ def main():
     for src in build.CUDA_SOURCES:
         check(any(ln.endswith(src) and "code=sm_90a" in ln and "--fmad=false" in ln
                   for ln in compiles), f"{src} was not built for sm_90a with --fmad=false")
+    check(all(kernel in report for kernel, _, _ in walk_kernels),
+          f"ptxas reported no {[k for k, _, _ in walk_kernels if k not in report]}")
 
     design = {f"{k}{'_any_hit' if occ else ''}": traversal.launch_shape(k, occ, 1920 * 1088)
-              for k, occ in (("K1", False), ("K1", True), ("K3", False), ("K3", True))}
-    phase("k1_k3_design", short_stack=SHORT_STACK, persistent_warps=True,
-          node_record="wnode [W, 32]: wbox lanes 0..23, codes in lanes 24..27",
+              for _, k, occ in walk_kernels}
+    phase("walk_design", kernels="K1,K2,K3,K4", walk="kernels/csrc/walk.cuh",
+          short_stack=SHORT_STACK, persistent_warps=True,
+          node_records="8A f32 lanes: 6A box floats, A codes bit-cast (K1/K3 wnode [W,32], "
+                       "K2 binary node [N,16], K4 page node [N,32])",
           launch_1920x1088=json.dumps(design, separators=(",", ":")))
 
     # 3. K1 against the plain version on the flagship -------------------
@@ -545,7 +557,7 @@ def main():
     phase("whitted_stages", card=repr(card), **_whitted_stages(traversal, wframe))
 
     paged_kernels = paged_phases(dev, card)
-    k2_entry = path_phases(dev, card, (scene, origin, dirs))
+    k2_entries = path_phases(dev, card, (scene, origin, dirs), shadow1)
 
     wide = scene.wide4
     k1_bound = bound("K1", k1_stats, 4, rays, (dirs, origin, wide.wnode, *hk),
@@ -594,7 +606,7 @@ def main():
             "plain_ms": k3_plain_ms,
             **k3_bound,
         },
-        k2_entry,
+        *k2_entries,
         *paged_kernels,
     ]}))
     print(card)
@@ -687,8 +699,8 @@ def paged_phases(dev, card) -> list:
           top_depth=pw.top_depth, page_nodes_wide=pw.code.shape[0], page_depth_wide=pw.depth,
           page_nodes_binary=pb.code.shape[0], page_depth_binary=pb.depth,
           binary_nodes=col.binary.code.shape[0], binary_depth=col.binary.depth,
-          tri_rec_mb=mb(col.wide4.tri_rec), k1_tables_mb=mb(col.wide4.wcode, col.wide4.wbox),
-          k4_tables_mb=mb(pw.code, pw.box, pw.top_code, pw.top_box),
+          tri_rec_mb=mb(col.wide4.tri_rec), k1_tables_mb=mb(col.wide4.wnode),
+          k4_tables_mb=mb(pw.node, pw.top_code, pw.top_box),
           k5_tables_mb=mb(pb.code, pb.box, pb.top_code, pb.top_box))
     check(col_rows > 1_000_000, "the colonnade has fewer than 1M triangles")
     check(build_s < 120, f"the colonnade's host build took {build_s:.1f} s")
@@ -723,7 +735,9 @@ def paged_phases(dev, card) -> list:
               "reason than the order of box tests (traversal.unexplained_differences)")
         check(t_vs_k1 <= ORDER_DIFFS_MAX * n_rays, f"{k}'s t differs from K1's on {t_vs_k1} rays")
         pg = sc.paged
-        tables = (pg.code, pg.box, pg.node_base, pg.page_tri0)
+        # the tables the kernel reads: K4 the page records, K5 and K6 code/box
+        tables = (pg.node if k == "K4" else pg.code, pg.node_base, pg.page_tri0)
+        tables += () if k == "K4" else (pg.box,)
         if k != "K6":
             tables += (pg.top_code, pg.top_box)
         res[k] = {"hit": hp, "max_abs": max_abs, "plain_ms": plain_ms,
@@ -819,8 +833,8 @@ def paged_phases(dev, card) -> list:
     # 17. times ---------------------------------------------------------
     casts = {"K1": (col, traversal.cast_rays_cuda)}
     casts.update({k: (sc, cast) for k, (sc, cast, _, _) in cases.items()})
-    kernel_names = {"K1": "wide_traverse_kernel", "K4": "paged_kernel", "K5": "paged_kernel",
-                    "K6": "paged_major_kernel"}
+    kernel_names = {"K1": "wide_traverse_kernel", "K4": "paged_wide_kernel",
+                    "K5": "paged_kernel", "K6": "paged_major_kernel"}
     out = {}
     for size, (ro, rd) in (("512", (o512, d512)), ("1920x1088", (o, d))):
         for k, (sc, cast) in casts.items():
@@ -863,11 +877,12 @@ def paged_phases(dev, card) -> list:
     } for k in ("K4", "K5", "K6")]
 
 
-def path_phases(dev, card, flagship) -> dict:
+def path_phases(dev, card, flagship, flagship_shadow) -> list:
     """Phases 18-23: kernel K2 and the path-traced main path of config 5
     through the ``bvh`` (K2) and ``cuda`` (K1) backends; returns K2's
-    entry of the kernels line. ``flagship`` is (scene, origin, dirs) of
-    phase 3."""
+    entries of the kernels line (nearest and any hit). ``flagship`` is
+    (scene, origin, dirs) of phase 3, ``flagship_shadow`` its shadow rays
+    (origins, directions)."""
     from tpu_raytracer_torch.app.controls import fly_through
     from tpu_raytracer_torch.app.scenes import scene_colonnade
     from tpu_raytracer_torch.kernels import binary, tlas, traversal
@@ -951,7 +966,36 @@ def path_phases(dev, card, flagship) -> dict:
         res[tag] = {"max_abs": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
                     "t_vs_k1": t_vs_k1,
                     "bound": bound(f"K2 {tag}", counters, 2, n_rays,
-                                   (ro, rd, tree.code, tree.box, *hk), real_tri_rows(sc))}
+                                   (ro, rd, tree.node, *hk), real_tri_rows(sc))}
+
+    # K2's any-hit mode on the flagship's shadow rays: its answers against
+    # its nearest hits and the plain any-hit cast, its kernel time, bound
+    # from the plain nearest walk's counts (more than the any-hit walk does)
+    fsc = flagship[0]
+    occ = binary.cast_rays_binary_cuda(fsc, *flagship_shadow, occlusion=True)
+    near = binary.cast_rays_binary_cuda(fsc, *flagship_shadow)
+    plain_occ, occ_counters = binary.cast_rays_binary_torch(fsc, *flagship_shadow,
+                                                            occlusion=True, stats=True)
+    torch.cuda.synchronize()
+    occ_diff = int(((occ.t < 0) != (near.t < FLT_MAX)).sum() + (occ.t != plain_occ.t).sum())
+    any_cast = lambda: binary.cast_rays_binary_cuda(fsc, *flagship_shadow, occlusion=True)
+    any_cast()
+    any_ms = device_ms(any_cast, "binary_traverse_kernel")
+    k1_any_ms = device_ms(lambda: traversal.cast_rays_cuda(fsc, *flagship_shadow, occlusion=True),
+                          "wide_traverse_kernel")
+    any_plain_ms = event_ms(lambda: binary.cast_rays_binary_torch(fsc, *flagship_shadow,
+                                                                  occlusion=True), 1)
+    n_shadow = flagship_shadow[1].numel() // 3
+    any_bound = bound("K2 any-hit flagship_shadow", occ_counters, 2, n_shadow,
+                      (*flagship_shadow, fsc.binary.node, *occ), real_tri_rows(fsc))
+    phase("time_k2", card=repr(card), rays="flagship_shadow", any_hit=True, n=n_shadow,
+          occluded_fraction=f"{float((plain_occ.t < 0).float().mean()):.4f}",
+          answer_diff_vs_nearest_and_plain=occ_diff, k2_kernel_ms=f"{any_ms:.4f}",
+          k1_kernel_ms_same_rays=f"{k1_any_ms:.4f}", bound_ms=f"{any_bound['bound_ms']:.4f}",
+          share_of_bound=f"{any_bound['bound_ms'] / any_ms:.4f}",
+          k2_plain_ms=f"{any_plain_ms:.2f}")
+    check(occ_diff == 0, "K2's any-hit answers differ from its nearest hits on the flagship's "
+          "shadow rays")
 
     # K1's bound on the bounce rays (its time: [sort] pixel order)
     _, k1_counters = traversal.cast_rays_wide_torch(col, bo, bd, stats=True)
@@ -1086,8 +1130,8 @@ def path_phases(dev, card, flagship) -> dict:
         phase("path_stages", card=repr(card), size=size, denoise_3_iterations_ms=f"{den_ms:.4f}")
 
     flag = res["flagship_primary"]
-    return {
-        "name": "K2 binary_traverse (binary BVH, nearest and any hit; launches: a config 5 "
+    return [{
+        "name": "K2 binary_traverse (binary BVH, walk.cuh at arity 2; launches: a config 5 "
                 "path frame through the bvh backend, primary + bounce + any-hit tail; ms, "
                 "plain_ms, bound: the frame's first bounce rays [2, 512, 512]; on the "
                 f"flagship's primary rays {flag['ms']:.4f} ms, bound "
@@ -1100,7 +1144,20 @@ def path_phases(dev, card, flagship) -> dict:
         "ms": res["config5_bounce1"]["ms"],
         "plain_ms": res["config5_bounce1"]["plain_ms"],
         **res["config5_bounce1"]["bound"],
-    }
+    }, {
+        "name": "K2 binary_traverse any-hit mode (the flagship's shadow rays; launches: a "
+                "config 5 path frame through the bvh backend, of which the any-hit tail is "
+                "one; bound from the nearest-hit walk's counts, more than the any-hit walk "
+                "does)",
+        "route": "cuda",
+        "source": "tpu_raytracer_torch/kernels/csrc/wide_traverse.cu",
+        "replaces": "tpu_raytracer/kernels/traversal.py:308",
+        "launches": launches["K2"],
+        "max_abs_err": float((occ.t.double() - plain_occ.t.double()).abs().max()),
+        "ms": any_ms,
+        "plain_ms": any_plain_ms,
+        **any_bound,
+    }]
 
 
 @contextlib.contextmanager

@@ -1,9 +1,10 @@
 """Kernel K2 (the binary BVH walk, the port's ``bvh`` backend) on the CPU,
 against the JAX package's binary walks.
 
-The host build of K2's own traversal code (``csrc/traverse_host.cpp``,
-g++ -ffp-contract=off) must equal the plain version bit for bit, in both
-modes. Against the JAX package, on the JAX package's own scenes and rays:
+The host build of K2's own traversal code (``csrc/traverse_host.cpp``
+over ``csrc/walk.cuh`` at arity 2, g++ -ffp-contract=off) must equal the
+plain version bit for bit, in both modes, at the default short stack and
+at one ring slot. Against the JAX package, on the JAX package's own scenes and rays:
 
   * ``_traversal_kernel`` in interpret mode (``TRT_DUAL=0``, as
     tests/test_wide4.py runs it): tri and inst equal, t within rtol 2e-6
@@ -39,7 +40,7 @@ from tpu_raytracer_torch.render import Hit, RenderConfig, render_image, render_i
 from tpu_raytracer_torch.render.renderer import get_cast_fn, occlusion_cast_fn
 from tpu_raytracer_torch.scene.scene import from_scene_arrays
 
-from test_torch_cast import host_trace, port_rays, port_scene
+from test_torch_cast import TINY_STACK, host_trace, host_trace_spills, port_rays, port_scene
 from test_torch_scene import compiled, jax_fields, jax_rays
 
 torch.set_num_threads(1)
@@ -72,6 +73,61 @@ def test_kernel_header_host_build_matches_plain_version(name, occlusion):
     if occlusion:  # any-hit answers: the nearest cast's hit or miss
         near = binary.cast_rays_binary_torch(scene, o, d)
         assert torch.equal(want.t < 0, near.t < 3.0e38) and (want.t < 0).any()
+
+
+@pytest.mark.parametrize("occlusion", [False, True])
+@pytest.mark.parametrize("name", SCENES)
+def test_host_build_with_tiny_short_stack_matches_plain_version(name, occlusion):
+    """K2's walk with its short stack cut to 1 ring slot, so that entries
+    go through the spill path, equals the plain version bit for bit
+    (any hit: its t, and the nearest cast's answers); the spill count
+    shows the path was taken on every scene but the cube, whose one leaf
+    is the whole tree."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    scene = port_scene(name)
+    o, d = port_rays(name)
+    want = binary.cast_rays_binary_torch(scene, o, d, occlusion=occlusion)
+    t, tri, inst, spills = host_trace_spills(scene, o, d, occlusion, arity=2,
+                                             short_stack=TINY_STACK)
+    np.testing.assert_array_equal(t_bits(t), t_bits(want.t))
+    if occlusion:
+        near = binary.cast_rays_binary_torch(scene, o, d)
+        assert torch.equal(t < 0, near.t.reshape(-1) < 3.0e38)
+    else:
+        np.testing.assert_array_equal(tri.numpy(), want.tri.reshape(-1).numpy())
+        np.testing.assert_array_equal(inst.numpy(), want.inst.reshape(-1).numpy())
+    assert (spills > 0) == (name != "cube")
+    assert host_trace_spills(scene, o, d, occlusion, arity=2)[3] < max(spills, 1)
+
+
+def test_binary_records_unpack_to_code_and_box():
+    """Lane for lane, K2's node records hold the binary tables' 12 box
+    floats, the 2 child codes' bits in lanes 12..13 and zeros in 14..15,
+    bit for bit, the cube's entered leaf-root box included; they follow
+    the scene to another device, and the host build casts the cube's
+    axis-aligned rays through that box as the plain version does."""
+    for name in SCENES:
+        tree = port_scene(name).binary
+        rec = tree.node.numpy()
+        assert rec.shape == (tree.code.shape[0], 16) and rec.dtype == np.float32
+        np.testing.assert_array_equal(rec[:, :12].view(np.int32), tree.box.numpy().view(np.int32))
+        np.testing.assert_array_equal(rec[:, 12:14].view(np.int32), tree.code.numpy())
+        assert not rec[:, 14:].view(np.int32).any()
+        assert torch.equal(tree.to("cpu").node.view(torch.int32), tree.node.view(torch.int32))
+    scene = port_scene("cube")
+    np.testing.assert_array_equal(scene.binary.node[0, :6].numpy(),
+                                  np.float32([-BIG] * 3 + [BIG] * 3))
+    if shutil.which("g++") is None:
+        return
+    d = torch.tensor([[1.0, 0, 0], [0, -1.0, 0], [0, 0, 1.0], [-1.0, -1.0, -1.0], [0, 1.0, 0]])
+    o = torch.tensor([[-5.0, 0.2, 0.1], [0.3, 5.0, -0.2], [0.1, 0.1, -9.0], [4.0, 4.0, 4.0],
+                      [0.0, -3.0, 0.0]])
+    want = binary.cast_rays_binary_torch(scene, o, d)
+    assert (want.tri >= 0).all()
+    t, tri, inst = host_trace(scene, o, d, arity=2)
+    np.testing.assert_array_equal(t_bits(t), t_bits(want.t))
+    np.testing.assert_array_equal(tri.numpy(), want.tri.numpy())
 
 
 @pytest.mark.parametrize("name", ["cube", "two_instance"])

@@ -131,18 +131,18 @@ def test_router_raises_for_unported_routes():
 
 
 def host_trace_spills(scene, origin, directions, occlusion=False, arity=4, short_stack=None,
-                      lib=None, wnode=None):
-    """The traversal header of K1 (``arity`` 4, the node records) or K2
-    (2, the binary tables), built for the host with ``short_stack`` ring
-    slots (default ``wide4.SHORT_STACK``), or the host library ``lib``
-    reading the node records ``wnode``, over every ray: (t, tri, inst,
-    entries K1's short stack spilled)."""
+                      lib=None, node=None):
+    """The traversal header of K1 (``arity`` 4, the node records
+    ``wnode``) or K2 (2, the binary records), built for the host with
+    ``short_stack`` ring slots (default ``wide4.SHORT_STACK``), or the
+    host library ``lib`` reading the node records ``node``, over every
+    ray: (t, tri, inst, entries the short stack spilled)."""
     lib = lib or build.load("host", short_stack)
     tables = scene.wide4
-    wnode = tables.wnode if wnode is None else wnode
-    code, box, root = tables.wcode, tables.wbox, tables.wroot
-    if arity == 2:
-        code, box, root = scene.binary.code, scene.binary.box, scene.binary.root
+    tree = scene.binary if arity == 2 else None
+    root = tables.wroot if tree is None else tree.root
+    if node is None:
+        node = tables.wnode if tree is None else tree.node
     inst_tab = traversal.instance_table(scene)
     inst_root = root[scene.inst_mesh.long()].to(torch.int32).contiguous()
     d = directions.contiguous()
@@ -153,10 +153,10 @@ def host_trace_spills(scene, origin, directions, occlusion=False, arity=4, short
     inst = torch.empty(r, dtype=torch.int32)
     spills = ctypes.c_int64(-1)
     rc = lib.wt_trace_host(
-        arity, code.data_ptr(), box.data_ptr(), tables.tri_rec.data_ptr(),
-        inst_tab.data_ptr(), inst_root.data_ptr(), ctypes.c_int(scene.num_instances),
-        wnode.data_ptr(), o.data_ptr(), 0 if o.dim() == 1 else 3, d.data_ptr(), r,
-        int(occlusion), t.data_ptr(), tri.data_ptr(), inst.data_ptr(), ctypes.byref(spills),
+        arity, node.data_ptr(), tables.tri_rec.data_ptr(), inst_tab.data_ptr(),
+        inst_root.data_ptr(), ctypes.c_int(scene.num_instances), o.data_ptr(),
+        0 if o.dim() == 1 else 3, d.data_ptr(), r, int(occlusion), t.data_ptr(),
+        tri.data_ptr(), inst.data_ptr(), ctypes.byref(spills),
     )
     assert rc == 0
     return t, tri, inst, spills.value
@@ -236,54 +236,90 @@ SORT_CASES = [
 ]
 
 
+def sort_order(dist: np.ndarray) -> np.ndarray:
+    """The order walk.cuh's sorting network gives each row of ``dist``
+    [n, A] (A = 2 or 4), from the host build: child of rank p in column p."""
+    dist = np.ascontiguousarray(dist, np.float32)
+    got = np.empty(dist.shape, np.int32)
+    assert build.load("host").wt_sort_host(dist.shape[1], dist.ctypes.data, dist.shape[0],
+                                           got.ctypes.data) == 0
+    return got
+
+
+def rank_loop_order(dist: np.ndarray) -> np.ndarray:
+    """walk_tree's rank loop: child c's rank is the count of k with d[k] <
+    d[c] or d[k] == d[c] and k < c; order[rank] = c."""
+    dc, dk = dist[:, :, None], dist[:, None, :]
+    lane = np.arange(dist.shape[1])
+    rank = ((dk < dc) | ((dk == dc) & (lane[None, :] < lane[:, None]))).sum(-1)
+    want = np.empty(dist.shape, np.int32)
+    np.put_along_axis(want, rank, np.broadcast_to(lane, rank.shape), axis=1)
+    return want
+
+
 def test_sorting_network_matches_rank_loop():
-    """walk4's sorting network orders children as walk_tree's rank loop
-    (near first, ties by child index) on hand-made distances with ties,
-    signed zeros and BIG, and on every permutation-rich random vector."""
+    """walk.cuh's 4-input sorting network orders children as walk_tree's
+    rank loop (near first, ties by child index) on hand-made distances
+    with ties, signed zeros and BIG, and on every permutation-rich random
+    vector."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     rng = np.random.default_rng(3)
     pool = np.array([-1.0, -0.0, 0.0, 0.5, 1.0, BIG], np.float32)
     dist = np.concatenate([np.array(SORT_CASES, np.float32),
                            pool[rng.integers(0, pool.size, (4096, 4))]])
-    got = np.empty(dist.shape, np.int32)
-    assert build.load("host").wt_sort4_host(dist.ctypes.data, dist.shape[0], got.ctypes.data) == 0
-    # the rank loop: child c's rank is the count of k with d[k] < d[c] or
-    # d[k] == d[c] and k < c; order[rank] = c
-    dc, dk = dist[:, :, None], dist[:, None, :]
-    lane = np.arange(4)
-    rank = ((dk < dc) | ((dk == dc) & (lane[None, :] < lane[:, None]))).sum(-1)
-    want = np.empty_like(got)
-    np.put_along_axis(want, rank, np.broadcast_to(lane, rank.shape), axis=1)
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(sort_order(dist), rank_loop_order(dist))
+
+
+def test_binary_sort_matches_rank_loop():
+    """At arity 2 the walk's one compare-exchange gives the rank loop's
+    order: every pair of the pool's values, ties and signed zeros
+    included, and the hand-made 4-child cases cut to their first two."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    pool = np.array([-1.0, -0.0, 0.0, 0.5, 1.0, BIG], np.float32)
+    pairs = np.stack(np.meshgrid(pool, pool), -1).reshape(-1, 2)
+    dist = np.concatenate([pairs, np.array(SORT_CASES, np.float32)[:, :2]])
+    got = sort_order(dist)
+    np.testing.assert_array_equal(got, rank_loop_order(dist))
+    assert (got[:, 0] == 1).any() and (got[:, 0] == 0).any()
 
 
 def test_walk_ab_variants_patch_the_current_sources(tmp_path):
-    """Each source-patched variant of the K1/K3 A/B script
+    """Each source-patched variant of the K1-K4 A/B script
     (``tpu_raytracer_torch/bench_walk.py``) finds the text it replaces in
-    the kernel sources, and its host build, on its own node records,
-    equals the plain walk bit for bit, nearest and any hit (the script
-    checks the same on the card against the earlier kernel)."""
+    the kernel sources, and its host build equals the plain versions bit
+    for bit: K1 and K2 nearest and any hit, K4 on a paged scene (the
+    script checks the same on the card against the earlier kernels)."""
     from tpu_raytracer_torch import bench_walk
+    from tpu_raytracer_torch.kernels import binary, paged
+
+    from test_torch_paged import host_trace_paged
 
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     scene = port_scene("blob3")
     o, d = port_rays("blob3")
-    want = traversal.cast_rays_wide_torch(scene, o, d)
-    want_occ = traversal.cast_rays_wide_torch(scene, o, d, occlusion=True)
-    for name, (patches, records) in bench_walk.PATCHED.items():
+    pages = scene.with_paging(page_tris=32, page_nodes=64)
+    want = {(arity, occ): cast(scene, o, d, occlusion=occ)
+            for arity, cast in ((4, traversal.cast_rays_wide_torch),
+                                (2, binary.cast_rays_binary_torch)) for occ in (False, True)}
+    want_k4 = paged.cast_rays_paged_torch(pages, o, d)
+    for name, (kernels, patches) in bench_walk.PATCHED.items():
         src = bench_walk._patched_sources(tmp_path, name)
         for f, text, repl in patches:
             assert text in (build.CSRC / f).read_text() and repl in (src / f).read_text()
             assert (src / f).read_text() != (build.CSRC / f).read_text()
+        assert set(kernels) <= {"K1", "K2", "K3", "K4"}
         path = build._build(f"traverse_host_{name}", build._gxx(), build.GXX_FLAGS
                             + ("-DWT_HOST_SHORT_STACK=8",), ("traverse_host.cpp",), src_dir=src)
         lib = ctypes.CDLL(str(path))
         for entry, argtypes in build._ENTRY_ARGS["host"].items():
             getattr(lib, entry).argtypes = argtypes
-        rec = None if records is None else records(scene.wide4)
-        t, tri, inst, _ = host_trace_spills(scene, o, d, lib=lib, wnode=rec)
-        assert_bitwise(t, tri, inst, want)
-        occ = host_trace_spills(scene, o, d, occlusion=True, lib=lib, wnode=rec)[0]
-        assert torch.equal(occ.view(torch.int32), want_occ.t.reshape(-1).view(torch.int32))
+        for (arity, occ), w in want.items():
+            t, tri, inst, _ = host_trace_spills(scene, o, d, occ, arity, lib=lib)
+            if occ:
+                assert torch.equal(t.view(torch.int32), w.t.reshape(-1).view(torch.int32))
+            else:
+                assert_bitwise(t, tri, inst, w)
+        assert_bitwise(*host_trace_paged(pages, o, d, "K4", lib=lib)[:3], want_k4)

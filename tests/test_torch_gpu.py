@@ -1,5 +1,6 @@
-"""Kernels K1-K6 on a CUDA card against their plain PyTorch versions,
-and the config 5 path frame through K2 and K1.
+"""Kernels K1-K6 on a CUDA card against their plain PyTorch versions
+(K1-K4 also with their short stack cut to one slot, so that entries take
+the spill path), and the config 5 path frame through K2 and K1.
 
 Marked ``gpu``: every test skips without a card. On a machine with one
 (and no JAX), run from the repository root with
@@ -144,15 +145,18 @@ def test_any_hit_matches_nearest_hit(cuda, kernel):
     assert torch.equal(occ.t >= FLT_MAX, ~blocked)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K3"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
 def test_short_stack_spill_path_matches_plain_version(cuda, kernel):
-    """K1 and K3 with their short stack cut to 1 ring slot, so that every
-    ray holding two entries spills to local memory: bitwise equal to their
-    plain versions on primary and reflection rays, and any-hit answers
-    equal to the plain any-hit cast's."""
+    """K1, K2 and K3 with their short stack cut to 1 ring slot, so that
+    every ray holding two entries spills to local memory: bitwise equal to
+    their plain versions on primary and reflection rays, and any-hit
+    answers equal to the plain any-hit cast's."""
     if kernel == "K1":
         scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
         cast, plain, counter = traversal.cast_rays_cuda, traversal.cast_rays_wide_torch, traversal
+    elif kernel == "K2":
+        scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
+        cast, plain, counter = binary.cast_rays_binary_cuda, binary.cast_rays_binary_torch, binary
     else:
         scene, cam = scene_instances(256, 256, device=cuda)
         cast, plain, counter = tlas.cast_rays_tlas_cuda, tlas.cast_rays_tlas_torch, tlas
@@ -197,15 +201,20 @@ def _launches():
     return {"K4": paged.LAUNCHES_K4, "K5": paged.LAUNCHES_K5, "K6": paged_major.LAUNCHES}
 
 
+def _paged_scene(which, device, wide=True):
+    """The small colonnade or the two-instance pair, paged, and its camera."""
+    if which == "colonnade":
+        scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=device)
+    else:
+        scene, cam = scene_colonnade_pair(96, 64, columns=3, segs=8, device=device)
+    return scene.with_paging(page_tris=512, page_nodes=256, wide=wide), cam
+
+
 @pytest.mark.parametrize("which", ["colonnade", "pair"])
 @pytest.mark.parametrize("kernel", sorted(PAGED))
 def test_paged_kernels_match_plain_versions_bitwise(cuda, kernel, which):
     wide, cast, plain = PAGED[kernel]
-    if which == "colonnade":
-        scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
-    else:
-        scene, cam = scene_colonnade_pair(96, 64, columns=3, segs=8, device=cuda)
-    scene = scene.with_paging(page_tris=512, page_nodes=256, wide=wide)
+    scene, cam = _paged_scene(which, cuda, wide)
     o, d = _rays(cam, cuda)
     refl, _ = _secondary_rays(scene, o, d, traversal.cast_rays_cuda(scene, o, d))
     for ro, rd in ((o, d), refl):
@@ -219,6 +228,27 @@ def test_paged_kernels_match_plain_versions_bitwise(cuda, kernel, which):
         k1 = traversal.cast_rays_cuda(scene, ro, rd)
         assert traversal.unexplained_differences(scene, ro, rd, got, k1) == 0
     assert (got.tri >= 0).any()
+
+
+@pytest.mark.parametrize("which", ["colonnade", "pair"])
+def test_k4_short_stack_spill_path_matches_plain_version(cuda, which):
+    """K4 with its short stack cut to 1 ring slot, so that top-tree and
+    page entries spill to local memory: bitwise equal to its plain version
+    on primary and reflection rays."""
+    scene, cam = _paged_scene(which, cuda)
+    o, d = _rays(cam, cuda)
+    refl, _ = _secondary_rays(scene, o, d, traversal.cast_rays_cuda(scene, o, d))
+    for ro, rd in ((o, d), refl):
+        before = paged.LAUNCHES_K4
+        got = paged.cast_rays_paged_cuda(scene, ro, rd, short_stack=1)
+        torch.cuda.synchronize()
+        assert paged.LAUNCHES_K4 == before + 1
+        want = paged.cast_rays_paged_torch(scene, ro, rd)
+        assert (got.tri >= 0).any()
+        assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
+        assert torch.equal(got.tri, want.tri) and torch.equal(got.inst, want.inst)
+    with pytest.raises(ValueError, match="short_stack"):
+        paged.cast_rays_paged_cuda(scene, o, d, short_stack=3)
 
 
 @pytest.mark.parametrize("backend", ["paged", "paged_major"])

@@ -26,10 +26,12 @@ plain walk, which rounds every op as the paged walks do, ``t`` is
 bit-exact and ``tri``/``inst`` equal away from exact-``t`` ties, since
 a paged walk differs from K1's only in the order it visits triangles.
 The host build of the kernels' header (g++ -ffp-contract=off) equals the
-plain versions bit for bit in all three outputs, and so do K4 and K6
-against themselves through ``paged_from_jax`` tables.
+plain versions bit for bit in all three outputs, K4 also with its short
+stack cut to one slot, and so do K4 and K6 against themselves through
+``paged_from_jax`` tables.
 """
 
+import ctypes
 import dataclasses
 import functools
 import os
@@ -190,10 +192,12 @@ def test_plain_version_matches_k1_walk(name, kernel, cut, rays):
         assert set(np.unique(got.inst.numpy()).tolist()) == {-1, 0, 1}
 
 
-def host_trace(scene, origin, directions, kernel):
-    """The paged kernels' traversal header, built for the host, over
-    every ray (K6 on the plain version's tile order and plan)."""
-    lib = build.load("host")
+def host_trace_paged(scene, origin, directions, kernel, short_stack=None, lib=None):
+    """The paged kernels' traversal header, built for the host with
+    ``short_stack`` ring slots (default ``wide4.SHORT_STACK``), or the host
+    library ``lib``, over every ray (K6 on the plain version's tile order
+    and plan): (t, tri, inst, entries K4's short stack spilled)."""
+    lib = lib or build.load("host", short_stack)
     pg = scene.paged
     if kernel == "K6":
         perm, o, d = paged_major._tile_rays(origin, directions)
@@ -202,6 +206,7 @@ def host_trace(scene, origin, directions, kernel):
     pages, keep_alive = paged.page_args(scene, d)
     r = d.shape[0]
     out = (torch.empty(r), torch.empty(r, dtype=torch.int32), torch.empty(r, dtype=torch.int32))
+    spills = ctypes.c_int64(0)
     if kernel == "K6":
         pid, iid, mask = paged_major.page_major_plan(scene, o, d)
         rc = lib.paged_major_trace_host(*pages, pid.data_ptr(), iid.data_ptr(), pid.shape[0],
@@ -209,10 +214,12 @@ def host_trace(scene, origin, directions, kernel):
                                         *paged.ray_args(o, d, out))
     else:
         top_root = pg.top_root[scene.inst_mesh.long()].to(torch.int32).contiguous()
+        node = pg.node.data_ptr() if pg.arity == 4 else None
         rc = lib.paged_trace_host(*pages, pg.top_code.data_ptr(), pg.top_box.data_ptr(),
-                                  top_root.data_ptr(), *paged.ray_args(o, d, out))
+                                  top_root.data_ptr(), node, *paged.ray_args(o, d, out),
+                                  ctypes.byref(spills))
     assert rc == 0
-    return tuple(paged_major._untile(perm, x) for x in out)
+    return (*(paged_major._untile(perm, x) for x in out), spills.value)
 
 
 @pytest.fixture
@@ -228,11 +235,68 @@ def test_kernel_header_host_build_matches_plain_version(gxx, name, kernel, cut):
     scene, o, d = port_scene(name, cut, KERNELS[kernel])
     for ro, rd in ((o, d), reflection_rays(scene, o, d)):
         want = PLAIN[kernel](scene, ro, rd)
-        got = host_trace(scene, ro, rd, kernel)
+        got = host_trace_paged(scene, ro, rd, kernel)
         np.testing.assert_array_equal(got[0].view(torch.int32).numpy(),
                                       want.t.reshape(-1).view(torch.int32).numpy())
         np.testing.assert_array_equal(got[1].numpy(), want.tri.reshape(-1).numpy())
         np.testing.assert_array_equal(got[2].numpy(), want.inst.reshape(-1).numpy())
+
+
+def assert_hits_equal(got, want):
+    """Host build outputs (t, tri, inst[, spills]) against a plain Hit,
+    bit for bit."""
+    for g, w in zip(got[:3], (want.t.view(torch.int32), want.tri, want.inst)):
+        np.testing.assert_array_equal(g.view(w.dtype).numpy(), w.reshape(-1).numpy())
+
+
+@pytest.mark.parametrize("cut", sorted(CUTS))
+@pytest.mark.parametrize("name", sorted(JAX_SCENES))
+def test_k4_host_build_with_tiny_short_stack_matches_plain_version(gxx, name, cut):
+    """K4 with its short stack cut to 1 ring slot, so that top-tree and
+    page entries go through the spill path, equals the plain version bit
+    for bit on primary and reflection rays; the spill count shows the
+    path was taken."""
+    scene, o, d = port_scene(name, cut, True)
+    assert build.load("host", 1).wt_host_short_stack() == 1
+    for ro, rd in ((o, d), reflection_rays(scene, o, d)):
+        got = host_trace_paged(scene, ro, rd, "K4", short_stack=1)
+        assert_hits_equal(got, paged.cast_rays_paged_torch(scene, ro, rd))
+        assert got[3] > 0
+        assert host_trace_paged(scene, ro, rd, "K4")[3] < got[3]
+
+
+def test_wide_page_records_unpack_to_code_and_box():
+    """K4's page records hold the 4-wide page trees' box floats in lanes
+    0..23 and their codes' bits in lanes 24..27, zeros after, bit for
+    bit, and follow the tables to another device; binary pages carry
+    none."""
+    for name in sorted(JAX_SCENES):
+        for cut in sorted(CUTS):
+            pg = port_scene(name, cut, True)[0].paged
+            rec = pg.node.numpy()
+            assert rec.shape == (pg.code.shape[0], 32) and rec.dtype == np.float32
+            np.testing.assert_array_equal(rec[:, :24].view(np.int32),
+                                          pg.box.numpy()[:, :24].view(np.int32))
+            np.testing.assert_array_equal(rec[:, 24:28].view(np.int32), pg.code.numpy())
+            assert not rec[:, 28:].view(np.int32).any()
+            assert torch.equal(pg.to("cpu").node.view(torch.int32), pg.node.view(torch.int32))
+    assert port_scene("two_instance", "tiny", False)[0].paged.node is None
+
+
+def test_tables_from_jax_carry_records_that_cast_like_the_ports(gxx):
+    """``paged_from_jax`` tables carry K4's page records, and K4's host
+    build on them gives the port tables' hits in all three outputs, at
+    the default short stack and at one slot."""
+    for name in sorted(JAX_SCENES):
+        scene, o, d = port_scene(name, "tiny", True)
+        theirs = paged.paged_from_jax(jax_table_fields(jax_tables(name, True)), device="cpu")
+        np.testing.assert_array_equal(theirs.node.numpy()[:, :28].view(np.int32),
+                                      scene.paged.node.numpy()[:, :28].view(np.int32))
+        want = paged.cast_rays_paged_torch(scene, o, d)
+        for s in (None, 1):
+            got = host_trace_paged(dataclasses.replace(scene, paged=theirs), o, d, "K4",
+                                   short_stack=s)
+            assert_hits_equal(got, want)
 
 
 @pytest.mark.parametrize("kernel", ["K4", "K6"])

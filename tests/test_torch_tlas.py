@@ -163,8 +163,8 @@ def host_trace_spills(scene, origin, directions, occlusion=False, short_stack=No
     inst = torch.empty(r, dtype=torch.int32)
     spills = ctypes.c_int64(-1)
     rc = lib.tlas_trace_host(
-        tables.wcode.data_ptr(), tables.wbox.data_ptr(), tables.tri_rec.data_ptr(),
-        inst_tab.data_ptr(), inst_root.data_ptr(), scene.num_instances, tables.wnode.data_ptr(),
+        tables.wnode.data_ptr(), tables.tri_rec.data_ptr(), inst_tab.data_ptr(),
+        inst_root.data_ptr(), scene.num_instances,
         tl.code.data_ptr(), tl.box.data_ptr(), tl.inst_ids.data_ptr(),
         o.data_ptr(), 0 if o.dim() == 1 else 3, d.data_ptr(), r, int(occlusion),
         t.data_ptr(), tri.data_ptr(), inst.data_ptr(), ctypes.byref(spills),

@@ -2,11 +2,11 @@
 
 | Kernel | Replaces (TPU) | Source | Wrapper / plain version |
 |---|---|---|---|
-| K1 4-wide BVH traversal, nearest and any hit | ``kernels/dual.py:_dual_kernel`` (+ ``traversal.py:make_test_tri``) | ``csrc/wide_traverse.cu``, ``csrc/wide_traverse.cuh`` | ``traversal.cast_rays_cuda`` / ``traversal.cast_rays_wide_torch`` |
-| K2 binary BVH traversal (K1's walk at arity 2), nearest and any hit; the ``bvh`` backend | ``kernels/traversal.py:_traversal_kernel`` (and the XLA walk ``render/renderer.py:cast_rays_bvh``) | ``csrc/wide_traverse.cu``, ``csrc/wide_traverse.cuh`` | ``binary.cast_rays_binary_cuda`` / ``binary.cast_rays_binary_torch`` |
-| K3 TLAS + 4-wide BLAS traversal, nearest and any hit | ``kernels/tlas.py:_tlas_kernel`` | ``csrc/tlas_traverse.cu``, ``csrc/tlas_traverse.cuh`` | ``tlas.cast_rays_tlas_cuda`` / ``tlas.cast_rays_tlas_torch`` |
-| K4 paged traversal, 4-wide pages | ``kernels/paged_wide.py:_paged_wide_kernel`` | ``csrc/paged_traverse.cu``, ``csrc/paged_traverse.cuh`` | ``paged.cast_rays_paged_cuda`` / ``paged.cast_rays_paged_torch`` |
-| K5 paged traversal, binary pages (K4's arity-2 case) | ``kernels/paged.py:_paged_kernel`` | ``csrc/paged_traverse.cu``, ``csrc/paged_traverse.cuh`` | as K4, on binary tables |
+| K1 4-wide BVH traversal, nearest and any hit | ``kernels/dual.py:_dual_kernel`` (+ ``traversal.py:make_test_tri``) | ``csrc/wide_traverse.cu``, ``csrc/walk.cuh`` | ``traversal.cast_rays_cuda`` / ``traversal.cast_rays_wide_torch`` |
+| K2 binary BVH traversal (K1's walk at arity 2), nearest and any hit; the ``bvh`` backend | ``kernels/traversal.py:_traversal_kernel`` (and the XLA walk ``render/renderer.py:cast_rays_bvh``) | ``csrc/wide_traverse.cu``, ``csrc/walk.cuh`` | ``binary.cast_rays_binary_cuda`` / ``binary.cast_rays_binary_torch`` |
+| K3 TLAS + 4-wide BLAS traversal, nearest and any hit | ``kernels/tlas.py:_tlas_kernel`` | ``csrc/tlas_traverse.cu``, ``csrc/tlas_traverse.cuh``, ``csrc/walk.cuh`` | ``tlas.cast_rays_tlas_cuda`` / ``tlas.cast_rays_tlas_torch`` |
+| K4 paged traversal, 4-wide pages | ``kernels/paged_wide.py:_paged_wide_kernel`` | ``csrc/paged_traverse.cu``, ``csrc/paged_traverse.cuh``, ``csrc/walk.cuh`` | ``paged.cast_rays_paged_cuda`` / ``paged.cast_rays_paged_torch`` |
+| K5 paged traversal, binary pages | ``kernels/paged.py:_paged_kernel`` | ``csrc/paged_traverse.cu``, ``csrc/paged_traverse.cuh`` | as K4, on binary tables |
 | K6 page-major paged traversal | ``kernels/paged_major.py:_page_major_kernel`` | ``csrc/paged_major.cu``, ``csrc/paged_traverse.cuh`` | ``paged_major.cast_rays_paged_major_cuda`` / ``paged_major.cast_rays_paged_major_torch`` |
 
 All are built into one library, one nvcc per source (``build.py``):

@@ -6,8 +6,8 @@ Counterpart of ``tpu_raytracer/kernels/traversal.py:_traversal_kernel``
 of ``render/renderer.py:cast_rays_bvh`` (the per-ray XLA walk of the same
 tree, the JAX package's default backend). On the card one thread per ray
 walking the binary tree is both, so both become K2: K1's walk
-(``csrc/wide_traverse.cuh``) at arity 2, over every mesh's whole binary
-tree, nearest or any hit.
+(``csrc/walk.cuh``) at arity 2, over every mesh's whole binary tree,
+nearest or any hit.
 
 The tables, in ``accel/wide.py:collapse2``'s child-code layout:
 
@@ -16,7 +16,11 @@ The tables, in ``accel/wide.py:collapse2``'s child-code layout:
     -(start * 1024 + count) - 1; absent -> -1;
   * ``box [N, 12] f32``: the two children's boxes, NUDGE baked in
     (``kernels/paged.py:_records``, as ``_scene_kernel_inputs`` bakes it);
-  * ``root [M] i32``: the node of each mesh root.
+  * ``root [M] i32``: the node of each mesh root;
+  * ``node [N, 16] f32``: the records K2 reads, derived from the two
+    above (``wide4.node_records``): the 12 box floats, the 2 child codes'
+    bits in lanes 12..13, zeros in 14..15. One 64-byte row per node, read
+    as 16-byte loads; ``code``/``box`` stay for the plain version.
 
 ``collapse2`` gives a mesh whose root is a leaf one extra node with that
 leaf as entry 0; here that entry's box is one every ray enters, so K2,
@@ -26,8 +30,10 @@ EDGE_EPS outside it.) Its slab distances are infinite, never NaN: the
 reciprocal direction is never 0 (``safe_reciprocal``).
 
   * ``cast_rays_binary_cuda`` is K2's wrapper: for CUDA tensors it
-    launches the kernel and counts the launch in ``LAUNCHES``; for CPU
-    tensors it runs the plain version. A failed build or launch raises.
+    launches the kernel (``csrc/wide_traverse.cu``,
+    ``binary_traverse_kernel``) and counts the launch in ``LAUNCHES``;
+    for CPU tensors it runs the plain version. A failed build or launch
+    raises.
   * ``cast_rays_binary_torch`` is the plain version:
     ``traversal.walk_tree`` at arity 2 over the same tables, with the
     ``stats`` counters.
@@ -43,7 +49,7 @@ import torch
 from ..accel.wide import collapse2
 from .paged import _records
 from .traversal import BIG, PLAIN_CHUNK, _split_rays, cast_rays_tree_torch, launch
-from .wide4 import STACK_SIZE, _wide_depth
+from .wide4 import STACK_SIZE, _wide_depth, node_records
 
 # Launches of K2 since the count was last reset (CPU casts, which run the
 # plain version, do not count).
@@ -56,10 +62,11 @@ class BinaryTables:
     box: torch.Tensor  # [N, 12] f32
     root: torch.Tensor  # [M] i32
     depth: int  # nodes on the longest root-to-leaf path
+    node: torch.Tensor  # [N, 16] f32 node records (codes bit-cast)
 
     def to(self, device) -> "BinaryTables":
         return dataclasses.replace(self, code=self.code.to(device), box=self.box.to(device),
-                                   root=self.root.to(device))
+                                   root=self.root.to(device), node=self.node.to(device))
 
 
 def build_binary(scene) -> BinaryTables:
@@ -78,7 +85,8 @@ def build_binary(scene) -> BinaryTables:
         raise ValueError(f"binary BVH depth {depth} overflows the {STACK_SIZE}-slot stack")
     t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(scene.device)
     return BinaryTables(code=t(code, np.int32), box=t(box, np.float32),
-                        root=t(w.wroot, np.int32), depth=depth)
+                        root=t(w.wroot, np.int32), depth=depth,
+                        node=t(node_records(code, box), np.float32))
 
 
 def binary_tables(scene) -> BinaryTables:
@@ -97,14 +105,17 @@ def cast_rays_binary_torch(scene, origin, directions, occlusion: bool = False,
                                 occlusion, chunk, stats)
 
 
-def cast_rays_binary_cuda(scene, origin, directions, occlusion: bool = False):
+def cast_rays_binary_cuda(scene, origin, directions, occlusion: bool = False,
+                          short_stack: int | None = None):
     """K2: nearest (or, with ``occlusion``, any) hit over the binary
     tables, every instance in index order. CUDA tensors launch the kernel
-    on the current stream; CPU tensors run the plain version."""
+    on the current stream, with ``short_stack`` ring slots per thread
+    (``traversal.launch``); CPU tensors run the plain version."""
     global LAUNCHES
     origin, directions = _split_rays(origin, directions)
     if directions.device.type == "cpu":
         return cast_rays_binary_torch(scene, origin, directions, occlusion)
-    hit = launch("wt_launch", scene, origin, directions, occlusion, arity=2)
+    hit = launch("wt_launch", scene, origin, directions, occlusion, arity=2,
+                 short_stack=short_stack)
     LAUNCHES += 1
     return hit

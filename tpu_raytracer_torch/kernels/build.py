@@ -105,7 +105,7 @@ def build_log(lib: pathlib.Path) -> str:
 
 
 KERNEL_NAMES = ("paged_major_kernel", "binary_traverse_kernel", "wide_traverse_kernel",
-                "tlas_traverse_kernel", "paged_kernel")
+                "tlas_traverse_kernel", "paged_wide_kernel", "paged_kernel")
 
 
 def ptxas_report(lib: pathlib.Path) -> dict[str, dict[str, int]]:
@@ -154,7 +154,7 @@ def _gxx() -> str:
 
 def build_host(short_stack: int) -> pathlib.Path:
     """g++ build of the kernels' traversal headers for the CPU tests, with
-    ``short_stack`` ring slots in K1's and K3's short stack."""
+    ``short_stack`` ring slots in the short stack of K1-K4."""
     return _build("traverse_host", _gxx(), GXX_FLAGS + (f"-DWT_HOST_SHORT_STACK={short_stack}",),
                   ("traverse_host.cpp",))
 
@@ -168,8 +168,8 @@ def build_bvh_builder() -> pathlib.Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
-# wcode, wbox, tri_rec, inst_tab, inst_root, num_instances, wnode
-_SCENE_ARGS = [_P, _P, _P, _P, _P, _I, _P]
+# node records, tri_rec, inst_tab, inst_root, num_instances
+_SCENE_ARGS = [_P, _P, _P, _P, _I]
 # origin, origin_stride, dirs, num_rays, occlusion, t_out, tri_out, inst_out
 _RAY_ARGS = [_P, _I, _P, _I64, _I, _P, _P, _P]
 # tlas code, box, inst_ids
@@ -177,28 +177,31 @@ _TLAS_ARGS = [_P, _P, _P]
 # arity, page code, page box, page_node_base, page_tri0, tri_rec, inst_tab,
 # num_instances
 _PAGE_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I]
-# top_code, top_box, inst_top_root
-_TOP_ARGS = [_P, _P, _P]
+# top_code, top_box, inst_top_root, page node records (K4)
+_TOP_ARGS = [_P, _P, _P, _P]
 # item_pid, item_iid, num_items, mask, num_tiles
 _PLAN_ARGS = [_P, _P, _I, _P, _I]
 # origin, origin_stride, dirs, num_rays, t_out, tri_out, inst_out
 _NEAREST_RAY_ARGS = [_P, _I, _P, _I64, _P, _P, _P]
-# occlusion, short_stack, num_rays, out[4]
-_SHAPE_ARGS = [_I, _I, _I64, _P]
+# short_stack, num_rays, out[4]
+_SHAPE_ARGS = [_I, _I64, _P]
+# short_stack, counter
+_WALK_ARGS = [_I, _P]
 _ENTRY_ARGS = {
-    # arity + ... + short_stack, counter, stream
-    "cuda": {"wt_launch": [_I] + _SCENE_ARGS + _RAY_ARGS + [_I, _P, _P],
-             "tlas_launch": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_I, _P, _P],
-             "wt_launch_shape": _SHAPE_ARGS,
-             "tlas_launch_shape": _SHAPE_ARGS,
-             "paged_launch": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS + [_P],
+    # ... + stream
+    "cuda": {"wt_launch": [_I] + _SCENE_ARGS + _RAY_ARGS + _WALK_ARGS + [_P],
+             "tlas_launch": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + _WALK_ARGS + [_P],
+             "wt_launch_shape": [_I, _I] + _SHAPE_ARGS,  # arity, occlusion
+             "tlas_launch_shape": [_I] + _SHAPE_ARGS,  # occlusion
+             "paged_launch_shape": _SHAPE_ARGS,
+             "paged_launch": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS + _WALK_ARGS + [_P],
              "paged_major_launch": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS + [_P]},
     # ... + spills (one i64 out)
     "host": {"wt_trace_host": [_I] + _SCENE_ARGS + _RAY_ARGS + [_P],
              "tlas_trace_host": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_P],
-             "wt_sort4_host": [_P, _I64, _P],
+             "wt_sort_host": [_I, _P, _I64, _P],
              "wt_host_short_stack": [],
-             "paged_trace_host": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS,
+             "paged_trace_host": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS + [_P],
              "paged_major_trace_host": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS},
 }
 

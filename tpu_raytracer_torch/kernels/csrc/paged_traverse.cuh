@@ -16,43 +16,50 @@
 // VMEM: they DMA one page at a time from HBM. On the card every table
 // stays in device memory and a thread reads what it needs, so the
 // translation keeps what they compute and drops the staging:
-//   * K4/K5 (trace_ray_paged): one thread per ray, a private stack for
-//     the top tree; at a portal the thread walks that page's tree with
-//     K1's walk_tree (wide_traverse.cuh) at arity 4 or 2, from global
-//     memory, then resumes the top tree. The instance loop and the
-//     quaternion object space are K1's, and so is the accept rule: strict
-//     t < t_best, an exact-t tie goes to the lower instance, boxes culled
-//     against t_best widened by kCapSlack.
+//   * K4 (trace_ray_paged4): one thread per ray on persistent warps walks
+//     the top tree as K3 walks its TLAS (tlas_traverse.cuh): a top node's
+//     two boxes as 3 float4 loads, the nearer child next, the other on
+//     the short stack of walk.cuh. At a portal the thread walks that
+//     page's 4-wide node records with walk<4> (walk.cuh), leaf starts
+//     counting from the page's first triangle, on the same stack above
+//     the top-tree entries, then resumes the top tree.
+//   * K5 (trace_ray_paged<2>): one thread per ray, a private stack for
+//     the top tree; at a portal the thread walks that page's binary tree
+//     with walk_tree<2> (wide_traverse.cuh), from global memory.
 //   * K6 (trace_ray_page_major): the host plans (instance, page) items
 //     front to back with a conservative per-tile visibility mask
 //     (kernels/paged_major.py); each thread walks, in that order, the
-//     items its 256-ray tile may see, with its t_best in registers. No
-//     top tree is walked.
-// The nearest t is the same whatever the visit order (t is only ever
-// lowered to a strictly smaller accepted distance, and boxes are
-// conservative), so every paged walk gives K1's t bit for bit on the
-// same scene; tri/inst can differ from K1's only where two triangles tie
-// on t exactly.
+//     items its 256-ray tile may see, with its t_best in registers and
+//     walk_tree<4> in each page. No top tree is walked.
+// The instance loop and the quaternion object space are K1's, and so is
+// the accept rule: strict t < t_best, an exact-t tie goes to the lower
+// instance, boxes culled against t_best widened by kCapSlack. The nearest
+// t is the same whatever the visit order (t is only ever lowered to a
+// strictly smaller accepted distance, and boxes are conservative), so
+// every paged walk gives K1's t on the same scene but where a hit accepted
+// up to EDGE_EPS outside its leaf box is kept or culled by box order;
+// tri/inst can differ from K1's only there or where two triangles tie on t
+// exactly.
 //
-// What bounds it on an H100: as K1, dependent global loads (a top node's
-// code and 12 box floats, a page node's codes and boxes, 16-float
-// triangle records) each followed by a few dozen flops, and divergence
-// within a warp. The 1M-triangle colonnade's tables (~66 MB of triangle
-// records) overflow the 50 MB L2, so misses go to HBM; staging a page in
-// shared memory (TMA) is the obvious next step and later work.
+// What bounds it on an H100: as K1 (walk.cuh), the instructions around
+// dependent loads (top nodes, page nodes, 16-float triangle records) and
+// divergence within a warp; K5 and K6 still read a node's codes and boxes
+// as scalar loads from two tables. The 1M-triangle colonnade's tables
+// (~66 MB of triangle records) overflow the 50 MB L2, so misses go to HBM.
 //
 // Plain C++ for nvcc and a host compiler (csrc/traverse_host.cpp serves
 // the CPU tests); built with --fmad=false / -ffp-contract=off like K1.
 #pragma once
 
-#include "wide_traverse.cuh"
+#include "walk.cuh"
 
 namespace wt {
 
-constexpr int kTopStack = 64;  // kernels/paged.py TOP_STACK
+constexpr int kTopStack = 64;  // kernels/paged.py TOP_STACK (K5's top-tree stack)
 constexpr int kTileRays = 256;  // kernels/paged_major.py TILE_RAYS
 
-// The pages of a paged scene, all in one arity's child-code layout.
+// The pages of a paged scene, all in one arity's child-code layout (K4
+// reads the same pages' node records, kernels/paged.py `node`).
 struct Pages {
   const int32_t* code;       // [N, A] page-local child codes
   const float* box;          // [N, box_stride(A)] page-local child boxes
@@ -91,11 +98,11 @@ WT_HD void walk_page(const Pages& pg, int32_t pid, const float* o,
                     best);
 }
 
-// K4 (kArity 4) and K5 (kArity 2): nearest hit of one world ray through
-// each instance's top tree and the pages its portals lead to. The top
-// root is entered without a box test; at an internal node both child
-// boxes are tested against the ray's current t and the nearer child is
-// visited first, child a on a tie (the JAX kernels' pop1_top order).
+// K5 (kArity 2): nearest hit of one world ray through each instance's
+// top tree and the pages its portals lead to. The top root is entered
+// without a box test; at an internal node both child boxes are tested
+// against the ray's current t and the nearer child is visited first,
+// child a on a tie (the JAX kernels' pop1_top order).
 template <int kArity>
 WT_HD Hit trace_ray_paged(const Pages& pg, const TopTree& top, const float* wo,
                           const float* wd) {
@@ -124,6 +131,59 @@ WT_HD Hit trace_ray_paged(const Pages& pg, const TopTree& top, const float* wo,
       } else {
         if (da < kBig) stack[sp++] = node + 1;
         if (db < kBig) stack[sp++] = code;
+      }
+    }
+  }
+  return finish_hit(best, pg.num_instances);
+}
+
+// K4: trace_ray_paged's visits with walk.cuh's design, over the 4-wide
+// pages' node records `node` [N, 32]. Per instance the top tree is walked
+// as K3 walks its TLAS: the nearer child becomes the next node, child a
+// winning a tie (da <= db), and the farther is pushed. Its entries share
+// `st` with each page walk's, which sit above them until the page is
+// done, so the stack holds at most top_depth + stack_needed(page depth)
+// entries (checked by the wrapper).
+WT_HD Hit trace_ray_paged4(const Pages& pg, const float* node, const TopTree& top,
+                           const float* wo, const float* wd, ShortStack& st) {
+  Hit best{kBig, -1, -1};
+  ShortStack& top_st = st;
+  for (int i = 0; i < pg.num_instances; ++i) {
+    float o[3], d[3], inv[3];
+    object_ray(pg.inst_tab + 12 * i, wo, wd, o, d, inv);
+    const int32_t inst_val = pg.num_instances == 1 ? -1 : i;
+    int32_t cur = top.root[i];
+    for (;;) {
+      const int32_t code = top.code[cur];
+      int32_t next = -1;
+      if (code >= 0) {
+        float b[12];
+        const float* rec = top.box + 12 * static_cast<int64_t>(cur);
+        load4(rec, b);
+        load4(rec + 4, b + 4);
+        load4(rec + 8, b + 8);
+        const float cap = best.t * kCapSlack;
+        const float da = slab_entry(b[0], b[1], b[2], b[3], b[4], b[5], o, inv, cap);
+        const float db = slab_entry(b[6], b[7], b[8], b[9], b[10], b[11], o, inv, cap);
+        // farther child first, so the nearer is the next node
+        if (da <= db) {
+          if (db < kBig) defer(top_st, next, code);
+          if (da < kBig) defer(top_st, next, cur + 1);
+        } else {
+          if (da < kBig) defer(top_st, next, cur + 1);
+          if (db < kBig) defer(top_st, next, code);
+        }
+      } else {
+        const int32_t pid = -code - 1;
+        walk<4, false>(node + node_lanes(4) * static_cast<int64_t>(pg.node_base[pid]), 0,
+                       pg.tri0[pid], pg.tri_rec, o, d, inv, inst_val, st, &best);
+      }
+      if (next >= 0) {
+        cur = next;
+      } else if (top_st.sp > 0) {
+        cur = top_st.pop();
+      } else {
+        break;
       }
     }
   }

@@ -1,5 +1,5 @@
 // CUDA entry point of kernel K3: the TLAS and the reached instances'
-// 4-wide BLAS, with K1's walk (walk4.cuh) and launch (walk4_launch.cuh).
+// 4-wide BLAS, with K1's walk (walk.cuh) and launch (walk_launch.cuh).
 //
 // Replaces tpu_raytracer/kernels/tlas.py:_tlas_kernel (the pallas_call of
 // tlas.py:_run_tlas), nearest or any hit; the traversal itself and the
@@ -8,7 +8,7 @@
 #include <cuda_runtime.h>
 
 #include "tlas_traverse.cuh"
-#include "walk4_launch.cuh"
+#include "walk_launch.cuh"
 
 namespace {
 
@@ -30,28 +30,27 @@ tlas_traverse_kernel(wt::Scene s, wt::Tlas tl, wt::Rays rays, int ring_mask,
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 on
 // success). Arguments as wt_launch's for K1, plus the TLAS tables.
-extern "C" int tlas_launch(const int32_t* wcode, const float* wbox,
-                           const float* tri_rec, const float* inst_tab,
+extern "C" int tlas_launch(const float* wnode, const float* tri_rec, const float* inst_tab,
                            const int32_t* inst_root, int num_instances,
-                           const float* wnode, const int32_t* tlas_code,
-                           const float* tlas_box, const int32_t* tlas_inst_ids,
+                           const int32_t* tlas_code, const float* tlas_box,
+                           const int32_t* tlas_inst_ids,
                            const float* origin, int origin_stride, const float* dirs,
                            int64_t num_rays, int occlusion, float* t_out,
                            int32_t* tri_out, int32_t* inst_out, int short_stack,
                            unsigned long long* counter, void* stream) {
   if (num_rays <= 0) return 0;
-  const wt::Scene s{wcode, wbox, tri_rec, inst_tab, inst_root, num_instances, wnode};
+  const wt::Scene s{wnode, tri_rec, inst_tab, inst_root, num_instances};
   const wt::Tlas tl{tlas_code, tlas_box, tlas_inst_ids};
   const wt::Rays rays{origin, origin_stride, dirs, num_rays, t_out, tri_out, inst_out};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return occlusion ? wt::launch_walk4(tlas_traverse_kernel<true>, num_rays, short_stack,
-                                      counter, st, s, tl, rays)
-                   : wt::launch_walk4(tlas_traverse_kernel<false>, num_rays, short_stack,
-                                      counter, st, s, tl, rays);
+  return occlusion ? wt::launch_walk(tlas_traverse_kernel<true>, num_rays, short_stack,
+                                     counter, st, s, tl, rays)
+                   : wt::launch_walk(tlas_traverse_kernel<false>, num_rays, short_stack,
+                                     counter, st, s, tl, rays);
 }
 
-// K3's launch for `num_rays` rays, as wt_launch_shape gives K1's.
+// K3's launch for `num_rays` rays (walk_shape).
 extern "C" int tlas_launch_shape(int occlusion, int short_stack, int64_t num_rays, int* out) {
-  return occlusion ? wt::walk4_shape(tlas_traverse_kernel<true>, short_stack, num_rays, out)
-                   : wt::walk4_shape(tlas_traverse_kernel<false>, short_stack, num_rays, out);
+  return occlusion ? wt::walk_shape(tlas_traverse_kernel<true>, short_stack, num_rays, out)
+                   : wt::walk_shape(tlas_traverse_kernel<false>, short_stack, num_rays, out);
 }

@@ -7,7 +7,7 @@
 // whole two-level walk, instances visited nearest first so that a close
 // hit culls farther instances at their TLAS box — as one thread per ray
 // instead of 4096-ray packets sharing SMEM stacks. The BLAS walk is K1's
-// walk4 (walk4.cuh), and the TLAS walk shares its short stack: TLAS
+// walk<4> (walk.cuh), and the TLAS walk shares its short stack: TLAS
 // entries sit below, and each BLAS walk pushes and pops above them until
 // the stack is back at its base. The wrapper checks that the TLAS depth
 // plus the BLAS's stack_needed fit the stack's kStack entries.
@@ -19,10 +19,10 @@
 // instances are walked in inst_ids order, and every hit records its
 // instance id. The plain PyTorch version (kernels/tlas.py) keeps the same
 // order, so the two agree bit for bit. In any-hit mode the children are
-// taken in child order (walk4.cuh says why any order gives the same
+// taken in child order (walk.cuh says why any order gives the same
 // answer).
 //
-// What bounds it on an H100: as K1 (walk4.cuh), dependent loads and the
+// What bounds it on an H100: as K1 (walk.cuh), dependent loads and the
 // instructions around them — a TLAS node (one code, 12 box floats as 3
 // float4), then BLAS nodes and triangle records — and divergence within a
 // warp once rays stop being coherent (reflection and shadow rays from
@@ -33,7 +33,7 @@
 // the CPU tests); built with --fmad=false / -ffp-contract=off like K1.
 #pragma once
 
-#include "walk4.cuh"
+#include "walk.cuh"
 
 namespace wt {
 
@@ -78,7 +78,7 @@ WT_HD Hit trace_ray_tlas4(const Scene& s, const Tlas& tl, const float* wo, const
       const int32_t start = packed >> 10;
       const int32_t n = packed & 1023;
       for (int32_t p = start; p < start + n; ++p) {
-        if (walk_instance4<kAnyHit>(s, tl.inst_ids[p], wo, wd, st, &best)) return best;
+        if (walk_instance<4, kAnyHit>(s, tl.inst_ids[p], wo, wd, st, &best)) return best;
       }
     }
     if (next >= 0) {

@@ -1,8 +1,8 @@
 // Host builds of the traversal headers for the CPU tests: the same
-// per-ray code the CUDA kernels K1 (walk4.cuh), K2 (wide_traverse.cuh), K3
+// per-ray code the CUDA kernels K1 and K2 (walk.cuh), K3
 // (tlas_traverse.cuh) and K4-K6 (paged_traverse.cuh) run, looped over
-// rays. WT_HOST_SHORT_STACK is S, the ring slots of K1's and K3's short
-// stack (a power of two): a build with a tiny S takes the spill path.
+// rays. WT_HOST_SHORT_STACK is S, the ring slots of the short stack of
+// K1-K4 (a power of two): a build with a tiny S takes the spill path.
 //
 //   g++ -O2 -ffp-contract=off -std=c++17 -shared -fPIC
 //       -DWT_HOST_SHORT_STACK=16 -o libtraverse_host.so traverse_host.cpp
@@ -19,7 +19,7 @@ constexpr int kShortStack = WT_HOST_SHORT_STACK;
 static_assert(kShortStack >= 1 && (kShortStack & (kShortStack - 1)) == 0,
               "S must be a power of two");
 
-// One walk4 stack per ray, as a thread on the card starts each ray.
+// One short stack per ray, as a thread on the card starts each ray.
 struct HostStack {
   int32_t ring[kShortStack];
   int32_t spill[wt::kStack];
@@ -28,100 +28,104 @@ struct HostStack {
   wt::ShortStack fresh() { return wt::ShortStack(ring, 1, kShortStack - 1, spill); }
 };
 
-}  // namespace
-
-extern "C" int wt_host_short_stack() { return kShortStack; }
-
-// K1 (`arity` 4, the node records) or K2 (2, the binary tables) over every
-// ray; `spills` receives the entries K1's short stack moved to spill.
-extern "C" int wt_trace_host(int arity, const int32_t* wcode, const float* wbox,
-                             const float* tri_rec, const float* inst_tab,
-                             const int32_t* inst_root, int num_instances,
-                             const float* wnode, const float* origin, int origin_stride,
-                             const float* dirs, int64_t num_rays,
-                             int occlusion, float* t_out, int32_t* tri_out,
-                             int32_t* inst_out, int64_t* spills) {
-  if (arity != 4 && arity != 2) return 1;
-  const wt::Scene s{wcode, wbox, tri_rec, inst_tab, inst_root, num_instances, wnode};
+template <class Trace>
+void trace_all(int64_t num_rays, float* t_out, int32_t* tri_out, int32_t* inst_out,
+               int64_t* spills, Trace&& trace) {
   HostStack hs;
   for (int64_t r = 0; r < num_rays; ++r) {
-    const float* wo = origin + r * origin_stride;
-    const float* wd = dirs + 3 * r;
-    wt::Hit h;
-    if (arity == 2) {
-      h = wt::trace_ray<2>(s, wo, wd, occlusion != 0);
-    } else {
-      wt::ShortStack st = hs.fresh();
-      h = occlusion ? wt::trace_ray4<true>(s, wo, wd, st) : wt::trace_ray4<false>(s, wo, wd, st);
-      hs.spills += st.spills;
-    }
-    t_out[r] = h.t;
-    tri_out[r] = h.tri;
-    inst_out[r] = h.inst;
-  }
-  *spills = hs.spills;
-  return 0;
-}
-
-extern "C" int tlas_trace_host(const int32_t* wcode, const float* wbox,
-                               const float* tri_rec, const float* inst_tab,
-                               const int32_t* inst_root, int num_instances,
-                               const float* wnode, const int32_t* tlas_code,
-                               const float* tlas_box, const int32_t* tlas_inst_ids,
-                               const float* origin, int origin_stride,
-                               const float* dirs, int64_t num_rays,
-                               int occlusion, float* t_out, int32_t* tri_out,
-                               int32_t* inst_out, int64_t* spills) {
-  const wt::Scene s{wcode, wbox, tri_rec, inst_tab, inst_root, num_instances, wnode};
-  const wt::Tlas tl{tlas_code, tlas_box, tlas_inst_ids};
-  HostStack hs;
-  for (int64_t r = 0; r < num_rays; ++r) {
-    const float* wo = origin + r * origin_stride;
     wt::ShortStack st = hs.fresh();
-    const wt::Hit h = occlusion ? wt::trace_ray_tlas4<true>(s, tl, wo, dirs + 3 * r, st)
-                                : wt::trace_ray_tlas4<false>(s, tl, wo, dirs + 3 * r, st);
+    const wt::Hit h = trace(r, st);
     hs.spills += st.spills;
     t_out[r] = h.t;
     tri_out[r] = h.tri;
     inst_out[r] = h.inst;
   }
   *spills = hs.spills;
+}
+
+}  // namespace
+
+extern "C" int wt_host_short_stack() { return kShortStack; }
+
+// K1 (`arity` 4) or K2 (2) over every ray, on the node records `node` of
+// that arity; `spills` receives the entries the short stack moved to
+// spill.
+extern "C" int wt_trace_host(int arity, const float* node, const float* tri_rec,
+                             const float* inst_tab, const int32_t* inst_root, int num_instances,
+                             const float* origin, int origin_stride, const float* dirs,
+                             int64_t num_rays, int occlusion, float* t_out, int32_t* tri_out,
+                             int32_t* inst_out, int64_t* spills) {
+  if (arity != 4 && arity != 2) return 1;
+  const wt::Scene s{node, tri_rec, inst_tab, inst_root, num_instances};
+  trace_all(num_rays, t_out, tri_out, inst_out, spills, [&](int64_t r, wt::ShortStack& st) {
+    const float* wo = origin + r * origin_stride;
+    const float* wd = dirs + 3 * r;
+    if (arity == 2) {
+      return occlusion ? wt::trace_ray<2, true>(s, wo, wd, st)
+                       : wt::trace_ray<2, false>(s, wo, wd, st);
+    }
+    return occlusion ? wt::trace_ray<4, true>(s, wo, wd, st)
+                     : wt::trace_ray<4, false>(s, wo, wd, st);
+  });
   return 0;
 }
 
-// The order walk4's sorting network gives `n` vectors of 4 entry
-// distances: order[4 * v + p] is the child of rank p.
-extern "C" int wt_sort4_host(const float* dist, int64_t n, int32_t* order) {
+extern "C" int tlas_trace_host(const float* wnode, const float* tri_rec, const float* inst_tab,
+                               const int32_t* inst_root, int num_instances,
+                               const int32_t* tlas_code, const float* tlas_box,
+                               const int32_t* tlas_inst_ids, const float* origin,
+                               int origin_stride, const float* dirs, int64_t num_rays,
+                               int occlusion, float* t_out, int32_t* tri_out,
+                               int32_t* inst_out, int64_t* spills) {
+  const wt::Scene s{wnode, tri_rec, inst_tab, inst_root, num_instances};
+  const wt::Tlas tl{tlas_code, tlas_box, tlas_inst_ids};
+  trace_all(num_rays, t_out, tri_out, inst_out, spills, [&](int64_t r, wt::ShortStack& st) {
+    const float* wo = origin + r * origin_stride;
+    return occlusion ? wt::trace_ray_tlas4<true>(s, tl, wo, dirs + 3 * r, st)
+                     : wt::trace_ray_tlas4<false>(s, tl, wo, dirs + 3 * r, st);
+  });
+  return 0;
+}
+
+// The order walk.cuh's sorting network at `arity` (2 or 4) gives `n`
+// vectors of `arity` entry distances: order[arity * v + p] is the child of
+// rank p.
+extern "C" int wt_sort_host(int arity, const float* dist, int64_t n, int32_t* order) {
+  if (arity != 4 && arity != 2) return 1;
   for (int64_t v = 0; v < n; ++v) {
     float d[4];
     int idx[4] = {0, 1, 2, 3};
     int32_t code[4] = {0, 1, 2, 3};
-    for (int c = 0; c < 4; ++c) d[c] = dist[4 * v + c];
-    wt::sort4(d, idx, code);
-    for (int p = 0; p < 4; ++p) order[4 * v + p] = idx[p];
+    for (int c = 0; c < arity; ++c) d[c] = dist[arity * v + c];
+    if (arity == 2) {
+      wt::sort_children<2>(d, idx, code);
+    } else {
+      wt::sort_children<4>(d, idx, code);
+    }
+    for (int p = 0; p < arity; ++p) order[arity * v + p] = idx[p];
   }
   return 0;
 }
 
+// K4 (`arity` 4, the pages' node records `node`) or K5 (2, code/box) over
+// every ray; `spills` receives the entries K4's short stack moved to
+// spill (0 for K5, which has no short stack).
 extern "C" int paged_trace_host(int arity, const int32_t* code, const float* box,
                                 const int32_t* node_base, const int32_t* tri0,
                                 const float* tri_rec, const float* inst_tab,
                                 int num_instances, const int32_t* top_code,
-                                const float* top_box, const int32_t* top_root,
+                                const float* top_box, const int32_t* top_root, const float* node,
                                 const float* origin, int origin_stride,
                                 const float* dirs, int64_t num_rays, float* t_out,
-                                int32_t* tri_out, int32_t* inst_out) {
+                                int32_t* tri_out, int32_t* inst_out, int64_t* spills) {
   if (arity != 4 && arity != 2) return 1;
   const wt::Pages pg{code, box, node_base, tri0, tri_rec, inst_tab, num_instances};
   const wt::TopTree top{top_code, top_box, top_root};
-  for (int64_t r = 0; r < num_rays; ++r) {
+  trace_all(num_rays, t_out, tri_out, inst_out, spills, [&](int64_t r, wt::ShortStack& st) {
     const float* wo = origin + r * origin_stride;
-    const wt::Hit h = arity == 4 ? wt::trace_ray_paged<4>(pg, top, wo, dirs + 3 * r)
-                                 : wt::trace_ray_paged<2>(pg, top, wo, dirs + 3 * r);
-    t_out[r] = h.t;
-    tri_out[r] = h.tri;
-    inst_out[r] = h.inst;
-  }
+    return arity == 4 ? wt::trace_ray_paged4(pg, node, top, wo, dirs + 3 * r, st)
+                      : wt::trace_ray_paged<2>(pg, top, wo, dirs + 3 * r);
+  });
   return 0;
 }
 

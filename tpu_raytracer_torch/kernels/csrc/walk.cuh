@@ -1,29 +1,34 @@
-// The 4-wide walk of kernels K1 and K3, designed for the H100.
+// The walk of kernels K1-K4, designed for the H100, at arity 4 and 2.
 //
-// K1 (wide_traverse.cu) walks every instance's 4-wide BVH in turn, K3
-// (tlas_traverse.cu) walks the instances its TLAS reaches; both walk each
-// BLAS with walk4 below. It computes what walk_tree<4> of
+// K1 (wide_traverse.cu) walks every instance's 4-wide BVH in turn, K2
+// (wide_traverse.cu) every instance's binary BVH, K3 (tlas_traverse.cu)
+// the instances its TLAS reaches in their 4-wide BVH, and K4
+// (paged_traverse.cu) the 4-wide pages its top tree's portals open; all
+// walk each tree with walk<A> below. It computes what walk_tree<A> of
 // wide_traverse.cuh computes, event for event per ray, and differs in how:
 //
-//  * One 128-byte node record (kernels/wide4.py `wnode [W, 32]`): wbox's
-//    24 box floats (lane 6c + k holds child c's coordinate k: min xyz, max
-//    xyz) and the 4 child codes bit-cast into lanes 24..27. A pop is 7
-//    16-byte loads (6 float4, 1 int4) instead of 28 scalar ones from two
-//    tables, and a triangle test reads its record (tri_rec [T, 16]) as 3
-//    float4. The wrappers check every table for 16-byte alignment.
+//  * One node record of 8A floats (kernels/wide4.py `node_records`: K1's
+//    and K3's `wnode [W, 32]`, K2's binary `node [N, 16]`, K4's page
+//    `node [N, 32]`): the 6A box floats (lane 6c + k holds child c's
+//    coordinate k: min xyz, max xyz) and the A child codes bit-cast into
+//    lanes 6A .. 7A-1. A pop is 6A/4 float4 loads and 1 int4 load (7 at
+//    A = 4, 4 at A = 2) instead of 7A scalar ones from two tables, and a
+//    triangle test reads its record (tri_rec [T, 16]) as 3 float4. The
+//    wrappers check every table for 16-byte alignment.
 //  * A short stack (ShortStack): the top S entries of each thread's stack
 //    in a ring of S slots in shared memory, laid out [slot][thread] so that
 //    a warp's pushes hit 32 banks; older entries spill to local memory in
 //    exact LIFO order. The nearest internal child is kept in a register as
 //    the next node instead of being pushed and popped at once, which is the
 //    same visit order: walk_tree pushes it last, so it pops next.
-//  * A 4-input sorting network on (entry distance, child index) keys in
-//    place of walk_tree's O(A^2) rank loop: the keys are distinct, so the
+//  * A sorting network on (entry distance, child index) keys in place of
+//    walk_tree's O(A^2) rank loop: one compare-exchange at A = 2, the
+//    optimal 5-exchange network at A = 4. The keys are distinct, so the
 //    network gives the rank loop's order, ties included (tested on the CPU
-//    through wt_sort4_host). fminf/fmaxf replace the NaN-aware max/min
+//    through wt_sort_host). fminf/fmaxf replace the NaN-aware max/min
 //    (slab_entry says why that is exact).
 //  * The triangle test leaves as soon as its outcome is known (test_tri4).
-//  * Any hit without order (walk4<true>): no sort; children are taken in
+//  * Any hit without order (walk<A, true>): no sort; children are taken in
 //    child order, internal ones pushed, then the leaves tested, and the
 //    walk stops at the first accepted triangle.
 //    This is exact because the cap cannot change before the first accept:
@@ -33,6 +38,9 @@
 //    reaches before its first accept is the same in every visit order. The
 //    ray is blocked exactly when that set holds an accepted triangle, which
 //    is the nearest walk's answer.
+//  * Leaf starts relative to a `tri_base` (K4's pages, whose leaves count
+//    from the page's first triangle; 0 for K1-K3), added in test_leaf so
+//    that hit ids stay global.
 //  * Persistent warps (for_each_ray): a grid of as many blocks as the SMs
 //    hold at once, each warp taking 32 rays at a time from a counter.
 //
@@ -40,20 +48,21 @@
 // first with ties to the lower child index, internal children pushed
 // farthest first, leaf children tested right after the pushes, nearest
 // first, each in ascending triangle index; the f32 operation order of
-// child_entry and test_tri. So K1 and K3 equal their plain versions
-// (kernels/traversal.py, kernels/tlas.py) bit for bit in t, tri and inst.
+// child_entry and test_tri. So K1-K4 equal their plain versions
+// (kernels/traversal.py, binary.py, tlas.py, paged.py) bit for bit in t,
+// tri and inst.
 //
 // What bounds it on an H100 (PERF.md section 6 has the A/B against
-// walk_tree<4>): neither bytes (the tables sit in the 50 MB L2) nor f32
-// operations (it runs at 12-19% of that bound) but the instructions each
-// ray issues per pop and per triangle test, and the lanes that idle while
-// a warp's other rays pop more nodes or test more triangles. The 16-byte
-// loads, the short stack and the sorting network cut instructions; the
-// early exits of the triangle test cut most on shadow and reflection
-// rays; persistent warps cut idle lanes. What is left is divergence.
-// Replacing a warp's finished rays one lane at a time (Aila and Laine's
-// dynamic fetch) measured far slower here: lanes at different depths no
-// longer share a node's loads.
+// walk_tree<A>): neither bytes (the tables sit in the 50 MB L2, all but the
+// 1M-triangle colonnade's triangle records) nor f32 operations (it runs at
+// 5-19% of that bound) but the instructions each ray issues per pop and
+// per triangle test, and the lanes that idle while a warp's other rays pop
+// more nodes or test more triangles. The 16-byte loads, the short stack
+// and the sorting network cut instructions; the early exits of the
+// triangle test cut most on shadow and reflection rays; persistent warps
+// cut idle lanes. What is left is divergence. Replacing a warp's finished
+// rays one lane at a time (Aila and Laine's dynamic fetch) measured far
+// slower here: lanes at different depths no longer share a node's loads.
 //
 // What does not apply: tensor cores (wgmma) and TMA tile pipelines. The
 // slab and triangle tests are scalar f32 work per ray at data-dependent
@@ -79,11 +88,12 @@
 
 namespace wt {
 
-constexpr int kNode = 32;      // f32 lanes per wnode record
-constexpr int kCodeLane = 24;  // first of the 4 child-code lanes
+// f32 lanes of an arity-A node record, and the first of its A code lanes.
+WT_HD constexpr int node_lanes(int arity) { return 8 * arity; }
+WT_HD constexpr int code_lane(int arity) { return 6 * arity; }
 
 // Lane of child c's box coordinate k (0-2 min xyz, 3-5 max xyz): per child,
-// wbox's own layout.
+// the box tables' own layout.
 WT_HD constexpr int box_lane(int c, int k) { return 6 * c + k; }
 
 // Four floats at a 16-byte-aligned address: one 128-bit read-only load on
@@ -100,28 +110,35 @@ WT_HD void load4(const float* p, float* out) {
 #endif
 }
 
-// The 24 box floats and 4 child codes of wnode record `rec`.
+// The 6A box floats and A child codes of node record `rec`: 6A/4 float4
+// loads and one int4 load of the code lanes (at A = 2 lanes 12..15, the
+// last two zero).
+template <int kArity>
 WT_HD void load_node(const float* rec, float* box, int32_t* code) {
   WT_UNROLL
-  for (int i = 0; i < 6; ++i) load4(rec + 4 * i, box + 4 * i);
+  for (int i = 0; i < 6 * kArity / 4; ++i) load4(rec + 4 * i, box + 4 * i);
 #if defined(__CUDA_ARCH__)
-  const int4 c = __ldg(reinterpret_cast<const int4*>(rec + kCodeLane));
+  const int4 c = __ldg(reinterpret_cast<const int4*>(rec + code_lane(kArity)));
   code[0] = c.x;
   code[1] = c.y;
-  code[2] = c.z;
-  code[3] = c.w;
+  if constexpr (kArity == 4) {
+    code[2] = c.z;
+    code[3] = c.w;
+  }
 #else
-  memcpy(code, rec + kCodeLane, 4 * sizeof(int32_t));
+  memcpy(code, rec + code_lane(kArity), kArity * sizeof(int32_t));
 #endif
 }
 
 // child_entry of wide_traverse.cuh with fminf/fmaxf in place of max_nan and
 // min_nan, for `cap_slack` = t_best * kCapSlack. Exact here: safe_inv bounds
-// |inv| by 1e30 and boxes and origins are finite, so every (b - o) * inv is
-// finite or +-inf, never NaN, and on non-NaN operands fmaxf/fminf give the
-// value max_nan/min_nan give. Only the sign of a zero may differ (near may
-// come out -0 where it was +0); +0 and -0 compare equal in every test here
-// and in the sort, and an entry distance never reaches the output.
+// |inv| by 1e30 and boxes and origins are finite (absent children's
+// inverted boxes and K2's entered leaf-root box are +-3e38), so every
+// (b - o) * inv is finite or +-inf, never NaN, and on non-NaN operands
+// fmaxf/fminf give the value max_nan/min_nan give. Only the sign of a zero
+// may differ (near may come out -0 where it was +0); +0 and -0 compare
+// equal in every test here and in the sort, and an entry distance never
+// reaches the output.
 WT_HD float slab_entry(float lx, float ly, float lz, float hx, float hy, float hz,
                        const float* o, const float* inv, float cap_slack) {
   const float t1x = (lx - o[0]) * inv[0];
@@ -152,16 +169,20 @@ WT_HD void cx(float* d, int* idx, int32_t* code, int a, int b) {
   }
 }
 
-// Sort 4 children near first, ties by child index: the optimal 4-input
-// network (0,1)(2,3) (0,2)(1,3) (1,2). Keys are distinct (the index breaks
-// ties), so the result is the one total order the rank loop of walk_tree
-// gives. Afterwards d[p], idx[p], code[p] are those of the child of rank p.
-WT_HD void sort4(float* d, int* idx, int32_t* code) {
+// Sort A children near first, ties by child index: at A = 2 the one
+// exchange (0,1), at A = 4 the optimal network (0,1)(2,3) (0,2)(1,3)
+// (1,2). Keys are distinct (the index breaks ties), so the result is the
+// one total order the rank loop of walk_tree gives. Afterwards d[p],
+// idx[p], code[p] are those of the child of rank p.
+template <int kArity>
+WT_HD void sort_children(float* d, int* idx, int32_t* code) {
   cx(d, idx, code, 0, 1);
-  cx(d, idx, code, 2, 3);
-  cx(d, idx, code, 0, 2);
-  cx(d, idx, code, 1, 3);
-  cx(d, idx, code, 1, 2);
+  if constexpr (kArity == 4) {
+    cx(d, idx, code, 2, 3);
+    cx(d, idx, code, 0, 2);
+    cx(d, idx, code, 1, 3);
+    cx(d, idx, code, 1, 2);
+  }
 }
 
 // A thread's traversal stack. The top S entries (S a power of two) live in
@@ -171,8 +192,8 @@ WT_HD void sort4(float* d, int* idx, int32_t* code) {
 // A push onto a full ring first moves the ring's oldest entry to spill; a
 // pop takes the top from the ring or, once the ring has drained, from
 // spill. Entries leave in exact LIFO order. The total stays within kStack
-// (kernels/wide4.py stack_needed; K3 adds its TLAS depth, checked by its
-// wrapper).
+// (kernels/wide4.py stack_needed; K3 and K4 add their top tree's depth,
+// checked by their wrappers).
 struct ShortStack {
   int32_t* ring;
   int stride;
@@ -242,13 +263,13 @@ WT_HD bool test_tri4(const float* r, const float* o, const float* d, int32_t k,
   return true;
 }
 
-// The triangles of leaf code `cc`, in ascending index. Returns true when
-// an any-hit test accepted one.
+// The triangles of leaf code `cc`, whose start counts from `tri_base`, in
+// ascending index. Returns true when an any-hit test accepted one.
 template <bool kAnyHit>
-WT_HD bool test_leaf(int32_t cc, const float* tri_rec, const float* o, const float* d,
-                     int32_t inst_val, Hit* best) {
+WT_HD bool test_leaf(int32_t cc, int32_t tri_base, const float* tri_rec, const float* o,
+                     const float* d, int32_t inst_val, Hit* best) {
   const int32_t packed = -cc - 1;
-  const int32_t start = packed >> 10;
+  const int32_t start = (packed >> 10) + tri_base;
   const int32_t n = packed & 1023;
   for (int32_t k = start; k < start + n; ++k) {
     float r[12];
@@ -261,45 +282,48 @@ WT_HD bool test_leaf(int32_t cc, const float* tri_rec, const float* o, const flo
   return false;
 }
 
-// Walk one 4-wide tree of `wnode` from node `root` for an object-space
-// ray, updating `best`, on top of whatever `st` holds (K3 keeps its TLAS
-// entries below). Returns true when an any-hit walk accepted a triangle
-// (and stopped there, leaving its entries on the stack).
-template <bool kAnyHit>
-WT_HD bool walk4(const float* wnode, int32_t root, const float* tri_rec, const float* o,
-                 const float* d, const float* inv, int32_t inst_val, ShortStack& st,
-                 Hit* best) {
+// Walk one tree of arity kArity from node `root` of the node records
+// `nodes` for an object-space ray, leaf starts counting from `tri_base`,
+// updating `best`, on top of whatever `st` holds (K3 and K4 keep their top
+// tree's entries below). Returns true when an any-hit walk accepted a
+// triangle (and stopped there, leaving its entries on the stack).
+template <int kArity, bool kAnyHit>
+WT_HD bool walk(const float* nodes, int32_t root, int32_t tri_base, const float* tri_rec,
+                const float* o, const float* d, const float* inv, int32_t inst_val,
+                ShortStack& st, Hit* best) {
   const int base = st.sp;
   int32_t node = root;
   for (;;) {
-    float b[24];
-    int32_t code[4];
-    load_node(wnode + kNode * static_cast<int64_t>(node), b, code);
+    float b[6 * kArity];
+    int32_t code[kArity];
+    load_node<kArity>(nodes + node_lanes(kArity) * static_cast<int64_t>(node), b, code);
     const float cap = best->t * kCapSlack;
-    float dist[4];
+    float dist[kArity];
     WT_UNROLL
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < kArity; ++c) {
       dist[c] = slab_entry(b[box_lane(c, 0)], b[box_lane(c, 1)], b[box_lane(c, 2)],
                            b[box_lane(c, 3)], b[box_lane(c, 4)], b[box_lane(c, 5)], o, inv,
                            cap);
     }
     int32_t next = -1;
     if (!kAnyHit) {
-      int idx[4] = {0, 1, 2, 3};
-      sort4(dist, idx, code);
+      int idx[kArity];
+      WT_UNROLL
+      for (int c = 0; c < kArity; ++c) idx[c] = c;
+      sort_children<kArity>(dist, idx, code);
     }
     // children that hit, in rank order (nearest first) or, for any hit,
     // in child order: internal ones deferred last to first, so that the
     // first is the next node and the others are pushed farthest first;
     // then the leaves, first to last
     WT_UNROLL
-    for (int p = 3; p >= 0; --p) {
+    for (int p = kArity - 1; p >= 0; --p) {
       if (dist[p] < kBig && code[p] >= 0) defer(st, next, code[p]);
     }
     WT_UNROLL
-    for (int p = 0; p < 4; ++p) {
+    for (int p = 0; p < kArity; ++p) {
       if (dist[p] < kBig && code[p] < 0 &&
-          test_leaf<kAnyHit>(code[p], tri_rec, o, d, inst_val, best)) {
+          test_leaf<kAnyHit>(code[p], tri_base, tri_rec, o, d, inst_val, best)) {
         return true;
       }
     }
@@ -313,24 +337,24 @@ WT_HD bool walk4(const float* wnode, int32_t root, const float* tri_rec, const f
   }
 }
 
-// Walk instance `i`'s BLAS for one world ray. Returns true on an any-hit
-// accept.
-template <bool kAnyHit>
-WT_HD bool walk_instance4(const Scene& s, int i, const float* wo, const float* wd,
-                          ShortStack& st, Hit* best) {
+// Walk instance `i`'s tree of arity kArity (the scene's node records) for
+// one world ray. Returns true on an any-hit accept.
+template <int kArity, bool kAnyHit>
+WT_HD bool walk_instance(const Scene& s, int i, const float* wo, const float* wd,
+                         ShortStack& st, Hit* best) {
   float o[3], d[3], inv[3];
   object_ray(s.inst_tab + 12 * i, wo, wd, o, d, inv);
-  return walk4<kAnyHit>(s.wnode, s.inst_root[i], s.tri_rec, o, d, inv,
-                        s.num_instances == 1 ? -1 : i, st, best);
+  return walk<kArity, kAnyHit>(s.node, s.inst_root[i], 0, s.tri_rec, o, d, inv,
+                               s.num_instances == 1 ? -1 : i, st, best);
 }
 
-// K1: nearest (or any) hit of one world ray over every instance in index
-// order, t carried across instances.
-template <bool kAnyHit>
-WT_HD Hit trace_ray4(const Scene& s, const float* wo, const float* wd, ShortStack& st) {
+// K1 (arity 4) and K2 (arity 2): nearest (or any) hit of one world ray
+// over every instance in index order, t carried across instances.
+template <int kArity, bool kAnyHit>
+WT_HD Hit trace_ray(const Scene& s, const float* wo, const float* wd, ShortStack& st) {
   Hit best{kBig, -1, -1};
   for (int i = 0; i < s.num_instances; ++i) {
-    if (walk_instance4<kAnyHit>(s, i, wo, wd, st, &best)) break;
+    if (walk_instance<kArity, kAnyHit>(s, i, wo, wd, st, &best)) break;
   }
   return finish_hit(best, s.num_instances);
 }

@@ -1,12 +1,12 @@
-// Launch side of the walk4.cuh kernels K1 (wide_traverse.cu) and K3
-// (tlas_traverse.cu): the rays' input and output, the launch shape (block
-// size, the short stack's dynamic shared memory, the persistent grid) and
-// the launch itself. CUDA only.
+// Launch side of the walk.cuh kernels K1 and K2 (wide_traverse.cu), K3
+// (tlas_traverse.cu) and K4 (paged_traverse.cu): the rays' input and
+// output, the launch shape (block size, the short stack's dynamic shared
+// memory, the persistent grid) and the launch itself. CUDA only.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include "walk4.cuh"
+#include "walk.cuh"
 
 namespace wt {
 
@@ -16,7 +16,9 @@ constexpr int kWalkThreads = 128;   // threads per block
 // than no minimum (69-70 registers); K1 takes 64 either way and measured
 // 2-4% faster with no minimum (PERF.md section 6).
 constexpr int kK1MinBlocks = 1;
+constexpr int kK2MinBlocks = 1;
 constexpr int kK3MinBlocks = 8;
+constexpr int kK4MinBlocks = 1;
 constexpr int kMaxShortStack = 64;  // ring slots per thread: 32 KB of a block at 64
 
 // One cast's rays and hit record. `origin_stride` is 0 for one origin
@@ -49,7 +51,7 @@ struct Rays {
 // blocks per SM}. The grid is what the SMs hold at once (persistent
 // warps), or less for a small cast. Returns a CUDA error code.
 template <class Kernel>
-int walk4_shape(Kernel kernel, int short_stack, int64_t num_rays, int* out) {
+int walk_shape(Kernel kernel, int short_stack, int64_t num_rays, int* out) {
   if (short_stack < 1 || short_stack > kMaxShortStack || (short_stack & (short_stack - 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -74,11 +76,11 @@ int walk4_shape(Kernel kernel, int short_stack, int64_t num_rays, int* out) {
 // one zeroed u64 the warps count rays on. Returns cudaGetLastError() after
 // the launch.
 template <class Kernel, class... Args>
-int launch_walk4(Kernel kernel, int64_t num_rays, int short_stack,
+int launch_walk(Kernel kernel, int64_t num_rays, int short_stack,
                  unsigned long long* counter, cudaStream_t stream, Args... args) {
   if (counter == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int shape[4];
-  const int err = walk4_shape(kernel, short_stack, num_rays, shape);
+  const int err = walk_shape(kernel, short_stack, num_rays, shape);
   if (err != 0) return err;
   kernel<<<shape[0], shape[1], shape[2], stream>>>(args..., short_stack - 1, counter);
   return static_cast<int>(cudaGetLastError());

@@ -1,30 +1,17 @@
-// Per-ray traversal of a BVH in the child-code layout, nearest or any
-// hit: walk_tree<A>, the walk of kernel K2 (the binary BVH, arity 2) and,
-// inside each page, of K4 and K5 (paged_traverse.cuh). K1 and K3 walk the
-// 4-wide BVH with walk4.cuh, built on the pieces here (constants, the
-// instance transform, test_tri, finish_hit).
+// The pieces every traversal kernel shares (constants, the scene's
+// tables, the instance transform, the slab and triangle tests, the output
+// record) and walk_tree<A>, the per-ray walk of a tree in the child-code
+// layout with a private stack: the walk of kernels K5 (binary pages) and
+// K6 (4-wide pages, page-major order) in paged_traverse.cuh. K1-K4 walk
+// with walk.cuh, built on the pieces here; walk_tree is the sequence of
+// events per ray that walk.cuh keeps.
 //
-// K2 replaces the TPU kernel tpu_raytracer/kernels/traversal.py:
-// _traversal_kernel, with its leaf test make_test_tri. It computes what
-// that kernel computes — for each ray the nearest accepted triangle (t,
-// tri, inst) over every instance, carrying t across instances — as one
-// thread per ray with a private stack instead of 4096-ray packets sharing
-// one stack.
-//
-// Any-hit mode (make_test_tri's `occlusion`, for shadow rays): the first
+// Any-hit mode (make_test_tri's `occlusion` in
+// tpu_raytracer/kernels/traversal.py, for shadow rays): the first
 // accepted triangle sets the ray's t to -kBig. The TPU kernel can only
 // mask the lane off after that; a thread returns at once, with the same
 // result. Output t is then -kBig (occluded) or kFltMax (clear); tri and
 // inst are whatever the walk reached and carry no meaning.
-//
-// What bounds walk_tree on an H100: not the bytes (the flagship's ~5 MB
-// of tables sit in the 50 MB L2) nor the f32 operations, but the
-// instructions and dependent loads per ray — every pop reads a node's
-// codes and boxes as scalar loads from two tables, ranks the children with
-// a compare loop and pushes onto a 192-slot stack in local memory — and
-// the lanes of a warp that idle while its slowest ray walks. walk4.cuh
-// redesigns exactly that for K1 and K3 (PERF.md section 6 has the A/B);
-// K2, K4 and K5 move onto the same design later.
 //
 // The header is plain C++ usable from both nvcc and a host compiler, so
 // the traversal itself is tested on the CPU (csrc/traverse_host.cpp)
@@ -63,16 +50,14 @@ constexpr float kTiny = 1e-30f;
 // every entry distance.
 constexpr float kCapSlack = 1.0f + 1.0f / 1048576.0f;
 
-// One scene's tables for a walk of arity A: K1 and K3 read the 4-wide
-// tables, K2 the binary tables (kernels/binary.py) in the same layout.
+// One scene's tables for a walk of arity A (walk.cuh): K1 and K3 read the
+// 4-wide tree's records, K2 the binary tree's (kernels/binary.py).
 struct Scene {
-  const int32_t* wcode;    // [W, A] child codes
-  const float* wbox;       // [W, box_stride(A)] child boxes
+  const float* node;       // [W, 8A] node records (walk.cuh)
   const float* tri_rec;    // [T, 16]: v0, n, rA, rB, 4 spare
   const float* inst_tab;   // [I, 12]: quat wxyz, position, inverse scale
   const int32_t* inst_root;  // [I] tree root per instance
   int num_instances;
-  const float* wnode;      // [W, 32] node records of K1 and K3 (walk4.cuh)
 };
 
 struct Hit {
@@ -182,9 +167,9 @@ WT_HD constexpr int box_stride(int arity) { return arity == 4 ? 32 : 6 * arity; 
 // which is added to give global triangle ids. Returns true when an
 // any-hit walk accepted a triangle (and stopped there).
 //
-// Arity 4 is K1's walk of the whole 4-wide tree (tri_base 0) and K4's
-// walk of one page; arity 2 is K5's binary walk of one page and, over a
-// whole binary tree, the walk of K2.
+// Arity 4 is K6's walk of one page, arity 2 K5's; over a whole tree
+// (tri_base 0) it is the sequence of events K1 and K2 keep, which their
+// plain versions (kernels/traversal.py walk_tree) follow.
 template <int kArity>
 WT_HD bool walk_tree(const int32_t* code, const float* box, int32_t root,
                      int32_t tri_base, const float* tri_rec, const float* o,
@@ -234,39 +219,12 @@ WT_HD bool walk_tree(const int32_t* code, const float* box, int32_t root,
   return false;
 }
 
-// Walk instance `i` for one world ray over the scene's tree of arity
-// kArity (the 4-wide tables of K1 and K3, or the whole binary tree of
-// K2), updating `best`. In any-hit mode it returns at the first accepted
-// triangle.
-template <int kArity = 4>
-WT_HD void walk_instance(const Scene& s, int i, const float* wo,
-                         const float* wd, bool any_hit, Hit* best) {
-  float o[3], d[3], inv[3];
-  object_ray(s.inst_tab + 12 * i, wo, wd, o, d, inv);
-  const int32_t inst_val = s.num_instances == 1 ? -1 : i;
-  walk_tree<kArity>(s.wcode, s.wbox, s.inst_root[i], 0, s.tri_rec, o, d, inv,
-                    inst_val, any_hit, best);
-}
-
 // The output record: a single-instance scene reports inst 0 on a hit
 // (dual.py output stage), and a miss reports t = FLT_MAX.
 WT_HD Hit finish_hit(Hit best, int num_instances) {
   if (num_instances == 1) best.inst = best.tri >= 0 ? 0 : -1;
   if (best.t >= kBig) best.t = kFltMax;
   return best;
-}
-
-// Nearest (or any) hit of one world ray over every instance, in index
-// order: K1 at arity 4, K2 at arity 2.
-template <int kArity>
-WT_HD Hit trace_ray(const Scene& s, const float* wo, const float* wd,
-                    bool any_hit) {
-  Hit best{kBig, -1, -1};
-  for (int i = 0; i < s.num_instances; ++i) {
-    walk_instance<kArity>(s, i, wo, wd, any_hit, &best);
-    if (any_hit && best.t < 0.0f) break;
-  }
-  return finish_hit(best, s.num_instances);
 }
 
 }  // namespace wt

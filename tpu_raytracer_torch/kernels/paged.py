@@ -18,7 +18,10 @@ keeps the same tables in a flat layout for one thread per ray:
   * the pages' trees, concatenated, in the child-code layout of
     ``accel/wide.py`` with page-local node ids (root 0) and leaf starts
     relative to ``page_tri0``: 4-wide (``collapse4``, ``arity`` 4: K4
-    and K6) or binary (``collapse2``, ``arity`` 2: K5).
+    and K6) or binary (``collapse2``, ``arity`` 2: K5);
+  * 4-wide pages only: ``node [N, 32]``, the same trees' node records
+    (``wide4.node_records``: box floats, codes bit-cast into lanes
+    24..27), which K4 reads as 16-byte loads (``csrc/walk.cuh``).
 
 The JAX package's 128-lane rows, fixed per-page row strides and 8-row
 DMA padding are layout for VMEM and are dropped; ``paged_from_jax``
@@ -27,18 +30,22 @@ same pages.
 
   * ``cast_rays_paged_cuda`` is the wrapper of K4 and K5: for CUDA
     tensors it launches the hand-written kernel
-    (``csrc/paged_traverse.cu``, arity from the tables) and counts the
-    launch in ``LAUNCHES_K4`` or ``LAUNCHES_K5``; for CPU tensors it
-    runs the plain version. A CUDA tensor never reaches the plain
-    version and a failed build or launch raises.
+    (``csrc/paged_traverse.cu``, arity from the tables: K4's
+    ``paged_wide_kernel`` on the walk of ``csrc/walk.cuh``, K5's
+    ``paged_kernel``) and counts the launch in ``LAUNCHES_K4`` or
+    ``LAUNCHES_K5``; for CPU tensors it runs the plain version. A CUDA
+    tensor never reaches the plain version and a failed build or launch
+    raises.
   * ``cast_rays_paged_torch`` is the plain version: the same per-ray
     walk (top tree, then each reached page with ``traversal.walk_tree``)
     vectorised over rays, in the kernel's visit order, so the two agree
     bit for bit.
 
-The nearest ``t`` equals K1's on the same scene bit for bit; ``tri`` and
-``inst`` may differ from K1's only at exact-``t`` ties
-(``csrc/paged_traverse.cuh``).
+The nearest ``t`` equals K1's on the same scene bit for bit but where a
+hit accepted up to EDGE_EPS outside its leaf box is kept or culled by
+box order; ``tri`` and ``inst`` may differ from K1's only there or at
+exact-``t`` ties (``csrc/paged_traverse.cuh``,
+``traversal.unexplained_differences``).
 """
 
 from __future__ import annotations
@@ -58,6 +65,8 @@ from .traversal import (
     _hit,
     _split_rays,
     box_stride,
+    check_aligned16,
+    check_short_stack,
     child_entry,
     finish_plain,
     instance_table,
@@ -65,9 +74,9 @@ from .traversal import (
     object_ray,
     walk_tree,
 )
-from .wide4 import NUDGE, STACK_SIZE
+from .wide4 import NUDGE, STACK_SIZE, node_records, stack_needed
 
-TOP_STACK = 64  # per-ray top-tree stack (csrc/paged_traverse.cuh kTopStack)
+TOP_STACK = 64  # K5's per-ray top-tree stack (csrc/paged_traverse.cuh kTopStack)
 # Leaf codes pack a start into 21 bits beside the 10-bit count; in-page
 # starts are page-local, so a page may hold at most this many triangles.
 MAX_PAGE_TRIS = 1 << (31 - LEAF_BITS)
@@ -93,6 +102,7 @@ class PagedTables:
     box: torch.Tensor  # [N, box_stride(arity)] f32 child boxes, NUDGE baked in
     top_depth: int  # nodes on the longest top-tree path
     depth: int  # nodes on the longest path of any page tree
+    node: torch.Tensor | None = None  # [N, 32] f32 node records of 4-wide pages (K4)
 
     @property
     def num_pages(self) -> int:
@@ -156,6 +166,7 @@ def _tables(top_code, top_box, top_root, page_node0, page_tri0, node_base, code,
         top_root=t(top_root, np.int32), page_node0=t(page_node0, np.int32),
         page_tri0=t(page_tri0, np.int32), node_base=t(node_base, np.int32),
         code=t(code, np.int32), box=t(box, np.float32), top_depth=top_depth, depth=depth,
+        node=t(node_records(code, box), np.float32) if arity == 4 else None,
     )
 
 
@@ -411,10 +422,11 @@ def ray_args(origin, directions, outputs) -> tuple:
             *(x.data_ptr() for x in outputs))
 
 
-def cast_rays_paged_cuda(scene, origin, directions):
+def cast_rays_paged_cuda(scene, origin, directions, short_stack: int | None = None):
     """K4 (4-wide page tables) or K5 (binary): nearest hit through the
     scene's page tables. CUDA tensors launch the kernel on the current
-    stream; CPU tensors run the plain version."""
+    stream, K4 with ``short_stack`` ring slots per thread (default
+    ``wide4.SHORT_STACK``); CPU tensors run the plain version."""
     global LAUNCHES_K4, LAUNCHES_K5
     origin, directions = _split_rays(origin, directions)
     if directions.device.type == "cpu":
@@ -423,6 +435,19 @@ def cast_rays_paged_cuda(scene, origin, directions):
         raise ValueError(f"scene on {scene.device}, rays on {directions.device}")
     pages, keep_alive = page_args(scene, directions)
     pg = scene.paged
+    s = check_short_stack(short_stack)
+    node, counter = None, None
+    if pg.arity == 4:
+        node = pg.node
+        if node is None or node.dtype != torch.float32 or not node.is_contiguous():
+            raise ValueError("4-wide page tables need contiguous float32 node records")
+        check_aligned16(node=node, tri_rec=scene.wide4.tri_rec, top_box=pg.top_box)
+        # the top tree's entries (at most one per level) sit below a page walk's
+        need = pg.top_depth + stack_needed(pg.depth)
+        if need > STACK_SIZE:
+            raise ValueError(f"top tree depth {pg.top_depth} with the pages' stack needs "
+                             f"{need} stack slots; the kernel has {STACK_SIZE}")
+        counter = torch.zeros(1, dtype=torch.int64, device=directions.device)
     top_root = pg.top_root[scene.inst_mesh.long()].to(torch.int32).contiguous()
     r = directions.numel() // 3
     out = (torch.empty(r, dtype=torch.float32, device=directions.device),
@@ -433,7 +458,8 @@ def cast_rays_paged_cuda(scene, origin, directions):
     stream = torch.cuda.current_stream(directions.device).cuda_stream
     err = load("cuda").paged_launch(
         *pages, pg.top_code.data_ptr(), pg.top_box.data_ptr(), top_root.data_ptr(),
-        *ray_args(origin, directions, out), stream)
+        None if node is None else node.data_ptr(), *ray_args(origin, directions, out), s,
+        None if counter is None else counter.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"paged_launch failed with CUDA error {err}")
     if pg.arity == 4:

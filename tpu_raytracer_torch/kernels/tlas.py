@@ -13,7 +13,7 @@ instances at their TLAS box.
     them after a pose change.
   * ``cast_rays_tlas_cuda`` is K3's wrapper: for CUDA tensors it launches
     the hand-written kernel (``csrc/tlas_traverse.cu``, K1's walk of
-    ``csrc/walk4.cuh`` under the TLAS walk, one stack for both) and counts the
+    ``csrc/walk.cuh`` under the TLAS walk, one stack for both) and counts the
     launch in ``LAUNCHES``; for CPU tensors it calls the plain version. A
     CUDA tensor never reaches the plain version and a failed build or
     launch raises.
@@ -57,7 +57,7 @@ from .traversal import (
 from .wide4 import NUDGE, STACK_SIZE, stack_needed
 
 # per-ray TLAS stack of the plain walk and the deepest TLAS build_tlas
-# makes; the kernel keeps TLAS entries in its one stack (csrc/walk4.cuh)
+# makes; the kernel keeps TLAS entries in its one stack (csrc/walk.cuh)
 TLAS_STACK = 48
 
 # Launches of the K3 kernel since the count was last reset (CPU casts,

@@ -7,7 +7,7 @@ routes single-instance scenes to).
 
   * ``cast_rays_cuda`` is K1's wrapper: for CUDA tensors it launches
     the hand-written kernel (``csrc/wide_traverse.cu``, the walk of
-    ``csrc/walk4.cuh`` over the node records ``wnode``) and counts the
+    ``csrc/walk.cuh`` over the node records ``wnode``) and counts the
     launch in ``LAUNCHES``; for CPU tensors it calls the plain version.
     A CUDA tensor never reaches the plain version and a failed build or
     launch raises.
@@ -276,10 +276,11 @@ def cast_rays_wide_torch(scene, origin, directions, occlusion: bool = False,
 def cast_rays_tree_torch(scene, code, box, arity: int, mesh_root, origin, directions,
                          occlusion: bool = False, chunk: int = PLAIN_CHUNK,
                          stats: bool = False):
-    """``trace_ray<arity>`` of ``csrc/wide_traverse.cuh`` vectorised over
-    rays: each ray walks the tree of ``code``/``box`` (roots
-    ``mesh_root [M]``) of every instance in index order. The plain
-    version of K1 (4-wide tables) and K2 (binary tables)."""
+    """K1's and K2's walk (``trace_ray<arity>`` of ``csrc/walk.cuh``) in
+    ``walk_tree``'s visit order, vectorised over rays: each ray walks the
+    tree of ``code``/``box`` (roots ``mesh_root [M]``) of every instance
+    in index order. The plain version of K1 (4-wide tables) and K2
+    (binary tables)."""
     origin, directions = _split_rays(origin, directions)
     shape = directions.shape[:-1]
     d_all = directions.reshape(-1, 3)
@@ -370,39 +371,34 @@ def unexplained_differences(scene, origin, directions, a, b) -> int:
 def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
            arity: int | None = None, short_stack: int | None = None):
     """Check the inputs and launch ``entry`` of the kernel library on the
-    current stream: ``wt_launch`` at ``arity`` 4 (K1, the node records
-    ``wnode``) or 2 (K2, the binary tables of ``kernels/binary.py``), or
-    K3's ``tlas_launch`` (no arity; node records), whose TLAS table
-    pointers come in ``tlas_args``. K1 and K3 take ``short_stack`` ring
-    slots per thread (default ``SHORT_STACK``) and a zeroed counter for
-    their persistent warps. Returns the Hit record; raises on a CUDA error
-    at launch."""
+    current stream: ``wt_launch`` at ``arity`` 4 (K1, the 4-wide node
+    records ``wnode``) or 2 (K2, the binary records of
+    ``kernels/binary.py``), or K3's ``tlas_launch`` (no arity; ``wnode``),
+    whose TLAS table pointers come in ``tlas_args``. Each takes
+    ``short_stack`` ring slots per thread (default ``SHORT_STACK``) and a
+    zeroed counter for its persistent warps. Returns the Hit record;
+    raises on a CUDA error at launch."""
     if directions.device.type != "cuda":
         raise ValueError(f"{entry} runs on cuda tensors, got {directions.device}")
     tables = _wide_tables(scene)
-    code, box, mesh_root = tables.wcode, tables.wbox, tables.wroot
+    node, mesh_root = tables.wnode, tables.wroot
     if arity == 2:
         from .binary import binary_tables
 
         tree = binary_tables(scene)
-        code, box, mesh_root = tree.code, tree.box, tree.root
+        node, mesh_root = tree.node, tree.root
     if scene.device != directions.device:
         raise ValueError(f"scene on {scene.device}, rays on {directions.device}")
     for name, x, dtype in (
         ("directions", directions, torch.float32), ("origin", origin, torch.float32),
-        ("code", code, torch.int32), ("box", box, torch.float32),
-        ("tri_rec", tables.tri_rec, torch.float32), ("wnode", tables.wnode, torch.float32),
+        ("node", node, torch.float32), ("tri_rec", tables.tri_rec, torch.float32),
     ):
         if x.dtype != dtype or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dtype}, got "
                              f"{x.dtype} contiguous={x.is_contiguous()}")
-    s = SHORT_STACK if short_stack is None else short_stack
-    counter = None
-    if arity != 2:
-        check_aligned16(wnode=tables.wnode, tri_rec=tables.tri_rec)
-        if not 1 <= s <= 64 or s & (s - 1):
-            raise ValueError(f"short_stack must be a power of two in [1, 64], got {s}")
-        counter = torch.zeros(1, dtype=torch.int64, device=directions.device)
+    check_aligned16(node=node, tri_rec=tables.tri_rec)
+    s = check_short_stack(short_stack)
+    counter = torch.zeros(1, dtype=torch.int64, device=directions.device)
     shape = directions.shape[:-1]
     r = directions.numel() // 3
     inst_tab = instance_table(scene)
@@ -416,12 +412,11 @@ def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
     stream = torch.cuda.current_stream(directions.device).cuda_stream
     head = () if arity is None else (arity,)
     err = fn(
-        *head, code.data_ptr(), box.data_ptr(), tables.tri_rec.data_ptr(),
-        inst_tab.data_ptr(), inst_root.data_ptr(), scene.num_instances,
-        tables.wnode.data_ptr(), *tlas_args,
+        *head, node.data_ptr(), tables.tri_rec.data_ptr(), inst_tab.data_ptr(),
+        inst_root.data_ptr(), scene.num_instances, *tlas_args,
         origin.data_ptr(), 0 if origin.dim() == 1 else 3, directions.data_ptr(), r,
         int(occlusion), t.data_ptr(), tri.data_ptr(), inst.data_ptr(), s,
-        None if counter is None else counter.data_ptr(), stream,
+        counter.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {err}")
@@ -430,24 +425,42 @@ def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
 
 def check_aligned16(**tensors):
     """Raise unless every tensor starts on a 16-byte boundary, as the
-    16-byte loads of K1 and K3 need."""
+    16-byte loads of K1-K4 need."""
     for name, x in tensors.items():
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the kernel's 16-byte loads")
 
 
+def check_short_stack(short_stack: int | None) -> int:
+    """The ring slots of a launch's short stack (``SHORT_STACK`` if None),
+    checked: a power of two in [1, 64]."""
+    s = SHORT_STACK if short_stack is None else short_stack
+    if not 1 <= s <= 64 or s & (s - 1):
+        raise ValueError(f"short_stack must be a power of two in [1, 64], got {s}")
+    return s
+
+
 def launch_shape(kernel: str, occlusion: bool, num_rays: int,
                  short_stack: int | None = None) -> dict:
-    """The launch K1 (``kernel`` "K1") or K3 ("K3") makes for ``num_rays``
-    rays: blocks of its persistent grid, threads per block, dynamic shared
-    bytes (the short stack's ring) and resident blocks per SM."""
+    """The launch K1, K2, K3 or K4 (``kernel``; K4 has no any-hit mode)
+    makes for ``num_rays`` rays: blocks of its persistent grid, threads
+    per block, dynamic shared bytes (the short stack's ring) and resident
+    blocks per SM."""
     import ctypes
 
     from .build import load
 
-    fn = getattr(load("cuda"), {"K1": "wt_launch_shape", "K3": "tlas_launch_shape"}[kernel])
+    lib = load("cuda")
+    s = SHORT_STACK if short_stack is None else short_stack
     out = (ctypes.c_int * 4)()
-    err = fn(int(occlusion), SHORT_STACK if short_stack is None else short_stack, num_rays, out)
+    if kernel in ("K1", "K2"):
+        err = lib.wt_launch_shape(4 if kernel == "K1" else 2, int(occlusion), s, num_rays, out)
+    elif kernel == "K3":
+        err = lib.tlas_launch_shape(int(occlusion), s, num_rays, out)
+    elif kernel == "K4" and not occlusion:
+        err = lib.paged_launch_shape(s, num_rays, out)
+    else:
+        raise ValueError(f"no launch shape for {kernel} occlusion={occlusion}")
     if err != 0:
         raise RuntimeError(f"{kernel} launch shape failed with CUDA error {err}")
     return {"blocks": out[0], "threads": out[1], "shared_bytes": out[2],

@@ -10,11 +10,11 @@ laid out for one thread per ray instead of 128-lane TPU rows:
   * ``wbox [W, 32] f32``: child c's box (min xyz, max xyz) in lanes
     c*6 .. c*6+5 with the watertight NUDGE baked in; absent children
     carry inverted boxes. Lanes 24..31 are zero.
-  * ``wnode [W, 32] f32``: the record K1 and K3 read (``csrc/walk4.cuh``),
-    derived from the two above: ``wbox``'s 24 box floats with the 4 child
-    codes bit-cast into lanes 24..27. One 128-byte row per node, read as
-    16-byte loads. ``wcode`` and ``wbox`` stay as they are for K2, K4 and
-    K5.
+  * ``wnode [W, 32] f32``: the record K1 and K3 read (``csrc/walk.cuh``),
+    derived from the two above by ``node_records``: ``wbox``'s 24 box
+    floats with the 4 child codes bit-cast into lanes 24..27. One 128-byte
+    row per node, read as 16-byte loads. ``wcode`` and ``wbox`` stay for
+    the plain version.
   * ``tri_rec [T, 16] f32``: v0, face normal, rA, rB (the affine
     barycentric rows of ``intersect.barycentric_rows``) and 4 zero lanes.
   * ``wroot [M] i32`` (wide root per mesh), ``max_leaf`` (largest leaf
@@ -35,8 +35,8 @@ from ..render.intersect import WATERTIGHT_NUDGE, barycentric_rows
 NUDGE = WATERTIGHT_NUDGE
 REC32 = 32  # f32 lanes per wide-node record
 STACK_SIZE = 192  # per-ray traversal stack (csrc/wide_traverse.cuh kStack)
-# K1's and K3's short stack: ring slots per thread in shared memory
-# (csrc/walk4.cuh ShortStack; a power of two, at most 64). 4, 8, 16 and
+# The short stack of K1-K4: ring slots per thread in shared memory
+# (csrc/walk.cuh ShortStack; a power of two, at most 64). 4, 8, 16 and
 # 32 measured within 2% of each other on every ray set (PERF.md section 6).
 SHORT_STACK = 8
 
@@ -66,11 +66,17 @@ class Wide4Tables:
         )
 
 
-def node_records(wcode: np.ndarray, wbox: np.ndarray) -> np.ndarray:
-    """The ``wnode`` records of ``wcode [W, 4]`` and ``wbox [W, 32]``:
-    ``wbox`` with the child codes' bits in lanes 24..27."""
-    rec = wbox.copy()
-    rec[:, 24:28] = np.ascontiguousarray(wcode, np.int32).view(np.float32)
+def node_records(code: np.ndarray, box: np.ndarray) -> np.ndarray:
+    """The node records ``csrc/walk.cuh`` reads, [W, 8A] f32, of a tree
+    of arity A = ``code.shape[1]`` (4 or 2) in the child-code layout
+    (``code [W, A]``, ``box [W, >= 6A]``): the 6A box floats, the A
+    child codes' bits in lanes 6A .. 7A-1, zeros after them. At A = 4
+    that is ``wbox`` with the codes in lanes 24..27 (``wnode``); at A = 2
+    a 64-byte record, codes in lanes 12..13."""
+    arity = code.shape[1]
+    rec = np.zeros((code.shape[0], 8 * arity), np.float32)
+    rec[:, :6 * arity] = box[:, :6 * arity]
+    rec[:, 6 * arity:7 * arity] = np.ascontiguousarray(code, np.int32).view(np.float32)
     return rec
 
 
