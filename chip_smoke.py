@@ -11,13 +11,14 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
   1. device: the card's name and power limit;
   2. build: K1 and K2 (``kernels/csrc/wide_traverse.cu``), K3
      (``kernels/csrc/tlas_traverse.cu``), K4/K5
-     (``kernels/csrc/paged_traverse.cu``) and K6
-     (``kernels/csrc/paged_major.cu``) compiled for sm_90a by one nvcc
-     per source, all started together, and linked into one library, with
+     (``kernels/csrc/paged_traverse.cu``), K6
+     (``kernels/csrc/paged_major.cu``) and K6's plan
+     (``kernels/csrc/page_plan.cu``) compiled for sm_90a by one nvcc per
+     source, all started together, and linked into one library, with
      ptxas's report of each kernel (registers, stack frame, spills, static
      shared memory) and its dynamic shared memory (the short stack of
-     K1-K4);
-     then the design of K1-K4, which share the walk of
+     K1-K6);
+     then the design of K1-K6, which share the walk of
      ``kernels/csrc/walk.cuh`` (``[walk_design]``: the short stack's ring
      slots, persistent warps, the node records, each kernel's launch at
      1920x1088);
@@ -51,7 +52,9 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      instance): host build seconds (the native BVH builder), triangle,
      page and top-tree counts, 4-wide and binary page tables;
  13. K4, K5 and K6 against their plain versions on the 1920x1088 rays (t
-     bitwise, tri and inst equal), and against K1 casting the same
+     bitwise, tri and inst equal), K6's plan from the card against the
+     plain plan (item order and per-tile lists bitwise; ``[plan_vs_plain]``),
+     and K4-K6 against K1 casting the same
      unpaged scene: equal but on a few rays in 10^5, each explained by
      the order of box tests (``traversal.unexplained_differences``: a
      hit accepted up to EDGE_EPS outside its triangle can lie outside
@@ -64,13 +67,14 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      instanced_page_major``) at 512x512, from that recipe's camera (which
      sees instance 0 only) and from an aerial camera that sees both
      instances: against its plain version, K1, and 96 sampled rays
-     against the brute cast;
+     against the brute cast, and its card plan against the plain plan;
  16. the paged main paths: ``render_image`` on the colonnade at
      1920x1088 through the ``paged`` backend (4-wide tables: K4; binary:
-     K5) and ``paged_major`` (K6), each kernel's launch count in that
-     frame and the image against the plain casts' image;
- 17. times: K4, K5, K6 and K1 per cast on the colonnade at 512x512 and
-     1920x1088, and each frame;
+     K5) and ``paged_major`` (K6 and its plan), each kernel's launch
+     count in that frame and the image against the plain casts' image;
+ 17. times: K4, K5, K6 (its plan included) and K1 per cast on the
+     colonnade at 512x512 and 1920x1088, their kernels, K6's plan on the
+     card and the plain plan, and each frame;
  18. config 5 as ``bench_all.py`` runs it: ``scene_colonnade`` at its
      defaults (256,002 triangles), 512x512, 2 samples, 2 bounces, a
      5-pose ``fly_through`` with key k for frame k; the binary depth;
@@ -104,6 +108,10 @@ triangle test counted from the kernels' ``.cuh`` code (``OPS_*`` below);
 bytes are the rays, the outputs and every node table the kernel reads,
 each once, and one 64-byte record per real triangle (the 8-aligned leaf
 padding is never read), at most one per triangle test.
+
+K6's plan is bound the same way: object_ray and the bounds' 12 min/max
+per ray and instance, the interval slab test per (tile, item)
+(``OPS_PLAN_*``), the rays, page boxes and plan outputs as bytes.
 
 Then one JSON line of the kernels, the card line, and the result line
 ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero and
@@ -180,6 +188,13 @@ OPS_TRI = 38
 OPS_RAY = 2 * 42 + 9 + 9
 # bytes of one triangle record (tri_rec row: 16 f32)
 TRI_REC_BYTES = 64
+# K6's plan (kernels/csrc/page_plan.cuh): per ray and instance object_ray
+# and the 12 min/max of the tile bounds; per (tile, item) and axis the
+# box's out-rounding 5, 4 subtracts, 8 products, 12 min/max of the
+# products, 2 for the axis's near and far and 2 for their running max
+# and min, then 3 compares and the key's min
+OPS_PLAN_RAY = OPS_RAY + 12
+OPS_PLAN_ITEM = 3 * (5 + 4 + 8 + 12 + 2 + 2) + 3 + 1
 
 
 def phase(tag, **fields):
@@ -290,26 +305,30 @@ def main():
                     ("binary_traverse_kernel<1>", "K2", True),
                     ("tlas_traverse_kernel<0>", "K3", False),
                     ("tlas_traverse_kernel<1>", "K3", True),
-                    ("paged_wide_kernel", "K4", False))
+                    ("paged_wide_kernel", "K4", False),
+                    ("paged_binary_kernel", "K5", False),
+                    ("paged_major_kernel", "K6", False))
     dyn = {kernel: traversal.launch_shape(k, occ, 1)["shared_bytes"]
            for kernel, k, occ in walk_kernels}
     for kernel, r in report.items():
         r["shared_dynamic"] = dyn.get(kernel, 0)
-    phase("build", kernels="K1/K2+K3+K4/K5+K6", seconds=f"{time.perf_counter() - t0:.2f}",
+    phase("build", kernels="K1/K2+K3+K4/K5+K6+K6 plan", seconds=f"{time.perf_counter() - t0:.2f}",
           lib=lib_path.name, commands=repr(compiles),
           ptxas=json.dumps(report, separators=(",", ":")))
     for src in build.CUDA_SOURCES:
         check(any(ln.endswith(src) and "code=sm_90a" in ln and "--fmad=false" in ln
                   for ln in compiles), f"{src} was not built for sm_90a with --fmad=false")
-    check(all(kernel in report for kernel, _, _ in walk_kernels),
-          f"ptxas reported no {[k for k, _, _ in walk_kernels if k not in report]}")
+    built = [k for k, _, _ in walk_kernels] + [
+        f"page_plan_{k}_kernel" for k in ("init", "tiles", "order", "lists")]
+    check(all(kernel in report for kernel in built),
+          f"ptxas reported no {[k for k in built if k not in report]}")
 
     design = {f"{k}{'_any_hit' if occ else ''}": traversal.launch_shape(k, occ, 1920 * 1088)
               for _, k, occ in walk_kernels}
-    phase("walk_design", kernels="K1,K2,K3,K4", walk="kernels/csrc/walk.cuh",
-          short_stack=SHORT_STACK, persistent_warps=True,
+    phase("walk_design", kernels="K1,K2,K3,K4,K5,K6", walk="kernels/csrc/walk.cuh",
+          short_stack=SHORT_STACK, persistent_warps="K1-K5; K6 one block per tile",
           node_records="8A f32 lanes: 6A box floats, A codes bit-cast (K1/K3 wnode [W,32], "
-                       "K2 binary node [N,16], K4 page node [N,32])",
+                       "K2 binary node [N,16], K4/K6 page node [N,32], K5 page node [N,16])",
           launch_1920x1088=json.dumps(design, separators=(",", ":")))
 
     # 3. K1 against the plain version on the flagship -------------------
@@ -668,6 +687,42 @@ def brute_unexplained(scene, origin, dirs, hit, brute):
                                                             sub(hit), sub(brute))
 
 
+def plan_vs_plain(scene, origin, dirs, tag) -> dict:
+    """K6's plan from the card against the plain plan on rays in tile
+    order: the seen items in the same order, the unseen ones after them,
+    every tile's list bitwise; prints ``[plan_vs_plain]`` and returns the
+    plan's bound."""
+    from tpu_raytracer_torch.kernels import paged_major
+
+    pid, iid, mask = paged_major.page_major_plan(scene, origin, dirs)
+    start, items = paged_major.tile_lists(mask)
+    c_pid, c_iid, c_start, c_items = paged_major.page_major_plan_cuda(scene, origin, dirs)
+    torch.cuda.synchronize()
+    n, k = pid.shape[0], c_pid.shape[0]
+    order_diff = int((c_pid[:n] != pid).sum() + (c_iid[:n] != iid).sum())
+    start_diff = int((c_start != start).sum())
+    nnz = int(start[-1])
+    item_diff = int((c_items[:nnz] != items).sum()) if start_diff == 0 else -1
+    tiles, r = start.shape[0] - 1, dirs.shape[0]
+    phase("plan_vs_plain", rays=tag, n=r, tiles=tiles, items=k, items_seen=n,
+          list_entries=nnz, item_order_diff=order_diff, tile_start_diff=start_diff,
+          tile_item_diff=item_diff)
+    check(order_diff == 0 and start_diff == 0 and item_diff == 0,
+          f"K6's card plan differs from the plain plan on {tag}")
+    check(torch.equal(torch.sort(c_iid.long() * scene.paged.num_pages + c_pid.long()).values,
+                      torch.arange(k, device=c_pid.device)), "the card plan lost an item")
+    ops = (r * scene.num_instances * OPS_PLAN_RAY + tiles * k * OPS_PLAN_ITEM)
+    nbytes = (origin.numel() + dirs.numel()) * 4 + scene.num_instances * 12 * 4
+    nbytes += scene.paged.num_pages * (2 * 3 * 4 + 4) + (2 * k + tiles + 1 + nnz) * 4
+    t_ops, t_bytes = ops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    phase("bound", kernel=f"K6 plan {tag}", rays=r, tiles=tiles, items=k,
+          gflop=f"{ops / 1e9:.4f}", mbytes=f"{nbytes / 1e6:.3f}", ops_ms=f"{t_ops:.6f}",
+          bytes_ms=f"{t_bytes:.6f}", bound_by=by)
+    return {"max_abs": 0.0,
+            "bound": {"bound_ms": max(t_ops, t_bytes), "bound_by": by, "library_ms": None}}
+
+
 def paged_phases(dev, card) -> list:
     """Phases 12-17: the colonnade through the paged kernels; returns
     their entries of the kernels line."""
@@ -701,7 +756,7 @@ def paged_phases(dev, card) -> list:
           binary_nodes=col.binary.code.shape[0], binary_depth=col.binary.depth,
           tri_rec_mb=mb(col.wide4.tri_rec), k1_tables_mb=mb(col.wide4.wnode),
           k4_tables_mb=mb(pw.node, pw.top_code, pw.top_box),
-          k5_tables_mb=mb(pb.code, pb.box, pb.top_code, pb.top_box))
+          k5_tables_mb=mb(pb.node, pb.top_code, pb.top_box), k6_tables_mb=mb(pw.node))
     check(col_rows > 1_000_000, "the colonnade has fewer than 1M triangles")
     check(build_s < 120, f"the colonnade's host build took {build_s:.1f} s")
 
@@ -735,15 +790,17 @@ def paged_phases(dev, card) -> list:
               "reason than the order of box tests (traversal.unexplained_differences)")
         check(t_vs_k1 <= ORDER_DIFFS_MAX * n_rays, f"{k}'s t differs from K1's on {t_vs_k1} rays")
         pg = sc.paged
-        # the tables the kernel reads: K4 the page records, K5 and K6 code/box
-        tables = (pg.node if k == "K4" else pg.code, pg.node_base, pg.page_tri0)
-        tables += () if k == "K4" else (pg.box,)
+        # the tables the kernel reads: the pages' node records, and K4's and
+        # K5's top tree
+        tables = (pg.node, pg.node_base, pg.page_tri0)
         if k != "K6":
             tables += (pg.top_code, pg.top_box)
         res[k] = {"hit": hp, "max_abs": max_abs, "plain_ms": plain_ms,
                   "bound": bound(k, counters, arity, n_rays, (o, d, *tables, *hk), col_rows)}
     _, k1_counters = traversal.cast_rays_wide_torch(col, o, d, stats=True)
     bound("K1 on the colonnade", k1_counters, 4, n_rays, (o, d, col.wide4.wnode, *k1), col_rows)
+    wo, wd = paged_major._tile_rays(o, d)[1:]
+    plan_res = plan_vs_plain(wide_sc, wo, wd, "colonnade_1920x1088")
 
     # 14. 192 sampled rays against the brute cast -----------------------
     cam512 = Camera.looking(512, 512, fov_deg=65.0, pose=cam.pose)  # scene_colonnade's camera
@@ -781,6 +838,7 @@ def paged_phases(dev, card) -> list:
         t_vs_k1 = int((hk6.t.view(torch.int32) != hl.t.view(torch.int32)).sum())
         untied_vs_k1 = traversal.unexplained_differences(pair, po, pd, hk6, hl)
         _, _, mask = paged_major.page_major_plan(pair, *paged_major._tile_rays(po, pd)[1:])
+        plan_vs_plain(pair, *paged_major._tile_rays(po, pd)[1:], f"pair_{view}")
         ys = torch.from_numpy(rng.integers(0, 512, 96)).to(dev)
         xs = torch.from_numpy(rng.integers(0, 512, 96)).to(dev)
         sample = pd[ys, xs]
@@ -807,10 +865,12 @@ def paged_phases(dev, card) -> list:
     def reset():
         traversal.LAUNCHES = tlas.LAUNCHES = 0
         paged.LAUNCHES_K4 = paged.LAUNCHES_K5 = paged_major.LAUNCHES = 0
+        paged_major.LAUNCHES_PLAN = 0
 
     def counts():
         return {"K1": traversal.LAUNCHES, "K3": tlas.LAUNCHES, "K4": paged.LAUNCHES_K4,
-                "K5": paged.LAUNCHES_K5, "K6": paged_major.LAUNCHES}
+                "K5": paged.LAUNCHES_K5, "K6": paged_major.LAUNCHES,
+                "plan": paged_major.LAUNCHES_PLAN}
 
     img_k1 = render_image(RenderConfig(1920, 1088, backend="cuda"), col, *args)
     frames = {}
@@ -825,16 +885,20 @@ def paged_phases(dev, card) -> list:
         n_img = int((img != img_plain).any(-1).sum())
         phase("paged_main_path", kernel=k, backend=backend, launches=n,
               pixels_vs_plain=n_img, pixels_vs_cuda_backend=int((img != img_k1).any(-1).sum()))
-        check(n[k] == 1 and sum(n.values()) == 1, f"the {backend} frame did not launch {k} once")
+        with_plan = 2 if k == "K6" else 1
+        check(n[k] == 1 and sum(n.values()) == with_plan and n["plan"] == with_plan - 1,
+              f"the {backend} frame did not launch {k} once (and K6's plan once)")
         check(n_img == 0, f"{n_img} pixels of the {backend} frame differ from the plain casts'")
         res[k]["launches"] = n[k]
+        if k == "K6":
+            plan_res["launches"] = n["plan"]
         frames[k] = lambda config=config, sc=sc: render_image(config, sc, *args)
 
     # 17. times ---------------------------------------------------------
     casts = {"K1": (col, traversal.cast_rays_cuda)}
     casts.update({k: (sc, cast) for k, (sc, cast, _, _) in cases.items()})
     kernel_names = {"K1": "wide_traverse_kernel", "K4": "paged_wide_kernel",
-                    "K5": "paged_kernel", "K6": "paged_major_kernel"}
+                    "K5": "paged_binary_kernel", "K6": "paged_major_kernel"}
     out = {}
     for size, (ro, rd) in (("512", (o512, d512)), ("1920x1088", (o, d))):
         for k, (sc, cast) in casts.items():
@@ -842,10 +906,15 @@ def paged_phases(dev, card) -> list:
             fn()
             out[f"{k}_{size}_ms"] = min(event_ms(fn, 10) for _ in range(5))
             out[f"{k}_{size}_kernel_ms"] = device_ms(fn, kernel_names[k])
-    wo, wd = paged_major._tile_rays(o, d)[1:]
     plan = lambda: paged_major.page_major_plan(wide_sc, wo, wd)
     plan()
     out["K6_plan_1920x1088_ms"] = min(event_ms(plan, 10) for _ in range(3))
+    card_plan = lambda: paged_major.page_major_plan_cuda(wide_sc, wo, wd)
+    card_plan()
+    out["K6_card_plan_1920x1088_ms"] = min(event_ms(card_plan, 10) for _ in range(3))
+    out["K6_card_plan_1920x1088_kernel_ms"] = device_ms(card_plan, "page_plan_")
+    plan_res["ms"] = out["K6_card_plan_1920x1088_kernel_ms"]
+    plan_res["plain_ms"] = out["K6_plan_1920x1088_ms"]
     frames["K1"] = lambda: render_image(RenderConfig(1920, 1088), col, *args)
     for k, fn in frames.items():
         fn()
@@ -856,14 +925,31 @@ def paged_phases(dev, card) -> list:
     names = {
         "K4": ("K4 paged_traverse, 4-wide pages (launches: the colonnade frame through "
                "the paged backend; ms: the kernel, 1920x1088 rays)", "tpu_raytracer/kernels/paged_wide.py:242"),
-        "K5": ("K5 paged_traverse, binary pages (launches: the colonnade frame through "
-               "the paged backend on binary tables; ms: the kernel, 1920x1088 rays)",
+        "K5": ("K5 paged_binary_kernel, binary pages on walk.cuh (launches: the colonnade "
+               "frame through the paged backend on binary tables; ms: the kernel, 1920x1088 "
+               "rays)",
                "tpu_raytracer/kernels/paged.py:106"),
-        "K6": ("K6 paged_major (launches: the colonnade frame through the paged_major "
-               "backend; ms: the kernel, 1920x1088 rays)",
+        "K6": ("K6 paged_major, 4-wide pages on walk.cuh (launches: the colonnade frame "
+               "through the paged_major backend; ms: the kernel without its plan, 1920x1088 "
+               "rays)",
                "tpu_raytracer/kernels/paged_major.py:130"),
     }
     src = {"K4": "paged_traverse.cu", "K5": "paged_traverse.cu", "K6": "paged_major.cu"}
+    plan_entry = {
+        "name": "K6 page_plan (K6's visibility plan: item order and per-tile item lists; "
+                "launches: the colonnade frame through the paged_major backend, 4 kernels "
+                "each; ms: the 4 kernels, 1920x1088 rays; plain_ms: the plain plan, eager "
+                "PyTorch with a host sync; replaces the plain jnp plan beside the TPU kernel, "
+                "not a pallas_call)",
+        "route": "cuda",
+        "source": "tpu_raytracer_torch/kernels/csrc/page_plan.cu",
+        "replaces": "tpu_raytracer/kernels/paged_major.py:387",
+        "launches": plan_res["launches"],
+        "max_abs_err": plan_res["max_abs"],
+        "ms": plan_res["ms"],
+        "plain_ms": plan_res["plain_ms"],
+        **plan_res["bound"],
+    }
     return [{
         "name": names[k][0],
         "route": "cuda",
@@ -874,7 +960,7 @@ def paged_phases(dev, card) -> list:
         "ms": out[f"{k}_1920x1088_kernel_ms"],
         "plain_ms": res[k]["plain_ms"],
         **res[k]["bound"],
-    } for k in ("K4", "K5", "K6")]
+    } for k in ("K4", "K5", "K6")] + [plan_entry]
 
 
 def path_phases(dev, card, flagship, flagship_shadow) -> list:

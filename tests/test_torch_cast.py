@@ -286,13 +286,14 @@ def test_binary_sort_matches_rank_loop():
 
 
 def test_walk_ab_variants_patch_the_current_sources(tmp_path):
-    """Each source-patched variant of the K1-K4 A/B script
+    """Each source-patched variant of the K1-K6 A/B script
     (``tpu_raytracer_torch/bench_walk.py``) finds the text it replaces in
     the kernel sources, and its host build equals the plain versions bit
-    for bit: K1 and K2 nearest and any hit, K4 on a paged scene (the
-    script checks the same on the card against the earlier kernels)."""
+    for bit: K1 and K2 nearest and any hit, K4 and K6 on a paged scene,
+    K5 on its binary pages (the script checks the same on the card
+    against the earlier kernels)."""
     from tpu_raytracer_torch import bench_walk
-    from tpu_raytracer_torch.kernels import binary, paged
+    from tpu_raytracer_torch.kernels import binary, paged, paged_major
 
     from test_torch_paged import host_trace_paged
 
@@ -301,16 +302,19 @@ def test_walk_ab_variants_patch_the_current_sources(tmp_path):
     scene = port_scene("blob3")
     o, d = port_rays("blob3")
     pages = scene.with_paging(page_tris=32, page_nodes=64)
+    binary_pages = scene.with_paging(page_tris=32, page_nodes=64, wide=False)
     want = {(arity, occ): cast(scene, o, d, occlusion=occ)
             for arity, cast in ((4, traversal.cast_rays_wide_torch),
                                 (2, binary.cast_rays_binary_torch)) for occ in (False, True)}
     want_k4 = paged.cast_rays_paged_torch(pages, o, d)
+    want_k5 = paged.cast_rays_paged_torch(binary_pages, o, d)
+    want_k6 = paged_major.cast_rays_paged_major_torch(pages, o, d)
     for name, (kernels, patches) in bench_walk.PATCHED.items():
         src = bench_walk._patched_sources(tmp_path, name)
         for f, text, repl in patches:
             assert text in (build.CSRC / f).read_text() and repl in (src / f).read_text()
             assert (src / f).read_text() != (build.CSRC / f).read_text()
-        assert set(kernels) <= {"K1", "K2", "K3", "K4"}
+        assert set(kernels) <= {"K1", "K2", "K3", "K4", "K5", "K6"}
         path = build._build(f"traverse_host_{name}", build._gxx(), build.GXX_FLAGS
                             + ("-DWT_HOST_SHORT_STACK=8",), ("traverse_host.cpp",), src_dir=src)
         lib = ctypes.CDLL(str(path))
@@ -323,3 +327,5 @@ def test_walk_ab_variants_patch_the_current_sources(tmp_path):
             else:
                 assert_bitwise(t, tri, inst, w)
         assert_bitwise(*host_trace_paged(pages, o, d, "K4", lib=lib)[:3], want_k4)
+        assert_bitwise(*host_trace_paged(binary_pages, o, d, "K5", lib=lib)[:3], want_k5)
+        assert_bitwise(*host_trace_paged(pages, o, d, "K6", lib=lib)[:3], want_k6)

@@ -1,6 +1,7 @@
 """Kernels K1-K6 on a CUDA card against their plain PyTorch versions
-(K1-K4 also with their short stack cut to one slot, so that entries take
-the spill path), and the config 5 path frame through K2 and K1.
+(also with their short stack cut to one slot, so that entries take the
+spill path), K6's card plan against its plain plan and K6's cast with
+no host sync, and the config 5 path frame through K2 and K1.
 
 Marked ``gpu``: every test skips without a card. On a machine with one
 (and no JAX), run from the repository root with
@@ -249,6 +250,69 @@ def test_k4_short_stack_spill_path_matches_plain_version(cuda, which):
         assert torch.equal(got.tri, want.tri) and torch.equal(got.inst, want.inst)
     with pytest.raises(ValueError, match="short_stack"):
         paged.cast_rays_paged_cuda(scene, o, d, short_stack=3)
+
+
+@pytest.mark.parametrize("which", ["colonnade", "pair"])
+@pytest.mark.parametrize("kernel", ["K5", "K6"])
+def test_k5_k6_short_stack_spill_path_matches_plain_version(cuda, kernel, which):
+    """K5 and K6 with their short stack cut to 1 ring slot: bitwise equal
+    to their plain versions on primary and reflection rays."""
+    wide, cast, plain = PAGED[kernel]
+    scene, cam = _paged_scene(which, cuda, wide)
+    o, d = _rays(cam, cuda)
+    refl, _ = _secondary_rays(scene, o, d, traversal.cast_rays_cuda(scene, o, d))
+    for ro, rd in ((o, d), refl):
+        before = _launches()[kernel]
+        got = cast(scene, ro, rd, short_stack=1)
+        torch.cuda.synchronize()
+        assert _launches()[kernel] == before + 1
+        want = plain(scene, ro, rd)
+        assert (got.tri >= 0).any()
+        assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
+        assert torch.equal(got.tri, want.tri) and torch.equal(got.inst, want.inst)
+    with pytest.raises(ValueError, match="short_stack"):
+        cast(scene, o, d, short_stack=3)
+
+
+@pytest.mark.parametrize("which", ["colonnade", "pair"])
+def test_card_plan_equals_plain_plan(cuda, which):
+    """K6's plan from the card's kernels equals the plain plan bit for bit:
+    the seen items in the same order, then the unseen ones, and every
+    tile's list, on primary rays (tile order) and reflection rays."""
+    scene, cam = _paged_scene(which, cuda)
+    o, d = _rays(cam, cuda)
+    refl, _ = _secondary_rays(scene, o, d, traversal.cast_rays_cuda(scene, o, d))
+    for ro, rd in ((o, d), refl):
+        _, to, td = paged_major._tile_rays(ro, rd)
+        pid, iid, mask = paged_major.page_major_plan(scene, to, td)
+        start, items = paged_major.tile_lists(mask)
+        before = paged_major.LAUNCHES_PLAN
+        c_pid, c_iid, c_start, c_items = paged_major.page_major_plan_cuda(scene, to, td)
+        torch.cuda.synchronize()
+        assert paged_major.LAUNCHES_PLAN == before + 1
+        n = pid.shape[0]
+        assert n > 0 and c_pid.shape[0] == scene.num_instances * scene.paged.num_pages
+        assert torch.equal(c_pid[:n], pid) and torch.equal(c_iid[:n], iid)
+        assert torch.equal(c_start, start)
+        assert torch.equal(c_items[:items.shape[0]], items)
+
+
+def test_k6_cast_waits_on_the_host_for_nothing(cuda):
+    """K6's cast, its plan included, makes no call that synchronises with
+    the host (``torch.cuda.set_sync_debug_mode("error")`` raises on one),
+    and still equals its plain version."""
+    scene, cam = _paged_scene("pair", cuda)
+    o, d = _rays(cam, cuda)
+    paged_major.cast_rays_paged_major_cuda(scene, o, d)  # build and load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = paged_major.cast_rays_paged_major_cuda(scene, o, d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = paged_major.cast_rays_paged_major_torch(scene, o, d)
+    assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
+    assert torch.equal(got.tri, want.tri) and torch.equal(got.inst, want.inst)
 
 
 @pytest.mark.parametrize("backend", ["paged", "paged_major"])

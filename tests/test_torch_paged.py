@@ -26,9 +26,11 @@ plain walk, which rounds every op as the paged walks do, ``t`` is
 bit-exact and ``tri``/``inst`` equal away from exact-``t`` ties, since
 a paged walk differs from K1's only in the order it visits triangles.
 The host build of the kernels' header (g++ -ffp-contract=off) equals the
-plain versions bit for bit in all three outputs, K4 also with its short
-stack cut to one slot, and so do K4 and K6 against themselves through
-``paged_from_jax`` tables.
+plain versions bit for bit in all three outputs, K4-K6 also with their
+short stack cut to one slot, and so do K4 and K6 against themselves
+through ``paged_from_jax`` tables. The host build of K6's plan
+(``csrc/page_plan.cuh``) equals the plain plan bit for bit in item order
+and per-tile lists.
 """
 
 import ctypes
@@ -192,11 +194,24 @@ def test_plain_version_matches_k1_walk(name, kernel, cut, rays):
         assert set(np.unique(got.inst.numpy()).tolist()) == {-1, 0, 1}
 
 
-def host_trace_paged(scene, origin, directions, kernel, short_stack=None, lib=None):
+def host_plan(scene, origin, directions, lib=None):
+    """K6's plan from the host build of ``csrc/page_plan.cuh`` for rays in
+    tile order: (item_pid, item_iid, tile_start, tile_item), every item
+    ordered, ``tile_item`` cut to its ``tile_start[-1]`` entries."""
+    lib = lib or build.load("host")
+    args, plan, keep_alive = paged_major.plan_args(scene, origin, directions)
+    assert lib.page_plan_host(*args) == 0
+    pid, iid, start, items = plan
+    return pid, iid, start, items[:int(start[-1])]
+
+
+def host_trace_paged(scene, origin, directions, kernel, short_stack=None, lib=None,
+                     card_plan=False):
     """The paged kernels' traversal header, built for the host with
     ``short_stack`` ring slots (default ``wide4.SHORT_STACK``), or the host
-    library ``lib``, over every ray (K6 on the plain version's tile order
-    and plan): (t, tri, inst, entries K4's short stack spilled)."""
+    library ``lib``, over every ray (K6 on the tile order and the plain
+    plan, or with ``card_plan`` the host build of the card's plan):
+    (t, tri, inst, entries the short stack spilled)."""
     lib = lib or build.load("host", short_stack)
     pg = scene.paged
     if kernel == "K6":
@@ -208,15 +223,15 @@ def host_trace_paged(scene, origin, directions, kernel, short_stack=None, lib=No
     out = (torch.empty(r), torch.empty(r, dtype=torch.int32), torch.empty(r, dtype=torch.int32))
     spills = ctypes.c_int64(0)
     if kernel == "K6":
-        pid, iid, mask = paged_major.page_major_plan(scene, o, d)
-        rc = lib.paged_major_trace_host(*pages, pid.data_ptr(), iid.data_ptr(), pid.shape[0],
-                                        mask.data_ptr(), mask.shape[1],
-                                        *paged.ray_args(o, d, out))
+        plan = (host_plan(scene, o, d, lib) if card_plan
+                else paged_major.page_major_plan_cuda(scene, o, d))
+        rc = lib.paged_major_trace_host(*pages, *(x.data_ptr() for x in plan),
+                                        plan[2].shape[0] - 1, *paged.ray_args(o, d, out),
+                                        ctypes.byref(spills))
     else:
         top_root = pg.top_root[scene.inst_mesh.long()].to(torch.int32).contiguous()
-        node = pg.node.data_ptr() if pg.arity == 4 else None
         rc = lib.paged_trace_host(*pages, pg.top_code.data_ptr(), pg.top_box.data_ptr(),
-                                  top_root.data_ptr(), node, *paged.ray_args(o, d, out),
+                                  top_root.data_ptr(), *paged.ray_args(o, d, out),
                                   ctypes.byref(spills))
     assert rc == 0
     return (*(paged_major._untile(perm, x) for x in out), spills.value)
@@ -265,11 +280,60 @@ def test_k4_host_build_with_tiny_short_stack_matches_plain_version(gxx, name, cu
         assert host_trace_paged(scene, ro, rd, "K4")[3] < got[3]
 
 
+@pytest.mark.parametrize("cut", sorted(CUTS))
+@pytest.mark.parametrize("name", sorted(JAX_SCENES))
+@pytest.mark.parametrize("kernel", ["K5", "K6"])
+def test_paged_host_build_with_tiny_short_stack_matches_plain_version(gxx, kernel, name, cut):
+    """K5 and K6 as K4 above: with the short stack cut to 1 ring slot,
+    bitwise equal to their plain versions on primary and reflection rays,
+    the spill count showing that the spill path was taken (K6 also on
+    the host build of the card's plan). K6 walks no top tree, so the
+    tiny cut's one- and two-leaf pages never hold two entries: its
+    spills are asserted on the deep cut."""
+    scene, o, d = port_scene(name, cut, KERNELS[kernel])
+    for ro, rd in ((o, d), reflection_rays(scene, o, d)):
+        want = PLAIN[kernel](scene, ro, rd)
+        got = host_trace_paged(scene, ro, rd, kernel, short_stack=1)
+        assert_hits_equal(got, want)
+        if kernel == "K5" or cut == "deep":
+            assert got[3] > 0
+            assert host_trace_paged(scene, ro, rd, kernel)[3] < got[3]
+        if kernel == "K6":
+            assert_hits_equal(host_trace_paged(scene, ro, rd, kernel, short_stack=1,
+                                               card_plan=True), want)
+
+
+@pytest.mark.parametrize("cut", sorted(CUTS))
+@pytest.mark.parametrize("name", sorted(JAX_SCENES))
+def test_plan_host_build_equals_plain_plan(gxx, name, cut):
+    """The host build of K6's plan (``csrc/page_plan.cuh``) equals the
+    plain ``page_major_plan`` bit for bit: the seen items in the same
+    order, the unseen ones after them, and every tile's list, on primary
+    rays (one origin, an image in 16x16-pixel tiles) and on reflection
+    rays (per-ray origins, a last tile of pad rays)."""
+    scene, o, d = port_scene(name, cut, True)
+    ro, rd = reflection_rays(scene, o, d)
+    sets = [paged_major._tile_rays(o, d)[1:],
+            (ro.reshape(-1, 3)[:-37].contiguous(), rd.reshape(-1, 3)[:-37].contiguous())]
+    for so, sd in sets:
+        pid, iid, mask = paged_major.page_major_plan(scene, so, sd)
+        start, items = paged_major.tile_lists(mask)
+        h_pid, h_iid, h_start, h_items = host_plan(scene, so, sd)
+        n = pid.shape[0]
+        assert 0 < n and h_pid.shape[0] == scene.num_instances * scene.paged.num_pages
+        assert torch.equal(h_pid[:n], pid) and torch.equal(h_iid[:n], iid)
+        assert torch.equal(h_start, start) and torch.equal(h_items, items)
+        # every item is ordered once; the unseen ones are in no list
+        k = h_iid.long() * scene.paged.num_pages + h_pid.long()
+        assert torch.equal(k.sort().values, torch.arange(k.shape[0]))
+        assert items.numel() == 0 or int(items.max()) < n
+        assert start[-1] > 0
+
+
 def test_wide_page_records_unpack_to_code_and_box():
-    """K4's page records hold the 4-wide page trees' box floats in lanes
-    0..23 and their codes' bits in lanes 24..27, zeros after, bit for
-    bit, and follow the tables to another device; binary pages carry
-    none."""
+    """K4's and K6's page records hold the 4-wide page trees' box floats in
+    lanes 0..23 and their codes' bits in lanes 24..27, zeros after, bit
+    for bit, and follow the tables to another device."""
     for name in sorted(JAX_SCENES):
         for cut in sorted(CUTS):
             pg = port_scene(name, cut, True)[0].paged
@@ -280,7 +344,65 @@ def test_wide_page_records_unpack_to_code_and_box():
             np.testing.assert_array_equal(rec[:, 24:28].view(np.int32), pg.code.numpy())
             assert not rec[:, 28:].view(np.int32).any()
             assert torch.equal(pg.to("cpu").node.view(torch.int32), pg.node.view(torch.int32))
-    assert port_scene("two_instance", "tiny", False)[0].paged.node is None
+
+
+def test_binary_page_records_unpack_to_code_and_box():
+    """K5's page records hold the binary page trees' 12 box floats in
+    lanes 0..11 and their two codes' bits in lanes 12..13, and lanes
+    14..15 are zero, so that the walk's int4 code load reads two real
+    codes; they follow the tables to another device, and ``paged_from_jax``
+    tables carry the same records."""
+    for name in sorted(JAX_SCENES):
+        for cut in sorted(CUTS):
+            pg = port_scene(name, cut, False)[0].paged
+            rec = pg.node.numpy()
+            assert rec.shape == (pg.code.shape[0], 16) and rec.dtype == np.float32
+            np.testing.assert_array_equal(rec[:, :12].view(np.int32),
+                                          pg.box.numpy().view(np.int32))
+            np.testing.assert_array_equal(rec[:, 12:14].view(np.int32), pg.code.numpy())
+            assert not rec[:, 14:].view(np.int32).any()
+            assert torch.equal(pg.to("cpu").node.view(torch.int32), pg.node.view(torch.int32))
+    theirs = paged.paged_from_jax(jax_table_fields(jax_tables("colonnade", False)),
+                                  device="cpu", wide=False)
+    np.testing.assert_array_equal(theirs.node.numpy().view(np.int32),
+                                  port_scene("colonnade", "tiny", False)[0].paged.node.numpy()
+                                  .view(np.int32))
+
+
+@pytest.mark.parametrize("short_stack", [None, 1])
+def test_single_leaf_binary_pages_cast_like_the_plain_version(gxx, short_stack):
+    """A page that is one leaf (the two-instance scene's 12-triangle cube,
+    and a leaf the icosphere's cut leaves alone under the top tree) is one
+    binary node: the leaf as entry 0 and entry 1 absent (code -1, inverted
+    +-3e38 box). K5's host build walks those records with the fminf/fmaxf
+    slab test and equals the plain version bit for bit on rays aimed at
+    each instance from every side, which hit those pages' triangles."""
+    scene, _, _ = port_scene("two_instance", "tiny", False)
+    pg = scene.paged
+    base = pg.node_base.numpy()
+    sizes = np.diff(np.append(base, pg.code.shape[0]))
+    single = np.nonzero((sizes == 1) & (pg.code.numpy()[base, 1] == -1))[0]
+    assert single.size >= 1
+    big = np.float32(3.0e38)
+    spans = []
+    for p in single:
+        rec = pg.node[int(base[p])].numpy()
+        codes = rec[12:14].view(np.int32)
+        assert codes[0] < 0 and codes[1] == -1
+        assert (rec[6:9] >= big * 0.99).all() and (rec[9:12] <= -big * 0.99).all()
+        first = int(pg.page_tri0[p]) + ((-int(codes[0]) - 1) >> 10)
+        spans.append((first, first + ((-int(codes[0]) - 1) & 1023)))
+    rng = np.random.default_rng(5)
+    dirs = rng.normal(size=(512, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    d = torch.from_numpy(dirs)
+    for i in range(scene.num_instances):
+        o = (scene.inst_pose[i, 0:3][None] - 6.0 * d).contiguous()
+        want = paged.cast_rays_paged_torch(scene, o, d)
+        assert_hits_equal(host_trace_paged(scene, o, d, "K5", short_stack=short_stack), want)
+        if i == 0:
+            on_single = sum(((want.tri >= a) & (want.tri < b)).sum() for a, b in spans)
+    assert int(on_single) > 0
 
 
 def test_tables_from_jax_carry_records_that_cast_like_the_ports(gxx):

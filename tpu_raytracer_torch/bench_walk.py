@@ -1,16 +1,17 @@
-"""A/B timing of kernels K1-K4 against an earlier build of their sources.
+"""A/B timing of kernels K1-K6 and of K6's plan against an earlier build
+of their sources.
 
     python -m tpu_raytracer_torch.bench_walk --old DIR [--out FILE]
 
 ``DIR`` holds the ``kernels/csrc`` of an earlier version of the port,
-e.g. that of commit ed1d87d, whose K1 and K3 walk with ``walk4.cuh`` and
-whose K2 and K4 walk with ``walk_tree<A>`` (``git archive ed1d87d
+e.g. that of commit 1e298ba, whose K1-K4 walk with ``walk.cuh`` and
+whose K5 and K6 walk with ``walk_tree<A>`` (``git archive 1e298ba
 tpu_raytracer_torch/kernels/csrc | tar -x -C DIR --strip-components=3``).
-Its ``wide_traverse.cu``, ``tlas_traverse.cu`` and ``paged_traverse.cu``
-are built like the current ones into a second library and called
-through that version's C interface (``_OLD_ARGS``: the code/box tables
-beside ``wnode``; K2 and K4 without node records, short stack or
-counter).
+Its ``wide_traverse.cu``, ``tlas_traverse.cu``, ``paged_traverse.cu`` and
+``paged_major.cu`` are built like the current ones into a second library
+and called through that version's C interface (``_OLD_ARGS``: the pages'
+code/box tables beside K4's node records; K5 without node records; K6
+with its plan's mask and no short stack).
 
 On each ray set it checks that every variant of the current design gives
 the earlier kernel's output bit for bit (t, tri, inst; the any-hit t),
@@ -19,18 +20,25 @@ current, earlier. A time is the best of 5 loops of CUDA events around 20
 back-to-back launches (the counter reset included), divided by 20. The
 sets: K1 and K2 on the flagship's primary and shadow (any hit) rays and
 on config 5's first bounce rays; K3 on config 4's primary, reflection
-and shadow rays; K4 on the 1M-triangle colonnade's 1920x1088 rays. The
-variants: the short stack's ring at 4, 8 and 16 slots (at launch), and
-builds of the current sources with one change each (``PATCHED``), timed
-on the sets of the kernels they change: one thread per ray over a grid
-of all rays instead of persistent warps, the triangle test without its
-early exits, the other minimum of resident blocks per SM in
-``__launch_bounds__`` for K3 and K4 (K3 without its 8, which caps
-registers at 64; K4 with 8), and K4's top tree on a stack of its own in
-local memory instead of below the page walk's entries on the short
-stack. Prints ptxas's report of each build, the launch shapes, one line
-per ray set, and writes all of it as JSON to ``--out``. Fails without a
-CUDA card, and if any variant differs from the earlier kernel.
+and shadow rays; K4, K5 (binary page tables) and K6 on the 1M-triangle
+colonnade's 1920x1088 rays, K6's in 16x16-pixel tile order with its plan
+made once (the earlier K6 on the plain plan, the current one on the
+card's). The variants: the short stack's ring at 4, 8 and 16 slots (at
+launch), and builds of the current sources with one change each
+(``PATCHED``), timed on the sets of the kernels they change: one thread
+per ray over a grid of all rays instead of persistent warps, the
+triangle test without its early exits, the other minimum of resident
+blocks per SM in ``__launch_bounds__`` for K3 and K4 (K3 without its 8,
+which caps registers at 64; K4 with 8), K4's top tree on a stack of its
+own in local memory instead of below the page walk's entries on the
+short stack, and K6's other launch shape (persistent warps instead of
+one block per tile). One more line times the plain plan
+(``page_major_plan``, eager PyTorch with a host sync) against the card's
+(``page_major_plan_cuda``) in turns on the colonnade's rays, after
+checking that both give the same item order and tile lists. Prints
+ptxas's report of each build, the launch shapes, one line per ray set,
+and writes all of it as JSON to ``--out``. Fails without a CUDA card,
+and if any variant differs from the earlier kernel.
 """
 
 from __future__ import annotations
@@ -44,21 +52,24 @@ import tempfile
 
 import torch
 
-from .kernels import build, traversal
+from .kernels import build, paged_major, traversal
 from .kernels.wide4 import SHORT_STACK
 from .utils.device import card_line
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# the interface of the ed1d87d build: wcode, wbox beside wnode; K4 with
-# no node records, short stack or counter
-_OLD_SCENE = [_P, _P, _P, _P, _P, _I, _P]
+# the interface of the 1e298ba build: K1-K3 as now; the pages' code and
+# box tables beside the node records; K6 with its plan's mask
+_OLD_SCENE = [_P, _P, _P, _P, _I]
 _OLD_RAYS = [_P, _I, _P, _I64, _I, _P, _P, _P]
+_OLD_PAGES = [_I] + [_P] * 6 + [_I]
+_OLD_NEAREST = [_P, _I, _P, _I64, _P, _P, _P]
 _OLD_ARGS = {
     "wt_launch": [_I] + _OLD_SCENE + _OLD_RAYS + [_I, _P, _P],
     "tlas_launch": _OLD_SCENE + [_P] * 3 + _OLD_RAYS + [_I, _P, _P],
-    "paged_launch": [_I] + [_P] * 6 + [_I] + [_P] * 3 + [_P, _I, _P, _I64, _P, _P, _P] + [_P],
+    "paged_launch": _OLD_PAGES + [_P] * 4 + _OLD_NEAREST + [_I, _P, _P],
+    "paged_major_launch": _OLD_PAGES + [_P, _P, _I, _P, _I] + _OLD_NEAREST + [_P],
 }
-SOURCES = ("wide_traverse.cu", "tlas_traverse.cu", "paged_traverse.cu")
+SOURCES = ("wide_traverse.cu", "tlas_traverse.cu", "paged_traverse.cu", "paged_major.cu")
 ENTRIES = tuple(_OLD_ARGS)
 STACKS = (4, 8, 16)
 LOOPS, CALLS = 5, 20
@@ -72,20 +83,27 @@ _GRID_LOOP = """  {
   const unsigned lane = threadIdx.x & 31u;
 """
 # K4's top tree on a 64-slot ring in local memory of its own (never
-# spills: paged.py keeps the top depth under kTopStack)
-_TOP_LOCAL = """int32_t top_ring[kTopStack];
-  ShortStack top_st(top_ring, 1, kTopStack - 1, nullptr);"""
+# spills: paged.py keeps the top depth under TOP_STACK = 64)
+_TOP_LOCAL = """int32_t top_ring[64];
+  ShortStack top_st(top_ring, 1, 63, nullptr);"""
 # name: (kernels it changes, [(file, text, replacement)])
 PATCHED = {
-    "grid": (("K1", "K2", "K3", "K4"),
+    "grid": (("K1", "K2", "K3", "K4", "K5"),
              [("walk.cuh", "  const unsigned lane = threadIdx.x & 31u;\n", _GRID_LOOP),
               ("walk_launch.cuh", "int64_t blocks = static_cast<int64_t>(sms) * per_sm;",
                "int64_t blocks = grid;")]),
-    "no_early_exit": (("K1", "K2", "K3", "K4"),
+    "no_early_exit": (("K1", "K2", "K3", "K4", "K5", "K6"),
                       [("walk.cuh", "if (test_tri4(r, o, d, k,", "if (test_tri(r, o, d, k,")]),
     "k3_min_blocks1": (("K3",), [("walk_launch.cuh", "kK3MinBlocks = 8;", "kK3MinBlocks = 1;")]),
     "k4_min_blocks8": (("K4",), [("walk_launch.cuh", "kK4MinBlocks = 1;", "kK4MinBlocks = 8;")]),
     "k4_top_local": (("K4",), [("paged_traverse.cuh", "ShortStack& top_st = st;", _TOP_LOCAL)]),
+    "k6_persistent": (("K6",), [
+        ("paged_major.cu", "  const int64_t r = static_cast<int64_t>(blockIdx.x) * wt::kTileRays"
+         " + threadIdx.x;\n  if (r < rays.num_rays) trace(r);",
+         "  wt::for_each_ray(rays.num_rays, counter, trace);"),
+        ("paged_major.cu", "  int shape[4];\n  const int err = tile_shape(",
+         "  return wt::launch_walk(paged_major_kernel, num_rays, short_stack, counter, st, pg,"
+         " plan, rays);\n  int shape[4];\n  const int err = tile_shape(")]),
 }
 
 
@@ -111,21 +129,39 @@ def _patched_sources(tmp: pathlib.Path, name: str) -> pathlib.Path:
     return src
 
 
+def best_ms(fn) -> float:
+    """Best of LOOPS loops of CUDA events around CALLS calls of ``fn``,
+    per call."""
+    best = float("inf")
+    for _ in range(LOOPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(CALLS):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / CALLS)
+    return best
+
+
 class Caster:
-    """Raw launches of one library's K1, K2, K3 or K4 on one ray set,
-    outputs kept."""
+    """Raw launches of one library's K1-K6 on one ray set, outputs kept.
+    K6's rays come in tile order with their plan (``plan``: the plain
+    plan's (item_pid, item_iid, mask) for the earlier build, the card
+    plan's (item_pid, item_iid, tile_start, tile_item) for the current)."""
 
     def __init__(self, lib, old: bool, kernel: str, scene, origin, dirs, occlusion: bool,
-                 short_stack: int = SHORT_STACK):
+                 short_stack: int = SHORT_STACK, plan=None):
         w = scene.wide4
         dev = dirs.device
         root = scene.binary.root if kernel == "K2" else w.wroot
-        if kernel == "K4":
+        if kernel in ("K4", "K5"):
             root = scene.paged.top_root
         self.keep = [traversal.instance_table(scene),
                      root[scene.inst_mesh.long()].to(torch.int32).contiguous(),
-                     origin.contiguous(), dirs.contiguous()]
-        inst_tab, inst_root, o, d = self.keep
+                     origin.contiguous(), dirs.contiguous(), plan]
+        inst_tab, inst_root, o, d, _ = self.keep
         r = d.numel() // 3
         self.t = torch.empty(r, dtype=torch.float32, device=dev)
         self.tri = torch.empty(r, dtype=torch.int32, device=dev)
@@ -134,25 +170,32 @@ class Caster:
         rays = [o.data_ptr(), 0 if o.dim() == 1 else 3, d.data_ptr(), r]
         outs = [self.t.data_ptr(), self.tri.data_ptr(), self.inst.data_ptr()]
         walk = [short_stack, self.counter.data_ptr()]
-        if kernel == "K4":
+        if kernel in ("K4", "K5", "K6"):
             pg = scene.paged
-            head = [4, pg.code.data_ptr(), pg.box.data_ptr(), pg.node_base.data_ptr(),
-                    pg.page_tri0.data_ptr(), w.tri_rec.data_ptr(), inst_tab.data_ptr(),
-                    scene.num_instances, pg.top_code.data_ptr(), pg.top_box.data_ptr(),
-                    inst_root.data_ptr()]
+            tail = [w.tri_rec.data_ptr(), inst_tab.data_ptr(), scene.num_instances]
+            tables = ([pg.code.data_ptr(), pg.box.data_ptr()] if old else [pg.node.data_ptr()])
+            head = [pg.arity, *tables, pg.node_base.data_ptr(), pg.page_tri0.data_ptr(), *tail]
+            if kernel == "K6":
+                self.fn = lib.paged_major_launch
+                if old:
+                    pid, iid, mask = plan
+                    plan_args = [pid.data_ptr(), iid.data_ptr(), pid.shape[0], mask.data_ptr(),
+                                 mask.shape[1]]
+                    self.args = head + plan_args + rays + outs
+                else:
+                    plan_args = [x.data_ptr() for x in plan] + [plan[2].shape[0] - 1]
+                    self.args = head + plan_args + rays + outs + walk
+                return
+            top = [pg.top_code.data_ptr(), pg.top_box.data_ptr(), inst_root.data_ptr()]
+            if old:
+                top.append(pg.node.data_ptr() if kernel == "K4" else None)
             self.fn = lib.paged_launch
-            self.args = head + rays + outs if old else head + [pg.node.data_ptr()] + rays + outs + walk
+            self.args = head + top + rays + outs + walk
             return
         tree = scene.binary if kernel == "K2" else None
-        if old:
-            code, box = (w.wcode, w.wbox) if tree is None else (tree.code, tree.box)
-            scene_args = [code.data_ptr(), box.data_ptr(), w.tri_rec.data_ptr(),
-                          inst_tab.data_ptr(), inst_root.data_ptr(), scene.num_instances,
-                          w.wnode.data_ptr()]
-        else:
-            node = w.wnode if tree is None else tree.node
-            scene_args = [node.data_ptr(), w.tri_rec.data_ptr(), inst_tab.data_ptr(),
-                          inst_root.data_ptr(), scene.num_instances]
+        node = w.wnode if tree is None else tree.node
+        scene_args = [node.data_ptr(), w.tri_rec.data_ptr(), inst_tab.data_ptr(),
+                      inst_root.data_ptr(), scene.num_instances]
         tl = scene.tlas
         tlas_args = ([tl.code.data_ptr(), tl.box.data_ptr(), tl.inst_ids.data_ptr()]
                      if kernel == "K3" else [])
@@ -167,17 +210,7 @@ class Caster:
             raise RuntimeError(f"launch failed with CUDA error {err}")
 
     def ms(self) -> float:
-        best = float("inf")
-        for _ in range(LOOPS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(CALLS):
-                self()
-            end.record()
-            end.synchronize()
-            best = min(best, start.elapsed_time(end) / CALLS)
-        return best
+        return best_ms(self)
 
 
 def ray_sets(dev):
@@ -219,6 +252,9 @@ def ray_sets(dev):
     rd = normalize(_reflect(d4, a4.normal))
     refl = park_dead_rays(a4.location + rd * SHADOW_EPS, rd, a4.hit)
     big, bcam = scene_colonnade(1920, 1088, columns=18, segs=40, device=dev)
+    ob, db = rays(bcam)
+    wide = big.with_paging()
+    _, ot, dt = paged_major._tile_rays(ob, db)
     return {
         "K1_flagship_primary": ("K1", flag, o1, d1, False),
         "K1_flagship_shadow": ("K1", flag, *shadow1, True),
@@ -229,8 +265,31 @@ def ray_sets(dev):
         "K2_flagship_primary": ("K2", flag, o1, d1, False),
         "K2_flagship_shadow": ("K2", flag, *shadow1, True),
         "K2_config5_bounce": ("K2", col, *bounce, False),
-        "K4_colonnade_primary": ("K4", big.with_paging(), *rays(bcam), False),
+        "K4_colonnade_primary": ("K4", wide, ob, db, False),
+        "K5_colonnade_primary": ("K5", big.with_paging(wide=False), ob, db, False),
+        "K6_colonnade_primary": ("K6", wide, ot, dt, False),
     }
+
+
+def plan_line(scene, origin, dirs) -> dict:
+    """The plain plan against the card's on rays in tile order: equal item
+    order and tile lists, then their times in turns (plain, card, card,
+    plain)."""
+    pid, iid, mask = paged_major.page_major_plan(scene, origin, dirs)
+    start, items = paged_major.tile_lists(mask)
+    c_pid, c_iid, c_start, c_items = paged_major.page_major_plan_cuda(scene, origin, dirs)
+    n = pid.shape[0]
+    same = (torch.equal(c_pid[:n], pid) and torch.equal(c_iid[:n], iid)
+            and torch.equal(c_start, start)
+            and torch.equal(c_items[:items.shape[0]], items))
+    eager = lambda: paged_major.page_major_plan(scene, origin, dirs)
+    card = lambda: paged_major.page_major_plan_cuda(scene, origin, dirs)
+    times = {}
+    for name, fn in (("plain", eager), ("card", card), ("card", card), ("plain", eager)):
+        times.setdefault(name, []).append(best_ms(fn))
+    return {"rays": dirs.shape[0], "items_seen": n, "items": c_pid.shape[0],
+            "tiles": start.shape[0] - 1, "list_entries": int(start[-1]), "same": same,
+            "ms": times}
 
 
 def main():
@@ -252,23 +311,30 @@ def main():
     ptxas = {"old": build.ptxas_report(old_path), "new": build.ptxas_report(build.build_cuda()),
              **{v: build.ptxas_report(path) for v, (_, path) in patched.items()}}
     for k, v in ptxas.items():
-        print(f"[ptxas] build={k} " + json.dumps(
-            {n: r for n, r in v.items() if "paged_major" not in n}), flush=True)
+        print(f"[ptxas] build={k} " + json.dumps(v), flush=True)
     shapes = {}
     for kernel, occ in (("K1", False), ("K1", True), ("K2", False), ("K2", True), ("K3", False),
-                        ("K3", True), ("K4", False)):
+                        ("K3", True), ("K4", False), ("K5", False), ("K6", False)):
         shapes[f"{kernel}{'_any_hit' if occ else ''}"] = traversal.launch_shape(
             kernel, occ, 1920 * 1088)
     print("[shape] rays=1920x1088 " + json.dumps(shapes), flush=True)
 
     results = {"card": card, "ptxas": ptxas, "shapes": shapes, "sets": {}}
     for name, (kernel, scene, o, d, occ) in ray_sets(dev).items():
-        variants = {"old": Caster(old_lib, True, kernel, scene, o, d, occ)}
+        old_plan = new_plan = None
+        if kernel == "K6":
+            old_plan = paged_major.page_major_plan(scene, o, d)
+            new_plan = paged_major.page_major_plan_cuda(scene, o, d)
+            results["plan"] = plan_line(scene, o, d)
+            print("[plan] " + json.dumps(results["plan"]), flush=True)
+            if not results["plan"]["same"]:
+                raise SystemExit("bench_walk FAILED: the card's plan differs from the plain plan")
+        variants = {"old": Caster(old_lib, True, kernel, scene, o, d, occ, plan=old_plan)}
         for s in STACKS:
-            variants[f"S{s}"] = Caster(new_lib, False, kernel, scene, o, d, occ, s)
+            variants[f"S{s}"] = Caster(new_lib, False, kernel, scene, o, d, occ, s, new_plan)
         for v, (lib, _) in patched.items():
             if kernel in PATCHED[v][0]:
-                variants[v] = Caster(lib, False, kernel, scene, o, d, occ)
+                variants[v] = Caster(lib, False, kernel, scene, o, d, occ, plan=new_plan)
         default = f"S{SHORT_STACK}"
         ref = variants["old"]
         ref()

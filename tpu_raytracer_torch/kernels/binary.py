@@ -49,7 +49,7 @@ import torch
 from ..accel.wide import collapse2
 from .paged import _records
 from .traversal import BIG, PLAIN_CHUNK, _split_rays, cast_rays_tree_torch, launch
-from .wide4 import STACK_SIZE, _wide_depth, node_records
+from .wide4 import STACK_SIZE, _wide_depth, node_records, stack_needed
 
 # Launches of K2 since the count was last reset (CPU casts, which run the
 # plain version, do not count).
@@ -81,7 +81,7 @@ def build_binary(scene) -> BinaryTables:
     entered = np.array([-BIG] * 3 + [BIG] * 3, np.float32)
     box[w.wroot[leaf_root], 0:6] = entered
     depth = _wide_depth(code, w.wroot)
-    if depth + 4 > STACK_SIZE:  # each pop pushes at most one more than it takes
+    if stack_needed(depth, 2) > STACK_SIZE:
         raise ValueError(f"binary BVH depth {depth} overflows the {STACK_SIZE}-slot stack")
     t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(scene.device)
     return BinaryTables(code=t(code, np.int32), box=t(box, np.float32),

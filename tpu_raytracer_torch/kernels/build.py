@@ -1,7 +1,7 @@
 """Build and load the hand-written kernels from ``kernels/csrc`` and the
 native BVH builder from ``accel/csrc``.
 
-The CUDA sources of K1/K2, K3, K4/K5 and K6 are compiled for ``sm_90a`` by
+The CUDA sources of K1/K2, K3, K4/K5, K6 and K6's plan are compiled for ``sm_90a`` by
 one ``nvcc`` process per source, all started together, and linked into
 one shared library with a plain C interface, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). The host build of the same
@@ -27,7 +27,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BVH_CSRC = pathlib.Path(__file__).resolve().parent.parent / "accel" / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
 
-CUDA_SOURCES = ("wide_traverse.cu", "tlas_traverse.cu", "paged_traverse.cu", "paged_major.cu")
+CUDA_SOURCES = ("wide_traverse.cu", "tlas_traverse.cu", "paged_traverse.cu", "paged_major.cu",
+                "page_plan.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -105,7 +106,9 @@ def build_log(lib: pathlib.Path) -> str:
 
 
 KERNEL_NAMES = ("paged_major_kernel", "binary_traverse_kernel", "wide_traverse_kernel",
-                "tlas_traverse_kernel", "paged_wide_kernel", "paged_kernel")
+                "tlas_traverse_kernel", "paged_wide_kernel", "paged_binary_kernel",
+                "page_plan_init_kernel", "page_plan_tiles_kernel", "page_plan_order_kernel",
+                "page_plan_lists_kernel")
 
 
 def ptxas_report(lib: pathlib.Path) -> dict[str, dict[str, int]]:
@@ -139,7 +142,7 @@ def ptxas_report(lib: pathlib.Path) -> dict[str, dict[str, int]]:
 
 
 def build_cuda() -> pathlib.Path:
-    """The kernels K1/K2, K3, K4/K5 and K6 for sm_90a: one nvcc per source,
+    """The kernels K1/K2, K3, K4/K5, K6 and K6's plan for sm_90a: one nvcc per source,
     started together, linked into ``libtraverse.so``."""
     return _build("traverse", find_nvcc(), NVCC_FLAGS, CUDA_SOURCES,
                   link_flags=NVCC_LINK_FLAGS)
@@ -154,7 +157,7 @@ def _gxx() -> str:
 
 def build_host(short_stack: int) -> pathlib.Path:
     """g++ build of the kernels' traversal headers for the CPU tests, with
-    ``short_stack`` ring slots in the short stack of K1-K4."""
+    ``short_stack`` ring slots in the short stack of K1-K6."""
     return _build("traverse_host", _gxx(), GXX_FLAGS + (f"-DWT_HOST_SHORT_STACK={short_stack}",),
                   ("traverse_host.cpp",))
 
@@ -174,13 +177,18 @@ _SCENE_ARGS = [_P, _P, _P, _P, _I]
 _RAY_ARGS = [_P, _I, _P, _I64, _I, _P, _P, _P]
 # tlas code, box, inst_ids
 _TLAS_ARGS = [_P, _P, _P]
-# arity, page code, page box, page_node_base, page_tri0, tri_rec, inst_tab,
+# arity, page node records, page_node_base, page_tri0, tri_rec, inst_tab,
 # num_instances
-_PAGE_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I]
-# top_code, top_box, inst_top_root, page node records (K4)
-_TOP_ARGS = [_P, _P, _P, _P]
-# item_pid, item_iid, num_items, mask, num_tiles
-_PLAN_ARGS = [_P, _P, _I, _P, _I]
+_PAGE_ARGS = [_I, _P, _P, _P, _P, _P, _I]
+# top_code, top_box, inst_top_root
+_TOP_ARGS = [_P, _P, _P]
+# item_pid, item_iid, tile_start, tile_item, num_tiles
+_PLAN_ARGS = [_P, _P, _P, _P, _I]
+# K6's plan: origin, origin_stride, dirs, num_rays, inst_tab, inst_mesh,
+# num_instances, node_min, node_max, page_node0, num_pages, mesh_root,
+# num_meshes, wanted, tile_count, key, item_pid, item_iid, tile_start,
+# tile_item
+_PLAN_IO_ARGS = [_P, _I, _P, _I64, _P, _P, _I, _P, _P, _P, _I, _P, _I] + [_P] * 7
 # origin, origin_stride, dirs, num_rays, t_out, tri_out, inst_out
 _NEAREST_RAY_ARGS = [_P, _I, _P, _I64, _P, _P, _P]
 # short_stack, num_rays, out[4]
@@ -193,16 +201,20 @@ _ENTRY_ARGS = {
              "tlas_launch": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + _WALK_ARGS + [_P],
              "wt_launch_shape": [_I, _I] + _SHAPE_ARGS,  # arity, occlusion
              "tlas_launch_shape": [_I] + _SHAPE_ARGS,  # occlusion
-             "paged_launch_shape": _SHAPE_ARGS,
+             "paged_launch_shape": [_I] + _SHAPE_ARGS,  # arity
+             "paged_major_launch_shape": _SHAPE_ARGS,
              "paged_launch": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS + _WALK_ARGS + [_P],
-             "paged_major_launch": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS + [_P]},
+             "paged_major_launch": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS + _WALK_ARGS
+             + [_P],
+             "page_plan_launch": _PLAN_IO_ARGS + [_P]},
     # ... + spills (one i64 out)
     "host": {"wt_trace_host": [_I] + _SCENE_ARGS + _RAY_ARGS + [_P],
              "tlas_trace_host": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_P],
              "wt_sort_host": [_I, _P, _I64, _P],
              "wt_host_short_stack": [],
              "paged_trace_host": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS + [_P],
-             "paged_major_trace_host": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS},
+             "paged_major_trace_host": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS + [_P],
+             "page_plan_host": _PLAN_IO_ARGS},
 }
 
 _loaded: dict[tuple, ctypes.CDLL] = {}

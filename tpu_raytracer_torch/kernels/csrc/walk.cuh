@@ -1,20 +1,24 @@
-// The walk of kernels K1-K4, designed for the H100, at arity 4 and 2.
+// The walk of kernels K1-K6, designed for the H100, at arity 4 and 2.
 //
 // K1 (wide_traverse.cu) walks every instance's 4-wide BVH in turn, K2
 // (wide_traverse.cu) every instance's binary BVH, K3 (tlas_traverse.cu)
-// the instances its TLAS reaches in their 4-wide BVH, and K4
-// (paged_traverse.cu) the 4-wide pages its top tree's portals open; all
-// walk each tree with walk<A> below. It computes what walk_tree<A> of
-// wide_traverse.cuh computes, event for event per ray, and differs in how:
+// the instances its TLAS reaches in their 4-wide BVH, K4 and K5
+// (paged_traverse.cu) the 4-wide or binary pages their top tree's portals
+// open, and K6 (paged_major.cu) the 4-wide pages of its tile's plan
+// items; all walk each tree with walk<A> below. It computes what the plain
+// versions' walk (kernels/traversal.py walk_tree: a private stack, an
+// O(A^2) rank loop, NaN-aware min/max, the triangle test without early
+// exits) computes, event for event per ray, and differs in how:
 //
 //  * One node record of 8A floats (kernels/wide4.py `node_records`: K1's
-//    and K3's `wnode [W, 32]`, K2's binary `node [N, 16]`, K4's page
-//    `node [N, 32]`): the 6A box floats (lane 6c + k holds child c's
-//    coordinate k: min xyz, max xyz) and the A child codes bit-cast into
-//    lanes 6A .. 7A-1. A pop is 6A/4 float4 loads and 1 int4 load (7 at
-//    A = 4, 4 at A = 2) instead of 7A scalar ones from two tables, and a
-//    triangle test reads its record (tri_rec [T, 16]) as 3 float4. The
-//    wrappers check every table for 16-byte alignment.
+//    and K3's `wnode [W, 32]`, K2's binary `node [N, 16]`, the pages'
+//    `node`, [N, 32] for K4 and K6, [N, 16] for K5): the 6A box floats
+//    (lane 6c + k holds child c's coordinate k: min xyz, max xyz) and the
+//    A child codes bit-cast into lanes 6A .. 7A-1. A pop is 6A/4 float4
+//    loads and 1 int4 load (7 at A = 4, 4 at A = 2) instead of 7A scalar
+//    ones from two tables, and a triangle test reads its record
+//    (tri_rec [T, 16]) as 3 float4. The wrappers check every table for
+//    16-byte alignment.
 //  * A short stack (ShortStack): the top S entries of each thread's stack
 //    in a ring of S slots in shared memory, laid out [slot][thread] so that
 //    a warp's pushes hit 32 banks; older entries spill to local memory in
@@ -38,27 +42,28 @@
 //    reaches before its first accept is the same in every visit order. The
 //    ray is blocked exactly when that set holds an accepted triangle, which
 //    is the nearest walk's answer.
-//  * Leaf starts relative to a `tri_base` (K4's pages, whose leaves count
-//    from the page's first triangle; 0 for K1-K3), added in test_leaf so
-//    that hit ids stay global.
+//  * Leaf starts relative to a `tri_base` (the pages of K4-K6, whose
+//    leaves count from the page's first triangle; 0 for K1-K3), added in
+//    test_leaf so that hit ids stay global.
 //  * Persistent warps (for_each_ray): a grid of as many blocks as the SMs
-//    hold at once, each warp taking 32 rays at a time from a counter.
+//    hold at once, each warp taking 32 rays at a time from a counter (K6
+//    takes one block per tile of its plan instead, paged_major.cu).
 //
 // Nearest mode keeps every ray's sequence of events: children ranked near
 // first with ties to the lower child index, internal children pushed
 // farthest first, leaf children tested right after the pushes, nearest
-// first, each in ascending triangle index; the f32 operation order of
-// child_entry and test_tri. So K1-K4 equal their plain versions
-// (kernels/traversal.py, binary.py, tlas.py, paged.py) bit for bit in t,
-// tri and inst.
+// first, each in ascending triangle index; the f32 operation order of the
+// plain versions' child_entry and _test_tris. So K1-K6 equal their plain
+// versions (kernels/traversal.py, binary.py, tlas.py, paged.py,
+// paged_major.py) bit for bit in t, tri and inst.
 //
-// What bounds it on an H100 (PERF.md section 6 has the A/B against
-// walk_tree<A>): neither bytes (the tables sit in the 50 MB L2, all but the
-// 1M-triangle colonnade's triangle records) nor f32 operations (it runs at
-// 5-19% of that bound) but the instructions each ray issues per pop and
-// per triangle test, and the lanes that idle while a warp's other rays pop
-// more nodes or test more triangles. The 16-byte loads, the short stack
-// and the sorting network cut instructions; the early exits of the
+// What bounds it on an H100 (PERF.md section 6 has the A/Bs against the
+// earlier walks): neither bytes (the tables sit in the 50 MB L2, all but
+// the 1M-triangle colonnade's triangle records) nor f32 operations (it
+// runs at 5-19% of that bound) but the instructions each ray issues per
+// pop and per triangle test, and the lanes that idle while a warp's other
+// rays pop more nodes or test more triangles. The 16-byte loads, the short
+// stack and the sorting network cut instructions; the early exits of the
 // triangle test cut most on shadow and reflection rays; persistent warps
 // cut idle lanes. What is left is divergence. Replacing a warp's finished
 // rays one lane at a time (Aila and Laine's dynamic fetch) measured far
@@ -130,12 +135,13 @@ WT_HD void load_node(const float* rec, float* box, int32_t* code) {
 #endif
 }
 
-// child_entry of wide_traverse.cuh with fminf/fmaxf in place of max_nan and
-// min_nan, for `cap_slack` = t_best * kCapSlack. Exact here: safe_inv bounds
+// The plain versions' child_entry (kernels/traversal.py: NaN-propagating
+// max and min of the per-axis entries and exits) with fminf/fmaxf, for
+// `cap_slack` = t_best * kCapSlack. Exact here: safe_inv bounds
 // |inv| by 1e30 and boxes and origins are finite (absent children's
 // inverted boxes and K2's entered leaf-root box are +-3e38), so every
 // (b - o) * inv is finite or +-inf, never NaN, and on non-NaN operands
-// fmaxf/fminf give the value max_nan/min_nan give. Only the sign of a zero
+// fmaxf/fminf give the value the NaN-aware max/min give. Only the sign of a zero
 // may differ (near may come out -0 where it was +0); +0 and -0 compare
 // equal in every test here and in the sort, and an entry distance never
 // reaches the output.
@@ -192,7 +198,7 @@ WT_HD void sort_children(float* d, int* idx, int32_t* code) {
 // A push onto a full ring first moves the ring's oldest entry to spill; a
 // pop takes the top from the ring or, once the ring has drained, from
 // spill. Entries leave in exact LIFO order. The total stays within kStack
-// (kernels/wide4.py stack_needed; K3 and K4 add their top tree's depth,
+// (kernels/wide4.py stack_needed; K3-K5 add their top tree's depth,
 // checked by their wrappers).
 struct ShortStack {
   int32_t* ring;
@@ -284,7 +290,7 @@ WT_HD bool test_leaf(int32_t cc, int32_t tri_base, const float* tri_rec, const f
 
 // Walk one tree of arity kArity from node `root` of the node records
 // `nodes` for an object-space ray, leaf starts counting from `tri_base`,
-// updating `best`, on top of whatever `st` holds (K3 and K4 keep their top
+// updating `best`, on top of whatever `st` holds (K3-K5 keep their top
 // tree's entries below). Returns true when an any-hit walk accepted a
 // triangle (and stopped there, leaving its entries on the stack).
 template <int kArity, bool kAnyHit>

@@ -1,7 +1,8 @@
 // Launch side of the walk.cuh kernels K1 and K2 (wide_traverse.cu), K3
-// (tlas_traverse.cu) and K4 (paged_traverse.cu): the rays' input and
-// output, the launch shape (block size, the short stack's dynamic shared
-// memory, the persistent grid) and the launch itself. CUDA only.
+// (tlas_traverse.cu), K4 and K5 (paged_traverse.cu) and K6
+// (paged_major.cu): the rays' input and output, the launch shape (block
+// size, the short stack's dynamic shared memory, the persistent grid) and
+// the launch itself. CUDA only.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,6 +20,7 @@ constexpr int kK1MinBlocks = 1;
 constexpr int kK2MinBlocks = 1;
 constexpr int kK3MinBlocks = 8;
 constexpr int kK4MinBlocks = 1;
+constexpr int kK5MinBlocks = 1;
 constexpr int kMaxShortStack = 64;  // ring slots per thread: 32 KB of a block at 64
 
 // One cast's rays and hit record. `origin_stride` is 0 for one origin

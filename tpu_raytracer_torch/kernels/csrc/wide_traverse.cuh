@@ -1,10 +1,8 @@
 // The pieces every traversal kernel shares (constants, the scene's
-// tables, the instance transform, the slab and triangle tests, the output
-// record) and walk_tree<A>, the per-ray walk of a tree in the child-code
-// layout with a private stack: the walk of kernels K5 (binary pages) and
-// K6 (4-wide pages, page-major order) in paged_traverse.cuh. K1-K4 walk
-// with walk.cuh, built on the pieces here; walk_tree is the sequence of
-// events per ray that walk.cuh keeps.
+// tables, the instance transform, the triangle test, the output record).
+// K1-K6 walk with walk.cuh, built on the pieces here. test_tri is the
+// plain versions' triangle test (kernels/traversal.py _test_tris) op for
+// op; walk.cuh's test_tri4 is the same test with early exits.
 //
 // Any-hit mode (make_test_tri's `occlusion` in
 // tpu_raytracer/kernels/traversal.py, for shadow rays): the first
@@ -84,27 +82,6 @@ WT_HD float safe_inv(float v) {
   return 1.0f / s;
 }
 
-WT_HD float max_nan(float a, float b) { return (a != a || a > b) ? a : b; }
-WT_HD float min_nan(float a, float b) { return (a != a || a < b) ? a : b; }
-
-// Slab test of child box `b` (6 floats) against a ray whose best hit is
-// at t_cap: entry distance, or kBig on a miss.
-WT_HD float child_entry(const float* b, const float* o, const float* inv,
-                        float t_cap) {
-  const float t1x = (b[0] - o[0]) * inv[0];
-  const float t2x = (b[3] - o[0]) * inv[0];
-  const float t1y = (b[1] - o[1]) * inv[1];
-  const float t2y = (b[4] - o[1]) * inv[1];
-  const float t1z = (b[2] - o[2]) * inv[2];
-  const float t2z = (b[5] - o[2]) * inv[2];
-  const float near_ = max_nan(max_nan(fminf(t1x, t2x), fminf(t1y, t2y)),
-                              fminf(t1z, t2z));
-  const float far_ = min_nan(min_nan(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                             fmaxf(t1z, t2z));
-  const bool hit = (far_ >= near_) && (far_ > 0.0f) && (near_ < t_cap * kCapSlack);
-  return hit ? near_ : kBig;
-}
-
 // make_test_tri for one (ray, triangle): strict t < best->t update, and
 // at an exact-t tie the lower instance id wins. That tie rule is the
 // linear instance loop's (instances in index order, strict <), so the
@@ -153,70 +130,6 @@ WT_HD void object_ray(const float* q, const float* wo, const float* wd,
   inv[0] = safe_inv(d[0]);
   inv[1] = safe_inv(d[1]);
   inv[2] = safe_inv(d[2]);
-}
-
-// Floats per node record of a tree of arity kArity: the 4-wide tables
-// keep K1's 32-float records (24 box floats and 8 zero lanes), the
-// arity-2 tables 12 floats (two boxes).
-WT_HD constexpr int box_stride(int arity) { return arity == 4 ? 32 : 6 * arity; }
-
-// Walk one tree in the child-code layout of arity kArity (accel/wide.py:
-// node w's child c has code code[kArity*w + c] and box
-// box[box_stride*w + 6c .. +5]) from node `root`, for an object-space
-// ray, updating `best`. Leaf codes carry starts relative to `tri_base`,
-// which is added to give global triangle ids. Returns true when an
-// any-hit walk accepted a triangle (and stopped there).
-//
-// Arity 4 is K6's walk of one page, arity 2 K5's; over a whole tree
-// (tri_base 0) it is the sequence of events K1 and K2 keep, which their
-// plain versions (kernels/traversal.py walk_tree) follow.
-template <int kArity>
-WT_HD bool walk_tree(const int32_t* code, const float* box, int32_t root,
-                     int32_t tri_base, const float* tri_rec, const float* o,
-                     const float* d, const float* inv, int32_t inst_val,
-                     bool any_hit, Hit* best) {
-  constexpr int kBox = box_stride(kArity);
-  int32_t stack[kStack];
-  int sp = 0;
-  stack[sp++] = root;
-  while (sp > 0) {
-    const int32_t node = stack[--sp];
-    const float* b = box + kBox * node;
-    const int32_t* cd = code + kArity * node;
-    float dist[kArity];
-    for (int c = 0; c < kArity; ++c) dist[c] = child_entry(b + 6 * c, o, inv, best->t);
-    // rank children near-first, ties by child index (dual.py box_phase_wide)
-    int order[kArity];
-    int count = 0;
-    for (int c = 0; c < kArity; ++c) {
-      int r = 0;
-      for (int k = 0; k < kArity; ++k) {
-        if (k != c && (dist[k] < dist[c] || (dist[k] == dist[c] && k < c))) ++r;
-      }
-      order[r] = c;
-      count += dist[c] < kBig ? 1 : 0;
-    }
-    // internal children pushed farthest first, so the nearest pops next
-    for (int p = count - 1; p >= 0; --p) {
-      const int32_t cc = cd[order[p]];
-      if (cc >= 0) stack[sp++] = cc;
-    }
-    // leaf children tested nearest first, ascending triangle index
-    for (int p = 0; p < count; ++p) {
-      const int32_t cc = cd[order[p]];
-      if (cc >= 0) continue;
-      const int32_t packed = -cc - 1;
-      const int32_t start = (packed >> 10) + tri_base;
-      const int32_t n = packed & 1023;
-      for (int32_t k = start; k < start + n; ++k) {
-        if (test_tri(tri_rec + 16 * k, o, d, k, inst_val, any_hit, best) &&
-            any_hit) {
-          return true;
-        }
-      }
-    }
-  }
-  return false;
 }
 
 // The output record: a single-instance scene reports inst 0 on a hit

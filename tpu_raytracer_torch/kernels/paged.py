@@ -19,9 +19,11 @@ keeps the same tables in a flat layout for one thread per ray:
     ``accel/wide.py`` with page-local node ids (root 0) and leaf starts
     relative to ``page_tri0``: 4-wide (``collapse4``, ``arity`` 4: K4
     and K6) or binary (``collapse2``, ``arity`` 2: K5);
-  * 4-wide pages only: ``node [N, 32]``, the same trees' node records
-    (``wide4.node_records``: box floats, codes bit-cast into lanes
-    24..27), which K4 reads as 16-byte loads (``csrc/walk.cuh``).
+  * ``node [N, 8 * arity]``, the same trees' node records
+    (``wide4.node_records``: the box floats, the codes bit-cast into
+    lanes 24..27 at arity 4 or 12..13 at arity 2, zeros after them),
+    which K4, K5 and K6 read as 16-byte loads (``csrc/walk.cuh``);
+    ``code``/``box`` stay for the plain version.
 
 The JAX package's 128-lane rows, fixed per-page row strides and 8-row
 DMA padding are layout for VMEM and are dropped; ``paged_from_jax``
@@ -31,8 +33,8 @@ same pages.
   * ``cast_rays_paged_cuda`` is the wrapper of K4 and K5: for CUDA
     tensors it launches the hand-written kernel
     (``csrc/paged_traverse.cu``, arity from the tables: K4's
-    ``paged_wide_kernel`` on the walk of ``csrc/walk.cuh``, K5's
-    ``paged_kernel``) and counts the launch in ``LAUNCHES_K4`` or
+    ``paged_wide_kernel`` or K5's ``paged_binary_kernel``, both on the
+    walk of ``csrc/walk.cuh``) and counts the launch in ``LAUNCHES_K4`` or
     ``LAUNCHES_K5``; for CPU tensors it runs the plain version. A CUDA
     tensor never reaches the plain version and a failed build or launch
     raises.
@@ -76,7 +78,7 @@ from .traversal import (
 )
 from .wide4 import NUDGE, STACK_SIZE, node_records, stack_needed
 
-TOP_STACK = 64  # K5's per-ray top-tree stack (csrc/paged_traverse.cuh kTopStack)
+TOP_STACK = 64  # the plain version's per-ray top-tree stack
 # Leaf codes pack a start into 21 bits beside the 10-bit count; in-page
 # starts are page-local, so a page may hold at most this many triangles.
 MAX_PAGE_TRIS = 1 << (31 - LEAF_BITS)
@@ -100,9 +102,9 @@ class PagedTables:
     node_base: torch.Tensor  # [P] i32 row of each page's root in code/box
     code: torch.Tensor  # [N, arity] i32 page-local child codes
     box: torch.Tensor  # [N, box_stride(arity)] f32 child boxes, NUDGE baked in
+    node: torch.Tensor  # [N, 8 * arity] f32 node records (K4-K6)
     top_depth: int  # nodes on the longest top-tree path
     depth: int  # nodes on the longest path of any page tree
-    node: torch.Tensor | None = None  # [N, 32] f32 node records of 4-wide pages (K4)
 
     @property
     def num_pages(self) -> int:
@@ -155,7 +157,7 @@ def _page_trees(pt, child_a, child_b, leaf_start, leaf_count, node_min, node_max
 def _tables(top_code, top_box, top_root, page_node0, page_tri0, node_base, code, box,
             arity: int, device) -> PagedTables:
     depth = _page_depth(code, node_base)
-    if (arity - 1) * depth + 4 > STACK_SIZE:
+    if stack_needed(depth, arity) > STACK_SIZE:
         raise ValueError(f"page tree depth {depth} overflows the {STACK_SIZE}-slot stack")
     top_depth = _depth(top_code)
     if top_depth >= TOP_STACK:
@@ -165,8 +167,8 @@ def _tables(top_code, top_box, top_root, page_node0, page_tri0, node_base, code,
         arity=arity, top_code=t(top_code, np.int32), top_box=t(top_box, np.float32),
         top_root=t(top_root, np.int32), page_node0=t(page_node0, np.int32),
         page_tri0=t(page_tri0, np.int32), node_base=t(node_base, np.int32),
-        code=t(code, np.int32), box=t(box, np.float32), top_depth=top_depth, depth=depth,
-        node=t(node_records(code, box), np.float32) if arity == 4 else None,
+        code=t(code, np.int32), box=t(box, np.float32),
+        node=t(node_records(code, box), np.float32), top_depth=top_depth, depth=depth,
     )
 
 
@@ -394,23 +396,24 @@ def page_args(scene, directions) -> tuple:
     """The page-tree arguments of ``paged_launch`` and
     ``paged_major_launch`` (arity through num_instances), checked: the
     tables must be contiguous, of the kernel's types, on the rays'
-    device. Also returns the instance table, which the caller keeps
-    alive until the launch."""
+    device, and the tables read with 16-byte loads 16-byte aligned. Also
+    returns the instance table, which the caller keeps alive until the
+    launch."""
     pg = _paged_tables(scene)
     tri_rec = scene.wide4.tri_rec
     inst_tab = instance_table(scene)
     for name, x, dtype in (
-        ("directions", directions, torch.float32), ("code", pg.code, torch.int32),
-        ("box", pg.box, torch.float32), ("node_base", pg.node_base, torch.int32),
-        ("page_tri0", pg.page_tri0, torch.int32), ("tri_rec", tri_rec, torch.float32),
-        ("top_code", pg.top_code, torch.int32), ("top_box", pg.top_box, torch.float32),
+        ("directions", directions, torch.float32), ("node", pg.node, torch.float32),
+        ("node_base", pg.node_base, torch.int32), ("page_tri0", pg.page_tri0, torch.int32),
+        ("tri_rec", tri_rec, torch.float32), ("top_code", pg.top_code, torch.int32),
+        ("top_box", pg.top_box, torch.float32),
     ):
         if x.dtype != dtype or not x.is_contiguous() or x.device != directions.device:
             raise ValueError(f"{name} must be contiguous {dtype} on {directions.device}, got "
                              f"{x.dtype} on {x.device} contiguous={x.is_contiguous()}")
-    return (pg.arity, pg.code.data_ptr(), pg.box.data_ptr(), pg.node_base.data_ptr(),
-            pg.page_tri0.data_ptr(), tri_rec.data_ptr(), inst_tab.data_ptr(),
-            scene.num_instances), inst_tab
+    check_aligned16(node=pg.node, tri_rec=tri_rec, top_box=pg.top_box)
+    return (pg.arity, pg.node.data_ptr(), pg.node_base.data_ptr(), pg.page_tri0.data_ptr(),
+            tri_rec.data_ptr(), inst_tab.data_ptr(), scene.num_instances), inst_tab
 
 
 def ray_args(origin, directions, outputs) -> tuple:
@@ -425,7 +428,7 @@ def ray_args(origin, directions, outputs) -> tuple:
 def cast_rays_paged_cuda(scene, origin, directions, short_stack: int | None = None):
     """K4 (4-wide page tables) or K5 (binary): nearest hit through the
     scene's page tables. CUDA tensors launch the kernel on the current
-    stream, K4 with ``short_stack`` ring slots per thread (default
+    stream with ``short_stack`` ring slots per thread (default
     ``wide4.SHORT_STACK``); CPU tensors run the plain version."""
     global LAUNCHES_K4, LAUNCHES_K5
     origin, directions = _split_rays(origin, directions)
@@ -436,18 +439,12 @@ def cast_rays_paged_cuda(scene, origin, directions, short_stack: int | None = No
     pages, keep_alive = page_args(scene, directions)
     pg = scene.paged
     s = check_short_stack(short_stack)
-    node, counter = None, None
-    if pg.arity == 4:
-        node = pg.node
-        if node is None or node.dtype != torch.float32 or not node.is_contiguous():
-            raise ValueError("4-wide page tables need contiguous float32 node records")
-        check_aligned16(node=node, tri_rec=scene.wide4.tri_rec, top_box=pg.top_box)
-        # the top tree's entries (at most one per level) sit below a page walk's
-        need = pg.top_depth + stack_needed(pg.depth)
-        if need > STACK_SIZE:
-            raise ValueError(f"top tree depth {pg.top_depth} with the pages' stack needs "
-                             f"{need} stack slots; the kernel has {STACK_SIZE}")
-        counter = torch.zeros(1, dtype=torch.int64, device=directions.device)
+    # the top tree's entries (at most one per level) sit below a page walk's
+    need = pg.top_depth + stack_needed(pg.depth, pg.arity)
+    if need > STACK_SIZE:
+        raise ValueError(f"top tree depth {pg.top_depth} with the pages' stack needs "
+                         f"{need} stack slots; the kernel has {STACK_SIZE}")
+    counter = torch.zeros(1, dtype=torch.int64, device=directions.device)
     top_root = pg.top_root[scene.inst_mesh.long()].to(torch.int32).contiguous()
     r = directions.numel() // 3
     out = (torch.empty(r, dtype=torch.float32, device=directions.device),
@@ -458,8 +455,7 @@ def cast_rays_paged_cuda(scene, origin, directions, short_stack: int | None = No
     stream = torch.cuda.current_stream(directions.device).cuda_stream
     err = load("cuda").paged_launch(
         *pages, pg.top_code.data_ptr(), pg.top_box.data_ptr(), top_root.data_ptr(),
-        None if node is None else node.data_ptr(), *ray_args(origin, directions, out), s,
-        None if counter is None else counter.data_ptr(), stream)
+        *ray_args(origin, directions, out), s, counter.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"paged_launch failed with CUDA error {err}")
     if pg.arity == 4:

@@ -1,5 +1,5 @@
-"""Page-major paged casts: the host plan, kernel K6 and its plain
-PyTorch version.
+"""Page-major paged casts: the plan, kernel K6, and their plain PyTorch
+versions.
 
 Counterpart of ``tpu_raytracer/kernels/paged_major.py``. The JAX kernel
 inverts the paged loop for the TPU: all rays' state stays in VMEM while
@@ -9,19 +9,27 @@ skips the items it cannot see. On the card there is no VMEM budget to
 stream under, so K6 keeps the plan and the order and drops the staging
 (and the JAX package's 80 MB state budget and chunking):
 
-  * ``page_major_plan`` is the plan of ``_tile_bounds`` and
-    ``_item_plan``: for each tile of ``TILE_RAYS`` rays, interval bounds
-    of its object-space origins and reciprocal directions per instance;
-    an interval slab test of each page's root box (out-rounded) against
-    them; items sorted front to back by the nearest entry of any tile
-    that may see them (stable, so equal keys keep instance-major,
-    page-minor order); items no tile sees dropped.
+  * ``page_major_plan`` is the plain version of the plan, that of
+    ``_tile_bounds`` and ``_item_plan``: for each tile of ``TILE_RAYS``
+    rays, interval bounds of its object-space origins and reciprocal
+    directions per instance; an interval slab test of each page's root
+    box (out-rounded) against them; items sorted front to back by the
+    nearest entry of any tile that may see them (stable, so equal keys
+    keep instance-major, page-minor order); items no tile sees dropped.
+    ``tile_lists`` turns its mask into each tile's list of items.
+  * ``page_major_plan_cuda`` is the plan's wrapper: for CUDA tensors it
+    launches the hand-written plan kernels (``csrc/page_plan.cu``),
+    which give the same item order and lists with no host sync, and
+    counts the launch in ``LAUNCHES_PLAN``; for CPU tensors it runs the
+    plain version.
   * ``cast_rays_paged_major_cuda`` is K6's wrapper: for CUDA tensors it
-    launches the hand-written kernel (``csrc/paged_major.cu``: one block
-    per tile, each thread walks its tile's items in plan order with its
-    best hit in registers) and counts the launch in ``LAUNCHES``; for
-    CPU tensors it runs the plain version. An image's rays go in
-    16x16-pixel tiles, other ray sets in runs of ``TILE_RAYS``.
+    makes the plan on the card and launches the hand-written kernel
+    (``csrc/paged_major.cu``: each thread walks its tile's items in plan
+    order with the walk of ``csrc/walk.cuh``, its best hit in
+    registers), counting the launch in ``LAUNCHES``, and the whole cast
+    waits on the host for nothing; for CPU tensors it runs the plain
+    version. An image's rays go in 16x16-pixel tiles, other ray sets in
+    runs of ``TILE_RAYS``.
   * ``cast_rays_paged_major_torch`` is the plain version: the same walk
     vectorised over rays (round j walks every ray's j-th visible item),
     in the kernel's per-ray order, so the two agree bit for bit.
@@ -42,6 +50,7 @@ from .traversal import (
     PLAIN_CHUNK,
     _hit,
     _split_rays,
+    check_short_stack,
     finish_plain,
     instance_table,
     new_stats,
@@ -56,9 +65,11 @@ TILE_PIX = 16  # an image tile is TILE_PIX x TILE_PIX pixels
 FRUSTUM_REL = 4e-6
 FRUSTUM_ABS = 1e-12
 
-# Launches of K6 since the count was last reset (CPU casts, which run
-# the plain version, do not count).
+# Launches of K6 and of its plan since the counts were last reset (CPU
+# casts, which run the plain versions, do not count). A plan launch is
+# the four kernels of csrc/page_plan.cu.
 LAUNCHES = 0
+LAUNCHES_PLAN = 0
 
 
 def tile_order(shape, device) -> torch.Tensor | None:
@@ -130,6 +141,79 @@ def page_major_plan(scene, origin, directions):
     return item_pid, item_iid, mask
 
 
+def tile_lists(mask):
+    """Each tile's items in plan order from a plan's ``mask [K, n_tiles]``:
+    (tile_start [n_tiles + 1] i32, tile_item [nnz] i32), tile t's items
+    being ``tile_item[tile_start[t]:tile_start[t + 1]]``, ascending."""
+    seen = torch.nonzero(mask.T)  # (tile, item), tile-major, items ascending
+    count = mask.sum(0, dtype=torch.int32)
+    start = torch.zeros(mask.shape[1] + 1, dtype=torch.int32, device=mask.device)
+    start[1:] = torch.cumsum(count, 0)
+    return start, seen[:, 1].to(torch.int32).contiguous()
+
+
+def plan_args(scene, origin, directions, inst_tab=None) -> tuple:
+    """The arguments of ``page_plan_launch`` (and of the host build's
+    ``page_plan_host``, which takes the same but the stream) for rays in
+    tile order, checked, with its scratch and outputs allocated on the
+    rays' device: (args, (item_pid, item_iid, tile_start, tile_item),
+    tensors to keep alive until the launch). ``inst_tab`` is the scene's
+    ``instance_table`` where the caller has it. ``tile_item`` has room for
+    every tile to see every item; the plan fills ``tile_start[-1]``
+    entries."""
+    pg = _paged_tables(scene)
+    dev = directions.device
+    r = directions.shape[0]
+    n_tiles = -(-r // TILE_RAYS)
+    k = scene.num_instances * pg.num_pages
+    inst_tab = instance_table(scene) if inst_tab is None else inst_tab
+    node0 = pg.page_node0
+    for name, x, dtype in (
+        ("origin", origin, torch.float32), ("directions", directions, torch.float32),
+        ("node_min", scene.node_min, torch.float32), ("node_max", scene.node_max, torch.float32),
+        ("page_node0", node0, torch.int32), ("mesh_root", scene.mesh_root, torch.int32),
+        ("inst_mesh", scene.inst_mesh, torch.int32), ("inst_tab", inst_tab, torch.float32),
+    ):
+        if x.dtype != dtype or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name} must be contiguous {dtype} on {dev}, got "
+                             f"{x.dtype} on {x.device} contiguous={x.is_contiguous()}")
+    i32 = lambda n: torch.empty(n, dtype=torch.int32, device=dev)
+    wanted = torch.empty(n_tiles * k, dtype=torch.uint8, device=dev)
+    tile_count, key = i32(n_tiles), torch.empty(k, dtype=torch.float32, device=dev)
+    plan = (i32(k), i32(k), i32(n_tiles + 1), i32(max(n_tiles * k, 1)))
+    args = (origin.data_ptr(), 0 if origin.dim() == 1 else 3, directions.data_ptr(), r,
+            inst_tab.data_ptr(), scene.inst_mesh.data_ptr(), scene.num_instances,
+            scene.node_min.data_ptr(), scene.node_max.data_ptr(), node0.data_ptr(),
+            pg.num_pages, scene.mesh_root.data_ptr(), scene.mesh_root.shape[0],
+            wanted.data_ptr(), tile_count.data_ptr(), key.data_ptr(),
+            *(x.data_ptr() for x in plan))
+    return args, plan, (inst_tab, wanted, tile_count, key)
+
+
+def page_major_plan_cuda(scene, origin, directions, inst_tab=None):
+    """K6's plan for rays in tile order (``origin`` [3] or [R, 3],
+    ``directions`` [R, 3]): (item_pid, item_iid, tile_start, tile_item).
+    CUDA tensors launch the plan kernels on the current stream: every
+    item is ordered, those no tile sees last, and ``tile_item`` is
+    allocated for every tile seeing every item; nothing waits on the
+    host. CPU tensors run the plain version (``page_major_plan`` and
+    ``tile_lists``), whose items are the seen ones only. ``inst_tab`` is
+    the scene's ``instance_table`` where the caller has it."""
+    global LAUNCHES_PLAN
+    if directions.device.type == "cpu":
+        item_pid, item_iid, mask = page_major_plan(scene, origin, directions)
+        return (item_pid, item_iid, *tile_lists(mask))
+    args, plan, keep_alive = plan_args(scene, origin, directions, inst_tab)
+    from .build import load
+
+    stream = torch.cuda.current_stream(directions.device).cuda_stream
+    err = load("cuda").page_plan_launch(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"page_plan_launch failed with CUDA error {err}")
+    LAUNCHES_PLAN += 1
+    return plan
+
+
 def _tile_rays(origin, directions):
     """(permutation or None, origin, directions) with the rays in tile
     order, contiguous."""
@@ -137,17 +221,15 @@ def _tile_rays(origin, directions):
     d = directions.reshape(-1, 3)
     o = origin if origin.dim() == 1 else origin.reshape(-1, 3)
     if perm is not None:
-        d = d[perm]
-        o = o if o.dim() == 1 else o[perm]
+        d = d.index_select(0, perm)
+        o = o if o.dim() == 1 else o.index_select(0, perm)
     return perm, o.contiguous(), d.contiguous()
 
 
 def _untile(perm, x):
     if perm is None:
         return x
-    out = torch.empty_like(x)
-    out[perm] = x
-    return out
+    return torch.empty_like(x).index_copy_(0, perm, x)
 
 
 def _require_wide(scene):
@@ -172,6 +254,7 @@ def cast_rays_paged_major_torch(scene, origin, directions, chunk: int = PLAIN_CH
     shape = directions.shape[:-1]
     perm, o_t, d_t = _tile_rays(origin, directions)
     item_pid, item_iid, mask = page_major_plan(scene, o_t, d_t)
+    tile_start, tile_item = tile_lists(mask)
     dev = d_t.device
     r = d_t.shape[0]
     inst_tab = instance_table(scene)
@@ -180,10 +263,8 @@ def cast_rays_paged_major_torch(scene, origin, directions, chunk: int = PLAIN_CH
     tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
     inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
     counters = new_stats(r, dev) if stats else None
-    # each tile's items in plan order: rows (tile, k) of the mask's nonzeros
-    seen = torch.nonzero(mask.T)
-    count = mask.sum(0).long()  # items per tile
-    first = torch.cumsum(count, 0) - count
+    first = tile_start[:-1].long()
+    count = tile_start[1:].long() - first  # items per tile
     chunk = max(chunk // TILE_RAYS, 1) * TILE_RAYS
     for lo in range(0, r, chunk):
         rays = torch.arange(lo, min(lo + chunk, r), device=dev)
@@ -194,7 +275,7 @@ def cast_rays_paged_major_torch(scene, origin, directions, chunk: int = PLAIN_CH
         oo, od, inv = (torch.stack(x) for x in zip(*obj))
         for j in range(int(count[tile].max())):
             live = torch.nonzero(count[tile] > j).squeeze(1)
-            item = seen[first[tile[live]] + j, 1]
+            item = tile_item[first[tile[live]] + j]
             pid = item_pid[item].long()
             iid = item_iid[item].long()
             g = rays[live]
@@ -219,10 +300,12 @@ def cast_rays_paged_major_torch(scene, origin, directions, chunk: int = PLAIN_CH
 # ---------------------------------------------------------------------------
 
 
-def cast_rays_paged_major_cuda(scene, origin, directions):
+def cast_rays_paged_major_cuda(scene, origin, directions, short_stack: int | None = None):
     """K6: nearest hit through the page-major plan and the 4-wide page
-    trees. CUDA tensors launch the kernel on the current stream; CPU
-    tensors run the plain version."""
+    trees. CUDA tensors make the plan on the card and launch the kernel
+    on the current stream, with ``short_stack`` ring slots per thread
+    (default ``wide4.SHORT_STACK``), with no host sync; CPU tensors run
+    the plain version."""
     global LAUNCHES
     origin, directions = _split_rays(origin, directions)
     if directions.device.type == "cpu":
@@ -230,9 +313,10 @@ def cast_rays_paged_major_cuda(scene, origin, directions):
     if scene.device != directions.device:
         raise ValueError(f"scene on {scene.device}, rays on {directions.device}")
     _require_wide(scene)
+    s = check_short_stack(short_stack)
     perm, o_t, d_t = _tile_rays(origin, directions)
-    item_pid, item_iid, mask = page_major_plan(scene, o_t, d_t)
-    pages, keep_alive = page_args(scene, d_t)
+    pages, inst_tab = page_args(scene, d_t)
+    item_pid, item_iid, tile_start, tile_item = page_major_plan_cuda(scene, o_t, d_t, inst_tab)
     r = d_t.shape[0]
     out = (torch.empty(r, dtype=torch.float32, device=d_t.device),
            torch.empty(r, dtype=torch.int32, device=d_t.device),
@@ -241,8 +325,9 @@ def cast_rays_paged_major_cuda(scene, origin, directions):
 
     stream = torch.cuda.current_stream(d_t.device).cuda_stream
     err = load("cuda").paged_major_launch(
-        *pages, item_pid.data_ptr(), item_iid.data_ptr(), item_pid.shape[0], mask.data_ptr(),
-        mask.shape[1], *ray_args(o_t, d_t, out), stream)
+        *pages, item_pid.data_ptr(), item_iid.data_ptr(), tile_start.data_ptr(),
+        tile_item.data_ptr(), tile_start.shape[0] - 1, *ray_args(o_t, d_t, out), s, None,
+        stream)
     if err != 0:
         raise RuntimeError(f"paged_major_launch failed with CUDA error {err}")
     LAUNCHES += 1

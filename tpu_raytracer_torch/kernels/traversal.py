@@ -103,9 +103,9 @@ def _split_rays(origin, directions):
 
 def child_entry(box, o, inv, t_cap):
     """Slab entry distance of boxes ``box [..., 6]`` (min xyz, max xyz)
-    for rays whose best hit is at ``t_cap``, BIG on a miss:
-    ``child_entry`` of ``csrc/wide_traverse.cuh``, same f32 operation
-    order."""
+    for rays whose best hit is at ``t_cap``, BIG on a miss. The kernels'
+    ``slab_entry`` (``csrc/walk.cuh``) computes it with the same f32
+    operations in the same order."""
     t1 = (box[..., 0:3] - o) * inv
     t2 = (box[..., 3:6] - o) * inv
     fmn = torch.fmin(t1, t2)
@@ -117,8 +117,9 @@ def child_entry(box, o, inv, t_cap):
 
 
 def box_stride(arity: int) -> int:
-    """Floats per node record of a tree of ``arity`` (``box_stride`` of
-    ``csrc/wide_traverse.cuh``)."""
+    """Floats per row of the ``box`` table of a tree of ``arity``: the
+    4-wide tables keep 32 (24 box floats and 8 zero lanes), the binary
+    ones 12."""
     return 32 if arity == 4 else 6 * arity
 
 
@@ -145,8 +146,11 @@ def new_stats(n: int, device) -> dict:
 
 def walk_tree(code, box, arity, tri_rec, base, root, tri_base, o, d, inv, inst_val,
               best, stats=None):
-    """``walk_tree`` of ``csrc/wide_traverse.cuh`` for ``n`` object-space
-    rays ``o``/``d``/``inv`` [n, 3]: each ray walks the tree whose nodes
+    """The walk of one tree for ``n`` object-space rays ``o``/``d``/``inv``
+    [n, 3], in the visit order that ``walk<A>`` of ``csrc/walk.cuh``
+    keeps (children ranked near first, ties to the lower child, internal
+    ones pushed farthest first, then the leaves tested nearest first):
+    each ray walks the tree whose nodes
     are rows ``base + id`` of ``code [N, arity]`` / ``box``, from node id
     ``root``, with leaf starts relative to ``tri_base``, and ``inst_val``
     recorded on accepts. ``base``, ``root``, ``tri_base`` and
@@ -425,7 +429,7 @@ def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
 
 def check_aligned16(**tensors):
     """Raise unless every tensor starts on a 16-byte boundary, as the
-    16-byte loads of K1-K4 need."""
+    16-byte loads of K1-K6 need."""
     for name, x in tensors.items():
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the kernel's 16-byte loads")
@@ -442,10 +446,11 @@ def check_short_stack(short_stack: int | None) -> int:
 
 def launch_shape(kernel: str, occlusion: bool, num_rays: int,
                  short_stack: int | None = None) -> dict:
-    """The launch K1, K2, K3 or K4 (``kernel``; K4 has no any-hit mode)
-    makes for ``num_rays`` rays: blocks of its persistent grid, threads
-    per block, dynamic shared bytes (the short stack's ring) and resident
-    blocks per SM."""
+    """The launch K1, K2, K3, K4, K5 or K6 (``kernel``; K4-K6 have no
+    any-hit mode) makes for ``num_rays`` rays: blocks of its grid
+    (persistent, but for K6's one block per tile), threads per block,
+    dynamic shared bytes (the short stack's ring) and resident blocks per
+    SM."""
     import ctypes
 
     from .build import load
@@ -457,8 +462,10 @@ def launch_shape(kernel: str, occlusion: bool, num_rays: int,
         err = lib.wt_launch_shape(4 if kernel == "K1" else 2, int(occlusion), s, num_rays, out)
     elif kernel == "K3":
         err = lib.tlas_launch_shape(int(occlusion), s, num_rays, out)
-    elif kernel == "K4" and not occlusion:
-        err = lib.paged_launch_shape(s, num_rays, out)
+    elif kernel in ("K4", "K5") and not occlusion:
+        err = lib.paged_launch_shape(4 if kernel == "K4" else 2, s, num_rays, out)
+    elif kernel == "K6" and not occlusion:
+        err = lib.paged_major_launch_shape(s, num_rays, out)
     else:
         raise ValueError(f"no launch shape for {kernel} occlusion={occlusion}")
     if err != 0:

@@ -35,17 +35,18 @@ from ..render.intersect import WATERTIGHT_NUDGE, barycentric_rows
 NUDGE = WATERTIGHT_NUDGE
 REC32 = 32  # f32 lanes per wide-node record
 STACK_SIZE = 192  # per-ray traversal stack (csrc/wide_traverse.cuh kStack)
-# The short stack of K1-K4: ring slots per thread in shared memory
+# The short stack of K1-K6: ring slots per thread in shared memory
 # (csrc/walk.cuh ShortStack; a power of two, at most 64). 4, 8, 16 and
 # 32 measured within 2% of each other on every ray set (PERF.md section 6).
 SHORT_STACK = 8
 
 
-def stack_needed(depth: int) -> int:
-    """Stack slots a depth-``depth`` wide tree can need: each pop takes
-    one node and pushes at most four, so the stack holds at most three
-    siblings per level on the current path, plus slack."""
-    return 3 * depth + 4
+def stack_needed(depth: int, arity: int = 4) -> int:
+    """Stack slots a depth-``depth`` tree of ``arity`` can need: each pop
+    takes one node and pushes at most ``arity``, so the stack holds at
+    most ``arity - 1`` siblings per level on the current path, plus
+    slack."""
+    return (arity - 1) * depth + 4
 
 
 @dataclasses.dataclass(frozen=True)
