@@ -120,6 +120,7 @@ The port runs without JAX: ``jax`` is blocked from being imported.
 """
 
 import contextlib
+import functools
 import json
 import os
 import sys
@@ -165,6 +166,9 @@ PATH_TIMES = (("512x512", 512, 512, PATH_BOUNCES, PATH_SAMPLES),
 # differ (tests/test_torch_path.py GOLDEN5_MAX_MISMATCH; 9 of 4,096 on the
 # CPU, bounce rays that directions a few ulps off send elsewhere)
 GOLDEN5_MAX_MISMATCH = 16
+# the shading slice's frames (phase 11c): 1920x1088, the SSAA frame at
+# half that with 2x2 subpixels
+SLICE_SIZE = (1920, 1088)
 
 # The H100's published peaks (NVIDIA's data sheet, SXM, 700 W).
 F32_FLOPS = 67e12
@@ -269,20 +273,17 @@ def main():
     sys.modules["jax"] = None  # the port must not need JAX
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_raytracer_torch.app import driver
-    from tpu_raytracer_torch.app.scenes import (
-        scene_bunny, scene_cornell, scene_cube, scene_instances, scene_instances16,
-    )
+    from tpu_raytracer_torch.app.scenes import scene_bunny, scene_instances, scene_instances16
     from tpu_raytracer_torch.core.vecmath import FLT_MAX, normalize
     from tpu_raytracer_torch.kernels import build, tlas, traversal
     from tpu_raytracer_torch.kernels.wide4 import SHORT_STACK
     from tpu_raytracer_torch.render import (
-        Camera, RenderConfig, generate_rays, hit_attributes, render, render_image,
-        render_image_whitted, shade_primary,
+        RenderConfig, generate_rays, hit_attributes, render_image, render_image_whitted,
+        shade_primary,
     )
     from tpu_raytracer_torch.render.integrators import _reflect
     from tpu_raytracer_torch.render.shade import DEFAULT_LIGHT_DIRECTION, SHADOW_EPS
     from tpu_raytracer_torch.render.sorted_cast import park_dead_rays
-    from tpu_raytracer_torch.scene import Material, MeshInstance, Scene, objloader, procgen
     from tpu_raytracer_torch.utils.device import card_line
 
     dev = torch.device("cuda", 0)
@@ -308,8 +309,11 @@ def main():
                     ("paged_wide_kernel", "K4", False),
                     ("paged_binary_kernel", "K5", False),
                     ("paged_major_kernel", "K6", False))
+    carry_kernels = (("wide_traverse_carry_kernel", "K1"), ("tlas_traverse_carry_kernel", "K3"))
     dyn = {kernel: traversal.launch_shape(k, occ, 1)["shared_bytes"]
            for kernel, k, occ in walk_kernels}
+    dyn.update({kernel: traversal.launch_shape(k, False, 1, carry=True)["shared_bytes"]
+                for kernel, k in carry_kernels})
     for kernel, r in report.items():
         r["shared_dynamic"] = dyn.get(kernel, 0)
     phase("build", kernels="K1/K2+K3+K4/K5+K6+K6 plan", seconds=f"{time.perf_counter() - t0:.2f}",
@@ -318,13 +322,15 @@ def main():
     for src in build.CUDA_SOURCES:
         check(any(ln.endswith(src) and "code=sm_90a" in ln and "--fmad=false" in ln
                   for ln in compiles), f"{src} was not built for sm_90a with --fmad=false")
-    built = [k for k, _, _ in walk_kernels] + [
+    built = [k for k, _, _ in walk_kernels] + [k for k, _ in carry_kernels] + [
         f"page_plan_{k}_kernel" for k in ("init", "tiles", "order", "lists")]
     check(all(kernel in report for kernel in built),
           f"ptxas reported no {[k for k in built if k not in report]}")
 
     design = {f"{k}{'_any_hit' if occ else ''}": traversal.launch_shape(k, occ, 1920 * 1088)
               for _, k, occ in walk_kernels}
+    design.update({f"{k}_carry": traversal.launch_shape(k, False, 1920 * 1088, carry=True)
+                   for _, k in carry_kernels})
     phase("walk_design", kernels="K1,K2,K3,K4,K5,K6", walk="kernels/csrc/walk.cuh",
           short_stack=SHORT_STACK, persistent_warps="K1-K5; K6 one block per tile",
           node_records="8A f32 lanes: 6A box floats, A codes bit-cast (K1/K3 wnode [W,32], "
@@ -373,18 +379,9 @@ def main():
     check(n_img == 0, f"{n_img} pixels differ from the plain path")
 
     # 5. config 1 against the CPU goldens -------------------------------
-    root = os.path.dirname(os.path.abspath(__file__))
-    golden = lambda g: os.path.join(root, "tests", "golden", g + ".npy")
-    cube, cube_cam = scene_cube(64, device=dev)
-    mism1 = _golden_mismatch(render(cube_cam, cube, backend="cuda"), golden("config1_cube_64"))
-    tex = Scene()
-    mat = Material()
-    mat.set_texture(procgen.checkerboard_texture(64, 8))
-    tex.add_material(mat)
-    tex.add_mesh(objloader.loads(procgen.cube_obj()))
-    tex.add_mesh_instance(MeshInstance(0, 0))
-    cam64 = Camera.looking(64, 64, fov_deg=45.0, pose=[0, -4, 0, 0, 0, 0])
-    mism2 = _golden_mismatch(render(cam64, tex.compile(dev), backend="cuda"), golden("cube_64"))
+    goldens = golden_renders(dev)
+    mism1 = _golden_mismatch(goldens["config1_cube_64"](), "config1_cube_64")
+    mism2 = _golden_mismatch(goldens["cube_64"](), "cube_64")
     phase("golden", config1_cube_64_mismatch=mism1, cube_64_mismatch=mism2)
     check(max(mism1, mism2) <= GOLDEN_MAX_MISMATCH,
           f"golden mismatch {mism1}/{mism2} pixels (nearest-texel flips at "
@@ -408,7 +405,7 @@ def main():
     k3_max_abs = 0.0
     k3_stats = {}
     for tag, (sc, ro, rd) in k3_sets.items():
-        hk3 = tlas.cast_rays_tlas_cuda(sc, ro, rd)
+        hk3 = tlas.cast_rays_tlas_cuda(sc, ro, rd, carry=False)
         hp3, k3_stats[tag] = tlas.cast_rays_tlas_torch(sc, ro, rd, stats=True)
         torch.cuda.synchronize()
         n_t, max_ulp, max_abs, n_tri, n_inst = compare_hits(hk3, hp3)
@@ -449,22 +446,27 @@ def main():
               answer_diff_vs_plain_nearest=n_bad, t_diff_vs_plain_any_hit=n_vals)
         check(n_bad == 0 and n_vals == 0, f"{tag} any-hit answers differ from the nearest cast")
     shadow_cfg = RenderConfig(cam.width, cam.height, lighting="lambert_shadow")
-    traversal.LAUNCHES = 0
+    traversal.LAUNCHES = traversal.LAUNCHES_CARRY = 0
     img_sh = render_image(shadow_cfg, scene, *args)
     torch.cuda.synchronize()
     k1_shadow_launches = traversal.LAUNCHES
+    # the primary cast carries the normal (K1's carrying kernel), the
+    # shadow cast is K1's any hit
+    k1_any_launches = k1_shadow_launches - traversal.LAUNCHES_CARRY
     phase("shadow_path", scene="flagship", lighting="lambert_shadow",
-          k1_launches=k1_shadow_launches,
+          k1_launches=k1_shadow_launches, k1_carry_launches=traversal.LAUNCHES_CARRY,
           lit_differs_from_flat=int((img_sh != img).any(-1).sum()))
-    check(k1_shadow_launches == 2, "the shadowed flagship frame did not launch K1 twice")
+    check(k1_shadow_launches == 2 and k1_any_launches == 1,
+          "the shadowed flagship frame did not launch K1 twice, once in any-hit mode")
 
     # 8. Whitted main path ----------------------------------------------
     wcfg = RenderConfig(cam4.width, cam4.height, backend="cuda")
-    tlas.LAUNCHES = 0
+    tlas.LAUNCHES = tlas.LAUNCHES_CARRY = 0
     traversal.LAUNCHES = 0
     img_w = render_image_whitted(wcfg, inst4, *args4)
     torch.cuda.synchronize()
     k3_launches = tlas.LAUNCHES
+    k3_carry_launches = tlas.LAUNCHES_CARRY
     k1_in_whitted = traversal.LAUNCHES
     saved_cast = traversal.cast_rays
     traversal.cast_rays = _plain_router(traversal, tlas)
@@ -472,26 +474,19 @@ def main():
     traversal.cast_rays = saved_cast
     n_w = int((img_w != img_w_plain).any(-1).sum())
     phase("whitted", scene="config4", shape=tuple(img_w.shape), k3_launches=k3_launches,
+          k3_carry_launches=k3_carry_launches,
           k1_launches=k1_in_whitted, pixels_vs_plain=n_w,
           image_mean=f"{float(img_w.float().mean()):.3f}")
     # 3 nearest casts (primary + 2 bounces) and 3 any-hit shadow casts
     check(k3_launches == 6, f"the Whitted frame launched K3 {k3_launches} times, not 6")
+    # the nearest casts carry u, v (textured floor) and n; the shadow casts do not
+    check(k3_carry_launches == 3, f"the Whitted frame's nearest casts did not carry "
+          f"({k3_carry_launches} carrying launches, not 3)")
     check(n_w == 0, f"{n_w} Whitted pixels differ from the plain casts' image")
 
     # 9. configs 2-4 against the CPU goldens ----------------------------
-    cornell, ccam = scene_cornell(64, device=dev)
-    bunny, bcam = scene_bunny(96, 96, subdivisions=4, device=dev)
-    inst64, icam = scene_instances(64, 64, device=dev)
-    mism = {}
-    for gname, fn, lighting, sc, gcam in (
-        ("config2_cornell_64", render_image, "lambert_shadow", cornell, ccam),
-        ("config3_bunny_96", render_image, "blinn_phong", bunny, bcam),
-        ("config4_instances_whitted_64", render_image_whitted, "flat", inst64, icam),
-    ):
-        gp = gcam.ray_params(dev)
-        gimg = fn(RenderConfig(gcam.width, gcam.height, backend="cuda", lighting=lighting), sc,
-                  gp["K_inv"], gp["D"], gp["pose"], gp["inv_pose"])
-        mism[gname] = _golden_mismatch(gimg, golden(gname))
+    mism = {g: _golden_mismatch(goldens[g](), g) for g in (
+        "config2_cornell_64", "config3_bunny_96", "config4_instances_whitted_64")}
     phase("golden2", **{f"{k}_mismatch": v for k, v in mism.items()})
     check(max(mism.values()) <= GOLDEN_MAX_MISMATCH,
           f"golden mismatch {mism} (at most {GOLDEN_MAX_MISMATCH} pixels each)")
@@ -532,7 +527,7 @@ def main():
         for k, fn in stages.items()})
 
     k1_any = lambda: traversal.cast_rays_cuda(scene, *shadow1, occlusion=True)
-    k3_cast = lambda: tlas.cast_rays_tlas_cuda(inst4, o4, d4)
+    k3_cast = lambda: tlas.cast_rays_tlas_cuda(inst4, o4, d4, carry=False)
     wframe = lambda: render_image_whitted(wcfg, inst4, *args4)
     for fn in (k1_any, k3_cast, wframe):
         fn()
@@ -552,11 +547,11 @@ def main():
     k3_per_set = {}
     for tag, (rays4, occ4, st4) in k3_frame_sets.items():
         fn = lambda rays4=rays4, occ4=occ4: tlas.cast_rays_tlas_cuda(inst4, *rays4,
-                                                                     occlusion=occ4)
+                                                                     occlusion=occ4, carry=False)
         fn()
         ms4 = device_ms(fn, "tlas_traverse_kernel")
         n4 = rays4[1].numel() // 3
-        b4 = bound(f"K3 config4 {tag}", st4, 4, n4, (*rays4, *k3_tables, *h4),
+        b4 = bound(f"K3 config4 {tag}", st4, 4, n4, (*rays4, *k3_tables, *h4[:3]),
                    real_tri_rows(inst4))
         k3_per_set[tag] = {"ms": ms4, **b4}
         phase("time_k3", card=repr(card), rays=f"config4_{tag}", n=n4, any_hit=occ4,
@@ -574,15 +569,17 @@ def main():
           whitted_frame_ms_best=f"{w_best:.4f}", whitted_frame_ms_median=f"{w_median:.4f}",
           whitted_fps=f"{1e3 / w_best:.2f}")
     phase("whitted_stages", card=repr(card), **_whitted_stages(traversal, wframe))
+    carry_entries = carry_phases(dev, card, report, (scene, origin, dirs, args),
+                                 (inst4, o4, d4, refl4, cam4), goldens)
 
     paged_kernels = paged_phases(dev, card)
     k2_entries = path_phases(dev, card, (scene, origin, dirs), shadow1)
 
     wide = scene.wide4
-    k1_bound = bound("K1", k1_stats, 4, rays, (dirs, origin, wide.wnode, *hk),
+    k1_bound = bound("K1", k1_stats, 4, rays, (dirs, origin, wide.wnode, *hk[:3]),
                      real_tri_rows(scene))
     k1_any_bound = bound("K1 any-hit", occ_stats["K1_flagship"], 4, shadow1[1].numel() // 3,
-                         (*shadow1, wide.wnode, *hk), real_tri_rows(scene))
+                         (*shadow1, wide.wnode, *hk[:3]), real_tri_rows(scene))
     k3_bound = {k: v for k, v in k3_per_set["primary"].items() if k != "ms"}
     check("jax" not in sys.modules or sys.modules["jax"] is None, "jax was imported")
     print(json.dumps({"kernels": [
@@ -599,12 +596,13 @@ def main():
         },
         {
             "name": "K1 wide_traverse any-hit mode (shadow rays; launches: the shadowed "
-                    "flagship frame, primary + shadow cast; bound from the nearest-hit "
-                    "walk's counts, more than the any-hit walk does)",
+                    "flagship frame's shadow cast, its primary cast being K1's carrying "
+                    "kernel; bound from the nearest-hit walk's counts, more than the any-hit "
+                    "walk does)",
             "route": "cuda",
             "source": "tpu_raytracer_torch/kernels/csrc/wide_traverse.cu",
             "replaces": "tpu_raytracer/kernels/dual.py:147",
-            "launches": k1_shadow_launches,
+            "launches": k1_any_launches,
             "max_abs_err": occ_err["K1_flagship"],
             "ms": k1_any_kernel_ms,
             "plain_ms": k1_any_plain_ms,
@@ -612,25 +610,241 @@ def main():
         },
         {
             "name": "K3 tlas_traverse (TLAS + 4-wide BLAS, nearest and any hit; launches: "
-                    "the config 4 Whitted frame; ms and bound: config 4 primary rays; "
+                    "the config 4 Whitted frame's casts without the carry, its 3 shadow "
+                    "casts; ms and bound: config 4 primary rays, nearest hit; "
                     "reflection " + ", shadow ".join(
                         f"{k3_per_set[k]['ms']:.4f} ms, bound {k3_per_set[k]['bound_ms']:.4f} ms"
                         for k in ("reflection", "shadow")) + ")",
             "route": "cuda",
             "source": "tpu_raytracer_torch/kernels/csrc/tlas_traverse.cu",
             "replaces": "tpu_raytracer/kernels/tlas.py:176",
-            "launches": k3_launches,
+            "launches": k3_launches - k3_carry_launches,
             "max_abs_err": max(k3_max_abs, occ_err["K3_config4"]),
             "ms": k3_kernel_ms,
             "plain_ms": k3_plain_ms,
             **k3_bound,
         },
+        *carry_entries,
         *k2_entries,
         *paged_kernels,
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _pixels(a, b) -> int:
+    """Pixels where two frames differ: u8 images, or AOV dicts (any buffer,
+    floats bit for bit)."""
+    if isinstance(a, dict):
+        off = torch.zeros(a["hit"].shape, dtype=torch.bool, device=a["hit"].device)
+        for k in a:
+            x, y = a[k], b[k]
+            x, y = (_bits(x), _bits(y)) if x.dtype == torch.float32 else (x, y)
+            diff = x != y
+            off |= diff.any(-1) if diff.dim() > off.dim() else diff
+        return int(off.sum())
+    return int((a != b).any(-1).sum())
+
+
+@contextlib.contextmanager
+def carry_off():
+    """The ``cuda`` backend with the carry of K1 and K3 off."""
+    from tpu_raytracer_torch.kernels import traversal
+
+    saved = traversal.cast_rays
+    traversal.cast_rays = functools.partial(saved, carry=False)
+    try:
+        yield
+    finally:
+        traversal.cast_rays = saved
+
+
+def carry_phases(dev, card, report, flagship, config4, goldens) -> list:
+    """Phases 11b-11d: the carrying kernels of K1 and K3 against their
+    plain versions (``[carry]``), the shading slice's frames
+    (``[shade_slice]``) and the goldens with the carry on and off
+    (``[golden_carry]``); returns the carrying kernels' entries of the
+    kernels line. ``flagship`` is (scene, origin, dirs, camera args) of
+    phase 3, ``config4`` (scene, origin, dirs, reflection rays, camera)
+    of phase 6, ``goldens`` ``golden_renders``."""
+    from tpu_raytracer_torch.app.scenes import build_demo_scene, scene_cube
+    from tpu_raytracer_torch.kernels import tlas, traversal
+    from tpu_raytracer_torch.render import (
+        Camera, RenderConfig, generate_rays, hit_attributes, reference_calibration,
+        render_aovs, render_image, render_image_whitted,
+    )
+    from tpu_raytracer_torch.render.integrators import PointLight
+    from tpu_raytracer_torch.scene import procgen
+
+    scene, origin, dirs, args = flagship
+    inst4, o4, d4, refl4, cam4 = config4
+    W, H = SLICE_SIZE
+
+    def params(cam):
+        p = cam.ray_params(dev)
+        return p["K_inv"], p["D"], p["pose"], p["inv_pose"]
+
+    # 11b. the carrying kernels against their plain versions -----------
+    cube, cube_cam = scene_cube(64, device=dev)
+    oc, dc = generate_rays(W, H, *params(
+        Camera.looking(W, H, fov_deg=45.0, pose=cube_cam.pose)))
+    sets = {"K1_flagship_primary": ("K1", scene, origin, dirs),
+            "K1_cube_primary": ("K1", cube, oc, dc),
+            "K3_config4_primary": ("K3", inst4, o4, d4),
+            "K3_config4_reflection": ("K3", inst4, *refl4)}
+    res = {}
+    for tag, (k, sc, ro, rd) in sets.items():
+        cast = traversal.cast_rays_cuda if k == "K1" else tlas.cast_rays_tlas_cuda
+        plain = traversal.cast_rays_wide_torch if k == "K1" else tlas.cast_rays_tlas_torch
+        name = "wide_traverse" if k == "K1" else "tlas_traverse"
+        uv, n = traversal.carry_fields(sc, rd, False, True, True)
+        hk = cast(sc, ro, rd, want_normals=True, carry=True)
+        hp, stats = plain(sc, ro, rd, stats=True, carry_uv=uv, carry_n=n)
+        torch.cuda.synchronize()
+        diff = {}
+        for field, a, b in zip(hk._fields, hk, hp):
+            check((a is None) == (b is None), f"{k} carried {field} where its plain version "
+                  "did not, or the other way")
+            if a is not None:
+                diff[field] = int((_bits(a) != _bits(b)).sum()) if a.is_floating_point() \
+                    else int((a != b).sum())
+        carry_fn = lambda sc=sc, ro=ro, rd=rd, cast=cast: cast(sc, ro, rd, want_normals=True,
+                                                               carry=True)
+        bare_fn = lambda sc=sc, ro=ro, rd=rd, cast=cast: cast(sc, ro, rd, carry=False)
+        carry_ms = device_ms(carry_fn, f"{name}_carry_kernel")
+        bare_ms = device_ms(bare_fn, f"{name}_kernel")
+        plain_ms = event_ms(lambda sc=sc, ro=ro, rd=rd, plain=plain: plain(
+            sc, ro, rd, carry_uv=uv, carry_n=n), 1)
+        tables = (sc.wide4.wnode,) + ((sc.tlas.code, sc.tlas.box) if k == "K3" else ())
+        n_rays = rd.numel() // 3
+        b = bound(f"{k} carry {tag}", stats, 4, n_rays,
+                  (ro, rd, *tables, *(x for x in hk if x is not None)), real_tri_rows(sc))
+        res[tag] = {"ms": carry_ms, "plain_ms": plain_ms, "bound": b}
+        phase("carry", card=repr(card), kernel=k, rays=tag, n=n_rays, carry_uv=uv, carry_n=n,
+              **{f"{f}_bitwise_diff": v for f, v in diff.items()},
+              kernel_ms_carry=f"{carry_ms:.4f}", kernel_ms_no_carry=f"{bare_ms:.4f}",
+              carry_cost=f"{carry_ms / bare_ms - 1.0:+.4f}",
+              bound_ms=f"{b['bound_ms']:.4f}", share_of_bound=f"{b['bound_ms'] / carry_ms:.4f}",
+              plain_ms=f"{plain_ms:.2f}",
+              hit_fraction=f"{float((hk.tri >= 0).float().mean()):.4f}")
+        check(not any(diff.values()), f"{k}'s carrying kernel differs from its plain version "
+              f"on {tag}: {diff}")
+    phase("carry_build", **{kernel: json.dumps(report[kernel], separators=(",", ":"))
+                            for kernel in ("wide_traverse_kernel<0>", "wide_traverse_carry_kernel",
+                                           "tlas_traverse_kernel<0>",
+                                           "tlas_traverse_carry_kernel")})
+
+    # 11c. the shading slice's frames ------------------------------------
+    light = (PointLight((0.0, 2.0, 2.0), 4.0),)  # over config 4's floor
+    demo = build_demo_scene()
+    demo.set_sky(procgen.sky_gradient_texture())
+    demo = demo.compile(dev)
+    K, D = reference_calibration(W, H)
+    demo_cam = Camera(W, H, K, D, pose=np.array([-1.0, -4.0, 2.0, 0, 0, 0], np.float32))
+    demo_args = params(demo_cam)
+    args4 = params(cam4)
+    args_half = params(Camera.looking(W // 2, H // 2, fov_deg=60.0, pose=cam4.pose))
+    frames = {
+        "config3_blinn_phong": (scene, args, "reference", lambda: render_image(
+            RenderConfig(W, H, lighting="blinn_phong"), scene, *args)),
+        "config4_whitted_point_light": (inst4, args4, "reference", lambda: render_image_whitted(
+            RenderConfig(W, H, point_lights=light), inst4, *args4)),
+        "config4_whitted_point_light_inverse_transpose": (
+            inst4, args4, "inverse_transpose", lambda: render_image_whitted(
+                RenderConfig(W, H, point_lights=light, normal_mode="inverse_transpose"),
+                inst4, *args4)),
+        "demo_sky_gradient_trilinear": (demo, demo_args, "reference", lambda: render_image(
+            RenderConfig(W, H, texture_filter="trilinear"), demo, *demo_args)),
+        "config4_aovs": (inst4, args4, "reference", lambda: render_aovs(
+            RenderConfig(W, H), inst4, *args4)),
+        f"config4_whitted_ssaa2_{W // 2}x{H // 2}": (
+            inst4, args4, "reference", lambda: render_image_whitted(
+                RenderConfig(W // 2, H // 2, ssaa=2), inst4, *args_half)),
+    }
+    slice_launches = {"K1": 0, "K3": 0}
+    for tag, (sc, fargs, normal_mode, fn) in frames.items():
+        traversal.LAUNCHES = traversal.LAUNCHES_CARRY = 0
+        tlas.LAUNCHES = tlas.LAUNCHES_CARRY = 0
+        img = fn()
+        torch.cuda.synchronize()
+        n = {"K1": traversal.LAUNCHES, "K1_carry": traversal.LAUNCHES_CARRY,
+             "K3": tlas.LAUNCHES, "K3_carry": tlas.LAUNCHES_CARRY}
+        with plain_casts():
+            n_plain = _pixels(img, fn())
+        with carry_off():
+            img_off = fn()
+        n_off = _pixels(img, img_off)
+        fn()
+        best, median = best_and_median_ms(fn, loops=3, n=3)
+        # hit_attributes of the frame's primary cast, carried and redone
+        ro, rd = generate_rays(W, H, *fargs)
+        h_on = traversal.cast_rays(sc, ro, rd, want_normals=True)
+        h_off = traversal.cast_rays(sc, ro, rd, carry=False)
+        # in turns (on, off, off, on, ...): the eager stage is host-bound
+        attrs_ms = {"on": float("inf"), "off": float("inf")}
+        for which in ("on", "off", "off", "on") * 2:
+            h = h_on if which == "on" else h_off
+            attrs_ms[which] = min(attrs_ms[which], event_ms(
+                lambda h=h: hit_attributes(sc, ro, rd, h, normal_mode=normal_mode), 10))
+        phase("shade_slice", card=repr(card), frame=tag, launches=json.dumps(n),
+              frame_ms_best=f"{best:.4f}", frame_ms_median=f"{median:.4f}",
+              attrs_ms_carry_on=f"{attrs_ms['on']:.4f}",
+              attrs_ms_carry_off=f"{attrs_ms['off']:.4f}", pixels_vs_plain=n_plain,
+              pixels_vs_carry_off=n_off)
+        check(n["K1_carry"] + n["K3_carry"] >= 1, f"the {tag} frame launched no carrying kernel")
+        check(n_plain == 0, f"{n_plain} pixels of the {tag} frame differ from the plain casts'")
+        if tag == "config3_blinn_phong":
+            slice_launches["K1"] = n["K1_carry"]
+        if tag == "config4_whitted_point_light":
+            slice_launches["K3"] = n["K3_carry"]
+
+    # 11d. the goldens with the carry on and off --------------------------
+    mism = {}
+    for gname, fn in goldens.items():
+        on = fn()
+        with carry_off():
+            off = fn()
+        mism[gname] = (_golden_mismatch(on, gname), _golden_mismatch(off, gname),
+                       _pixels(on, off))
+    phase("golden_carry", **{f"{g}_on/off/on_vs_off": "/".join(map(str, v))
+                             for g, v in mism.items()})
+    for g, (on, _, _) in mism.items():
+        check(on <= GOLDEN_MAX_MISMATCH, f"{g}: {on} pixels off the golden with the carry on "
+              f"(at most {GOLDEN_MAX_MISMATCH})")
+
+    def entry(k, tag, what):
+        r = res[tag]
+        return {
+            "name": f"{k} {'wide' if k == 'K1' else 'tlas'}_traverse_carry_kernel ({what})",
+            "route": "cuda",
+            "source": "tpu_raytracer_torch/kernels/csrc/"
+                      + ("wide_traverse.cu" if k == "K1" else "tlas_traverse.cu"),
+            "replaces": "tpu_raytracer/kernels/traversal.py:145",
+            "launches": slice_launches[k],
+            "max_abs_err": 0.0,
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            **r["bound"],
+        }
+
+    return [
+        entry("K1", "K1_flagship_primary",
+              "K1 with make_test_tri's carry_n: the accepted triangle's face normal; "
+              "launches: the config 3 Blinn-Phong frame; ms, bound: the flagship's primary "
+              f"rays; on the cube's 1920x1088 rays (u, v and n) "
+              f"{res['K1_cube_primary']['ms']:.4f} ms, bound "
+              f"{res['K1_cube_primary']['bound']['bound_ms']:.4f} ms"),
+        entry("K3", "K3_config4_primary",
+              "K3 with make_test_tri's carry_uv and carry_n; launches: the config 4 Whitted "
+              "frame with a point light; ms, bound: config 4 primary rays; reflection rays "
+              f"{res['K3_config4_reflection']['ms']:.4f} ms, bound "
+              f"{res['K3_config4_reflection']['bound']['bound_ms']:.4f} ms"),
+    ]
 
 
 def real_tri_rows(scene) -> int:
@@ -682,7 +896,7 @@ def brute_unexplained(scene, origin, dirs, hit, brute):
     from tpu_raytracer_torch.render import Hit
 
     far = ~torch.isclose(hit.t, brute.t, rtol=BRUTE_RTOL, atol=BRUTE_RTOL)
-    sub = lambda h: Hit(*(x[far] for x in h))
+    sub = lambda h: Hit(*(x[far] for x in h[:3]))
     return int(far.sum()), traversal.unexplained_differences(scene, origin, dirs[far],
                                                             sub(hit), sub(brute))
 
@@ -796,9 +1010,11 @@ def paged_phases(dev, card) -> list:
         if k != "K6":
             tables += (pg.top_code, pg.top_box)
         res[k] = {"hit": hp, "max_abs": max_abs, "plain_ms": plain_ms,
-                  "bound": bound(k, counters, arity, n_rays, (o, d, *tables, *hk), col_rows)}
+                  "bound": bound(k, counters, arity, n_rays, (o, d, *tables, *hk[:3]),
+                                 col_rows)}
     _, k1_counters = traversal.cast_rays_wide_torch(col, o, d, stats=True)
-    bound("K1 on the colonnade", k1_counters, 4, n_rays, (o, d, col.wide4.wnode, *k1), col_rows)
+    bound("K1 on the colonnade", k1_counters, 4, n_rays, (o, d, col.wide4.wnode, *k1[:3]),
+          col_rows)
     wo, wd = paged_major._tile_rays(o, d)[1:]
     plan_res = plan_vs_plain(wide_sc, wo, wd, "colonnade_1920x1088")
 
@@ -1052,7 +1268,7 @@ def path_phases(dev, card, flagship, flagship_shadow) -> list:
         res[tag] = {"max_abs": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
                     "t_vs_k1": t_vs_k1,
                     "bound": bound(f"K2 {tag}", counters, 2, n_rays,
-                                   (ro, rd, tree.node, *hk), real_tri_rows(sc))}
+                                   (ro, rd, tree.node, *hk[:3]), real_tri_rows(sc))}
 
     # K2's any-hit mode on the flagship's shadow rays: its answers against
     # its nearest hits and the plain any-hit cast, its kernel time, bound
@@ -1073,7 +1289,7 @@ def path_phases(dev, card, flagship, flagship_shadow) -> list:
                                                                   occlusion=True), 1)
     n_shadow = flagship_shadow[1].numel() // 3
     any_bound = bound("K2 any-hit flagship_shadow", occ_counters, 2, n_shadow,
-                      (*flagship_shadow, fsc.binary.node, *occ), real_tri_rows(fsc))
+                      (*flagship_shadow, fsc.binary.node, *occ[:3]), real_tri_rows(fsc))
     phase("time_k2", card=repr(card), rays="flagship_shadow", any_hit=True, n=n_shadow,
           occluded_fraction=f"{float((plain_occ.t < 0).float().mean()):.4f}",
           answer_diff_vs_nearest_and_plain=occ_diff, k2_kernel_ms=f"{any_ms:.4f}",
@@ -1086,7 +1302,7 @@ def path_phases(dev, card, flagship, flagship_shadow) -> list:
     # K1's bound on the bounce rays (its time: [sort] pixel order)
     _, k1_counters = traversal.cast_rays_wide_torch(col, bo, bd, stats=True)
     bound("K1 config5_bounce1", k1_counters, 4, bd.numel() // 3,
-          (bo, bd, col.wide4.wnode, *traversal.cast_rays_cuda(col, bo, bd)), real_tri_rows(col))
+          (bo, bd, col.wide4.wnode, *traversal.cast_rays_cuda(col, bo, bd)[:3]), real_tri_rows(col))
 
     # the coherence sort of the cuda backend's bounce casts: K1's kernel
     # on the bounce rays in pixel order and in sort order, and the whole
@@ -1153,11 +1369,10 @@ def path_phases(dev, card, flagship, flagship_shadow) -> list:
     # 21. config 5 against its CPU golden -------------------------------
     g_scene, g_cam = scene_colonnade(64, 64, columns=4, segs=8, device=dev)
     g_p = g_cam.ray_params(dev)
-    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
-                          "config5_colonnade_path_64.npy")
     mism = {b: _golden_mismatch(render_image_path_traced(
         RenderConfig(64, 64, backend=b), g_scene, g_p["K_inv"], g_p["D"], g_p["pose"],
-        g_p["inv_pose"], prng.PRNGKey(7), 2, 2), golden) for b in ("bvh", "cuda")}
+        g_p["inv_pose"], prng.PRNGKey(7), 2, 2), "config5_colonnade_path_64")
+        for b in ("bvh", "cuda")}
     phase("golden5", **{f"{b}_mismatch": v for b, v in mism.items()},
           bound=GOLDEN5_MAX_MISMATCH)
     check(max(mism.values()) <= GOLDEN5_MAX_MISMATCH, f"config 5 golden mismatch {mism}")
@@ -1251,17 +1466,19 @@ def plain_casts():
     """The ``bvh`` and ``cuda`` backends on the kernels' plain versions, on
     the rays' own device, for every cast the integrators and pipeline make."""
     from tpu_raytracer_torch.kernels import binary, tlas, traversal
-    from tpu_raytracer_torch.render import integrators, pipeline, renderer
+    from tpu_raytracer_torch.render import integrators, pipeline, renderer, shade
 
     real = renderer.get_cast_fn
     cuda_plain = _plain_router(traversal, tlas)
 
-    def plain(backend):
+    def plain(backend, want_normals=False):
         if backend == "bvh":
             return binary.cast_rays_binary_torch
-        return cuda_plain if backend == "cuda" else real(backend)
+        if backend == "cuda":
+            return functools.partial(cuda_plain, want_normals=want_normals)
+        return real(backend, want_normals)
 
-    modules = (renderer, integrators, pipeline)
+    modules = (renderer, integrators, pipeline, shade)
     saved = [m.get_cast_fn for m in modules]
     for m in modules:
         m.get_cast_fn = plain
@@ -1308,7 +1525,7 @@ def _path_stages(integrators, run) -> dict:
         return timed(saved["secondary_cast_fn"](cast, backend, sort), kind)
 
     prng = saved["prng"]
-    integrators.get_cast_fn = lambda b: timed(saved["get_cast_fn"](b), "primary")
+    integrators.get_cast_fn = lambda b, **kw: timed(saved["get_cast_fn"](b, **kw), "primary")
     integrators.occlusion_cast_fn = lambda b: timed(saved["occlusion_cast_fn"](b), "nee")
     integrators.secondary_cast_fn = secondary
     integrators.hit_attributes = timed(saved["hit_attributes"], "attrs")
@@ -1339,11 +1556,15 @@ def _path_stages(integrators, run) -> dict:
 
 def _plain_router(traversal, tlas):
     """``traversal.cast_rays`` with the kernels' plain versions in place
-    of the kernels, on the rays' own device."""
-    def cast(scene, origin, directions, occlusion=False):
+    of the kernels, on the rays' own device, carrying what the kernels
+    would carry (``traversal.carry_fields``)."""
+    def cast(scene, origin, directions, occlusion=False, want_normals=False, carry=None):
+        uv, n = traversal.carry_fields(scene, directions, occlusion, want_normals, carry)
         if scene.num_instances >= 2 and scene.tlas is not None:
-            return tlas.cast_rays_tlas_torch(scene, origin, directions, occlusion)
-        return traversal.cast_rays_wide_torch(scene, origin, directions, occlusion)
+            return tlas.cast_rays_tlas_torch(scene, origin, directions, occlusion,
+                                             carry_uv=uv, carry_n=n)
+        return traversal.cast_rays_wide_torch(scene, origin, directions, occlusion,
+                                              carry_uv=uv, carry_n=n)
 
     return cast
 
@@ -1355,11 +1576,11 @@ def _whitted_stages(traversal, wframe) -> dict:
     saved = traversal.cast_rays
     marks = []
 
-    def timed(scene, origin, directions, occlusion=False):
+    def timed(scene, origin, directions, occlusion=False, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        hit = saved(scene, origin, directions, occlusion)
+        hit = saved(scene, origin, directions, occlusion, **kw)
         end.record()
         marks.append(("any_hit" if occlusion else "nearest", start, end))
         return hit
@@ -1383,7 +1604,46 @@ def _whitted_stages(traversal, wframe) -> dict:
     return out
 
 
-def _golden_mismatch(img: torch.Tensor, path: str) -> int:
+def golden_renders(dev) -> dict:
+    """{golden name: a function rendering its scene through the ``cuda``
+    backend}: configs 1-4 at the sizes of their CPU goldens."""
+    from tpu_raytracer_torch.app.scenes import (
+        scene_bunny, scene_cornell, scene_cube, scene_instances,
+    )
+    from tpu_raytracer_torch.render import (
+        Camera, RenderConfig, render, render_image, render_image_whitted,
+    )
+    from tpu_raytracer_torch.scene import Material, MeshInstance, Scene, objloader, procgen
+
+    tex = Scene()
+    mat = Material()
+    mat.set_texture(procgen.checkerboard_texture(64, 8))
+    tex.add_material(mat)
+    tex.add_mesh(objloader.loads(procgen.cube_obj()))
+    tex.add_mesh_instance(MeshInstance(0, 0))
+    tex = tex.compile(dev)
+    cube, cube_cam = scene_cube(64, device=dev)
+    cam64 = Camera.looking(64, 64, fov_deg=45.0, pose=[0, -4, 0, 0, 0, 0])
+    out = {"config1_cube_64": lambda: render(cube_cam, cube, backend="cuda"),
+           "cube_64": lambda: render(cam64, tex, backend="cuda")}
+    for gname, fn, lighting, (sc, gcam) in (
+        ("config2_cornell_64", render_image, "lambert_shadow", scene_cornell(64, device=dev)),
+        ("config3_bunny_96", render_image, "blinn_phong",
+         scene_bunny(96, 96, subdivisions=4, device=dev)),
+        ("config4_instances_whitted_64", render_image_whitted, "flat",
+         scene_instances(64, 64, device=dev)),
+    ):
+        gp = gcam.ray_params(dev)
+        out[gname] = lambda fn=fn, lighting=lighting, sc=sc, gcam=gcam, gp=gp: fn(
+            RenderConfig(gcam.width, gcam.height, backend="cuda", lighting=lighting), sc,
+            gp["K_inv"], gp["D"], gp["pose"], gp["inv_pose"])
+    return out
+
+
+def _golden_mismatch(img: torch.Tensor, name: str) -> int:
+    """Pixels of ``img`` off the CPU golden ``tests/golden/<name>.npy``."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                        name + ".npy")
     golden = np.load(path)
     return int((img.cpu().numpy() != golden).any(-1).sum())
 

@@ -226,7 +226,7 @@ def test_backend_routes_and_tables_follow_the_scene():
     got = get_cast_fn("bvh")(scene, o, d)
     assert binary.LAUNCHES == before  # CPU tensors run the plain version
     want = binary.cast_rays_binary_torch(scene, o, d)
-    for a, b in zip(got, want):
+    for a, b in zip(got[:3], want[:3]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     occ = occlusion_cast_fn("bvh")(scene, o, d)
     assert torch.equal(occ.t < 0, want.t < 3.0e38)

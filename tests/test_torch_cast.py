@@ -91,7 +91,7 @@ def test_plain_walk_chunks_and_per_ray_origins_agree():
     whole = traversal.cast_rays_wide_torch(scene, o, d)
     per_ray = traversal.cast_rays_wide_torch(scene, o.expand(d.shape).contiguous(), d,
                                              chunk=1000)
-    for a, b in zip(whole, per_ray):
+    for a, b in zip(whole[:3], per_ray[:3]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
@@ -102,7 +102,7 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting():
     got = traversal.cast_rays_cuda(scene, o, d)
     want = traversal.cast_rays_wide_torch(scene, o, d)
     assert traversal.LAUNCHES == before
-    for a, b in zip(got, want):
+    for a, b in zip(got[:3], want[:3]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
@@ -117,11 +117,11 @@ def test_router_raises_for_unported_routes():
     for occlusion in (False, True):
         got = traversal.cast_rays(scene, o, d, occlusion=occlusion)
         want = tlas.cast_rays_tlas_torch(scene, o, d, occlusion=occlusion)
-        for a, b in zip(got, want):
+        for a, b in zip(got[:3], want[:3]):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
     no_tlas = dataclasses.replace(scene, tlas=None)
     got = traversal.cast_rays(no_tlas, o, d)
-    for a, b in zip(got, traversal.cast_rays_wide_torch(scene, o, d)):
+    for a, b in zip(got[:3], traversal.cast_rays_wide_torch(scene, o, d)[:3]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     no_wide = dataclasses.replace(port_scene("cube"), wide4=None)
     with pytest.raises(NotImplementedError, match="K4"):
@@ -156,7 +156,7 @@ def host_trace_spills(scene, origin, directions, occlusion=False, arity=4, short
         arity, node.data_ptr(), tables.tri_rec.data_ptr(), inst_tab.data_ptr(),
         inst_root.data_ptr(), ctypes.c_int(scene.num_instances), o.data_ptr(),
         0 if o.dim() == 1 else 3, d.data_ptr(), r, int(occlusion), t.data_ptr(),
-        tri.data_ptr(), inst.data_ptr(), ctypes.byref(spills),
+        tri.data_ptr(), inst.data_ptr(), None, None, None, ctypes.byref(spills),
     )
     assert rc == 0
     return t, tri, inst, spills.value

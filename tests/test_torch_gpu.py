@@ -1,7 +1,9 @@
 """Kernels K1-K6 on a CUDA card against their plain PyTorch versions
 (also with their short stack cut to one slot, so that entries take the
 spill path), K6's card plan against its plain plan and K6's cast with
-no host sync, and the config 5 path frame through K2 and K1.
+no host sync, the config 5 path frame through K2 and K1, and the
+carrying kernels of K1 and K3 (u, v and n) with the lit frames they
+serve.
 
 Marked ``gpu``: every test skips without a card. On a machine with one
 (and no JAX), run from the repository root with
@@ -12,9 +14,10 @@ Marked ``gpu``: every test skips without a card. On a machine with one
 does not use). The kernels are built with --fmad=false, so they must
 equal their plain versions bit for bit; their any-hit answers must equal the
 nearest-hit casts' blocked/clear answers. The cube must equal its exact
-CPU golden; the config 4 Whitted image may differ from its CPU golden in
-at most 4 pixels, since PyTorch's CUDA rsqrt and pow need not round as
-the CPU's do (the JAX package allows its TPU the same 4).
+CPU golden; the config 4 Whitted image and the carried lit frames of
+configs 2 and 3 may differ from their CPU goldens in at most 4 pixels,
+since PyTorch's CUDA rsqrt and pow need not round as the CPU's do (the
+JAX package allows its TPU the same 4).
 """
 
 import os
@@ -191,6 +194,80 @@ def test_config4_whitted_within_four_pixels_of_cpu_golden(cuda):
     assert (img.cpu().numpy() != golden).any(-1).sum() <= 4
 
 
+def _carry_sets(device):
+    """(kernel, scene, origin, directions) of the carry tests: K1 on the
+    textured cube and the untextured pair, K3 on config 4's primary and
+    reflection rays."""
+    cube, cam = scene_cube(64, device=device)
+    pair, pcam = _two_instance(device)
+    inst, icam = scene_instances(256, 256, device=device)
+    o, d = _rays(icam, device)
+    refl, _ = _secondary_rays(inst, o, d, tlas.cast_rays_tlas_cuda(inst, o, d))
+    return [("K1", cube, *_rays(cam, device)), ("K1", pair, *_rays(pcam, device)),
+            ("K3", inst, o, d), ("K3", inst, *refl)]
+
+
+@pytest.mark.parametrize("short_stack", [None, 1])
+def test_carrying_kernels_match_plain_versions_bitwise(cuda, short_stack):
+    """K1's and K3's carrying kernels: t, tri, inst, u, v and n equal to
+    the plain versions' with the same carry, bit for bit, also through
+    the short stack's spill path; the carry changes no t, tri or inst."""
+    for kernel, scene, o, d in _carry_sets(cuda):
+        cast, plain, counts = (
+            (traversal.cast_rays_cuda, traversal.cast_rays_wide_torch, traversal)
+            if kernel == "K1" else (tlas.cast_rays_tlas_cuda, tlas.cast_rays_tlas_torch, tlas))
+        uv, n = traversal.carry_fields(scene, d, False, True)
+        assert n and uv == scene.has_textures
+        before = (counts.LAUNCHES, counts.LAUNCHES_CARRY)
+        got = cast(scene, o, d, short_stack=short_stack, want_normals=True)
+        bare = cast(scene, o, d, short_stack=short_stack, carry=False)
+        torch.cuda.synchronize()
+        assert (counts.LAUNCHES, counts.LAUNCHES_CARRY) == (before[0] + 2, before[1] + 1)
+        want = plain(scene, o, d, carry_uv=uv, carry_n=n)
+        assert (got.tri >= 0).any() and got.n is not None and (got.u is not None) == uv
+        for a, b, c in zip(got, want, tuple(bare) + (None,) * 3):
+            if b is None:
+                assert a is None
+                continue
+            bits = lambda x: x.view(torch.int32) if x.is_floating_point() else x
+            assert torch.equal(bits(a), bits(b))
+            if c is not None:
+                assert torch.equal(bits(a), bits(c))
+
+
+def test_carry_refuses_any_hit_and_keeps_its_launch_shape(cuda):
+    scene, cam = scene_cube(64, device=cuda)
+    o, d = _rays(cam, cuda)
+    with pytest.raises(ValueError, match="occlusion"):
+        traversal.launch("wt_launch", scene, o, d, True, arity=4, carry_n=True)
+    occ = traversal.cast_rays_cuda(scene, o, d, occlusion=True, want_normals=True)
+    assert occ.u is None and occ.n is None
+    for kernel in ("K1", "K3"):
+        carry = traversal.launch_shape(kernel, False, 1920 * 1088, carry=True)
+        bare = traversal.launch_shape(kernel, False, 1920 * 1088)
+        assert carry["threads"] == bare["threads"]
+        assert carry["shared_bytes"] == bare["shared_bytes"]
+        assert carry["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("golden,lighting", [("config2_cornell_64", "lambert_shadow"),
+                                             ("config3_bunny_96", "blinn_phong")])
+def test_carried_lit_frames_within_four_pixels_of_cpu_golden(cuda, golden, lighting):
+    from tpu_raytracer_torch.app.scenes import scene_bunny, scene_cornell
+    from tpu_raytracer_torch.render import render_image
+
+    scene, cam = (scene_cornell(64, device=cuda) if golden.startswith("config2")
+                  else scene_bunny(96, 96, subdivisions=4, device=cuda))
+    p = cam.ray_params(cuda)
+    counts = tlas if scene.num_instances >= 2 else traversal
+    before = counts.LAUNCHES_CARRY
+    img = render_image(RenderConfig(cam.width, cam.height, lighting=lighting), scene,
+                       p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    assert counts.LAUNCHES_CARRY == before + 1  # the primary cast carried the normal
+    want = np.load(os.path.join(GOLDEN_DIR, golden + ".npy"))
+    assert (img.cpu().numpy() != want).any(-1).sum() <= 4
+
+
 PAGED = {
     "K4": (True, paged.cast_rays_paged_cuda, paged.cast_rays_paged_torch),
     "K5": (False, paged.cast_rays_paged_cuda, paged.cast_rays_paged_torch),
@@ -355,14 +432,18 @@ def _plain_casts(monkeypatch):
 
     real = renderer.get_cast_fn
 
-    def plain(backend):
+    def plain(backend, want_normals=False):
         if backend == "bvh":
             return binary.cast_rays_binary_torch
         if backend == "cuda":
-            return lambda sc, o, d, occlusion=False: (
-                tlas.cast_rays_tlas_torch(sc, o, d, occlusion) if sc.num_instances >= 2
-                else traversal.cast_rays_wide_torch(sc, o, d, occlusion))
-        return real(backend)
+            def cast(sc, o, d, occlusion=False):
+                # what the kernels carry on these rays
+                uv, n = traversal.carry_fields(sc, d, occlusion, want_normals)
+                plain_cast = (tlas.cast_rays_tlas_torch if sc.num_instances >= 2
+                              else traversal.cast_rays_wide_torch)
+                return plain_cast(sc, o, d, occlusion, carry_uv=uv, carry_n=n)
+            return cast
+        return real(backend, want_normals)
 
     from tpu_raytracer_torch.render import integrators
 
@@ -408,5 +489,5 @@ def test_sorted_cast_equals_unsorted_cast_on_the_card(cuda):
     ro, rd = park_dead_rays(attrs.location + nd * SHADOW_EPS, nd, attrs.hit)
     want = traversal.cast_rays_cuda(scene, ro, rd)
     got = cast_rays_sorted(traversal.cast_rays_cuda, scene, ro, rd)
-    for a, b in zip(got, want):
+    for a, b in zip(got[:3], want[:3]):
         assert torch.equal(a, b)

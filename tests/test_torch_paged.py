@@ -428,7 +428,7 @@ def test_tables_from_jax_cast_like_the_ports(kernel):
     scene, o, d = port_scene("colonnade", "tiny", True)
     theirs = paged.paged_from_jax(jax_table_fields(jax_tables("colonnade", True)), device="cpu")
     got = PLAIN[kernel](dataclasses.replace(scene, paged=theirs), o, d)
-    for a, b in zip(got, PLAIN[kernel](scene, o, d)):
+    for a, b in zip(got[:3], PLAIN[kernel](scene, o, d)[:3]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
@@ -498,7 +498,7 @@ def test_wrappers_run_plain_versions_on_cpu_without_counting():
     for wrapper, plain in ((paged.cast_rays_paged_cuda, paged.cast_rays_paged_torch),
                            (paged_major.cast_rays_paged_major_cuda,
                             paged_major.cast_rays_paged_major_torch)):
-        for a, b in zip(wrapper(scene, o, d), plain(scene, o, d)):
+        for a, b in zip(wrapper(scene, o, d)[:3], plain(scene, o, d)[:3]):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert (paged.LAUNCHES_K4, paged.LAUNCHES_K5, paged_major.LAUNCHES) == before
     moved = scene.to("cpu")
@@ -559,7 +559,7 @@ def test_differences_from_k1_are_explained_by_box_order():
     wrong_tri[hits] += 1
     assert traversal.unexplained_differences(
         scene, o, d, k1._replace(tri=wrong_tri.reshape(k1.tri.shape)), k1) == 10
-    lost = [x.clone().reshape(-1) for x in k1]
+    lost = [x.clone().reshape(-1) for x in k1[:3]]
     lost[0][hits], lost[1][hits], lost[2][hits] = FLT_MAX, -1, -1
     assert traversal.unexplained_differences(
         scene, o, d, type(k1)(*(x.reshape(k1.t.shape) for x in lost)), k1) == 10

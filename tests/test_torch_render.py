@@ -100,9 +100,13 @@ def test_unported_routes_raise():
     scene, cam = compiled("cube", "torch")
     with pytest.raises(NotImplementedError, match="bvh, cuda"):
         render(cam, scene, backend="pallas")
-    with pytest.raises(NotImplementedError, match="skies"):
-        render(cam, dataclasses.replace(scene, has_sky=True))
+    with pytest.raises(ValueError, match="texture filter"):
+        render(cam, scene, texture_filter="anisotropic")
+    # sky maps and vertex normals are ported: a zero tri_vnorm (no face
+    # has vertex normals) renders the face-normal image
     fields = scene.numpy_fields()
     fields["tri_vnorm"] = np.zeros((scene.num_triangles, 10), np.float32)
-    with pytest.raises(NotImplementedError, match="vertex-normal"):
-        from_scene_arrays(fields, device="cpu")
+    flat = from_scene_arrays(fields, device="cpu")
+    assert flat.tri_vnorm is not None
+    assert torch.equal(render(cam, flat, lighting="lambert"),
+                       render(cam, scene, lighting="lambert"))

@@ -143,7 +143,7 @@ def test_plain_version_matches_linear_instance_loop(name, rays):
     got = tlas.cast_rays_tlas_torch(scene, o, d)
     want = traversal.cast_rays_wide_torch(scene, o, d)
     assert (got.tri >= 0).any()
-    for a, b in zip(got, want):
+    for a, b in zip(got[:3], want[:3]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
@@ -167,7 +167,7 @@ def host_trace_spills(scene, origin, directions, occlusion=False, short_stack=No
         inst_root.data_ptr(), scene.num_instances,
         tl.code.data_ptr(), tl.box.data_ptr(), tl.inst_ids.data_ptr(),
         o.data_ptr(), 0 if o.dim() == 1 else 3, d.data_ptr(), r, int(occlusion),
-        t.data_ptr(), tri.data_ptr(), inst.data_ptr(), ctypes.byref(spills),
+        t.data_ptr(), tri.data_ptr(), inst.data_ptr(), None, None, None, ctypes.byref(spills),
     )
     assert rc == 0
     return t, tri, inst, spills.value
@@ -313,7 +313,7 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting():
     got = tlas.cast_rays_tlas_cuda(scene, o, d, occlusion=True)
     want = tlas.cast_rays_tlas_torch(scene, o, d, occlusion=True)
     assert tlas.LAUNCHES == before
-    for a, b in zip(got, want):
+    for a, b in zip(got[:3], want[:3]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     moved = scene.to("cpu")
     assert moved.tlas.depth == scene.tlas.depth

@@ -191,23 +191,29 @@ def test_driver_renders_the_demo(tmp_path, capsys):
 
 
 def test_unported_lighting_options_raise():
+    # the lighting options are ported; what stays refused is refused by name
     _, pa, d, _, pattrs = config4_attrs()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        shade.compute_illumination(pa, pattrs, LIGHT, "lambert", point_lights=(object(),))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="nearest_cast_fn"):
+        shade.compute_illumination(pa, pattrs, LIGHT, "lambert_shadow",
+                                   point_lights=(integrators.PointLight((0, 0, 3)),),
+                                   cast_fn=occlusion_cast_fn("cuda"))
+    with pytest.raises(ValueError, match="normal_mode"):
         hit_attributes(pa, torch.zeros(3), torch.from_numpy(np.array(d)),
                        traversal.cast_rays(pa, torch.zeros(3), torch.from_numpy(np.array(d))),
-                       normal_mode="inverse_transpose")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        shade.surface_color(pa, pattrs, tex_filter="bilinear")
+                       normal_mode="transpose")
+    with pytest.raises(ValueError, match="texture filter"):
+        shade.surface_color(pa, pattrs, tex_filter="anisotropic")
     # the coherence sort serves the cuda backend only; others pass through
     assert secondary_cast_fn(traversal.cast_rays, "brute", sort_secondary=True) \
         is traversal.cast_rays
     from tpu_raytracer_torch.utils import prng
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        integrators.render_path_traced(pa, torch.zeros(3), torch.from_numpy(np.array(d)),
-                                       prng.PRNGKey(0), point_lights=(object(),))
+    with pytest.raises(ValueError, match="occlusion"):
+        traversal.cast_rays_wide_torch(pa, torch.zeros(3), torch.from_numpy(np.array(d)),
+                                       occlusion=True, carry_n=True)
+    assert integrators.render_path_traced(
+        pa, torch.zeros(3), torch.from_numpy(np.array(d)), prng.PRNGKey(0), max_bounces=1,
+        samples=1, point_lights=(integrators.PointLight((0, 0, 3)),)).shape == d.shape
     from tpu_raytracer_torch.app.driver import run
 
     with pytest.raises(ValueError, match="mode"):

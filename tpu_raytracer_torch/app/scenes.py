@@ -16,7 +16,7 @@ Config 5 is path tracing on the colonnade: BASELINE's run is
 segments: 256,002 triangles), 2 samples and 2 bounces over a 5-pose
 ``controls.fly_through`` (``render_image_path_traced``); the ~1.04M
 triangles at 18x18 columns and 40 segments are the paged kernels'
-scene. Flattening static instances waits for ROADMAP item 15.
+scene. Flattening static instances waits for ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations

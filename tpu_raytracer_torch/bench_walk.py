@@ -4,14 +4,12 @@ of their sources.
     python -m tpu_raytracer_torch.bench_walk --old DIR [--out FILE]
 
 ``DIR`` holds the ``kernels/csrc`` of an earlier version of the port,
-e.g. that of commit 1e298ba, whose K1-K4 walk with ``walk.cuh`` and
-whose K5 and K6 walk with ``walk_tree<A>`` (``git archive 1e298ba
-tpu_raytracer_torch/kernels/csrc | tar -x -C DIR --strip-components=3``).
-Its ``wide_traverse.cu``, ``tlas_traverse.cu``, ``paged_traverse.cu`` and
-``paged_major.cu`` are built like the current ones into a second library
-and called through that version's C interface (``_OLD_ARGS``: the pages'
-code/box tables beside K4's node records; K5 without node records; K6
-with its plan's mask and no short stack).
+e.g. that of commit b3ee60f, the last without the carry of K1 and K3
+(``git archive b3ee60f tpu_raytracer_torch/kernels/csrc | tar -x -C DIR
+--strip-components=3``). Its ``wide_traverse.cu``, ``tlas_traverse.cu``,
+``paged_traverse.cu`` and ``paged_major.cu`` are built like the current
+ones into a second library and called through that version's C
+interface (``_OLD_ARGS``: K1-K3 without the carried outputs).
 
 On each ray set it checks that every variant of the current design gives
 the earlier kernel's output bit for bit (t, tri, inst; the any-hit t),
@@ -19,12 +17,15 @@ then times the kernels in turns: earlier, current, the variants,
 current, earlier. A time is the best of 5 loops of CUDA events around 20
 back-to-back launches (the counter reset included), divided by 20. The
 sets: K1 and K2 on the flagship's primary and shadow (any hit) rays and
-on config 5's first bounce rays; K3 on config 4's primary, reflection
-and shadow rays; K4, K5 (binary page tables) and K6 on the 1M-triangle
-colonnade's 1920x1088 rays, K6's in 16x16-pixel tile order with its plan
-made once (the earlier K6 on the plain plan, the current one on the
-card's). The variants: the short stack's ring at 4, 8 and 16 slots (at
-launch), and builds of the current sources with one change each
+on config 5's first bounce rays; K1 on the textured cube's primary rays
+at 1920x1088; K3 on config 4's primary, reflection and shadow rays; K4,
+K5 (binary page tables) and K6 on the 1M-triangle colonnade's 1920x1088
+rays, K6's in 16x16-pixel tile order with the card's plan made once.
+The variants: the short stack's ring at 4, 8 and 16 slots (at launch),
+the carrying kernels of K1 and K3 (``CARRY``: K1 carrying n on the
+flagship's primary rays and u, v on the cube's, K3 carrying all three on
+config 4's primary and reflection rays; their t, tri and inst checked
+like the rest), and builds of the current sources with one change each
 (``PATCHED``), timed on the sets of the kernels they change: one thread
 per ray over a grid of all rays instead of persistent warps, the
 triangle test without its early exits, the other minimum of resident
@@ -57,22 +58,27 @@ from .kernels.wide4 import SHORT_STACK
 from .utils.device import card_line
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# the interface of the 1e298ba build: K1-K3 as now; the pages' code and
-# box tables beside the node records; K6 with its plan's mask
+# the interface of the b3ee60f build: K1-K3 without the carried outputs,
+# K4-K6 as now
 _OLD_SCENE = [_P, _P, _P, _P, _I]
 _OLD_RAYS = [_P, _I, _P, _I64, _I, _P, _P, _P]
-_OLD_PAGES = [_I] + [_P] * 6 + [_I]
-_OLD_NEAREST = [_P, _I, _P, _I64, _P, _P, _P]
 _OLD_ARGS = {
     "wt_launch": [_I] + _OLD_SCENE + _OLD_RAYS + [_I, _P, _P],
     "tlas_launch": _OLD_SCENE + [_P] * 3 + _OLD_RAYS + [_I, _P, _P],
-    "paged_launch": _OLD_PAGES + [_P] * 4 + _OLD_NEAREST + [_I, _P, _P],
-    "paged_major_launch": _OLD_PAGES + [_P, _P, _I, _P, _I] + _OLD_NEAREST + [_P],
+    "paged_launch": build._ENTRY_ARGS["cuda"]["paged_launch"],
+    "paged_major_launch": build._ENTRY_ARGS["cuda"]["paged_major_launch"],
 }
 SOURCES = ("wide_traverse.cu", "tlas_traverse.cu", "paged_traverse.cu", "paged_major.cu")
 ENTRIES = tuple(_OLD_ARGS)
 STACKS = (4, 8, 16)
 LOOPS, CALLS = 5, 20
+# the carrying kernels' variants, per ray set: name -> (u and v, n)
+CARRY = {
+    "K1_flagship_primary": {"carry_n": (False, True)},
+    "K1_cube_primary": {"carry_uv": (True, False)},
+    "K3_config4_primary": {"carry_uv_n": (True, True)},
+    "K3_config4_reflection": {"carry_uv_n": (True, True)},
+}
 
 # for_each_ray as one ray per thread of the grid
 _GRID_LOOP = """  {
@@ -93,7 +99,9 @@ PATCHED = {
               ("walk_launch.cuh", "int64_t blocks = static_cast<int64_t>(sms) * per_sm;",
                "int64_t blocks = grid;")]),
     "no_early_exit": (("K1", "K2", "K3", "K4", "K5", "K6"),
-                      [("walk.cuh", "if (test_tri4(r, o, d, k,", "if (test_tri(r, o, d, k,")]),
+                      [("walk.cuh",
+                        "if (test_tri4<kCarry>(r, o, d, k, inst_val, kAnyHit, best, carry)",
+                        "if (test_tri(r, o, d, k, inst_val, kAnyHit, best)")]),
     "k3_min_blocks1": (("K3",), [("walk_launch.cuh", "kK3MinBlocks = 8;", "kK3MinBlocks = 1;")]),
     "k4_min_blocks8": (("K4",), [("walk_launch.cuh", "kK4MinBlocks = 1;", "kK4MinBlocks = 8;")]),
     "k4_top_local": (("K4",), [("paged_traverse.cuh", "ShortStack& top_st = st;", _TOP_LOCAL)]),
@@ -147,12 +155,12 @@ def best_ms(fn) -> float:
 
 class Caster:
     """Raw launches of one library's K1-K6 on one ray set, outputs kept.
-    K6's rays come in tile order with their plan (``plan``: the plain
-    plan's (item_pid, item_iid, mask) for the earlier build, the card
-    plan's (item_pid, item_iid, tile_start, tile_item) for the current)."""
+    K6's rays come in tile order with the card plan's (item_pid,
+    item_iid, tile_start, tile_item). ``carry`` = (u and v, n) launches
+    K1's or K3's carrying kernel (the current build only)."""
 
     def __init__(self, lib, old: bool, kernel: str, scene, origin, dirs, occlusion: bool,
-                 short_stack: int = SHORT_STACK, plan=None):
+                 short_stack: int = SHORT_STACK, plan=None, carry=(False, False)):
         w = scene.wide4
         dev = dirs.device
         root = scene.binary.root if kernel == "K2" else w.wroot
@@ -167,28 +175,24 @@ class Caster:
         self.tri = torch.empty(r, dtype=torch.int32, device=dev)
         self.inst = torch.empty(r, dtype=torch.int32, device=dev)
         self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        uv, n = carry
+        self.carried = (torch.empty(r, device=dev) if uv else None,
+                        torch.empty(r, device=dev) if uv else None,
+                        torch.empty(r, 3, device=dev) if n else None)
         rays = [o.data_ptr(), 0 if o.dim() == 1 else 3, d.data_ptr(), r]
         outs = [self.t.data_ptr(), self.tri.data_ptr(), self.inst.data_ptr()]
         walk = [short_stack, self.counter.data_ptr()]
         if kernel in ("K4", "K5", "K6"):
             pg = scene.paged
             tail = [w.tri_rec.data_ptr(), inst_tab.data_ptr(), scene.num_instances]
-            tables = ([pg.code.data_ptr(), pg.box.data_ptr()] if old else [pg.node.data_ptr()])
-            head = [pg.arity, *tables, pg.node_base.data_ptr(), pg.page_tri0.data_ptr(), *tail]
+            head = [pg.arity, pg.node.data_ptr(), pg.node_base.data_ptr(),
+                    pg.page_tri0.data_ptr(), *tail]
             if kernel == "K6":
                 self.fn = lib.paged_major_launch
-                if old:
-                    pid, iid, mask = plan
-                    plan_args = [pid.data_ptr(), iid.data_ptr(), pid.shape[0], mask.data_ptr(),
-                                 mask.shape[1]]
-                    self.args = head + plan_args + rays + outs
-                else:
-                    plan_args = [x.data_ptr() for x in plan] + [plan[2].shape[0] - 1]
-                    self.args = head + plan_args + rays + outs + walk
+                plan_args = [x.data_ptr() for x in plan] + [plan[2].shape[0] - 1]
+                self.args = head + plan_args + rays + outs + walk
                 return
             top = [pg.top_code.data_ptr(), pg.top_box.data_ptr(), inst_root.data_ptr()]
-            if old:
-                top.append(pg.node.data_ptr() if kernel == "K4" else None)
             self.fn = lib.paged_launch
             self.args = head + top + rays + outs + walk
             return
@@ -201,7 +205,9 @@ class Caster:
                      if kernel == "K3" else [])
         head = {"K1": [4], "K2": [2], "K3": []}[kernel]
         self.fn = lib.tlas_launch if kernel == "K3" else lib.wt_launch
-        self.args = head + scene_args + tlas_args + rays + [int(occlusion)] + outs + walk
+        carried = [] if old else [None if x is None else x.data_ptr() for x in self.carried]
+        self.args = (head + scene_args + tlas_args + rays + [int(occlusion)] + outs + carried
+                     + walk)
 
     def __call__(self):
         self.counter.zero_()
@@ -215,7 +221,8 @@ class Caster:
 
 def ray_sets(dev):
     """{name: (kernel, scene, origin, dirs, occlusion)} of the measured rays."""
-    from .app.scenes import scene_bunny, scene_colonnade, scene_instances
+    from .app.scenes import scene_bunny, scene_colonnade, scene_cube, scene_instances
+    from .render import Camera
     from .core.vecmath import normalize
     from .render import generate_rays, hit_attributes
     from .render.integrators import _cosine_sample, _reflect
@@ -239,6 +246,8 @@ def ray_sets(dev):
 
     flag, cam = scene_bunny(1920, 1088, device=dev)
     o1, d1, a1 = primary(flag, cam)
+    cube, cube_cam = scene_cube(64, device=dev)
+    oc, dc = rays(Camera.looking(1920, 1088, fov_deg=45.0, pose=cube_cam.pose))
     shadow1 = shadow(a1)
     col, ccam = scene_colonnade(512, 512, device=dev)
     o5, d5, a5 = primary(col, ccam)
@@ -259,6 +268,7 @@ def ray_sets(dev):
         "K1_flagship_primary": ("K1", flag, o1, d1, False),
         "K1_flagship_shadow": ("K1", flag, *shadow1, True),
         "K1_config5_bounce": ("K1", col, *bounce, False),
+        "K1_cube_primary": ("K1", cube, oc, dc, False),
         "K3_config4_primary": ("K3", inst4, o4, d4, False),
         "K3_config4_reflection": ("K3", inst4, *refl, False),
         "K3_config4_shadow": ("K3", inst4, *shadow(a4), True),
@@ -317,21 +327,25 @@ def main():
                         ("K3", True), ("K4", False), ("K5", False), ("K6", False)):
         shapes[f"{kernel}{'_any_hit' if occ else ''}"] = traversal.launch_shape(
             kernel, occ, 1920 * 1088)
+    for kernel in ("K1", "K3"):
+        shapes[f"{kernel}_carry"] = traversal.launch_shape(kernel, False, 1920 * 1088,
+                                                           carry=True)
     print("[shape] rays=1920x1088 " + json.dumps(shapes), flush=True)
 
     results = {"card": card, "ptxas": ptxas, "shapes": shapes, "sets": {}}
     for name, (kernel, scene, o, d, occ) in ray_sets(dev).items():
-        old_plan = new_plan = None
+        new_plan = None
         if kernel == "K6":
-            old_plan = paged_major.page_major_plan(scene, o, d)
             new_plan = paged_major.page_major_plan_cuda(scene, o, d)
             results["plan"] = plan_line(scene, o, d)
             print("[plan] " + json.dumps(results["plan"]), flush=True)
             if not results["plan"]["same"]:
                 raise SystemExit("bench_walk FAILED: the card's plan differs from the plain plan")
-        variants = {"old": Caster(old_lib, True, kernel, scene, o, d, occ, plan=old_plan)}
+        variants = {"old": Caster(old_lib, True, kernel, scene, o, d, occ, plan=new_plan)}
         for s in STACKS:
             variants[f"S{s}"] = Caster(new_lib, False, kernel, scene, o, d, occ, s, new_plan)
+        for v, fields in CARRY.get(name, {}).items():
+            variants[v] = Caster(new_lib, False, kernel, scene, o, d, occ, carry=fields)
         for v, (lib, _) in patched.items():
             if kernel in PATCHED[v][0]:
                 variants[v] = Caster(lib, False, kernel, scene, o, d, occ, plan=new_plan)

@@ -106,6 +106,7 @@ def build_log(lib: pathlib.Path) -> str:
 
 
 KERNEL_NAMES = ("paged_major_kernel", "binary_traverse_kernel", "wide_traverse_kernel",
+                "wide_traverse_carry_kernel", "tlas_traverse_carry_kernel",
                 "tlas_traverse_kernel", "paged_wide_kernel", "paged_binary_kernel",
                 "page_plan_init_kernel", "page_plan_tiles_kernel", "page_plan_order_kernel",
                 "page_plan_lists_kernel")
@@ -173,8 +174,9 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # node records, tri_rec, inst_tab, inst_root, num_instances
 _SCENE_ARGS = [_P, _P, _P, _P, _I]
-# origin, origin_stride, dirs, num_rays, occlusion, t_out, tri_out, inst_out
-_RAY_ARGS = [_P, _I, _P, _I64, _I, _P, _P, _P]
+# origin, origin_stride, dirs, num_rays, occlusion, t_out, tri_out, inst_out,
+# and the carried u_out, v_out, n_out (null: not carried)
+_RAY_ARGS = [_P, _I, _P, _I64, _I, _P, _P, _P, _P, _P, _P]
 # tlas code, box, inst_ids
 _TLAS_ARGS = [_P, _P, _P]
 # arity, page node records, page_node_base, page_tri0, tri_rec, inst_tab,

@@ -46,10 +46,11 @@ struct Tlas {
 };
 
 // Nearest (or any) hit of one world ray through the TLAS. The root is
-// entered without a box test, as the TPU kernel does.
-template <bool kAnyHit>
+// entered without a box test, as the TPU kernel does. With kCarry the
+// hit's carried fields (walk.cuh Carry) go to `carry`.
+template <bool kAnyHit, bool kCarry = false>
 WT_HD Hit trace_ray_tlas4(const Scene& s, const Tlas& tl, const float* wo, const float* wd,
-                          ShortStack& st) {
+                          ShortStack& st, Carry* carry = nullptr) {
   Hit best{kBig, -1, -1};
   const float inv[3] = {safe_inv(wd[0]), safe_inv(wd[1]), safe_inv(wd[2])};
   int32_t node = 0;
@@ -78,7 +79,9 @@ WT_HD Hit trace_ray_tlas4(const Scene& s, const Tlas& tl, const float* wo, const
       const int32_t start = packed >> 10;
       const int32_t n = packed & 1023;
       for (int32_t p = start; p < start + n; ++p) {
-        if (walk_instance<4, kAnyHit>(s, tl.inst_ids[p], wo, wd, st, &best)) return best;
+        if (walk_instance<4, kAnyHit, kCarry>(s, tl.inst_ids[p], wo, wd, st, &best, carry)) {
+          return best;
+        }
       }
     }
     if (next >= 0) {

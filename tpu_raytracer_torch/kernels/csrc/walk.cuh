@@ -48,6 +48,14 @@
 //  * Persistent warps (for_each_ray): a grid of as many blocks as the SMs
 //    hold at once, each warp taking 32 rays at a time from a counter (K6
 //    takes one block per tile of its plan instead, paged_major.cu).
+//  * The carry (kCarry, K1 and K3 in nearest mode only): the accepted
+//    triangle's barycentric u, v and its record's face normal (rows 3-5)
+//    are selected into a Carry record in the branch that accepts it,
+//    exact-t ties to the lower instance included. This replaces
+//    make_test_tri's carry_uv and carry_n (tpu_raytracer/kernels/
+//    traversal.py:145): selects only, no new arithmetic. Every walk that
+//    does not carry takes kCarry = false and a null Carry, and compiles
+//    to the code it had without it.
 //
 // Nearest mode keeps every ray's sequence of events: children ranked near
 // first with ties to the lower child index, internal children pushed
@@ -240,15 +248,45 @@ WT_HD void defer(ShortStack& st, int32_t& next, int32_t child) {
   next = child;
 }
 
+// The carried fields of the accepted triangle (kCarry walks): its
+// barycentric u and v, and its record's object-space face normal. Zero
+// on a miss, as the TPU kernel's fresh state.
+struct Carry {
+  float u = 0.0f;
+  float v = 0.0f;
+  float n[3] = {0.0f, 0.0f, 0.0f};
+};
+
+// Where a carrying kernel writes ray r's Carry: u [R], v [R] and the face
+// normal n [R, 3]; a null pointer is a field not carried (the walk still
+// selects it, in registers).
+struct CarryOut {
+  float* __restrict__ u;
+  float* __restrict__ v;
+  float* __restrict__ n;
+
+  WT_HDM void store(int64_t r, const Carry& c) const {
+    if (u != nullptr) u[r] = c.u;
+    if (v != nullptr) v[r] = c.v;
+    if (n != nullptr) {
+      for (int k = 0; k < 3; ++k) n[3 * r + k] = c.n[k];
+    }
+  }
+
+  WT_HDM bool any() const { return u != nullptr || v != nullptr || n != nullptr; }
+};
+
 // test_tri of wide_traverse.cuh with the same f32 operations in the same
 // order, leaving as soon as the outcome is known: at a back face or a ray
 // parallel to the plane before the division, at a t behind the origin or
 // not nearer than the best hit before the edge rows. Each early exit is a
 // conjunct of test_tri's acceptance failing (a NaN fails every one), so
 // the result is test_tri's; only arithmetic whose result is not needed is
-// skipped.
+// skipped. With kCarry the accept also selects u, v and the record's
+// normal into `carry`.
+template <bool kCarry = false>
 WT_HD bool test_tri4(const float* r, const float* o, const float* d, int32_t k,
-                     int32_t inst, bool any_hit, Hit* best) {
+                     int32_t inst, bool any_hit, Hit* best, Carry* carry = nullptr) {
   const float denom = d[0] * r[3] + d[1] * r[4] + d[2] * r[5];
   if (!(denom <= -kParallelEps)) return false;
   const float cx = r[0] - o[0];
@@ -266,14 +304,22 @@ WT_HD bool test_tri4(const float* r, const float* o, const float* d, int32_t k,
   best->t = any_hit ? -kBig : t;
   best->tri = k;
   best->inst = inst;
+  if constexpr (kCarry) {
+    carry->u = u;
+    carry->v = v;
+    carry->n[0] = r[3];
+    carry->n[1] = r[4];
+    carry->n[2] = r[5];
+  }
   return true;
 }
 
 // The triangles of leaf code `cc`, whose start counts from `tri_base`, in
 // ascending index. Returns true when an any-hit test accepted one.
-template <bool kAnyHit>
+template <bool kAnyHit, bool kCarry = false>
 WT_HD bool test_leaf(int32_t cc, int32_t tri_base, const float* tri_rec, const float* o,
-                     const float* d, int32_t inst_val, Hit* best) {
+                     const float* d, int32_t inst_val, Hit* best, Carry* carry = nullptr) {
+  static_assert(!(kAnyHit && kCarry), "an any-hit walk carries nothing");
   const int32_t packed = -cc - 1;
   const int32_t start = (packed >> 10) + tri_base;
   const int32_t n = packed & 1023;
@@ -283,7 +329,7 @@ WT_HD bool test_leaf(int32_t cc, int32_t tri_base, const float* tri_rec, const f
     load4(rec, r);
     load4(rec + 4, r + 4);
     load4(rec + 8, r + 8);
-    if (test_tri4(r, o, d, k, inst_val, kAnyHit, best) && kAnyHit) return true;
+    if (test_tri4<kCarry>(r, o, d, k, inst_val, kAnyHit, best, carry) && kAnyHit) return true;
   }
   return false;
 }
@@ -292,11 +338,12 @@ WT_HD bool test_leaf(int32_t cc, int32_t tri_base, const float* tri_rec, const f
 // `nodes` for an object-space ray, leaf starts counting from `tri_base`,
 // updating `best`, on top of whatever `st` holds (K3-K5 keep their top
 // tree's entries below). Returns true when an any-hit walk accepted a
-// triangle (and stopped there, leaving its entries on the stack).
-template <int kArity, bool kAnyHit>
+// triangle (and stopped there, leaving its entries on the stack). With
+// kCarry the accepted triangle's fields go to `carry`.
+template <int kArity, bool kAnyHit, bool kCarry = false>
 WT_HD bool walk(const float* nodes, int32_t root, int32_t tri_base, const float* tri_rec,
                 const float* o, const float* d, const float* inv, int32_t inst_val,
-                ShortStack& st, Hit* best) {
+                ShortStack& st, Hit* best, Carry* carry = nullptr) {
   const int base = st.sp;
   int32_t node = root;
   for (;;) {
@@ -329,7 +376,8 @@ WT_HD bool walk(const float* nodes, int32_t root, int32_t tri_base, const float*
     WT_UNROLL
     for (int p = 0; p < kArity; ++p) {
       if (dist[p] < kBig && code[p] < 0 &&
-          test_leaf<kAnyHit>(code[p], tri_base, tri_rec, o, d, inst_val, best)) {
+          test_leaf<kAnyHit, kCarry>(code[p], tri_base, tri_rec, o, d, inst_val, best,
+                                     carry)) {
         return true;
       }
     }
@@ -345,22 +393,24 @@ WT_HD bool walk(const float* nodes, int32_t root, int32_t tri_base, const float*
 
 // Walk instance `i`'s tree of arity kArity (the scene's node records) for
 // one world ray. Returns true on an any-hit accept.
-template <int kArity, bool kAnyHit>
+template <int kArity, bool kAnyHit, bool kCarry = false>
 WT_HD bool walk_instance(const Scene& s, int i, const float* wo, const float* wd,
-                         ShortStack& st, Hit* best) {
+                         ShortStack& st, Hit* best, Carry* carry = nullptr) {
   float o[3], d[3], inv[3];
   object_ray(s.inst_tab + 12 * i, wo, wd, o, d, inv);
-  return walk<kArity, kAnyHit>(s.node, s.inst_root[i], 0, s.tri_rec, o, d, inv,
-                               s.num_instances == 1 ? -1 : i, st, best);
+  return walk<kArity, kAnyHit, kCarry>(s.node, s.inst_root[i], 0, s.tri_rec, o, d, inv,
+                                       s.num_instances == 1 ? -1 : i, st, best, carry);
 }
 
 // K1 (arity 4) and K2 (arity 2): nearest (or any) hit of one world ray
-// over every instance in index order, t carried across instances.
-template <int kArity, bool kAnyHit>
-WT_HD Hit trace_ray(const Scene& s, const float* wo, const float* wd, ShortStack& st) {
+// over every instance in index order, t carried across instances; with
+// kCarry (K1) the hit's carried fields in `carry`.
+template <int kArity, bool kAnyHit, bool kCarry = false>
+WT_HD Hit trace_ray(const Scene& s, const float* wo, const float* wd, ShortStack& st,
+                    Carry* carry = nullptr) {
   Hit best{kBig, -1, -1};
   for (int i = 0; i < s.num_instances; ++i) {
-    if (walk_instance<kArity, kAnyHit>(s, i, wo, wd, st, &best)) break;
+    if (walk_instance<kArity, kAnyHit, kCarry>(s, i, wo, wd, st, &best, carry)) break;
   }
   return finish_hit(best, s.num_instances);
 }

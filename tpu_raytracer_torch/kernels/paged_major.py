@@ -289,7 +289,7 @@ def cast_rays_paged_major_torch(scene, origin, directions, chunk: int = PLAIN_CH
                 for k, v in sub.items():
                     counters[k][g] = v
     hit = finish_plain(t, tri, inst, (r,), scene.num_instances)
-    hit = _hit(*(_untile(perm, x) for x in hit), shape)
+    hit = _hit(*(_untile(perm, x) for x in hit[:3]), shape)
     if counters is None:
         return hit
     return hit, {k: _untile(perm, v) for k, v in counters.items()}

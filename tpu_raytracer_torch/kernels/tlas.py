@@ -21,7 +21,8 @@ instances at their TLAS box.
     walk vectorised over rays (a per-ray TLAS stack; rays grouped by the
     instance they reach, then K1's plain BLAS walk), in the kernel's
     visit order, so the two agree bit for bit in ``t``, ``tri`` and
-    ``inst``.
+    ``inst``, and in the carried ``u``, ``v`` and ``n``
+    (``traversal.carry_fields``; K3's carrying kernel).
 
 At an exact-``t`` tie between two instances, ``tri``/``inst`` follow
 the TLAS's spatial visit order, which may differ from the brute cast's
@@ -46,11 +47,15 @@ from .traversal import (
     PLAIN_CHUNK,
     _split_rays,
     _wide_tables,
+    carried,
+    carry_fields,
     check_aligned16,
+    check_carry,
     child_entry,
     finish_plain,
     instance_table,
     launch,
+    new_carry,
     new_stats,
     walk_instance,
 )
@@ -60,9 +65,11 @@ from .wide4 import NUDGE, STACK_SIZE, stack_needed
 # makes; the kernel keeps TLAS entries in its one stack (csrc/walk.cuh)
 TLAS_STACK = 48
 
-# Launches of the K3 kernel since the count was last reset (CPU casts,
-# which run the plain version, do not count).
+# Launches of K3 since the count was last reset, carrying or not (CPU
+# casts, which run the plain version, do not count), and of those the
+# launches of its carrying kernel (tlas_traverse_carry_kernel).
 LAUNCHES = 0
+LAUNCHES_CARRY = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,9 +152,10 @@ def _tlas_tables(scene) -> TlasTables:
 # ---------------------------------------------------------------------------
 
 
-def _walk_tlas(tables, tl, inst_tab, roots, o, d, best, stats=None):
+def _walk_tlas(tables, tl, inst_tab, roots, o, d, best, stats=None, carry=None):
     """Two-level walk of rays ``o``/``d`` [n, 3], updating ``best`` = [t,
-    tri, inst] in place. Each round pops every live ray's TLAS stack
+    tri, inst] (and ``carry`` = (u, v, n), ``walk_tree``'s) in place.
+    Each round pops every live ray's TLAS stack
     down to its next leaf (internal nodes push their hit children, the
     nearer last), then walks that leaf's instances in ``inst_ids`` order
     for the rays that reached it, grouped by instance. ``stats``
@@ -199,19 +207,27 @@ def _walk_tlas(tables, tl, inst_tab, roots, o, d, best, stats=None):
                 sub = rays[at][ids == i]
                 part = (t_b[sub], tri_b[sub], in_b[sub])
                 sub_stats = None if stats is None else {k: v[sub] for k, v in stats.items()}
-                walk_instance(tables, inst_tab[i], roots[i], i, o[sub], d[sub], part, sub_stats)
+                cpart = None if carry is None else tuple(x[sub] for x in carry)
+                walk_instance(tables, inst_tab[i], roots[i], i, o[sub], d[sub], part, sub_stats,
+                              cpart)
                 t_b[sub], tri_b[sub], in_b[sub] = part
+                if carry is not None:
+                    for x, y in zip(carry, cpart):
+                        x[sub] = y
                 if stats is not None:
                     for k, v in sub_stats.items():
                         stats[k][sub] = v
 
 
 def cast_rays_tlas_torch(scene, origin, directions, occlusion: bool = False,
-                         chunk: int = PLAIN_CHUNK, stats: bool = False):
+                         chunk: int = PLAIN_CHUNK, stats: bool = False,
+                         carry_uv: bool = False, carry_n: bool = False):
     """Plain PyTorch version of K3: nearest hit of every ray through the
-    TLAS and the instances' 4-wide tables (any hit with ``occlusion``).
-    With ``stats`` it returns ``(hit, counters)`` (``traversal.new_stats``,
-    of the nearest-hit walk)."""
+    TLAS and the instances' 4-wide tables (any hit with ``occlusion``),
+    with the carried u and v (``carry_uv``) and face normal (``carry_n``)
+    where asked (K3's carrying kernel). With ``stats`` it returns ``(hit,
+    counters)`` (``traversal.new_stats``, of the nearest-hit walk)."""
+    check_carry(occlusion, carry_uv, carry_n)
     origin, directions = _split_rays(origin, directions)
     tables = _wide_tables(scene)
     tl = _tlas_tables(scene)
@@ -226,12 +242,15 @@ def cast_rays_tlas_torch(scene, origin, directions, occlusion: bool = False,
     tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
     inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
     counters = new_stats(r, dev) if stats else None
+    carry = new_carry(r, dev) if carry_uv or carry_n else None
     for lo in range(0, r, chunk):
         sl = slice(lo, min(lo + chunk, r))
         part = None if counters is None else {k: v[sl] for k, v in counters.items()}
+        cpart = None if carry is None else tuple(x[sl] for x in carry)
         _walk_tlas(tables, tl, inst_tab, roots, o_all[sl], d_all[sl],
-                   (t[sl], tri[sl], inst[sl]), part)
-    return finish_plain(t, tri, inst, shape, scene.num_instances, occlusion, counters)
+                   (t[sl], tri[sl], inst[sl]), part, cpart)
+    return finish_plain(t, tri, inst, shape, scene.num_instances, occlusion, counters,
+                        carried(carry, carry_uv, carry_n))
 
 
 # ---------------------------------------------------------------------------
@@ -240,15 +259,20 @@ def cast_rays_tlas_torch(scene, origin, directions, occlusion: bool = False,
 
 
 def cast_rays_tlas_cuda(scene, origin, directions, occlusion: bool = False,
-                        short_stack: int | None = None):
-    """K3: nearest (or, with ``occlusion``, any) hit through the TLAS.
-    CUDA tensors launch the kernel on the current stream, with
-    ``short_stack`` ring slots per thread (``traversal.launch``); CPU
-    tensors run the plain version."""
-    global LAUNCHES
+                        short_stack: int | None = None, want_normals: bool = False,
+                        carry: bool | None = None):
+    """K3: nearest (or, with ``occlusion``, any) hit through the TLAS,
+    with the carried fields ``traversal.carry_fields`` gives for
+    ``want_normals`` and ``carry`` (K3's carrying kernel). CUDA tensors
+    launch the kernel on the current stream, with ``short_stack`` ring
+    slots per thread (``traversal.launch``); CPU tensors run the plain
+    version."""
+    global LAUNCHES, LAUNCHES_CARRY
     origin, directions = _split_rays(origin, directions)
+    carry_uv, carry_n = carry_fields(scene, directions, occlusion, want_normals, carry)
     if directions.device.type == "cpu":
-        return cast_rays_tlas_torch(scene, origin, directions, occlusion)
+        return cast_rays_tlas_torch(scene, origin, directions, occlusion, carry_uv=carry_uv,
+                                    carry_n=carry_n)
     tl = _tlas_tables(scene)
     for name, x, dtype in (("tlas code", tl.code, torch.int32), ("tlas box", tl.box, torch.float32),
                            ("tlas inst_ids", tl.inst_ids, torch.int32)):
@@ -262,6 +286,8 @@ def cast_rays_tlas_cuda(scene, origin, directions, occlusion: bool = False,
                          f"stack slots; the kernel has {STACK_SIZE}")
     hit = launch("tlas_launch", scene, origin, directions, occlusion,
                  (tl.code.data_ptr(), tl.box.data_ptr(), tl.inst_ids.data_ptr()),
-                 short_stack=short_stack)
+                 short_stack=short_stack, carry_uv=carry_uv, carry_n=carry_n)
     LAUNCHES += 1
+    if carry_uv or carry_n:
+        LAUNCHES_CARRY += 1
     return hit

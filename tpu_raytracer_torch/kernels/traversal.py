@@ -24,7 +24,12 @@ routes single-instance scenes to).
     and ``paged_major`` backends, chosen by the caller.
 
 Every cast returns the JAX package's hit record: ``t`` (FLT_MAX on a
-miss), ``tri`` and ``inst`` (-1 on a miss). With ``occlusion=True`` it
+miss), ``tri`` and ``inst`` (-1 on a miss), and the carried fields where
+the cast carries them (``carry_fields``: the accepted triangle's
+barycentric ``u`` and ``v`` on textured scenes, its object-space face
+normal ``n`` where the caller reads normals; K1 and K3 in nearest mode
+only, the JAX package's ``make_test_tri`` ``carry_uv``/``carry_n``).
+With ``occlusion=True`` it
 is the any-hit record of shadow rays (``make_test_tri``'s occlusion
 mode): ``t`` is -BIG where the ray is blocked and FLT_MAX where it is
 clear; ``tri``/``inst`` carry no meaning. The kernels stop a ray at its
@@ -52,15 +57,37 @@ MAX_LEAF_TRIS = (1 << LEAF_BITS) - 1
 # record gathers to a few hundred MB at the flagship's 2M rays.
 PLAIN_CHUNK = 1 << 18
 
-# Launches of the K1 kernel since the count was last reset (CPU casts,
-# which run the plain version, do not count; K3 counts in tlas.LAUNCHES).
+# Launches of K1 since the count was last reset, carrying or not (CPU
+# casts, which run the plain version, do not count; K3 counts in
+# tlas.LAUNCHES), and of those the launches of K1's carrying kernel
+# (wide_traverse_carry_kernel).
 LAUNCHES = 0
+LAUNCHES_CARRY = 0
 
 
-def _hit(t, tri, inst, shape):
+def _hit(t, tri, inst, shape, carry=None):
+    """The Hit record of flat outputs, with the carried (u, v, n) where
+    ``carry`` holds them (None for a field not carried)."""
     from ..render.renderer import Hit  # local: renderer imports this module
 
-    return Hit(t=t.reshape(shape), tri=tri.reshape(shape), inst=inst.reshape(shape))
+    u, v, n = carry if carry is not None else (None, None, None)
+    shaped = lambda x, tail=(): None if x is None else x.reshape(shape + tail)
+    return Hit(t=t.reshape(shape), tri=tri.reshape(shape), inst=inst.reshape(shape),
+               u=shaped(u), v=shaped(v), n=shaped(n, (3,)))
+
+
+def carry_fields(scene, directions, occlusion: bool, want_normals: bool = False,
+                 carry: bool | None = None) -> tuple[bool, bool]:
+    """(carry_uv, carry_n) of a K1 or K3 cast, gated as the JAX package
+    gates its TPU kernels (``dual.py:927-943``, ``tlas.py:666-673``): u
+    and v on textured scenes, n where the caller reads normals
+    (``want_normals``), neither for any hit. ``carry`` None turns the
+    carry on for CUDA tensors and off for CPU ones (the JAX package's
+    interpret default, which keeps the CPU goldens on the redo path of
+    ``hit_attributes``); True or False forces it."""
+    on = directions.device.type == "cuda" if carry is None else bool(carry)
+    on = on and not occlusion
+    return on and bool(scene.has_textures), on and want_normals
 
 
 def instance_table(scene) -> torch.Tensor:
@@ -145,7 +172,7 @@ def new_stats(n: int, device) -> dict:
 
 
 def walk_tree(code, box, arity, tri_rec, base, root, tri_base, o, d, inv, inst_val,
-              best, stats=None):
+              best, stats=None, carry=None):
     """The walk of one tree for ``n`` object-space rays ``o``/``d``/``inv``
     [n, 3], in the visit order that ``walk<A>`` of ``csrc/walk.cuh``
     keeps (children ranked near first, ties to the lower child, internal
@@ -155,7 +182,10 @@ def walk_tree(code, box, arity, tri_rec, base, root, tri_base, o, d, inv, inst_v
     ``root``, with leaf starts relative to ``tri_base``, and ``inst_val``
     recorded on accepts. ``base``, ``root``, ``tri_base`` and
     ``inst_val`` are ints or [n] tensors. ``best`` = (t, tri, inst) [n]
-    and the ``stats`` counters are updated in place."""
+    and the ``stats`` counters are updated in place, and so is ``carry``
+    = (u, v, n) [n], [n], [n, 3] where given: the accepted triangle's
+    barycentric u and v and its record's face normal (the kernels'
+    ``Carry``), selected in the same accept as t."""
     t_b, tri_b, in_b = best
     n = d.shape[0]
     dev = d.device
@@ -201,6 +231,8 @@ def walk_tree(code, box, arity, tri_rec, base, root, tri_base, o, d, inv, inst_v
         in_i = in_b[idx]
         iv = inst_val[idx]
         start0 = tri_base[idx]
+        if carry is not None:
+            u_i, v_i, n_i = (x[idx] for x in carry)
         tested = torch.zeros_like(count)
         for p in range(arity):
             c = codes[:, p]
@@ -214,7 +246,8 @@ def walk_tree(code, box, arity, tri_rec, base, root, tri_base, o, d, inv, inst_v
             j = torch.arange(width, device=dev)
             live = j[None, :] < cnt[:, None]
             k = torch.where(live, ((packed >> LEAF_BITS) + start0)[:, None] + j[None, :], 0)
-            t, ok = _test_tris(tri_rec[k], oi[:, None, :], di[:, None, :])
+            rec = tri_rec[k]
+            t, ok, u, v = _test_tris(rec, oi[:, None, :], di[:, None, :])
             cand = torch.where(live & ok, t, torch.full_like(t, float("inf")))
             t_min, first = cand.min(dim=1)
             # strict t < t_best; at an exact-t tie the lower instance wins
@@ -222,25 +255,37 @@ def walk_tree(code, box, arity, tri_rec, base, root, tri_base, o, d, inv, inst_v
             tb = torch.where(better, t_min, tb)
             tri_i = torch.where(better, k.gather(1, first[:, None])[:, 0].to(torch.int32), tri_i)
             in_i = torch.where(better, iv.to(torch.int32), in_i)
+            if carry is not None:
+                pick = first[:, None]
+                u_i = torch.where(better, u.gather(1, pick)[:, 0], u_i)
+                v_i = torch.where(better, v.gather(1, pick)[:, 0], v_i)
+                n_k = rec.gather(1, pick[:, :, None].expand(-1, 1, rec.shape[-1]))[:, 0, 3:6]
+                n_i = torch.where(better[:, None], n_k, n_i)
         t_b[idx] = tb
         tri_b[idx] = tri_i
         in_b[idx] = in_i
+        if carry is not None:
+            carry[0][idx] = u_i
+            carry[1][idx] = v_i
+            carry[2][idx] = n_i
         if stats is not None:
             stats["pops"][idx] += 1
             stats["tests"][idx] += tested
 
 
-def walk_instance(tables, q, root, inst_val, o, d, best, stats=None):
+def walk_instance(tables, q, root, inst_val, o, d, best, stats=None, carry=None):
     """Walk one instance's 4-wide tree for world rays ``o``/``d`` [n, 3],
-    updating ``best`` = [t, tri, inst] (and ``stats``) in place."""
+    updating ``best`` = [t, tri, inst] (and ``stats`` and ``carry``) in
+    place."""
     oo, od, inv = object_ray(q, o, d)
     walk_tree(tables.wcode, tables.wbox, 4, tables.tri_rec, 0, root, 0, oo, od, inv,
-              inst_val, best, stats)
+              inst_val, best, stats, carry)
 
 
 def _test_tris(rec, o, d):
-    """``make_test_tri`` without the ``t < t_best`` term: (t, ok) for
-    records ``rec [..., 16]`` against rays ``o``/``d`` [..., 3]."""
+    """``make_test_tri`` without the ``t < t_best`` term: (t, ok, u, v)
+    for records ``rec [..., 16]`` against rays ``o``/``d`` [..., 3]; u and
+    v are the barycentrics a carrying accept selects."""
     denom = d[..., 0] * rec[..., 3] + d[..., 1] * rec[..., 4] + d[..., 2] * rec[..., 5]
     cx = rec[..., 0] - o[..., 0]
     cy = rec[..., 1] - o[..., 1]
@@ -254,7 +299,7 @@ def _test_tris(rec, o, d):
     v = rec[..., 9] * e2x + rec[..., 10] * e2y + rec[..., 11] * e2z
     ok = ((denom <= -PARALLEL_EPS) & (u >= -EDGE_EPS) & (v >= -EDGE_EPS)
           & (u + v <= 1.0 + EDGE_EPS) & (t >= 0.0))
-    return t, ok
+    return t, ok, u, v
 
 
 def as_occlusion(hit):
@@ -266,25 +311,53 @@ def as_occlusion(hit):
 
 
 def cast_rays_wide_torch(scene, origin, directions, occlusion: bool = False,
-                         chunk: int = PLAIN_CHUNK, stats: bool = False):
+                         chunk: int = PLAIN_CHUNK, stats: bool = False,
+                         carry_uv: bool = False, carry_n: bool = False):
     """Plain PyTorch version of K1: nearest hit of every ray over the
     scene's 4-wide tables, for any number of instances (any hit with
-    ``occlusion``). With ``stats`` it returns ``(hit, counters)``, the
-    per-ray counters of ``new_stats`` (of the nearest-hit walk, which
-    the any-hit walk cuts short)."""
+    ``occlusion``), with the carried u and v (``carry_uv``) and face
+    normal (``carry_n``) on the Hit where asked (K1's carrying kernel).
+    With ``stats`` it returns ``(hit, counters)``, the per-ray counters
+    of ``new_stats`` (of the nearest-hit walk, which the any-hit walk
+    cuts short)."""
     tables = _wide_tables(scene)
     return cast_rays_tree_torch(scene, tables.wcode, tables.wbox, 4, tables.wroot, origin,
-                                directions, occlusion, chunk, stats)
+                                directions, occlusion, chunk, stats, carry_uv, carry_n)
+
+
+def new_carry(r: int, device):
+    """Zeroed carried fields (u, v, n) of ``r`` rays: a miss keeps them
+    at 0, as the kernels' Carry starts."""
+    return (torch.zeros(r, dtype=torch.float32, device=device),
+            torch.zeros(r, dtype=torch.float32, device=device),
+            torch.zeros(r, 3, dtype=torch.float32, device=device))
+
+
+def check_carry(occlusion: bool, carry_uv: bool, carry_n: bool):
+    """Raise for a carry in any-hit mode (``make_test_tri``'s rule: an
+    occluded ray's fields mean nothing)."""
+    if (carry_uv or carry_n) and occlusion:
+        raise ValueError("carried attributes are meaningless for occlusion casts")
+
+
+def carried(carry, carry_uv: bool, carry_n: bool):
+    """The (u, v, n) of a Hit from the full carry: None for a field not
+    carried."""
+    if carry is None:
+        return None
+    u, v, n = carry
+    return (u if carry_uv else None, v if carry_uv else None, n if carry_n else None)
 
 
 def cast_rays_tree_torch(scene, code, box, arity: int, mesh_root, origin, directions,
                          occlusion: bool = False, chunk: int = PLAIN_CHUNK,
-                         stats: bool = False):
+                         stats: bool = False, carry_uv: bool = False, carry_n: bool = False):
     """K1's and K2's walk (``trace_ray<arity>`` of ``csrc/walk.cuh``) in
     ``walk_tree``'s visit order, vectorised over rays: each ray walks the
     tree of ``code``/``box`` (roots ``mesh_root [M]``) of every instance
-    in index order. The plain version of K1 (4-wide tables) and K2
-    (binary tables)."""
+    in index order. The plain version of K1 (4-wide tables, with the
+    carry where asked) and K2 (binary tables)."""
+    check_carry(occlusion, carry_uv, carry_n)
     origin, directions = _split_rays(origin, directions)
     shape = directions.shape[:-1]
     d_all = directions.reshape(-1, 3)
@@ -298,27 +371,31 @@ def cast_rays_tree_torch(scene, code, box, arity: int, mesh_root, origin, direct
     tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
     inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
     counters = new_stats(r, dev) if stats else None
+    carry = new_carry(r, dev) if carry_uv or carry_n else None
     tri_rec = _wide_tables(scene).tri_rec
     for lo in range(0, r, chunk):
         sl = slice(lo, min(lo + chunk, r))
         best = (t[sl], tri[sl], inst[sl])  # views: updated in place
         part = None if counters is None else {k: v[sl] for k, v in counters.items()}
+        cpart = None if carry is None else tuple(x[sl] for x in carry)
         for i in range(num_inst):
             oo, od, inv = object_ray(inst_tab[i], o_all[sl], d_all[sl])
             walk_tree(code, box, arity, tri_rec, 0, roots[i], 0, oo, od, inv,
-                      i if num_inst > 1 else -1, best, part)
-    return finish_plain(t, tri, inst, shape, num_inst, occlusion, counters)
+                      i if num_inst > 1 else -1, best, part, cpart)
+    return finish_plain(t, tri, inst, shape, num_inst, occlusion, counters,
+                        carried(carry, carry_uv, carry_n))
 
 
 def finish_plain(t, tri, inst, shape, num_instances: int, occlusion: bool = False,
-                 counters=None):
+                 counters=None, carry=None):
     """The plain walks' output record (``finish_hit`` of
-    ``csrc/wide_traverse.cuh``), as an any-hit record with ``occlusion``,
-    and with ``counters`` beside it when they were kept."""
+    ``csrc/wide_traverse.cuh``) with the carried (u, v, n) of
+    ``carried``, as an any-hit record with ``occlusion``, and with
+    ``counters`` beside it when they were kept."""
     if num_instances == 1:
         inst = torch.where(tri >= 0, 0, -1).to(torch.int32)
     t = torch.where(t >= BIG, torch.full_like(t, FLT_MAX), t)
-    hit = _hit(t, tri, inst, shape)
+    hit = _hit(t, tri, inst, shape, carry)
     hit = as_occlusion(hit) if occlusion else hit
     return hit if counters is None else (hit, counters)
 
@@ -358,7 +435,7 @@ def unexplained_differences(scene, origin, directions, a, b) -> int:
             sel = (inst == i) & hits
             oo, od, _ = object_ray(inst_tab[i], o[sel], d[sel])
             k = tri[sel].long()
-            tt, acc = _test_tris(scene.wide4.tri_rec[k], oo, od)
+            tt, acc, _, _ = _test_tris(scene.wide4.tri_rec[k], oo, od)
             leaf = leaves[torch.searchsorted(starts, tri[sel], right=True) - 1]
             p = oo + t[sel][:, None] * od
             outside = ((p < scene.node_min[leaf]) | (p > scene.node_max[leaf])).any(-1)
@@ -373,15 +450,18 @@ def unexplained_differences(scene, origin, directions, a, b) -> int:
 
 
 def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
-           arity: int | None = None, short_stack: int | None = None):
+           arity: int | None = None, short_stack: int | None = None,
+           carry_uv: bool = False, carry_n: bool = False):
     """Check the inputs and launch ``entry`` of the kernel library on the
     current stream: ``wt_launch`` at ``arity`` 4 (K1, the 4-wide node
     records ``wnode``) or 2 (K2, the binary records of
     ``kernels/binary.py``), or K3's ``tlas_launch`` (no arity; ``wnode``),
     whose TLAS table pointers come in ``tlas_args``. Each takes
     ``short_stack`` ring slots per thread (default ``SHORT_STACK``) and a
-    zeroed counter for its persistent warps. Returns the Hit record;
-    raises on a CUDA error at launch."""
+    zeroed counter for its persistent warps. ``carry_uv``/``carry_n``
+    launch K1's or K3's carrying kernel with outputs for u, v and n.
+    Returns the Hit record; raises on a CUDA error at launch."""
+    check_carry(occlusion, carry_uv, carry_n)
     if directions.device.type != "cuda":
         raise ValueError(f"{entry} runs on cuda tensors, got {directions.device}")
     tables = _wide_tables(scene)
@@ -410,6 +490,10 @@ def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
     t = torch.empty(r, dtype=torch.float32, device=directions.device)
     tri = torch.empty(r, dtype=torch.int32, device=directions.device)
     inst = torch.empty(r, dtype=torch.int32, device=directions.device)
+    # the kernel writes every ray's carried fields, 0 on a miss
+    carry = tuple(torch.empty(size, dtype=torch.float32, device=directions.device)
+                  if want else None
+                  for want, size in ((carry_uv, (r,)), (carry_uv, (r,)), (carry_n, (r, 3))))
     from .build import load
 
     fn = getattr(load("cuda"), entry)
@@ -419,12 +503,13 @@ def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
         *head, node.data_ptr(), tables.tri_rec.data_ptr(), inst_tab.data_ptr(),
         inst_root.data_ptr(), scene.num_instances, *tlas_args,
         origin.data_ptr(), 0 if origin.dim() == 1 else 3, directions.data_ptr(), r,
-        int(occlusion), t.data_ptr(), tri.data_ptr(), inst.data_ptr(), s,
+        int(occlusion), t.data_ptr(), tri.data_ptr(), inst.data_ptr(),
+        *(None if x is None else x.data_ptr() for x in carry), s,
         counter.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {err}")
-    return _hit(t, tri, inst, shape)
+    return _hit(t, tri, inst, shape, carry)
 
 
 def check_aligned16(**tensors):
@@ -445,9 +530,10 @@ def check_short_stack(short_stack: int | None) -> int:
 
 
 def launch_shape(kernel: str, occlusion: bool, num_rays: int,
-                 short_stack: int | None = None) -> dict:
+                 short_stack: int | None = None, carry: bool = False) -> dict:
     """The launch K1, K2, K3, K4, K5 or K6 (``kernel``; K4-K6 have no
-    any-hit mode) makes for ``num_rays`` rays: blocks of its grid
+    any-hit mode; ``carry``: K1's or K3's carrying kernel) makes for
+    ``num_rays`` rays: blocks of its grid
     (persistent, but for K6's one block per tile), threads per block,
     dynamic shared bytes (the short stack's ring) and resident blocks per
     SM."""
@@ -458,10 +544,13 @@ def launch_shape(kernel: str, occlusion: bool, num_rays: int,
     lib = load("cuda")
     s = SHORT_STACK if short_stack is None else short_stack
     out = (ctypes.c_int * 4)()
+    if carry and (occlusion or kernel not in ("K1", "K3")):
+        raise ValueError(f"no carrying kernel for {kernel} occlusion={occlusion}")
+    mode = 2 if carry else int(occlusion)  # the C side's 2: the carrying kernel
     if kernel in ("K1", "K2"):
-        err = lib.wt_launch_shape(4 if kernel == "K1" else 2, int(occlusion), s, num_rays, out)
+        err = lib.wt_launch_shape(4 if kernel == "K1" else 2, mode, s, num_rays, out)
     elif kernel == "K3":
-        err = lib.tlas_launch_shape(int(occlusion), s, num_rays, out)
+        err = lib.tlas_launch_shape(mode, s, num_rays, out)
     elif kernel in ("K4", "K5") and not occlusion:
         err = lib.paged_launch_shape(4 if kernel == "K4" else 2, s, num_rays, out)
     elif kernel == "K6" and not occlusion:
@@ -475,28 +564,40 @@ def launch_shape(kernel: str, occlusion: bool, num_rays: int,
 
 
 def cast_rays_cuda(scene, origin, directions, occlusion: bool = False,
-                   short_stack: int | None = None):
+                   short_stack: int | None = None, want_normals: bool = False,
+                   carry: bool | None = None):
     """K1: nearest (or, with ``occlusion``, any) hit over the 4-wide
-    tables. CUDA tensors launch the kernel on the current stream, with
-    ``short_stack`` ring slots per thread (default ``SHORT_STACK``); CPU
-    tensors run the plain version."""
-    global LAUNCHES
+    tables, with the carried fields ``carry_fields`` gives for
+    ``want_normals`` and ``carry`` (K1's carrying kernel). CUDA tensors
+    launch the kernel on the current stream, with ``short_stack`` ring
+    slots per thread (default ``SHORT_STACK``); CPU tensors run the plain
+    version."""
+    global LAUNCHES, LAUNCHES_CARRY
     origin, directions = _split_rays(origin, directions)
+    carry_uv, carry_n = carry_fields(scene, directions, occlusion, want_normals, carry)
     if directions.device.type == "cpu":
-        return cast_rays_wide_torch(scene, origin, directions, occlusion)
+        return cast_rays_wide_torch(scene, origin, directions, occlusion, carry_uv=carry_uv,
+                                    carry_n=carry_n)
     hit = launch("wt_launch", scene, origin, directions, occlusion, arity=4,
-                 short_stack=short_stack)
+                 short_stack=short_stack, carry_uv=carry_uv, carry_n=carry_n)
     LAUNCHES += 1
+    if carry_uv or carry_n:
+        LAUNCHES_CARRY += 1
     return hit
 
 
-def cast_rays(scene, origin, directions, occlusion: bool = False):
+def cast_rays(scene, origin, directions, occlusion: bool = False, want_normals: bool = False,
+              carry: bool | None = None):
     """The cast of the ``cuda`` backend (counterpart of
     ``cast_rays_pallas``): K3 for scenes with two or more instances and
-    a TLAS, K1 otherwise; raises for scenes without wide tables."""
+    a TLAS, K1 otherwise; raises for scenes without wide tables.
+    ``want_normals`` and ``carry`` choose the carried fields
+    (``carry_fields``)."""
     _wide_tables(scene)
     if scene.num_instances >= 2 and scene.tlas is not None:
         from .tlas import cast_rays_tlas_cuda
 
-        return cast_rays_tlas_cuda(scene, origin, directions, occlusion)
-    return cast_rays_cuda(scene, origin, directions, occlusion)
+        return cast_rays_tlas_cuda(scene, origin, directions, occlusion,
+                                   want_normals=want_normals, carry=carry)
+    return cast_rays_cuda(scene, origin, directions, occlusion, want_normals=want_normals,
+                          carry=carry)

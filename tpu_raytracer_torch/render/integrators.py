@@ -9,13 +9,17 @@ cast. Random numbers come from ``utils/prng.py``, the JAX package's
 threefry streams: the same key draws the same numbers in both packages.
 Colours are float [0, 1] until ``to_u8``.
 
+The casts of the whole batch carry the face normal on the ``cuda``
+backend (``get_cast_fn(backend, want_normals=True)``), as the JAX
+package's do: the shading reads normals at every bounce.
+
 Not ported: the ray-retiling and scene-sharded variants (multi-device,
-ROADMAP item 16), the TPU packet geometry of bounce casts, point lights
-(item 8).
+ROADMAP Queue 1 item 7), the TPU packet geometry of bounce casts.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -24,9 +28,19 @@ from ..core.vecmath import FLT_MAX, dot, normalize
 from ..utils import prng
 from .renderer import get_cast_fn, hit_attributes, occlusion_cast_fn
 from .shade import (
-    DEFAULT_LIGHT_DIRECTION, SHADOW_EPS, light_vector, sky_radiance, surface_color,
+    DEFAULT_LIGHT_DIRECTION, SHADOW_EPS, light_vector, point_light_illumination, sky_radiance,
+    surface_color,
 )
 from .sorted_cast import park_dead_rays, secondary_cast_fn
+
+
+@dataclasses.dataclass(frozen=True)
+class PointLight:
+    """A point light: position and intensity (the reference's
+    ``cast_toward_lights`` sketch)."""
+
+    position: tuple
+    intensity: float = 100.0
 
 
 def _reflect(d, n):
@@ -35,26 +49,29 @@ def _reflect(d, n):
 
 def _direct_illumination(scene, cast, attrs, light_direction, point_lights, exact, shadows,
                          occ_cast=None, shadow_floor=0.4, clamp_floor=None):
-    """Directional contribution at the hit points, with a hard shadow ray
-    toward the light where ``shadows``: the occluded term keeps
-    ``shadow_floor`` times the cosine. ``occ_cast`` is the any-hit cast
-    for that boolean query (default ``cast``). Rays whose answer cannot
-    show park: where the cosine is 0, or, with a caller-side clamp at
-    ``clamp_floor``, at or below that floor."""
-    if point_lights:
-        raise NotImplementedError("point lights are not ported yet (ROADMAP item 8)")
+    """Directional and point-light contribution at the hit points, with a
+    hard shadow ray toward the directional light where ``shadows``: the
+    occluded term keeps ``shadow_floor`` times the cosine. ``occ_cast``
+    is the any-hit cast for that boolean query (default ``cast``); the
+    point lights' shadows are distance-bounded and take the nearest-hit
+    ``cast``. Rays whose answer cannot show park: where the cosine is 0,
+    or, with a caller-side clamp at ``clamp_floor`` and no point lights,
+    at or below that floor."""
     illum = torch.zeros(attrs.t.shape, dtype=torch.float32, device=attrs.t.device)
     if light_direction is not None:
         ldir = light_vector(light_direction, attrs.t.device, exact)
         cos_i = torch.clamp(dot(attrs.normal, ldir), min=0.0)
         if shadows:
-            thresh = clamp_floor if clamp_floor is not None else 0.0
+            thresh = clamp_floor if clamp_floor is not None and not point_lights else 0.0
             need = attrs.hit & (cos_i > thresh)
             occ = (occ_cast or cast)(scene, *park_dead_rays(
                 attrs.location + ldir * SHADOW_EPS, ldir.expand(attrs.location.shape), need))
             lit = occ.t >= FLT_MAX
             cos_i = torch.where(lit, cos_i, shadow_floor * cos_i)
         illum = illum + cos_i
+    if point_lights:
+        illum = illum + point_light_illumination(scene, attrs, point_lights,
+                                                 cast=cast if shadows else None)
     return illum
 
 
@@ -68,8 +85,9 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
     Local shading is weighted (1 - reflectivity); a mirror bounce
     continues with weight reflectivity. Illumination is clamped to
     [0.4, 1] as in the primary pass, so shadow rays with a cosine at or
-    below 0.4 park."""
-    cast = get_cast_fn(backend)
+    below 0.4 park (without point lights). Point lights' shadows take the
+    nearest-hit cast of the batch (``PointLight``)."""
+    cast = get_cast_fn(backend, want_normals=True)
     cast2 = secondary_cast_fn(cast, backend, sort_secondary)
     occ_cast = occlusion_cast_fn(backend)
     directions = torch.as_tensor(directions, dtype=torch.float32)
@@ -86,7 +104,7 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
         attrs = hit_attributes(scene, o, d, hit, exact=exact, normal_mode=normal_mode)
 
         miss = active & ~attrs.hit
-        sky = sky_radiance(scene, d)
+        sky = sky_radiance(scene, d, exact=exact)
         radiance = radiance + torch.where(miss[..., None], throughput * sky, 0.0)
 
         live = active & attrs.hit
@@ -156,13 +174,12 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
     is cast with the any-hit cast. ``sort_secondary`` casts bounce rays
     in coherence order on the ``cuda`` backend (``sorted_cast``); the
     image does not change. ``key`` is a ``utils.prng`` key; the random
-    streams are the JAX package's."""
-    if point_lights:
-        raise NotImplementedError("point lights are not ported yet (ROADMAP item 8)")
-    cast = get_cast_fn(backend)
+    streams are the JAX package's. ``point_lights`` add to NEE: their
+    shadows take the nearest-hit cast (distance-bounded)."""
+    cast = get_cast_fn(backend, want_normals=True)
     cast2 = secondary_cast_fn(cast, backend, sort_secondary)
     occ_cast = occlusion_cast_fn(backend)
-    nee = light_direction is not None
+    nee = light_direction is not None or bool(point_lights)
     fast_tail = fast_tail and not nee and not scene.has_emissive and max_bounces >= 1
     tail_occ = secondary_cast_fn(occlusion_cast_fn(backend), backend, sort_secondary)
     directions = torch.as_tensor(directions, dtype=torch.float32)
@@ -180,7 +197,7 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
     def bounce_from_attrs(state, attrs, key_b):
         o, d, throughput, radiance, active = state
         miss = active & ~attrs.hit
-        sky = sky_radiance(scene, d) * sky_strength
+        sky = sky_radiance(scene, d, exact=exact) * sky_strength
         radiance = radiance + torch.where(miss[..., None], throughput * sky, 0.0)
         live = active & attrs.hit
         color = surface_color(scene, attrs, tex_filter)
@@ -192,8 +209,8 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
         if nee:
             # the light's term on the diffuse part of the lobe mix:
             # T * (1 - refl) * albedo / pi * cos_i * vis * intensity
-            illum = _direct_illumination(scene, cast, attrs, light_direction, (), exact,
-                                         True, occ_cast=occ_cast, shadow_floor=0.0)
+            illum = _direct_illumination(scene, cast, attrs, light_direction, point_lights,
+                                         exact, True, occ_cast=occ_cast, shadow_floor=0.0)
             wgt = (1.0 - refl) * illum * (inv_pi * sun_intensity)
             radiance = radiance + torch.where(live[..., None], throughput * wgt[..., None], 0.0)
         d_diff = _cosine_sample(key_b, attrs.normal, exact)
@@ -218,7 +235,7 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
             if fast_tail and b == max_bounces:
                 # final bounce: visibility of the sky is the whole answer
                 throughput, radiance, active = state[2], state[3], state[4]
-                sky = sky_radiance(scene, d) * sky_strength
+                sky = sky_radiance(scene, d, exact=exact) * sky_strength
                 miss = active & (tail_occ(scene, o.contiguous(), d.contiguous()).t >= FLT_MAX)
                 return radiance + torch.where(miss[..., None], throughput * sky, 0.0)
             state = bounce_from_attrs(state, attrs_of(cast2, o, d), keys[b])
@@ -274,12 +291,14 @@ def render_ao(scene, origin, directions, key, samples: int = 8, radius: float = 
     """Ambient occlusion ``[...]`` f32 in [0, 1]: the share of ``samples``
     cosine-weighted directions above each primary hit whose nearest hit
     is not within ``radius`` (a distance-bounded query, so the
-    nearest-hit cast); miss pixels are fully open."""
+    nearest-hit cast); miss pixels are fully open. The primary cast
+    carries normals (``want_normals``), the sample casts nothing."""
+    cast0 = get_cast_fn(backend, want_normals=True)
     cast = get_cast_fn(backend)
     directions = torch.as_tensor(directions, dtype=torch.float32)
     origin = torch.as_tensor(origin, dtype=torch.float32)
     shape = directions.shape[:-1]
-    attrs = hit_attributes(scene, origin, directions, cast(scene, origin, directions),
+    attrs = hit_attributes(scene, origin, directions, cast0(scene, origin, directions),
                            exact=exact, normal_mode=normal_mode)
     total = torch.zeros(shape, dtype=torch.float32, device=directions.device)
     for k in prng.split(key.to(directions.device), samples):

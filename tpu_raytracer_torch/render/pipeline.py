@@ -1,12 +1,13 @@
 """Top-level render pipeline: raygen -> cast -> attributes -> shade.
 
 Counterpart of ``tpu_raytracer/render/pipeline.py``: primary rays (flat
-and lit shading), the Whitted integrator (config 4), path tracing with
-its optional denoise (config 5) and ambient occlusion. PyTorch runs
-eagerly, so the entry points are plain functions; every tensor lives on
-the scene's device, and the returned image too. Random entry points
-take a ``utils.prng`` key. Texture filters, supersampling and the AOV
-pass (ROADMAP item 9) and point lights (item 8) are not ported yet.
+and lit shading, point lights, texture filters, the sky map), the AOV
+pass, the Whitted integrator (config 4), path tracing with its optional
+denoise (config 5) and ambient occlusion, each supersampled where the
+JAX package supersamples (``RenderConfig.ssaa``). PyTorch runs eagerly,
+so the entry points are plain functions; every tensor lives on the
+scene's device, and the returned image too. Random entry points take a
+``utils.prng`` key.
 """
 
 from __future__ import annotations
@@ -32,6 +33,18 @@ class RenderConfig:
     lighting: str = "flat"  # flat | lambert | lambert_shadow | blinn_phong
     light_direction: tuple | None = DEFAULT_LIGHT_DIRECTION
     exact_math: bool = True  # False: the reference's q_rsqrt normalize
+    # point lights (integrators.PointLight), in every lit mode and, with
+    # path_lights, in the path tracer's NEE; light_direction=None renders
+    # with point lights alone
+    point_lights: tuple = ()
+    # nearest (the reference's sampling) | bilinear | trilinear (mip-mapped,
+    # LOD from screen-space uv derivatives on primary rays, bilinear on
+    # secondary ones)
+    texture_filter: str = "nearest"
+    # supersampling: render at ssaa*width x ssaa*height with the
+    # intrinsics scaled to keep the field of view, then average each
+    # ssaa x ssaa block (1 = one ray per pixel, the reference's)
+    ssaa: int = 1
     # path tracing: next-event estimation toward light_direction at every
     # bounce (an any-hit shadow cast each), scaled by sun_intensity
     path_lights: bool = False
@@ -44,7 +57,26 @@ class RenderConfig:
     # à-trous denoiser iterations of the path image (0 = off), guided by
     # the first hit's normal and depth, applied ahead of the tonemap
     denoise: int = 0
+    # normal transform under instance scale: reference (rotate, then
+    # multiply by the scale: the reference's rule, right for uniform
+    # scale) | inverse_transpose (R diag(1/s), right for any scale)
+    normal_mode: str = "reference"
 
+
+def _with_ssaa(config: RenderConfig, K_inv: torch.Tensor, body):
+    """``body(cfg, K_inv) -> u8 [h, w, 3]`` at ``config.ssaa`` times the
+    resolution, then each ssaa x ssaa block averaged and rounded. K' =
+    diag(s, s, 1) K keeps the field of view, so K'^-1 = K^-1 diag(1/s,
+    1/s, 1)."""
+    s = config.ssaa
+    if s <= 1:
+        return body(config, K_inv)
+    sub = dataclasses.replace(config, width=config.width * s, height=config.height * s, ssaa=1)
+    # tensor factors: 1/s computed in f32 as the JAX package does
+    inv_s = torch.tensor([1.0 / s, 1.0 / s, 1.0], dtype=torch.float32, device=K_inv.device)
+    big = body(sub, torch.as_tensor(K_inv, dtype=torch.float32) * inv_s)
+    f = big.to(torch.float32).reshape(config.height, s, config.width, s, 3).mean(dim=(1, 3))
+    return torch.round(f).to(torch.uint8)
 
 def _rays(config: RenderConfig, scene, K_inv, D, pose, inv_pose):
     dev = scene.device
@@ -55,13 +87,41 @@ def _rays(config: RenderConfig, scene, K_inv, D, pose, inv_pose):
 def render_image(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,
                  pose: torch.Tensor, inv_pose: torch.Tensor) -> torch.Tensor:
     """Render one frame -> uint8 [H, W, 3] (reference channel order) on
-    the scene's device."""
+    the scene's device. The cast carries normals where the lighting
+    reads them (every mode but ``flat``)."""
+    def body(cfg, K_inv_b):
+        origin, directions = _rays(cfg, scene, K_inv_b, D, pose, inv_pose)
+        cast = get_cast_fn(cfg.backend, want_normals=cfg.lighting != "flat")
+        hit = cast(scene, origin, directions)
+        attrs = hit_attributes(scene, origin, directions, hit, exact=cfg.exact_math,
+                               normal_mode=cfg.normal_mode)
+        return shade_primary(scene, attrs, cfg.light_direction, cfg.lighting,
+                             exact=cfg.exact_math, backend=cfg.backend, directions=directions,
+                             point_lights=cfg.point_lights, tex_filter=cfg.texture_filter)
+
+    return _with_ssaa(config, K_inv, body)
+
+
+def render_aovs(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,
+                pose: torch.Tensor, inv_pose: torch.Tensor) -> dict:
+    """Arbitrary-output-variable pass: per-pixel ``depth`` [H, W] f32
+    (world distance, +inf on a miss), ``normal`` [H, W, 3] (world unit
+    normal, 0 on a miss), ``uv`` [H, W, 2], ``instance`` and ``triangle``
+    [H, W] i32 (-1 on a miss) and ``hit`` [H, W] bool, from one primary
+    cast that carries normals."""
     origin, directions = _rays(config, scene, K_inv, D, pose, inv_pose)
-    hit = get_cast_fn(config.backend)(scene, origin, directions)
-    attrs = hit_attributes(scene, origin, directions, hit, exact=config.exact_math)
-    return shade_primary(scene, attrs, config.light_direction, config.lighting,
-                         exact=config.exact_math, backend=config.backend,
-                         directions=directions)
+    hit = get_cast_fn(config.backend, want_normals=True)(scene, origin, directions)
+    attrs = hit_attributes(scene, origin, directions, hit, exact=config.exact_math,
+                           normal_mode=config.normal_mode)
+    miss_i = torch.full_like(hit.tri, -1)
+    return {
+        "depth": torch.where(attrs.hit, attrs.t, torch.full_like(attrs.t, float("inf"))),
+        "normal": torch.where(attrs.hit[..., None], attrs.normal, 0.0),
+        "uv": torch.where(attrs.hit[..., None], attrs.uv, 0.0),
+        "instance": torch.where(attrs.hit, attrs.inst.to(torch.int32), miss_i),
+        "triangle": torch.where(attrs.hit, hit.tri.to(torch.int32), miss_i),
+        "hit": attrs.hit,
+    }
 
 
 def render_image_paged(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,
@@ -88,11 +148,16 @@ def render_image_whitted(config: RenderConfig, scene, K_inv: torch.Tensor, D: to
     """Whitted reflective render -> uint8 [H, W, 3] (BASELINE config 4)."""
     from .integrators import render_whitted, to_u8, tonemap
 
-    origin, directions = _rays(config, scene, K_inv, D, pose, inv_pose)
-    radiance = render_whitted(scene, origin, directions, max_bounces=max_bounces,
-                              backend=config.backend, light_direction=config.light_direction,
-                              shadows=shadows, exact=config.exact_math)
-    return to_u8(tonemap(radiance, config.tonemap, config.exposure))
+    def body(cfg, K_inv_b):
+        origin, directions = _rays(cfg, scene, K_inv_b, D, pose, inv_pose)
+        radiance = render_whitted(scene, origin, directions, max_bounces=max_bounces,
+                                  backend=cfg.backend, light_direction=cfg.light_direction,
+                                  point_lights=cfg.point_lights, shadows=shadows,
+                                  exact=cfg.exact_math, tex_filter=cfg.texture_filter,
+                                  normal_mode=cfg.normal_mode)
+        return to_u8(tonemap(radiance, cfg.tonemap, cfg.exposure))
+
+    return _with_ssaa(config, K_inv, body)
 
 
 def render_image_ao(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,
@@ -101,10 +166,13 @@ def render_image_ao(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.T
     """Ambient-occlusion render -> grey uint8 [H, W, 3]."""
     from .integrators import render_ao, to_u8
 
-    origin, directions = _rays(config, scene, K_inv, D, pose, inv_pose)
-    ao = render_ao(scene, origin, directions, key, samples=samples, radius=radius,
-                   backend=config.backend, exact=config.exact_math)
-    return to_u8(ao[..., None].expand(ao.shape + (3,)))
+    def body(cfg, K_inv_b):
+        origin, directions = _rays(cfg, scene, K_inv_b, D, pose, inv_pose)
+        ao = render_ao(scene, origin, directions, key, samples=samples, radius=radius,
+                       backend=cfg.backend, exact=cfg.exact_math, normal_mode=cfg.normal_mode)
+        return to_u8(ao[..., None].expand(ao.shape + (3,)))
+
+    return _with_ssaa(config, K_inv, body)
 
 
 def render_radiance_path_traced(config: RenderConfig, scene, K_inv: torch.Tensor,
@@ -121,10 +189,11 @@ def render_radiance_path_traced(config: RenderConfig, scene, K_inv: torch.Tensor
     origin, directions = _rays(config, scene, K_inv, D, pose, inv_pose)
     return render_path_traced(
         scene, origin, directions, key, max_bounces=max_bounces, samples=samples,
-        backend=config.backend, exact=config.exact_math, lens_radius=lens_radius,
-        focus_distance=focus_distance,
+        backend=config.backend, exact=config.exact_math, tex_filter=config.texture_filter,
+        lens_radius=lens_radius, focus_distance=focus_distance,
         light_direction=config.light_direction if config.path_lights else None,
-        sun_intensity=config.sun_intensity, **kw)
+        point_lights=config.point_lights if config.path_lights else (),
+        sun_intensity=config.sun_intensity, normal_mode=config.normal_mode, **kw)
 
 
 def render_image_path_traced(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,
@@ -133,21 +202,25 @@ def render_image_path_traced(config: RenderConfig, scene, K_inv: torch.Tensor, D
                              focus_distance: float = 4.0, **kw) -> torch.Tensor:
     """Monte-Carlo path-traced render -> uint8 [H, W, 3] (BASELINE config
     5), denoised with ``config.denoise`` iterations (one more primary
-    cast for the normal and depth guides), then tonemapped."""
+    cast, carrying normals, for the normal and depth guides), then
+    tonemapped; supersampled with ``config.ssaa``."""
     from .integrators import to_u8, tonemap
 
-    radiance = render_radiance_path_traced(config, scene, K_inv, D, pose, inv_pose, key,
-                                           max_bounces, samples, lens_radius, focus_distance,
-                                           **kw)
-    if config.denoise > 0:
-        from .denoise import atrous_denoise
+    def body(cfg, K_inv_b):
+        radiance = render_radiance_path_traced(cfg, scene, K_inv_b, D, pose, inv_pose, key,
+                                               max_bounces, samples, lens_radius,
+                                               focus_distance, **kw)
+        if cfg.denoise > 0:
+            from .denoise import atrous_denoise
 
-        origin, directions = _rays(config, scene, K_inv, D, pose, inv_pose)
-        attrs = hit_attributes(scene, origin, directions,
-                               get_cast_fn(config.backend)(scene, origin, directions),
-                               exact=config.exact_math)
-        radiance = atrous_denoise(
-            radiance, torch.where(attrs.hit[..., None], attrs.normal, 0.0),
-            torch.where(attrs.hit, attrs.t, torch.full_like(attrs.t, float("inf"))),
-            iterations=config.denoise)
-    return to_u8(tonemap(radiance, config.tonemap, config.exposure))
+            origin, directions = _rays(cfg, scene, K_inv_b, D, pose, inv_pose)
+            hit = get_cast_fn(cfg.backend, want_normals=True)(scene, origin, directions)
+            attrs = hit_attributes(scene, origin, directions, hit, exact=cfg.exact_math,
+                                   normal_mode=cfg.normal_mode)
+            radiance = atrous_denoise(
+                radiance, torch.where(attrs.hit[..., None], attrs.normal, 0.0),
+                torch.where(attrs.hit, attrs.t, torch.full_like(attrs.t, float("inf"))),
+                iterations=cfg.denoise)
+        return to_u8(tonemap(radiance, cfg.tonemap, cfg.exposure))
+
+    return _with_ssaa(config, K_inv, body)

@@ -1,8 +1,9 @@
 """Hit records, the brute-force oracle, hit attributes and backend choice.
 
 Counterpart of ``tpu_raytracer/render/renderer.py``. Every cast returns
-the compact ``Hit`` (t, tri, inst); ``hit_attributes`` rebuilds the
-shading inputs (world location, normal, uv, material) from it.
+the compact ``Hit`` (t, tri, inst, and u, v, n where K1 or K3 carried
+them); ``hit_attributes`` rebuilds the shading inputs (world location,
+normal, uv, material) from it.
 
 Backends: ``brute`` (the oracle, every triangle against every ray),
 ``bvh`` (kernel K2, the binary BVH walk, through
@@ -38,11 +39,19 @@ BRUTE_TRI_CHUNK = 2048
 
 class Hit(NamedTuple):
     """Per-ray hit: ``t`` world distance (FLT_MAX on a miss), ``tri`` and
-    ``inst`` indices (-1 on a miss)."""
+    ``inst`` indices (-1 on a miss). ``u``/``v`` (the accepted
+    triangle's barycentrics) and ``n`` ([..., 3], its object-space face
+    normal) are there where the cast carried them (K1 and K3 on the
+    card, ``kernels/traversal.carry_fields``), else None;
+    ``hit_attributes`` then skips the redo of the plane and barycentric
+    math."""
 
     t: torch.Tensor
     tri: torch.Tensor
     inst: torch.Tensor
+    u: torch.Tensor | None = None
+    v: torch.Tensor | None = None
+    n: torch.Tensor | None = None
 
 
 class HitAttributes(NamedTuple):
@@ -101,18 +110,29 @@ def cast_rays_brute(scene, origin, directions, tri_chunk: int = BRUTE_TRI_CHUNK)
                inst=in_best.reshape(shape))
 
 
+NORMAL_MODES = ("reference", "inverse_transpose")
+
+
 def hit_attributes(scene, origin, directions, hit: Hit, exact: bool = True,
                    normal_mode: str = "reference") -> HitAttributes:
-    """Shading inputs from (t, tri, inst): re-runs the plane and
-    barycentric math for the selected triangle of each ray and maps the
-    point and normal to world space. The normal follows the JAX
-    package's ``normal_mode="reference"`` (rotated, then multiplied by
-    the instance scale) and is normalised exactly or, with ``exact``
-    False, by ``q_rsqrt``; the inverse-transpose mode is not ported yet
-    (ROADMAP item 8)."""
-    if normal_mode != "reference":
-        raise NotImplementedError(
-            f"normal_mode={normal_mode!r} is not ported yet (ROADMAP item 8)")
+    """Shading inputs from the hit record, mapped to world space.
+
+    Without carried fields it re-runs the plane and barycentric math for
+    the selected triangle of each ray (the redo). With them (``hit.u``/
+    ``hit.v`` and or ``hit.n``, the JAX package's carried branch) uv
+    comes from one gather of the triangle's uv corners at the carried
+    u, v, the plane point from ``hit.t`` and the normal from ``hit.n``
+    (the record gather where n was not carried, the redo's uv where u
+    was not). Scenes with vertex normals (``tri_vnorm``) interpolate them
+    at the barycentrics where a triangle has them.
+
+    ``normal_mode``: ``reference`` rotates the normal and multiplies it
+    by the instance scale (the reference's rule, right for uniform scale
+    only); ``inverse_transpose`` scales it by the inverse scale in object
+    axes, then rotates (right under nonuniform scale). The normal is
+    normalised exactly or, with ``exact`` False, by ``q_rsqrt``."""
+    if normal_mode not in NORMAL_MODES:
+        raise ValueError(f"unknown normal_mode {normal_mode!r}; one of {NORMAL_MODES}")
     directions = torch.as_tensor(directions, dtype=torch.float32)
     origin = torch.as_tensor(origin, dtype=torch.float32).expand(directions.shape)
     ok = hit.t < FLT_MAX
@@ -130,16 +150,46 @@ def hit_attributes(scene, origin, directions, hit: Hit, exact: bool = True,
     obj_dir = T.apply_euler(inst_pose[..., 3:6], directions) * inv_scale
     obj_org = T.apply_lre(inst_pose, origin) * inv_scale
 
-    tv0 = scene.tri_v0[tri]
-    tnormal = scene.tri_normal[tri]
-    tp, point, _ = ray_plane_hit(obj_org, obj_dir, tv0, tnormal)
-    u_b, v_b = barycentric_uv(obj_org, obj_dir, tp, tv0, scene.tri_v1[tri],
-                              scene.tri_v2[tri])
-    uv = bary_interp(u_b, v_b, scene.tri_uv0[tri], scene.tri_uv1[tri],
-                     scene.tri_uv2[tri])
+    if hit.u is not None or hit.n is not None:
+        if hit.u is not None:
+            u_b, v_b = hit.u, hit.v
+            uv = bary_interp(u_b, v_b, scene.tri_uv0[tri], scene.tri_uv1[tri],
+                             scene.tri_uv2[tri])
+        # hit.t is the plane parameter of an accepted hit (the kernels'
+        # t is ray_plane_hit's), so the plane redo drops; a miss keeps a
+        # finite point at t = 0
+        tp = torch.where(ok, hit.t, torch.zeros_like(hit.t))
+        point = obj_org + tp[..., None] * obj_dir
+        tnormal = hit.n if hit.n is not None else scene.tri_normal[tri]
+        if hit.u is None:
+            # normals carried on an untextured scene: uv by the redo
+            u_b, v_b = barycentric_uv(obj_org, obj_dir, tp, scene.tri_v0[tri],
+                                      scene.tri_v1[tri], scene.tri_v2[tri])
+            uv = bary_interp(u_b, v_b, scene.tri_uv0[tri], scene.tri_uv1[tri],
+                             scene.tri_uv2[tri])
+    else:
+        tv0 = scene.tri_v0[tri]
+        tnormal = scene.tri_normal[tri]
+        tp, point, _ = ray_plane_hit(obj_org, obj_dir, tv0, tnormal)
+        u_b, v_b = barycentric_uv(obj_org, obj_dir, tp, tv0, scene.tri_v1[tri],
+                                  scene.tri_v2[tri])
+        uv = bary_interp(u_b, v_b, scene.tri_uv0[tri], scene.tri_uv1[tri],
+                         scene.tri_uv2[tri])
+    if scene.tri_vnorm is not None:
+        # smooth normals: the corners' vertex normals at the barycentrics
+        # where the triangle's face had them (lane 9), else the face normal
+        vrec = scene.tri_vnorm[tri]
+        n_int = bary_interp(u_b, v_b, vrec[..., 0:3], vrec[..., 3:6], vrec[..., 6:9])
+        smooth = (vrec[..., 9] > 0) & ok
+        tnormal = torch.where(smooth[..., None], n_int, tnormal)
     location = T.apply_lre(inst_inv_pose, point * scale)
-    normal = normalize(T.apply_euler(inst_inv_pose[..., 3:6], tnormal) * scale,
-                       exact=exact)
+    if normal_mode == "inverse_transpose":
+        # (R diag(s))^-T = R diag(1/s): scale in object axes, then rotate
+        normal = normalize(T.apply_euler(inst_inv_pose[..., 3:6], tnormal * inv_scale),
+                           exact=exact)
+    else:
+        normal = normalize(T.apply_euler(inst_inv_pose[..., 3:6], tnormal) * scale,
+                           exact=exact)
     tmat = scene.tri_mat[tri].long()
     imat = scene.inst_material.long()
     imat = imat[0] if scene.num_instances == 1 else imat[inst]
@@ -163,9 +213,12 @@ def occlusion_cast_fn(backend: str):
 BACKENDS = ("brute", "bvh", "cuda", "paged", "paged_major")
 
 
-def get_cast_fn(backend: str):
+def get_cast_fn(backend: str, want_normals: bool = False):
     """The nearest-hit cast of ``backend``: ``brute``, ``bvh``, ``cuda``,
-    ``paged`` or ``paged_major``."""
+    ``paged`` or ``paged_major``. ``want_normals``: the caller's shading
+    reads normals, and the ``cuda`` cast then carries the face normal on
+    ``Hit.n`` (K1's and K3's carry; on CUDA tensors); the other backends
+    ignore it."""
     if backend == "brute":
         return cast_rays_brute
     if backend == "bvh":
@@ -175,7 +228,7 @@ def get_cast_fn(backend: str):
     if backend == "cuda":
         from ..kernels.traversal import cast_rays
 
-        return cast_rays
+        return functools.partial(cast_rays, want_normals=True) if want_normals else cast_rays
     if backend == "paged":
         from ..kernels.paged import cast_rays_paged_cuda
 

@@ -89,9 +89,11 @@ def cast_rays_sorted(cast_fn, scene, origin, directions, **kw):
     hit = cast_fn(scene, flat_o[order], flat_d[order], **kw)
 
     def unscatter(a):
+        if a is None:  # a field the cast did not carry
+            return None
         out = torch.empty_like(a)
         out[order] = a
-        return out.reshape(shape)
+        return out.reshape(shape + a.shape[1:])
 
     return Hit(*(unscatter(a) for a in hit))
 

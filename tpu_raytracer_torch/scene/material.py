@@ -2,7 +2,7 @@
 
 A texture is a host ``[H, W, 3]`` uint8 array in the reference's BGR
 channel order; ``Scene.compile`` packs it into the flat atlas. Loading
-textures from image files is not ported yet (ROADMAP item 15).
+textures from image files is not ported yet (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations

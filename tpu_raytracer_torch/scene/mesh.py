@@ -8,10 +8,11 @@ least ``_NATIVE_MIN_TRIS`` triangles and in numpy below. The two give
 identical trees, equal to the JAX package's, so triangle and node ids
 equal its ids. A failed native build raises; it never falls back to the
 numpy builder, which takes minutes on a million triangles. Triangles
-are stored in BVH-leaf order.
+are stored in BVH-leaf order, per-corner vertex normals (for smooth
+shading) with them.
 
-Not ported yet (ROADMAP items 14 and 15): the on-disk BVH cache,
-presplit for beyond-budget meshes, and per-corner vertex normals.
+Not ported yet: the on-disk BVH cache (ROADMAP Queue 1 item 5) and
+presplit for beyond-budget meshes (item 8).
 """
 
 from __future__ import annotations
@@ -57,12 +58,21 @@ class MeshPrimitive:
     uv1: np.ndarray
     uv2: np.ndarray
     bvh: BVHArrays
+    # optional per-corner vertex normals for smooth shading, in (v0, v1,
+    # v2) corner order; vn_mask flags the triangles whose face had them
+    # (the others shade with the face normal)
+    vn0: np.ndarray | None = None  # [T, 3] f32
+    vn1: np.ndarray | None = None
+    vn2: np.ndarray | None = None
+    vn_mask: np.ndarray | None = None  # [T] bool
 
     @classmethod
     def from_triangles(cls, v0, v1, v2, normal=None, uv0=None, uv1=None,
-                       uv2=None) -> "MeshPrimitive":
+                       uv2=None, vn0=None, vn1=None, vn2=None,
+                       vn_mask=None) -> "MeshPrimitive":
         """Build from raw triangle arrays; face normals default to the
-        normalized winding cross product."""
+        normalized winding cross product. Vertex normals, where given,
+        are permuted with the triangles."""
         v0 = np.asarray(v0, np.float32).reshape(-1, 3)
         v1 = np.asarray(v1, np.float32).reshape(-1, 3)
         v2 = np.asarray(v2, np.float32).reshape(-1, 3)
@@ -78,9 +88,15 @@ class MeshPrimitive:
 
         bvh = _build_tree(v0, v1, v2)
         p = bvh.order
+        kw = {}
+        if vn0 is not None:
+            kw = dict(vn0=np.asarray(vn0, np.float32).reshape(-1, 3)[p],
+                      vn1=np.asarray(vn1, np.float32).reshape(-1, 3)[p],
+                      vn2=np.asarray(vn2, np.float32).reshape(-1, 3)[p],
+                      vn_mask=np.asarray(vn_mask, bool).reshape(-1)[p])
         return cls(
             v0=v0[p], v1=v1[p], v2=v2[p], normal=normal[p],
-            uv0=uv0[p], uv1=uv1[p], uv2=uv2[p], bvh=bvh,
+            uv0=uv0[p], uv1=uv1[p], uv2=uv2[p], bvh=bvh, **kw,
         )
 
     @property

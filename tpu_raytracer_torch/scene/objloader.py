@@ -3,8 +3,10 @@
 Counterpart of ``tpu_raytracer/scene/objloader.py`` (its pure-Python
 parser): polygon faces are fan-triangulated as (0, i, i+1); UVs attach
 only when every token of a face carries a ``vt`` index; face normals are
-recomputed from the winding. Vertex normals and the native parser for
-large files are not ported yet (ROADMAP item 15).
+recomputed from the winding; ``vn`` records give per-corner vertex
+normals on request (``loads(..., vertex_normals=True)``). Loading files
+from disk and the native parser for large files are not ported yet
+(ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -64,7 +66,51 @@ def parse_obj(text: str):
     return v0, v1, v2, uv0, uv1, uv2, has_uv
 
 
-def loads(text: str) -> MeshPrimitive:
-    """OBJ source text -> MeshPrimitive (BVH built in the constructor)."""
+def parse_obj_vertex_normals(text: str):
+    """Per-corner vertex normals of the ``vn`` records, over the same
+    faces in the same fan order as ``parse_obj``: a face's normals
+    attach only when every token carries a ``vn`` index (``v//vn`` or
+    ``v/vt/vn``); other faces keep their face normal. Returns (vn0, vn1,
+    vn2 [T, 3] f32, mask [T] bool)."""
+    normals: list[list[float]] = []
+    tri_n: list[tuple[int, int, int] | None] = []
+    for line in text.splitlines():
+        tokens = line.split()
+        if not tokens:
+            continue
+        tag = tokens[0]
+        if tag == "vn":
+            normals.append([float(tokens[1]), float(tokens[2]), float(tokens[3])])
+        elif tag == "f":
+            n_idx: list[int] = []
+            n_face = len(tokens) - 1
+            for tok in tokens[1:]:
+                parts = tok.split("/")
+                if len(parts) > 2 and parts[2] != "":
+                    n_idx.append(int(parts[2]) - 1)
+            has_n = len(n_idx) == n_face
+            for i in range(1, n_face - 1):
+                tri_n.append((n_idx[0], n_idx[i], n_idx[i + 1]) if has_n else None)
+    ns = (np.asarray(normals, np.float32).reshape(-1, 3) if normals
+          else np.zeros((0, 3), np.float32))
+    mask = np.array([n is not None for n in tri_n], bool)
+    vn = [np.zeros((len(tri_n), 3), np.float32) for _ in range(3)]
+    if mask.any():
+        idx = np.asarray([n for n in tri_n if n is not None], np.int64).reshape(-1, 3)
+        for c in range(3):
+            vn[c][mask] = ns[idx[:, c]]
+    return vn[0], vn[1], vn[2], mask
+
+
+def loads(text: str, vertex_normals: bool = False) -> MeshPrimitive:
+    """OBJ source text -> MeshPrimitive (BVH built in the constructor).
+    ``vertex_normals`` attaches the file's ``vn`` records for smooth
+    shading (none where no face has complete ones)."""
     v0, v1, v2, uv0, uv1, uv2, _ = parse_obj(text)
-    return MeshPrimitive.from_triangles(v0, v1, v2, None, uv0, uv1, uv2)
+    vn = (None,) * 4
+    if vertex_normals:
+        vn = parse_obj_vertex_normals(text)
+        if not vn[3].any():
+            vn = (None,) * 4
+    return MeshPrimitive.from_triangles(v0, v1, v2, None, uv0, uv1, uv2, vn0=vn[0], vn1=vn[1],
+                                        vn2=vn[2], vn_mask=vn[3])

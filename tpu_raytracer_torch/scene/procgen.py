@@ -3,7 +3,8 @@
 Counterpart of ``tpu_raytracer/scene/procgen.py`` for the ported
 scenes: the unit cube, the flat board, the Cornell box walls,
 icospheres, the displaced blob (the 82k-triangle bench mesh), the
-colonnade (the ~1M-triangle paged-path scene) and the checker texture.
+colonnade (the ~1M-triangle paged-path scene), the checker and gradient
+textures and the equirect sky gradient.
 Each function keeps the JAX package's exact numpy arithmetic, so both
 packages build bit-identical triangles.
 """
@@ -209,3 +210,27 @@ def checkerboard_texture(size: int = 256, squares: int = 8) -> np.ndarray:
     checker = ((xx // q + yy // q) % 2).astype(np.uint8)
     img = np.where(checker[..., None] == 0, 235, 25).astype(np.uint8)
     return np.repeat(img, 3, axis=-1) if img.shape[-1] == 1 else img
+
+
+def gradient_texture(w: int = 128, h: int = 128) -> np.ndarray:
+    """Smooth gradient texture for uv-mapping tests, [h, w, 3] uint8 in
+    the engine's channel order (red along x, green along y)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    r = (255 * xx / max(w - 1, 1)).astype(np.uint8)
+    g = (255 * yy / max(h - 1, 1)).astype(np.uint8)
+    b = np.full_like(r, 128)
+    return np.stack([b, g, r], axis=-1)
+
+
+def sky_gradient_texture(w: int = 256, h: int = 128) -> np.ndarray:
+    """Equirect sky for ``Scene.set_sky``: a warm horizon band fading to a
+    deep zenith blue over a grey ground, [h, w, 3] uint8 (row 0 is the
+    zenith)."""
+    v = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    zen = np.array([230, 140, 60], np.float32)
+    hor = np.array([120, 200, 250], np.float32)
+    band = np.clip((v - 0.35) / 0.3, 0.0, 1.0)
+    row = zen * (1.0 - band) + hor * band
+    ground = np.array([60, 70, 80], np.float32)
+    row = np.where(v > 0.55, ground, row)
+    return np.broadcast_to(row[:, None, :], (h, w, 3)).astype(np.uint8)

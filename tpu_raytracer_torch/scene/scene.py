@@ -20,11 +20,13 @@ TLAS, and ``with_paging`` attaches the page tables of the paged kernels
 K4-K6. Nothing pages a
 scene automatically: the ``cuda`` backend casts every scene with K1 or
 K3, the ``bvh`` backend with K2, and the ``paged`` and ``paged_major``
-backends are chosen by the caller (ROADMAP item 14 holds the routing
-question).
+backends are chosen by the caller (ROADMAP Queue 1 item 8 holds the
+routing question). Meshes with vertex normals give ``tri_vnorm`` (10
+lanes per triangle: the three corners' normals and a flag, zero on the
+pad rows), and ``Scene.set_sky`` packs an equirect sky map at the
+atlas's tail (``sky_tex_*``).
 
-Not ported yet (ROADMAP item 15): ``flattened``, sky maps, vertex
-normals and save/load.
+Not ported yet (ROADMAP Queue 1 item 5): ``flattened`` and save/load.
 """
 
 from __future__ import annotations
@@ -112,6 +114,9 @@ class SceneTensors:
     sky_tex_start: torch.Tensor  # [] i32, -1 = flat sky
     sky_tex_w: torch.Tensor
     sky_tex_h: torch.Tensor
+    # [T, 10] f32 per-corner vertex normals (vn0, vn1, vn2) and a flag
+    # (lane 9: the face had them); None when no mesh has vertex normals
+    tri_vnorm: torch.Tensor | None = None
     has_sky: bool = False
     has_textures: bool = True
     has_emissive: bool = True
@@ -144,7 +149,7 @@ class SceneTensors:
     def to(self, device) -> "SceneTensors":
         """The same scene with every tensor on ``device``."""
         moved = {f: getattr(self, f).to(device) for f in ARRAY_FIELDS}
-        for f in ("wide4", "tlas", "paged", "binary"):
+        for f in ("tri_vnorm", "wide4", "tlas", "paged", "binary"):
             moved[f] = None if getattr(self, f) is None else getattr(self, f).to(device)
         return dataclasses.replace(self, **moved)
 
@@ -184,22 +189,23 @@ class SceneTensors:
         return dataclasses.replace(self, paged=prepare_paged(self, wide=wide, **kw))
 
     def numpy_fields(self) -> dict[str, np.ndarray]:
-        """Array fields as host numpy arrays, keyed by field name."""
-        return {f: getattr(self, f).cpu().numpy() for f in ARRAY_FIELDS}
+        """Array fields as host numpy arrays, keyed by field name
+        (``tri_vnorm`` where the scene has it)."""
+        out = {f: getattr(self, f).cpu().numpy() for f in ARRAY_FIELDS}
+        if self.tri_vnorm is not None:
+            out["tri_vnorm"] = self.tri_vnorm.cpu().numpy()
+        return out
 
 
 def from_scene_arrays(fields: dict[str, np.ndarray], device="cuda") -> SceneTensors:
     """Build ``SceneTensors`` from a JAX-compiled ``SceneArrays`` given
     as numpy arrays keyed by field name (missing mip or sky fields take
-    the JAX defaults for pre-mip and skyless scenes). The wide tables
-    are rebuilt from the binary BVH exactly as the JAX compile builds
-    them."""
-    if fields.get("tri_vnorm") is not None:
-        raise NotImplementedError(
-            "vertex-normal scenes are not ported yet (ROADMAP item 8)")
+    the JAX defaults for pre-mip and skyless scenes; ``tri_vnorm`` where
+    the scene has vertex normals). The wide tables are rebuilt from the
+    binary BVH exactly as the JAX compile builds them."""
     kw = {}
-    for name in ARRAY_FIELDS:
-        if name in fields:
+    for name in ARRAY_FIELDS + ("tri_vnorm",):
+        if fields.get(name) is not None:
             kw[name] = np.asarray(fields[name])
     kw.setdefault("mat_tex_mip_start", kw["mat_tex_start"][:, None])
     kw.setdefault("sky_tex_start", np.int32(-1))
@@ -233,6 +239,16 @@ class Scene:
         self.materials: list[Material] = []
         self.meshes: list[MeshPrimitive] = []
         self.mesh_instances: list[MeshInstance] = []
+        self.sky_texture: np.ndarray | None = None
+
+    def set_sky(self, texture: np.ndarray) -> None:
+        """Attach an equirectangular environment map, sampled by the
+        direction of rays that miss: [H, W, 3] uint8 in the material
+        textures' channel order."""
+        texture = np.asarray(texture, np.uint8)
+        if texture.ndim != 3 or texture.shape[2] != 3:
+            raise ValueError(f"sky must be [H, W, 3] uint8, got {texture.shape}")
+        self.sky_texture = texture
 
     def add_material(self, material: Material) -> int:
         self.materials.append(material)
@@ -255,7 +271,7 @@ class Scene:
 
         tri_parts = {k: [] for k in ("v0", "v1", "v2", "normal", "uv0", "uv1", "uv2")}
         node_parts = {k: [] for k in ("min", "max", "ca", "cb", "ls", "lc")}
-        tri_mesh, tri_mat_parts, mesh_root = [], [], []
+        tri_mesh, tri_mat_parts, mesh_root, vnorm_parts = [], [], [], []
         tri_off = node_off = 0
         for mesh_id, mesh in enumerate(self.meshes):
             b = mesh.bvh
@@ -285,6 +301,12 @@ class Scene:
 
             tri_mesh.append(np.full(new_total, mesh_id, np.int32))
             tri_mat_parts.append(np.full(new_total, -1, np.int32))
+            if mesh.vn0 is not None:
+                vn = np.concatenate([mesh.vn0, mesh.vn1, mesh.vn2,
+                                     mesh.vn_mask[:, None].astype(np.float32)], axis=1)
+            else:
+                vn = np.zeros((mesh.num_triangles, 10), np.float32)
+            vnorm_parts.append(np.where(pad[:, None], np.float32(0.0), vn[src]))
             for k, arr in (
                 ("v0", mesh.v0), ("v1", mesh.v1), ("v2", mesh.v2),
                 ("normal", mesh.normal),
@@ -331,6 +353,14 @@ class Scene:
             tex_w.append(w)
             tex_h.append(h)
             mip_chains.append(chain)
+        # the sky map: one level, no mips, at the atlas's tail
+        if self.sky_texture is not None:
+            sky_h, sky_w, _ = self.sky_texture.shape
+            sky_start = p
+            atlas_parts.append(self.sky_texture.reshape(-1, 3))
+            p += sky_h * sky_w
+        else:
+            sky_start, sky_w, sky_h = -1, 0, 0
         max_mips = max(len(c) for c in mip_chains)
         mip_start = np.full((len(self.materials), max_mips), -1, np.int32)
         for k, chain in enumerate(mip_chains):
@@ -385,8 +415,10 @@ class Scene:
             mat_tex_h=i32(tex_h),
             tex_atlas=i32(atlas),
             mat_tex_mip_start=mip_start,
-            sky_tex_start=i32(-1),
-            sky_tex_w=i32(0),
-            sky_tex_h=i32(0),
+            sky_tex_start=i32(sky_start),
+            sky_tex_w=i32(sky_w),
+            sky_tex_h=i32(sky_h),
         )
+        if any(m.vn0 is not None for m in self.meshes):
+            kw["tri_vnorm"] = f32(cat(vnorm_parts))
         return _assemble(kw, device)
