@@ -98,7 +98,37 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      driver's 3 bounces, 4 samples) through both backends, and its
      stages: primary, bounce and tail casts (sorted and unsorted on
      ``cuda``), NEE shadow casts, attributes, sampling, the rest, and
-     the denoiser.
+     the denoiser;
+ 24. ``[flatten]``: config 4 with its instances baked into one mesh
+     (``scene_instances(flatten=True)``, bench_all's config 4b): K1
+     carrying u, v and n against its plain version on the primary and
+     reflection rays (every field bitwise), the Whitted frame (K1 6
+     times, 3 of them carrying, K3 never) against its plain casts' frame
+     and against the instanced frame (at least 97% of the pixels equal:
+     exact-t ties and the bake's last bits), and K1's device time beside
+     K3's on the instanced scene, in turns, with and without the carry;
+ 25. ``[flatten16]``: the same for the 16 instances (config 6b), primary
+     rays and the primary frame;
+ 26. ``[presplit]``: the colonnade of phase 12 built with ``presplit=1.3``
+     (duplicated triangle references with clipped boxes): K1, K4, K5 and
+     K6 (with its card plan) bitwise against their plain versions, against
+     K1 on the same tree and on the unsplit tree (each difference
+     explained by box order against the brute cast of its own tree:
+     ``cross_tree_unexplained``), the three paged frames against their
+     plain casts' frames, and each kernel's device time on the unsplit and
+     the split tree in turns;
+ 27. ``[optimize]``: config 5's colonnade with two reinsertion rounds
+     (``opt_rounds=2``, bench_all's config 5b): SAH before and after, K1
+     and K2 bitwise against their plain versions on the first bounce rays
+     and against the plain tree, both path frames against their plain
+     casts' frames, K1's and K2's device time on either tree in turns;
+ 28. ``[scene_io]``: config 5's colonnade saved and loaded, the flagship's
+     mesh as an OBJ file through the native parser, ``compile_cached``
+     cold and warm, the BVH disk cache cold and warm on the colonnade of
+     phase 12 (each in a fresh temporary directory, every field equal);
+ 29. ``[texture_file]``: the cube's checkerboard as a PNG file through
+     ``Material.upload_texture``, the 1920x1088 frame against the
+     in-memory texture's.
 
 Every kernel's bound is the larger of its f32 operations over 67 TFLOP/s
 and its bytes over 3.35 TB/s (the H100's published peaks): operations
@@ -249,12 +279,17 @@ def device_ms(fn, kernel: str, n: int = 10) -> float:
 
     fn()  # warm up: a first launch inside the profiler can go unrecorded
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-             for e in prof.key_averages() if kernel in e.key)
+    for _ in range(3):  # a trace now and then comes back without its kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                 for e in prof.key_averages() if kernel in e.key)
+        if us > 0:
+            break
+        phase("profiler_retry", kernel=kernel,
+              seen=sorted({e.key[:60] for e in prof.key_averages()})[:8])
     check(us > 0, f"the profiler saw no device time in {kernel}")
     return us / n / 1e3
 
@@ -572,8 +607,13 @@ def main():
     carry_entries = carry_phases(dev, card, report, (scene, origin, dirs, args),
                                  (inst4, o4, d4, refl4, cam4), goldens)
 
-    paged_kernels = paged_phases(dev, card)
-    k2_entries = path_phases(dev, card, (scene, origin, dirs), shadow1)
+    paged_kernels, paged_ctx = paged_phases(dev, card)
+    k2_entries, path_ctx = path_phases(dev, card, (scene, origin, dirs), shadow1)
+    flatten_phases(dev, card, (inst4, o4, d4, args4, img_w, k3_per_set),
+                   (inst16, cam16, o16, d16))
+    presplit_phase(dev, card, paged_ctx)
+    optimize_phase(dev, card, path_ctx)
+    scene_io_phases(dev, path_ctx)
 
     wide = scene.wide4
     k1_bound = bound("K1", k1_stats, 4, rays, (dirs, origin, wide.wnode, *hk[:3]),
@@ -897,8 +937,8 @@ def brute_unexplained(scene, origin, dirs, hit, brute):
 
     far = ~torch.isclose(hit.t, brute.t, rtol=BRUTE_RTOL, atol=BRUTE_RTOL)
     sub = lambda h: Hit(*(x[far] for x in h[:3]))
-    return int(far.sum()), traversal.unexplained_differences(scene, origin, dirs[far],
-                                                            sub(hit), sub(brute))
+    return int(far.sum()), traversal.unexplained_differences(
+        scene, origin.expand(dirs.shape)[far], dirs[far], sub(hit), sub(brute))
 
 
 def plan_vs_plain(scene, origin, dirs, tag) -> dict:
@@ -937,9 +977,10 @@ def plan_vs_plain(scene, origin, dirs, tag) -> dict:
             "bound": {"bound_ms": max(t_ops, t_bytes), "bound_by": by, "library_ms": None}}
 
 
-def paged_phases(dev, card) -> list:
+def paged_phases(dev, card) -> tuple:
     """Phases 12-17: the colonnade through the paged kernels; returns
-    their entries of the kernels line."""
+    their entries of the kernels line, and the colonnade, its rays and
+    results for ``presplit_phase``."""
     from tpu_raytracer_torch.app.scenes import scene_colonnade, scene_colonnade_pair
     from tpu_raytracer_torch.kernels import paged, paged_major, tlas, traversal
     from tpu_raytracer_torch.render import (
@@ -1013,8 +1054,8 @@ def paged_phases(dev, card) -> list:
                   "bound": bound(k, counters, arity, n_rays, (o, d, *tables, *hk[:3]),
                                  col_rows)}
     _, k1_counters = traversal.cast_rays_wide_torch(col, o, d, stats=True)
-    bound("K1 on the colonnade", k1_counters, 4, n_rays, (o, d, col.wide4.wnode, *k1[:3]),
-          col_rows)
+    res["K1"] = {"bound": bound("K1 on the colonnade", k1_counters, 4, n_rays,
+                                (o, d, col.wide4.wnode, *k1[:3]), col_rows)}
     wo, wd = paged_major._tile_rays(o, d)[1:]
     plan_res = plan_vs_plain(wide_sc, wo, wd, "colonnade_1920x1088")
 
@@ -1150,6 +1191,8 @@ def paged_phases(dev, card) -> list:
                "rays)",
                "tpu_raytracer/kernels/paged_major.py:130"),
     }
+    ctx = {"col": col, "args": args, "o": o, "d": d, "k1": k1, "res": res, "casts": casts,
+           "kernel_names": kernel_names}
     src = {"K4": "paged_traverse.cu", "K5": "paged_traverse.cu", "K6": "paged_major.cu"}
     plan_entry = {
         "name": "K6 page_plan (K6's visibility plan: item order and per-tile item lists; "
@@ -1176,13 +1219,14 @@ def paged_phases(dev, card) -> list:
         "ms": out[f"{k}_1920x1088_kernel_ms"],
         "plain_ms": res[k]["plain_ms"],
         **res[k]["bound"],
-    } for k in ("K4", "K5", "K6")] + [plan_entry]
+    } for k in ("K4", "K5", "K6")] + [plan_entry], ctx
 
 
-def path_phases(dev, card, flagship, flagship_shadow) -> list:
+def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
     """Phases 18-23: kernel K2 and the path-traced main path of config 5
     through the ``bvh`` (K2) and ``cuda`` (K1) backends; returns K2's
-    entries of the kernels line (nearest and any hit). ``flagship`` is
+    entries of the kernels line (nearest and any hit), and config 5's
+    scene, poses and bounce rays for ``optimize_phase``. ``flagship`` is
     (scene, origin, dirs) of phase 3, ``flagship_shadow`` its shadow rays
     (origins, directions)."""
     from tpu_raytracer_torch.app.controls import fly_through
@@ -1431,6 +1475,7 @@ def path_phases(dev, card, flagship, flagship_shadow) -> list:
         phase("path_stages", card=repr(card), size=size, denoise_3_iterations_ms=f"{den_ms:.4f}")
 
     flag = res["flagship_primary"]
+    ctx = {"col": col, "poses": poses, "bounce": (bo, bd), "res": res}
     return [{
         "name": "K2 binary_traverse (binary BVH, walk.cuh at arity 2; launches: a config 5 "
                 "path frame through the bvh backend, primary + bounce + any-hit tail; ms, "
@@ -1458,7 +1503,527 @@ def path_phases(dev, card, flagship, flagship_shadow) -> list:
         "ms": any_ms,
         "plain_ms": any_plain_ms,
         **any_bound,
-    }]
+    }], ctx
+
+
+def _field_diffs(hk, hp) -> dict:
+    """Per field of two hit records (the carried ones too), the entries
+    whose bits differ; fails where one record carries a field the other
+    does not."""
+    diff = {}
+    for field, a, b in zip(hk._fields, hk, hp):
+        check((a is None) == (b is None), f"one cast carried {field} and the other did not")
+        if a is not None:
+            diff[field] = int((_bits(a) != _bits(b)).sum()) if a.is_floating_point() \
+                else int((a != b).sum())
+    return diff
+
+
+def cross_tree_unexplained(split, unsplit, origin, dirs, a, b):
+    """(rays whose t differs between hits ``a`` on one tree and ``b`` on
+    another tree of the same mesh, those of them not explained): each
+    cast's t must equal the brute cast's of its own scene within
+    BRUTE_RTOL or differ from it by the order of box tests
+    (``brute_unexplained``)."""
+    from tpu_raytracer_torch.render import Hit
+    from tpu_raytracer_torch.render.renderer import cast_rays_brute
+
+    diff = torch.nonzero((a.t.view(torch.int32) != b.t.view(torch.int32)).reshape(-1)).squeeze(1)
+    if diff.numel() == 0:
+        return 0, 0
+    dd = dirs.reshape(-1, 3)[diff]
+    oo = origin.expand(dirs.shape).reshape(-1, 3)[diff]
+    out = 0
+    for sc, h in ((split, a), (unsplit, b)):
+        sub = Hit(*(x.reshape(-1)[diff] for x in h[:3]))
+        out += brute_unexplained(sc, oo, dd, sub, cast_rays_brute(sc, oo, dd, tri_chunk=1 << 16))[1]
+    return int(diff.numel()), out
+
+
+def flatten_phases(dev, card, config4, instances16) -> None:
+    """Phases 24-25: config 4 and the 16-instance scene with their static
+    instances baked into one world-space mesh (``flatten=True``,
+    bench_all's configs 4b and 6b): K1 (carrying u, v and n) against its
+    plain version in every field, the frames' launches (K1 only) and
+    pixels against their plain casts' and the instanced scenes' frames,
+    and K1's device time on the baked scene beside K3's on the instanced
+    one, in turns, each with its bound. ``config4`` is (scene, origin,
+    dirs, camera args, Whitted frame, K3's per-set times) of phases 6-11,
+    ``instances16`` (scene, camera, origin, dirs) of phase 6."""
+    from tpu_raytracer_torch.app.scenes import scene_instances, scene_instances16
+    from tpu_raytracer_torch.kernels import tlas, traversal
+    from tpu_raytracer_torch.render import (
+        RenderConfig, hit_attributes, render_image, render_image_whitted,
+    )
+    from tpu_raytracer_torch.render.integrators import _reflect
+    from tpu_raytracer_torch.render.shade import SHADOW_EPS
+    from tpu_raytracer_torch.render.sorted_cast import park_dead_rays
+    from tpu_raytracer_torch.core.vecmath import normalize
+
+    inst4, o4, d4, args4, img_w, k3_per_set = config4
+    inst16, cam16, o16, d16 = instances16
+    p16 = cam16.ray_params(dev)
+    args16 = (p16["K_inv"], p16["D"], p16["pose"], p16["inv_pose"])
+    W, H = SLICE_SIZE
+
+    def k1_vs_plain(tag, sc, ro, rd):
+        uv, n = traversal.carry_fields(sc, rd, False, True, True)
+        hk = traversal.cast_rays_cuda(sc, ro, rd, want_normals=True, carry=True)
+        hp, stats = traversal.cast_rays_wide_torch(sc, ro, rd, stats=True, carry_uv=uv, carry_n=n)
+        torch.cuda.synchronize()
+        diff = _field_diffs(hk, hp)
+        phase("flatten_vs_plain", rays=tag, n=rd.numel() // 3, carry_uv=uv, carry_n=n,
+              **{f"{f}_bitwise_diff": v for f, v in diff.items()},
+              hit_fraction=f"{float((hk.tri >= 0).float().mean()):.4f}")
+        check(not any(diff.values()), f"K1 differs from its plain version on {tag}: {diff}")
+        return hk, stats
+
+    def frame_checks(sc, fn, instanced_img):
+        traversal.LAUNCHES = traversal.LAUNCHES_CARRY = 0
+        tlas.LAUNCHES = 0
+        img = fn(sc)
+        torch.cuda.synchronize()
+        n = {"K1": traversal.LAUNCHES, "K1_carry": traversal.LAUNCHES_CARRY, "K3": tlas.LAUNCHES}
+        with plain_casts():
+            n_plain = _pixels(img, fn(sc))
+        share = float((img == instanced_img).all(-1).float().mean())
+        return img, n, n_plain, share
+
+    def k1_k3_times(sc_flat, sc_inst, ro, rd, stats_flat, k3_bound):
+        """Device ms of K1 on the baked scene and K3 on the instanced one,
+        in turns (K1, K3, K3, K1), without and with the carry."""
+        out = {}
+        for carry in (False, True):
+            suffix = "_carry" if carry else ""
+            k1 = lambda: traversal.cast_rays_cuda(sc_flat, ro, rd, want_normals=carry, carry=carry)
+            k3 = lambda: tlas.cast_rays_tlas_cuda(sc_inst, ro, rd, want_normals=carry, carry=carry)
+            ms = {"k1": [], "k3": []}
+            for which in ("k1", "k3", "k3", "k1"):
+                if which == "k1":
+                    ms[which].append(device_ms(k1, f"wide_traverse{suffix}_kernel"))
+                else:
+                    ms[which].append(device_ms(k3, f"tlas_traverse{suffix}_kernel"))
+            out[f"k1_flat{suffix}_ms"] = f"{min(ms['k1']):.4f}"
+            out[f"k3_instanced{suffix}_ms"] = f"{min(ms['k3']):.4f}"
+        h = traversal.cast_rays_cuda(sc_flat, ro, rd, carry=False)
+        b = bound("K1 flattened", stats_flat, 4, rd.numel() // 3,
+                  (ro, rd, sc_flat.wide4.wnode, *h[:3]), real_tri_rows(sc_flat))
+        out["k1_flat_bound_ms"] = f"{b['bound_ms']:.4f}"
+        out["k3_instanced_bound_ms"] = f"{k3_bound:.4f}"
+        return out
+
+    # 24. config 4 flattened ----------------------------------------------
+    t0 = time.perf_counter()
+    flat4, _ = scene_instances(W, H, device=dev, flatten=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    h4, stats4 = k1_vs_plain("config4_flat_primary", flat4, o4, d4)
+    a4 = hit_attributes(flat4, o4, d4, h4)
+    rd4 = normalize(_reflect(d4, a4.normal))
+    k1_vs_plain("config4_flat_reflection", flat4,
+                *park_dead_rays(a4.location + rd4 * SHADOW_EPS, rd4, a4.hit))
+    whitted = lambda sc: render_image_whitted(RenderConfig(W, H, backend="cuda"), sc, *args4)
+    img, n, n_plain, share = frame_checks(flat4, whitted, img_w)
+    fl_best, fl_med = best_and_median_ms(lambda: whitted(flat4), loops=3, n=3)
+    in_best, in_med = best_and_median_ms(lambda: whitted(inst4), loops=3, n=3)
+    phase("flatten", scene="config4", triangles=flat4.num_triangles,
+          real_triangles=real_tri_rows(flat4), instances=flat4.num_instances,
+          max_tri_mat=int(flat4.tri_mat.max()), build_s=f"{build_s:.2f}",
+          k1_launches=n["K1"], k1_carry_launches=n["K1_carry"], k3_launches=n["K3"],
+          pixels_vs_plain=n_plain, identical_share_vs_instanced=f"{share:.4f}",
+          whitted_frame_ms_best_flat=f"{fl_best:.4f}", whitted_frame_ms_median_flat=f"{fl_med:.4f}",
+          whitted_frame_ms_best_instanced=f"{in_best:.4f}",
+          whitted_frame_ms_median_instanced=f"{in_med:.4f}", card=repr(card),
+          **k1_k3_times(flat4, inst4, o4, d4, stats4, k3_per_set["primary"]["bound_ms"]))
+    check(flat4.num_instances == 1 and int(flat4.tri_mat.max()) == 3,
+          "config 4 flattened is not one instance with per-triangle materials")
+    check(n["K1"] == 6 and n["K1_carry"] == 3 and n["K3"] == 0,
+          f"the flattened Whitted frame launched {n}, not K1 6 times (3 carrying) and K3 never")
+    check(n_plain == 0, f"{n_plain} pixels of the flattened Whitted frame differ from its plain "
+          "casts' frame")
+    check(share >= 0.97, f"the flattened Whitted frame equals the instanced one on only {share:.4f}")
+
+    # 25. the 16 instances flattened ---------------------------------------
+    flat16, _ = scene_instances16(W, H, device=dev, flatten=True)
+    h16, stats16 = k1_vs_plain("instances16_flat_primary", flat16, o16, d16)
+    primary = lambda sc: render_image(RenderConfig(W, H, backend="cuda"), sc, *args16)
+    img16 = primary(inst16)
+    _, n, n_plain, share = frame_checks(flat16, primary, img16)
+    _, k3_stats = tlas.cast_rays_tlas_torch(inst16, o16, d16, stats=True)
+    h3 = tlas.cast_rays_tlas_cuda(inst16, o16, d16, carry=False)
+    k3_bound = bound("K3 instances16", k3_stats, 4, d16.numel() // 3,
+                     (o16, d16, inst16.wide4.wnode, inst16.tlas.code, inst16.tlas.box, *h3[:3]),
+                     real_tri_rows(inst16))["bound_ms"]
+    phase("flatten16", scene="instances16", triangles=flat16.num_triangles,
+          instances=flat16.num_instances, max_tri_mat=int(flat16.tri_mat.max()),
+          k1_launches=n["K1"], k3_launches=n["K3"], pixels_vs_plain=n_plain,
+          identical_share_vs_instanced=f"{share:.4f}", card=repr(card),
+          **k1_k3_times(flat16, inst16, o16, d16, stats16, k3_bound))
+    check(flat16.num_instances == 1, "the 16 instances flattened are not one instance")
+    check(n["K1"] == 1 and n["K3"] == 0, f"the flattened 16-instance frame launched {n}")
+    check(n_plain == 0, f"{n_plain} pixels of the flattened 16-instance frame differ from its "
+          "plain casts' frame")
+    check(share >= 0.97, f"the flattened 16-instance frame equals the instanced one on only "
+          f"{share:.4f}")
+
+
+def presplit_phase(dev, card, ctx) -> None:
+    """Phase 26: the colonnade of phases 12-17 built with ``presplit=1.3``
+    (duplicated triangle references, clipped boxes): K1, K4, K5 and K6
+    (with its card plan) bitwise against their plain versions on the
+    1920x1088 rays and against K1 on the same tree and on the unsplit
+    tree (every difference explained by box order), the three paged
+    frames against their plain casts' frames, and each kernel's device
+    time on the unsplit and the split tree in turns, with bounds. ``ctx``
+    is ``paged_phases``'."""
+    from tpu_raytracer_torch.kernels import paged, paged_major, tlas, traversal
+    from tpu_raytracer_torch.render import RenderConfig, hit_attributes, render_image, shade_primary
+    from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene, procgen
+
+    col, args, o, d, k1_unsplit = ctx["col"], ctx["args"], ctx["o"], ctx["d"], ctx["k1"]
+    n_rays = d.numel() // 3
+    v = procgen.colonnade(18, 18, 40)
+    t0 = time.perf_counter()
+    mesh = MeshPrimitive.from_triangles(*v, presplit=1.3, cache_dir=False)
+    build_s = time.perf_counter() - t0
+    scene = Scene()
+    scene.add_material(Material(albedo=(0.85, 0.8, 0.75)))
+    scene.add_mesh(mesh)
+    scene.add_mesh_instance(MeshInstance(0, 0))
+    t0 = time.perf_counter()
+    split = scene.compile(dev)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide_sc, bin_sc = split.with_paging(), split.with_paging(wide=False)
+    paging_s = time.perf_counter() - t0
+    rows = real_tri_rows(split)
+    phase("presplit", triangles=len(v[0]), refs=len(mesh.bvh.order), leaf_rows=rows,
+          rows_8_aligned=split.num_triangles, unsplit_rows_8_aligned=col.num_triangles,
+          build_s=f"{build_s:.2f}", compile_s=f"{compile_s:.2f}", paging_s=f"{paging_s:.2f}",
+          pages=wide_sc.paged.num_pages, unsplit_wide_nodes=col.wide4.wcode.shape[0],
+          wide_nodes=split.wide4.wcode.shape[0], wide_depth=split.wide4.depth,
+          binary_depth=split.binary.depth, page_depth_wide=wide_sc.paged.depth,
+          top_depth=wide_sc.paged.top_depth)
+    check(rows == len(mesh.bvh.order) > len(v[0]), "presplit made no duplicated references")
+
+    cases = {
+        "K1": (split, traversal.cast_rays_cuda, traversal.cast_rays_wide_torch, 4,
+               (split.wide4.wnode,)),
+        "K4": (wide_sc, paged.cast_rays_paged_cuda, paged.cast_rays_paged_torch, 4, None),
+        "K5": (bin_sc, paged.cast_rays_paged_cuda, paged.cast_rays_paged_torch, 2, None),
+        "K6": (wide_sc, paged_major.cast_rays_paged_major_cuda,
+               paged_major.cast_rays_paged_major_torch, 4, None),
+    }
+    k1_split = traversal.cast_rays_cuda(split, o, d)
+    hits, bounds = {}, {}
+    for k, (sc, cast, plain, arity, tables) in cases.items():
+        hk = cast(sc, o, d)
+        torch.cuda.synchronize()
+        (hp, counters), plain_ms = timed(lambda: plain(sc, o, d, stats=True))
+        n_t, max_ulp, _, n_tri, n_inst = compare_hits(hk, hp)
+        same_tree = traversal.unexplained_differences(split, o, d, hk, k1_split)
+        n_cross, cross = cross_tree_unexplained(split, col, o, d, hk, k1_unsplit)
+        phase("presplit_vs_plain", kernel=k, rays=n_rays, t_bitwise_diff=n_t, max_ulp=max_ulp,
+              tri_diff=n_tri, inst_diff=n_inst, plain_ms=f"{plain_ms:.2f}",
+              unexplained_vs_k1=same_tree, t_bitwise_diff_vs_unsplit_k1=n_cross,
+              unexplained_vs_unsplit_k1=cross,
+              hit_fraction=f"{float((hk.tri >= 0).float().mean()):.4f}")
+        check(n_t == 0 and n_tri == 0 and n_inst == 0, f"{k} differs from its plain version on "
+              "the presplit colonnade")
+        check(same_tree == 0 and cross == 0, f"{k} on the presplit colonnade differs from K1 for "
+              "another reason than the order of box tests")
+        check(n_cross <= ORDER_DIFFS_MAX * n_rays, f"{k}'s t on the presplit tree differs from "
+              f"K1's on the unsplit tree on {n_cross} rays")
+        if tables is None:
+            pg = sc.paged
+            tables = (pg.node, pg.node_base, pg.page_tri0)
+            tables += (pg.top_code, pg.top_box) if k != "K6" else ()
+        hits[k] = hp
+        bounds[k] = bound(f"{k} presplit", counters, arity, n_rays, (o, d, *tables, *hk[:3]), rows)
+    wo, wd = paged_major._tile_rays(o, d)[1:]
+    plan_vs_plain(wide_sc, wo, wd, "presplit_colonnade_1920x1088")
+
+    frames = {}
+    for k, backend in (("K4", "paged"), ("K5", "paged"), ("K6", "paged_major")):
+        sc = cases[k][0]
+        traversal.LAUNCHES = tlas.LAUNCHES = 0
+        paged.LAUNCHES_K4 = paged.LAUNCHES_K5 = paged_major.LAUNCHES = 0
+        paged_major.LAUNCHES_PLAN = 0
+        img = render_image(RenderConfig(d.shape[1], d.shape[0], backend=backend), sc, *args)
+        torch.cuda.synchronize()
+        n = {"K1": traversal.LAUNCHES, "K3": tlas.LAUNCHES, "K4": paged.LAUNCHES_K4,
+             "K5": paged.LAUNCHES_K5, "K6": paged_major.LAUNCHES, "plan": paged_major.LAUNCHES_PLAN}
+        n_img = _pixels(img, shade_primary(sc, hit_attributes(sc, o, d, hits[k])))
+        frames[k] = n_img
+        phase("presplit_main_path", kernel=k, backend=backend, launches=n, pixels_vs_plain=n_img)
+        with_plan = 2 if k == "K6" else 1
+        check(n[k] == 1 and sum(n.values()) == with_plan and n["plan"] == with_plan - 1,
+              f"the presplit {backend} frame did not launch {k} once (and K6's plan once)")
+        check(n_img == 0, f"{n_img} pixels of the presplit {backend} frame differ from the plain "
+              "casts'")
+
+    out = {}
+    for k in cases:
+        u_sc, cast = ctx["casts"][k]
+        s_sc = cases[k][0]
+        ms = {"unsplit": [], "split": []}
+        for which in ("unsplit", "split", "split", "unsplit"):
+            sc = u_sc if which == "unsplit" else s_sc
+            ms[which].append(device_ms(lambda sc=sc, cast=cast: cast(sc, o, d),
+                                       ctx["kernel_names"][k]))
+        out[f"{k}_unsplit_ms"] = f"{min(ms['unsplit']):.4f}"
+        out[f"{k}_split_ms"] = f"{min(ms['split']):.4f}"
+        out[f"{k}_unsplit_bound_ms"] = f"{ctx['res'][k]['bound']['bound_ms']:.4f}"
+        out[f"{k}_split_bound_ms"] = f"{bounds[k]['bound_ms']:.4f}"
+    plan = lambda: paged_major.page_major_plan_cuda(wide_sc, wo, wd)
+    out["K6_card_plan_split_ms"] = f"{device_ms(plan, 'page_plan_'):.4f}"
+    phase("presplit_time", card=repr(card), rays="colonnade_1920x1088", **out)
+
+
+def optimize_phase(dev, card, ctx) -> None:
+    """Phase 27: config 5's colonnade with two rounds of the reinsertion
+    optimizer (``opt_rounds=2``, bench_all's config 5b): SAH before and
+    after, K1 and K2 bitwise against their plain versions on frame 0's
+    first bounce rays and against the plain tree's casts (differences
+    explained by box order), the path frame through ``bvh`` and ``cuda``
+    against its plain casts' frame, and K1's and K2's device time on the
+    optimized and the plain tree in turns. ``ctx`` is ``path_phases``'."""
+    from tpu_raytracer_torch.accel.bvh import sah_cost
+    from tpu_raytracer_torch.kernels import binary, tlas, traversal
+    from tpu_raytracer_torch.render import Camera, RenderConfig, render_image_path_traced
+    from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene, procgen
+    from tpu_raytracer_torch.utils import prng
+
+    col5, poses, (bo, bd) = ctx["col"], ctx["poses"], ctx["bounce"]
+    v = procgen.colonnade(10, 10, 32)
+    t0 = time.perf_counter()
+    plain_mesh = MeshPrimitive.from_triangles(*v, cache_dir=False)
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = MeshPrimitive.from_triangles(*v, opt_rounds=2, cache_dir=False)
+    opt_s = time.perf_counter() - t0
+    scene = Scene()
+    scene.add_material(Material(albedo=(0.85, 0.8, 0.75)))
+    scene.add_mesh(mesh)
+    scene.add_mesh_instance(MeshInstance(0, 0))
+    opt = scene.compile(dev)
+    sah_plain, sah_opt = sah_cost(plain_mesh.bvh), sah_cost(mesh.bvh)
+    phase("optimize", triangles=len(v[0]), rounds=2, sah_plain=f"{sah_plain:.4f}",
+          sah_optimized=f"{sah_opt:.4f}", build_s=f"{plain_s:.2f}",
+          build_and_optimize_s=f"{opt_s:.2f}", bvh_depth_plain=plain_mesh.bvh.stats()["max_depth"],
+          bvh_depth_optimized=mesh.bvh.stats()["max_depth"], binary_depth=opt.binary.depth,
+          binary_depth_plain=col5.binary.depth, wide_depth=opt.wide4.depth,
+          wide_depth_plain=col5.wide4.depth)
+    check(sah_opt < sah_plain, f"the optimizer did not lower the SAH ({sah_opt} >= {sah_plain})")
+
+    n_rays = bd.numel() // 3
+    kernels = {"K1": (traversal.cast_rays_cuda, traversal.cast_rays_wide_torch, 4,
+                      lambda sc: (sc.wide4.wnode,), "wide_traverse_kernel"),
+               "K2": (binary.cast_rays_binary_cuda, binary.cast_rays_binary_torch, 2,
+                      lambda sc: (sc.binary.node,), "binary_traverse_kernel")}
+    out = {}
+    for k, (cast, plain, arity, tables, kname) in kernels.items():
+        hk = cast(opt, bo, bd)
+        torch.cuda.synchronize()
+        hp, counters = plain(opt, bo, bd, stats=True)
+        n_t, max_ulp, _, n_tri, n_inst = compare_hits(hk, hp)
+        n_cross, cross = cross_tree_unexplained(opt, col5, bo, bd, hk, cast(col5, bo, bd))
+        phase("optimize_vs_plain", kernel=k, rays="config5_bounce1", n=n_rays,
+              t_bitwise_diff=n_t, max_ulp=max_ulp, tri_diff=n_tri, inst_diff=n_inst,
+              t_bitwise_diff_vs_plain_tree=n_cross, unexplained_vs_plain_tree=cross)
+        check(n_t == 0 and n_tri == 0 and n_inst == 0, f"{k} differs from its plain version on "
+              "the optimized tree")
+        check(cross == 0, f"{k} on the optimized tree differs from the plain tree for another "
+              "reason than the order of box tests")
+        b = bound(f"{k} optimized config5_bounce1", counters, arity, n_rays,
+                  (bo, bd, *tables(opt), *hk[:3]), real_tri_rows(opt))
+        ms = {"plain_tree": [], "optimized": []}
+        for which in ("plain_tree", "optimized", "optimized", "plain_tree"):
+            sc = col5 if which == "plain_tree" else opt
+            ms[which].append(device_ms(lambda sc=sc, cast=cast: cast(sc, bo, bd), kname))
+        out[f"{k}_plain_tree_ms"] = f"{min(ms['plain_tree']):.4f}"
+        out[f"{k}_optimized_ms"] = f"{min(ms['optimized']):.4f}"
+        out[f"{k}_plain_tree_bound_ms"] = f"{ctx['res']['config5_bounce1']['bound']['bound_ms']:.4f}" \
+            if k == "K2" else "see [bound] K1 config5_bounce1"
+        out[f"{k}_optimized_bound_ms"] = f"{b['bound_ms']:.4f}"
+
+    p = Camera.looking(PATH_SIZE, PATH_SIZE, fov_deg=65.0, pose=poses[0]).ray_params(dev)
+    pargs = (p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    for backend, kname in (("bvh", "K2"), ("cuda", "K1")):
+        cfg = RenderConfig(PATH_SIZE, PATH_SIZE, backend=backend)
+        fn = lambda sc, cfg=cfg: render_image_path_traced(cfg, sc, *pargs, prng.PRNGKey(0),
+                                                          PATH_BOUNCES, PATH_SAMPLES)
+        binary.LAUNCHES = traversal.LAUNCHES = tlas.LAUNCHES = 0
+        img = fn(opt)
+        torch.cuda.synchronize()
+        n = {"K1": traversal.LAUNCHES, "K2": binary.LAUNCHES, "K3": tlas.LAUNCHES}
+        with plain_casts():
+            n_plain = _pixels(img, fn(opt))
+        times = {}
+        for which in ("plain_tree", "optimized", "optimized", "plain_tree"):
+            sc = col5 if which == "plain_tree" else opt
+            best = best_and_median_ms(lambda sc=sc: fn(sc), loops=3, n=3)[0]
+            times[which] = min(times.get(which, best), best)
+        phase("optimize_path", backend=backend, kernel=kname, launches=n, pixels_vs_plain=n_plain,
+              pixels_vs_plain_tree=_pixels(img, fn(col5)),
+              frame_ms_best_optimized=f"{times['optimized']:.4f}",
+              frame_ms_best_plain_tree=f"{times['plain_tree']:.4f}", card=repr(card))
+        check(n[kname] == 3 and sum(n.values()) == 3, f"the optimized path frame through {backend} "
+              f"launched {n}, not {kname} 3 times")
+        check(n_plain == 0, f"{n_plain} pixels of the optimized path frame ({backend}) differ from "
+              "its plain casts' frame")
+    phase("optimize_time", card=repr(card), rays="config5_bounce1", **out)
+
+
+def scene_io_phases(dev, ctx) -> None:
+    """Phases 28-29: config 5's colonnade saved and loaded again
+    (``SceneTensors.save``/``load``), the flagship's mesh written as an
+    OBJ file and loaded through the native parser, ``compile_cached``
+    cold and warm, the BVH disk cache cold and warm on the colonnade of
+    the paged phases, each in a fresh temporary directory; then the
+    cube's checkerboard written as a PNG, read back by
+    ``Material.upload_texture`` and rendered at 1920x1088 against the
+    in-memory texture's frame. ``ctx`` is ``path_phases``'."""
+    import shutil
+
+    from tpu_raytracer_torch.render import Camera, render
+    from tpu_raytracer_torch.scene import (
+        Material, MeshInstance, MeshPrimitive, Scene, SceneTensors, cache, objloader, procgen,
+    )
+    from tpu_raytracer_torch.utils.image import save_png
+
+    def diff_fields(a: dict, b: dict) -> list:
+        return [k for k in a if k not in b or a[k].shape != b[k].shape
+                or a[k].dtype != b[k].dtype or a[k].tobytes() != b[k].tobytes()]
+
+    bvh_fields = ("node_min", "node_max", "child_a", "child_b", "leaf_start", "leaf_count", "order")
+
+    def mesh_diffs(a, b) -> list:
+        out = [f for f in ("v0", "v1", "v2", "normal", "uv0", "uv1", "uv2")
+               if getattr(a, f).tobytes() != getattr(b, f).tobytes()]
+        return out + [f for f in bvh_fields if getattr(a.bvh, f).tobytes()
+                      != getattr(b.bvh, f).tobytes()]
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scene_io_")
+    try:
+        # 28. save/load, OBJ file, compile cache, BVH cache -------------------
+        col5 = ctx["col"]
+        fp = os.path.join(tmp, "colonnade.npz")
+        t0 = time.perf_counter()
+        col5.save(fp)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = SceneTensors.load(fp, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        a, b = col5.numpy_fields(), back.numpy_fields()
+        differ = diff_fields(a, b) + diff_fields(b, a)
+        tables_equal = (torch.equal(_bits(col5.wide4.wnode), _bits(back.wide4.wnode))
+                        and torch.equal(_bits(col5.binary.node), _bits(back.binary.node)))
+        phase("scene_io", what="save_load", scene="config5_colonnade",
+              triangles=col5.num_triangles, fields=len(a), differing_fields=len(differ),
+              tables_equal=tables_equal, file_mb=f"{os.path.getsize(fp) / 1e6:.2f}",
+              save_s=f"{save_s:.2f}", load_s=f"{load_s:.2f}")
+        check(not differ and tables_equal, f"the saved and loaded colonnade differs in {differ}")
+
+        v = procgen.blob(subdivisions=6)
+        lines = [f"v {x!r} {y!r} {z!r}" for x, y, z in np.stack(v, 1).reshape(-1, 3).tolist()]
+        lines += [f"f {3 * k + 1} {3 * k + 2} {3 * k + 3}" for k in range(len(v[0]))]
+        obj = os.path.join(tmp, "flagship.obj")
+        with open(obj, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        with open(obj) as f:
+            text = f.read()
+        objloader.parse_obj("v 0 0 0\n", native=True)  # build the parser before timing it
+        t0 = time.perf_counter()
+        objloader.parse_obj(text)
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        objloader.parse_obj(text, native=False)
+        parse_numpy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = objloader.load(obj)
+        load_obj_s = time.perf_counter() - t0
+        differ = mesh_diffs(loaded, MeshPrimitive.from_triangles(*v))
+        phase("scene_io", what="obj_file", triangles=loaded.num_triangles,
+              file_mb=f"{os.path.getsize(obj) / 1e6:.2f}",
+              native=len(text) > objloader.NATIVE_OBJ_THRESHOLD,
+              parse_native_s=f"{parse_s:.4f}", parse_numpy_s=f"{parse_numpy_s:.4f}",
+              load_with_bvh_s=f"{load_obj_s:.2f}", differing_fields_vs_in_memory=len(differ))
+        check(len(text) > objloader.NATIVE_OBJ_THRESHOLD, "the OBJ text is below the native "
+              "parser's threshold")
+        check(not differ, f"the OBJ file's mesh differs from the in-memory mesh in {differ}")
+
+        scene = Scene()
+        scene.add_material(Material(albedo=(0.85, 0.8, 0.75)))
+        scene.add_mesh(MeshPrimitive.from_triangles(*procgen.colonnade(10, 10, 32),
+                                                    cache_dir=False))
+        scene.add_mesh_instance(MeshInstance(0, 0))
+        cdir = os.path.join(tmp, "scenes")
+        t0 = time.perf_counter()
+        cold = cache.compile_cached(scene, cdir, device=dev)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = cache.compile_cached(scene, cdir, device=dev)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scene.compile(dev)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        differ = diff_fields(cold.numpy_fields(), warm.numpy_fields())
+        differ += diff_fields(cold.numpy_fields(), col5.numpy_fields())
+        phase("scene_io", what="compile_cached", scene="config5_colonnade",
+              entries=len(os.listdir(cdir)), cold_s=f"{cold_s:.2f}", warm_s=f"{warm_s:.2f}",
+              compile_without_cache_s=f"{compile_s:.2f}", differing_fields=len(differ))
+        check(not differ and len(os.listdir(cdir)) == 1, f"compile_cached differs in {differ}")
+
+        v = procgen.colonnade(18, 18, 40)
+        bdir = os.path.join(tmp, "bvh")
+        t0 = time.perf_counter()
+        m_cold = MeshPrimitive.from_triangles(*v, cache_dir=bdir)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m_warm = MeshPrimitive.from_triangles(*v, cache_dir=bdir)
+        warm_s = time.perf_counter() - t0
+        differ = mesh_diffs(m_cold, m_warm)
+        entries = os.listdir(bdir)
+        phase("scene_io", what="bvh_cache", triangles=len(v[0]), entries=len(entries),
+              entry_mb=f"{os.path.getsize(os.path.join(bdir, entries[0])) / 1e6:.2f}",
+              cold_s=f"{cold_s:.2f}", warm_s=f"{warm_s:.2f}", differing_fields=len(differ))
+        check(not differ and len(entries) == 1, f"the BVH cache's tree differs in {differ}")
+
+        # 29. a texture from a PNG file --------------------------------------
+        tex = procgen.checkerboard_texture(128, 8)
+        png = os.path.join(tmp, "checker.png")
+        save_png(tex, png)
+        frames, textures = [], []
+        for from_file in (False, True):
+            cube = Scene()
+            mat = Material()
+            if from_file:
+                t0 = time.perf_counter()
+                mat.upload_texture(png)
+                read_s = time.perf_counter() - t0
+            else:
+                mat.set_texture(tex)
+            textures.append(mat.texture)
+            cube.add_material(mat)
+            cube.add_mesh(objloader.loads(procgen.cube_obj()))
+            cube.add_mesh_instance(MeshInstance(0, 0))
+            cam = Camera.looking(1920, 1088, fov_deg=45.0, pose=[0, -4, 0, 0, 0, 0])
+            frames.append(render(cam, cube.compile(dev), backend="cuda"))
+        texels = int((textures[0] != textures[1]).any(-1).sum())
+        n_img = _pixels(frames[0], frames[1])
+        phase("texture_file", png_bytes=os.path.getsize(png), read_s=f"{read_s:.4f}",
+              texels_vs_in_memory=texels, pixels_vs_in_memory=n_img,
+              textured_pixels=int((frames[1] != frames[1][0, 0]).any(-1).sum()))
+        check(texels == 0 and n_img == 0, f"the PNG texture's frame differs from the in-memory "
+              f"texture's ({texels} texels, {n_img} pixels)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 @contextlib.contextmanager

@@ -144,7 +144,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
         "    importlib.import_module(name)\n"
         "assert len(names) > 25, names\n"
         "new = {'tpu_raytracer_torch.' + m for m in ('kernels.binary', 'utils.prng',\n"
-        "       'render.denoise', 'render.sorted_cast', 'app.controls')}\n"
+        "       'render.denoise', 'render.sorted_cast', 'app.controls', 'accel.presplit',\n"
+        "       'accel.optimize', 'scene.cache', 'scene.native_obj')}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n"
     )

@@ -3,7 +3,8 @@
 spill path), K6's card plan against its plain plan and K6's cast with
 no host sync, the config 5 path frame through K2 and K1, and the
 carrying kernels of K1 and K3 (u, v and n) with the lit frames they
-serve.
+serve, K1 on a flattened scene, K1, K4 and K6 on a presplit colonnade,
+and the PNG and OBJ readers on a machine without OpenCV or PIL.
 
 Marked ``gpu``: every test skips without a card. On a machine with one
 (and no JAX), run from the repository root with
@@ -21,6 +22,8 @@ JAX package allows its TPU the same 4).
 """
 
 import os
+import struct
+import zlib
 
 import numpy as np
 import pytest
@@ -491,3 +494,125 @@ def test_sorted_cast_equals_unsorted_cast_on_the_card(cuda):
     got = cast_rays_sorted(traversal.cast_rays_cuda, scene, ro, rd)
     for a, b in zip(got[:3], want[:3]):
         assert torch.equal(a, b)
+
+
+def test_k1_on_a_flattened_scene_matches_plain_version(cuda):
+    """Config 4 baked to one mesh: K1 carrying u, v and n on every ray,
+    bitwise against its plain version, and no K3 launch in its frame."""
+    scene, cam = scene_instances(128, 96, device=cuda, flatten=True)
+    assert scene.num_instances == 1 and int(scene.tri_mat.max()) == 3
+    o, d = _rays(cam, cuda)
+    for ro, rd in ((o, d), _secondary_rays(scene, o, d, traversal.cast_rays_cuda(scene, o, d))[0]):
+        uv, n = traversal.carry_fields(scene, rd, False, True, True)
+        got = traversal.cast_rays_cuda(scene, ro, rd, want_normals=True, carry=True)
+        want = traversal.cast_rays_wide_torch(scene, ro, rd, carry_uv=uv, carry_n=n)
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                                   b.view(torch.int32) if b.is_floating_point() else b)
+    tlas.LAUNCHES = traversal.LAUNCHES = 0
+    p = cam.ray_params(cuda)
+    render_image_whitted(RenderConfig(128, 96), scene, p["K_inv"], p["D"], p["pose"],
+                         p["inv_pose"])
+    torch.cuda.synchronize()
+    assert traversal.LAUNCHES == 6 and tlas.LAUNCHES == 0
+
+
+def test_k1_k4_k6_on_a_presplit_colonnade_match_plain_versions(cuda):
+    """Duplicated triangle references and clipped boxes: the 8-aligned
+    leaves, the page cut and K6's plan all see more leaf rows than
+    triangles."""
+    scene = Scene()
+    scene.add_material(Material(albedo=(0.85, 0.8, 0.75)))
+    v = procgen.colonnade(4, 4, 8)
+    scene.add_mesh(MeshPrimitive.from_triangles(*v, presplit=1.3))
+    scene.add_mesh_instance(MeshInstance(0, 0))
+    base = scene.compile(cuda)
+    assert int(base.node_leaf_count[base.node_child_a < 0].sum()) > len(v[0])
+    cam = Camera.looking(128, 96, fov_deg=65.0, pose=[1.0, -2.0, 1.6, 0, 0, 0])
+    o, d = _rays(cam, cuda)
+    k1 = traversal.cast_rays_cuda(base, o, d)
+    k1_plain = traversal.cast_rays_wide_torch(base, o, d)
+    assert torch.equal(k1.t.view(torch.int32), k1_plain.t.view(torch.int32))
+    assert torch.equal(k1.tri, k1_plain.tri)
+    for kernel in ("K4", "K6"):
+        _, cast, plain = PAGED[kernel]
+        paged_scene = base.with_paging(page_tris=512, page_nodes=256)
+        got, want = cast(paged_scene, o, d), plain(paged_scene, o, d)
+        assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
+        assert torch.equal(got.tri, want.tri) and torch.equal(got.inst, want.inst)
+        assert traversal.unexplained_differences(base, o, d, got, k1) == 0
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def encode_png(img, color_type, filters, palette=None, depth=8, interlace=0) -> bytes:
+    """An 8-bit PNG of ``img`` [H, W, C] whose row r uses filter
+    ``filters[r % len(filters)]`` (0 none, 1 sub, 2 up, 3 average, 4
+    Paeth); ``palette`` [N, 3] for colour type 3."""
+    h, w = img.shape[:2]
+    bpp = img.shape[2] if img.ndim == 3 else 1
+    raw = img.reshape(h, w * bpp).astype(np.int64)
+    prev = np.zeros(w * bpp, np.int64)
+    rows = []
+    for r in range(h):
+        f = filters[r % len(filters)]
+        x = raw[r]
+        a = np.concatenate([np.zeros(bpp, np.int64), x[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        pred = [0, a, prev, (a + prev) // 2, _paeth(a, prev, c)][f]
+        rows.append(bytes([f]) + ((x - pred) & 0xFF).astype(np.uint8).tobytes())
+        prev = x
+
+    def chunk(tag, body):
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type,
+                                                            0, 0, interlace))
+    if palette is not None:
+        out += chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    return out + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b"")
+
+
+def test_png_texture_and_obj_file_on_the_card_machine(cuda, tmp_path):
+    """``decode_png`` (numpy and zlib: the card's machine has neither
+    OpenCV nor PIL) on all five filters, the textured cube from a PNG
+    file against the in-memory texture's frame, and an OBJ file through
+    the native parser."""
+    from tpu_raytracer_torch.scene import objloader
+    from tpu_raytracer_torch.utils.image import decode_png
+
+    tex = procgen.checkerboard_texture(64, 8)  # BGR
+    rgb = np.ascontiguousarray(tex[..., ::-1])
+    for filters in ([0], [1], [2], [3], [4], [0, 1, 2, 3, 4]):
+        assert np.array_equal(decode_png(encode_png(rgb, 2, filters)), tex)
+    fp = tmp_path / "checker.png"
+    fp.write_bytes(encode_png(rgb, 2, [0, 1, 2, 3, 4]))
+    frames = []
+    for from_file in (False, True):
+        scene = Scene()
+        mat = Material()
+        if from_file:
+            mat.upload_texture(str(fp))
+        else:
+            mat.set_texture(tex)
+        scene.add_material(mat)
+        scene.add_mesh(objloader.loads(procgen.cube_obj()))
+        scene.add_mesh_instance(MeshInstance(0, 0))
+        cam = Camera.looking(256, 256, fov_deg=45.0, pose=[0, -4, 0, 0, 0, 0])
+        frames.append(render(cam, scene.compile(cuda), backend="cuda"))
+    assert torch.equal(frames[0], frames[1])
+    text = "".join(f"v {x:.6f} {y:.6f} {z:.6f}\n" for tri in zip(*procgen.blob(subdivisions=5))
+                   for x, y, z in tri)
+    text += "".join(f"f {3 * k + 1} {3 * k + 2} {3 * k + 3}\n" for k in range(20480))
+    assert len(text) > objloader.NATIVE_OBJ_THRESHOLD
+    (tmp_path / "blob.obj").write_text(text)
+    got = objloader.load(str(tmp_path / "blob.obj"))
+    want = objloader.parse_obj(text, native=False)
+    assert got.num_triangles == 20480
+    assert np.array_equal(got.v0, want[0][got.bvh.order])

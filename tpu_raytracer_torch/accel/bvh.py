@@ -8,7 +8,8 @@ array for array. Two split searches, one per caller:
     builds the same trees in C++): every split position between
     centroid-sorted neighbours is costed per axis (exact SAH sweep).
   * ``mode="reference"`` (the TLAS over instance boxes,
-    ``kernels/tlas.py``, which must equal the JAX package's TLAS): the
+    ``kernels/tlas.py``, which must equal the JAX package's TLAS, and
+    meshes built with ``builder="native"``, the reference-parity tree): the
     reference builder's 5 uniform candidate positions per axis at
     fractions (s+1)/6 of the node extent (reference:
     CudaRaytracer/BVHTree.hpp:294-361), with its exact if/elif/else
@@ -28,6 +29,10 @@ Both share the rest of the reference's construction:
     (BVHTree.hpp:279-280).
   * Children are appended depth-first (left subtree first), so node 0 is
     always the root (BVHTree.hpp:283-289).
+
+With ``refs`` (``accel/presplit.py``) the build partitions split
+references of triangles instead of the triangles, and ``order`` maps
+leaf slots to triangles with duplicates. ``sah_cost`` scores a tree.
 
 Unlike the reference's per-leaf cudaMalloc'd index lists
 (BVHTree.hpp:103-111), triangles are REORDERED so every leaf owns a
@@ -59,6 +64,24 @@ class BVHArrays:
     @property
     def num_nodes(self) -> int:
         return len(self.child_a)
+
+    def stats(self) -> dict:
+        """BVH diagnostics (the reference's print_stats, BVHTree.hpp:117-172)."""
+        is_leaf = self.child_a < 0
+        counts = self.leaf_count[is_leaf]
+        depth = np.zeros(self.num_nodes, np.int32)
+        for i in range(self.num_nodes):  # parents precede children (DFS order)
+            if self.child_a[i] >= 0:
+                depth[self.child_a[i]] = depth[i] + 1
+                depth[self.child_b[i]] = depth[i] + 1
+        return {
+            "num_nodes": self.num_nodes,
+            "num_leaves": int(is_leaf.sum()),
+            "max_triangles_per_leaf": int(counts.max()) if len(counts) else 0,
+            "min_triangles_per_leaf": int(counts.min()) if len(counts) else 0,
+            "max_depth": int(depth.max()),
+            "avg_triangles_per_leaf": float(counts.mean()) if len(counts) else 0.0,
+        }
 
 
 def _half_area(mn: np.ndarray, mx: np.ndarray) -> np.ndarray:
@@ -119,6 +142,19 @@ def _eval_axis_sweep(cent_ax, tmin, tmax):
     return float(cost[k]), k, ordr
 
 
+def sah_cost(bvh: BVHArrays, c_trav: float = 1.0, c_isect: float = 1.0) -> float:
+    """Standard SAH tree cost: sum(A(node)/A(root)) * c_trav over internal
+    nodes plus sum(A(leaf)/A(root) * count) * c_isect over leaves (lower
+    means fewer expected node visits for a random ray)."""
+    area = _half_area(bvh.node_min, bvh.node_max)
+    root = max(float(area[0]), 1e-30)
+    is_leaf = bvh.child_a < 0
+    return float(
+        c_trav * area[~is_leaf].sum() / root
+        + c_isect * (area[is_leaf] * bvh.leaf_count[is_leaf]).sum() / root
+    )
+
+
 # Nodes above this size always split (see the forced-split note in
 # fill); must stay well under the packet kernel's 1023-triangle leaf cap
 FORCE_SPLIT_ABOVE = 512
@@ -131,6 +167,7 @@ def build_bvh(
     max_depth: int = 48,
     min_leaf_size: int = 1,
     mode: str = "sweep",
+    refs=None,
 ) -> BVHArrays:
     """Build a BVH over triangles given as three [T, 3] vertex arrays.
 
@@ -139,18 +176,34 @@ def build_bvh(
     triangle tests, a packet-traversal tuning knob).
 
     ``mode``: "sweep" (meshes) costs every centroid-sorted split
-    position per axis; "reference" (the TLAS) reproduces the
-    reference's 5-candidate uniform search exactly. Same cost model and
-    termination rules."""
+    position per axis; "reference" (the TLAS, and meshes built with
+    ``builder="native"``) reproduces the reference's 5-candidate uniform
+    search exactly. Same cost model and termination rules.
+
+    ``refs``: optional ``(ref_tri, ref_min, ref_max)`` from
+    ``presplit.presplit_refs``. The build then partitions the split
+    references (box centres as centroids, clipped boxes as bounds), and
+    the returned ``order`` maps leaf slots to source triangles with
+    duplicates; every per-triangle array is fancy-indexed by ``order``
+    downstream, so duplicated references need nothing else."""
     v0 = np.asarray(v0, np.float32)
     v1 = np.asarray(v1, np.float32)
     v2 = np.asarray(v2, np.float32)
     if mode not in ("sweep", "reference"):
         raise ValueError(f"unknown BVH build mode {mode!r}")
-    num_tris = len(v0)
-    centroids = (v0 + v1 + v2) / np.float32(3.0)
-    tri_min = np.minimum(np.minimum(v0, v1), v2)
-    tri_max = np.maximum(np.maximum(v0, v1), v2)
+    if refs is not None:
+        ref_tri, tri_min, tri_max = refs
+        ref_tri = np.asarray(ref_tri, np.int64)
+        tri_min = np.asarray(tri_min, np.float32)
+        tri_max = np.asarray(tri_max, np.float32)
+        num_tris = len(ref_tri)
+        centroids = np.float32(0.5) * (tri_min + tri_max)
+    else:
+        ref_tri = None
+        num_tris = len(v0)
+        centroids = (v0 + v1 + v2) / np.float32(3.0)
+        tri_min = np.minimum(np.minimum(v0, v1), v2)
+        tri_max = np.maximum(np.maximum(v0, v1), v2)
 
     node_min, node_max = [], []
     child_a, child_b = [], []
@@ -256,6 +309,8 @@ def build_bvh(
         if order_len
         else np.zeros(0, np.int64)
     )
+    if ref_tri is not None:
+        order_arr = ref_tri[order_arr]  # reference slot -> source triangle
     return BVHArrays(
         node_min=np.asarray(node_min, np.float32),
         node_max=np.asarray(node_max, np.float32),

@@ -1,5 +1,5 @@
 // Native BVH builder of tpu_raytracer_torch (ctypes ABI): the exact-SAH
-// sweep build of the JAX package's native/bvh_builder.cpp, the one build
+// sweep build of the JAX package's native bvh_builder.cpp, the one build
 // the port uses for meshes. Built with g++ at first use by
 // kernels/build.py (build_bvh_builder) and bound in accel/native.py.
 //

@@ -16,7 +16,9 @@ Config 5 is path tracing on the colonnade: BASELINE's run is
 segments: 256,002 triangles), 2 samples and 2 bounces over a 5-pose
 ``controls.fly_through`` (``render_image_path_traced``); the ~1.04M
 triangles at 18x18 columns and 40 segments are the paged kernels'
-scene. Flattening static instances waits for ROADMAP Queue 1 item 5.
+scene. ``flatten=True`` on configs 4 and 16 instances bakes the static
+instances into one world-space mesh (``Scene.flattened``): bench_all's
+configs 4b and 6b, one K1 walk in place of K3's.
 """
 
 from __future__ import annotations
@@ -70,9 +72,10 @@ def scene_bunny(width: int = 1920, height: int = 1088, subdivisions: int = 6,
     return scene.compile(device), cam
 
 
-def scene_instances(width: int = 512, height: int = 512, device="cuda"):
+def scene_instances(width: int = 512, height: int = 512, device="cuda", flatten: bool = False):
     """Config 4: a textured floor board, a mirror sphere, a scaled cube
-    and a small sphere — four posed instances."""
+    and a small sphere — four posed instances (one baked mesh with
+    ``flatten``)."""
     scene = Scene()
     matte = scene.add_material(Material(albedo=(0.9, 0.9, 0.9)))
     blue = scene.add_material(Material(albedo=(0.9, 0.2, 0.1)))
@@ -100,12 +103,13 @@ def scene_instances(width: int = 512, height: int = 512, device="cuda"):
     c.scale = np.array([0.5, 0.5, 0.5], np.float32)
     scene.add_mesh_instance(c)
     cam = Camera.looking(width, height, fov_deg=60.0, pose=[0, -1.5, 0.3, 0, 0, 0])
-    return scene.compile(device), cam
+    return scene.compile(device, flatten_static=flatten), cam
 
 
-def scene_instances16(width: int = 512, height: int = 512, n: int = 16, device="cuda"):
+def scene_instances16(width: int = 512, height: int = 512, n: int = 16, device="cuda",
+                      flatten: bool = False):
     """16 posed, scaled instances of a cube and a sphere in a grid: the
-    TLAS scene."""
+    TLAS scene (one baked mesh with ``flatten``)."""
     scene = Scene()
     matte = scene.add_material(Material(albedo=(0.9, 0.9, 0.9)))
     red = scene.add_material(Material(albedo=(0.9, 0.2, 0.1)))
@@ -124,7 +128,7 @@ def scene_instances16(width: int = 512, height: int = 512, n: int = 16, device="
         inst.scale = np.full(3, rng.uniform(0.7, 1.1), np.float32)
         scene.add_mesh_instance(inst)
     cam = Camera.looking(width, height, fov_deg=75.0, pose=[0, -8.0, 0.0, 0, 0, 0])
-    return scene.compile(device), cam
+    return scene.compile(device, flatten_static=flatten), cam
 
 
 def scene_colonnade(width: int = 1024, height: int = 1024, columns: int = 10,

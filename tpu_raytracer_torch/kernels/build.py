@@ -1,12 +1,14 @@
-"""Build and load the hand-written kernels from ``kernels/csrc`` and the
-native BVH builder from ``accel/csrc``.
+"""Build and load the hand-written kernels from ``kernels/csrc``, the
+native BVH builder from ``accel/csrc`` and the native OBJ parser from
+``scene/csrc``.
 
 The CUDA sources of K1/K2, K3, K4/K5, K6 and K6's plan are compiled for ``sm_90a`` by
 one ``nvcc`` process per source, all started together, and linked into
 one shared library with a plain C interface, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). The host build of the same
 traversal headers (``g++``) serves the CPU tests, and the BVH builder
-(``accel/csrc/bvh_builder.cpp``) is a ``g++`` build too. Libraries go to
+(``accel/csrc/bvh_builder.cpp``) and the OBJ parser
+(``scene/csrc/obj_loader.cpp``) are ``g++`` builds too. Libraries go to
 ``kernels/_build/<name>-<hash>/``, keyed by a hash of the sources and
 flags, built at first use; the directory is listed in ``.gitignore``.
 Every failure raises: nothing falls back to another build.
@@ -25,6 +27,7 @@ import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BVH_CSRC = pathlib.Path(__file__).resolve().parent.parent / "accel" / "csrc"
+OBJ_CSRC = pathlib.Path(__file__).resolve().parent.parent / "scene" / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
 
 CUDA_SOURCES = ("wide_traverse.cu", "tlas_traverse.cu", "paged_traverse.cu", "paged_major.cu",
@@ -36,7 +39,7 @@ NVCC_FLAGS = (
 NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 GXX_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
 # the BVH builder's f32 arithmetic must match the numpy builder bit for
-# bit: no FMA contraction (native/Makefile of the JAX package)
+# bit: no FMA contraction (as the JAX package's native Makefile builds)
 BVH_GXX_FLAGS = ("-O3", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
 
 
@@ -167,6 +170,11 @@ def build_bvh_builder() -> pathlib.Path:
     """g++ build of the native BVH builder (``accel/csrc``)."""
     return _build("bvh_builder", _gxx(), BVH_GXX_FLAGS, ("bvh_builder.cpp",),
                   src_dir=BVH_CSRC)
+
+
+def build_obj_parser() -> pathlib.Path:
+    """g++ build of the native OBJ parser (``scene/csrc``)."""
+    return _build("obj_parser", _gxx(), BVH_GXX_FLAGS, ("obj_loader.cpp",), src_dir=OBJ_CSRC)
 
 
 _P = ctypes.c_void_p

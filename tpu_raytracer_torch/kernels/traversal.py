@@ -164,7 +164,7 @@ def new_stats(n: int, device) -> dict:
     """Per-ray visit counters of the plain walks: ``pops`` (nodes of a
     BVH or page tree popped), ``top_pops`` (internal TLAS or top-tree
     nodes popped, two child boxes each) and ``tests`` (triangles
-    tested). They mirror the JAX package's ``TRT_KERNEL_STATS``
+    tested). They mirror the JAX package's kernel-stats
     counters; the plain walks keep each ray's visit order, so they are
     the kernels' counts."""
     return {k: torch.zeros(n, dtype=torch.int64, device=device)

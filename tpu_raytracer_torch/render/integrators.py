@@ -166,10 +166,10 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
     ``lens_radius > 0`` adds thin-lens depth of field, sampled per
     sample on a lens disk perpendicular to the mean view axis.
 
-    ``sample_batch`` (the default; the JAX ``TRT_PATH_SAMPLE_BATCH``)
+    ``sample_batch`` (the default, as in the JAX package)
     runs all samples as one ``(samples,) + shape`` wavefront after one
     primary cast; without it, or with a lens, samples run one after
-    another. ``fast_tail`` (the JAX ``TRT_PATH_TAIL``): with no emissive
+    another. ``fast_tail`` (the JAX package's fast tail): with no emissive
     material and no NEE the last bounce's answer is hit or miss, so it
     is cast with the any-hit cast. ``sort_secondary`` casts bounce rays
     in coherence order on the ``cuda`` backend (``sorted_cast``); the

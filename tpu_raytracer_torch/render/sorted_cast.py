@@ -12,7 +12,7 @@ unsorted cast gives, because the kernels walk each ray on its own.
 ``secondary_cast_fn`` sorts for the ``cuda`` backend (K1 and K3, the
 counterpart of the JAX ``pallas`` route that sorts) when asked, and
 passes every other backend through, as the JAX package does. The JAX
-package's ``TRT_SORT_KEY`` and ``TRT_SORT_SECONDARY`` knobs are TPU
+package's sort-key and sort-secondary knobs are TPU
 experiments and are not ported: the default key only, and the choice is
 the ``sort_secondary`` argument.
 """

@@ -1,4 +1,4 @@
-from . import objloader, procgen
+from . import cache, objloader, procgen
 from .instance import MeshInstance
 from .material import Material
 from .mesh import MeshPrimitive
@@ -9,6 +9,7 @@ __all__ = [
     "MeshInstance",
     "MeshPrimitive",
     "Scene",
+    "cache",
     "SceneTensors",
     "from_scene_arrays",
     "objloader",

@@ -1,8 +1,10 @@
 """Material record (counterpart of ``tpu_raytracer/scene/material.py``).
 
 A texture is a host ``[H, W, 3]`` uint8 array in the reference's BGR
-channel order; ``Scene.compile`` packs it into the flat atlas. Loading
-textures from image files is not ported yet (ROADMAP Queue 1 item 5).
+channel order; ``Scene.compile`` packs it into the flat atlas.
+``upload_texture`` reads one from a PNG file (``utils/image.py
+read_png``: what the JAX package's ``cv2.imread`` gives; other formats
+raise).
 """
 
 from __future__ import annotations
@@ -20,6 +22,12 @@ class Material:
     illumination: float = 0.0
     reflectivity: float = 0.0
     texture: np.ndarray | None = None  # [H, W, 3] uint8
+
+    def upload_texture(self, fp: str) -> None:
+        """Load a PNG file as this material's texture (Material.hpp:29-43)."""
+        from ..utils.image import read_png
+
+        self.set_texture(read_png(fp))
 
     def set_texture(self, img: np.ndarray) -> None:
         """Attach an in-memory [H, W, 3] uint8 texture."""

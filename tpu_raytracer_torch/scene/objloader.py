@@ -1,12 +1,14 @@
-"""Wavefront OBJ loader from text, in numpy.
+"""Wavefront OBJ loader (reference: CudaRaytracer/OBJLoader.hpp:12-181).
 
-Counterpart of ``tpu_raytracer/scene/objloader.py`` (its pure-Python
-parser): polygon faces are fan-triangulated as (0, i, i+1); UVs attach
-only when every token of a face carries a ``vt`` index; face normals are
-recomputed from the winding; ``vn`` records give per-corner vertex
-normals on request (``loads(..., vertex_normals=True)``). Loading files
-from disk and the native parser for large files are not ported yet
-(ROADMAP Queue 1 item 5).
+Counterpart of ``tpu_raytracer/scene/objloader.py``: polygon faces are
+fan-triangulated as (0, i, i+1); UVs attach only when every token of a
+face carries a ``vt`` index; face normals are recomputed from the
+winding; ``vn`` records give per-corner vertex normals on request
+(``vertex_normals=True``). ``load`` reads a file (a missing one raises
+``FileNotFoundError``), ``loads`` a string. ``parse_obj`` sends texts
+above ``NATIVE_OBJ_THRESHOLD`` characters to the native C++ parser
+(``native_obj.py``, bit for bit the numpy parser's results) and smaller
+ones to the numpy parser; ``native=`` forces either.
 """
 
 from __future__ import annotations
@@ -16,8 +18,26 @@ import numpy as np
 from .mesh import MeshPrimitive
 
 
-def parse_obj(text: str):
-    """OBJ text -> raw triangle arrays (v0, v1, v2, uv0, uv1, uv2, has_uv)."""
+# Texts above this many characters go to the native parser (the JAX
+# package's threshold): below it the numpy parser is fast enough.
+NATIVE_OBJ_THRESHOLD = 256 * 1024
+
+
+def parse_obj(text: str, native: bool | None = None):
+    """OBJ text -> raw triangle arrays (v0, v1, v2, uv0, uv1, uv2, has_uv),
+    by the native parser above ``NATIVE_OBJ_THRESHOLD`` characters or
+    where ``native`` is True, by the numpy parser otherwise."""
+    if native is None:
+        native = len(text) > NATIVE_OBJ_THRESHOLD
+    if native:
+        from .native_obj import parse_obj_native
+
+        return parse_obj_native(text)
+    return _parse_obj_py(text)
+
+
+def _parse_obj_py(text: str):
+    """The numpy parser (small texts, and the native parser's oracle)."""
     vertices: list[list[float]] = []
     tex_coords: list[list[float]] = []
     tri_v: list[tuple[int, int, int]] = []
@@ -102,15 +122,31 @@ def parse_obj_vertex_normals(text: str):
     return vn[0], vn[1], vn[2], mask
 
 
-def loads(text: str, vertex_normals: bool = False) -> MeshPrimitive:
+def load(fp: str, max_depth: int = 48, exact_normals: bool = True,
+         vertex_normals: bool = False) -> MeshPrimitive:
+    """Load an OBJ file into a MeshPrimitive (BVH built in the
+    constructor, as OBJLoader.hpp:177 -> MeshPrimitive.cpp:5-15)."""
+    with open(fp) as f:
+        text = f.read()
+    mesh = loads(text, max_depth=max_depth, exact_normals=exact_normals,
+                 vertex_normals=vertex_normals)
+    print(f"OBJ File: {fp}")
+    print(f"Loaded {mesh.num_triangles} triangles")
+    return mesh
+
+
+def loads(text: str, max_depth: int = 48, exact_normals: bool = True,
+          vertex_normals: bool = False) -> MeshPrimitive:
     """OBJ source text -> MeshPrimitive (BVH built in the constructor).
     ``vertex_normals`` attaches the file's ``vn`` records for smooth
-    shading (none where no face has complete ones)."""
+    shading (none where no face has complete ones); ``max_depth`` and
+    ``exact_normals`` are ``MeshPrimitive.from_triangles``'."""
     v0, v1, v2, uv0, uv1, uv2, _ = parse_obj(text)
     vn = (None,) * 4
     if vertex_normals:
         vn = parse_obj_vertex_normals(text)
         if not vn[3].any():
             vn = (None,) * 4
-    return MeshPrimitive.from_triangles(v0, v1, v2, None, uv0, uv1, uv2, vn0=vn[0], vn1=vn[1],
+    return MeshPrimitive.from_triangles(v0, v1, v2, None, uv0, uv1, uv2, max_depth=max_depth,
+                                        exact_normals=exact_normals, vn0=vn[0], vn1=vn[1],
                                         vn2=vn[2], vn_mask=vn[3])

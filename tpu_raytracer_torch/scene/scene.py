@@ -18,15 +18,21 @@ binary tables of K2 and, for two or more instances, the TLAS of K3;
 ``update_instance`` is the functional pose update that rebuilds the
 TLAS, and ``with_paging`` attaches the page tables of the paged kernels
 K4-K6. Nothing pages a
-scene automatically: the ``cuda`` backend casts every scene with K1 or
-K3, the ``bvh`` backend with K2, and the ``paged`` and ``paged_major``
-backends are chosen by the caller (ROADMAP Queue 1 item 8 holds the
-routing question). Meshes with vertex normals give ``tri_vnorm`` (10
-lanes per triangle: the three corners' normals and a flag, zero on the
-pad rows), and ``Scene.set_sky`` packs an equirect sky map at the
-atlas's tail (``sky_tex_*``).
+scene automatically (the JAX compile's ``auto_page`` is not ported): the
+``cuda`` backend casts every scene with K1 or K3, the ``bvh`` backend
+with K2, and the ``paged`` and ``paged_major`` backends are chosen by
+the caller (ROADMAP Queue 1 item 8 holds the routing question). Meshes
+with vertex normals give ``tri_vnorm`` (10 lanes per triangle: the three
+corners' normals and a flag, zero on the pad rows), and
+``Scene.set_sky`` packs an equirect sky map at the atlas's tail
+(``sky_tex_*``).
 
-Not ported yet (ROADMAP Queue 1 item 5): ``flattened`` and save/load.
+``Scene.flattened`` bakes every instance into one world-space mesh with
+per-triangle materials (``tri_mat``), which ``compile(flatten_static=
+True)`` compiles: one instance, cast by K1 instead of K3.
+``SceneTensors.save`` and ``load`` keep a compiled scene in the JAX
+package's npz format (an npz saved by either package loads in the
+other); ``scene/cache.py`` builds a compile cache on them.
 """
 
 from __future__ import annotations
@@ -188,6 +194,21 @@ class SceneTensors:
               if v is not None}
         return dataclasses.replace(self, paged=prepare_paged(self, wide=wide, **kw))
 
+    def save(self, fp: str) -> None:
+        """Write the array fields to an npz (the JAX ``SceneArrays.save``
+        format: the same keys, ``tri_vnorm`` only where present, no
+        derived tables or flags)."""
+        np.savez_compressed(fp, **self.numpy_fields())
+
+    @classmethod
+    def load(cls, fp: str, device="cuda") -> "SceneTensors":
+        """Read an npz written by ``save`` or by the JAX package's
+        ``SceneArrays.save``; the derived tables and flags are rebuilt, and
+        files from before mip chains or sky maps take their defaults."""
+        with np.load(fp) as data:
+            fields = {k: data[k] for k in data.files}
+        return from_scene_arrays(fields, device)
+
     def numpy_fields(self) -> dict[str, np.ndarray]:
         """Array fields as host numpy arrays, keyed by field name
         (``tri_vnorm`` where the scene has it)."""
@@ -262,12 +283,77 @@ class Scene:
         self.mesh_instances.append(instance)
         return len(self.mesh_instances) - 1
 
-    def compile(self, device="cuda") -> SceneTensors:
+    def update_mesh_instance(self, index: int, instance: MeshInstance) -> None:
+        self.mesh_instances[index] = instance
+
+    def flattened(self) -> tuple["Scene", np.ndarray]:
+        """Every instance's triangles baked to world space and merged into
+        one mesh under one identity instance: the new Scene, and the
+        per-triangle material ids in the merged mesh's BVH order.
+
+        For scenes whose instances do not move: one walk over one BVH
+        replaces the walk over every instance, at the price of the cheap
+        pose update. The bake is ``hit_attributes``' transform: world =
+        apply_lre(inv_pose, v * scale), normals (face and vertex) by the
+        scale-multiply convention, renormalised."""
+        from ..core import transforms as T
+        from ..core.vecmath import normalize
+
+        parts = {k: [] for k in ("v0", "v1", "v2", "normal", "uv0", "uv1", "uv2", "mat",
+                                 "vn0", "vn1", "vn2", "vn_mask")}
+        any_vn = any(self.meshes[i.mesh_index].vn0 is not None for i in self.mesh_instances)
+        for inst in self.mesh_instances:
+            mesh = self.meshes[inst.mesh_index]
+            d = inst.build_inv()
+            inv_pose = torch.from_numpy(np.asarray(d["inv_pose"], np.float32))
+            scale = torch.from_numpy(np.asarray(d["scale"], np.float32))
+
+            def to_world(v):
+                return T.apply_lre(inv_pose, torch.from_numpy(v) * scale).numpy()
+
+            def to_world_n(n):
+                return normalize(T.apply_euler(inv_pose[3:6], torch.from_numpy(n))
+                                 * scale).numpy()
+
+            for k in ("v0", "v1", "v2"):
+                parts[k].append(to_world(getattr(mesh, k)))
+            parts["normal"].append(to_world_n(mesh.normal))
+            for k in ("uv0", "uv1", "uv2"):
+                parts[k].append(getattr(mesh, k))
+            parts["mat"].append(np.full(mesh.num_triangles, inst.material_index, np.int32))
+            if any_vn:
+                zeros = np.zeros((mesh.num_triangles, 3), np.float32)
+                for k in ("vn0", "vn1", "vn2"):
+                    vn = getattr(mesh, k)
+                    parts[k].append(zeros if vn is None else to_world_n(vn))
+                parts["vn_mask"].append(np.zeros(mesh.num_triangles, bool)
+                                        if mesh.vn_mask is None else mesh.vn_mask)
+
+        cat = {k: np.concatenate(v) if v else None for k, v in parts.items()}
+        merged = MeshPrimitive.from_triangles(
+            *(cat[k] for k in ("v0", "v1", "v2", "normal", "uv0", "uv1", "uv2")),
+            **{k: cat[k] for k in ("vn0", "vn1", "vn2", "vn_mask")})
+        flat = Scene()
+        flat.materials = self.materials
+        flat.sky_texture = self.sky_texture
+        flat.add_mesh(merged)
+        flat.add_mesh_instance(MeshInstance(0, 0))
+        return flat, cat["mat"][merged.bvh.order]
+
+    def compile(self, device="cuda", box_pad_ulp: float = BOX_PAD_ULP,
+                flatten_static: bool = False, _tri_mat: np.ndarray | None = None
+                ) -> SceneTensors:
         """Flatten to ``SceneTensors`` on ``device``, with the 4-wide
         traversal tables and, for two or more instances, the TLAS
-        attached."""
+        attached. ``box_pad_ulp``: the node boxes' relative out-rounding
+        (0 for tight boxes). ``flatten_static``: compile ``flattened()``
+        instead, one instance with per-triangle materials (``tri_mat``,
+        the source instance's material; -1 elsewhere and on pad rows)."""
         if not self.meshes or not self.mesh_instances or not self.materials:
             raise ValueError("scene needs at least one mesh, instance and material")
+        if flatten_static:
+            flat, tri_mat = self.flattened()
+            return flat.compile(device, box_pad_ulp=box_pad_ulp, _tri_mat=tri_mat)
 
         tri_parts = {k: [] for k in ("v0", "v1", "v2", "normal", "uv0", "uv1", "uv2")}
         node_parts = {k: [] for k in ("min", "max", "ca", "cb", "ls", "lc")}
@@ -300,7 +386,11 @@ class Scene:
             src = np.where(pad, 0, src)
 
             tri_mesh.append(np.full(new_total, mesh_id, np.int32))
-            tri_mat_parts.append(np.full(new_total, -1, np.int32))
+            # per-triangle materials (flattened scenes); -1 resolves through
+            # the instance, and pad rows get -1
+            mat_src = (_tri_mat if _tri_mat is not None and mesh_id == 0
+                       else np.full(mesh.num_triangles, -1, np.int32))
+            tri_mat_parts.append(np.where(pad, np.int32(-1), mat_src[src]).astype(np.int32))
             if mesh.vn0 is not None:
                 vn = np.concatenate([mesh.vn0, mesh.vn1, mesh.vn2,
                                      mesh.vn_mask[:, None].astype(np.float32)], axis=1)
@@ -376,9 +466,10 @@ class Scene:
         cat = np.concatenate
         node_min = cat(node_parts["min"])
         node_max = cat(node_parts["max"])
-        pad = np.maximum(np.abs(node_min), np.abs(node_max)) * np.float32(BOX_PAD_ULP)
-        node_min = node_min - pad
-        node_max = node_max + pad
+        if box_pad_ulp:
+            pad = np.maximum(np.abs(node_min), np.abs(node_max)) * np.float32(box_pad_ulp)
+            node_min = node_min - pad
+            node_max = node_max + pad
 
         f32 = lambda x: np.asarray(x, np.float32)
         i32 = lambda x: np.asarray(x, np.int32)
