@@ -128,7 +128,28 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      phase 12 (each in a fresh temporary directory, every field equal);
  29. ``[texture_file]``: the cube's checkerboard as a PNG file through
      ``Material.upload_texture``, the 1920x1088 frame against the
-     in-memory texture's.
+     in-memory texture's;
+ 30. ``[shard_rows]``: row bands (``parallel.sharding``) on ranks started
+     by ``parallel.spawn`` on this card: one rank under NCCL, two under
+     gloo (NCCL refuses two ranks on one card), every card under NCCL
+     where there are two or more (else ``[shard_multi_card] run=False``).
+     The flagship (K1) and config 4's Whitted frame (K3) at 1920x1088,
+     config 5's path frame at 512x512 (K1; band i sampled with
+     ``fold_in(key, i)``, against the same bands rendered here), the 1M
+     colonnade through ``paged`` (K4, K5) and ``paged_major`` (K6): every
+     rank's frame bitwise equal to the unsharded one, each rank's
+     launches, frame ms best and median beside the unsharded frame's;
+ 31. ``[shard_scene]``: the 1M colonnade flattened and split into one
+     chunk per rank (``parallel.scene_shard``), K1 on 1920x1088 rays: the
+     chunks' rows and table bytes against the whole scene's, K1's device
+     time on a chunk against the whole scene, the combined cast against
+     the lexicographic minimum of the ranks' own casts (bitwise), its t
+     differences from the single-device cast of the flattened scene and
+     how many no visit order explains (must be 0); per lighting (flat,
+     ``lambert_shadow``, ``[shard_scene_frame]``) the pixels apart from
+     the single-device frame, the collectives' CUDA-event ms, frame ms;
+ 32. ``[shard_dryrun]``: ``python -m tpu_raytracer_torch.parallel.dryrun``
+     on two ranks of this card under gloo.
 
 Every kernel's bound is the larger of its f32 operations over 67 TFLOP/s
 and its bytes over 3.35 TB/s (the H100's published peaks): operations
@@ -614,6 +635,7 @@ def main():
     presplit_phase(dev, card, paged_ctx)
     optimize_phase(dev, card, path_ctx)
     scene_io_phases(dev, path_ctx)
+    shard_phases(dev, card, (scene, args), (inst4, args4), paged_ctx, path_ctx)
 
     wide = scene.wide4
     k1_bound = bound("K1", k1_stats, 4, rays, (dirs, origin, wide.wnode, *hk[:3]),
@@ -2024,6 +2046,405 @@ def scene_io_phases(dev, ctx) -> None:
               f"texture's ({texels} texels, {n_img} pixels)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# The multi-device phases: frames timed per configuration and case, after
+# one untimed frame
+SHARD_REPS = 5
+
+
+def _launch_counts() -> dict:
+    from tpu_raytracer_torch.kernels import binary, paged, paged_major, tlas, traversal
+
+    return {"K1": traversal.LAUNCHES, "K2": binary.LAUNCHES, "K3": tlas.LAUNCHES,
+            "K4": paged.LAUNCHES_K4, "K5": paged.LAUNCHES_K5, "K6": paged_major.LAUNCHES,
+            "K6_plan": paged_major.LAUNCHES_PLAN}
+
+
+def _reset_launch_counts() -> None:
+    from tpu_raytracer_torch.kernels import binary, paged, paged_major, tlas, traversal
+
+    traversal.LAUNCHES = binary.LAUNCHES = tlas.LAUNCHES = 0
+    paged.LAUNCHES_K4 = paged.LAUNCHES_K5 = paged_major.LAUNCHES = paged_major.LAUNCHES_PLAN = 0
+
+
+def _frames(fn) -> dict:
+    """One frame of ``fn`` with the kernel launches it made (counts set to
+    0 just before, read just after), then ``SHARD_REPS`` timed frames
+    (host clock around each, ended by a synchronize)."""
+    _reset_launch_counts()
+    img = fn()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    times = []
+    for _ in range(SHARD_REPS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return {"img": img, "launches": launches, "best_ms": times[0],
+            "median_ms": times[len(times) // 2]}
+
+
+def shard_rank(group, rows: dict, scene_part: tuple) -> dict:
+    """A ``parallel.spawn`` worker: this rank's part of ``[shard_rows]``
+    and ``[shard_scene]``. ``rows``: {case: (entry, config, scene, camera
+    args, extra args)}, each frame rendered with ``_frames``.
+    ``scene_part``: (this rank's chunk, camera args, configs): the
+    scene-sharded cast of the camera's rays (with this rank's own K1 cast
+    of its chunk beside it) and a frame per config, with the CUDA-event
+    milliseconds of the frame's collectives (``scene_shard._all_reduce``)."""
+    from tpu_raytracer_torch.kernels import traversal
+    from tpu_raytracer_torch.parallel import scene_shard
+    from tpu_raytracer_torch.parallel.group import to_device
+    from tpu_raytracer_torch.render import generate_rays
+
+    out = {}
+    for name, (entry, cfg, scene, args, extra) in rows.items():
+        scene, args, extra = to_device((scene, args, extra), group.device)
+        out[name] = _frames(lambda: entry(cfg, group, scene, *args, *extra))
+        del scene
+        torch.cuda.empty_cache()
+    shard, args, configs = to_device(scene_part, group.device)
+    o, d = generate_rays(configs[0].width, configs[0].height, *args)
+    out["local"] = traversal.cast_rays_cuda(shard.scene, o, d)
+    out["cast"] = scene_shard.cast_rays_scene_sharded(group, shard, o, d, backend="cuda")
+    saved, marks = scene_shard._all_reduce, []
+
+    def timed_all_reduce(g, x, op):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        x = saved(g, x, op)
+        end.record()
+        marks.append((start, end))
+        return x
+
+    for cfg in configs:
+        frames = _frames(lambda: scene_shard.render_image_scene_sharded(cfg, group, shard, *args))
+        scene_shard._all_reduce = timed_all_reduce
+        try:
+            marks.clear()
+            scene_shard.render_image_scene_sharded(cfg, group, shard, *args)
+            torch.cuda.synchronize()
+        finally:
+            scene_shard._all_reduce = saved
+        frames["combine_ms"] = sum(s.elapsed_time(e) for s, e in marks)
+        frames["collectives"] = len(marks)
+        out["scene_" + cfg.lighting] = frames
+    return out
+
+
+def table_bytes(scene) -> int:
+    """Bytes of every tensor of a compiled scene, its traversal tables
+    included."""
+    out = sum(getattr(scene, f).numel() * getattr(scene, f).element_size()
+              for f in ("tri_v0", "tri_v1", "tri_v2", "tri_normal", "tri_uv0", "tri_uv1",
+                        "tri_uv2", "tri_mesh", "tri_mat", "node_min", "node_max",
+                        "node_child_a", "node_child_b", "node_leaf_start", "node_leaf_count"))
+    for tables in (scene.wide4, scene.binary):
+        out += sum(t.numel() * t.element_size() for t in vars(tables).values()
+                   if isinstance(t, torch.Tensor))
+    return out
+
+
+def shard_unexplained(flat, shards, o, d, combined, local_hits, single) -> tuple:
+    """(rays whose t differs between the scene-sharded cast ``combined``
+    and the single-device cast ``single`` of the flattened scene ``flat``,
+    rays among them that no visit order explains). Where the sharded hit
+    is nearer, the flat scene's walk lost it: both hits are held to
+    ``traversal.unexplained_differences`` in ``flat``. Where the flat
+    scene's hit is nearer, the chunk holding its triangle lost it: that
+    hit and the chunk's own hit (``local_hits``) are held to it in the
+    chunk. Triangles are matched across scenes by their three vertices."""
+    from tpu_raytracer_torch.kernels import traversal
+    from tpu_raytracer_torch.render.renderer import Hit
+
+    idx = torch.nonzero((combined.t.view(torch.int32) != single.t.view(torch.int32))
+                        .reshape(-1)).squeeze(1)
+    if idx.numel() == 0:
+        return 0, 0
+    rays_o = o.expand(d.shape).reshape(-1, 3)[idx]
+    rays_d = d.reshape(-1, 3)[idx]
+    pick = lambda h: Hit(*(x.reshape(-1)[idx] for x in h[:3]))
+    comb, one = pick(combined), pick(single)
+    verts = lambda sc, r: torch.cat([sc.tri_v0[r], sc.tri_v1[r], sc.tri_v2[r]])
+    rows_of = lambda sc: torch.cat([sc.tri_v0, sc.tri_v1, sc.tri_v2], 1)
+
+    def find(sc, v) -> int:
+        hits = torch.nonzero((rows_of(sc) == v).all(1)).squeeze(1)
+        return int(hits[0]) if hits.numel() else -1
+
+    stride = shards[0].stride
+    bad = 0
+    near = comb.t < one.t  # every differing ray with comb.t >= one.t has one.t < comb.t
+    if near.any():
+        rows = [find(flat, verts(shards[g // stride].scene, g % stride))
+                for g in comb.tri[near].tolist()]
+        mapped = Hit(comb.t[near], torch.tensor(rows, dtype=torch.int32, device=o.device),
+                     torch.zeros_like(comb.inst[near]))
+        bad += traversal.unexplained_differences(flat, rays_o[near], rays_d[near], mapped,
+                                                 Hit(*(x[near] for x in one[:3])))
+    lost = torch.nonzero(~near).squeeze(1).tolist()
+    for c, shard in enumerate(shards):
+        sel, rows = [], []
+        for i in lost:
+            r = find(shard.scene, verts(flat, int(one.tri[i])))
+            if r >= 0:
+                sel.append(i)
+                rows.append(r)
+        if not sel:
+            continue
+        sel_t = torch.tensor(sel, device=o.device)
+        mine = Hit(one.t[sel_t], torch.tensor(rows, dtype=torch.int32, device=o.device),
+                   torch.zeros_like(one.inst[sel_t]))
+        local = Hit(*(x.reshape(-1)[idx][sel_t] for x in local_hits[c][:3]))
+        bad += traversal.unexplained_differences(shard.scene, rays_o[sel_t], rays_d[sel_t],
+                                                 mine, local)
+        lost = [i for i in lost if i not in sel]
+    return idx.numel(), bad + len(lost)
+
+
+def lex_min(local_hits, shards):
+    """The nearest hit over the chunks, combined here from each rank's own
+    cast of its chunk: the lexicographic (t, global tri) minimum, as
+    ``parallel.scene_shard._combine_hit`` reduces it over the ranks."""
+    from tpu_raytracer_torch.render.renderer import Hit
+
+    keys = [(h.t.view(torch.int32).long() << 32)
+            | torch.where(h.tri >= 0, h.tri.long() + s.shard * s.stride, 2 ** 30)
+            for h, s in zip(local_hits, shards)]
+    best = torch.stack(keys).min(dim=0).values
+    gtri = best & 0xFFFFFFFF
+    miss = gtri >= 2 ** 30
+    return Hit((best >> 32).to(torch.int32).view(torch.float32),
+               torch.where(miss, -1, gtri).to(torch.int32),
+               torch.where(miss, -1, 0).to(torch.int32))
+
+
+def shard_phases(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
+    """Phases 30-32, the multi-device layer (``tpu_raytracer_torch/parallel``)
+    with every rank on this card: one rank under NCCL, two under gloo
+    (NCCL refuses two ranks on one card), and every card under NCCL where
+    there are two or more.
+
+    ``[shard_rows]``: row bands of the flagship (K1) and config 4's
+    Whitted frame (K3) at 1920x1088, config 5's path frame at 512x512
+    (K1; its bands sampled with the folded keys, against the same bands
+    rendered here), and the 1M colonnade through ``paged`` (K4, K5) and
+    ``paged_major`` (K6) at 1920x1088: every rank's frame bitwise equal to
+    the unsharded frame, launches per rank, frame ms best and median.
+
+    ``[shard_scene]``: the 1M colonnade flattened and split into one chunk
+    per rank, cast with K1 at 1920x1088: the chunks' rows and table bytes
+    against the whole scene's, K1's device time on a chunk against the
+    whole scene, the t differences from the single-device cast of the
+    flattened scene and how many no visit order explains (must be 0), the
+    flat and ``lambert_shadow`` frames' pixels apart from the
+    single-device frames, the combine's CUDA-event ms, the frame ms.
+
+    ``[shard_dryrun]``: ``python -m tpu_raytracer_torch.parallel.dryrun``
+    on two ranks of this card under gloo."""
+    import dataclasses
+    import subprocess
+
+    from tpu_raytracer_torch.kernels import traversal
+    from tpu_raytracer_torch.parallel import PerRank, shard_compile, spawn
+    from tpu_raytracer_torch.parallel import sharding
+    from tpu_raytracer_torch.render import (
+        Camera, RenderConfig, generate_rays, render_image, render_image_whitted,
+    )
+    from tpu_raytracer_torch.render.integrators import render_path_traced, to_u8, tonemap
+    from tpu_raytracer_torch.render.pipeline import path_options
+    from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene, procgen
+    from tpu_raytracer_torch.utils import prng
+
+    from tpu_raytracer_torch.parallel.group import to_host as cpu
+
+    fw, fh = SLICE_SIZE
+    flag_scene, flag_args = flagship
+    inst4, args4 = config4
+    col = paged_ctx["col"]
+    wide_sc, bin_sc = paged_ctx["casts"]["K4"][0], paged_ctx["casts"]["K5"][0]
+    col_cpu = col.to("cpu")
+    col5 = path_ctx["col"]
+    p5 = Camera.looking(PATH_SIZE, PATH_SIZE, fov_deg=65.0,
+                        pose=path_ctx["poses"][0]).ray_params(dev)
+    args5 = (p5["K_inv"], p5["D"], p5["pose"], p5["inv_pose"])
+    key = prng.PRNGKey(0)
+    cfg = lambda w, h, backend, **kw: RenderConfig(w, h, backend=backend, **kw)
+    # {case: (entry, config, scene on the card, camera args, extra args)}
+    cases = {
+        "flagship_K1": (sharding.render_image_sharded, cfg(fw, fh, "cuda"), flag_scene,
+                        flag_args, ()),
+        "config4_whitted_K3": (sharding.render_image_whitted_sharded, cfg(fw, fh, "cuda"), inst4,
+                               args4, ()),
+        "config5_path_512_K1": (sharding.render_image_path_traced_sharded,
+                                cfg(PATH_SIZE, PATH_SIZE, "cuda"), col5, args5,
+                                (key, PATH_BOUNCES, PATH_SAMPLES)),
+        "colonnade_paged_K4": (sharding.render_image_sharded, cfg(fw, fh, "paged"), wide_sc,
+                               paged_ctx["args"], ()),
+        "colonnade_paged_K5": (sharding.render_image_sharded, cfg(fw, fh, "paged"), bin_sc,
+                               paged_ctx["args"], ()),
+        "colonnade_paged_major_K6": (sharding.render_image_sharded, cfg(fw, fh, "paged_major"),
+                                     wide_sc, paged_ctx["args"], ()),
+    }
+    # the payload: scenes on the host, the colonnade's base tables shared
+    # by its two page-table variants
+    host_scene = {id(flag_scene): flag_scene.to("cpu"), id(inst4): inst4.to("cpu"),
+                  id(col5): col5.to("cpu"),
+                  id(wide_sc): dataclasses.replace(col_cpu, paged=wide_sc.paged.to("cpu")),
+                  id(bin_sc): dataclasses.replace(col_cpu, paged=bin_sc.paged.to("cpu"))}
+    rows = {name: (entry, c, host_scene[id(sc)], cpu(a), cpu(extra))
+            for name, (entry, c, sc, a, extra) in cases.items()}
+
+    # the unsharded frames and their times
+    unsharded = {}
+    for name, (entry, c, sc, a, extra) in cases.items():
+        if entry is sharding.render_image_whitted_sharded:
+            fn = lambda c=c, sc=sc, a=a: render_image_whitted(c, sc, *a)
+        elif entry is sharding.render_image_sharded:
+            fn = lambda c=c, sc=sc, a=a: render_image(c, sc, *a)
+        else:
+            fn = None
+        unsharded[name] = _frames(fn) if fn is not None else None
+
+    def path_bands(world: int) -> torch.Tensor:
+        """Config 5's frame as ``world`` bands, band i sampled with
+        ``fold_in(key, i)``, in this process."""
+        c = cases["config5_path_512_K1"][1]
+        o5, d5 = generate_rays(PATH_SIZE, PATH_SIZE, *args5)
+        h = PATH_SIZE // world
+        return torch.cat([to_u8(tonemap(render_path_traced(
+            col5, o5, d5[i * h:(i + 1) * h].contiguous(), prng.fold_in(key.to(dev), i),
+            max_bounces=PATH_BOUNCES, samples=PATH_SAMPLES, sort_secondary=False,
+            **path_options(c)), c.tonemap, c.exposure)) for i in range(world)])
+
+    # the scene to shard: the 1M colonnade as a host scene, flattened
+    t0 = time.perf_counter()
+    host = Scene()
+    host.add_material(Material(albedo=(0.85, 0.8, 0.75)))
+    host.add_mesh(MeshPrimitive.from_triangles(*procgen.colonnade(18, 18, 40)))
+    host.add_mesh_instance(MeshInstance(0, 0))
+    flat = host.compile(dev, flatten_static=True)
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t0
+    s_args = paged_ctx["args"]
+    so, sd = generate_rays(fw, fh, *s_args)
+    single = traversal.cast_rays_cuda(flat, so, sd)
+    scene_cfgs = (cfg(fw, fh, "cuda"), cfg(fw, fh, "cuda", lighting="lambert_shadow"))
+    single_frames = {c.lighting: _frames(lambda c=c: render_image(c, flat, *s_args))
+                     for c in scene_cfgs}
+    k1_whole_ms = device_ms(lambda: traversal.cast_rays_cuda(flat, so, sd),
+                            "wide_traverse_kernel")
+
+    ndev = torch.cuda.device_count()
+    runs = [(1, "cuda:0", "nccl"), (2, "cuda:0", "gloo")]
+    if ndev >= 2:
+        runs.append((ndev, None, "nccl"))
+    else:
+        phase("shard_multi_card", run=False, reason=f"{ndev} CUDA card(s): NCCL across cards "
+              "needs two or more")
+    torch.cuda.empty_cache()
+    for world, device, backend in runs:
+        t0 = time.perf_counter()
+        shards = shard_compile(host, world, device="cpu")
+        shard_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn(shard_rank, world, device=device, backend=backend,
+                      args=(rows, (PerRank(tuple(shards)), cpu(s_args), scene_cfgs)))
+        spawn_s = time.perf_counter() - t0
+        where = device or "cuda:{rank}"
+        route = sharding.gather_route(backend, torch.device(device or "cuda:0"))
+
+        # [shard_rows] ----------------------------------------------------
+        for name in cases:
+            res = [r[name] for r in ranks]
+            img = res[0]["img"]
+            same_ranks = all(torch.equal(r["img"], img) for r in res[1:])
+            want = path_bands(world) if unsharded[name] is None else unsharded[name]["img"]
+            n_px = int((img.to(dev) != want).any(-1).sum())
+            ref = unsharded[name]
+            phase("shard_rows", world=world, backend=backend, device=where, route=repr(route),
+                  case=name, shape=tuple(img.shape), launches_rank0=res[0]["launches"],
+                  pixels_vs_unsharded=n_px, ranks_agree=same_ranks,
+                  frame_ms_best=f"{res[0]['best_ms']:.4f}",
+                  frame_ms_median=f"{res[0]['median_ms']:.4f}",
+                  unsharded_ms_best=f"{ref['best_ms']:.4f}" if ref else "n/a",
+                  unsharded_ms_median=f"{ref['median_ms']:.4f}" if ref else "n/a",
+                  card=repr(card))
+            check(same_ranks, f"[shard_rows] {name}: the ranks hold different images")
+            check(n_px == 0, f"[shard_rows] {name} at {world} ranks ({backend}): {n_px} pixels "
+                  "differ from the unsharded frame")
+            check(all(r["launches"] for r in res), f"[shard_rows] {name}: a rank launched "
+                  "no kernel")
+
+        # [shard_scene] ---------------------------------------------------
+        casts = [r["cast"] for r in ranks]
+        comb = casts[0]
+        same_ranks = all(all(torch.equal(a, b) for a, b in zip(c[:3], comb[:3]))
+                         for c in casts[1:])
+        dev_shards = [s.to(dev) for s in shards]
+        comb_d = type(comb)(*(x.to(dev) for x in comb[:3]))
+        local_hits = [type(r["local"])(*(x.to(dev) for x in r["local"][:3])) for r in ranks]
+        by_hand = lex_min(local_hits, dev_shards)
+        combine_diff = sum(int((a.view(torch.int32) if a.is_floating_point() else a).ne(
+            b.view(torch.int32) if b.is_floating_point() else b).sum())
+            for a, b in zip(comb_d[:3], by_hand))
+        n_t, unexplained = shard_unexplained(flat, dev_shards, so, sd, comb_d, local_hits, single)
+        k1_chunk_ms = device_ms(lambda: traversal.cast_rays_cuda(dev_shards[0].scene, so, sd),
+                                "wide_traverse_kernel")
+        frames = {}
+        for c in scene_cfgs:
+            r0 = ranks[0]["scene_" + c.lighting]
+            frames[c.lighting] = r0
+            r0["pixels"] = int((r0["img"].to(dev) != single_frames[c.lighting]["img"])
+                               .any(-1).sum())
+            check(all(torch.equal(r["scene_" + c.lighting]["img"], r0["img"]) for r in ranks),
+                  f"[shard_scene] the ranks hold different {c.lighting} frames")
+        phase("shard_scene", world=world, backend=backend, device=where, scene="colonnade_1M",
+              whole_rows=flat.num_triangles, whole_table_mb=f"{table_bytes(flat) / 1e6:.2f}",
+              chunk_rows=[s.scene.num_triangles for s in shards],
+              chunk_real_triangles=[real_tri_rows(s.scene) for s in shards],
+              chunk_table_mb=[f"{table_bytes(s.scene) / 1e6:.2f}" for s in shards],
+              stride=shards[0].stride, flatten_compile_s=f"{flat_s:.2f}",
+              shard_compile_s=f"{shard_s:.2f}", spawn_and_run_s=f"{spawn_s:.2f}",
+              k1_chunk0_kernel_ms=f"{k1_chunk_ms:.4f}", k1_whole_kernel_ms=f"{k1_whole_ms:.4f}",
+              rays=sd.numel() // 3, combine_diff_vs_local_casts=combine_diff,
+              t_diff_vs_single=n_t, unexplained=unexplained, ranks_agree=same_ranks,
+              card=repr(card))
+        for lighting, r0 in frames.items():
+            ref = single_frames[lighting]
+            phase("shard_scene_frame", world=world, backend=backend, lighting=lighting,
+                  launches_rank0=r0["launches"], pixels_vs_single=r0["pixels"],
+                  collectives=r0["collectives"], combine_ms=f"{r0['combine_ms']:.4f}",
+                  frame_ms_best=f"{r0['best_ms']:.4f}", frame_ms_median=f"{r0['median_ms']:.4f}",
+                  single_ms_best=f"{ref['best_ms']:.4f}",
+                  single_ms_median=f"{ref['median_ms']:.4f}", card=repr(card))
+            check(r0["pixels"] <= ORDER_DIFFS_MAX * fw * fh,
+                  f"[shard_scene] {lighting}: {r0['pixels']} pixels from the single-device frame")
+            check(r0["launches"].get("K1", 0) >= 1, f"[shard_scene] {lighting}: K1 not launched")
+        check(same_ranks, "[shard_scene] the ranks' combined casts differ")
+        check(combine_diff == 0, "[shard_scene] the combined cast is not the lexicographic "
+              "minimum of the ranks' own casts")
+        check(unexplained == 0, f"[shard_scene] {unexplained} of {n_t} t differences from the "
+              "single-device cast are not explained by visit order")
+        check(n_t <= ORDER_DIFFS_MAX * fw * fh, f"[shard_scene] t differs on {n_t} rays")
+        del ranks, dev_shards
+        torch.cuda.empty_cache()
+
+    # [shard_dryrun] ------------------------------------------------------
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_raytracer_torch.parallel.dryrun",
+                           "--world-size", "2", "--device", "cuda:0", "--backend", "gloo"],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    phase("shard_dryrun", rc=proc.returncode, seconds=f"{time.perf_counter() - t0:.2f}",
+          line=repr(line))
+    check(proc.returncode == 0 and line.startswith("dryrun OK"),
+          f"the dryrun failed: {proc.stderr[-2000:]}")
 
 
 @contextlib.contextmanager

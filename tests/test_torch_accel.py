@@ -145,7 +145,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
         "assert len(names) > 25, names\n"
         "new = {'tpu_raytracer_torch.' + m for m in ('kernels.binary', 'utils.prng',\n"
         "       'render.denoise', 'render.sorted_cast', 'app.controls', 'accel.presplit',\n"
-        "       'accel.optimize', 'scene.cache', 'scene.native_obj')}\n"
+        "       'accel.optimize', 'scene.cache', 'scene.native_obj', 'parallel.group',\n"
+        "       'parallel.sharding', 'parallel.scene_shard', 'parallel.dryrun')}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n"
     )

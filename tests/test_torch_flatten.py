@@ -142,3 +142,26 @@ def test_flattened_config4_whitted_within_3_percent_of_instanced():
         both = ai.hit & af.hit & torch.isclose(ai.t, af.t, rtol=1e-5, atol=1e-5)
         assert float(both.float().mean()) > 0.5
         assert (ai.material[both] == af.material[both]).all()
+
+
+def test_flattened_scene_drops_the_sky_as_jax_does():
+    """``flattened`` leaves the sky map behind in both packages, so
+    ``compile(flatten_static=True)`` of a sky scene renders the flat sky
+    colour, pixel for pixel JAX's frame (the scene-sharded compile puts
+    the sky back itself)."""
+    scenes = {}
+    for S, R in ((js, jr), (ts, tr)):
+        scene, cam = _two_instance(S, R)
+        scene.set_sky(S.procgen.sky_gradient_texture())
+        scenes[S] = scene, cam
+        assert scene.flattened()[0].sky_texture is None
+    jscene, jcam = scenes[js]
+    want = np.asarray(jr.render(jcam, jscene.compile(flatten_static=True), backend="bvh",
+                                lighting="lambert"))
+    pscene, pcam = scenes[ts]
+    flat = pscene.compile("cpu", flatten_static=True)
+    assert not flat.has_sky and pscene.compile("cpu").has_sky
+    got = tr.render(pcam, flat, backend="bvh", lighting="lambert").numpy()
+    assert int((got != want).any(-1).sum()) == 0
+    miss = (got == np.array([255, 204, 153], np.uint8)).all(-1)
+    assert miss.mean() > 0.3  # the flat sky colour, not the map

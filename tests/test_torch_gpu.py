@@ -616,3 +616,64 @@ def test_png_texture_and_obj_file_on_the_card_machine(cuda, tmp_path):
     want = objloader.parse_obj(text, native=False)
     assert got.num_triangles == 20480
     assert np.array_equal(got.v0, want[0][got.bvh.order])
+
+
+def _pair_host():
+    """The two-instance scene of ``_two_instance`` before compiling."""
+    scene = Scene()
+    scene.add_material(Material(albedo=(0.8, 0.3, 0.2)))
+    scene.add_mesh(MeshPrimitive.from_triangles(*procgen.icosphere(2)))
+    scene.add_mesh(MeshPrimitive.from_triangles(*procgen.blob(subdivisions=3)))
+    a = MeshInstance(0, 0)
+    a.pose = np.array([-0.9, 0.0, 0.0, 0.4, 0.1, 0.0], np.float32)
+    b = MeshInstance(1, 0)
+    b.pose = np.array([1.1, 0.5, 0.2, 0.0, 0.3, 0.2], np.float32)
+    b.scale = np.array([0.9, 1.2, 0.7], np.float32)
+    scene.add_mesh_instance(a)
+    scene.add_mesh_instance(b)
+    return scene, Camera.looking(128, 96, fov_deg=55.0, pose=[0, -4.5, 0, 0, 0, 0])
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_sharded_cast_and_row_bands_on_the_card(cuda, world, backend):
+    """Ranks on ``cuda:0`` (NCCL at one rank; gloo at two, which share
+    the card): the scene-sharded cast through K1 equals the plain casts of
+    the same chunks combined here (the lexicographic (t, global tri)
+    minimum), bit for bit, and the row-band frame (K3) equals
+    ``render_image``."""
+    import functools
+
+    from tpu_raytracer_torch.parallel import (
+        PerRank, cast_rays_scene_sharded, render_image_sharded, shard_compile, spawn,
+    )
+    from tpu_raytracer_torch.parallel.group import run_calls
+    from tpu_raytracer_torch.render import render_image
+
+    host, cam = _pair_host()
+    shards = shard_compile(host, world, device="cpu")
+    compiled = host.compile("cpu")
+    o, d = _rays(cam, "cpu")
+    p = cam.ray_params("cpu")
+    args = (p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    cfg = RenderConfig(128, 96, backend="cuda")
+    calls = [(world, cast_rays_scene_sharded, (PerRank(tuple(shards)), o, d, "cuda")),
+             (world, functools.partial(render_image_sharded, cfg), (compiled, *args))]
+    ranks = spawn(run_calls, world, args=(calls,), device="cuda:0", backend=backend)
+    hit, img = ranks[0]
+    for other_hit, other_img in ranks[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(other_hit[:3], hit[:3]))
+        assert torch.equal(other_img, img)
+    # the plain casts of the chunks, combined by sorting on (t, global tri)
+    keys = []
+    for s in shards:
+        h = traversal.cast_rays_wide_torch(s.scene.to(cuda), o.to(cuda), d.to(cuda))
+        gtri = torch.where(h.tri >= 0, h.tri.long() + s.shard * s.stride, 2 ** 30)
+        keys.append((h.t.view(torch.int32).long() << 32) | gtri)
+    best = torch.stack(keys).min(dim=0).values.cpu()
+    assert torch.equal(hit.t.view(torch.int32), (best >> 32).to(torch.int32))
+    gtri = best & 0xFFFFFFFF
+    assert torch.equal(hit.tri.long(), torch.where(gtri >= 2 ** 30, -1, gtri))
+    assert torch.equal(hit.inst.long(), torch.where(gtri >= 2 ** 30, -1, 0))
+    assert (hit.tri >= 0).float().mean() > 0.2
+    want = render_image(cfg, compiled.to(cuda), *(a.to(cuda) for a in args))
+    assert torch.equal(img, want.cpu())

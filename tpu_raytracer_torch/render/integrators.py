@@ -13,8 +13,15 @@ The casts of the whole batch carry the face normal on the ``cuda``
 backend (``get_cast_fn(backend, want_normals=True)``), as the JAX
 package's do: the shading reads normals at every bounce.
 
-Not ported: the ray-retiling and scene-sharded variants (multi-device,
-ROADMAP Queue 1 item 7), the TPU packet geometry of bounce casts.
+Both integrators take ``_sharded_hooks``, the seam of the scene-sharded
+renders (``parallel/scene_shard.py``): a dict of ``cast_attrs`` (o, d) ->
+HitAttributes, ``occ`` and ``nearest`` (scene, o, d) -> Hit, the casts
+combined over the ranks that each hold a chunk of the geometry. The
+hooks take the place of exactly the cast and attribute sites, so the
+sharded frame is this estimator's; without them nothing changes.
+
+Not ported: the Whitted ray retiling and the TPU packet geometry of
+bounce casts.
 """
 
 from __future__ import annotations
@@ -78,7 +85,8 @@ def _direct_illumination(scene, cast, attrs, light_direction, point_lights, exac
 def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str = "cuda",
                    light_direction=DEFAULT_LIGHT_DIRECTION, point_lights: tuple = (),
                    shadows: bool = True, exact: bool = True, sort_secondary: bool = False,
-                   tex_filter: str = "nearest", normal_mode: str = "reference") -> torch.Tensor:
+                   tex_filter: str = "nearest", normal_mode: str = "reference",
+                   _sharded_hooks: dict | None = None) -> torch.Tensor:
     """Whitted-style mirror reflections, unrolled over bounces -> float
     radiance [..., 3] in [0, 1].
 
@@ -90,6 +98,9 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
     cast = get_cast_fn(backend, want_normals=True)
     cast2 = secondary_cast_fn(cast, backend, sort_secondary)
     occ_cast = occlusion_cast_fn(backend)
+    dcast = cast2
+    if _sharded_hooks is not None:
+        dcast, occ_cast = _sharded_hooks["nearest"], _sharded_hooks["occ"]
     directions = torch.as_tensor(directions, dtype=torch.float32)
     origin = torch.as_tensor(origin, dtype=torch.float32).expand(directions.shape).contiguous()
     shape = directions.shape[:-1]
@@ -100,8 +111,11 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
     active = torch.ones(shape, dtype=torch.bool, device=dev)
     o, d = origin, directions
     for bounce in range(max_bounces + 1):
-        hit = (cast if bounce == 0 else cast2)(scene, o, d)
-        attrs = hit_attributes(scene, o, d, hit, exact=exact, normal_mode=normal_mode)
+        if _sharded_hooks is not None:
+            attrs = _sharded_hooks["cast_attrs"](o, d)
+        else:
+            hit = (cast if bounce == 0 else cast2)(scene, o, d)
+            attrs = hit_attributes(scene, o, d, hit, exact=exact, normal_mode=normal_mode)
 
         miss = active & ~attrs.hit
         sky = sky_radiance(scene, d, exact=exact)
@@ -109,7 +123,7 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
 
         live = active & attrs.hit
         color = surface_color(scene, attrs, tex_filter)
-        illum = _direct_illumination(scene, cast2, attrs, light_direction, point_lights, exact,
+        illum = _direct_illumination(scene, dcast, attrs, light_direction, point_lights, exact,
                                      shadows, occ_cast=occ_cast, clamp_floor=0.4)
         illum = torch.clamp(illum, 0.4, 1.0)
         refl = scene.mat_reflectivity[attrs.material]
@@ -153,7 +167,8 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
                        lens_radius: float = 0.0, focus_distance: float = 4.0,
                        light_direction=None, point_lights: tuple = (),
                        sun_intensity: float = 1.0, normal_mode: str = "reference",
-                       sample_batch: bool = True, fast_tail: bool = True) -> torch.Tensor:
+                       sample_batch: bool = True, fast_tail: bool = True,
+                       _sharded_hooks: dict | None = None) -> torch.Tensor:
     """Monte-Carlo path tracing -> float radiance ``[..., 3]``.
 
     Lambertian BRDF with cosine-weighted sampling, emissive materials
@@ -194,6 +209,14 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
         o, d = o.contiguous(), d.contiguous()
         return hit_attributes(scene, o, d, c(scene, o, d), exact=exact, normal_mode=normal_mode)
 
+    nee_cast, nee_occ = cast, occ_cast
+    attrs_primary = lambda o, d: attrs_of(cast, o, d)
+    attrs_bounce = lambda o, d: attrs_of(cast2, o, d)
+    if _sharded_hooks is not None:
+        attrs_primary = attrs_bounce = _sharded_hooks["cast_attrs"]
+        tail_occ = _sharded_hooks["occ"]
+        nee_cast, nee_occ = _sharded_hooks["nearest"], _sharded_hooks["occ"]
+
     def bounce_from_attrs(state, attrs, key_b):
         o, d, throughput, radiance, active = state
         miss = active & ~attrs.hit
@@ -209,8 +232,8 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
         if nee:
             # the light's term on the diffuse part of the lobe mix:
             # T * (1 - refl) * albedo / pi * cos_i * vis * intensity
-            illum = _direct_illumination(scene, cast, attrs, light_direction, point_lights,
-                                         exact, True, occ_cast=occ_cast, shadow_floor=0.0)
+            illum = _direct_illumination(scene, nee_cast, attrs, light_direction, point_lights,
+                                         exact, True, occ_cast=nee_occ, shadow_floor=0.0)
             wgt = (1.0 - refl) * illum * (inv_pi * sun_intensity)
             radiance = radiance + torch.where(live[..., None], throughput * wgt[..., None], 0.0)
         d_diff = _cosine_sample(key_b, attrs.normal, exact)
@@ -238,13 +261,13 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
                 sky = sky_radiance(scene, d, exact=exact) * sky_strength
                 miss = active & (tail_occ(scene, o.contiguous(), d.contiguous()).t >= FLT_MAX)
                 return radiance + torch.where(miss[..., None], throughput * sky, 0.0)
-            state = bounce_from_attrs(state, attrs_of(cast2, o, d), keys[b])
+            state = bounce_from_attrs(state, attrs_bounce(o, d), keys[b])
         return state[3]
 
     dof = lens_radius > 0.0
     if samples > 1 and sample_batch and not dof:
         # one primary cast; every sample's bounces in one wavefront
-        a0 = attrs_of(cast, origin, directions)
+        a0 = attrs_primary(origin, directions)
         bc = lambda x: x[None].expand((samples,) + x.shape)
         a0 = type(a0)(*(bc(x) for x in a0))
         bshape = (samples,) + shape
@@ -262,7 +285,7 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
         right = normalize(torch.linalg.cross(axis, ref), exact=exact)
         up = torch.linalg.cross(right, axis)
     else:
-        attrs0 = attrs_of(cast, origin, directions)
+        attrs0 = attrs_primary(origin, directions)
     total = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
     for k in prng.split(key, samples):
         keys = prng.split(k, max_bounces + 2)
@@ -275,7 +298,7 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
             focal = origin + directions * focus_distance
             o0 = origin.expand(directions.shape) + off
             d0 = normalize(focal - o0, exact=exact)
-            a0 = attrs_of(cast, o0, d0)
+            a0 = attrs_primary(o0, d0)
         else:
             a0 = attrs0
         state = (o0, d0, torch.ones(shape + (3,), dtype=torch.float32, device=dev),

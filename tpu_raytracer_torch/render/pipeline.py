@@ -84,20 +84,26 @@ def _rays(config: RenderConfig, scene, K_inv, D, pose, inv_pose):
                          pose.to(dev), inv_pose.to(dev), exact=config.exact_math)
 
 
+def shade_rays(config: RenderConfig, scene, origin, directions) -> torch.Tensor:
+    """The primary pass on given rays (no supersampling): cast,
+    attributes and shade -> uint8 ``[..., 3]``. The cast carries normals
+    where the lighting reads them (every mode but ``flat``)."""
+    cast = get_cast_fn(config.backend, want_normals=config.lighting != "flat")
+    hit = cast(scene, origin, directions)
+    attrs = hit_attributes(scene, origin, directions, hit, exact=config.exact_math,
+                           normal_mode=config.normal_mode)
+    return shade_primary(scene, attrs, config.light_direction, config.lighting,
+                         exact=config.exact_math, backend=config.backend, directions=directions,
+                         point_lights=config.point_lights, tex_filter=config.texture_filter)
+
+
 def render_image(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,
                  pose: torch.Tensor, inv_pose: torch.Tensor) -> torch.Tensor:
     """Render one frame -> uint8 [H, W, 3] (reference channel order) on
-    the scene's device. The cast carries normals where the lighting
-    reads them (every mode but ``flat``)."""
+    the scene's device (``shade_rays`` on the camera's rays)."""
     def body(cfg, K_inv_b):
         origin, directions = _rays(cfg, scene, K_inv_b, D, pose, inv_pose)
-        cast = get_cast_fn(cfg.backend, want_normals=cfg.lighting != "flat")
-        hit = cast(scene, origin, directions)
-        attrs = hit_attributes(scene, origin, directions, hit, exact=cfg.exact_math,
-                               normal_mode=cfg.normal_mode)
-        return shade_primary(scene, attrs, cfg.light_direction, cfg.lighting,
-                             exact=cfg.exact_math, backend=cfg.backend, directions=directions,
-                             point_lights=cfg.point_lights, tex_filter=cfg.texture_filter)
+        return shade_rays(cfg, scene, origin, directions)
 
     return _with_ssaa(config, K_inv, body)
 
@@ -146,18 +152,25 @@ def render_image_whitted(config: RenderConfig, scene, K_inv: torch.Tensor, D: to
                          pose: torch.Tensor, inv_pose: torch.Tensor, max_bounces: int = 2,
                          shadows: bool = True) -> torch.Tensor:
     """Whitted reflective render -> uint8 [H, W, 3] (BASELINE config 4)."""
-    from .integrators import render_whitted, to_u8, tonemap
-
     def body(cfg, K_inv_b):
         origin, directions = _rays(cfg, scene, K_inv_b, D, pose, inv_pose)
-        radiance = render_whitted(scene, origin, directions, max_bounces=max_bounces,
-                                  backend=cfg.backend, light_direction=cfg.light_direction,
-                                  point_lights=cfg.point_lights, shadows=shadows,
-                                  exact=cfg.exact_math, tex_filter=cfg.texture_filter,
-                                  normal_mode=cfg.normal_mode)
-        return to_u8(tonemap(radiance, cfg.tonemap, cfg.exposure))
+        return whitted_rays(cfg, scene, origin, directions, max_bounces, shadows)
 
     return _with_ssaa(config, K_inv, body)
+
+
+def whitted_rays(config: RenderConfig, scene, origin, directions, max_bounces: int = 2,
+                 shadows: bool = True, **kw) -> torch.Tensor:
+    """The Whitted integrator on given rays, tonemapped -> uint8
+    ``[..., 3]``; ``kw`` goes to ``integrators.render_whitted``."""
+    from .integrators import render_whitted, to_u8, tonemap
+
+    radiance = render_whitted(scene, origin, directions, max_bounces=max_bounces,
+                              backend=config.backend, light_direction=config.light_direction,
+                              point_lights=config.point_lights, shadows=shadows,
+                              exact=config.exact_math, tex_filter=config.texture_filter,
+                              normal_mode=config.normal_mode, **kw)
+    return to_u8(tonemap(radiance, config.tonemap, config.exposure))
 
 
 def render_image_ao(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,
@@ -189,11 +202,18 @@ def render_radiance_path_traced(config: RenderConfig, scene, K_inv: torch.Tensor
     origin, directions = _rays(config, scene, K_inv, D, pose, inv_pose)
     return render_path_traced(
         scene, origin, directions, key, max_bounces=max_bounces, samples=samples,
-        backend=config.backend, exact=config.exact_math, tex_filter=config.texture_filter,
-        lens_radius=lens_radius, focus_distance=focus_distance,
-        light_direction=config.light_direction if config.path_lights else None,
-        point_lights=config.point_lights if config.path_lights else (),
-        sun_intensity=config.sun_intensity, normal_mode=config.normal_mode, **kw)
+        lens_radius=lens_radius, focus_distance=focus_distance, **path_options(config), **kw)
+
+
+def path_options(config: RenderConfig) -> dict:
+    """The ``integrators.render_path_traced`` arguments that ``config``
+    sets: backend, maths, texture filter, normal mode and, with
+    ``path_lights``, the lights of next-event estimation."""
+    return dict(backend=config.backend, exact=config.exact_math,
+                tex_filter=config.texture_filter,
+                light_direction=config.light_direction if config.path_lights else None,
+                point_lights=config.point_lights if config.path_lights else (),
+                sun_intensity=config.sun_intensity, normal_mode=config.normal_mode)
 
 
 def render_image_path_traced(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,

@@ -13,7 +13,8 @@ reproducing the JAX compile field by field:
 
 ``from_scene_arrays`` is the other way in: it takes a JAX-compiled
 ``SceneArrays`` as a dict of numpy arrays, so the two packages can be
-run on the identical scene. Both attach the 4-wide tables of K1, the
+run on the identical scene (``from_stacked_shard`` takes one chunk of
+its scene-sharded compile). Both attach the 4-wide tables of K1, the
 binary tables of K2 and, for two or more instances, the TLAS of K3;
 ``update_instance`` is the functional pose update that rebuilds the
 TLAS, and ``with_paging`` attaches the page tables of the paged kernels
@@ -235,6 +236,27 @@ def from_scene_arrays(fields: dict[str, np.ndarray], device="cuda") -> SceneTens
     return _assemble(kw, device)
 
 
+def from_stacked_shard(fields: dict[str, np.ndarray], shard: int,
+                       device="cuda") -> tuple[SceneTensors, int]:
+    """One chunk of the JAX package's scene-sharded compile
+    (``parallel.scene_shard.shard_compile``: every field stacked on a
+    leading shard axis, each chunk padded to the largest) as
+    ``SceneTensors``, and the stride of its global triangle ids (the
+    padded triangle rows). The stacking's padding is cut off: triangle
+    rows where ``tri_mesh`` is -1, node rows where ``node_leaf_count`` is
+    -1."""
+    one = {k: np.asarray(v)[shard] for k, v in fields.items() if v is not None}
+    stride = one["tri_v0"].shape[0]
+    n_tri = int((one["tri_mesh"] >= 0).sum())
+    n_node = int((one["node_leaf_count"] >= 0).sum())
+    for k in list(one):
+        if k.startswith("tri_"):
+            one[k] = one[k][:n_tri]
+        elif k.startswith("node_"):
+            one[k] = one[k][:n_node]
+    return from_scene_arrays(one, device), stride
+
+
 def _assemble(kw: dict[str, np.ndarray], device) -> SceneTensors:
     from ..kernels.binary import build_binary
     from ..kernels.tlas import build_tlas
@@ -295,7 +317,8 @@ class Scene:
         replaces the walk over every instance, at the price of the cheap
         pose update. The bake is ``hit_attributes``' transform: world =
         apply_lre(inv_pose, v * scale), normals (face and vertex) by the
-        scale-multiply convention, renormalised."""
+        scale-multiply convention, renormalised. The sky map stays behind, as
+        in the JAX package: the flattened scene renders the flat sky colour."""
         from ..core import transforms as T
         from ..core.vecmath import normalize
 
@@ -335,7 +358,6 @@ class Scene:
             **{k: cat[k] for k in ("vn0", "vn1", "vn2", "vn_mask")})
         flat = Scene()
         flat.materials = self.materials
-        flat.sky_texture = self.sky_texture
         flat.add_mesh(merged)
         flat.add_mesh_instance(MeshInstance(0, 0))
         return flat, cat["mat"][merged.bvh.order]
