@@ -149,7 +149,26 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      ``lambert_shadow``, ``[shard_scene_frame]``) the pixels apart from
      the single-device frame, the collectives' CUDA-event ms, frame ms;
  32. ``[shard_dryrun]``: ``python -m tpu_raytracer_torch.parallel.dryrun``
-     on two ranks of this card under gloo.
+     on two ranks of this card under gloo;
+ 33. ``[app_web]``: the browser viewer on config 4 at 1920x1088, served on
+     127.0.0.1 in a thread, in each mode (primary, whitted, path, ao):
+     the served frame bitwise the entry point's at the same pose (path
+     and AO with the same keys), K3's launches per frame, the render and
+     PNG-encode ms apart; the path sum held, held, dragged (1, 2, 1);
+ 34. ``[app_interactive]``: the terminal viewer's loop on the flagship
+     with keys ``wwjd`` (the last frame bitwise ``render_image`` at the
+     pose they reach, one K1 launch a frame, frame ms) and 3 frames in
+     path mode (bitwise the sum of 3 one-sample frames);
+ 35. ``[app_profiling]``: ``FrameTimer`` over 10 flagship frames beside
+     ``bench.time_frames``; ``trace()`` writes a trace naming K1's kernel;
+ 36. ``[app_driver]``: the demo driver's out.png against ``overlay_fps``
+     of the frame it returns (unlabelled where OpenCV does not import);
+ 37. ``[examples]``: each ``examples/torch/*.py --device cuda`` in a
+     process of its own, all started together, exit 0 and their PNGs;
+ 38. ``[bench_scripts]``: ``python -m tpu_raytracer_torch.bench_all bunny
+     instances`` (every key on each line) and ``python -m
+     tpu_raytracer_torch.bench_paged --columns 6`` (its sampled casts close
+     to the brute cast's).
 
 Every kernel's bound is the larger of its f32 operations over 67 TFLOP/s
 and its bytes over 3.35 TB/s (the H100's published peaks): operations
@@ -636,6 +655,7 @@ def main():
     optimize_phase(dev, card, path_ctx)
     scene_io_phases(dev, path_ctx)
     shard_phases(dev, card, (scene, args), (inst4, args4), paged_ctx, path_ctx)
+    app_phases(dev, card)
 
     wide = scene.wide4
     k1_bound = bound("K1", k1_stats, 4, rays, (dirs, origin, wide.wnode, *hk[:3]),
@@ -2445,6 +2465,339 @@ def shard_phases(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
           line=repr(line))
     check(proc.returncode == 0 and line.startswith("dryrun OK"),
           f"the dryrun failed: {proc.stderr[-2000:]}")
+
+
+# The app layer's phases: frames of APP_SIZE, renders timed per mode after
+# the served frames
+APP_SIZE = (1920, 1088)
+APP_REPS = 3
+
+
+def _best_median(times: list) -> tuple:
+    times = sorted(times)
+    return times[0], times[len(times) // 2]
+
+
+def app_web_phase(dev, card) -> None:
+    """``[app_web]``: the browser viewer (``app/web.py``) on config 4 at
+    1920x1088, served on 127.0.0.1 port 0 in a thread, one viewer per mode.
+    Per mode: ``GET /`` and ``GET /frame.png``; the decoded frame against
+    the entry point's image at the same pose (``render_image``,
+    ``render_image_whitted``, the path radiance of ``fold_in(PRNGKey(0),
+    0)`` tonemapped, ``render_image_ao`` with that key), bitwise; K3's
+    launches in that request (counts set to 0 just before, read just
+    after); then the render ms (``render_u8``: the frame and its copy to
+    the host) and the ``encode_png`` ms apart, best and median of
+    ``APP_REPS``, and the whole request's ms. Path mode: a second frame
+    held still adds to the sum, ``POST /drag`` restarts it (``_accum_n``
+    1, 2, 1). Then ``POST /key`` and ``GET /pose``."""
+    import threading
+    import urllib.request
+
+    from tpu_raytracer_torch.app.scenes import scene_instances
+    from tpu_raytracer_torch.app.driver import AO_SAMPLES
+    from tpu_raytracer_torch.app.web import WebViewer
+    from tpu_raytracer_torch.render import (
+        RenderConfig, render_image, render_image_ao, render_image_whitted,
+    )
+    from tpu_raytracer_torch.render.integrators import to_u8, tonemap
+    from tpu_raytracer_torch.render.pipeline import render_radiance_path_traced
+    from tpu_raytracer_torch.utils import encode_png, prng
+    from tpu_raytracer_torch.utils.image import decode_png
+
+    w, h = APP_SIZE
+    scene, cam = scene_instances(w, h, device=dev)
+    config = RenderConfig(cam.width, cam.height)
+    key0 = prng.fold_in(prng.PRNGKey(0, device=dev), 0)
+    for mode in ("primary", "whitted", "path", "ao"):
+        viewer = WebViewer(scene, cam, config, mode=mode)
+        p = cam.ray_params(dev)
+        args = (config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+        srv = viewer.make_server(host="127.0.0.1", port=0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        get = lambda path: urllib.request.urlopen(base + path, timeout=600).read()
+        post = lambda path: urllib.request.urlopen(
+            urllib.request.Request(base + path, method="POST"), timeout=600).status
+        try:
+            page = get("/")
+            check(b"/frame.png" in page and f'width="{w}" height="{h}"'.encode() in page,
+                  "the viewer's page is wrong")
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            png = get("/frame.png")
+            request_ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: v for k, v in _launch_counts().items() if v}
+            got = decode_png(png)
+            if mode == "primary":
+                want = render_image(*args)
+            elif mode == "whitted":
+                want = render_image_whitted(*args)
+            elif mode == "path":
+                rad = render_radiance_path_traced(*args, key0, viewer.path_bounces,
+                                                  viewer.path_samples)
+                want = to_u8(tonemap(rad / 1, config.tonemap, config.exposure))
+            else:
+                want = render_image_ao(*args, key0, AO_SAMPLES, viewer.ao_radius)
+            n_px = _pixels(torch.from_numpy(got), want.cpu())
+            sums = []
+            if mode == "path":
+                sums.append(viewer._accum_n)
+                get("/frame.png")
+                sums.append(viewer._accum_n)
+                check(post("/drag?dx=40&dy=-20") == 200, "POST /drag failed")
+                get("/frame.png")
+                sums.append(viewer._accum_n)
+            render_ms, encode_ms = [], []
+            for _ in range(APP_REPS):
+                t0 = time.perf_counter()
+                img = viewer.render_u8()
+                render_ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                encode_png(img)
+                encode_ms.append((time.perf_counter() - t0) * 1e3)
+            check(post("/key?k=w") == 200, "POST /key failed")
+            pose = json.loads(get("/pose"))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=60)
+        check(not thread.is_alive(), "the viewer's server thread did not stop")
+        rb, rm = _best_median(render_ms)
+        eb, em = _best_median(encode_ms)
+        phase("app_web", card=repr(card), mode=mode, scene="config4", size=f"{w}x{h}",
+              pixels_vs_entry_point=n_px, launches_per_frame=launches,
+              accum_n=sums or None, request_ms=f"{request_ms:.2f}",
+              render_ms_best=f"{rb:.2f}", render_ms_median=f"{rm:.2f}",
+              encode_png_ms_best=f"{eb:.2f}", encode_png_ms_median=f"{em:.2f}",
+              png_bytes=len(png), frames=pose["frames"], spp=pose["spp"])
+        check(n_px == 0, f"the {mode} viewer's frame differs from the entry point's in {n_px} "
+              "pixels")
+        want_k3 = {"primary": 1, "whitted": 6, "ao": 1 + AO_SAMPLES}.get(mode)
+        check(launches.get("K3", 0) >= 1 and (want_k3 is None or launches["K3"] == want_k3),
+              f"the {mode} frame launched {launches}, not K3 {want_k3 or 'at least once'}")
+        check(mode != "path" or sums == [1, 2, 1],
+              f"the path sum counted {sums}, not [1, 2, 1] (held, held, dragged)")
+        check(len(pose["pose"]) == 6 and pose["frames"] == 1 + APP_REPS + 2 * (mode == "path"),
+              f"GET /pose gave {pose}")
+
+
+def app_interactive_phase(dev, card) -> None:
+    """``[app_interactive]``: the terminal viewer's loop
+    (``run_interactive``) on the flagship at 1920x1088 with scripted keys
+    ``wwjd``: 5 frames, the last bitwise ``render_image`` at the pose the
+    keys reach (``apply_key`` from the camera's start), one K1 launch per
+    frame, each frame's render ms (host clock to a synchronize); then 3
+    frames of ``zz`` in path mode: the frame bitwise the port's sum of 3
+    one-sample radiance frames with keys split from ``PRNGKey(0)``."""
+    from tpu_raytracer_torch.app import interactive
+    from tpu_raytracer_torch.app.scenes import scene_bunny
+    from tpu_raytracer_torch.render import RenderConfig, render_image
+    from tpu_raytracer_torch.render.integrators import to_u8, tonemap
+    from tpu_raytracer_torch.render.pipeline import render_radiance_path_traced
+    from tpu_raytracer_torch.utils import prng
+
+    out = os.path.join(tempfile.mkdtemp(), "interactive.png")
+    real, frame_ms = interactive.render_image, []
+
+    def timed_frame(*a, **k):
+        t0 = time.perf_counter()
+        img = real(*a, **k)
+        torch.cuda.synchronize(dev)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        return img
+
+    interactive.render_image = timed_frame
+    try:
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        last = interactive.run_interactive("bunny", *APP_SIZE, keys=iter("wwjd"), out=out,
+                                           device=dev)
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in _launch_counts().items() if v}
+    finally:
+        interactive.render_image = real
+    scene, cam = scene_bunny(*APP_SIZE, device=dev)
+    for k in "wwjd":
+        cam.pose, _ = interactive.apply_key(cam.pose, k)
+    p = cam.ray_params(dev)
+    args = (RenderConfig(*APP_SIZE), scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    n_px = _pixels(torch.from_numpy(last), render_image(*args).cpu())
+    best, median = _best_median(frame_ms[1:])
+    phase("app_interactive", card=repr(card), scene="flagship", mode="primary", keys="wwjd",
+          frames=len(frame_ms), launches=launches, pixels_vs_render_image=n_px,
+          first_frame_ms=f"{frame_ms[0]:.2f}", frame_ms_best=f"{best:.2f}",
+          frame_ms_median=f"{median:.2f}", run_s=f"{run_s:.2f}", shot=os.path.exists(out))
+    check(len(frame_ms) == 5 and launches == {"K1": 5},
+          f"the loop made {len(frame_ms)} frames with launches {launches}, not 5 with K1 5")
+    check(n_px == 0, f"the viewer's last frame differs from render_image in {n_px} pixels")
+
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    path = interactive.run_interactive("bunny", *APP_SIZE, keys=iter("zz"), out=out,
+                                       mode="path", device=dev)
+    run_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    scene, cam = scene_bunny(*APP_SIZE, device=dev)
+    p = cam.ray_params(dev)
+    cfg = RenderConfig(*APP_SIZE, tonemap="reinhard")
+    rng, acc = prng.PRNGKey(0, device=dev), None
+    for _ in range(3):
+        rng, k = prng.split(rng)
+        rad = render_radiance_path_traced(cfg, scene, p["K_inv"], p["D"], p["pose"],
+                                          p["inv_pose"], k, max_bounces=2, samples=1)
+        acc = rad if acc is None else acc + rad
+    n_px = _pixels(torch.from_numpy(path), to_u8(tonemap(acc / 3, "reinhard")).cpu())
+    phase("app_interactive", card=repr(card), scene="flagship", mode="path", keys="zz",
+          samples_summed=3, launches=launches, pixels_vs_sum_of_3=n_px,
+          run_s=f"{run_s:.2f}")
+    check(n_px == 0, f"the progressive frame differs from the sum of 3 samples in {n_px} "
+          "pixels")
+    check(launches.get("K1", 0) >= 3, f"the path frames launched {launches}")
+
+
+def app_profiling_phase(dev, card) -> None:
+    """``[app_profiling]``: ``FrameTimer`` (CUDA events at enter and exit)
+    over 10 flagship frames beside ``bench.time_frames``' CUDA-event time
+    of a loop of 10; ``trace()`` around one frame writes a trace file that
+    names K1's kernel."""
+    from tpu_raytracer_torch.app.scenes import scene_bunny
+    from tpu_raytracer_torch.bench import time_frames
+    from tpu_raytracer_torch.render import RenderConfig, render_image
+    from tpu_raytracer_torch.utils.profiling import FrameTimer, trace
+
+    scene, cam = scene_bunny(*APP_SIZE, device=dev)
+    p = cam.ray_params(dev)
+    cfg = RenderConfig(cam.width, cam.height)
+    frame = lambda: render_image(cfg, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    frame()
+    timer = FrameTimer(cam.width * cam.height, device=dev)
+    for _ in range(10):
+        with timer:
+            frame()
+    loop_ms = min(time_frames(frame, 10, max_reps=5)) * 1e3 / 10
+    with trace(tempfile.mkdtemp(), device=dev) as d:
+        frame()
+        torch.cuda.synchronize(dev)
+    files = [os.path.join(d, f) for f in os.listdir(d) if f.endswith(".pt.trace.json")]
+    text = ""
+    if len(files) == 1:
+        with open(files[0]) as f:
+            text = f.read()
+    phase("app_profiling", card=repr(card), frames=timer.frames,
+          frame_timer_ms=f"{timer.total_s * 1e3 / timer.frames:.4f}",
+          frame_timer_fps=f"{timer.fps:.2f}", frame_timer_mrays_s=f"{timer.mrays_per_s:.2f}",
+          time_frames_ms=f"{loop_ms:.4f}", summary=repr(timer.summary()),
+          trace_files=len(files), trace_bytes=len(text),
+          names_k1="wide_traverse_kernel" in text)
+    check(timer.frames == 10 and timer.fps > 0, "FrameTimer counted no frames")
+    check(len(files) == 1 and "wide_traverse_kernel" in text,
+          f"the trace in {d} does not name wide_traverse_kernel ({len(files)} files)")
+
+
+def app_driver_phase(dev, card) -> None:
+    """``[app_driver]``: ``driver.run("demo", frames=2)``: out.png decoded
+    against ``overlay_fps`` of the frame it returns at the FPS it burnt in
+    (the bare frame where OpenCV does not import)."""
+    from tpu_raytracer_torch.app import driver
+    from tpu_raytracer_torch.utils import overlay_fps
+    from tpu_raytracer_torch.utils.image import decode_png
+
+    try:
+        import cv2  # noqa: F401
+        case = "labelled (OpenCV)"
+    except ImportError:
+        case = "unlabelled (no OpenCV)"
+    fps = []
+    driver.overlay_fps = lambda im, f: fps.append(f) or overlay_fps(im, f)
+    try:
+        out = os.path.join(tempfile.mkdtemp(), "out.png")
+        img = driver.run("demo", *APP_SIZE, frames=2, out=out, device=dev)
+    finally:
+        driver.overlay_fps = overlay_fps
+    with open(out, "rb") as f:
+        saved = torch.from_numpy(decode_png(f.read()))
+    n_px = _pixels(saved, torch.from_numpy(overlay_fps(img.numpy(), fps[-1])))
+    n_bare = _pixels(saved, img)
+    phase("app_driver", card=repr(card), case=case, fps=f"{fps[-1]:.2f}",
+          pixels_vs_overlay=n_px, pixels_vs_bare_frame=n_bare)
+    check(n_px == 0, f"out.png differs from overlay_fps of the last frame in {n_px} pixels")
+    check((n_bare > 0) == case.startswith("labelled"), "the label is missing or unexpected")
+
+
+def examples_phase(card) -> None:
+    """``[examples]``: each ``examples/torch/*.py --device cuda`` in its own
+    process, all started together (``05_multichip`` on two gloo ranks of
+    this card), each exiting 0 and writing its PNG."""
+    import re
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    folder = os.path.join(root, "examples", "torch")
+    env = dict(os.environ, TMPDIR=tempfile.mkdtemp())
+    procs = {}
+    for name in sorted(f for f in os.listdir(folder) if f.endswith(".py")):
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, os.path.join(folder, name), "--device", "cuda"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=root))
+    check(len(procs) == 6, f"{len(procs)} examples, not 6")
+    for name, (t0, proc) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        seconds = time.perf_counter() - t0
+        m = re.search(r"(\S*example_torch_\w+\.png)", stdout)
+        written = bool(m) and os.path.exists(m.group(1))
+        phase("examples", card=repr(card), example=name, rc=proc.returncode,
+              wall_s=f"{seconds:.2f}", png=m.group(1) if m else None, written=written,
+              last_line=repr(stdout.strip().splitlines()[-1] if stdout.strip() else ""))
+        check(proc.returncode == 0 and written, f"{name} failed: {stderr[-2000:]}")
+
+
+def bench_scripts_phase(card) -> None:
+    """``[bench_scripts]``: ``python -m tpu_raytracer_torch.bench_all bunny
+    instances`` (one process per config), every line with every key;
+    ``python -m tpu_raytracer_torch.bench_paged --columns 6``, its lines
+    with K4's and K5's t close to the brute cast's on every sampled ray
+    and no difference of K6's that box order does not explain."""
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    keys = {"config", "resolution", "frame_ms", "fps", "mrays_per_s", "card"}
+    for cmd, tag in ((["tpu_raytracer_torch.bench_all", "bunny", "instances"], "bench_all"),
+                     (["tpu_raytracer_torch.bench_paged", "--columns", "6"], "bench_paged")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *cmd], capture_output=True, text=True,
+                              timeout=900, cwd=root)
+        lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        phase("bench_scripts", card=repr(card), script=tag, rc=proc.returncode,
+              wall_s=f"{time.perf_counter() - t0:.2f}",
+              lines=json.dumps(lines, separators=(",", ":")))
+        check(proc.returncode == 0, f"{tag} failed: {proc.stderr[-2000:]}")
+        if tag == "bench_all":
+            check(len(lines) == 2 and all(set(ln) == keys for ln in lines),
+                  f"bench_all printed {lines}")
+        else:
+            close = [ln["paged_vs_brute_t_close"] for ln in lines
+                     if "paged_vs_brute_t_close" in ln]
+            # K6's sampled rays may miss a brute hit that lies outside its
+            # leaf box (box order: t_unexplained_of_96 counts any other)
+            unexplained = [v for ln in lines for k, v in ln.items()
+                           if k.startswith("t_unexplained")]
+            check(close == [True, True] and unexplained == [0, 0, 0],
+                  f"bench_paged's casts are not close to the brute cast: {lines}")
+
+
+def app_phases(dev, card) -> None:
+    """Phases 33-38: the app layer on the card."""
+    app_web_phase(dev, card)
+    app_interactive_phase(dev, card)
+    app_profiling_phase(dev, card)
+    app_driver_phase(dev, card)
+    examples_phase(card)
+    bench_scripts_phase(card)
 
 
 @contextlib.contextmanager

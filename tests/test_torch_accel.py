@@ -146,7 +146,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(tmp_path):
         "new = {'tpu_raytracer_torch.' + m for m in ('kernels.binary', 'utils.prng',\n"
         "       'render.denoise', 'render.sorted_cast', 'app.controls', 'accel.presplit',\n"
         "       'accel.optimize', 'scene.cache', 'scene.native_obj', 'parallel.group',\n"
-        "       'parallel.sharding', 'parallel.scene_shard', 'parallel.dryrun')}\n"
+        "       'parallel.sharding', 'parallel.scene_shard', 'parallel.dryrun',\n"
+        "       'app.interactive', 'app.web', 'utils.profiling', 'bench_all', 'bench_paged')}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n"
     )

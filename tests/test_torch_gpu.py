@@ -579,11 +579,14 @@ def encode_png(img, color_type, filters, palette=None, depth=8, interlace=0) -> 
     return out + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b"")
 
 
-def test_png_texture_and_obj_file_on_the_card_machine(cuda, tmp_path):
-    """``decode_png`` (numpy and zlib: the card's machine has neither
-    OpenCV nor PIL) on all five filters, the textured cube from a PNG
-    file against the in-memory texture's frame, and an OBJ file through
-    the native parser."""
+def test_png_texture_and_obj_file_on_the_card_machine(cuda, tmp_path, monkeypatch):
+    """``decode_png`` (numpy and zlib, what ``read_png`` falls back to
+    where OpenCV does not import) on all five filters, the textured cube
+    from a PNG file, read through ``cv2.imread`` where OpenCV imports and
+    through ``decode_png`` with OpenCV blocked, against the in-memory
+    texture's frame, and an OBJ file through the native parser."""
+    import sys
+
     from tpu_raytracer_torch.scene import objloader
     from tpu_raytracer_torch.utils.image import decode_png
 
@@ -594,19 +597,22 @@ def test_png_texture_and_obj_file_on_the_card_machine(cuda, tmp_path):
     fp = tmp_path / "checker.png"
     fp.write_bytes(encode_png(rgb, 2, [0, 1, 2, 3, 4]))
     frames = []
-    for from_file in (False, True):
+    for source in ("memory", "file", "file_without_opencv"):
         scene = Scene()
         mat = Material()
-        if from_file:
-            mat.upload_texture(str(fp))
-        else:
+        if source == "memory":
             mat.set_texture(tex)
+        else:
+            with monkeypatch.context() as m:
+                if source == "file_without_opencv":
+                    m.setitem(sys.modules, "cv2", None)
+                mat.upload_texture(str(fp))
         scene.add_material(mat)
         scene.add_mesh(objloader.loads(procgen.cube_obj()))
         scene.add_mesh_instance(MeshInstance(0, 0))
         cam = Camera.looking(256, 256, fov_deg=45.0, pose=[0, -4, 0, 0, 0, 0])
         frames.append(render(cam, scene.compile(cuda), backend="cuda"))
-    assert torch.equal(frames[0], frames[1])
+    assert torch.equal(frames[0], frames[1]) and torch.equal(frames[0], frames[2])
     text = "".join(f"v {x:.6f} {y:.6f} {z:.6f}\n" for tri in zip(*procgen.blob(subdivisions=5))
                    for x, y, z in tri)
     text += "".join(f"f {3 * k + 1} {3 * k + 2} {3 * k + 3}\n" for k in range(20480))

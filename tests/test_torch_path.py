@@ -291,13 +291,17 @@ def test_denoise_and_dof_entry_points():
 
 
 @pytest.mark.parametrize("mode,scene_name", [("path", "cornell"), ("ao", "cornell")])
-def test_driver_path_and_ao_modes(mode, scene_name, tmp_path, capsys):
+def test_driver_path_and_ao_modes(mode, scene_name, tmp_path, capsys, monkeypatch):
+    from tpu_raytracer_torch.app import driver
     from tpu_raytracer_torch.app.driver import run
+    from tpu_raytracer_torch.utils import overlay_fps
 
+    fps = []  # the FPS the driver burns into out.png
+    monkeypatch.setattr(driver, "overlay_fps", lambda im, f: fps.append(f) or overlay_fps(im, f))
     out = tmp_path / f"{mode}.png"
     kw = {"fly": True, "denoise": 1} if mode == "path" else {"ao_radius": 0.5}
     img = run(scene_name, 32, 32, frames=2, out=str(out), device="cpu", mode=mode,
               backend="bvh", **kw)
     assert capsys.readouterr().out.count("FPS:") == 2
-    assert out.read_bytes() == encode_png(img.numpy())
+    assert out.read_bytes() == encode_png(overlay_fps(img.numpy(), fps[-1]))
     assert tuple(img.shape) == (32, 32, 3) and img.float().std() > 0

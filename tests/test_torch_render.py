@@ -82,13 +82,17 @@ def test_render_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
 
 
-def test_driver_writes_png_and_rejects_demo(tmp_path, capsys):
+def test_driver_writes_png_and_rejects_demo(tmp_path, capsys, monkeypatch):
+    from tpu_raytracer_torch.app import driver
     from tpu_raytracer_torch.app.driver import run
+    from tpu_raytracer_torch.utils import overlay_fps
 
+    fps = []  # the FPS the driver burns into out.png
+    monkeypatch.setattr(driver, "overlay_fps", lambda im, f: fps.append(f) or overlay_fps(im, f))
     out = tmp_path / "cube.png"
     img = run("cube", 64, 64, frames=2, out=str(out), device="cpu")
     assert capsys.readouterr().out.count("FPS:") == 2
-    assert out.read_bytes() == encode_png(img.numpy())
+    assert out.read_bytes() == encode_png(overlay_fps(img.numpy(), fps[-1]))
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     # the default scene is the two-instance demo, which routes to K3
     demo = run(out=str(out), width=32, height=32, frames=1, device="cpu")

@@ -12,6 +12,7 @@ decode (``cv2.imread``, which the JAX package's ``upload_texture`` uses).
 import io
 import os
 import struct
+import sys
 import zlib
 
 import numpy as np
@@ -326,7 +327,10 @@ def test_decode_png_rejects_other_formats_by_name(case):
         decode_png(data())
 
 
-def test_upload_texture_gives_the_jax_packages_atlas(tmp_path):
+def test_upload_texture_gives_the_jax_packages_atlas(tmp_path, monkeypatch):
+    """The port's atlas equals the JAX package's, with the port reading
+    the files through ``cv2.imread`` and again through ``decode_png``
+    (OpenCV blocked)."""
     fp = str(tmp_path / "checker.png")
     tex = procgen.checkerboard_texture(64, 8)
     img, ctype, palette = _image("rgb", seed=5, shape=(48, 40))
@@ -336,20 +340,68 @@ def test_upload_texture_gives_the_jax_packages_atlas(tmp_path):
     with open(fp, "wb") as f:
         f.write(encode_png(tex[..., ::-1].copy(), 2, [4]))  # the file holds RGB
     np.testing.assert_array_equal(read_png(fp), tex)
+    port = __import__("tpu_raytracer_torch.scene", fromlist=["Scene"])
+    scenes = []
+    for S, opencv in ((js, True), (port, True), (port, False)):
+        scene = S.Scene()
+        with monkeypatch.context() as m:
+            if not opencv:
+                m.setitem(sys.modules, "cv2", None)
+            for path in (fp, other):
+                mat = S.Material()
+                mat.upload_texture(path)
+                scene.add_material(mat)
+        scene.add_mesh(S.objloader.loads(S.procgen.cube_obj()))
+        scene.add_mesh_instance(S.MeshInstance(0, 1))
+        scenes.append(scene)
+    ja = scenes[0].compile()
+    for ported in scenes[1:]:
+        for mj, mp in zip(scenes[0].materials, ported.materials):
+            np.testing.assert_array_equal(mp.texture, mj.texture)
+        pa = ported.compile("cpu")
+        for k in ("tex_atlas", "mat_tex_start", "mat_tex_w", "mat_tex_h", "mat_tex_mip_start"):
+            np.testing.assert_array_equal(getattr(pa, k).numpy(), np.asarray(getattr(ja, k)),
+                                          err_msg=k)
+    with pytest.raises(FileNotFoundError):
+        scenes[1].materials[0].upload_texture(str(tmp_path / "missing.png"))
+
+
+def test_upload_texture_reads_what_opencv_reads(tmp_path, monkeypatch):
+    """A JPEG and a 16-bit PNG written by OpenCV: with OpenCV the port's
+    ``read_png`` is ``cv2.imread`` as the JAX package's
+    ``upload_texture``, and both packages build the same texture atlas
+    (exact); with OpenCV blocked the numpy decoder refuses both files,
+    naming the format."""
+    import cv2
+
+    img = np.random.default_rng(8).integers(0, 256, (24, 40, 3), np.uint8)
+    files = {"jpeg": str(tmp_path / "t.jpg"), "16_bit": str(tmp_path / "t16.png")}
+    assert cv2.imwrite(files["jpeg"], img)
+    assert cv2.imwrite(files["16_bit"], img.astype(np.uint16) * 257)
     scenes = []
     for S in (js, __import__("tpu_raytracer_torch.scene", fromlist=["Scene"])):
         scene = S.Scene()
-        for path in (fp, other):
+        for fp in files.values():
             mat = S.Material()
-            mat.upload_texture(path)
+            mat.upload_texture(fp)
             scene.add_material(mat)
         scene.add_mesh(S.objloader.loads(S.procgen.cube_obj()))
         scene.add_mesh_instance(S.MeshInstance(0, 1))
         scenes.append(scene)
-    for mj, mp in zip(scenes[0].materials, scenes[1].materials):
-        np.testing.assert_array_equal(mp.texture, mj.texture)
+    np.testing.assert_array_equal(read_png(files["16_bit"]), img)  # 16 bits down to 8
+    np.testing.assert_array_equal(read_png(files["jpeg"]), cv2.imread(files["jpeg"]))
     ja, pa = scenes[0].compile(), scenes[1].compile("cpu")
     for k in ("tex_atlas", "mat_tex_start", "mat_tex_w", "mat_tex_h", "mat_tex_mip_start"):
         np.testing.assert_array_equal(getattr(pa, k).numpy(), np.asarray(getattr(ja, k)), err_msg=k)
+    with pytest.raises(ValueError, match="OpenCV cannot read"):
+        (tmp_path / "junk.png").write_bytes(b"not an image")
+        read_png(str(tmp_path / "junk.png"))
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for fmt, match in (("jpeg", "JPEG"), ("16_bit", "16-bit")):
+        with pytest.raises(ValueError, match=match):
+            read_png(files[fmt])
+        with pytest.raises(ValueError, match=match):
+            scenes[1].materials[0].upload_texture(files[fmt])
     with pytest.raises(FileNotFoundError):
-        scenes[1].materials[0].upload_texture(str(tmp_path / "missing.png"))
+        read_png(str(tmp_path / "missing.png"))

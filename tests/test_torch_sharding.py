@@ -191,3 +191,70 @@ def test_dryrun_runs_every_sharded_entry():
 
     line = dryrun(2, device="cpu")
     assert line.startswith("dryrun OK on 2 ranks") and "gloo all_gather" in line
+
+
+def test_band_frames_follow_the_unsharded_frame_under_shading_settings():
+    """Row bands honour the settings that the JAX package's band bodies
+    drop (``tpu_raytracer/parallel/sharding.py:53 _shard_body`` and :114
+    ``_whitted_body`` pass no ``normal_mode``; :166 ``_path_body`` no
+    ``normal_mode``, ``path_lights``, ``point_lights``,
+    ``light_direction`` or ``sun_intensity``): on 2 gloo ranks at 64x64
+    each band frame is the port's unsharded frame bit for bit. Config 4
+    with its mirror sphere scaled non-uniformly (its cube's scale is too,
+    but an axis-aligned face normal keeps its direction under either
+    rule) under ``inverse_transpose``, Whitted and primary ``lambert``; config 5's path frame with
+    ``path_lights`` and a point light, against its bands rendered in one
+    process with the folded keys. Each setting changes the frame."""
+    from tpu_raytracer_torch.app.scenes import scene_colonnade, scene_instances
+    from tpu_raytracer_torch.render.integrators import PointLight, tonemap
+    from tpu_raytracer_torch.render.pipeline import path_options
+    from tpu_raytracer_torch.scene import MeshInstance
+
+    n, S = 2, 64
+    inst, cam4 = scene_instances(S, S, device="cpu")
+    mirror = MeshInstance(0, 2)  # the sphere mesh, the mirror material
+    mirror.pose = np.array([-1.2, 2.5, 0.0, 0, 0, 0], np.float32)
+    mirror.scale = np.array([0.8, 0.8, 1.3], np.float32)
+    inst = inst.update_instance(1, mirror)
+    col, cam5 = scene_colonnade(S, S, columns=4, segs=8, device="cpu")
+    it = dict(normal_mode="inverse_transpose")
+    cfgs = {
+        "whitted": RenderConfig(S, S, **it),
+        "lambert": RenderConfig(S, S, lighting="lambert", **it),
+        "path": RenderConfig(S, S, path_lights=True,
+                             point_lights=(PointLight((1.0, 1.0, 2.5), 8.0),)),
+    }
+    key = prng.PRNGKey(SEED)
+    calls = [
+        (n, functools.partial(sharding.render_image_whitted_sharded, cfgs["whitted"]),
+         (inst, *_args(cam4))),
+        (n, functools.partial(sharding.render_image_sharded, cfgs["lambert"]),
+         (inst, *_args(cam4))),
+        (n, functools.partial(sharding.render_image_path_traced_sharded, cfgs["path"]),
+         (col, *_args(cam5), key, 2, 2)),
+    ]
+    ranks = spawn(run_calls, n, args=(calls,), device="cpu")
+    got = dict(zip(cfgs, ranks[0]))
+    assert all(torch.equal(a, b) for a, b in zip(ranks[0], ranks[1]))
+
+    whitted = tr.render_image_whitted(cfgs["whitted"], inst, *_args(cam4))
+    lambert = tr.render_image(cfgs["lambert"], inst, *_args(cam4))
+    o, d = generate_rays(S, S, *_args(cam5))
+    h = S // n
+
+    def path_bands(cfg):
+        return torch.cat([to_u8(tonemap(render_path_traced(
+            col, o, d[i * h:(i + 1) * h].contiguous(), prng.fold_in(key, i), max_bounces=2,
+            samples=2, sort_secondary=False, **path_options(cfg)), cfg.tonemap, cfg.exposure))
+            for i in range(n)])
+
+    for name, want in (("whitted", whitted), ("lambert", lambert),
+                       ("path", path_bands(cfgs["path"]))):
+        assert int((got[name] != want).any(-1).sum()) == 0, name
+    # the settings matter: the JAX package's band frames, which drop them,
+    # would be these
+    plain = dict(width=S, height=S)
+    assert (tr.render_image_whitted(RenderConfig(**plain), inst, *_args(cam4)) != whitted).any()
+    assert (tr.render_image(RenderConfig(**plain, lighting="lambert"), inst, *_args(cam4))
+            != lambert).any()
+    assert (path_bands(RenderConfig(**plain)) != got["path"]).any()

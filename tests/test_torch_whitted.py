@@ -143,7 +143,7 @@ def test_render_matches_cpu_golden(golden, recipe):
     np.testing.assert_array_equal(img.numpy(), np.load(os.path.join(GOLDEN_DIR, golden + ".npy")))
 
 
-def test_driver_renders_the_demo(tmp_path, capsys):
+def test_driver_renders_the_demo(tmp_path, capsys, monkeypatch):
     """Two frames of the spinning demo at 64x64: the driver's frame is
     ``render`` of the port's demo scene after the same two spins, and the
     port renders the JAX package's spun demo scene as the JAX package's
@@ -157,14 +157,18 @@ def test_driver_renders_the_demo(tmp_path, capsys):
     from tpu_raytracer.render import RenderConfig as JaxConfig
     from tpu_raytracer.render import render_image as jax_render
     from tpu_raytracer.scene import MeshInstance as JaxMeshInstance
+    from tpu_raytracer_torch.app import driver
     from tpu_raytracer_torch.app.driver import run
     from tpu_raytracer_torch.render import Camera, render
     from tpu_raytracer_torch.scene import MeshInstance
+    from tpu_raytracer_torch.utils import overlay_fps
 
+    fps = []  # the FPS the driver burns into out.png
+    monkeypatch.setattr(driver, "overlay_fps", lambda im, f: fps.append(f) or overlay_fps(im, f))
     out = tmp_path / "demo.png"
     img = run("demo", 64, 64, frames=2, out=str(out), device="cpu")
     assert capsys.readouterr().out.count("FPS:") == 2
-    assert out.read_bytes() == encode_png(img.numpy())
+    assert out.read_bytes() == encode_png(overlay_fps(img.numpy(), fps[-1]))
 
     scene = port_scenes.build_demo_scene().compile(device="cpu")
     arrays = jax_demo().compile()

@@ -28,7 +28,10 @@ X,Y,Z[,I]`` (repeatable), ``--no-sun``, ``--normal-mode``,
 map), ``--calib`` (the reference fisheye calibration, K rescaled) and
 ``--ssaa N`` shape the frames as in the JAX driver; each ``--aov NAME``
 also writes that buffer of ``render_aovs`` as ``<out>.<NAME>.png``. The
-FPS text overlay of the JAX driver is not ported.
+last frame is saved with its FPS burnt in (``utils.image.overlay_fps``,
+unlabelled where OpenCV does not import). ``--web PORT`` serves the live
+browser viewer (``app/web.py``, in ``--mode``) on ``--web-host``
+(default loopback) instead of the timed loop.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from ..render.pipeline import (
 from ..render.renderer import BACKENDS, NORMAL_MODES
 from ..render.shade import DEFAULT_LIGHT_DIRECTION, TEXTURE_FILTERS
 from ..scene import MeshInstance, procgen
-from ..utils import prng, save_png
+from ..utils import overlay_fps, prng, save_png
 from .controls import fly as fly_step
 from .scenes import SCENES, build_demo_scene
 
@@ -92,12 +95,15 @@ def run(scene_name: str = "demo", width: int = 1920, height: int = 1088,
         focus_distance: float = 4.0, tonemap: str = "none", exposure: float = 1.0,
         point_lights: tuple = (), no_sun: bool = False, texture_filter: str = "nearest",
         ssaa: int = 1, aovs: tuple = (), sky: str = "flat", calib: bool = False,
-        normal_mode: str = "reference"):
-    """Render ``frames`` frames, printing FPS and Mrays/s per frame;
-    returns the last frame as a host uint8 tensor. ``animate`` spins the
-    demo's cube; ``fly`` flies the camera. ``point_lights`` are (x, y, z)
-    or (x, y, z, intensity) tuples; ``aovs`` names the AOV buffers
-    written beside ``out`` after the last frame."""
+        normal_mode: str = "reference", web: int | None = None, web_host: str = "127.0.0.1"):
+    """Render ``frames`` frames, printing FPS and Mrays/s per frame, and
+    save the last with its FPS burnt in; returns that frame, unlabelled,
+    as a host uint8 tensor. ``animate`` spins the demo's cube; ``fly``
+    flies the camera. ``point_lights`` are (x, y, z) or (x, y, z,
+    intensity) tuples; ``aovs`` names the AOV buffers written beside
+    ``out`` after the last frame. ``web``: serve the live viewer
+    (``app/web.py``, in ``mode``) on this port of ``web_host`` instead of
+    the timed loop, and return None when it stops."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; the driver has {', '.join(MODES)}")
     if scene_name == "demo":
@@ -128,11 +134,18 @@ def run(scene_name: str = "demo", width: int = 1920, height: int = 1088,
                           point_lights=lights, texture_filter=texture_filter, ssaa=ssaa,
                           path_lights=path_lights, tonemap=tonemap, exposure=exposure,
                           denoise=denoise, normal_mode=normal_mode)
+    if web is not None:
+        from .web import WebViewer
+
+        WebViewer(scene, camera, config, mode=mode, ao_radius=ao_radius).serve(
+            host=web_host, port=web)
+        return None
     render_fn = {"primary": render_image, "whitted": render_image_whitted}.get(mode)
     key = prng.PRNGKey(0)
     cuda = scene.device.type == "cuda"
     angle = 0.0
     img = None
+    fps = 0.0
     for _ in range(frames):
         angle += 0.005
         if animate and scene_name == "demo":
@@ -158,10 +171,11 @@ def run(scene_name: str = "demo", width: int = 1920, height: int = 1088,
         if cuda:
             torch.cuda.synchronize(scene.device)
         elapsed = time.perf_counter() - start
+        fps = 1.0 / elapsed
         mrays = camera.width * camera.height * ssaa * ssaa / elapsed / 1e6
-        print(f"FPS: {1.0 / elapsed:.2f}  ({mrays:.1f} Mrays/s)")
+        print(f"FPS: {fps:.2f}  ({mrays:.1f} Mrays/s)")
     img = img.cpu()
-    save_png(img.numpy(), out)
+    save_png(overlay_fps(img.numpy(), fps), out)
     if aovs:
         p = camera.ray_params(scene.device)
         bufs = render_aovs(config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
@@ -188,6 +202,12 @@ def main():
     ap.add_argument("--fly", action="store_true", help="animated camera fly-through")
     ap.add_argument("--ao-radius", type=float, default=1.0,
                     help="--mode ao: world-space occlusion query radius")
+    ap.add_argument("--web", type=int, default=None, metavar="PORT",
+                    help="serve the live browser viewer on PORT (mouse orbit, WASD fly; "
+                         "app/web.py) instead of the timed loop; honours --mode")
+    ap.add_argument("--web-host", default="127.0.0.1",
+                    help="the viewer's bind address (default loopback; the viewer has no "
+                         "auth, and 0.0.0.0 exposes camera control to the network)")
     ap.add_argument("--denoise", type=int, default=0, metavar="N",
                     help="--mode path: N à-trous denoiser iterations (0 = off)")
     ap.add_argument("--path-lights", action="store_true",
@@ -229,7 +249,7 @@ def main():
         tonemap=args.tonemap, exposure=args.exposure, point_lights=plights,
         no_sun=args.no_sun, texture_filter=args.texture_filter, ssaa=args.ssaa,
         aovs=tuple(args.aov), sky=args.sky, calib=args.calib,
-        normal_mode=args.normal_mode)
+        normal_mode=args.normal_mode, web=args.web, web_host=args.web_host)
 
 
 if __name__ == "__main__":

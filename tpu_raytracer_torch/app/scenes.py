@@ -132,14 +132,16 @@ def scene_instances16(width: int = 512, height: int = 512, n: int = 16, device="
 
 
 def scene_colonnade(width: int = 1024, height: int = 1024, columns: int = 10,
-                    segs: int = 32, device="cuda"):
+                    segs: int = 32, device="cuda", opt_rounds: int = 0):
     """Config 5: a Sponza-class hall of columns; ``columns=18, segs=40``
     is the ~1.04M-triangle scene of the paged path
-    (``tpu_raytracer/app/scenes.py:scene_colonnade``)."""
+    (``tpu_raytracer/app/scenes.py:scene_colonnade``). ``opt_rounds``:
+    rounds of the reinsertion optimizer on its BVH (bench_all's config 5b
+    takes 2, where the JAX package reads ``TRT_BVH_OPT``)."""
     scene = Scene()
     scene.add_material(Material(albedo=(0.85, 0.8, 0.75)))
     v0, v1, v2 = procgen.colonnade(columns, columns, segs)
-    scene.add_mesh(MeshPrimitive.from_triangles(v0, v1, v2))
+    scene.add_mesh(MeshPrimitive.from_triangles(v0, v1, v2, opt_rounds=opt_rounds))
     scene.add_mesh_instance(MeshInstance(0, 0))
     cam = Camera.looking(width, height, fov_deg=65.0, pose=[1.0, -2.0, 1.6, 0, 0, 0])
     return scene.compile(device), cam

@@ -2,9 +2,9 @@
 
 A texture is a host ``[H, W, 3]`` uint8 array in the reference's BGR
 channel order; ``Scene.compile`` packs it into the flat atlas.
-``upload_texture`` reads one from a PNG file (``utils/image.py
-read_png``: what the JAX package's ``cv2.imread`` gives; other formats
-raise).
+``upload_texture`` reads one from an image file (``utils/image.py
+read_png``: ``cv2.imread`` as in the JAX package where OpenCV imports,
+else PNGs alone).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ class Material:
     texture: np.ndarray | None = None  # [H, W, 3] uint8
 
     def upload_texture(self, fp: str) -> None:
-        """Load a PNG file as this material's texture (Material.hpp:29-43)."""
+        """Load an image file as this material's texture (Material.hpp:29-43)."""
         from ..utils.image import read_png
 
         self.set_texture(read_png(fp))

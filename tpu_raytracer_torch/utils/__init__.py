@@ -1,3 +1,3 @@
-from .image import encode_png, save_png
+from .image import encode_png, overlay_fps, save_png
 
-__all__ = ["encode_png", "save_png"]
+__all__ = ["encode_png", "overlay_fps", "save_png"]

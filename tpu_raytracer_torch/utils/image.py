@@ -1,21 +1,26 @@
-"""PNG input and output in numpy and zlib (counterpart of
+"""Image input and output, and the FPS overlay (counterpart of
 ``tpu_raytracer/utils/image.py`` and of the image reads of
-``tpu_raytracer/scene/material.py``, which use OpenCV or PIL).
+``tpu_raytracer/scene/material.py``).
 
 Images are [H, W, 3] uint8 in the reference's BGR channel order; the
-PNG is written as RGB so viewers show the same colours as the JAX
-package's ``cv2.imwrite``, and ``decode_png`` returns what
-``cv2.imread(fp, cv2.IMREAD_COLOR)`` returns: greyscale replicated to
-three channels, a palette looked up, alpha dropped, channels in BGR
-order. It reads 8-bit, non-interlaced PNGs of the greyscale, RGB,
-palette and RGBA colour types, with all five row filters; any other
-format (JPEG, 16-bit or interlaced PNG, ...) raises a ``ValueError``
-that names it. The FPS text overlay of the JAX driver needs OpenCV and
-is not ported.
+PNG is written as RGB (numpy and zlib) so viewers show the same colours
+as the JAX package's ``cv2.imwrite``. ``read_png`` reads an image file
+with ``cv2.imread(fp, cv2.IMREAD_COLOR)`` where OpenCV imports, as the
+JAX package's ``Material.upload_texture`` does, so JPEG and 16-bit PNG
+textures read as there. Without OpenCV it decodes with ``decode_png``,
+which returns what ``cv2.imread`` returns for the PNGs it reads:
+greyscale replicated to three channels, a palette looked up, alpha
+dropped, channels in BGR order. It reads 8-bit, non-interlaced PNGs of
+the greyscale, RGB, palette and RGBA colour types, with all five row
+filters; any other format (JPEG, 16-bit or interlaced PNG, ...) raises a
+``ValueError`` that names it. ``overlay_fps`` burns the FPS label into a
+frame with ``cv2.putText``; without OpenCV the frame comes back
+unlabelled, as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -125,9 +130,34 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def read_png(fp: str) -> np.ndarray:
-    """A PNG file -> [H, W, 3] uint8 in BGR order (``decode_png``)."""
-    with open(fp, "rb") as f:
-        return decode_png(f.read())
+    """An image file -> [H, W, 3] uint8 in BGR order: ``cv2.imread`` where
+    OpenCV imports (any format it reads), else ``decode_png``. A missing
+    file raises ``FileNotFoundError``; one that cannot be read raises
+    ``ValueError``."""
+    try:
+        import cv2
+    except ImportError:
+        with open(fp, "rb") as f:
+            return decode_png(f.read())
+    if not os.path.exists(fp):
+        raise FileNotFoundError(fp)
+    img = cv2.imread(fp, cv2.IMREAD_COLOR)
+    if img is None:
+        raise ValueError(f"OpenCV cannot read {fp}")
+    return np.asarray(img, np.uint8)
+
+
+def overlay_fps(img, fps: float) -> np.ndarray:
+    """A copy of the frame [H, W, 3] uint8 with ``FPS: <fps>`` burnt in
+    at its top left (kernel.cu:40-41) where OpenCV imports; without it the
+    copy is unlabelled."""
+    img = np.array(img, np.uint8)  # a writable copy: putText draws in place
+    try:
+        import cv2
+    except ImportError:
+        return img
+    cv2.putText(img, f"FPS: {fps:f}", (10, 30), cv2.FONT_HERSHEY_SIMPLEX, 1.0, (0, 255, 0), 2)
+    return img
 
 
 def save_png(img, fp: str) -> None:
