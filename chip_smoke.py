@@ -168,7 +168,19 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
  38. ``[bench_scripts]``: ``python -m tpu_raytracer_torch.bench_all bunny
      instances`` (every key on each line) and ``python -m
      tpu_raytracer_torch.bench_paged --columns 6`` (its sampled casts close
-     to the brute cast's).
+     to the brute cast's);
+ 39. ``[big_scene]`` (run after ``[presplit]``): the 1M colonnade's route
+     (K1), then the colonnade of 26 columns (2,163,202 triangles, the
+     smallest ``segs=40`` colonnade past the leaf code's 2,097,152 rows)
+     compiled with the defaults: its rows, ``needs_paging()``, the tables
+     attached (page tables only), the host build; the ``cuda`` backend's
+     cast launching K4 once, bitwise the forced ``paged`` cast, the plain
+     version and the ``bvh`` backend's cast, its any-hit answers those of
+     the nearest hits, 192 sampled rays against the brute cast (0
+     unexplained); the flat, ``lambert_shadow``, Whitted and 2 spp path
+     frames through ``cuda`` and the flat frame through ``bvh``, each
+     launching K4 alone, bitwise the ``paged`` backend's frame, best and
+     median ms; K4's cast and kernel ms and bound there.
 
 Every kernel's bound is the larger of its f32 operations over 67 TFLOP/s
 and its bytes over 3.35 TB/s (the H100's published peaks): operations
@@ -652,6 +664,7 @@ def main():
     flatten_phases(dev, card, (inst4, o4, d4, args4, img_w, k3_per_set),
                    (inst16, cam16, o16, d16))
     presplit_phase(dev, card, paged_ctx)
+    big_entry = big_scene_phase(dev, card, paged_ctx)
     optimize_phase(dev, card, path_ctx)
     scene_io_phases(dev, path_ctx)
     shard_phases(dev, card, (scene, args), (inst4, args4), paged_ctx, path_ctx)
@@ -709,6 +722,7 @@ def main():
         *carry_entries,
         *k2_entries,
         *paged_kernels,
+        big_entry,
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1102,16 +1116,7 @@ def paged_phases(dev, card) -> tuple:
     plan_res = plan_vs_plain(wide_sc, wo, wd, "colonnade_1920x1088")
 
     # 14. 192 sampled rays against the brute cast -----------------------
-    cam512 = Camera.looking(512, 512, fov_deg=65.0, pose=cam.pose)  # scene_colonnade's camera
-    p512 = cam512.ray_params(dev)
-    args512 = (p512["K_inv"], p512["D"], p512["pose"], p512["inv_pose"])
-    o512, d512 = generate_rays(512, 512, *args512)
-    rng = np.random.default_rng(0)
-    ys = rng.integers(0, 512, 192)
-    xs = rng.integers(0, 512, 192)
-    ys[:64] = 256  # degenerate axis-aligned rays
-    xs[64:128] = 256
-    sample = d512[torch.from_numpy(ys).to(dev), torch.from_numpy(xs).to(dev)]
+    o512, d512, sample = sample_192(dev, cam.pose)
     brute = cast_rays_brute(col, o512, sample, tri_chunk=1 << 16)
     for k, (sc, cast, _, _) in cases.items():
         h = cast(sc, o512, sample)
@@ -2469,6 +2474,164 @@ def shard_phases(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
 
 # The app layer's phases: frames of APP_SIZE, renders timed per mode after
 # the served frames
+# The big-scene route: the smallest segs=40 colonnade whose triangle rows
+# pass the leaf code's 2,097,152 (26 columns: 2,163,202 triangles, more
+# rows with presplit and the 8-aligned leaves), which K1-K3 cannot address.
+BIG_COLUMNS = 26
+BIG_SIZE = (1920, 1088)
+
+
+def sample_192(dev, pose):
+    """(origin, [512, 512] directions, 192 of them) of ``bench_paged.py``'s
+    sample: 512x512 rays of the colonnade's camera at ``pose``, sampled at
+    ``default_rng(0)`` pixels, the first 64 on the middle row and the next
+    64 on the middle column (degenerate axis-aligned rays)."""
+    from tpu_raytracer_torch.render import Camera, generate_rays
+
+    p = Camera.looking(512, 512, fov_deg=65.0, pose=pose).ray_params(dev)
+    o, d = generate_rays(512, 512, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    rng = np.random.default_rng(0)
+    ys = rng.integers(0, 512, 192)
+    xs = rng.integers(0, 512, 192)
+    ys[:64] = 256
+    xs[64:128] = 256
+    return o, d, d[torch.from_numpy(ys).to(dev), torch.from_numpy(xs).to(dev)]
+
+
+def big_scene_phase(dev, card, paged_ctx) -> dict:
+    """Phase 39, ``[big_scene]``: the colonnade past the leaf code's rows,
+    compiled with the defaults, gets page tables and no resident tables,
+    and the ``cuda`` and ``bvh`` backends cast it through K4
+    (``traversal.cast_rays_paged_route``): the routed cast bitwise the
+    forced ``paged`` cast and the plain version, its any hit the nearest
+    hit's answer, 192 sampled rays against the brute cast, the frames
+    (flat, ``lambert_shadow``, Whitted, a 2 spp path frame through
+    ``cuda``, flat through ``bvh``) launching K4 alone, bitwise the
+    ``paged`` backend's frames, with their times. Returns K4's entry of the
+    kernels line on this route."""
+    from tpu_raytracer_torch.accel.wide import LEAF_ROWS
+    from tpu_raytracer_torch.app.scenes import scene_colonnade
+    from tpu_raytracer_torch.core.vecmath import FLT_MAX
+    from tpu_raytracer_torch.kernels import paged, traversal
+    from tpu_raytracer_torch.render import RenderConfig, generate_rays, render_image
+    from tpu_raytracer_torch.render import render_image_whitted
+    from tpu_raytracer_torch.render.pipeline import render_image_path_traced
+    from tpu_raytracer_torch.render.renderer import cast_rays_brute, get_cast_fn
+    from tpu_raytracer_torch.utils import prng
+
+    col = paged_ctx["col"]
+    phase("big_scene_route", scene="colonnade columns=18", rows=col.num_triangles,
+          needs_paging=col.needs_paging(), routed="K4" if col.needs_paging() else "K1")
+    check(not col.needs_paging() and col.wide4 is not None, "the 1M colonnade was paged")
+
+    t0 = time.perf_counter()
+    big, cam = scene_colonnade(*BIG_SIZE, columns=BIG_COLUMNS, segs=40, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pg = big.paged
+    attached = [k for k in ("wide4", "binary", "tlas", "paged") if getattr(big, k) is not None]
+    leaves = big.node_child_a < 0
+    rows = big.num_triangles
+    mb = lambda *ts: f"{sum(t.numel() * t.element_size() for t in ts) / 1e6:.2f}"
+    phase("big_scene", columns=BIG_COLUMNS, segs=40, triangle_rows=rows,
+          real_triangles=real_tri_rows(big), leaf_rows_limit=LEAF_ROWS,
+          last_leaf_start=int(big.node_leaf_start[leaves].max()),
+          needs_paging=big.needs_paging(), attached=",".join(attached), pages=pg.num_pages,
+          page_arity=pg.arity, top_depth=pg.top_depth, page_depth=pg.depth,
+          host_build_s=f"{build_s:.2f}", tri_rec_mb=mb(big.tri_rec),
+          k4_tables_mb=mb(pg.node, pg.node_base, pg.page_tri0, pg.top_code, pg.top_box),
+          card=repr(card))
+    check(big.needs_paging() and rows >= LEAF_ROWS and attached == ["paged"] and pg.arity == 4,
+          f"the {BIG_COLUMNS}-column colonnade compiled with {attached} ({rows} rows)")
+
+    p = cam.ray_params(dev)
+    args = (p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    o, d = generate_rays(*BIG_SIZE, *args)
+    n_rays = d.numel() // 3
+    _reset_launch_counts()
+    routed = traversal.cast_rays(big, o, d)
+    torch.cuda.synchronize()
+    cast_launches = {k: v for k, v in _launch_counts().items() if v}
+    check(cast_launches == {"K4": 1}, f"the routed cast launched {cast_launches}, not K4 once")
+    forced = paged.cast_rays_paged_cuda(big, o, d)
+    via_bvh = get_cast_fn("bvh")(big, o, d)
+    any_hit = get_cast_fn("cuda")(big, o, d, occlusion=True)
+    torch.cuda.synchronize()
+    (plain, counters), plain_ms = timed(lambda: paged.cast_rays_paged_torch(big, o, d,
+                                                                            stats=True))
+    vs_forced = compare_hits(routed, forced)
+    vs_plain = compare_hits(routed, plain)
+    vs_bvh = compare_hits(via_bvh, forced)
+    answer_diff = int(((any_hit.t < FLT_MAX) != (forced.t < FLT_MAX)).sum())
+    o192, _, d192 = sample_192(dev, cam.pose)
+    brute = cast_rays_brute(big, o192, d192, tri_chunk=1 << 16)
+    far = brute_unexplained(big, o192, d192, traversal.cast_rays(big, o192, d192), brute)
+    phase("big_scene_cast", rays=n_rays, routed="K4", launches=cast_launches,
+          t_bitwise_diff_vs_forced=vs_forced[0], tri_diff_vs_forced=vs_forced[3],
+          inst_diff_vs_forced=vs_forced[4], t_bitwise_diff_vs_plain=vs_plain[0],
+          tri_diff_vs_plain=vs_plain[3], inst_diff_vs_plain=vs_plain[4],
+          bvh_backend_t_bitwise_diff=vs_bvh[0], bvh_backend_tri_diff=vs_bvh[3],
+          any_hit_answer_diff=answer_diff, plain_ms=f"{plain_ms:.2f}",
+          hit_fraction=f"{float((routed.tri >= 0).float().mean()):.4f}",
+          brute_sample_rays=192, brute_t_not_close=far[0], brute_unexplained=far[1])
+    check(sum(vs_forced[i] for i in (0, 3, 4)) == 0, "the routed cast differs from K4 forced")
+    check(sum(vs_plain[i] for i in (0, 3, 4)) == 0, "the routed K4 differs from its plain version")
+    check(sum(vs_bvh[i] for i in (0, 3, 4)) == 0, "the bvh backend's cast differs from K4 forced")
+    check(answer_diff == 0, "the routed any-hit cast's answers differ from the nearest hits")
+    check(far[1] == 0, "the routed cast differs from the brute cast beyond box order")
+
+    key = prng.PRNGKey(0, device=dev)
+    frames = {
+        "flat": ("cuda", lambda b: render_image(RenderConfig(*BIG_SIZE, backend=b), big, *args)),
+        "lambert_shadow": ("cuda", lambda b: render_image(
+            RenderConfig(*BIG_SIZE, backend=b, lighting="lambert_shadow"), big, *args)),
+        "whitted": ("cuda", lambda b: render_image_whitted(RenderConfig(*BIG_SIZE, backend=b),
+                                                           big, *args)),
+        "path": ("cuda", lambda b: render_image_path_traced(
+            RenderConfig(*BIG_SIZE, backend=b), big, *args, key, PATH_BOUNCES, PATH_SAMPLES)),
+        "flat_bvh": ("bvh", lambda b: render_image(RenderConfig(*BIG_SIZE, backend=b), big,
+                                                   *args)),
+    }
+    flat_launches = 0
+    for tag, (backend, fn) in frames.items():
+        _reset_launch_counts()
+        img = fn(backend)
+        torch.cuda.synchronize()
+        n = {k: v for k, v in _launch_counts().items() if v}
+        forced_img = fn("paged")
+        n_px = _pixels(img, forced_img)
+        best, median = best_and_median_ms(lambda: fn(backend), loops=3, n=2)
+        phase("big_scene_frame", frame=tag, backend=backend, launches=n,
+              pixels_vs_paged_backend=n_px, frame_ms_best=f"{best:.4f}",
+              frame_ms_median=f"{median:.4f}", card=repr(card))
+        check(set(n) == {"K4"}, f"the big scene's {tag} frame launched {n}, not K4 alone")
+        check(n_px == 0, f"the big scene's {tag} frame differs from the paged backend's")
+        if tag == "flat":
+            flat_launches = n.get("K4", 0)
+    cast = lambda: traversal.cast_rays(big, o, d)
+    cast_ms = min(event_ms(cast, 10) for _ in range(5))
+    kernel_ms = device_ms(cast, "paged_wide_kernel")
+    b = bound("K4 big scene", counters, 4, n_rays,
+              (o, d, pg.node, pg.node_base, pg.page_tri0, pg.top_code, pg.top_box, *routed[:3]),
+              real_tri_rows(big))
+    phase("big_scene_time", card=repr(card), k4_cast_ms=f"{cast_ms:.4f}",
+          k4_kernel_ms=f"{kernel_ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}")
+    return {
+        "name": f"K4 paged_wide_kernel on the big-scene route (the {BIG_COLUMNS}-column "
+                f"colonnade, {rows} triangle rows, past the leaf code's {LEAF_ROWS}; launches: "
+                "its flat frame through the cuda backend; ms, plain_ms, bound: 1920x1088 "
+                "primary rays)",
+        "route": "cuda",
+        "source": "tpu_raytracer_torch/kernels/csrc/paged_traverse.cu",
+        "replaces": "tpu_raytracer/kernels/paged_wide.py:242",
+        "launches": flat_launches,
+        "max_abs_err": vs_plain[2],
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        **b,
+    }
+
+
 APP_SIZE = (1920, 1088)
 APP_REPS = 3
 

@@ -37,7 +37,7 @@ from tpu_raytracer.render.renderer import cast_rays_bvh as jax_bvh
 from tpu_raytracer_torch.kernels import binary, traversal
 from tpu_raytracer_torch.kernels.traversal import BIG, child_entry
 from tpu_raytracer_torch.render import Hit, RenderConfig, render_image, render_image_whitted
-from tpu_raytracer_torch.render.renderer import get_cast_fn, occlusion_cast_fn
+from tpu_raytracer_torch.render.renderer import cast_rays_bvh, get_cast_fn, occlusion_cast_fn
 from tpu_raytracer_torch.scene.scene import from_scene_arrays
 
 from test_torch_cast import TINY_STACK, host_trace, host_trace_spills, port_rays, port_scene
@@ -221,7 +221,7 @@ def test_leaf_root_entry_is_entered_by_every_ray_without_nan():
 def test_backend_routes_and_tables_follow_the_scene():
     scene = port_scene("two_instance")
     o, d = port_rays("two_instance")
-    assert get_cast_fn("bvh") is binary.cast_rays_binary_cuda
+    assert get_cast_fn("bvh") is cast_rays_bvh  # K2 below the paging rule
     before = binary.LAUNCHES
     got = get_cast_fn("bvh")(scene, o, d)
     assert binary.LAUNCHES == before  # CPU tensors run the plain version

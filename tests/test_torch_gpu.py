@@ -4,7 +4,8 @@ spill path), K6's card plan against its plain plan and K6's cast with
 no host sync, the config 5 path frame through K2 and K1, and the
 carrying kernels of K1 and K3 (u, v and n) with the lit frames they
 serve, K1 on a flattened scene, K1, K4 and K6 on a presplit colonnade,
-and the PNG and OBJ readers on a machine without OpenCV or PIL.
+the PNG and OBJ readers on a machine without OpenCV or PIL, and the
+big-scene route (a scene past the leaf code's rows cast by K4 alone).
 
 Marked ``gpu``: every test skips without a card. On a machine with one
 (and no JAX), run from the repository root with
@@ -683,3 +684,38 @@ def test_sharded_cast_and_row_bands_on_the_card(cuda, world, backend):
     assert (hit.tri >= 0).float().mean() > 0.2
     want = render_image(cfg, compiled.to(cuda), *(a.to(cuda) for a in args))
     assert torch.equal(img, want.cpu())
+
+
+def test_big_scene_route_launches_k4_alone(cuda, monkeypatch):
+    """A scene that needs paging (the rule's rows lowered below the
+    small colonnade's 13,320) compiles with page tables only, and the
+    ``cuda`` and ``bvh`` backends cast it with K4: one launch a cast,
+    bitwise the forced ``paged`` cast and the plain version, any hit
+    the nearest hit's answer, frames launching K4 alone."""
+    from tpu_raytracer_torch.render import render_image
+    from tpu_raytracer_torch.render.renderer import get_cast_fn, occlusion_cast_fn
+
+    monkeypatch.setattr(traversal, "PAGING_ROWS", 64)
+    scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
+    assert scene.needs_paging() and scene.wide4 is None and scene.paged.arity == 4
+    o, d = _rays(cam, cuda)
+    forced = paged.cast_rays_paged_cuda(scene, o, d)
+    plain = paged.cast_rays_paged_torch(scene, o, d)
+    for backend in ("cuda", "bvh"):
+        before = (traversal.LAUNCHES, binary.LAUNCHES, paged.LAUNCHES_K4)
+        hit = get_cast_fn(backend)(scene, o, d)
+        occ = occlusion_cast_fn(backend)(scene, o, d)
+        assert (traversal.LAUNCHES, binary.LAUNCHES, paged.LAUNCHES_K4) == (
+            before[0], before[1], before[2] + 2)
+        for a, b, c in zip(hit[:3], forced[:3], plain[:3]):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        assert torch.equal(occ.t < FLT_MAX, forced.t < FLT_MAX)
+        p = cam.ray_params(cuda)
+        before = (traversal.LAUNCHES, binary.LAUNCHES, tlas.LAUNCHES, paged.LAUNCHES_K4)
+        img = render_image(RenderConfig(128, 96, backend=backend, lighting="lambert_shadow"),
+                           scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+        assert (traversal.LAUNCHES, binary.LAUNCHES, tlas.LAUNCHES) == before[:3]
+        assert paged.LAUNCHES_K4 == before[3] + 2
+        want = render_image(RenderConfig(128, 96, backend="paged", lighting="lambert_shadow"),
+                            scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+        assert torch.equal(img, want)

@@ -20,6 +20,13 @@ Output encoding (consumed by kernels/wide4.py and kernels/paged.py):
   * wbox[w, c]: child AABB (min xyz, max xyz); absent children get an
     inverted box (+BIG min, -BIG max) that can never pass a slab test.
   * wroot[m]: wide root per mesh.
+
+A leaf code holds its start in the 21 bits above the 10-bit count, so
+both collapses address leaves that start below ``LEAF_ROWS`` =
+2,097,152 triangle rows and raise a ``ValueError`` for a leaf at or past
+it. A scene of more rows is cast through page tables
+(``SceneTensors.with_paging``), whose leaf starts are page-local and so
+below ``LEAF_ROWS`` too.
 """
 
 from __future__ import annotations
@@ -28,7 +35,10 @@ import dataclasses
 
 import numpy as np
 
-_LEAF_SHIFT = 1 << 10  # matches kernels/traversal.py LEAF_BITS
+LEAF_BITS = 10  # a leaf code's count bits; the kernels read LEAF_BITS from here
+_LEAF_SHIFT = 1 << LEAF_BITS
+# First triangle row a leaf code cannot start at: 31 bits less the count's.
+LEAF_ROWS = 1 << (31 - LEAF_BITS)
 _BIG = np.float32(3.0e38)
 
 
@@ -44,6 +54,18 @@ class Wide4Arrays:
         return len(self.wbox_min)
 
 
+def check_leaf_rows(child_a: np.ndarray, leaf_start: np.ndarray) -> None:
+    """Raise unless every leaf starts below ``LEAF_ROWS``, the rows a leaf
+    code can address."""
+    starts = np.asarray(leaf_start)[np.asarray(child_a) < 0]
+    if starts.size and int(starts.max()) >= LEAF_ROWS:
+        raise ValueError(
+            f"a leaf starts at triangle row {int(starts.max())}: leaf codes address rows "
+            f"below {LEAF_ROWS} (LEAF_ROWS, a 21-bit start beside the 10-bit count); cast such "
+            "a scene through page tables (SceneTensors.with_paging, which Scene.compile "
+            "attaches with auto_page=True)")
+
+
 def collapse4(
     child_a: np.ndarray,
     child_b: np.ndarray,
@@ -55,16 +77,16 @@ def collapse4(
 ) -> Wide4Arrays:
     """Collapse the merged binary BVH arrays (SceneArrays fields, as
     numpy) into the 4-wide layout. Pure host numpy, run once per scene
-    at compile."""
+    at compile. Raises for a leaf at or past ``LEAF_ROWS``
+    (``check_leaf_rows``)."""
     child_a = np.asarray(child_a)
     child_b = np.asarray(child_b)
     leaf_start = np.asarray(leaf_start)
     leaf_count = np.asarray(leaf_count)
     node_min = np.asarray(node_min, np.float32)
     node_max = np.asarray(node_max, np.float32)
+    check_leaf_rows(child_a, leaf_start)
     is_leaf = child_a < 0
-    if (leaf_count[~is_leaf] != 0).any():
-        pass  # internal nodes carry no leaf range; nothing to check
 
     def entries_of(r: int) -> list[int]:
         """Binary entry nodes of wide node W(r): children, with
@@ -153,7 +175,9 @@ def collapse2(
     binary internal node (ids in node order, which is DFS preorder),
     whose two entries are its children; a mesh whose root is a leaf
     gets one node with that leaf as entry 0 and entry 1 absent, as
-    ``collapse4`` builds it. Vectorized: no per-node Python work."""
+    ``collapse4`` builds it. Vectorized: no per-node Python work. Raises
+    for a leaf at or past ``LEAF_ROWS`` (``check_leaf_rows``)."""
+    check_leaf_rows(child_a, leaf_start)
     child_a = np.asarray(child_a)
     child_b = np.asarray(child_b)
     leaf_start = np.asarray(leaf_start).astype(np.int64)

@@ -125,6 +125,8 @@ def run(scene_name: str = "demo", width: int = 1920, height: int = 1088,
         K, D = reference_calibration(camera.width, camera.height)
         camera = Camera(camera.width, camera.height, K, D, pose=camera.pose)
     if backend in ("paged", "paged_major"):
+        # force-page a resident scene; one that needs paging has its tables
+        # from the compile, and with_paging returns it as it is
         scene = scene.with_paging()
     lights = tuple(PointLight(position=tuple(float(x) for x in p[:3]),
                               intensity=float(p[3]) if len(p) > 3 else 100.0)

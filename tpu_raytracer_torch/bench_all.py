@@ -82,6 +82,8 @@ class Bench:
         return RenderConfig(cam.width, cam.height, backend=self.backend, **kw)
 
     def args(self, scene, cam) -> tuple:
+        if self.backend in ("paged", "paged_major"):
+            scene = scene.with_paging()  # the scene itself where its tables are attached
         p = cam.ray_params(scene.device)
         return (scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
 

@@ -184,7 +184,7 @@ class Caster:
         walk = [short_stack, self.counter.data_ptr()]
         if kernel in ("K4", "K5", "K6"):
             pg = scene.paged
-            tail = [w.tri_rec.data_ptr(), inst_tab.data_ptr(), scene.num_instances]
+            tail = [scene.tri_rec.data_ptr(), inst_tab.data_ptr(), scene.num_instances]
             head = [pg.arity, pg.node.data_ptr(), pg.node_base.data_ptr(),
                     pg.page_tri0.data_ptr(), *tail]
             if kernel == "K6":

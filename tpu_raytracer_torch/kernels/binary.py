@@ -91,7 +91,8 @@ def build_binary(scene) -> BinaryTables:
 
 def binary_tables(scene) -> BinaryTables:
     if scene.binary is None:
-        raise ValueError("scene has no binary tables (every compiled scene has them)")
+        raise ValueError("scene has no binary tables: it needs paging "
+                         "(SceneTensors.needs_paging) and is cast through its page tables")
     return scene.binary
 
 

@@ -58,10 +58,9 @@ import numpy as np
 import torch
 
 from ..accel.paging import PAGE_NODES, PAGE_TRIS, _subtree_extents, build_page_table
-from ..accel.wide import collapse2, collapse4
+from ..accel.wide import LEAF_ROWS, collapse2, collapse4
 from .tlas import _depth
 from .traversal import (
-    LEAF_BITS,
     PLAIN_CHUNK,
     BIG,
     _hit,
@@ -79,9 +78,9 @@ from .traversal import (
 from .wide4 import NUDGE, STACK_SIZE, node_records, stack_needed
 
 TOP_STACK = 64  # the plain version's per-ray top-tree stack
-# Leaf codes pack a start into 21 bits beside the 10-bit count; in-page
-# starts are page-local, so a page may hold at most this many triangles.
-MAX_PAGE_TRIS = 1 << (31 - LEAF_BITS)
+# In-page leaf starts are page-local, so a page may hold as many triangles
+# as a leaf code can address.
+MAX_PAGE_TRIS = LEAF_ROWS
 
 # Launches of K4 and K5 since the counts were last reset (CPU casts,
 # which run the plain version, do not count).
@@ -105,6 +104,10 @@ class PagedTables:
     node: torch.Tensor  # [N, 8 * arity] f32 node records (K4-K6)
     top_depth: int  # nodes on the longest top-tree path
     depth: int  # nodes on the longest path of any page tree
+    # the capacities the pages were cut with (None: unknown, for tables
+    # unpacked from the JAX package's by paged_from_jax)
+    page_tris: int | None = None
+    page_nodes: int | None = None
 
     @property
     def num_pages(self) -> int:
@@ -155,7 +158,8 @@ def _page_trees(pt, child_a, child_b, leaf_start, leaf_count, node_min, node_max
 
 
 def _tables(top_code, top_box, top_root, page_node0, page_tri0, node_base, code, box,
-            arity: int, device) -> PagedTables:
+            arity: int, device, page_tris: int | None = None,
+            page_nodes: int | None = None) -> PagedTables:
     depth = _page_depth(code, node_base)
     if stack_needed(depth, arity) > STACK_SIZE:
         raise ValueError(f"page tree depth {depth} overflows the {STACK_SIZE}-slot stack")
@@ -169,6 +173,7 @@ def _tables(top_code, top_box, top_root, page_node0, page_tri0, node_base, code,
         page_tri0=t(page_tri0, np.int32), node_base=t(node_base, np.int32),
         code=t(code, np.int32), box=t(box, np.float32),
         node=t(node_records(code, box), np.float32), top_depth=top_depth, depth=depth,
+        page_tris=page_tris, page_nodes=page_nodes,
     )
 
 
@@ -211,7 +216,7 @@ def prepare_paged(scene, page_tris: int = PAGE_TRIS, page_nodes: int = PAGE_NODE
     code, box, node_base = _page_trees(pt, child_a, child_b, leaf_start, leaf_count,
                                        node_min, node_max, arity)
     return _tables(pt.top_code, top_box, pt.top_root, pt.page_node0, pt.page_tri0,
-                   node_base, code, box, arity, scene.device)
+                   node_base, code, box, arity, scene.device, page_tris, page_nodes)
 
 
 def paged_from_jax(tables, device="cuda", wide: bool = True) -> PagedTables:
@@ -365,7 +370,7 @@ def cast_rays_paged_torch(scene, origin, directions, chunk: int = PLAIN_CHUNK,
     ``stats`` it returns ``(hit, counters)`` (``traversal.new_stats``)."""
     origin, directions = _split_rays(origin, directions)
     pg = _paged_tables(scene)
-    tri_rec = scene.wide4.tri_rec
+    tri_rec = scene.tri_rec
     shape = directions.shape[:-1]
     d_all = directions.reshape(-1, 3)
     o_all = origin.expand(directions.shape).reshape(-1, 3)
@@ -400,7 +405,7 @@ def page_args(scene, directions) -> tuple:
     returns the instance table, which the caller keeps alive until the
     launch."""
     pg = _paged_tables(scene)
-    tri_rec = scene.wide4.tri_rec
+    tri_rec = scene.tri_rec
     inst_tab = instance_table(scene)
     for name, x, dtype in (
         ("directions", directions, torch.float32), ("node", pg.node, torch.float32),

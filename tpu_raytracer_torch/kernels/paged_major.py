@@ -281,7 +281,7 @@ def cast_rays_paged_major_torch(scene, origin, directions, chunk: int = PLAIN_CH
             g = rays[live]
             part = (t[g], tri[g], inst[g])
             sub = None if counters is None else {k: v[g] for k, v in counters.items()}
-            walk_tree(pg.code, pg.box, 4, scene.wide4.tri_rec, pg.node_base[pid], 0,
+            walk_tree(pg.code, pg.box, 4, scene.tri_rec, pg.node_base[pid], 0,
                       pg.page_tri0[pid], oo[iid, live], od[iid, live], inv[iid, live],
                       iid if multi else -1, part, sub)
             t[g], tri[g], inst[g] = part

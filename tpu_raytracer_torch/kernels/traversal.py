@@ -17,11 +17,16 @@ routes single-instance scenes to).
     the two agree bit for bit. ``cast_rays_tree_torch`` is that walk at
     either arity; at arity 2 it is the plain version of K2
     (``kernels/binary.py``), and ``launch`` launches K2 too.
-  * ``cast_rays`` is the router of the ``cuda`` backend: scenes with two
-    or more instances and a TLAS go to K3 (``kernels/tlas.py``), every
-    other scene, whatever its size, to K1. The paged kernels K4-K6
-    (``kernels/paged.py``, ``kernels/paged_major.py``) are the ``paged``
-    and ``paged_major`` backends, chosen by the caller.
+  * ``cast_rays`` is the router of the ``cuda`` backend, in the JAX
+    router's order: a scene that needs paging (``needs_paging``: its
+    triangle rows reach ``PAGING_ROWS``, the leaf code's limit) goes
+    to the paged kernel K4 through its page tables
+    (``cast_rays_paged_route``, which the ``bvh`` backend takes for such
+    a scene too); then scenes with two or more instances and a TLAS go to
+    K3 (``kernels/tlas.py``), every other scene to K1. The paged kernels
+    K4-K6 (``kernels/paged.py``, ``kernels/paged_major.py``) are also the
+    ``paged`` and ``paged_major`` backends, which force them on any
+    scene with page tables.
 
 Every cast returns the JAX package's hit record: ``t`` (FLT_MAX on a
 miss), ``tri`` and ``inst`` (-1 on a miss), and the carried fields where
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import torch
 
+from ..accel import wide
 from ..core import transforms as T
 from ..core.vecmath import FLT_MAX
 from ..render.intersect import EDGE_EPS, PARALLEL_EPS, safe_reciprocal
@@ -50,7 +56,7 @@ BIG = 3.0e38  # initial t_best; never a hit distance
 # Boxes are culled against t_best times this (8 ulps): csrc/wide_traverse.cuh
 # kCapSlack says why.
 CAP_SLACK = 1.0 + 2.0 ** -20
-LEAF_BITS = 10
+LEAF_BITS = wide.LEAF_BITS
 MAX_LEAF_TRIS = (1 << LEAF_BITS) - 1
 
 # Rays the plain walk handles at once: bounds its [rays, leaf, 16]
@@ -104,8 +110,9 @@ def instance_table(scene) -> torch.Tensor:
 def _wide_tables(scene):
     if scene.wide4 is None:
         raise NotImplementedError(
-            "scene has no 4-wide tables (every compiled scene has them); the paged "
-            "kernels K4-K6 are the 'paged' and 'paged_major' backends")
+            "scene has no 4-wide tables: only a scene that needs paging "
+            "(SceneTensors.needs_paging) lacks them, and it is cast through its page "
+            "tables by K4 (cast_rays), or the 'paged' and 'paged_major' backends")
     return scene.wide4
 
 
@@ -435,7 +442,7 @@ def unexplained_differences(scene, origin, directions, a, b) -> int:
             sel = (inst == i) & hits
             oo, od, _ = object_ray(inst_tab[i], o[sel], d[sel])
             k = tri[sel].long()
-            tt, acc, _, _ = _test_tris(scene.wide4.tri_rec[k], oo, od)
+            tt, acc, _, _ = _test_tris(scene.tri_rec[k], oo, od)
             leaf = leaves[torch.searchsorted(starts, tri[sel], right=True) - 1]
             p = oo + t[sel][:, None] * od
             outside = ((p < scene.node_min[leaf]) | (p > scene.node_max[leaf])).any(-1)
@@ -586,13 +593,64 @@ def cast_rays_cuda(scene, origin, directions, occlusion: bool = False,
     return hit
 
 
+# The rows from which a scene is cast through page tables: the port's
+# counterpart of the JAX router's VMEM_SCENE_BUDGET, whose budget is the
+# TPU's VMEM. The rule is the leaf code's limit alone. ``python -m
+# tpu_raytracer_torch.bench_paged sweep`` on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md section 6): cast ms, medians of 20 runs in turns,
+# 1920x1088 primary / bounce rays. Below the limit no paged cast beat K1's
+# by more than the runs' 10-90% spread: 22 columns (1,960,872 rows) K1
+# 1.1318 / 1.6511 against K4 1.0937 / 1.7677, K5 1.0699 / 1.7109, K6
+# 1.1622 / 6.3334 (spreads 0.06-0.27); 18 columns (1,316,744) K1 1.0913 /
+# 1.3236 against 1.1155-1.1795 / 1.5035-4.0402. So no smaller scene is paged.
+PAGING_ROWS = wide.LEAF_ROWS
+
+
+def needs_paging(scene) -> bool:
+    """Whether ``scene`` is cast through page tables: its triangle rows
+    reach ``PAGING_ROWS``, the rows K1-K3's leaf codes address
+    (``accel/wide.py LEAF_ROWS``, 2,097,152). On the card every table
+    stays in device memory, so the leaf code is the one limit. A
+    shape-only check."""
+    return scene.num_triangles >= PAGING_ROWS
+
+
+def cast_rays_paged_route(scene, origin, directions, occlusion: bool = False):
+    """The cast of a scene that needs paging, on the ``cuda`` and ``bvh``
+    backends (the JAX router's paged branch, ``traversal.py:1131``): K4
+    through the scene's 4-wide page tables (K5 on binary ones), the
+    kernel the sweep chose (``PAGING_ROWS``). The paged kernels have no
+    any-hit mode, in either package, so an ``occlusion`` cast is the
+    nearest-hit cast mapped through ``as_occlusion``; nothing is carried,
+    so ``hit_attributes`` takes its redo. Raises for a scene without
+    page tables: nothing builds them per cast."""
+    # K4, as JAX routes (tpu_raytracer/kernels/paged.py:547), not K6: on
+    # the sweep of PAGING_ROWS, K6's casts lose on bounce rays at every
+    # size past the limit (26 columns, 2,752,280 rows: K6 1.1317 / 7.4346
+    # ms primary / bounce against K4 1.0755 / 1.6171; 36 columns: 1.6194 /
+    # 11.3146 against 1.4204 / 1.6658; 51 columns: 1.6937 / 24.7034
+    # against 1.2436 / 1.6313).
+    if scene.paged is None:
+        raise ValueError(
+            f"the scene needs paging ({scene.num_triangles} triangle rows reach "
+            f"PAGING_ROWS, {PAGING_ROWS}) and has no page tables; attach them with "
+            "scene.with_paging() (Scene.compile does with auto_page=True)")
+    from .paged import cast_rays_paged_cuda
+
+    hit = cast_rays_paged_cuda(scene, origin, directions)
+    return as_occlusion(hit) if occlusion else hit
+
+
 def cast_rays(scene, origin, directions, occlusion: bool = False, want_normals: bool = False,
               carry: bool | None = None):
     """The cast of the ``cuda`` backend (counterpart of
-    ``cast_rays_pallas``): K3 for scenes with two or more instances and
-    a TLAS, K1 otherwise; raises for scenes without wide tables.
-    ``want_normals`` and ``carry`` choose the carried fields
+    ``cast_rays_pallas``): a scene that needs paging through its page
+    tables (``cast_rays_paged_route``), then K3 for scenes with two or
+    more instances and a TLAS, K1 otherwise. ``want_normals`` and
+    ``carry`` choose the carried fields of K1 and K3
     (``carry_fields``)."""
+    if needs_paging(scene):
+        return cast_rays_paged_route(scene, origin, directions, occlusion)
     _wide_tables(scene)
     if scene.num_instances >= 2 and scene.tlas is not None:
         from .tlas import cast_rays_tlas_cuda

@@ -16,7 +16,11 @@ laid out for one thread per ray instead of 128-lane TPU rows:
     row per node, read as 16-byte loads. ``wcode`` and ``wbox`` stay for
     the plain version.
   * ``tri_rec [T, 16] f32``: v0, face normal, rA, rB (the affine
-    barycentric rows of ``intersect.barycentric_rows``) and 4 zero lanes.
+    barycentric rows of ``intersect.barycentric_rows``) and 4 zero lanes
+    (``build_tri_rec``). Every compiled scene holds them as
+    ``SceneTensors.tri_rec``, which the paged kernels K4-K6 read too; a
+    scene past the leaf code's rows (``accel/wide.py LEAF_ROWS``) has
+    them and page tables, and no 4-wide tables.
   * ``wroot [M] i32`` (wide root per mesh), ``max_leaf`` (largest leaf
     triangle count) and ``depth`` (wide-tree depth, which bounds the
     per-ray stack).
@@ -92,9 +96,21 @@ def _wide_depth(wcode: np.ndarray, wroot: np.ndarray) -> int:
     return depth
 
 
-def build_wide4(scene) -> Wide4Tables:
+def build_tri_rec(scene) -> torch.Tensor:
+    """The triangle records of the scene's rows, [T, 16] f32 on the
+    scene's device."""
+    v0 = scene.tri_v0.cpu()
+    ra, rb = barycentric_rows(v0, scene.tri_v1.cpu(), scene.tri_v2.cpu())
+    return torch.cat(
+        [v0, scene.tri_normal.cpu(), ra, rb, torch.zeros(v0.shape[0], 4)], dim=1
+    ).contiguous().to(scene.device)
+
+
+def build_wide4(scene, tri_rec: torch.Tensor) -> Wide4Tables:
     """Collapse the scene's binary BVH and pack the K1 tables, on the
-    scene's device. Host work, once per scene."""
+    scene's device, with the triangle records ``tri_rec``
+    (``build_tri_rec``). Host work, once per scene; raises for a scene
+    with a leaf past ``accel/wide.py LEAF_ROWS``."""
     f = lambda name: getattr(scene, name).cpu().numpy()
     w = collapse4(
         f("node_child_a"), f("node_child_b"), f("node_leaf_start"),
@@ -114,16 +130,11 @@ def build_wide4(scene) -> Wide4Tables:
     is_leaf = f("node_child_a") < 0
     counts = f("node_leaf_count")[is_leaf]
 
-    v0 = scene.tri_v0.cpu()
-    ra, rb = barycentric_rows(v0, scene.tri_v1.cpu(), scene.tri_v2.cpu())
-    tri_rec = torch.cat(
-        [v0, scene.tri_normal.cpu(), ra, rb, torch.zeros(v0.shape[0], 4)], dim=1
-    ).contiguous()
     dev = scene.device
     return Wide4Tables(
         wcode=torch.from_numpy(np.ascontiguousarray(wcode, np.int32)).to(dev),
         wbox=torch.from_numpy(wbox).to(dev),
-        tri_rec=tri_rec.to(dev),
+        tri_rec=tri_rec,
         wroot=torch.from_numpy(w.wroot.astype(np.int32)).to(dev),
         max_leaf=int(counts.max()) if counts.size else 0,
         depth=depth,

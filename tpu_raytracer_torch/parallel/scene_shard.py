@@ -9,8 +9,11 @@ it, the way to render a scene that outgrows one card:
     (``Scene.flattened``) and splits the merged triangle soup, which is
     in BVH order and so spatially coherent, into ``n`` contiguous chunks
     of ``ceil(T / n)`` triangles. Each chunk is compiled as a scene of
-    its own: one instance, its own BVH and 4-wide tables, the
-    per-triangle materials and the scene's sky map. A rank keeps its own
+    its own, resident (``auto_page=False``, as the JAX package compiles
+    its chunks): one instance, its own BVH and 4-wide tables, the
+    per-triangle materials and the scene's sky map. A chunk that needs
+    paging (rows from ``kernels/traversal.py PAGING_ROWS`` on) raises:
+    such a scene takes more shards. A rank keeps its own
     chunk (``SceneShard``); the chunk's triangle rows are global ids from
     ``shard * stride`` on, ``stride`` being the largest chunk's row
     count, as in the JAX package's stacked tables.
@@ -74,8 +77,9 @@ class SceneShard:
 
 def shard_compile(scene, n_shards: int, device="cuda", **compile_kw) -> list[SceneShard]:
     """Flatten ``scene``, split the merged triangles into ``n_shards``
-    contiguous chunks and compile each (``compile_kw`` goes to
-    ``Scene.compile``): the chunks on ``device``, shard 0 first. A
+    contiguous chunks and compile each resident (``compile_kw`` goes to
+    ``Scene.compile``, with ``auto_page=False``): the chunks on
+    ``device``, shard 0 first. A
     degenerate trailing chunk takes the last real triangle. Every chunk's
     4-wide tables report the largest ``max_leaf`` of any. Host work, once
     per scene; a rank keeps ``shards[rank]`` (``SceneShard.to`` moves it to
@@ -108,7 +112,8 @@ def shard_compile(scene, n_shards: int, device="cuda", **compile_kw) -> list[Sce
         chunk.sky_texture = scene.sky_texture
         chunk.add_mesh(mp)
         chunk.add_mesh_instance(MeshInstance(0, 0))
-        chunks.append(chunk.compile(device, _tri_mat=tri_mat[sl][mp.bvh.order], **compile_kw))
+        chunks.append(chunk.compile(device, auto_page=False,
+                                    _tri_mat=tri_mat[sl][mp.bvh.order], **compile_kw))
     max_leaf = max(c.wide4.max_leaf for c in chunks)
     stride = max(c.num_triangles for c in chunks)
     return [SceneShard(dataclasses.replace(c, wide4=dataclasses.replace(c.wide4,

@@ -6,12 +6,15 @@ them); ``hit_attributes`` rebuilds the shading inputs (world location,
 normal, uv, material) from it.
 
 Backends: ``brute`` (the oracle, every triangle against every ray),
-``bvh`` (kernel K2, the binary BVH walk, through
+``bvh`` (kernel K2, the binary BVH walk, through ``cast_rays_bvh`` and
 ``kernels/binary.cast_rays_binary_cuda``: the JAX package's ``bvh``
 backend and its binary packet kernel), ``cuda`` (kernels K1 and K3
 through ``kernels/traversal.cast_rays``), ``paged`` (K4 on 4-wide page
 tables, K5 on binary ones) and ``paged_major`` (K6); on CPU tensors the
-kernel backends run their plain versions. The paged backends use the
+kernel backends run their plain versions. A scene that needs paging
+(``SceneTensors.needs_paging``) has no tables for K1-K3, and ``cuda`` and
+``bvh`` cast it with K4 through its page tables
+(``traversal.cast_rays_paged_route``). The paged backends use the
 scene's page tables, attached once with ``SceneTensors.with_paging``
 (``paged_major`` needs 4-wide ones), and raise on a scene without them.
 """
@@ -201,9 +204,10 @@ def hit_attributes(scene, origin, directions, hit: Hit, exact: bool = True,
 def occlusion_cast_fn(backend: str):
     """The any-hit cast for boolean shadow queries (occluded iff t <
     FLT_MAX): on ``cuda`` and ``bvh``, the any-hit mode of K1/K3 or K2,
-    which stops a ray at its first accepted triangle; the other backends
-    return their nearest-hit cast, which gives the same answer (the
-    paged kernels, like the JAX package's, have no any-hit mode)."""
+    which stops a ray at its first accepted triangle (on a scene that
+    needs paging, K4's nearest hit as an any-hit record); the other
+    backends return their nearest-hit cast, which gives the same answer
+    (the paged kernels, like the JAX package's, have no any-hit mode)."""
     cast = get_cast_fn(backend)
     if backend in ("cuda", "bvh"):
         return functools.partial(cast, occlusion=True)
@@ -211,6 +215,19 @@ def occlusion_cast_fn(backend: str):
 
 
 BACKENDS = ("brute", "bvh", "cuda", "paged", "paged_major")
+
+
+def cast_rays_bvh(scene, origin, directions, occlusion: bool = False):
+    """The cast of the ``bvh`` backend: K2 (``kernels/binary.py``), or for
+    a scene that needs paging the ``cuda`` backend's paged route
+    (``traversal.cast_rays_paged_route``): the JAX ``bvh`` backend walks
+    any scene, and K2's leaf codes cannot address such a one."""
+    from ..kernels.binary import cast_rays_binary_cuda
+    from ..kernels.traversal import cast_rays_paged_route, needs_paging
+
+    if needs_paging(scene):
+        return cast_rays_paged_route(scene, origin, directions, occlusion)
+    return cast_rays_binary_cuda(scene, origin, directions, occlusion)
 
 
 def get_cast_fn(backend: str, want_normals: bool = False):
@@ -222,9 +239,7 @@ def get_cast_fn(backend: str, want_normals: bool = False):
     if backend == "brute":
         return cast_rays_brute
     if backend == "bvh":
-        from ..kernels.binary import cast_rays_binary_cuda
-
-        return cast_rays_binary_cuda
+        return cast_rays_bvh
     if backend == "cuda":
         from ..kernels.traversal import cast_rays
 

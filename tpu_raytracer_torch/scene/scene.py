@@ -14,15 +14,21 @@ reproducing the JAX compile field by field:
 ``from_scene_arrays`` is the other way in: it takes a JAX-compiled
 ``SceneArrays`` as a dict of numpy arrays, so the two packages can be
 run on the identical scene (``from_stacked_shard`` takes one chunk of
-its scene-sharded compile). Both attach the 4-wide tables of K1, the
-binary tables of K2 and, for two or more instances, the TLAS of K3;
-``update_instance`` is the functional pose update that rebuilds the
-TLAS, and ``with_paging`` attaches the page tables of the paged kernels
-K4-K6. Nothing pages a
-scene automatically (the JAX compile's ``auto_page`` is not ported): the
-``cuda`` backend casts every scene with K1 or K3, the ``bvh`` backend
-with K2, and the ``paged`` and ``paged_major`` backends are chosen by
-the caller (ROADMAP Queue 1 item 8 holds the routing question). Meshes
+its scene-sharded compile). Both attach every scene's triangle records
+(``tri_rec``) and then decide in one place (``_assemble``) how the scene
+is cast, by ``SceneTensors.needs_paging`` (``kernels/traversal.py
+needs_paging``): a scene whose triangle rows reach ``PAGING_ROWS``
+(2,097,152, the rows a leaf code can address) needs paging, and no
+smaller one does (a paged cast beat K1's at no size the card measured
+below it). A resident scene gets the 4-wide tables of K1, the binary
+tables of K2 and, for two or more instances, the TLAS of K3; a scene
+that needs paging gets 4-wide page tables (``with_paging``) and none of
+those, and every cast of the ``cuda`` and ``bvh`` backends goes to the
+paged kernel K4. ``compile(auto_page=False)`` raises for such a scene,
+as the scene shards' resident chunks do. ``update_instance`` is the functional pose update that
+rebuilds the TLAS, and ``with_paging`` attaches the page tables of the
+paged kernels K4-K6 to any scene, which the ``paged`` and
+``paged_major`` backends need. Meshes
 with vertex normals give ``tri_vnorm`` (10 lanes per triangle: the three
 corners' normals and a flag, zero on the pad rows), and
 ``Scene.set_sky`` packs an equirect sky map at the atlas's tail
@@ -127,18 +133,22 @@ class SceneTensors:
     has_sky: bool = False
     has_textures: bool = True
     has_emissive: bool = True
-    # 4-wide traversal tables (kernels/wide4.py Wide4Tables); every
-    # compiled scene has them, and the paged kernels read their triangle
-    # records
+    # [T, 16] f32 triangle records (kernels/wide4.py build_tri_rec), which
+    # every kernel reads; every compiled scene has them
+    tri_rec: torch.Tensor | None = None
+    # 4-wide traversal tables (kernels/wide4.py Wide4Tables, holding the
+    # same tri_rec); every resident scene has them, no scene that needs
+    # paging does
     wide4: object | None = None
     # instance-level BVH (kernels/tlas.py TlasTables), attached to
-    # scenes of two or more instances
+    # resident scenes of two or more instances
     tlas: object | None = None
     # page tables of the paged kernels (kernels/paged.py PagedTables),
-    # attached by with_paging
+    # attached by with_paging, and by the compile to scenes that need
+    # paging
     paged: object | None = None
     # binary traversal tables of K2 (kernels/binary.py BinaryTables);
-    # every compiled scene has them
+    # every resident scene has them
     binary: object | None = None
 
     @property
@@ -156,9 +166,19 @@ class SceneTensors:
     def to(self, device) -> "SceneTensors":
         """The same scene with every tensor on ``device``."""
         moved = {f: getattr(self, f).to(device) for f in ARRAY_FIELDS}
-        for f in ("tri_vnorm", "wide4", "tlas", "paged", "binary"):
+        for f in ("tri_vnorm", "tri_rec", "tlas", "paged", "binary"):
             moved[f] = None if getattr(self, f) is None else getattr(self, f).to(device)
+        if self.wide4 is not None:  # one copy of the records, shared as on the host
+            moved["wide4"] = dataclasses.replace(self.wide4, tri_rec=moved["tri_rec"]).to(device)
         return dataclasses.replace(self, **moved)
+
+    def needs_paging(self) -> bool:
+        """True when the scene is cast through page tables: its triangle
+        rows reach the resident kernels' limit (``kernels/traversal.py
+        needs_paging``; the JAX package's ``SceneArrays.needs_paging``)."""
+        from ..kernels.traversal import needs_paging
+
+        return needs_paging(self)
 
     def update_instance(self, index: int, instance: MeshInstance) -> "SceneTensors":
         """Functional single-instance update (pose, scale, mesh and
@@ -188,12 +208,17 @@ class SceneTensors:
         """The same scene with page tables attached (``kernels/paged.py
         prepare_paged``; default capacities the JAX package's): 4-wide
         pages for K4 and K6 with ``wide``, binary pages for K5 without.
-        Host work, once per scene."""
-        from ..kernels.paged import prepare_paged
+        Host work, once per scene: the scene itself comes back when tables
+        of that arity and those capacities are attached already."""
+        from ..kernels.paged import PAGE_NODES, PAGE_TRIS, prepare_paged
 
-        kw = {k: v for k, v in (("page_tris", page_tris), ("page_nodes", page_nodes))
-              if v is not None}
-        return dataclasses.replace(self, paged=prepare_paged(self, wide=wide, **kw))
+        tris = PAGE_TRIS if page_tris is None else page_tris
+        nodes = PAGE_NODES if page_nodes is None else page_nodes
+        pg = self.paged
+        if pg is not None and (pg.arity, pg.page_tris, pg.page_nodes) == (
+                4 if wide else 2, tris, nodes):
+            return self
+        return dataclasses.replace(self, paged=prepare_paged(self, tris, nodes, wide))
 
     def save(self, fp: str) -> None:
         """Write the array fields to an npz (the JAX ``SceneArrays.save``
@@ -219,12 +244,15 @@ class SceneTensors:
         return out
 
 
-def from_scene_arrays(fields: dict[str, np.ndarray], device="cuda") -> SceneTensors:
+def from_scene_arrays(fields: dict[str, np.ndarray], device="cuda",
+                      auto_page: bool = True) -> SceneTensors:
     """Build ``SceneTensors`` from a JAX-compiled ``SceneArrays`` given
     as numpy arrays keyed by field name (missing mip or sky fields take
     the JAX defaults for pre-mip and skyless scenes; ``tri_vnorm`` where
-    the scene has vertex normals). The wide tables are rebuilt from the
-    binary BVH exactly as the JAX compile builds them."""
+    the scene has vertex normals). The wide tables, or the page tables
+    of a scene that needs paging (``auto_page``, as in
+    ``Scene.compile``), are rebuilt from the binary BVH exactly as the
+    JAX compile builds them."""
     kw = {}
     for name in ARRAY_FIELDS + ("tri_vnorm",):
         if fields.get(name) is not None:
@@ -233,7 +261,7 @@ def from_scene_arrays(fields: dict[str, np.ndarray], device="cuda") -> SceneTens
     kw.setdefault("sky_tex_start", np.int32(-1))
     kw.setdefault("sky_tex_w", np.int32(0))
     kw.setdefault("sky_tex_h", np.int32(0))
-    return _assemble(kw, device)
+    return _assemble(kw, device, auto_page)
 
 
 def from_stacked_shard(fields: dict[str, np.ndarray], shard: int,
@@ -244,7 +272,7 @@ def from_stacked_shard(fields: dict[str, np.ndarray], shard: int,
     ``SceneTensors``, and the stride of its global triangle ids (the
     padded triangle rows). The stacking's padding is cut off: triangle
     rows where ``tri_mesh`` is -1, node rows where ``node_leaf_count`` is
-    -1."""
+    -1. The chunk is resident, as the JAX package's chunks are."""
     one = {k: np.asarray(v)[shard] for k, v in fields.items() if v is not None}
     stride = one["tri_v0"].shape[0]
     n_tri = int((one["tri_mesh"] >= 0).sum())
@@ -254,13 +282,19 @@ def from_stacked_shard(fields: dict[str, np.ndarray], shard: int,
             one[k] = one[k][:n_tri]
         elif k.startswith("node_"):
             one[k] = one[k][:n_node]
-    return from_scene_arrays(one, device), stride
+    return from_scene_arrays(one, device, auto_page=False), stride
 
 
-def _assemble(kw: dict[str, np.ndarray], device) -> SceneTensors:
+def _assemble(kw: dict[str, np.ndarray], device, auto_page: bool = True) -> SceneTensors:
+    """The scene of array fields ``kw`` on ``device`` with its derived
+    tables: the one place that decides how a scene is cast. A scene that
+    needs paging gets 4-wide page tables and no resident tables (the JAX
+    compile's ``with_paging``), and raises without ``auto_page``; every
+    other one, the 4-wide and binary tables and, for two or more
+    instances, the TLAS."""
     from ..kernels.binary import build_binary
     from ..kernels.tlas import build_tlas
-    from ..kernels.wide4 import build_wide4
+    from ..kernels.wide4 import build_tri_rec, build_wide4
 
     tensors = {k: torch.from_numpy(np.array(v)).to(device) for k, v in kw.items()}
     scene = SceneTensors(
@@ -269,7 +303,17 @@ def _assemble(kw: dict[str, np.ndarray], device) -> SceneTensors:
         has_textures=bool((kw["mat_tex_start"] >= 0).any()),
         has_emissive=bool((kw["mat_illumination"] > 0).any()),
     )
-    scene = dataclasses.replace(scene, wide4=build_wide4(scene), binary=build_binary(scene))
+    scene = dataclasses.replace(scene, tri_rec=build_tri_rec(scene))
+    if scene.needs_paging():
+        if not auto_page:
+            raise ValueError(
+                f"the scene needs paging: its {scene.num_triangles} triangle rows reach "
+                f"PAGING_ROWS (kernels/traversal.py; the leaf code's LEAF_ROWS), past the "
+                "resident tables; compile it with auto_page=True, which attaches page "
+                "tables (SceneTensors.with_paging)")
+        return scene.with_paging()
+    scene = dataclasses.replace(scene, wide4=build_wide4(scene, scene.tri_rec),
+                                binary=build_binary(scene))
     if scene.num_instances >= 2:
         scene = dataclasses.replace(scene, tlas=build_tlas(scene))
     return scene
@@ -363,19 +407,24 @@ class Scene:
         return flat, cat["mat"][merged.bvh.order]
 
     def compile(self, device="cuda", box_pad_ulp: float = BOX_PAD_ULP,
-                flatten_static: bool = False, _tri_mat: np.ndarray | None = None
-                ) -> SceneTensors:
+                flatten_static: bool = False, auto_page: bool = True,
+                _tri_mat: np.ndarray | None = None) -> SceneTensors:
         """Flatten to ``SceneTensors`` on ``device``, with the 4-wide
         traversal tables and, for two or more instances, the TLAS
-        attached. ``box_pad_ulp``: the node boxes' relative out-rounding
-        (0 for tight boxes). ``flatten_static``: compile ``flattened()``
-        instead, one instance with per-triangle materials (``tri_mat``,
-        the source instance's material; -1 elsewhere and on pad rows)."""
+        attached, or, for a scene that needs paging
+        (``SceneTensors.needs_paging``) and ``auto_page``, page tables in
+        their place (``_assemble``). ``box_pad_ulp``: the node boxes'
+        relative out-rounding (0 for tight boxes). ``flatten_static``:
+        compile ``flattened()`` instead, one instance with per-triangle
+        materials (``tri_mat``, the source instance's material; -1
+        elsewhere and on pad rows). ``auto_page=False`` builds the
+        resident tables, and raises for a scene that needs paging."""
         if not self.meshes or not self.mesh_instances or not self.materials:
             raise ValueError("scene needs at least one mesh, instance and material")
         if flatten_static:
             flat, tri_mat = self.flattened()
-            return flat.compile(device, box_pad_ulp=box_pad_ulp, _tri_mat=tri_mat)
+            return flat.compile(device, box_pad_ulp=box_pad_ulp, auto_page=auto_page,
+                                _tri_mat=tri_mat)
 
         tri_parts = {k: [] for k in ("v0", "v1", "v2", "normal", "uv0", "uv1", "uv2")}
         node_parts = {k: [] for k in ("min", "max", "ca", "cb", "ls", "lc")}
@@ -534,4 +583,4 @@ class Scene:
         )
         if any(m.vn0 is not None for m in self.meshes):
             kw["tri_vnorm"] = f32(cat(vnorm_parts))
-        return _assemble(kw, device)
+        return _assemble(kw, device, auto_page)
