@@ -42,7 +42,8 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      same integrator on the plain casts;
   9. configs 2, 3 and 4 at their CPU golden sizes against those goldens;
  10. the demo driver (``app.driver.run("demo", ...)``), 3 frames at
-     1920x1088: K3's launch count;
+     1920x1088 through the compiled ``render_image``: one graph, replayed
+     3 times, K3 once per replay;
  11. times from CUDA events: the casts of K1, K1 any-hit and K3 beside
      their plain versions, the flagship and Whitted frames, and the
      stages of each frame; K3's kernel time and bound on each kind of ray
@@ -153,12 +154,14 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
  33. ``[app_web]``: the browser viewer on config 4 at 1920x1088, served on
      127.0.0.1 in a thread, in each mode (primary, whitted, path, ao):
      the served frame bitwise the entry point's at the same pose (path
-     and AO with the same keys), K3's launches per frame, the render and
-     PNG-encode ms apart; the path sum held, held, dragged (1, 2, 1);
+     and AO with the same keys), K3's launches per replay of the mode's
+     graph, the render and PNG-encode ms apart; the path sum held, held,
+     dragged (1, 2, 1);
  34. ``[app_interactive]``: the terminal viewer's loop on the flagship
      with keys ``wwjd`` (the last frame bitwise ``render_image`` at the
-     pose they reach, one K1 launch a frame, frame ms) and 3 frames in
-     path mode (bitwise the sum of 3 one-sample frames);
+     pose they reach, one graph replayed 5 times with one K1 launch a
+     replay, frame ms) and 3 frames in path mode (bitwise the sum of 3
+     one-sample frames);
  35. ``[app_profiling]``: ``FrameTimer`` over 10 flagship frames beside
      ``bench.time_frames``; ``trace()`` writes a trace naming K1's kernel;
  36. ``[app_driver]``: the demo driver's out.png against ``overlay_fps``
@@ -180,7 +183,22 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      unexplained); the flat, ``lambert_shadow``, Whitted and 2 spp path
      frames through ``cuda`` and the flat frame through ``bvh``, each
      launching K4 alone, bitwise the ``paged`` backend's frame, best and
-     median ms; K4's cast and kernel ms and bound there.
+     median ms; K4's cast and kernel ms and bound there;
+ 40. ``[graph]`` (after the shard phases): the compiled entry points
+     (``render/compiled.py``: one CUDA graph per static config, replayed
+     with the camera, the instances and the key copied in) on the
+     flagship (flat, ``lambert_shadow``), config 4 (Whitted, AO, the AOV
+     pass), config 5's path frame at 512x512 through ``cuda`` and ``bvh``
+     and the 1M colonnade through ``paged`` and ``paged_major``: each
+     eager frame once under ``torch.cuda.set_sync_debug_mode("error")``
+     (no host sync), then 3 poses, each replay bitwise the eager frame,
+     a replay's launches those of the eager frame, one entry per case;
+     config 4 after ``update_instance`` and the path frame with a new key
+     replayed by the same entry, a scene of the same shapes with other
+     tables in an entry of its own; ``[graph_time]``: the flagship,
+     Whitted and path frames eager against replayed, 21 each in turns
+     (CUDA events around the call, the call's host ms), with the
+     capture's one-off seconds.
 
 Every kernel's bound is the larger of its f32 operations over 67 TFLOP/s
 and its bytes over 3.35 TB/s (the H100's published peaks): operations
@@ -365,8 +383,8 @@ def main():
     from tpu_raytracer_torch.kernels import build, tlas, traversal
     from tpu_raytracer_torch.kernels.wide4 import SHORT_STACK
     from tpu_raytracer_torch.render import (
-        RenderConfig, generate_rays, hit_attributes, render_image, render_image_whitted,
-        shade_primary,
+        RenderConfig, generate_rays, hit_attributes, pipeline, render_image,
+        render_image_whitted, shade_primary,
     )
     from tpu_raytracer_torch.render.integrators import _reflect
     from tpu_raytracer_torch.render.shade import DEFAULT_LIGHT_DIRECTION, SHADOW_EPS
@@ -579,13 +597,23 @@ def main():
           f"golden mismatch {mism} (at most {GOLDEN_MAX_MISMATCH} pixels each)")
 
     # 10. demo driver ---------------------------------------------------
+    # its frames replay one CUDA graph (the compiled render_image), whose
+    # capture records the launches of a replay; the counters move in the
+    # warm-up frame and the capture
+    pipeline.clear_compiled()
     tlas.LAUNCHES = 0
     demo = driver.run("demo", 1920, 1088, frames=3,
                       out=os.path.join(tempfile.mkdtemp(), "demo.png"), device="cuda")
     demo_launches = tlas.LAUNCHES
+    demo_entry = pipeline.compiled_render_image.last
     phase("demo", shape=tuple(demo.shape), k3_launches=demo_launches,
+          k3_per_replay=demo_entry.launches.get("K3"), replays=demo_entry.replays,
+          entries=len(pipeline.compiled_render_image.entries),
           image_hit_fraction=f"{float((demo.numpy() != sky).any(-1).mean()):.4f}")
-    check(demo_launches >= 3, "the demo driver did not launch K3 once per frame")
+    check(demo_launches >= 1 and demo_entry.launches.get("K3") == 1
+          and demo_entry.replays == 3 and len(pipeline.compiled_render_image.entries) == 1,
+          "the demo driver did not replay one graph launching K3 once per frame")
+    pipeline.clear_compiled()
 
     # 11. time ----------------------------------------------------------
     cast = lambda: traversal.cast_rays_cuda(scene, origin, dirs)
@@ -668,6 +696,7 @@ def main():
     optimize_phase(dev, card, path_ctx)
     scene_io_phases(dev, path_ctx)
     shard_phases(dev, card, (scene, args), (inst4, args4), paged_ctx, path_ctx)
+    graph_phase(dev, card, (scene, args), (inst4, args4), paged_ctx, path_ctx)
     app_phases(dev, card)
 
     wide = scene.wide4
@@ -2079,18 +2108,19 @@ SHARD_REPS = 5
 
 
 def _launch_counts() -> dict:
-    from tpu_raytracer_torch.kernels import binary, paged, paged_major, tlas, traversal
+    """Each kernel's launches (its carrying kernel's included, not apart)."""
+    from tpu_raytracer_torch.render.compiled import launch_counts
 
-    return {"K1": traversal.LAUNCHES, "K2": binary.LAUNCHES, "K3": tlas.LAUNCHES,
-            "K4": paged.LAUNCHES_K4, "K5": paged.LAUNCHES_K5, "K6": paged_major.LAUNCHES,
-            "K6_plan": paged_major.LAUNCHES_PLAN}
+    return {k: v for k, v in launch_counts().items() if not k.endswith("_carry")}
 
 
 def _reset_launch_counts() -> None:
-    from tpu_raytracer_torch.kernels import binary, paged, paged_major, tlas, traversal
+    import importlib
 
-    traversal.LAUNCHES = binary.LAUNCHES = tlas.LAUNCHES = 0
-    paged.LAUNCHES_K4 = paged.LAUNCHES_K5 = paged_major.LAUNCHES = paged_major.LAUNCHES_PLAN = 0
+    from tpu_raytracer_torch.render.compiled import COUNTERS
+
+    for _, mod, attr in COUNTERS:
+        setattr(importlib.import_module(f"tpu_raytracer_torch.kernels.{mod}"), attr, 0)
 
 
 def _frames(fn) -> dict:
@@ -2647,11 +2677,14 @@ def app_web_phase(dev, card) -> None:
     Per mode: ``GET /`` and ``GET /frame.png``; the decoded frame against
     the entry point's image at the same pose (``render_image``,
     ``render_image_whitted``, the path radiance of ``fold_in(PRNGKey(0),
-    0)`` tonemapped, ``render_image_ao`` with that key), bitwise; K3's
-    launches in that request (counts set to 0 just before, read just
-    after); then the render ms (``render_u8``: the frame and its copy to
-    the host) and the ``encode_png`` ms apart, best and median of
-    ``APP_REPS``, and the whole request's ms. Path mode: a second frame
+    0)`` tonemapped, ``render_image_ao`` with that key), bitwise; the
+    viewer renders through the compiled entry points, so that first
+    request captures the mode's graph: K3's launches per replay (recorded
+    by the capture) and the counts in that request (set to 0 just before,
+    read just after: the warm-up frame and the capture); then the render
+    ms (``render_u8``: the frame and its copy to the host) and the
+    ``encode_png`` ms apart, best and median of ``APP_REPS``, and the
+    whole request's ms. Path mode: a second frame
     held still adds to the sum, ``POST /drag`` restarts it (``_accum_n``
     1, 2, 1). Then ``POST /key`` and ``GET /pose``."""
     import threading
@@ -2661,13 +2694,18 @@ def app_web_phase(dev, card) -> None:
     from tpu_raytracer_torch.app.driver import AO_SAMPLES
     from tpu_raytracer_torch.app.web import WebViewer
     from tpu_raytracer_torch.render import (
-        RenderConfig, render_image, render_image_ao, render_image_whitted,
+        RenderConfig, pipeline, render_image, render_image_ao, render_image_whitted,
     )
     from tpu_raytracer_torch.render.integrators import to_u8, tonemap
     from tpu_raytracer_torch.render.pipeline import render_radiance_path_traced
     from tpu_raytracer_torch.utils import encode_png, prng
     from tpu_raytracer_torch.utils.image import decode_png
 
+    compiled = {"primary": pipeline.compiled_render_image,
+                "whitted": pipeline.compiled_render_image_whitted,
+                "path": pipeline.compiled_render_radiance_path_traced,
+                "ao": pipeline.compiled_render_image_ao}
+    pipeline.clear_compiled()
     w, h = APP_SIZE
     scene, cam = scene_instances(w, h, device=dev)
     config = RenderConfig(cam.width, cam.height)
@@ -2692,6 +2730,8 @@ def app_web_phase(dev, card) -> None:
             png = get("/frame.png")
             request_ms = (time.perf_counter() - t0) * 1e3
             launches = {k: v for k, v in _launch_counts().items() if v}
+            per_replay = {k: v for k, v in compiled[mode].last.launches.items()
+                          if not k.endswith("_carry")}
             got = decode_png(png)
             if mode == "primary":
                 want = render_image(*args)
@@ -2730,7 +2770,8 @@ def app_web_phase(dev, card) -> None:
         rb, rm = _best_median(render_ms)
         eb, em = _best_median(encode_ms)
         phase("app_web", card=repr(card), mode=mode, scene="config4", size=f"{w}x{h}",
-              pixels_vs_entry_point=n_px, launches_per_frame=launches,
+              pixels_vs_entry_point=n_px, launches_per_frame=per_replay,
+              counts_in_request=launches, entries=len(compiled[mode].entries),
               accum_n=sums or None, request_ms=f"{request_ms:.2f}",
               render_ms_best=f"{rb:.2f}", render_ms_median=f"{rm:.2f}",
               encode_png_ms_best=f"{eb:.2f}", encode_png_ms_median=f"{em:.2f}",
@@ -2738,8 +2779,11 @@ def app_web_phase(dev, card) -> None:
         check(n_px == 0, f"the {mode} viewer's frame differs from the entry point's in {n_px} "
               "pixels")
         want_k3 = {"primary": 1, "whitted": 6, "ao": 1 + AO_SAMPLES}.get(mode)
-        check(launches.get("K3", 0) >= 1 and (want_k3 is None or launches["K3"] == want_k3),
-              f"the {mode} frame launched {launches}, not K3 {want_k3 or 'at least once'}")
+        check(launches.get("K3", 0) >= 1 and per_replay.get("K3", 0) >= 1
+              and (want_k3 is None or per_replay["K3"] == want_k3)
+              and len(compiled[mode].entries) == 1,
+              f"the {mode} frame launched {per_replay} per replay, not K3 "
+              f"{want_k3 or 'at least once'} ({len(compiled[mode].entries)} entries)")
         check(mode != "path" or sums == [1, 2, 1],
               f"the path sum counted {sums}, not [1, 2, 1] (held, held, dragged)")
         check(len(pose["pose"]) == 6 and pose["frames"] == 1 + APP_REPS + 2 * (mode == "path"),
@@ -2750,19 +2794,23 @@ def app_interactive_phase(dev, card) -> None:
     """``[app_interactive]``: the terminal viewer's loop
     (``run_interactive``) on the flagship at 1920x1088 with scripted keys
     ``wwjd``: 5 frames, the last bitwise ``render_image`` at the pose the
-    keys reach (``apply_key`` from the camera's start), one K1 launch per
-    frame, each frame's render ms (host clock to a synchronize); then 3
-    frames of ``zz`` in path mode: the frame bitwise the port's sum of 3
-    one-sample radiance frames with keys split from ``PRNGKey(0)``."""
+    keys reach (``apply_key`` from the camera's start), one graph (the
+    compiled ``render_image``) captured once and replayed 5 times, one K1
+    launch per replay, the counters moved by the warm-up frame and the
+    capture alone, each frame's render ms (host clock to a synchronize);
+    then 3 frames of ``zz`` in path mode: the frame bitwise the port's sum
+    of 3 one-sample radiance frames with keys split from ``PRNGKey(0)``,
+    one graph replayed 3 times."""
     from tpu_raytracer_torch.app import interactive
     from tpu_raytracer_torch.app.scenes import scene_bunny
-    from tpu_raytracer_torch.render import RenderConfig, render_image
+    from tpu_raytracer_torch.render import RenderConfig, pipeline, render_image
     from tpu_raytracer_torch.render.integrators import to_u8, tonemap
     from tpu_raytracer_torch.render.pipeline import render_radiance_path_traced
     from tpu_raytracer_torch.utils import prng
 
     out = os.path.join(tempfile.mkdtemp(), "interactive.png")
-    real, frame_ms = interactive.render_image, []
+    pipeline.clear_compiled()
+    real, frame_ms = interactive.compiled_render_image, []
 
     def timed_frame(*a, **k):
         t0 = time.perf_counter()
@@ -2771,7 +2819,7 @@ def app_interactive_phase(dev, card) -> None:
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         return img
 
-    interactive.render_image = timed_frame
+    interactive.compiled_render_image = timed_frame
     try:
         _reset_launch_counts()
         t0 = time.perf_counter()
@@ -2780,7 +2828,8 @@ def app_interactive_phase(dev, card) -> None:
         run_s = time.perf_counter() - t0
         launches = {k: v for k, v in _launch_counts().items() if v}
     finally:
-        interactive.render_image = real
+        interactive.compiled_render_image = real
+    entry, entries = real.last, len(real.entries)
     scene, cam = scene_bunny(*APP_SIZE, device=dev)
     for k in "wwjd":
         cam.pose, _ = interactive.apply_key(cam.pose, k)
@@ -2789,11 +2838,15 @@ def app_interactive_phase(dev, card) -> None:
     n_px = _pixels(torch.from_numpy(last), render_image(*args).cpu())
     best, median = _best_median(frame_ms[1:])
     phase("app_interactive", card=repr(card), scene="flagship", mode="primary", keys="wwjd",
-          frames=len(frame_ms), launches=launches, pixels_vs_render_image=n_px,
+          frames=len(frame_ms), launches=launches, launches_per_replay=entry.launches,
+          replays=entry.replays, entries=entries, pixels_vs_render_image=n_px,
           first_frame_ms=f"{frame_ms[0]:.2f}", frame_ms_best=f"{best:.2f}",
           frame_ms_median=f"{median:.2f}", run_s=f"{run_s:.2f}", shot=os.path.exists(out))
-    check(len(frame_ms) == 5 and launches == {"K1": 5},
-          f"the loop made {len(frame_ms)} frames with launches {launches}, not 5 with K1 5")
+    check(len(frame_ms) == 5 and entry.launches == {"K1": 1} and entry.replays == 5
+          and entries == 1 and launches == {"K1": 2},
+          f"the loop made {len(frame_ms)} frames in {entries} entries, {entry.replays} "
+          f"replays of {entry.launches} and counts {launches}, not 5 replays of K1 1 and "
+          "the counts of one warm-up frame and one capture")
     check(n_px == 0, f"the viewer's last frame differs from render_image in {n_px} pixels")
 
     _reset_launch_counts()
@@ -2802,6 +2855,7 @@ def app_interactive_phase(dev, card) -> None:
                                        mode="path", device=dev)
     run_s = time.perf_counter() - t0
     launches = {k: v for k, v in _launch_counts().items() if v}
+    path_entry = pipeline.compiled_render_radiance_path_traced.last
     scene, cam = scene_bunny(*APP_SIZE, device=dev)
     p = cam.ray_params(dev)
     cfg = RenderConfig(*APP_SIZE, tonemap="reinhard")
@@ -2813,11 +2867,16 @@ def app_interactive_phase(dev, card) -> None:
         acc = rad if acc is None else acc + rad
     n_px = _pixels(torch.from_numpy(path), to_u8(tonemap(acc / 3, "reinhard")).cpu())
     phase("app_interactive", card=repr(card), scene="flagship", mode="path", keys="zz",
-          samples_summed=3, launches=launches, pixels_vs_sum_of_3=n_px,
+          samples_summed=3, launches=launches, launches_per_replay=path_entry.launches,
+          replays=path_entry.replays, pixels_vs_sum_of_3=n_px,
           run_s=f"{run_s:.2f}")
     check(n_px == 0, f"the progressive frame differs from the sum of 3 samples in {n_px} "
           "pixels")
-    check(launches.get("K1", 0) >= 3, f"the path frames launched {launches}")
+    check(launches.get("K1", 0) >= 3 and path_entry.launches.get("K1") == 3
+          and path_entry.replays == 3,
+          f"the path frames launched {launches}, {path_entry.replays} replays of "
+          f"{path_entry.launches}")
+    pipeline.clear_compiled()
 
 
 def app_profiling_phase(dev, card) -> None:
@@ -2961,6 +3020,232 @@ def app_phases(dev, card) -> None:
     app_driver_phase(dev, card)
     examples_phase(card)
     bench_scripts_phase(card)
+
+
+GRAPH_POSES = 3
+GRAPH_TURNS = 21  # eager and replayed frames timed in turns
+
+
+def _posed(args, step: int) -> tuple:
+    """Camera arguments with the pose moved ``step`` small steps (its
+    inverse made on the host, as ``Camera.ray_params`` makes it)."""
+    from tpu_raytracer_torch.core import transforms as T
+
+    K_inv, D, pose, _ = args
+    p = pose.cpu() + step * torch.tensor([0.04, 0.04, 0.02, 0.02, 0.01, 0.0])
+    return K_inv, D, p.to(pose.device), T.invert_lre(p).to(pose.device)
+
+
+def _in_turns(fns: dict, turns: int) -> dict:
+    """Each of ``fns`` called ``turns`` times, in turns (the order flips
+    every turn): per call the CUDA-event ms around it and the host ms of
+    the call itself (to its return, before the synchronize); best,
+    median and the 10-90% spread of each."""
+    rec = {k: ([], []) for k in fns}
+    for t in range(turns):
+        for k in (list(fns) if t % 2 == 0 else list(fns)[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fns[k]()
+            host = (time.perf_counter() - t0) * 1e3
+            end.record()
+            end.synchronize()
+            rec[k][0].append(start.elapsed_time(end))
+            rec[k][1].append(host)
+    out = {}
+    for k, (ev, host) in rec.items():
+        ev, host = sorted(ev), sorted(host)
+        n = len(ev)
+        out[k] = {"best_ms": ev[0], "median_ms": ev[n // 2],
+                  "spread_10_90_ms": ev[(9 * n) // 10] - ev[n // 10],
+                  "host_best_ms": host[0], "host_median_ms": host[n // 2]}
+    return out
+
+
+def _replay_profile(fn, n: int = 3) -> dict:
+    """Kernels (and copies) on the card per call of ``fn`` from a
+    ``torch.profiler`` trace of ``n`` calls: their count, their summed
+    device ms, and the four that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = lambda e: getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+    ev = [e for e in prof.key_averages() if us(e) > 0]
+    top = sorted(ev, key=us, reverse=True)[:4]
+    return {"kernels": sum(e.count for e in ev) / n, "device_ms": sum(map(us, ev)) / n / 1e3,
+            "top": [(e.key[:48], round(us(e) / n / 1e3, 4)) for e in top]}
+
+
+def graph_phase(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
+    """``[graph]``: the compiled entry points (``render/pipeline.py``
+    ``compiled_*``, ``render/compiled.py``), each static config captured
+    once as a CUDA graph and replayed. Per case: one eager frame under
+    ``torch.cuda.set_sync_debug_mode("error")`` (what it finds: a host
+    sync would break the capture), then the compiled frame at
+    ``GRAPH_POSES`` poses (launch counts set to 0 just before, read just
+    after), each bitwise the eager frame at that pose (the AOVs bit for
+    bit), the launches of a replay (recorded at the capture) those of the
+    eager frame, one new entry per case. Config 4 then moves an instance
+    (``update_instance``: its rows and TLAS) and the path frame takes a
+    new key: the same graph replays. A scene of the same shapes with
+    other tables (config 4's albedos halved) gets an entry of its own and
+    renders its own frame. ``[graph_time]``: the flagship, Whitted and
+    path frames eager against replayed, ``GRAPH_TURNS`` each in turns,
+    CUDA events around the call and the call's host ms, with the
+    capture's one-off seconds; ``[graph_profile]``: a replay's kernels
+    from a ``torch.profiler`` trace (count, device ms, the largest four)
+    and its device busy share (their ms over the replay's median)."""
+    import dataclasses
+
+    from tpu_raytracer_torch.render import Camera, RenderConfig, pipeline
+    from tpu_raytracer_torch.render.compiled import launch_counts
+    from tpu_raytracer_torch.scene import MeshInstance
+    from tpu_raytracer_torch.utils import prng
+
+    fw, fh = SLICE_SIZE
+    flag_scene, flag_args = flagship
+    inst4, args4 = config4
+    wide_sc = paged_ctx["casts"]["K4"][0]
+    col5 = path_ctx["col"]
+    p5 = Camera.looking(PATH_SIZE, PATH_SIZE, fov_deg=65.0,
+                        pose=path_ctx["poses"][0]).ray_params(dev)
+    args5 = (p5["K_inv"], p5["D"], p5["pose"], p5["inv_pose"])
+    key = prng.PRNGKey(0, device=dev)
+    path = (key, PATH_BOUNCES, PATH_SAMPLES)
+    # case: (entry point, config, scene, camera args, extra args, launches of
+    # one frame but the carrying kernels', which K1's and K3's counts include)
+    cases = {
+        "flagship_flat": ("render_image", RenderConfig(fw, fh), flag_scene, flag_args, (),
+                          {"K1": 1}),
+        "flagship_shadow": ("render_image", RenderConfig(fw, fh, lighting="lambert_shadow"),
+                            flag_scene, flag_args, (), {"K1": 2}),
+        "config4_whitted": ("render_image_whitted", RenderConfig(fw, fh), inst4, args4, (),
+                            {"K3": 6}),
+        "config4_ao": ("render_image_ao", RenderConfig(fw, fh), inst4, args4,
+                       (key, AO_SAMPLES), {"K3": 1 + AO_SAMPLES}),
+        "config4_aovs": ("render_aovs", RenderConfig(fw, fh), inst4, args4, (), {"K3": 1}),
+        "config5_path_cuda": ("render_image_path_traced",
+                              RenderConfig(PATH_SIZE, PATH_SIZE, backend="cuda"), col5, args5,
+                              path, {"K1": 3}),
+        "config5_path_bvh": ("render_image_path_traced",
+                             RenderConfig(PATH_SIZE, PATH_SIZE, backend="bvh"), col5, args5,
+                             path, {"K2": 3}),
+        "colonnade_paged": ("render_image", RenderConfig(fw, fh, backend="paged"), wide_sc,
+                            paged_ctx["args"], (), {"K4": 1}),
+        "colonnade_paged_major": ("render_image", RenderConfig(fw, fh, backend="paged_major"),
+                                  wide_sc, paged_ctx["args"], (), {"K6": 1, "K6_plan": 1}),
+    }
+    pipeline.clear_compiled()
+    for case, (name, config, sc, args, extra, want_launches) in cases.items():
+        eager, frame = getattr(pipeline, name), getattr(pipeline, "compiled_" + name)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager(config, sc, *args, *extra)
+            syncs = "none"
+        except RuntimeError as e:
+            syncs = repr(str(e).splitlines()[0][:160])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        n0 = len(frame.entries)
+        _reset_launch_counts()
+        diffs, eager_launches, captured = [], [], None
+        for step in range(GRAPH_POSES):
+            a = _posed(args, step)
+            got = frame(config, sc, *a, *extra)
+            torch.cuda.synchronize()
+            if captured is None:  # the warm-up frame and the capture
+                captured = {k: v for k, v in launch_counts().items() if v}
+            before = launch_counts()
+            want = eager(config, sc, *a, *extra)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            eager_launches.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+            diffs.append(_pixels(got, want))
+        entry = frame.last
+        entries = len(frame.entries) - n0
+        more = {}
+        if case == "config4_whitted":
+            moved = MeshInstance(int(sc.inst_mesh[0]), int(sc.inst_material[0]))
+            moved.pose = np.array([0.3, -0.2, 0.1, 0.5, 0.0, 0.0], np.float32)
+            moved_sc = sc.update_instance(0, moved)
+            got = frame(config, moved_sc, *args)
+            more["update_instance_same_entry"] = frame.last is entry
+            more["update_instance_pixels_vs_eager"] = _pixels(got, eager(config, moved_sc, *args))
+            more["update_instance_changed_pixels"] = _pixels(got, frame(config, sc, *args))
+            # a scene of the same shapes with other tables: an entry of its own
+            other = dataclasses.replace(sc, mat_albedo=sc.mat_albedo * 0.5)
+            got = frame(config, other, *args)
+            more["new_scene_new_entry"] = frame.last is not entry
+            more["new_scene_pixels_vs_its_eager"] = _pixels(got, eager(config, other, *args))
+            more["new_scene_pixels_vs_old_scene"] = _pixels(got, frame(config, sc, *args))
+        if case == "config5_path_cuda":
+            key2 = prng.PRNGKey(1, device=dev)
+            got = frame(config, sc, *args, key2, *extra[1:])
+            more["new_key_same_entry"] = frame.last is entry
+            more["new_key_pixels_vs_eager"] = _pixels(got, eager(config, sc, *args, key2,
+                                                                 *extra[1:]))
+            more["new_key_changed_pixels"] = _pixels(got, frame(config, sc, *args, *extra))
+        main = {k: v for k, v in entry.launches.items() if not k.endswith("_carry")}
+        phase("graph", card=repr(card), case=case, entry=f"compiled_{name}",
+              size=f"{config.width}x{config.height}", backend=config.backend,
+              sync_debug=syncs, pixels_vs_eager=diffs, launches_per_replay=entry.launches,
+              eager_launches=eager_launches[0], counts_at_capture=captured,
+              replays=entry.replays, entries_added=entries,
+              capture_s=f"{entry.capture_s:.3f}", **more)
+        check(syncs == "none", f"{case}: the eager frame synchronized with the host: {syncs}")
+        check(diffs == [0] * GRAPH_POSES, f"{case}: the replayed frames differ from the eager "
+              f"frames in {diffs} pixels")
+        check(all(el == entry.launches for el in eager_launches) and main == want_launches,
+              f"{case}: a replay launches {entry.launches}, the eager frames "
+              f"{eager_launches}, expected {want_launches}")
+        check(entries == 1 and entry.replays >= GRAPH_POSES,
+              f"{case}: {entries} entries for {GRAPH_POSES} poses")
+        if case == "config4_whitted":
+            check(more["update_instance_same_entry"]
+                  and more["update_instance_pixels_vs_eager"] == 0
+                  and more["update_instance_changed_pixels"] > 0,
+                  f"{case}: update_instance was not replayed by the captured graph: {more}")
+            check(more["new_scene_new_entry"] and more["new_scene_pixels_vs_its_eager"] == 0
+                  and more["new_scene_pixels_vs_old_scene"] > 0,
+                  f"{case}: a new scene of the same shapes did not render its own frame: {more}")
+        if case == "config5_path_cuda":
+            check(more["new_key_same_entry"] and more["new_key_pixels_vs_eager"] == 0
+                  and more["new_key_changed_pixels"] > 0, f"{case}: a new key: {more}")
+
+    timed_cases = ("flagship_flat", "config4_whitted", "config5_path_cuda")
+    for case in timed_cases:
+        name, config, sc, args, extra, _ = cases[case]
+        eager, frame = getattr(pipeline, name), getattr(pipeline, "compiled_" + name)
+        call = (config, sc, *args, *extra)
+        times = _in_turns({"eager": lambda: eager(*call), "replay": lambda: frame(*call)},
+                          GRAPH_TURNS)
+        e, r = times["eager"], times["replay"]
+        phase("graph_time", card=repr(card), case=case, turns=GRAPH_TURNS,
+              eager_ms_best=f"{e['best_ms']:.4f}", eager_ms_median=f"{e['median_ms']:.4f}",
+              eager_spread_10_90_ms=f"{e['spread_10_90_ms']:.4f}",
+              eager_host_ms_best=f"{e['host_best_ms']:.4f}",
+              eager_host_ms_median=f"{e['host_median_ms']:.4f}",
+              replay_ms_best=f"{r['best_ms']:.4f}", replay_ms_median=f"{r['median_ms']:.4f}",
+              replay_spread_10_90_ms=f"{r['spread_10_90_ms']:.4f}",
+              replay_host_ms_best=f"{r['host_best_ms']:.4f}",
+              replay_host_ms_median=f"{r['host_median_ms']:.4f}",
+              capture_s=f"{frame.last.capture_s:.3f}",
+              speedup_median=f"{e['median_ms'] / r['median_ms']:.3f}")
+        prof = _replay_profile(lambda: frame(*call))
+        phase("graph_profile", card=repr(card), case=case, kernels_per_replay=prof["kernels"],
+              device_ms=f"{prof['device_ms']:.4f}",
+              busy_share=f"{prof['device_ms'] / r['median_ms']:.3f}", top=prof["top"])
+    pipeline.clear_compiled()
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager

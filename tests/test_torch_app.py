@@ -265,7 +265,9 @@ def test_web_viewer_serializes_frames_across_threads():
     viewer, _ = _viewers(_sphere)
     want = viewer.render_u8()
     inside, worst, out = [0], [0], []
-    render = tr.render_image
+    import tpu_raytracer_torch.app.web as web
+
+    render = web.compiled_render_image
 
     def watched(*a, **k):
         inside[0] += 1
@@ -278,10 +280,7 @@ def test_web_viewer_serializes_frames_across_threads():
 
     saved = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
-    import tpu_raytracer_torch.app.web as web
-
-    old = web.render_image
-    web.render_image = watched
+    web.compiled_render_image = watched
     try:
         threads = [threading.Thread(target=lambda: out.append(viewer.render_u8()))
                    for _ in range(8)]
@@ -291,7 +290,7 @@ def test_web_viewer_serializes_frames_across_threads():
             t.join(timeout=120)
         assert not any(t.is_alive() for t in threads)
     finally:
-        web.render_image = old
+        web.compiled_render_image = render
         sys.setswitchinterval(saved)
     assert worst[0] == 1 and len(out) == 8 and viewer.frames_rendered == 9
     assert all(np.array_equal(f, want) for f in out)

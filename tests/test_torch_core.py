@@ -66,6 +66,24 @@ def test_dot_apply_mat3_invert_intrinsic_match_jax():
     close(PV.invert_intrinsic(torch.from_numpy(K)), JV.invert_intrinsic(K))
 
 
+def test_cross_and_magnitude_match_jax():
+    a, b = rand_vec(512), rand_vec(512)
+    np.testing.assert_array_equal(PV.cross(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+                                  np.asarray(JV.cross(jnp.asarray(a), jnp.asarray(b))))
+    close(PV.magnitude(torch.from_numpy(a)), JV.magnitude(jnp.asarray(a)))
+    # the cross product is perpendicular to both factors
+    c = PV.cross(torch.from_numpy(a), torch.from_numpy(b))
+    close(PV.dot(c, torch.from_numpy(a)), np.zeros(512, np.float32), atol=1e-4)
+
+
+def test_pose_matches_jax():
+    args = [float(x) for x in rand_pose(1)[0]]
+    np.testing.assert_array_equal(PT.pose(*args).numpy(), np.asarray(JT.pose(*args)))
+    np.testing.assert_array_equal(PT.pose(y=2.5, roll=0.25).numpy(),
+                                  np.asarray(JT.pose(y=2.5, roll=0.25)))
+    assert PT.pose().dtype == torch.float32 and tuple(PT.pose().shape) == (6,)
+
+
 TRANSFORMS = {
     "euler2rotmat": lambda M, p, v: M.euler2rotmat(p[..., 3:6]),
     "rotmat2euler": lambda M, p, v: M.rotmat2euler(M.euler2rotmat(p[..., 3:6])),
@@ -80,6 +98,8 @@ TRANSFORMS = {
     "invert_lre": lambda M, p, v: M.invert_lre(p),
     "pose_xyz": lambda M, p, v: M.pose_xyz(p),
     "pose_euler": lambda M, p, v: M.pose_euler(p),
+    "compose_homo": lambda M, p, v: M.compose_homo(M.lre2homo(p[1:]), M.lre2homo(p[:-1])),
+    "compose_lre": lambda M, p, v: M.compose_lre(p[1:], p[:-1]),
 }
 
 
@@ -87,7 +107,7 @@ TRANSFORMS = {
 # through atan2/asin of rotated matrices, carry an ulp of that magnitude
 # from a one-ulp difference in sin/cos: absolute 1e-5 there.
 TRANSFORM_ATOL = {"apply_lre": 1e-5, "homo2lre": 1e-5, "invert_lre": 1e-5,
-                  "rotmat2euler": 1e-5}
+                  "rotmat2euler": 1e-5, "compose_homo": 1e-5, "compose_lre": 1e-5}
 
 
 @pytest.mark.parametrize("name", sorted(TRANSFORMS))
@@ -108,6 +128,8 @@ def test_transform_roundtrips():
     close(PT.homo2lre(PT.lre2homo(p)), p, atol=1e-4)
     back = PT.apply_lre(PT.invert_lre(p), PT.apply_lre(p, v))
     close(back, v, atol=1e-4)
+    # composing a pose with its inverse is the identity
+    close(PT.compose_lre(p, PT.invert_lre(p)), torch.zeros_like(p), atol=1e-4)
 
 
 @pytest.mark.parametrize("w,h,fov,pose,exact", [

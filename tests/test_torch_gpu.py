@@ -719,3 +719,77 @@ def test_big_scene_route_launches_k4_alone(cuda, monkeypatch):
         want = render_image(RenderConfig(128, 96, backend="paged", lighting="lambert_shadow"),
                             scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
         assert torch.equal(img, want)
+
+
+def _eager_frame(fn):
+    """(image, launches) of one eager frame: the kernel launches it made."""
+    from tpu_raytracer_torch.render.compiled import launch_counts
+
+    before = launch_counts()
+    img = fn()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return img, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("case", ["flagship_flat", "flagship_shadow", "config4_whitted",
+                                  "config4_aovs", "config5_path_cuda", "config5_path_bvh",
+                                  "routed_k4"])
+def test_compiled_frames_replay_the_eager_frames_bitwise(cuda, case, monkeypatch):
+    """Each compiled entry point captured once, then replayed at 3 poses:
+    every frame bitwise the eager frame at that pose (every AOV), the
+    launches of a replay those of the eager frame, one entry. Config 4
+    then moves an instance (``update_instance``: its rows and the TLAS)
+    and the path frames take a new key, each replayed by the same graph.
+    ``routed_k4``: a scene past the paging limit (lowered to 64 rows)
+    through ``cuda``, which casts it with K4."""
+    from tpu_raytracer_torch.app.scenes import scene_bunny
+    from tpu_raytracer_torch.render import pipeline
+    from tpu_raytracer_torch.utils import prng
+
+    pipeline.clear_compiled()
+    name, extra = "render_image", ()
+    if case.startswith("flagship"):
+        scene, cam = scene_bunny(256, 144, subdivisions=4, device=cuda)
+        config = RenderConfig(256, 144, lighting="flat" if case.endswith("flat")
+                              else "lambert_shadow")
+    elif case.startswith("config4"):
+        scene, cam = scene_instances(256, 256, device=cuda)
+        config = RenderConfig(256, 256)
+        name = "render_image_whitted" if case.endswith("whitted") else "render_aovs"
+    elif case == "routed_k4":
+        monkeypatch.setattr(traversal, "PAGING_ROWS", 64)
+        scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
+        assert scene.needs_paging()
+        config = RenderConfig(128, 96, lighting="lambert_shadow")
+    else:
+        scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
+        config = RenderConfig(128, 96, backend=case.rsplit("_", 1)[1])
+        name, extra = "render_image_path_traced", (prng.PRNGKey(7, device=cuda), 2, 2)
+    eager, frame = getattr(pipeline, name), getattr(pipeline, "compiled_" + name)
+    start = cam.pose.copy()
+
+    def check(sc, *more):
+        p = cam.ray_params(cuda)
+        args = (config, sc, p["K_inv"], p["D"], p["pose"], p["inv_pose"], *(more or extra))
+        got = frame(*args)
+        want, launches = _eager_frame(lambda: eager(*args))
+        for g, w in ((got, want),) if name != "render_aovs" else zip(got.values(), want.values()):
+            assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+        assert frame.last.launches == launches and launches
+        assert case != "routed_k4" or launches == {"K4": 2}
+        return frame.last
+
+    for step in range(3):
+        cam.pose = start + np.float32(0.05 * step) * np.array([1, 1, 0.5, 1, 0.2, 0], np.float32)
+        entry = check(scene)
+    graph = entry.graph
+    assert graph is not None and entry.replays == 3 and len(frame.entries) == 1
+    if case.startswith("config4"):
+        moved = MeshInstance(int(scene.inst_mesh[0]), int(scene.inst_material[0]))
+        moved.pose = np.array([0.3, -0.2, 0.1, 0.5, 0.0, 0.0], np.float32)
+        check(scene.update_instance(0, moved))
+    if case.startswith("config5"):
+        check(scene, prng.PRNGKey(8, device=cuda), 2, 2)
+    assert frame.last.graph is graph and len(frame.entries) == 1
+    pipeline.clear_compiled()

@@ -35,10 +35,12 @@ import tpu_raytracer.app.scenes as jscenes
 import tpu_raytracer.render.integrators as jint
 import tpu_raytracer.render.sorted_cast as jsort
 from tpu_raytracer.app.controls import fly_through as jax_fly_through
+from tpu_raytracer.core.vecmath import normalize as jnormalize
 from tpu_raytracer.render import generate_rays as jax_generate_rays
 from tpu_raytracer.render.denoise import atrous_denoise as jax_atrous
 from tpu_raytracer_torch.app import scenes as port_scenes
 from tpu_raytracer_torch.app.controls import fly_through
+from tpu_raytracer_torch.core.vecmath import normalize
 from tpu_raytracer_torch.kernels import binary, traversal
 from tpu_raytracer_torch.render import (
     RenderConfig, hit_attributes, integrators, render_image_ao, render_image_path_traced,
@@ -88,6 +90,76 @@ def test_prng_is_jax_random_bit_for_bit(seed):
             np.testing.assert_array_equal(
                 bits(prng.uniform(key, shape, 0.0, 2.0 * math.pi)),
                 bits(jax.random.uniform(jkey, shape, minval=0.0, maxval=2.0 * np.pi)))
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 2.0 * math.pi), (-1.5, 3.25), (0.1, 0.7)])
+def test_uniform_bounds_keep_their_bits(lo, hi):
+    """``uniform``'s bounds are made on the device by fill kernels (no
+    copy from the host, so a frame can be captured): the same f32 bits
+    as the host-made bounds gave, and ``jax.random.uniform``'s bits
+    where ``minval`` is 0 (every draw of the port's). Past 0, XLA
+    contracts ``floats * (hi - lo) + lo`` into one FMA, so JAX's last
+    bits may differ there (within 1e-6)."""
+    key = prng.split(prng.PRNGKey(11), 2)[1]
+    got = prng.uniform(key, (3, 33), lo, hi)
+    bits_ = (prng.random_bits(key, (3, 33)) >> 9) | 0x3F800000
+    floats = bits_.to(torch.int32).view(torch.float32) - 1.0
+    t_lo = torch.tensor(lo, dtype=torch.float32)
+    t_hi = torch.tensor(hi, dtype=torch.float32)
+    before = torch.maximum(t_lo, floats * (t_hi - t_lo) + t_lo)
+    np.testing.assert_array_equal(bits(got), bits(before))
+    jkey = jax.random.split(jax.random.PRNGKey(11), 2)[1]
+    want = np.asarray(jax.random.uniform(jkey, (3, 33), minval=lo, maxval=hi))
+    if lo == 0.0:
+        np.testing.assert_array_equal(bits(got), bits(want))
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("view", ["forward", "down"])
+def test_lens_basis_keeps_its_bits_and_matches_jax(view):
+    """The thin lens's axes, with the reference vector chosen on the
+    device: the bits of the host-side choice it replaces, and JAX's
+    ``jnp.where`` basis within 1e-6 (its sum rounds its own way). The
+    two views take the two branches (+z, then +x as reference)."""
+    rng = np.random.default_rng(4)
+    d = rng.normal(0.0, 0.2, (8, 8, 3)).astype(np.float32)
+    d[..., 1 if view == "forward" else 2] += -1.0 if view == "down" else 1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pd = torch.from_numpy(d)
+    right, up = integrators.lens_basis(pd)
+    axis = normalize(pd.reshape(-1, 3).mean(dim=0))
+    ref = torch.tensor([0.0, 0.0, 1.0] if abs(float(axis[2])) < 0.9 else [1.0, 0.0, 0.0])
+    assert (abs(float(axis[2])) < 0.9) == (view == "forward")
+    old_right = normalize(torch.linalg.cross(axis, ref))
+    np.testing.assert_array_equal(bits(right), bits(old_right))
+    np.testing.assert_array_equal(bits(up), bits(torch.linalg.cross(old_right, axis)))
+    jaxis = jnormalize(jnp.mean(jnp.asarray(d).reshape(-1, 3), axis=0), exact=True)
+    jref = jnp.where(jnp.abs(jaxis[2]) < 0.9, jnp.array([0.0, 0.0, 1.0], jnp.float32),
+                     jnp.array([1.0, 0.0, 0.0], jnp.float32))
+    jright = jnormalize(jnp.cross(jaxis, jref), exact=True)
+    np.testing.assert_allclose(right.numpy(), np.asarray(jright), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(up.numpy(), np.asarray(jnp.cross(jright, jaxis)), rtol=0,
+                               atol=1e-6)
+
+
+def test_depth_of_field_matches_jax():
+    """The thin-lens path (per-sample primary casts from the lens disk)
+    on the same scene, rays and key as the JAX package's, with the
+    flip bound of ``test_path_tracer_matches_jax``."""
+    jscene, cam = jscenes.scene_colonnade(16, 16, columns=4, segs=8)
+    (o, d), port, (po, pd) = _jax_and_port(jscene, cam)
+    kw = dict(max_bounces=1, samples=2, lens_radius=0.1, focus_distance=3.0)
+    want = np.asarray(jint.render_path_traced(jscene, o, d, jax.random.PRNGKey(3),
+                                              backend="brute", **kw))
+    got = integrators.render_path_traced(port, po, pd, prng.PRNGKey(3), backend="cuda",
+                                         **kw).numpy()
+    flips = int((~np.isclose(got, want, rtol=1e-5, atol=1e-6)).any(-1).sum())
+    print(f"depth of field: {flips} flipped pixels of {got.shape[0] * got.shape[1]}")
+    assert flips <= 0.01 * got.shape[0] * got.shape[1]
+    assert (got != integrators.render_path_traced(port, po, pd, prng.PRNGKey(3),
+                                                  backend="cuda", max_bounces=1,
+                                                  samples=2).numpy()).any()
 
 
 def _rays_np(n=4096, seed=11):

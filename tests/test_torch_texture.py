@@ -139,6 +139,19 @@ def test_texture_samples_match_jax(filt):
         close(got, want)
 
 
+@pytest.mark.parametrize("filt", ["nearest", "bilinear"])
+def test_sample_texture_by_material_matches_jax(filt):
+    ja, pa, *_ = scenes()
+    rng = np.random.default_rng(8)
+    uv = rng.uniform(-1.5, 2.5, (257, 2)).astype(np.float32)
+    textured = np.nonzero(pa.mat_tex_start.numpy() >= 0)[0].astype(np.int32)
+    assert textured.size >= 1
+    material = rng.choice(textured, uv.shape[0]).astype(np.int32)
+    want = jshade.sample_texture(ja, material, uv, tex_filter=filt)
+    got = shade.sample_texture(pa, torch.from_numpy(material), torch.from_numpy(uv), filt)
+    close(got, want)
+
+
 def test_uv_screen_derivatives_match_jax():
     _, _, _, _, jattrs, pattrs = scenes()
     want = jshade.uv_screen_derivatives(jattrs)

@@ -10,8 +10,11 @@ frame written as a PNG (counterpart of ``tpu_raytracer/app/driver.py``).
     python -m tpu_raytracer_torch.app.driver --scene instances --mode whitted \
         --point-light 0,2,2,4 --normal-mode inverse_transpose --ssaa 2 --aov depth
 
-Frames render on ``--device`` (default ``cuda``; ``cpu`` runs the
-kernels' plain versions) through ``--backend``: ``cuda`` (K1/K3), ``bvh``
+Frames render through the compiled entry points (``render/compiled.py``:
+on the card each mode's frame is captured once as a CUDA graph and
+replayed with the frame's camera, instances and key) on ``--device``
+(default ``cuda``; ``cpu`` runs the kernels' plain versions) through
+``--backend``: ``cuda`` (K1/K3), ``bvh``
 (K2), ``paged`` (K4), ``paged_major`` (K6) or ``brute``; the paged
 backends attach the scene's page tables once, before the first frame.
 ``--mode`` is ``primary``, ``whitted`` (config 4), ``path`` (config 5: 3
@@ -43,10 +46,11 @@ import time
 import numpy as np
 import torch
 
-from ..render import Camera, RenderConfig, reference_calibration, render_image
+from ..render import Camera, RenderConfig, reference_calibration
 from ..render.integrators import PointLight
 from ..render.pipeline import (
-    render_aovs, render_image_ao, render_image_path_traced, render_image_whitted,
+    compiled_render_aovs, compiled_render_image, compiled_render_image_ao,
+    compiled_render_image_path_traced, compiled_render_image_whitted,
 )
 from ..render.renderer import BACKENDS, NORMAL_MODES
 from ..render.shade import DEFAULT_LIGHT_DIRECTION, TEXTURE_FILTERS
@@ -142,7 +146,8 @@ def run(scene_name: str = "demo", width: int = 1920, height: int = 1088,
         WebViewer(scene, camera, config, mode=mode, ao_radius=ao_radius).serve(
             host=web_host, port=web)
         return None
-    render_fn = {"primary": render_image, "whitted": render_image_whitted}.get(mode)
+    render_fn = {"primary": compiled_render_image,
+                 "whitted": compiled_render_image_whitted}.get(mode)
     key = prng.PRNGKey(0)
     cuda = scene.device.type == "cuda"
     angle = 0.0
@@ -159,14 +164,14 @@ def run(scene_name: str = "demo", width: int = 1920, height: int = 1088,
             camera.pose[3] += 0.004
         if mode == "path":
             key, sub = prng.split(key)
-            render_fn = functools.partial(render_image_path_traced, key=sub,
+            render_fn = functools.partial(compiled_render_image_path_traced, key=sub,
                                           max_bounces=PATH_BOUNCES, samples=PATH_SAMPLES,
                                           lens_radius=lens_radius,
                                           focus_distance=focus_distance)
         elif mode == "ao":
             key, sub = prng.split(key)
-            render_fn = functools.partial(render_image_ao, key=sub, samples=AO_SAMPLES,
-                                          radius=ao_radius)
+            render_fn = functools.partial(compiled_render_image_ao, key=sub,
+                                          samples=AO_SAMPLES, radius=ao_radius)
         start = time.perf_counter()
         p = camera.ray_params(scene.device)
         img = render_fn(config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
@@ -180,7 +185,7 @@ def run(scene_name: str = "demo", width: int = 1920, height: int = 1088,
     save_png(overlay_fps(img.numpy(), fps), out)
     if aovs:
         p = camera.ray_params(scene.device)
-        bufs = render_aovs(config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+        bufs = compiled_render_aovs(config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
         stem = out[:-4] if out.endswith(".png") else out
         for name in aovs:
             save_png(_aov_to_u8(name, bufs[name].cpu().numpy()), f"{stem}.{name}.png")

@@ -8,10 +8,12 @@ but leaves disabled (cv::imshow window + mouse orbit, kernel.cu:262-263,
 
 Frames are downsampled and drawn as ANSI truecolor half-blocks (two
 pixels per character cell), which works over ssh too. The pose
-is a per-frame argument of the render entry points, so a keystroke costs
-one frame and nothing else. Frames render on ``device`` (default
-``cuda``) through ``backend`` (default ``cuda``: K1 for one instance,
-K3 for more); only the u8 frame comes back to the host.
+is a per-frame argument of the compiled entry points
+(``render/compiled.py``: on the card one CUDA graph per static config,
+replayed with the new pose), so a keystroke costs one frame and nothing
+else. Frames render on ``device`` (default ``cuda``) through ``backend``
+(default ``cuda``: K1 for one instance, K3 for more); only the u8 frame
+comes back to the host.
 
 Keys: w/a/s/d move, q/e down/up, i/j/k/l orbit (the mouse-drag analog,
 kernel.cu:131-132), +/- speed, p save PNG, r restart the path sum, x or
@@ -29,7 +31,8 @@ import time
 
 import numpy as np
 
-from ..render import Camera, RenderConfig, render_image
+from ..render import Camera, RenderConfig
+from ..render.pipeline import compiled_render_image
 from ..render.renderer import BACKENDS
 from ..utils import prng, save_png
 from .controls import fly, orbit
@@ -109,13 +112,13 @@ def run_interactive(scene_name: str = "demo", width: int = 256, height: int = 25
     as a host uint8 array [H, W, 3], also written to ``out``.
 
     ``mode='path'`` renders progressively: each frame adds one path-traced
-    sample (``render_radiance_path_traced``, a key split from
+    sample (``compiled_render_radiance_path_traced``, a key split from
     ``PRNGKey(0)`` per frame) to a float32 sum on the scene's device that
     restarts whenever the camera moves or on ``r``. Only the tonemapped u8
     frame comes back to the host."""
     from ..render.integrators import to_u8
     from ..render.integrators import tonemap as tonemap_fn
-    from ..render.pipeline import render_radiance_path_traced
+    from ..render.pipeline import compiled_render_radiance_path_traced
     from .scenes import SCENES, build_demo_scene
 
     if mode not in ("primary", "path"):
@@ -151,12 +154,13 @@ def run_interactive(scene_name: str = "demo", width: int = 256, height: int = 25
             args = (config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
             if mode == "path":
                 rng, k = prng.split(rng)
-                rad = render_radiance_path_traced(*args, k, max_bounces=bounces, samples=1)
+                rad = compiled_render_radiance_path_traced(*args, k, max_bounces=bounces,
+                                                           samples=1)
                 acc = rad if acc is None else acc + rad
                 n_acc += 1
                 frame = to_u8(tonemap_fn(acc / n_acc, config.tonemap, config.exposure))
             else:
-                frame = render_image(*args)
+                frame = compiled_render_image(*args)
             img = frame.cpu().numpy()
             dt = time.perf_counter() - t0
             n += 1

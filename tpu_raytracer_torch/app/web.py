@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from ..core import transforms as T
-from ..render import RenderConfig, render_image
+from ..render import RenderConfig
+from ..render.pipeline import compiled_render_image
 from ..utils import prng
 from ..utils.image import encode_png
 from .controls import fly, orbit
@@ -140,7 +141,8 @@ class WebViewer:
         """One frame at the current pose -> host uint8 [H, W, 3]."""
         from ..render.integrators import to_u8, tonemap
         from ..render.pipeline import (
-            render_image_ao, render_image_whitted, render_radiance_path_traced,
+            compiled_render_image_ao, compiled_render_image_whitted,
+            compiled_render_radiance_path_traced,
         )
 
         pose, version = self._pose_state()
@@ -148,15 +150,15 @@ class WebViewer:
         dev = self.scene.device
         on_card = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
         with self._render_lock, on_card:
-            args = (self.config, self.scene, self._K_inv, self._D, pose_t.to(dev),
-                    T.invert_lre(pose_t).to(dev))
+            # the host pose goes to the compiled frame, which copies it in
+            args = (self.config, self.scene, self._K_inv, self._D, pose_t, T.invert_lre(pose_t))
             if self.mode in ("path", "ao"):
                 key = prng.fold_in(prng.PRNGKey(0, device=dev), self.frames_rendered)
             if self.mode == "whitted":
-                img = render_image_whitted(*args)
+                img = compiled_render_image_whitted(*args)
             elif self.mode == "path":
-                rad = render_radiance_path_traced(*args, key, self.path_bounces,
-                                                  self.path_samples)
+                rad = compiled_render_radiance_path_traced(*args, key, self.path_bounces,
+                                                           self.path_samples)
                 if self._accum is None or self._accum_version != version:
                     self._accum, self._accum_n = rad, 1
                     self._accum_version = version
@@ -166,9 +168,9 @@ class WebViewer:
                 img = to_u8(tonemap(self._accum / self._accum_n, self.config.tonemap,
                                     self.config.exposure))
             elif self.mode == "ao":
-                img = render_image_ao(*args, key, AO_SAMPLES, self.ao_radius)
+                img = compiled_render_image_ao(*args, key, AO_SAMPLES, self.ao_radius)
             else:
-                img = render_image(*args)
+                img = compiled_render_image(*args)
             img = img.cpu().numpy()
             self.frames_rendered += 1
         return img

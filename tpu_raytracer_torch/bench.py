@@ -5,7 +5,8 @@
 Builds the scene of the root ``bench.py`` (``build_bench_scene``: the
 81,920-triangle ``procgen.blob(subdivisions=6)``, one instance,
 1920x1088 camera, flat shading) on the first CUDA card, renders it
-through ``render_image`` with the ``cuda`` backend (kernel K1) and
+through ``compiled_render_image`` (one CUDA graph, replayed) with the
+``cuda`` backend (kernel K1) and
 prints one JSON line with the root bench's keys: ``metric`` (naming the
 backend and the card), ``value`` (best-of Mrays/s), ``unit``, ``fps``,
 ``hit_fraction``. Frames are timed with CUDA events around loops of 10,
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from .app.scenes import scene_bunny
-from .render import RenderConfig, render_image
+from .render import RenderConfig, compiled_render_image
 from .render.shade import SKY_COLOR
 from .utils.device import card_line
 
@@ -54,9 +55,10 @@ def main():
     config = RenderConfig(cam.width, cam.height, backend="cuda")
 
     def frame():
-        return render_image(config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+        return compiled_render_image(config, scene, p["K_inv"], p["D"], p["pose"],
+                                     p["inv_pose"])
 
-    img = frame().cpu().numpy()  # builds the kernel, warms up
+    img = frame().cpu().numpy()  # builds the kernel, captures the graph
     n_iters = 10
     elapsed = min(time_frames(frame, n_iters))
     rays = cam.width * cam.height

@@ -8,8 +8,10 @@ the root ``bench_all.py``), one JSON line per config.
 ``CONFIGS`` has the root script's keys, scenes and sizes. With no config
 or several, each config runs in its own process, so that no config's
 allocations or caches shift another's reading; with one, it runs in this
-process. A frame is ``timed`` as the root script times it: one warm
-frame, then the mean of ``--frames`` frames (8), the card synchronized at
+process. Frames render through the compiled entry points
+(``render/compiled.py``: on the card one CUDA graph per config, captured
+in the warm frame and replayed). A frame is ``timed`` as the root script
+times it: one warm frame, then the mean of ``--frames`` frames (8), the card synchronized at
 both ends. Each line has the root script's keys (``config``,
 ``resolution``, ``frame_ms``, ``fps``, ``mrays_per_s``: rays are pixels
 times the casts a pixel's frame makes) and ``card``, the card's name and
@@ -31,8 +33,10 @@ import time
 import torch
 
 from .app import scenes
-from .render import Camera, RenderConfig, reference_calibration, render_image
-from .render.pipeline import render_image_path_traced, render_image_whitted
+from .render import Camera, RenderConfig, reference_calibration
+from .render.pipeline import (
+    compiled_render_image, compiled_render_image_path_traced, compiled_render_image_whitted,
+)
 from .render.renderer import BACKENDS
 
 # the casts of config 5b: SAMPLES x (BOUNCES + 1) of the pixel grid per frame
@@ -91,19 +95,20 @@ class Bench:
 def config_cube(b: Bench):
     scene, cam = scenes.scene_cube(256, device=b.device)
     args = (b.config(cam), *b.args(scene, cam))
-    b.report("1 cube 256^2 flat", cam, b.timed(lambda: render_image(*args)))
+    b.report("1 cube 256^2 flat", cam, b.timed(lambda: compiled_render_image(*args)))
 
 
 def config_cornell(b: Bench):
     scene, cam = scenes.scene_cornell(512, device=b.device)
     args = (b.config(cam, lighting="lambert_shadow"), *b.args(scene, cam))
-    b.report("2 cornell 512^2 shadows", cam, b.timed(lambda: render_image(*args)), casts=2.0)
+    b.report("2 cornell 512^2 shadows", cam, b.timed(lambda: compiled_render_image(*args)),
+             casts=2.0)
 
 
 def config_bunny(b: Bench):
     scene, cam = scenes.scene_bunny(device=b.device)
     args = (b.config(cam), *b.args(scene, cam))
-    b.report("3 bunny 82k-tri 1080p", cam, b.timed(lambda: render_image(*args)))
+    b.report("3 bunny 82k-tri 1080p", cam, b.timed(lambda: compiled_render_image(*args)))
 
 
 def config_bunny_fisheye(b: Bench):
@@ -113,13 +118,13 @@ def config_bunny_fisheye(b: Bench):
     K, D = reference_calibration(cam.width, cam.height)
     cam = Camera(cam.width, cam.height, K, D, pose=cam.pose)
     args = (b.config(cam), *b.args(scene, cam))
-    b.report("3f bunny 1080p real-fisheye K/D", cam, b.timed(lambda: render_image(*args)))
+    b.report("3f bunny 1080p real-fisheye K/D", cam, b.timed(lambda: compiled_render_image(*args)))
 
 
 def config_instances(b: Bench):
     scene, cam = scenes.scene_instances(512, 512, device=b.device)
     args = (b.config(cam), *b.args(scene, cam))
-    b.report("4 instances whitted x2", cam, b.timed(lambda: render_image_whitted(*args)),
+    b.report("4 instances whitted x2", cam, b.timed(lambda: compiled_render_image_whitted(*args)),
              casts=5.0)
 
 
@@ -128,7 +133,7 @@ def config_instances_flat(b: Bench):
     scene, cam = scenes.scene_instances(512, 512, device=b.device, flatten=True)
     args = (b.config(cam), *b.args(scene, cam))
     b.report("4b instances whitted x2 (flattened)", cam,
-             b.timed(lambda: render_image_whitted(*args)), casts=5.0)
+             b.timed(lambda: compiled_render_image_whitted(*args)), casts=5.0)
 
 
 def config_instances16(b: Bench):
@@ -136,16 +141,17 @@ def config_instances16(b: Bench):
     scene, cam = scenes.scene_instances16(512, 512, device=b.device)
     cfg = b.config(cam)
     args = (cfg, *b.args(scene, cam))
-    b.report("6 instances16 dynamic (TLAS)", cam, b.timed(lambda: render_image(*args)))
+    b.report("6 instances16 dynamic (TLAS)", cam, b.timed(lambda: compiled_render_image(*args)))
     flat, cam = scenes.scene_instances16(512, 512, device=b.device, flatten=True)
     args_f = (cfg, *b.args(flat, cam))
-    b.report("6b instances16 flattened-static", cam, b.timed(lambda: render_image(*args_f)))
+    b.report("6b instances16 flattened-static", cam,
+             b.timed(lambda: compiled_render_image(*args_f)))
 
 
 def config_colonnade(b: Bench):
     scene, cam = scenes.scene_colonnade(512, 512, device=b.device)
     args = (b.config(cam), *b.args(scene, cam))
-    b.report("5a colonnade 256k-tri primary", cam, b.timed(lambda: render_image(*args)))
+    b.report("5a colonnade 256k-tri primary", cam, b.timed(lambda: compiled_render_image(*args)))
 
 
 def config_colonnade_path(b: Bench):
@@ -164,9 +170,9 @@ def config_colonnade_path(b: Bench):
 
     def frame(k: int):
         p = params[k]
-        return render_image_path_traced(cfg, scene, p["K_inv"], p["D"], p["pose"],
-                                        p["inv_pose"], prng.PRNGKey(k, device=scene.device),
-                                        PATH_BOUNCES, PATH_SAMPLES)
+        return compiled_render_image_path_traced(
+            cfg, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"],
+            prng.PRNGKey(k, device=scene.device), PATH_BOUNCES, PATH_SAMPLES)
 
     frame(0)  # warm
     b.sync()

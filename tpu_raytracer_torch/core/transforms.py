@@ -19,6 +19,11 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
 
+def pose(x=0.0, y=0.0, z=0.0, yaw=0.0, pitch=0.0, roll=0.0, device="cpu") -> torch.Tensor:
+    """An lre pose ``[6]`` f32 on ``device``."""
+    return torch.tensor([x, y, z, yaw, pitch, roll], dtype=torch.float32, device=device)
+
+
 def pose_xyz(p: torch.Tensor) -> torch.Tensor:
     return p[..., 0:3]
 
@@ -125,9 +130,21 @@ def invert_homo(H: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, _homo_bottom(top)], dim=-2)
 
 
+def compose_homo(H1: torch.Tensor, H2: torch.Tensor) -> torch.Tensor:
+    """Compose homogeneous transforms: ``H2 @ H1``, in f32, each entry's
+    four products summed left to right."""
+    return (H2[..., :, 0:1] * H1[..., 0:1, :] + H2[..., :, 1:2] * H1[..., 1:2, :]
+            + H2[..., :, 2:3] * H1[..., 2:3, :] + H2[..., :, 3:4] * H1[..., 3:4, :])
+
+
 def apply_lre(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Map world points into the pose's local frame: R(euler) (v - xyz)."""
     return apply_euler(pose_euler(p), v - pose_xyz(p))
+
+
+def compose_lre(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Pose composition via homogeneous matrices: p1, then p2."""
+    return homo2lre(compose_homo(lre2homo(p1), lre2homo(p2)))
 
 
 def invert_lre(p: torch.Tensor) -> torch.Tensor:

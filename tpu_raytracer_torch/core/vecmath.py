@@ -18,6 +18,18 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cross product of 3-vectors over the last axis."""
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
+
+
+def magnitude(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis (``dot``'s summation order)."""
+    return torch.sqrt(dot(v, v))
+
+
 def q_rsqrt(x: torch.Tensor) -> torch.Tensor:
     """Bit-exact fast inverse square root (0x5f3759df and one Newton
     step), through an int32 view like the JAX bitcast."""
@@ -33,6 +45,17 @@ def normalize(v: torch.Tensor, *, exact: bool = True) -> torch.Tensor:
     sq = dot(v, v)[..., None]
     inv = torch.rsqrt(sq) if exact else q_rsqrt(sq)
     return v * inv
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small constant vector on ``device``, each element of ``values``
+    rounded to ``dtype`` as ``torch.tensor(values, dtype=dtype)`` rounds
+    it, written by fill kernels: no copy from host memory, so a frame
+    that makes it can be captured in a CUDA graph."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
 
 
 def apply_mat3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

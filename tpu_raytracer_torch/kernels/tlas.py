@@ -258,6 +258,16 @@ def cast_rays_tlas_torch(scene, origin, directions, occlusion: bool = False,
 # ---------------------------------------------------------------------------
 
 
+def check_stack(scene) -> None:
+    """Raise unless K3's stack holds the scene's TLAS entries (at most
+    one per level) below its BLAS walk's."""
+    tl = _tlas_tables(scene)
+    need = tl.depth + stack_needed(_wide_tables(scene).depth)
+    if need > STACK_SIZE:
+        raise ValueError(f"TLAS depth {tl.depth} with the BLAS's stack needs {need} "
+                         f"stack slots; the kernel has {STACK_SIZE}")
+
+
 def cast_rays_tlas_cuda(scene, origin, directions, occlusion: bool = False,
                         short_stack: int | None = None, want_normals: bool = False,
                         carry: bool | None = None):
@@ -279,11 +289,7 @@ def cast_rays_tlas_cuda(scene, origin, directions, occlusion: bool = False,
         if x.dtype != dtype or not x.is_contiguous() or x.device != directions.device:
             raise ValueError(f"{name} must be contiguous {dtype} on {directions.device}")
     check_aligned16(tlas_box=tl.box)
-    # the TLAS entries (at most one per level) sit below the BLAS walk's
-    need = tl.depth + stack_needed(_wide_tables(scene).depth)
-    if need > STACK_SIZE:
-        raise ValueError(f"TLAS depth {tl.depth} with the BLAS's stack needs {need} "
-                         f"stack slots; the kernel has {STACK_SIZE}")
+    check_stack(scene)
     hit = launch("tlas_launch", scene, origin, directions, occlusion,
                  (tl.code.data_ptr(), tl.box.data_ptr(), tl.inst_ids.data_ptr()),
                  short_stack=short_stack, carry_uv=carry_uv, carry_n=carry_n)

@@ -1,0 +1,254 @@
+"""The jit boundary: a frame entry point captured once per static config
+as a CUDA graph, then replayed with its runtime inputs copied in.
+
+Counterpart of ``jax.jit`` on the JAX package's frame entry points
+(``tpu_raytracer/render/pipeline.py``: the config is static, the scene
+arrays and the camera are runtime arguments, so animating the camera or
+the instances never recompiles). ``CompiledFrame(fn)`` wraps an eager
+entry point ``fn(config, scene, K_inv, D, pose, inv_pose, ...)``:
+
+  * An entry is keyed by every argument that is neither a tensor nor a
+    scene (the frozen ``RenderConfig``, ``max_bounces``, ``samples``,
+    ``shadows``, ``radius`` and the like: JAX's ``static_argnums``), the
+    shape, dtype and device of every tensor argument, and, per scene, the
+    identity of its bound tables (every ``SceneTensors`` field but the
+    per-instance rows and the TLAS: the triangles, the per-mesh wide,
+    binary and page tables, the textures), its flags and the shapes of
+    its per-instance rows and TLAS. Entries are kept until ``clear()``,
+    as JAX keeps its jit cache; each holds the scene it was made for, so
+    no table it bound can be freed and its address reused under it.
+  * Each call copies the runtime inputs (``copy_``, no reallocation) into
+    the entry's static buffers on the scene's device: the tensor
+    arguments (the camera's ``K_inv``, ``D``, ``pose``, ``inv_pose``; the
+    path and AO ``key``), and per scene the rows ``update_instance``
+    replaces (``INSTANCE_FIELDS``) and its TLAS tables. A new pose, an
+    instance update or a new key replays the entry; a scene with other
+    bound tables, or inputs of another shape, gets an entry of its own.
+  * On CUDA the first call of an entry runs the body once eagerly on a
+    side stream (which builds and loads the kernel library before any
+    capture), captures it into a ``torch.cuda.CUDAGraph`` with a private
+    memory pool, and every call replays that graph and returns a clone of
+    its outputs (a later replay writes the same memory). A failed capture
+    or replay raises with the entry's key; nothing falls back to the
+    eager frame.
+  * On the CPU (the caller asked for it) the same binding runs with no
+    capture: the inputs are copied into the buffers and the body runs on
+    them, so the CPU tests see a stale frame where an input is not bound.
+
+The kernel wrappers count their launches in module counters
+(``launch_counts``), which move while the body runs eagerly or is
+captured and not when a graph replays. An entry records each counter's
+increase during its capture as ``launches``: the kernel launches of one
+replay.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import threading
+import time
+
+import torch
+
+# the scene's per-instance rows: what SceneTensors.update_instance
+# replaces besides the TLAS
+INSTANCE_FIELDS = ("inst_mesh", "inst_material", "inst_pose", "inst_inv_pose", "inst_scale",
+                   "inst_inv_scale")
+TLAS_FIELDS = ("code", "box", "inst_ids")
+SCENE_FLAGS = ("has_sky", "has_textures", "has_emissive")
+
+# the kernel wrappers' launch counters: name, module of kernels/, attribute
+COUNTERS = (
+    ("K1", "traversal", "LAUNCHES"), ("K1_carry", "traversal", "LAUNCHES_CARRY"),
+    ("K2", "binary", "LAUNCHES"),
+    ("K3", "tlas", "LAUNCHES"), ("K3_carry", "tlas", "LAUNCHES_CARRY"),
+    ("K4", "paged", "LAUNCHES_K4"), ("K5", "paged", "LAUNCHES_K5"),
+    ("K6", "paged_major", "LAUNCHES"), ("K6_plan", "paged_major", "LAUNCHES_PLAN"),
+)
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    return {name: getattr(importlib.import_module(f"..kernels.{mod}", __package__), attr)
+            for name, mod, attr in COUNTERS}
+
+
+def _is_scene(x) -> bool:
+    from ..scene.scene import SceneTensors
+
+    return isinstance(x, SceneTensors)
+
+
+def _tensor_spec(x: torch.Tensor) -> tuple:
+    return (tuple(x.shape), x.dtype, x.device)
+
+
+def _scene_runtime(scene) -> list:
+    """The scene's runtime tensors, in binding order: its per-instance
+    rows, then its TLAS tables where it has them."""
+    rows = [getattr(scene, f) for f in INSTANCE_FIELDS]
+    if scene.tlas is not None:
+        rows += [getattr(scene.tlas, f) for f in TLAS_FIELDS]
+    return rows
+
+
+def _scene_key(scene) -> tuple:
+    bound = tuple((f.name, id(getattr(scene, f.name))) for f in dataclasses.fields(scene)
+                  if f.name not in INSTANCE_FIELDS + SCENE_FLAGS + ("tlas",))
+    return ("scene", bound, tuple(getattr(scene, f) for f in SCENE_FLAGS),
+            scene.tlas is not None, tuple(_tensor_spec(x) for x in _scene_runtime(scene)))
+
+
+def _spec(x):
+    """One argument's part of the key."""
+    if isinstance(x, torch.Tensor):
+        return ("tensor",) + _tensor_spec(x)
+    if _is_scene(x):
+        return _scene_key(x)
+    try:
+        hash(x)
+    except TypeError:
+        raise TypeError(f"a static argument of a compiled frame must be hashable, got "
+                        f"{type(x).__name__}") from None
+    return ("static", x)
+
+
+def _runtime(x) -> list:
+    """One argument's runtime tensors, in binding order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if _is_scene(x):
+        return _scene_runtime(x)
+    return []
+
+
+def _device(args, kwargs) -> torch.device:
+    """The frame's device: its scene's."""
+    for x in list(args) + list(kwargs.values()):
+        if _is_scene(x):
+            return x.device
+    raise TypeError("a compiled frame takes a scene argument")
+
+
+class FrameEntry:
+    """One compiled entry: the static buffers its body reads, its graph
+    on CUDA, and what its capture recorded."""
+
+    def __init__(self, name: str, fn, key: tuple, args: tuple, kwargs: dict):
+        self.name, self.fn, self.key = name, fn, key
+        self.device = _device(args, kwargs)
+        self.buffers: list[torch.Tensor] = []
+        self.args = tuple(self._static(x) for x in args)
+        self.kwargs = {k: self._static(v) for k, v in kwargs.items()}
+        self.graph = None
+        self.out = None
+        self.launches: dict = {}  # kernel launches per replay, from the capture
+        self.replays = 0
+        self.capture_s = None  # warm-up and capture, to a synchronize
+
+    def _buffer(self, x: torch.Tensor) -> torch.Tensor:
+        buf = torch.empty(x.shape, dtype=x.dtype, device=self.device)
+        self.buffers.append(buf)
+        return buf
+
+    def _static(self, x):
+        """The argument the body reads: a tensor's buffer, or the scene
+        with buffers in place of its runtime rows and TLAS tables (its
+        bound tables are the scene's own, held by this entry)."""
+        if isinstance(x, torch.Tensor):
+            return self._buffer(x)
+        if not _is_scene(x):
+            return x
+        rows = {f: self._buffer(getattr(x, f)) for f in INSTANCE_FIELDS}
+        if x.tlas is not None:
+            rows["tlas"] = dataclasses.replace(
+                x.tlas, **{f: self._buffer(getattr(x.tlas, f)) for f in TLAS_FIELDS})
+        return dataclasses.replace(x, **rows)
+
+    def bind(self, args: tuple, kwargs: dict) -> None:
+        """Copy a call's runtime inputs into the buffers; a scene's TLAS
+        must fit the kernel's stack, as its capture checked."""
+        from ..kernels.tlas import check_stack
+
+        sources = []
+        for x in list(args) + list(kwargs.values()):
+            sources += _runtime(x)
+            if _is_scene(x) and x.tlas is not None and self.device.type == "cuda":
+                check_stack(x)
+        for buf, src in zip(self.buffers, sources, strict=True):
+            buf.copy_(src)
+
+    def run(self):
+        """The frame on the bound inputs: the body on the CPU; on CUDA,
+        the graph's replay (captured on the first call) and a clone of
+        its outputs."""
+        if self.device.type != "cuda":
+            return self.fn(*self.args, **self.kwargs)
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                self._capture()
+            try:
+                self.graph.replay()
+            except RuntimeError as e:
+                raise RuntimeError(f"replay of {self.name} failed for the entry "
+                                   f"{self.key}") from e
+            self.replays += 1
+            if isinstance(self.out, dict):  # render_aovs
+                return {k: v.clone() for k, v in self.out.items()}
+            return self.out.clone()
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        try:
+            # the eager warm-up builds and loads the kernel library, so no
+            # module loads inside the capture
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self.fn(*self.args, **self.kwargs)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = launch_counts()
+            with torch.cuda.graph(graph):
+                out = self.fn(*self.args, **self.kwargs)
+            after = launch_counts()
+            torch.cuda.synchronize(self.device)
+        except RuntimeError as e:
+            raise RuntimeError(f"capture of {self.name} failed for the entry {self.key}") from e
+        self.graph, self.out = graph, out
+        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        self.capture_s = time.perf_counter() - t0
+
+
+class CompiledFrame:
+    """``fn`` compiled per static config: calls take ``fn``'s arguments
+    and return its result (see the module docstring). ``entries`` maps
+    each key to its ``FrameEntry``; ``last`` is the entry of the last
+    call."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.name = fn.__name__
+        self.entries: dict[tuple, FrameEntry] = {}
+        self.last: FrameEntry | None = None
+        # one call at a time binds and replays an entry's buffers
+        self._lock = threading.Lock()
+
+    def __call__(self, *args, **kwargs):
+        kwargs = dict(sorted(kwargs.items()))  # one binding order per key
+        key = (tuple(_spec(x) for x in args), tuple((k, _spec(v)) for k, v in kwargs.items()))
+        with self._lock:
+            entry = self.entries.get(key)
+            if entry is None:
+                entry = self.entries[key] = FrameEntry(self.name, self.fn, key, args, kwargs)
+            entry.bind(args, kwargs)
+            self.last = entry
+            return entry.run()
+
+    def clear(self) -> None:
+        """Drop every entry (and with them their graphs, buffers and the
+        tables they hold)."""
+        with self._lock:
+            self.entries.clear()
+            self.last = None

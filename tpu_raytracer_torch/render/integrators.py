@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from ..core.vecmath import FLT_MAX, dot, normalize
+from ..core.vecmath import FLT_MAX, constant, dot, normalize
 from ..utils import prng
 from .renderer import get_cast_fn, hit_attributes, occlusion_cast_fn
 from .shade import (
@@ -161,6 +161,19 @@ def _cosine_sample(key, normal, exact):
     return normalize(d, exact=exact)
 
 
+def lens_basis(directions: torch.Tensor, exact: bool = True):
+    """(right, up): the thin lens's disk axes, perpendicular to the mean
+    view axis of ``directions [..., 3]``. The reference vector is +z, or
+    +x where the axis is within acos(0.9) of z, chosen on the device (the
+    JAX package's ``jnp.where``), so the frame waits on no host read."""
+    dev = directions.device
+    axis = normalize(directions.reshape(-1, 3).mean(dim=0), exact=exact)
+    ref = torch.where(torch.abs(axis[2]) < 0.9, constant((0.0, 0.0, 1.0), torch.float32, dev),
+                      constant((1.0, 0.0, 0.0), torch.float32, dev))
+    right = normalize(torch.linalg.cross(axis, ref), exact=exact)
+    return right, torch.linalg.cross(right, axis)
+
+
 def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, samples: int = 4,
                        backend: str = "cuda", sky_strength: float = 1.0, exact: bool = True,
                        sort_secondary: bool = True, tex_filter: str = "nearest",
@@ -278,12 +291,7 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
         return run_bounces(state, a0, prng.split(key, max_bounces + 1)).mean(dim=0)
 
     if dof:
-        # lens basis perpendicular to the mean view axis
-        axis = normalize(directions.reshape(-1, 3).mean(dim=0), exact=exact)
-        ref = torch.tensor([0.0, 0.0, 1.0] if abs(float(axis[2])) < 0.9 else [1.0, 0.0, 0.0],
-                           dtype=torch.float32, device=dev)
-        right = normalize(torch.linalg.cross(axis, ref), exact=exact)
-        up = torch.linalg.cross(right, axis)
+        right, up = lens_basis(directions, exact)
     else:
         attrs0 = attrs_primary(origin, directions)
     total = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)

@@ -4,10 +4,18 @@ Counterpart of ``tpu_raytracer/render/pipeline.py``: primary rays (flat
 and lit shading, point lights, texture filters, the sky map), the AOV
 pass, the Whitted integrator (config 4), path tracing with its optional
 denoise (config 5) and ambient occlusion, each supersampled where the
-JAX package supersamples (``RenderConfig.ssaa``). PyTorch runs eagerly,
-so the entry points are plain functions; every tensor lives on the
-scene's device, and the returned image too. Random entry points take a
-``utils.prng`` key.
+JAX package supersamples (``RenderConfig.ssaa``). Every tensor lives on
+the scene's device, and the returned image too. Random entry points take
+a ``utils.prng`` key.
+
+The jit boundary is the JAX package's: the six entry points it jits
+(``render_image``, ``render_aovs``, ``render_image_whitted``,
+``render_image_ao``, ``render_radiance_path_traced`` and
+``render_image_path_traced``) each have a ``compiled_`` counterpart
+(``render/compiled.py``): the config and the other non-tensor arguments
+are static, the camera, the key and the scene's per-instance rows and
+TLAS are runtime inputs, and on CUDA each static config is captured once
+as a CUDA graph and replayed. The eager functions keep their names.
 """
 
 from __future__ import annotations
@@ -16,7 +24,9 @@ import dataclasses
 
 import torch
 
+from ..core.vecmath import constant
 from .camera import Camera, generate_rays
+from .compiled import CompiledFrame
 from .renderer import get_cast_fn, hit_attributes
 from .shade import DEFAULT_LIGHT_DIRECTION, shade_primary
 
@@ -73,7 +83,7 @@ def _with_ssaa(config: RenderConfig, K_inv: torch.Tensor, body):
         return body(config, K_inv)
     sub = dataclasses.replace(config, width=config.width * s, height=config.height * s, ssaa=1)
     # tensor factors: 1/s computed in f32 as the JAX package does
-    inv_s = torch.tensor([1.0 / s, 1.0 / s, 1.0], dtype=torch.float32, device=K_inv.device)
+    inv_s = constant((1.0 / s, 1.0 / s, 1.0), torch.float32, K_inv.device)
     big = body(sub, torch.as_tensor(K_inv, dtype=torch.float32) * inv_s)
     f = big.to(torch.float32).reshape(config.height, s, config.width, s, 3).mean(dim=(1, 3))
     return torch.round(f).to(torch.uint8)
@@ -244,3 +254,21 @@ def render_image_path_traced(config: RenderConfig, scene, K_inv: torch.Tensor, D
         return to_u8(tonemap(radiance, cfg.tonemap, cfg.exposure))
 
     return _with_ssaa(config, K_inv, body)
+
+
+# the JAX-jitted entry points, compiled per static config (render/compiled.py)
+compiled_render_image = CompiledFrame(render_image)
+compiled_render_aovs = CompiledFrame(render_aovs)
+compiled_render_image_whitted = CompiledFrame(render_image_whitted)
+compiled_render_image_ao = CompiledFrame(render_image_ao)
+compiled_render_radiance_path_traced = CompiledFrame(render_radiance_path_traced)
+compiled_render_image_path_traced = CompiledFrame(render_image_path_traced)
+COMPILED = (compiled_render_image, compiled_render_aovs, compiled_render_image_whitted,
+            compiled_render_image_ao, compiled_render_radiance_path_traced,
+            compiled_render_image_path_traced)
+
+
+def clear_compiled() -> None:
+    """Drop every compiled entry point's entries (``CompiledFrame.clear``)."""
+    for frame in COMPILED:
+        frame.clear()

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from ..core.vecmath import FLT_MAX, dot, normalize
+from ..core.vecmath import FLT_MAX, constant, dot, normalize
 from .renderer import get_cast_fn
 
 SKY_COLOR = (255, 204, 153)
@@ -42,7 +42,7 @@ def point_light_illumination(scene, attrs, point_lights, cast=None) -> torch.Ten
 
     illum = torch.zeros(attrs.t.shape, dtype=torch.float32, device=attrs.t.device)
     for light in point_lights:
-        lpos = torch.tensor(light.position, dtype=torch.float32, device=attrs.t.device)
+        lpos = constant(light.position, torch.float32, attrs.t.device)
         to_light = lpos - attrs.location
         dist = torch.sqrt(dot(to_light, to_light))
         ldir = to_light / torch.clamp(dist, min=1e-8)[..., None]
@@ -69,6 +69,17 @@ def _fetch_texel(scene, idx: torch.Tensor) -> torch.Tensor:
     word = scene.tex_atlas[torch.clamp(idx, 0, scene.tex_atlas.shape[0] - 1).long()]
     return torch.stack([word & 0xFF, (word >> 8) & 0xFF, (word >> 16) & 0xFF],
                        dim=-1).to(torch.float32)
+
+
+def sample_texture(scene, material: torch.Tensor, uv: torch.Tensor,
+                   tex_filter: str = "nearest") -> torch.Tensor:
+    """Texel colour [..., 3] in [0, 1] of material ids ``material`` at
+    ``uv``, nearest (the reference's wrap) or bilinear; untextured
+    materials read the atlas from 0 (callers mask them, as
+    ``surface_color`` does)."""
+    m = material.long()
+    return _sample_texture_vals(scene, scene.mat_tex_start[m], scene.mat_tex_w[m],
+                                scene.mat_tex_h[m], uv, tex_filter)
 
 
 def _sample_texture_vals(scene, start, w, h, uv, tex_filter: str = "nearest") -> torch.Tensor:
@@ -193,7 +204,7 @@ def sky_radiance(scene, directions: torch.Tensor, exact: bool = True) -> torch.T
     has one, else the reference's flat constant. World is y-forward,
     z-up: u is the yaw about z from +y, v is 0 at the zenith."""
     dev = directions.device
-    flat = torch.tensor(SKY_COLOR, dtype=torch.float32, device=dev) / 255.0
+    flat = constant(SKY_COLOR, torch.float32, dev) / 255.0
     flat = flat.expand(directions.shape[:-1] + (3,))
     if not scene.has_sky:
         return flat
@@ -214,8 +225,7 @@ def sky_radiance(scene, directions: torch.Tensor, exact: bool = True) -> torch.T
 
 def light_vector(light_direction, device, exact: bool = True) -> torch.Tensor:
     """The unit vector toward the directional light."""
-    return normalize(torch.tensor(light_direction, dtype=torch.float32, device=device),
-                     exact=exact)
+    return normalize(constant(light_direction, torch.float32, device), exact=exact)
 
 
 def compute_illumination(scene, attrs, light_direction, mode: str, exact: bool = True,
@@ -306,7 +316,7 @@ def shade_primary(scene, attrs, light_direction=DEFAULT_LIGHT_DIRECTION, mode: s
         nearest_cast_fn=nearest_cast_fn)
     rgb = illum[..., None] * color * 255.0
     shaded = rgb.to(torch.uint8)  # truncates like the C cast
-    sky = torch.tensor(SKY_COLOR, dtype=torch.uint8, device=shaded.device)
+    sky = constant(SKY_COLOR, torch.uint8, shaded.device)
     if directions is not None and scene.has_sky:
         tex = (sky_radiance(scene, directions, exact=exact) * 255.0).to(torch.uint8)
         sky = torch.where(scene.sky_tex_start >= 0, tex, sky)

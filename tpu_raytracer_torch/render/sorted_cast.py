@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.vecmath import constant
+
 # Terminated-ray parking spot: an origin far outside every scene with a
 # direction pointing away, so the slab test of the root's children
 # rejects the ray at once: t = (box - 1e9) * 1 < 0 on every axis, so far
@@ -35,7 +37,7 @@ def park_dead_rays(o: torch.Tensor, d: torch.Tensor, live: torch.Tensor):
     pass through unchanged. Returns per-ray ``[..., 3]`` origins and
     directions."""
     keep = live[..., None]
-    park_d = torch.tensor(PARK_DIRECTION, dtype=torch.float32, device=d.device)
+    park_d = constant(PARK_DIRECTION, torch.float32, d.device)
     return (
         torch.where(keep, o, torch.full_like(o, PARK_ORIGIN)),
         torch.where(keep, d, park_d.expand(d.shape)),

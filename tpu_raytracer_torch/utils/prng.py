@@ -92,6 +92,6 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) 
     at it."""
     bits = (random_bits(key, tuple(shape)) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
