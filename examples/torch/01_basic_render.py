@@ -40,7 +40,8 @@ scene.add_mesh_instance(tex)
 tensors = scene.compile(args.device)  # flat tables on the device, BVH built and packed
 
 camera = Camera.looking(args.size, args.size, fov_deg=60.0, pose=[0, -5, 0.5, 0, 0, 0])
-img = render(camera, tensors, lighting="lambert").cpu().numpy()  # backend cuda: K3
+# backend cuda: K3; render() goes through compiled_render_image (one CUDA graph)
+img = render(camera, tensors, lighting="lambert").cpu().numpy()
 out = os.path.join(tempfile.gettempdir(), "example_torch_basic.png")
 save_png(img, out)
 print("wrote", out, img.shape, img.dtype)

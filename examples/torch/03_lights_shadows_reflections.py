@@ -15,7 +15,7 @@ import numpy as np
 
 from tpu_raytracer_torch.render import Camera, RenderConfig
 from tpu_raytracer_torch.render.integrators import PointLight
-from tpu_raytracer_torch.render.pipeline import render_image_whitted
+from tpu_raytracer_torch.render.pipeline import compiled_render_image_whitted
 from tpu_raytracer_torch.scene import (
     Material, MeshInstance, MeshPrimitive, Scene, objloader, procgen,
 )
@@ -48,8 +48,8 @@ config = RenderConfig(  # backend cuda: K3, nearest and any hit
     point_lights=(PointLight(position=(2.0, -2.0, 4.0), intensity=40.0),),
 )
 p = camera.ray_params(tensors.device)
-img = render_image_whitted(config, tensors, p["K_inv"], p["D"], p["pose"], p["inv_pose"],
-                           max_bounces=2)
+img = compiled_render_image_whitted(config, tensors, p["K_inv"], p["D"], p["pose"],
+                                    p["inv_pose"], max_bounces=2)
 out = os.path.join(tempfile.gettempdir(), "example_torch_lights.png")
 save_png(img.cpu().numpy(), out)
 print("wrote", out)

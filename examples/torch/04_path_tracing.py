@@ -13,7 +13,7 @@ import tempfile
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 from tpu_raytracer_torch.app.scenes import scene_cornell
 from tpu_raytracer_torch.render import RenderConfig
-from tpu_raytracer_torch.render.pipeline import render_image_path_traced
+from tpu_raytracer_torch.render.pipeline import compiled_render_image_path_traced
 from tpu_raytracer_torch.utils import prng, save_png
 
 ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -24,8 +24,9 @@ args = ap.parse_args()
 tensors, camera = scene_cornell(args.size, device=args.device)
 config = RenderConfig(width=camera.width, height=camera.height)  # backend cuda: K3
 p = camera.ray_params(tensors.device)
-img = render_image_path_traced(config, tensors, p["K_inv"], p["D"], p["pose"], p["inv_pose"],
-                               prng.PRNGKey(0), max_bounces=3, samples=4)
+img = compiled_render_image_path_traced(config, tensors, p["K_inv"], p["D"], p["pose"],
+                                        p["inv_pose"], prng.PRNGKey(0, device=tensors.device),
+                                        max_bounces=3, samples=4)
 out = os.path.join(tempfile.gettempdir(), "example_torch_path.png")
 save_png(img.cpu().numpy(), out)
 print("wrote", out)

@@ -1,7 +1,9 @@
 """Rendering on several ranks: the image rows split over a process
 group, the scene replicated on every rank (``tpu_raytracer_torch.parallel``;
 the JAX package's ``examples/05_multichip.py`` shards them over a device
-mesh). Each rank is a process started by ``parallel.spawn``.
+mesh). Each rank is a process started by ``parallel.spawn``, and renders
+its band through ``compiled_render_image_sharded``: one CUDA graph per
+rank, the bands gathered after the replay.
 
 Run: python examples/torch/05_multichip.py [--device cpu] [--size 128] [--world-size 2]
 
@@ -21,7 +23,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import torch
 
 from tpu_raytracer_torch.app.scenes import scene_cube
-from tpu_raytracer_torch.parallel import render_image_sharded, spawn
+from tpu_raytracer_torch.parallel import compiled_render_image_sharded, spawn
 from tpu_raytracer_torch.parallel.group import run_calls
 from tpu_raytracer_torch.render import RenderConfig
 from tpu_raytracer_torch.utils import save_png
@@ -44,7 +46,7 @@ if __name__ == "__main__":
     tensors, camera = scene_cube(args.size, device="cpu")  # moved to each rank's device
     config = RenderConfig(width=camera.width, height=camera.height)  # backend cuda: K1
     p = camera.ray_params("cpu")
-    calls = [(n, functools.partial(render_image_sharded, config),
+    calls = [(n, functools.partial(compiled_render_image_sharded, config),
               (tensors, p["K_inv"], p["D"], p["pose"], p["inv_pose"]))]
     ranks = spawn(run_calls, n, args=(calls,), device=device, backend=backend)
     img = ranks[0][0]  # every rank holds the gathered image

@@ -12,7 +12,9 @@ import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 from tpu_raytracer_torch.app.scenes import scene_cube
-from tpu_raytracer_torch.render import RenderConfig, render_aovs, render_image
+from tpu_raytracer_torch.render import (
+    RenderConfig, compiled_render_aovs, compiled_render_image,
+)
 from tpu_raytracer_torch.utils import save_png
 
 ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -30,11 +32,11 @@ config = RenderConfig(
     texture_filter="bilinear",  # smooth texture lookup (4-tap lerp)
     ssaa=2,                     # 4 rays per pixel, box-averaged
 )
-img = render_image(config, tensors, *rays)
+img = compiled_render_image(config, tensors, *rays)
 out = os.path.join(tempfile.gettempdir(), "example_torch_extras.png")
 save_png(img.cpu().numpy(), out)
 
-aovs = render_aovs(RenderConfig(width=S, height=S), tensors, *rays)
+aovs = compiled_render_aovs(RenderConfig(width=S, height=S), tensors, *rays)
 depth = aovs["depth"].cpu()
 hit = aovs["hit"].cpu()
 print(f"wrote {out}; depth range on hits: {depth[hit].min():.2f}..{depth[hit].max():.2f}")

@@ -686,6 +686,96 @@ def test_sharded_cast_and_row_bands_on_the_card(cuda, world, backend):
     assert torch.equal(img, want.cpu())
 
 
+def _sharded_poses(cam, n: int) -> list:
+    start = cam.pose.copy()
+    out = []
+    for step in range(n):
+        cam.pose = start + np.float32(0.05 * step) * np.array([1, 1, 0.5, 1, 0.2, 0],
+                                                             np.float32)
+        p = cam.ray_params("cpu")
+        out.append((p["K_inv"], p["D"], p["pose"], p["inv_pose"]))
+    cam.pose = start
+    return out
+
+
+def compiled_sharded_rank(group, cases: dict) -> dict:
+    """A ``spawn`` worker: per case, the compiled entry point's frame and
+    the eager frame at each pose, bitwise; the eager frame's launches
+    against the launches of a replay; or, where the compiled entry point
+    refuses the group, its ``ValueError``."""
+    from tpu_raytracer_torch.parallel import scene_shard, sharding
+    from tpu_raytracer_torch.parallel.group import to_device
+    from tpu_raytracer_torch.render.compiled import launch_counts
+
+    out = {}
+    for name, (mod, entry, cfg, scene, poses, extra) in cases.items():
+        mod = {"rows": sharding, "shards": scene_shard}[mod]
+        eager, fast = getattr(mod, entry), getattr(mod, "compiled_" + entry)
+        scene, extra = to_device((scene, extra), group.device)
+        same, launches = [], []
+        try:
+            for args in poses:
+                args = to_device(args, group.device)
+                got = fast(cfg, group, scene, *args, *extra)
+                before = launch_counts()
+                want = eager(cfg, group, scene, *args, *extra)
+                torch.cuda.synchronize()
+                after = launch_counts()
+                same.append(torch.equal(got, want))
+                launches.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        except ValueError as e:
+            out[name] = str(e)
+            continue
+        entry_ = fast.last
+        out[name] = {"same": same, "eager_launches": launches, "replay": entry_.launches,
+                     "entries": len(fast.entries), "graph": entry_.graph is not None,
+                     "replays": entry_.replays}
+    return out
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_compiled_sharded_entries_replay_the_eager_frames(cuda, world, backend):
+    """The six compiled sharded entry points on ranks on ``cuda:0``: each
+    rank captures its frame once and replays it at 2 poses, each frame
+    bitwise the eager entry's, a replay launching what the eager frame
+    does. At one NCCL rank the scene shards' graphs hold the combine's
+    collectives; on two gloo ranks (which share the card) the row bands
+    are captured and gathered after the replay through host memory, and
+    the scene shards' compiled entry points raise naming NCCL."""
+    from tpu_raytracer_torch.parallel import PerRank, shard_compile, spawn
+    from tpu_raytracer_torch.utils import prng
+
+    host, cam = _pair_host()
+    rows = host.compile("cpu")
+    chunks = PerRank(tuple(shard_compile(host, world, device="cpu")))
+    poses = _sharded_poses(cam, 2)
+    key = prng.PRNGKey(3)
+    cfg = RenderConfig(128, 96, backend="cuda")
+    shadow = RenderConfig(128, 96, backend="cuda", lighting="lambert_shadow")
+    cases = {
+        "rows_primary": ("rows", "render_image_sharded", shadow, rows, poses, ()),
+        "rows_whitted": ("rows", "render_image_whitted_sharded", cfg, rows, poses, ()),
+        "rows_path": ("rows", "render_image_path_traced_sharded", cfg, rows, poses,
+                      (key, 2, 2)),
+        "shards_primary": ("shards", "render_image_scene_sharded", shadow, chunks, poses, ()),
+        "shards_whitted": ("shards", "render_image_whitted_scene_sharded", cfg, chunks, poses,
+                           (1,)),
+        "shards_path": ("shards", "render_image_path_scene_sharded", cfg, chunks, poses,
+                        (key, 2, 2)),
+    }
+    ranks = spawn(compiled_sharded_rank, world, args=(cases,), device="cuda:0",
+                  backend=backend)
+    for r, res in enumerate(ranks):
+        for name, got in res.items():
+            if name.startswith("shards") and backend == "gloo":
+                assert isinstance(got, str) and "NCCL" in got, (r, name, got)
+                continue
+            assert got["same"] == [True, True], (r, name)
+            assert got["graph"] and got["entries"] == 1 and got["replays"] == 2, (r, name)
+            assert all(el == got["replay"] for el in got["eager_launches"]), (r, name, got)
+            assert got["replay"], (r, name)
+
+
 def test_big_scene_route_launches_k4_alone(cuda, monkeypatch):
     """A scene that needs paging (the rule's rows lowered below the
     small colonnade's 13,320) compiles with page tables only, and the

@@ -22,7 +22,9 @@ Lines, in order (at 512x512, the root script's size):
      culling (the brute cast also finds hits up to EDGE_EPS outside a
      triangle and outside its leaf box, which a walk culls;
      ``traversal.unexplained_differences``);
-  4. per arity, the paged frame's rate (``render_image_paged``);
+  4. per arity, the paged frame's rate (``render_image_paged``, which
+     goes through ``compiled_render_image``: on the card the warm frame
+     captures a CUDA graph and the timed frames replay it);
   5. ``instanced_page_major``: two posed instances of the colonnade through
      K6, its rate on the full frame, and the items of K6's plan
      (``paged_major.page_major_plan_cuda``): ``pages_streamed_per_frame``,
@@ -83,7 +85,7 @@ from .kernels import paged_major
 from .kernels.paged import cast_rays_paged_cuda
 from .kernels.traversal import unexplained_differences
 from .render import Hit, RenderConfig, generate_rays
-from .render.pipeline import render_image_paged
+from .render.pipeline import clear_compiled, render_image_paged
 from .render.renderer import cast_rays_brute
 
 # t of a sampled ray against the brute cast's (the root script's tolerance)
@@ -174,6 +176,7 @@ def paged(run: Bench, columns: int, size: int) -> None:
         dt = run.timed(lambda: render_image_paged(args[0], tables, *args[1:]))
         line(run, metric=f"paged {kernel} {mtris}M-tri colonnade @{cam.width}x{cam.height}",
              fps=1 / dt, mrays_per_s=cam.width * cam.height / dt / 1e6)
+        clear_compiled()  # the frame's entry holds the tables
         del tables
     del scene
     instanced_page_major(run, columns, size)

@@ -176,6 +176,11 @@ def _worker(rank: int, world_size: int, workdir: str, devices: list, backend: st
             group = Group(rank=rank, world_size=world_size, device=dev, backend=backend)
             result = to_host(fn(group, *args))
         finally:
+            from ..render.pipeline import clear_compiled
+
+            # compiled entries hold their group's process group: drop them
+            # while it lives, not at interpreter exit
+            clear_compiled()
             dist.destroy_process_group()
         with open(out, "wb") as f:
             pickle.dump(("ok", result), f)

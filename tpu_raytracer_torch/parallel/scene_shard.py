@@ -31,6 +31,17 @@ it, the way to render a scene that outgrows one card:
     through their ``_sharded_hooks`` seam, with the keys replicated, so
     every rank computes the same radiance and the image needs no gather.
 
+The three frame entries have ``compiled_`` counterparts with their
+signatures, as the JAX package jits its ``shard_map`` entries: the whole
+frame, the combine's ``all_reduce``s included, is one CUDA graph per
+rank, static config and group (``render/compiled.py``,
+``collectives=True``), replayed with the camera, the key and the chunk's
+per-instance rows bound. Only NCCL collectives can be captured: for a
+gloo group on CUDA they raise a ``ValueError`` before any entry is made
+(on the CPU they run their body with no capture). Every rank must call
+them alike; a rank that replays alone hangs until the group's timeout.
+``cast_rays_scene_sharded`` stays eager, as the JAX package's does.
+
 An exact-t tie across chunks goes to the smaller global id. Each chunk's
 tree culls boxes in its own order, so against the single-device render
 of the flattened scene a ray's t differs only where a hit lies up to
@@ -51,7 +62,7 @@ from ..render.pipeline import RenderConfig, path_options, whitted_rays
 from ..render.renderer import Hit, HitAttributes, get_cast_fn, hit_attributes, occlusion_cast_fn
 from ..render.shade import shade_primary
 from .group import Group
-from .sharding import check_sharded_config
+from .sharding import CompiledSharded, check_sharded_config
 
 # The candidate id of a ray a rank's chunk misses: above every global id.
 _MISS_TRI = 2 ** 30
@@ -284,3 +295,18 @@ def render_image_path_scene_sharded(config: RenderConfig, group: Group, shard: S
                                   **path_options(config))
     return to_u8(tonemap(radiance, config.tonemap, config.exposure))
 
+
+def _check_frame(path: bool):
+    def check(config: RenderConfig, group: Group, shard: SceneShard) -> None:
+        check_sharded_config(config, path=path)
+        _check(group, shard, config.backend)
+
+    return check
+
+
+compiled_render_image_scene_sharded = CompiledSharded(
+    render_image_scene_sharded, _check_frame(False), collectives=True)
+compiled_render_image_whitted_scene_sharded = CompiledSharded(
+    render_image_whitted_scene_sharded, _check_frame(False), collectives=True)
+compiled_render_image_path_scene_sharded = CompiledSharded(
+    render_image_path_scene_sharded, _check_frame(True), collectives=True)

@@ -14,6 +14,16 @@ tracer draws rank i's samples from ``fold_in(key, i)`` on the band's own
 shape, and the trilinear filter's screen derivatives stop at a band's
 edge. A band whose height is not a multiple of 16 casts the
 ``paged_major`` backend (K6) in flat ray order instead of 16x16 tiles.
+
+Each entry has a ``compiled_`` counterpart with its signature, as the
+JAX package jits its band bodies: the band's frame is one CUDA graph per
+rank, static config and group (``render/compiled.py``), replayed with the
+camera, the key and the scene's per-instance rows and TLAS bound, and
+``gather_rows`` runs after the replay on either backend (the JAX package
+too assembles the bands when the image is fetched, not inside its jit).
+So the graph holds no collective, and the bands of ranks that share a
+card under gloo are captured too. ``check_sharded_config`` refuses a
+config at the call, before any key is made.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from ..render.camera import generate_rays
+from ..render.compiled import CompiledFrame
 from ..render.integrators import render_path_traced, to_u8, tonemap
 from ..render.pipeline import RenderConfig, path_options, shade_rays, whitted_rays
 from ..utils import prng
@@ -71,13 +82,37 @@ def gather_rows(group: Group, band: torch.Tensor) -> torch.Tensor:
     return out.to(band.device) if via_host else out
 
 
+def _band_image(config: RenderConfig, group: Group, scene, K_inv, D, pose,
+                inv_pose) -> torch.Tensor:
+    """This rank's band of the primary frame: uint8 [H/n, W, 3]."""
+    origin, d = band_rays(config, group, scene, K_inv, D, pose, inv_pose)
+    return shade_rays(config, scene, origin, d)
+
+
+def _band_whitted(config: RenderConfig, group: Group, scene, K_inv, D, pose, inv_pose,
+                  bounces: int = 2) -> torch.Tensor:
+    """This rank's band of the Whitted frame."""
+    origin, d = band_rays(config, group, scene, K_inv, D, pose, inv_pose)
+    return whitted_rays(config, scene, origin, d, bounces)
+
+
+def _band_path(config: RenderConfig, group: Group, scene, K_inv, D, pose, inv_pose,
+               key: torch.Tensor, bounces: int = 2, samples: int = 2) -> torch.Tensor:
+    """This rank's band of the path frame, sampled with ``fold_in(key,
+    rank)``."""
+    origin, d = band_rays(config, group, scene, K_inv, D, pose, inv_pose)
+    key = prng.fold_in(key.to(scene.device), group.rank)
+    radiance = render_path_traced(scene, origin, d, key, max_bounces=bounces, samples=samples,
+                                  sort_secondary=False, **path_options(config))
+    return to_u8(tonemap(radiance, config.tonemap, config.exposure))
+
+
 def render_image_sharded(config: RenderConfig, group: Group, scene, K_inv, D, pose,
                          inv_pose) -> torch.Tensor:
     """One primary frame with the rows split over ``group``: uint8 [H, W,
     3] on every rank. ``scene`` is the whole scene on this rank's device."""
     check_sharded_config(config)
-    origin, d = band_rays(config, group, scene, K_inv, D, pose, inv_pose)
-    return gather_rows(group, shade_rays(config, scene, origin, d))
+    return gather_rows(group, _band_image(config, group, scene, K_inv, D, pose, inv_pose))
 
 
 def render_image_whitted_sharded(config: RenderConfig, group: Group, scene, K_inv, D, pose,
@@ -86,8 +121,8 @@ def render_image_whitted_sharded(config: RenderConfig, group: Group, scene, K_in
     and shadow rays start from the band's own pixels, so the bounce loop
     needs no collective."""
     check_sharded_config(config)
-    origin, d = band_rays(config, group, scene, K_inv, D, pose, inv_pose)
-    return gather_rows(group, whitted_rays(config, scene, origin, d, bounces))
+    return gather_rows(group, _band_whitted(config, group, scene, K_inv, D, pose, inv_pose,
+                                            bounces))
 
 
 def render_image_path_traced_sharded(config: RenderConfig, group: Group, scene, K_inv, D,
@@ -97,8 +132,34 @@ def render_image_path_traced_sharded(config: RenderConfig, group: Group, scene, 
     band with ``prng.fold_in(key, i)``, so the bands draw different
     streams, and casts its bounce rays unsorted."""
     check_sharded_config(config, path=True)
-    origin, d = band_rays(config, group, scene, K_inv, D, pose, inv_pose)
-    key = prng.fold_in(key.to(scene.device), group.rank)
-    radiance = render_path_traced(scene, origin, d, key, max_bounces=bounces, samples=samples,
-                                  sort_secondary=False, **path_options(config))
-    return gather_rows(group, to_u8(tonemap(radiance, config.tonemap, config.exposure)))
+    return gather_rows(group, _band_path(config, group, scene, K_inv, D, pose, inv_pose, key,
+                                         bounces, samples))
+
+
+class CompiledSharded(CompiledFrame):
+    """A sharded entry point compiled per rank (``render/compiled.py``),
+    called as ``(config, group, scene, ...)``: ``check(config, group,
+    scene)`` refuses the call before any key is made, ``fn`` is what the
+    rank's graph holds, and with ``gather`` its output is this rank's band,
+    which ``gather_rows`` assembles after the replay."""
+
+    def __init__(self, fn, check, gather: bool = False, collectives: bool = False,
+                 name: str | None = None):
+        super().__init__(fn, collectives=collectives, name=name)
+        self.check, self.gather = check, gather
+
+    def __call__(self, config, group, scene, *args, **kwargs):
+        self.check(config, group, scene)
+        out = super().__call__(config, group, scene, *args, **kwargs)
+        return gather_rows(group, out) if self.gather else out
+
+
+compiled_render_image_sharded = CompiledSharded(
+    _band_image, lambda c, g, s: check_sharded_config(c), gather=True,
+    name="compiled_render_image_sharded")
+compiled_render_image_whitted_sharded = CompiledSharded(
+    _band_whitted, lambda c, g, s: check_sharded_config(c), gather=True,
+    name="compiled_render_image_whitted_sharded")
+compiled_render_image_path_traced_sharded = CompiledSharded(
+    _band_path, lambda c, g, s: check_sharded_config(c, path=True), gather=True,
+    name="compiled_render_image_path_traced_sharded")

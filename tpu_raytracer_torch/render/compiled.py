@@ -34,6 +34,38 @@ entry point ``fn(config, scene, K_inv, D, pose, inv_pose, ...)``:
   * On the CPU (the caller asked for it) the same binding runs with no
     capture: the inputs are copied into the buffers and the body runs on
     them, so the CPU tests see a stale frame where an input is not bound.
+  * No compiled frame may be called from inside another's body (a
+    capture cannot nest): such a call raises.
+
+The sharded entries (``parallel/sharding.py``, ``parallel/scene_shard.py``)
+are compiled per rank. A ``parallel.group.Group`` argument is static: its
+rank, world size, device, backend and process group are part of the key,
+so each group gets entries of its own, and they hold its process group:
+clear them (``render.pipeline.clear_compiled``) before the group is
+destroyed, as the ranks of ``parallel.spawn`` do. A ``SceneShard`` counts as a
+scene: its chunk's tables are bound as a scene's, its chunk's
+per-instance rows are runtime inputs (one instance, no TLAS), and its
+``shard``, ``n_shards`` and ``stride`` are static. A frame made with
+``collectives=True`` (the scene shards) runs ``all_reduce``s in its
+body, and on CUDA they are captured into its graph:
+
+  * only NCCL collectives can be: a gloo group moves CUDA tensors through
+    host memory, so such a frame raises a ``ValueError`` for a gloo group
+    on CUDA before any entry is made (on the CPU it runs as above);
+  * the eager warm-up runs on the stream the capture then uses and makes
+    the group's first collectives there, so the NCCL communicator exists
+    before the capture, and ``torch.cuda.graph`` synchronizes the device
+    before it begins, so no collective is outstanding;
+  * the capture keeps ``torch.cuda.graph``'s default ``global`` error
+    mode: the warm-up's collectives are complete before the capture
+    begins, and NCCL collectives capture under it (``chip_smoke.py``'s
+    ``[graph_shard]`` holds the captured scene-shard frames to their
+    eager ones), so ``thread_local`` is not needed;
+  * every rank must capture, and later replay, the same collectives in
+    the same order: the key is the same on every rank (same config, same
+    shapes), so each rank's first call captures and each later call
+    replays. A rank that replays alone, or makes a new entry while the
+    others replay, hangs in its collectives until the group's timeout.
 
 The kernel wrappers count their launches in module counters
 (``launch_counts``), which move while the body runs eagerly or is
@@ -44,6 +76,7 @@ replay.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import threading
@@ -74,10 +107,30 @@ def launch_counts() -> dict:
             for name, mod, attr in COUNTERS}
 
 
-def _is_scene(x) -> bool:
+def _scene_of(x):
+    """The ``SceneTensors`` of a scene argument (a ``SceneShard``'s chunk),
+    else None."""
+    from ..parallel.scene_shard import SceneShard
     from ..scene.scene import SceneTensors
 
-    return isinstance(x, SceneTensors)
+    if isinstance(x, SceneShard):
+        return x.scene
+    return x if isinstance(x, SceneTensors) else None
+
+
+def _is_scene(x) -> bool:
+    return _scene_of(x) is not None
+
+
+def _is_group(x) -> bool:
+    from ..parallel.group import Group
+
+    return isinstance(x, Group)
+
+
+def _group_of(args, kwargs):
+    """The ``parallel.group.Group`` among a call's arguments, else None."""
+    return next((x for x in list(args) + list(kwargs.values()) if _is_group(x)), None)
 
 
 def _tensor_spec(x: torch.Tensor) -> tuple:
@@ -93,7 +146,10 @@ def _scene_runtime(scene) -> list:
     return rows
 
 
-def _scene_key(scene) -> tuple:
+def _scene_key(x) -> tuple:
+    scene = _scene_of(x)
+    if scene is not x:  # a SceneShard: its place is static
+        return ("shard", x.shard, x.n_shards, x.stride) + _scene_key(scene)
     bound = tuple((f.name, id(getattr(scene, f.name))) for f in dataclasses.fields(scene)
                   if f.name not in INSTANCE_FIELDS + SCENE_FLAGS + ("tlas",))
     return ("scene", bound, tuple(getattr(scene, f) for f in SCENE_FLAGS),
@@ -106,6 +162,13 @@ def _spec(x):
         return ("tensor",) + _tensor_spec(x)
     if _is_scene(x):
         return _scene_key(x)
+    if _is_group(x):
+        import torch.distributed as dist
+
+        # the process group itself (the default one where pg is None) is in
+        # the key: its communicator is what the captured collectives use
+        return ("group", x.rank, x.world_size, x.device, x.backend,
+                x.pg if x.pg is not None else dist.group.WORLD)
     try:
         hash(x)
     except TypeError:
@@ -119,7 +182,7 @@ def _runtime(x) -> list:
     if isinstance(x, torch.Tensor):
         return [x]
     if _is_scene(x):
-        return _scene_runtime(x)
+        return _scene_runtime(_scene_of(x))
     return []
 
 
@@ -127,8 +190,25 @@ def _device(args, kwargs) -> torch.device:
     """The frame's device: its scene's."""
     for x in list(args) + list(kwargs.values()):
         if _is_scene(x):
-            return x.device
+            return _scene_of(x).device
     raise TypeError("a compiled frame takes a scene argument")
+
+
+def _module_attr(module: str, name: str):
+    return getattr(importlib.import_module(module), name)
+
+
+# set while a compiled body runs or is captured on this thread
+_in_body = threading.local()
+
+
+@contextlib.contextmanager
+def _body():
+    _in_body.active = True
+    try:
+        yield
+    finally:
+        _in_body.active = False
 
 
 class FrameEntry:
@@ -158,8 +238,11 @@ class FrameEntry:
         bound tables are the scene's own, held by this entry)."""
         if isinstance(x, torch.Tensor):
             return self._buffer(x)
-        if not _is_scene(x):
+        scene = _scene_of(x)
+        if scene is None:
             return x
+        if scene is not x:  # a SceneShard around its chunk
+            return dataclasses.replace(x, scene=self._static(scene))
         rows = {f: self._buffer(getattr(x, f)) for f in INSTANCE_FIELDS}
         if x.tlas is not None:
             rows["tlas"] = dataclasses.replace(
@@ -174,8 +257,9 @@ class FrameEntry:
         sources = []
         for x in list(args) + list(kwargs.values()):
             sources += _runtime(x)
-            if _is_scene(x) and x.tlas is not None and self.device.type == "cuda":
-                check_stack(x)
+            scene = _scene_of(x)
+            if scene is not None and scene.tlas is not None and self.device.type == "cuda":
+                check_stack(scene)
         for buf, src in zip(self.buffers, sources, strict=True):
             buf.copy_(src)
 
@@ -184,7 +268,8 @@ class FrameEntry:
         the graph's replay (captured on the first call) and a clone of
         its outputs."""
         if self.device.type != "cuda":
-            return self.fn(*self.args, **self.kwargs)
+            with _body():
+                return self.fn(*self.args, **self.kwargs)
         with torch.cuda.device(self.device):
             if self.graph is None:
                 self._capture()
@@ -202,15 +287,17 @@ class FrameEntry:
         t0 = time.perf_counter()
         try:
             # the eager warm-up builds and loads the kernel library, so no
-            # module loads inside the capture
+            # module loads inside the capture, and makes a group's first
+            # collectives on the stream the capture uses
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), _body():
                 self.fn(*self.args, **self.kwargs)
             torch.cuda.current_stream(self.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             before = launch_counts()
-            with torch.cuda.graph(graph):
+            # torch.cuda.graph synchronizes the device before it captures
+            with torch.cuda.graph(graph, stream=side), _body():
                 out = self.fn(*self.args, **self.kwargs)
             after = launch_counts()
             torch.cuda.synchronize(self.device)
@@ -225,26 +312,49 @@ class CompiledFrame:
     """``fn`` compiled per static config: calls take ``fn``'s arguments
     and return its result (see the module docstring). ``entries`` maps
     each key to its ``FrameEntry``; ``last`` is the entry of the last
-    call."""
+    call. ``collectives``: ``fn`` runs collectives over its ``Group``
+    argument, which its graph captures (NCCL only). ``name``: the entry
+    point's name (default ``compiled_`` and ``fn``'s): an instance that is
+    the attribute ``name`` of ``fn``'s module pickles by reference, so a
+    rank started by ``parallel.spawn`` calls its own process's entry
+    point."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, collectives: bool = False, name: str | None = None):
         self.fn = fn
-        self.name = fn.__name__
+        self.name = name or "compiled_" + fn.__name__
+        self.collectives = collectives
         self.entries: dict[tuple, FrameEntry] = {}
         self.last: FrameEntry | None = None
         # one call at a time binds and replays an entry's buffers
         self._lock = threading.Lock()
 
     def __call__(self, *args, **kwargs):
+        if getattr(_in_body, "active", False):
+            raise RuntimeError(f"{self.name} was called inside a compiled frame's body; "
+                               "call its eager function there")
         kwargs = dict(sorted(kwargs.items()))  # one binding order per key
+        if self.collectives:
+            group = _group_of(args, kwargs)
+            if _device(args, kwargs).type == "cuda" and group.backend != "nccl":
+                raise ValueError(
+                    f"{self.name} captures its collectives into a CUDA graph, which needs "
+                    f"an NCCL group; a {group.backend} group moves CUDA tensors through host "
+                    "memory (call the eager entry point there)")
         key = (tuple(_spec(x) for x in args), tuple((k, _spec(v)) for k, v in kwargs.items()))
         with self._lock:
             entry = self.entries.get(key)
-            if entry is None:
-                entry = self.entries[key] = FrameEntry(self.name, self.fn, key, args, kwargs)
+            new = entry is None
+            if new:
+                entry = FrameEntry(self.name, self.fn, key, args, kwargs)
             entry.bind(args, kwargs)
+            out = entry.run()
+            if new:  # kept once its first frame ran
+                self.entries[key] = entry
             self.last = entry
-            return entry.run()
+            return out
+
+    def __reduce__(self):
+        return _module_attr, (self.fn.__module__, self.name)
 
     def clear(self) -> None:
         """Drop every entry (and with them their graphs, buffers and the

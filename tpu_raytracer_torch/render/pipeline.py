@@ -16,6 +16,9 @@ The jit boundary is the JAX package's: the six entry points it jits
 are static, the camera, the key and the scene's per-instance rows and
 TLAS are runtime inputs, and on CUDA each static config is captured once
 as a CUDA graph and replayed. The eager functions keep their names.
+``render`` and ``render_image_paged`` go through ``compiled_render_image``,
+as the JAX package's call its jitted ``render_image``; no compiled body
+calls them.
 """
 
 from __future__ import annotations
@@ -144,18 +147,19 @@ def render_image_paged(config: RenderConfig, scene, K_inv: torch.Tensor, D: torc
                        pose: torch.Tensor, inv_pose: torch.Tensor) -> torch.Tensor:
     """Primary render through the paged kernel (K4 on 4-wide page
     tables, K5 on binary ones): ``render_image`` with the ``paged``
-    backend. The scene carries its page tables: attach them once with
-    ``scene.with_paging()``."""
-    return render_image(dataclasses.replace(config, backend="paged"), scene, K_inv, D, pose,
-                        inv_pose)
+    backend (through ``compiled_render_image``). The scene carries its page
+    tables: attach them once with ``scene.with_paging()``."""
+    return compiled_render_image(dataclasses.replace(config, backend="paged"), scene, K_inv, D,
+                                 pose, inv_pose)
 
 
 def render(camera: Camera, scene, config: RenderConfig | None = None, **kw) -> torch.Tensor:
-    """Render with a host Camera (inverse pose computed per call)."""
+    """Render with a host Camera (inverse pose computed per call) through
+    ``compiled_render_image``."""
     if config is None:
         config = RenderConfig(width=camera.width, height=camera.height, **kw)
     p = camera.ray_params(scene.device)
-    return render_image(config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    return compiled_render_image(config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
 
 
 def render_image_whitted(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,
@@ -269,6 +273,9 @@ COMPILED = (compiled_render_image, compiled_render_aovs, compiled_render_image_w
 
 
 def clear_compiled() -> None:
-    """Drop every compiled entry point's entries (``CompiledFrame.clear``)."""
-    for frame in COMPILED:
+    """Drop every compiled entry point's entries (``CompiledFrame.clear``),
+    the sharded ones' (``parallel.COMPILED_SHARDED``) too."""
+    from ..parallel import COMPILED_SHARDED
+
+    for frame in COMPILED + COMPILED_SHARDED:
         frame.clear()
