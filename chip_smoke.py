@@ -5,16 +5,18 @@
 
 Drives the port's paths (``tpu_raytracer_torch``) through kernels K1 (the
 4-wide BVH cast), K2 (the binary BVH cast), K3 (the two-level TLAS cast)
-and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
-(page-major) in phases, one line each:
+the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
+(page-major), and the frame stages around the cast, S1 (raygen), S2 (hit
+attributes) and S3 (primary shade), in phases, one line each:
 
   1. device: the card's name and power limit;
   2. build: K1 and K2 (``kernels/csrc/wide_traverse.cu``), K3
      (``kernels/csrc/tlas_traverse.cu``), K4/K5
      (``kernels/csrc/paged_traverse.cu``), K6
-     (``kernels/csrc/paged_major.cu``) and K6's plan
-     (``kernels/csrc/page_plan.cu``) compiled for sm_90a by one nvcc per
-     source, all started together, and linked into one library, with
+     (``kernels/csrc/paged_major.cu``), K6's plan
+     (``kernels/csrc/page_plan.cu``) and S1-S3 (``kernels/csrc/frame.cu``)
+     compiled for sm_90a by one nvcc per source, all started together,
+     and linked into one library, with
      ptxas's report of each kernel (registers, stack frame, spills, static
      shared memory) and its dynamic shared memory (the short stack of
      K1-K6);
@@ -28,9 +30,22 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      bitwise (else the max ulp distance), tri and inst equal, hit
      fraction;
   4. the primary main path, ``render_image(backend="cuda")`` on the
-     flagship: K1's launch count in that run, and its image against the
-     plain path's image;
+     flagship: K1's and S1-S3's launch counts in that run (each stage
+     once), and its image against the frame through plain versions alone
+     (S1's, K1's, S2's and S3's);
   5. config 1 (the textured cube, 64x64) against the exact CPU goldens;
+     then ``[frame_kernels]``: S1, S2 and S3 against their plain versions
+     (``generate_rays_torch``, ``hit_attributes_torch``,
+     ``shade_primary_torch``), every field bit for bit on every ray,
+     misses included: the flagship (K1's carried n and the redo), config
+     4 (K3's carried u, v and n, the redo, the reflection rays' per-ray
+     origins), the textured cube (1088x1088) and the demo with its sky map
+     under the reference fisheye calibration, each with ``exact_math`` on
+     and off, S2 in both normal modes, S3 in every mode, the bilinear and
+     trilinear filters and point lights, shadowed or not; each kernel's
+     device ms on the flagship beside its bound (bytes: the per-ray
+     inputs and outputs and each table row the rays name, once) and its
+     plain version's ms (``[frame_kernels_time]``);
   6. K3 against its plain version on config 4 (four posed instances) at
      1920x1088: primary rays, their first-bounce reflection rays, and the
      16-instance scene's primary rays;
@@ -155,7 +170,8 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      compiled entry points (``compiled_*``: one CUDA graph per rank; the
      scene shards' graphs hold the combine's NCCL collectives, counted as
      they are captured; the row bands are gathered after the replay): 0
-     pixels from the eager sharded frame at 3 poses, a replay's launches
+     pixels from the eager sharded frame at 3 poses and from the frame
+     through the plain stages at the first, a replay's launches
      those of the eager frame, the ranks alike, one entry per case,
      capture s, eager against replayed frames 21 times in turns; under
      gloo the scene shards' compiled entry points refuse the group;
@@ -205,7 +221,10 @@ and the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
      and the 1M colonnade through ``paged`` and ``paged_major``: each
      eager frame once under ``torch.cuda.set_sync_debug_mode("error")``
      (no host sync), then 3 poses, each replay bitwise the eager frame,
-     a replay's launches those of the eager frame, one entry per case;
+     a replay's launches those of the eager frame (S1 once, S2, and S3
+     once in a primary frame), one entry per case, and the frame at the
+     first pose 0 pixels from the same frame through the plain stages
+     (``plain_stages``: no S1-S3 launch);
      config 4 after ``update_instance`` and the path frame with a new key
      replayed by the same entry, a scene of the same shapes with other
      tables in an entry of its own; ``[graph_time]``: the flagship,
@@ -399,8 +418,12 @@ def main():
         RenderConfig, generate_rays, hit_attributes, pipeline, render_image,
         render_image_whitted, shade_primary,
     )
+    from tpu_raytracer_torch.render.camera import generate_rays_torch
     from tpu_raytracer_torch.render.integrators import _reflect
-    from tpu_raytracer_torch.render.shade import DEFAULT_LIGHT_DIRECTION, SHADOW_EPS
+    from tpu_raytracer_torch.render.renderer import hit_attributes_torch
+    from tpu_raytracer_torch.render.shade import (
+        DEFAULT_LIGHT_DIRECTION, SHADOW_EPS, shade_primary_torch,
+    )
     from tpu_raytracer_torch.render.sorted_cast import park_dead_rays
     from tpu_raytracer_torch.utils.device import card_line
 
@@ -434,14 +457,15 @@ def main():
                 for kernel, k in carry_kernels})
     for kernel, r in report.items():
         r["shared_dynamic"] = dyn.get(kernel, 0)
-    phase("build", kernels="K1/K2+K3+K4/K5+K6+K6 plan", seconds=f"{time.perf_counter() - t0:.2f}",
+    phase("build", kernels="K1/K2+K3+K4/K5+K6+K6 plan+S1/S2/S3", seconds=f"{time.perf_counter() - t0:.2f}",
           lib=lib_path.name, commands=repr(compiles),
           ptxas=json.dumps(report, separators=(",", ":")))
     for src in build.CUDA_SOURCES:
         check(any(ln.endswith(src) and "code=sm_90a" in ln and "--fmad=false" in ln
                   for ln in compiles), f"{src} was not built for sm_90a with --fmad=false")
     built = [k for k, _, _ in walk_kernels] + [k for k, _ in carry_kernels] + [
-        f"page_plan_{k}_kernel" for k in ("init", "tiles", "order", "lists")]
+        f"page_plan_{k}_kernel" for k in ("init", "tiles", "order", "lists")] + list(
+        FRAME_KERNEL_NAMES.values())
     check(all(kernel in report for kernel in built),
           f"ptxas reported no {[k for k in built if k not in report]}")
 
@@ -462,8 +486,10 @@ def main():
           wide_depth=scene.wide4.depth, max_leaf=scene.wide4.max_leaf,
           build_s=f"{time.perf_counter() - t0:.2f}")
     p = cam.ray_params(dev)
-    origin, dirs = generate_rays(cam.width, cam.height, p["K_inv"], p["D"],
-                                 p["pose"], p["inv_pose"])
+    # the plain rays (S1's plain version): K1 and its plain walk take them,
+    # and [main_path]'s plain frame starts from them
+    origin, dirs = generate_rays_torch(cam.width, cam.height, p["K_inv"], p["D"],
+                                       p["pose"], p["inv_pose"])
     hk = traversal.cast_rays_cuda(scene, origin, dirs)
     hp, k1_stats = traversal.cast_rays_wide_torch(scene, origin, dirs, stats=True)
     torch.cuda.synchronize()
@@ -480,19 +506,23 @@ def main():
     # 4. main path ------------------------------------------------------
     config = RenderConfig(cam.width, cam.height, backend="cuda")
     args = (p["K_inv"], p["D"], p["pose"], p["inv_pose"])
-    traversal.LAUNCHES = 0
+    _reset_launch_counts()
     img = render_image(config, scene, *args)
     torch.cuda.synchronize()
     launches = traversal.LAUNCHES
-    hit = hit_attributes(scene, origin, dirs, hp)
-    img_plain = shade_primary(scene, hit)
+    stage_launches = _stage_counts()
+    # the frame through plain versions alone: S1's, K1's, S2's and S3's
+    img_plain = shade_primary_torch(scene, hit_attributes_torch(scene, origin, dirs, hp))
     n_img = int((img != img_plain).any(-1).sum())
     img_np = img.cpu().numpy()
     sky = np.array([255, 204, 153], np.uint8)
     img_hit_frac = float((img_np != sky).any(-1).mean())
     phase("main_path", shape=tuple(img.shape), dtype=img.dtype, k1_launches=launches,
-          pixels_vs_plain=n_img, image_hit_fraction=f"{img_hit_frac:.4f}")
+          stage_launches=stage_launches, pixels_vs_plain=n_img,
+          image_hit_fraction=f"{img_hit_frac:.4f}")
     check(launches >= 1, "render_image did not launch K1")
+    check(stage_launches == {"S1": 1, "S2": 1, "S3": 1},
+          f"render_image launched the frame stages {stage_launches}, not S1-S3 once each")
     check(img.shape == (1088, 1920, 3) and img.dtype == torch.uint8, "bad image")
     check(n_img == 0, f"{n_img} pixels differ from the plain path")
 
@@ -504,6 +534,7 @@ def main():
     check(max(mism1, mism2) <= GOLDEN_MAX_MISMATCH,
           f"golden mismatch {mism1}/{mism2} pixels (nearest-texel flips at "
           "checker boundaries allow at most 4)")
+    frame_entries = frame_kernels_phase(dev, card, stage_launches)
 
     # 6. K3 against its plain version -----------------------------------
     inst4, cam4 = scene_instances(1920, 1088, device=dev)
@@ -765,6 +796,7 @@ def main():
         *k2_entries,
         *paged_kernels,
         big_entry,
+        *frame_entries,
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2193,11 +2225,20 @@ def _graph_shard_case(group, eager, fast, cfg, scene, args, extra) -> dict:
         eager_launches.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
         diffs.append(_pixels(got, want))
         sums.append(hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest())
+        if step == 0:
+            # the same frame through the plain stages: no S1-S3 launch
+            s0 = _stage_counts()
+            with plain_stages():
+                plain = eager(cfg, group, scene, *a, *extra)
+            torch.cuda.synchronize()
+            vs_plain = _pixels(got, plain)
+            plain_launches = {k: v - s0[k] for k, v in _stage_counts().items() if v != s0[k]}
     entry = fast.last
     call = (cfg, group, scene, *args, *extra)
     times = _in_turns({"eager": lambda: eager(*call), "replay": lambda: fast(*call)},
                       GRAPH_TURNS)
-    return {"entry": fast.name, "pixels_vs_eager": diffs, "sums": sums,
+    return {"entry": fast.name, "pixels_vs_eager": diffs, "pixels_vs_plain_stages": vs_plain,
+            "plain_stage_launches": plain_launches, "sums": sums,
             "launches_per_replay": entry.launches, "eager_launches": eager_launches,
             "counts_at_capture": captured, "entries_added": len(fast.entries) - n0,
             "replays": entry.replays, "capture_s": entry.capture_s,
@@ -2618,6 +2659,7 @@ def shard_phases(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
             phase("graph_shard", world=world, backend=backend, device=where, case=name,
                   entry=g["entry"], pixels_vs_eager=[x["pixels_vs_eager"] for x in res],
                   launches_per_replay=g["launches_per_replay"],
+                  pixels_vs_plain_stages=g["pixels_vs_plain_stages"],
                   eager_launches=g["eager_launches"][0], counts_at_capture=g["counts_at_capture"],
                   ranks_agree=agree, entries_added=g["entries_added"], replays=g["replays"],
                   capture_s=f"{g['capture_s']:.3f}", **more, turns=GRAPH_TURNS,
@@ -2631,6 +2673,9 @@ def shard_phases(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
             check(all(x["pixels_vs_eager"] == [0] * GRAPH_POSES for x in res),
                   f"[graph_shard] {name} at {world} ranks ({backend}): the replayed frames "
                   f"differ from the eager frames")
+            check(all(x["pixels_vs_plain_stages"] == 0 and not x["plain_stage_launches"]
+                      for x in res), f"[graph_shard] {name} at {world} ranks ({backend}): the "
+                  f"frame through S1-S3 differs from the frame through the plain stages")
             check(all(x["launches_per_replay"] and all(el == x["launches_per_replay"]
                                                        for el in x["eager_launches"])
                       for x in res), f"[graph_shard] {name}: a replay launches "
@@ -2795,7 +2840,8 @@ def big_scene_phase(dev, card, paged_ctx) -> dict:
         phase("big_scene_frame", frame=tag, backend=backend, launches=n,
               pixels_vs_paged_backend=n_px, frame_ms_best=f"{best:.4f}",
               frame_ms_median=f"{median:.4f}", card=repr(card))
-        check(set(n) == {"K4"}, f"the big scene's {tag} frame launched {n}, not K4 alone")
+        check(set(_walks(n)) == {"K4"}, f"the big scene's {tag} frame launched {n}, not K4 "
+              "alone of the walks")
         check(n_px == 0, f"the big scene's {tag} frame differs from the paged backend's")
         if tag == "flat":
             flat_launches = n.get("K4", 0)
@@ -3003,8 +3049,9 @@ def app_interactive_phase(dev, card) -> None:
           replays=entry.replays, entries=entries, pixels_vs_render_image=n_px,
           first_frame_ms=f"{frame_ms[0]:.2f}", frame_ms_best=f"{best:.2f}",
           frame_ms_median=f"{median:.2f}", run_s=f"{run_s:.2f}", shot=os.path.exists(out))
-    check(len(frame_ms) == 5 and entry.launches == {"K1": 1} and entry.replays == 5
-          and entries == 1 and launches == {"K1": 2},
+    check(len(frame_ms) == 5 and entry.launches == {"K1": 1, "S1": 1, "S2": 1, "S3": 1}
+          and entry.replays == 5 and entries == 1
+          and launches == {"K1": 2, "S1": 2, "S2": 2, "S3": 2},
           f"the loop made {len(frame_ms)} frames in {entries} entries, {entry.replays} "
           f"replays of {entry.launches} and counts {launches}, not 5 replays of K1 1 and "
           "the counts of one warm-up frame and one capture")
@@ -3331,19 +3378,27 @@ def graph_phase(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
         torch.cuda.synchronize()
         n0 = len(frame.entries)
         _reset_launch_counts()
-        diffs, eager_launches, captured = [], [], None
+        diffs, eager_launches, captured, first = [], [], None, None
         for step in range(GRAPH_POSES):
             a = _posed(args, step)
             got = frame(config, sc, *a, *extra)
             torch.cuda.synchronize()
             if captured is None:  # the warm-up frame and the capture
                 captured = {k: v for k, v in launch_counts().items() if v}
+                first = got
             before = launch_counts()
             want = eager(config, sc, *a, *extra)
             torch.cuda.synchronize()
             after = launch_counts()
             eager_launches.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
             diffs.append(_pixels(got, want))
+        # the same frame through the plain stages: no S1-S3 launch
+        s0 = _stage_counts()
+        with plain_stages():
+            plain_frame = eager(config, sc, *_posed(args, 0), *extra)
+        torch.cuda.synchronize()
+        vs_plain = _pixels(first, plain_frame)
+        plain_launches = {k: v - s0[k] for k, v in _stage_counts().items() if v != s0[k]}
         entry = frame.last
         entries = len(frame.entries) - n0
         more = {}
@@ -3371,16 +3426,27 @@ def graph_phase(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
         main = {k: v for k, v in entry.launches.items() if not k.endswith("_carry")}
         phase("graph", card=repr(card), case=case, entry=f"compiled_{name}",
               size=f"{config.width}x{config.height}", backend=config.backend,
-              sync_debug=syncs, pixels_vs_eager=diffs, launches_per_replay=entry.launches,
+              sync_debug=syncs, pixels_vs_eager=diffs, pixels_vs_plain_stages=vs_plain,
+              plain_stage_launches=plain_launches, launches_per_replay=entry.launches,
               eager_launches=eager_launches[0], counts_at_capture=captured,
               replays=entry.replays, entries_added=entries,
               capture_s=f"{entry.capture_s:.3f}", **more)
         check(syncs == "none", f"{case}: the eager frame synchronized with the host: {syncs}")
         check(diffs == [0] * GRAPH_POSES, f"{case}: the replayed frames differ from the eager "
               f"frames in {diffs} pixels")
-        check(all(el == entry.launches for el in eager_launches) and main == want_launches,
+        check(vs_plain == 0 and not plain_launches,
+              f"{case}: the frame through S1-S3 differs from the frame through the plain "
+              f"stages in {vs_plain} pixels (their launches: {plain_launches})")
+        # every frame casts its camera's rays (S1 once) and takes their
+        # attributes (S2; once in a primary frame); the primary frames shade
+        # them (S3 once)
+        primary = name == "render_image"
+        stages_ok = (main.get("S1") == 1 and main.get("S3", 0) == int(primary)
+                     and (main.get("S2") == 1 if primary else main.get("S2", 0) >= 1))
+        check(all(el == entry.launches for el in eager_launches)
+              and _walks(main) == want_launches and stages_ok,
               f"{case}: a replay launches {entry.launches}, the eager frames "
-              f"{eager_launches}, expected {want_launches}")
+              f"{eager_launches}, expected {want_launches} and the frame stages")
         check(entries == 1 and entry.replays >= GRAPH_POSES,
               f"{case}: {entries} entries for {GRAPH_POSES} poses")
         if case == "config4_whitted":
@@ -3563,6 +3629,317 @@ def _whitted_stages(traversal, wframe) -> dict:
     cast_total = sum(s.elapsed_time(e) for _, s, e in marks)
     out["rest_ms"] = f"{frame_ms - cast_total:.4f}"
     return out
+
+
+# f32 operations of the frame stages' per-ray code, counted from
+# kernels/csrc/frame.cuh (an add, multiply, divide, negation, compare, min
+# or max counts one, and so does each call of sqrtf, rsqrtf, atanf, sinf,
+# cosf or powf): euler2quat 30 (3 halves, 6 sinf/cosf, 4 lanes of 5 and a
+# negation), quat_rot 42, normalize 9;
+OPS_QUAT, OPS_ROT, OPS_NORM = 30, 42, 9
+#   S1 per pixel: K_inv 15, radius 4, atanf 1, the polynomial 12, thetad 1,
+#   the scale 4, the swap 1, two normalize, euler2quat, quat_rot;
+OPS_S1 = 15 + 4 + 1 + 12 + 1 + 4 + 1 + 2 * OPS_NORM + OPS_QUAT + OPS_ROT
+#   S2 per ray: two euler2quat, the object ray (two quat_rot, 9), uv 12, the
+#   location (6 and a quat_rot), the normal (a quat_rot, 3 and normalize),
+#   4 compares and selects; the redo adds the plane (22) and the
+#   barycentric rows (62), the carry the plane point (7) and, without u and
+#   v, the rows; vertex normals 19;
+OPS_S2 = 2 * OPS_QUAT + 2 * OPS_ROT + 9 + 12 + 6 + OPS_ROT + OPS_ROT + 3 + OPS_NORM + 4
+OPS_S2_BRANCH = {"redo": 22 + 62, "uv_n": 7, "uv": 7, "n": 7 + 62}
+OPS_S2_VNORM = 19
+#   S3 per ray: the texel 8, the clamps 4, the colour 9, and per mode the
+#   light (normalize, the cosine 5, its clamp 2; the shadow select 2;
+#   Blinn-Phong's view, half vector and lobe 34).
+OPS_S3 = 8 + 4 + 9
+OPS_S3_MODE = {"flat": 0, "lambert": OPS_NORM + 7, "lambert_shadow": OPS_NORM + 9,
+               "blinn_phong": OPS_NORM + 7 + 34}
+# the JAX functions S1-S3 replace (XLA fuses them; no Pallas kernel)
+FRAME_REPLACES = {"S1": "tpu_raytracer/render/camera.py:113",
+                  "S2": "tpu_raytracer/render/renderer.py:232",
+                  "S3": "tpu_raytracer/render/shade.py:385"}
+FRAME_KERNEL_NAMES = {"S1": "frame_raygen_kernel", "S2": "frame_attrs_kernel",
+                      "S3": "frame_shade_kernel"}
+
+
+def _stage_counts() -> dict:
+    """Launches of S1-S3 by kernel name."""
+    from tpu_raytracer_torch.render.compiled import launch_counts
+
+    return {k: v for k, v in launch_counts().items() if k.startswith("S")}
+
+
+def _walks(launches: dict) -> dict:
+    """The traversal kernels' part of a launch count (K1-K6 and K6's
+    plan), without the frame stages S1-S3."""
+    return {k: v for k, v in launches.items() if not k.startswith("S")}
+
+
+@contextlib.contextmanager
+def plain_stages():
+    """Raygen, hit attributes and the primary shade through their plain
+    versions (``generate_rays_torch``, ``hit_attributes_torch``,
+    ``shade_primary_torch``) for every caller of the routers, on the
+    rays' own device: no S1-S3 launch."""
+    import importlib
+
+    from tpu_raytracer_torch.kernels import frame
+    from tpu_raytracer_torch.render import camera, renderer, shade
+
+    plain = {"generate_rays": camera.generate_rays_torch,
+             "hit_attributes": renderer.hit_attributes_torch,
+             "shade_primary": shade.shade_primary_torch}
+    saved = []
+    for mod in frame.ROUTER_MODULES:
+        m = importlib.import_module(f"tpu_raytracer_torch.{mod}")
+        for name, fn in plain.items():
+            if hasattr(m, name):
+                saved.append((m, name, getattr(m, name)))
+                setattr(m, name, fn)
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def _diff_elems(a, b) -> int:
+    """Elements of two tensors (or tuples of tensors) that differ, floats
+    bit for bit; a shape or dtype mismatch counts every element."""
+    if isinstance(a, tuple):
+        return sum(_diff_elems(x, y) for x, y in zip(a, b, strict=True))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return max(a.numel(), b.numel())
+    if a.dtype == torch.float32:
+        a, b = _bits(a), _bits(b)
+    return int((a != b).sum())
+
+
+def _max_abs(a, b) -> float:
+    if isinstance(a, tuple):
+        return max(_max_abs(x, y) for x, y in zip(a, b, strict=True))
+    if not a.is_floating_point():
+        return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+    return float((a.double() - b.double()).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
+
+
+def _s2_bytes(scene, origin, d, hit, branch: str) -> int:
+    """Bytes S2 must move on these rays: the per-ray inputs and outputs
+    once, and each triangle row and instance record the rays name once."""
+    from tpu_raytracer_torch.kernels import frame
+
+    r = d.numel() // 3
+    per_ray = 12 + 12 + 49 + (12 if origin.dim() > 1 else 0)
+    per_ray += 8 if hit.u is not None else 0
+    per_ray += 12 if hit.n is not None else 0
+    row = {"redo": 48 + 24 + 4, "uv_n": 24 + 4, "uv": 12 + 24 + 4, "n": 36 + 24 + 4}[branch]
+    row += 40 if scene.tri_vnorm is not None else 0
+    rows = int(torch.unique(hit.tri.clamp(min=0)).numel())
+    inst = sum(t.numel() * t.element_size() for t in frame.attr_tables(scene)[9:])
+    return r * per_ray + rows * row + inst + 12
+
+
+def _s3_bytes(scene, attrs, mode: str) -> int:
+    """Bytes S3 must move on these rays: the inputs its mode reads and the
+    u8 output once, each material row the rays name and each texel the
+    nearest filter fetches once."""
+    from tpu_raytracer_torch.render.shade import _c_mod
+
+    r = attrs.hit.numel()
+    per_ray = 1 + 8 + 3 + (12 if mode != "flat" else 0) + (1 if mode == "lambert_shadow" else 0)
+    per_ray += 12 if mode == "blinn_phong" else 0
+    per_ray += 8 if scene.has_textures else 0
+    mats = torch.unique(attrs.material)
+    nbytes = r * per_ray + mats.numel() * (12 + 12)
+    if scene.has_textures:
+        m = attrs.material.reshape(-1).long()
+        start, w, h = scene.mat_tex_start[m], scene.mat_tex_w[m], scene.mat_tex_h[m]
+        uv = attrs.uv.reshape(-1, 2)
+        tx = torch.clamp(_c_mod((uv[:, 0] * w.float()).to(torch.int32), w), min=0)
+        ty = torch.clamp(_c_mod(((1.0 - uv[:, 1]) * h.float()).to(torch.int32), h), min=0)
+        idx = torch.clamp(start, min=0) + ty * w + tx
+        nbytes += int(torch.unique(idx[start >= 0]).numel()) * 4
+    return nbytes
+
+
+def _frame_bound(ops: int, nbytes: int) -> dict:
+    t_ops, t_bytes = ops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": by, "library_ms": None,
+            "mbytes": nbytes / 1e6, "gflop": ops / 1e9}
+
+
+# [frame_kernels]' S3 configs per set: (mode, texture filter, point lights,
+# directional light on)
+FRAME_POINT_LIGHTS = (((0.0, 2.0, 2.0), 4.0), ((1.5, -1.0, 2.5), 6.0))
+_MODES4 = tuple((m, "nearest", 0, True) for m in ("flat", "lambert", "lambert_shadow",
+                                                  "blinn_phong"))
+FRAME_SHADE_CONFIGS = {
+    "flagship": _MODES4,
+    "config4": _MODES4 + (("lambert", "nearest", 2, True), ("lambert_shadow", "nearest", 2, True),
+                          ("blinn_phong", "nearest", 1, True),
+                          ("lambert_shadow", "nearest", 2, False)),
+    "cube": (("flat", "nearest", 0, True), ("lambert", "nearest", 0, True),
+             ("flat", "bilinear", 0, True), ("lambert", "trilinear", 0, True)),
+    "fisheye_demo": (("flat", "nearest", 0, True), ("lambert_shadow", "nearest", 0, True),
+                     ("flat", "bilinear", 0, True), ("flat", "trilinear", 0, True),
+                     ("lambert", "trilinear", 2, True), ("lambert_shadow", "bilinear", 2, True),
+                     ("blinn_phong", "trilinear", 1, True)),
+}
+
+
+def frame_kernels_phase(dev, card, main_launches: dict) -> list:
+    """``[frame_kernels]``: S1 (raygen), S2 (hit attributes) and S3
+    (primary shade) against their plain versions, every field bit for bit
+    on every ray, misses included, on the flagship (K1 carrying n, and the
+    redo), config 4 (K3 carrying u, v and n, the redo, and the reflection
+    rays' per-ray origins), the textured cube (config 1's recipe at
+    1088x1088), the demo with its sky map under the reference fisheye
+    calibration, each with ``exact_math`` on and off and S2 in both normal
+    modes; S3 in the configs of ``FRAME_SHADE_CONFIGS``: every mode, the
+    three texture filters, the sky map, point lights with and without
+    their shadows and without the directional light. Then each kernel's
+    device ms on the flagship beside its bound and its plain version's ms.
+    Returns the kernels line's entries, with the launches of the main
+    path's frame (``main_launches``)."""
+    from tpu_raytracer_torch.app.scenes import (
+        build_demo_scene, scene_bunny, scene_cube, scene_instances,
+    )
+    from tpu_raytracer_torch.core.vecmath import normalize
+    from tpu_raytracer_torch.kernels import tlas, traversal
+    from tpu_raytracer_torch.render import Camera, reference_calibration, shade
+    from tpu_raytracer_torch.render.camera import generate_rays, generate_rays_torch
+    from tpu_raytracer_torch.render.integrators import PointLight, _reflect
+    from tpu_raytracer_torch.render.renderer import hit_attributes, hit_attributes_torch
+    from tpu_raytracer_torch.render.sorted_cast import park_dead_rays
+
+    fw, fh = SLICE_SIZE
+    bunny, bcam = scene_bunny(fw, fh, device=dev)
+    inst4, cam4 = scene_instances(fw, fh, device=dev)
+    cube, ccam = scene_cube(fh, device=dev)
+    from tpu_raytracer_torch.scene import procgen
+
+    demo = build_demo_scene()
+    demo.set_sky(procgen.sky_gradient_texture())
+    demo = demo.compile(dev)
+    K, D = reference_calibration(fw, fh)
+    dcam = Camera(fw, fh, K, D, pose=np.array([-1.0, -4.0, 2.0, 0, 0, 0], np.float32))
+    lights = tuple(PointLight(pos, power) for pos, power in FRAME_POINT_LIGHTS)
+    sets = {"flagship": (bunny, bcam, traversal.cast_rays_cuda),
+            "config4": (inst4, cam4, tlas.cast_rays_tlas_cuda),
+            "cube": (cube, ccam, traversal.cast_rays_cuda),
+            "fisheye_demo": (demo, dcam, tlas.cast_rays_tlas_cuda)}
+    max_err = {"S1": 0.0, "S2": 0.0, "S3": 0.0}
+    all_diffs = {}
+    for name, (sc, cam, cast) in sets.items():
+        p = cam.ray_params(dev)
+        args = (p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+        for exact in (True, False):
+            diffs, misses = {}, None
+            s0 = _stage_counts()
+            o, d = generate_rays(cam.width, cam.height, *args, exact=exact)
+            po, pd = generate_rays_torch(cam.width, cam.height, *args, exact=exact)
+            torch.cuda.synchronize()
+            diffs["S1"] = _diff_elems((o, d), (po, pd))
+            max_err["S1"] = max(max_err["S1"], _max_abs(d, pd))
+            # (origin, directions, hit record) of each cast S2 takes
+            hits = {"carried": (o, d, cast(sc, o, d, want_normals=True)),
+                    "redo": (o, d, cast(sc, o, d, carry=False))}
+            if name == "config4":
+                a = hit_attributes(sc, o, d, hits["carried"][2], exact)
+                rd = normalize(_reflect(d, a.normal), exact=exact)
+                ro, rd = park_dead_rays(a.location + rd * shade.SHADOW_EPS, rd, a.hit)
+                hits["reflection_carried"] = (ro, rd, cast(sc, ro, rd, want_normals=True))
+                hits["reflection_redo"] = (ro, rd, cast(sc, ro, rd, carry=False))
+            # misses among the rays S2 and S3 take (config 4's primary rays
+            # hit everywhere, its reflection rays do not)
+            misses = sum(int((h.tri < 0).sum()) for _, _, h in hits.values())
+            attrs = None
+            for tag, (ho, hd, h) in hits.items():
+                for nm in ("reference", "inverse_transpose"):
+                    got = hit_attributes(sc, ho, hd, h, exact, nm)
+                    want = hit_attributes_torch(sc, ho, hd, h, exact, nm)
+                    torch.cuda.synchronize()
+                    diffs[f"S2_{tag}_{nm}"] = _diff_elems(tuple(got), tuple(want))
+                    max_err["S2"] = max(max_err["S2"], _max_abs(tuple(got), tuple(want)))
+                    if tag == "carried" and nm == "reference":
+                        attrs = got
+            for mode, filt, n_lights, directional in FRAME_SHADE_CONFIGS[name]:
+                light = shade.DEFAULT_LIGHT_DIRECTION if directional else None
+                kw = dict(mode=mode, exact=exact, directions=d, tex_filter=filt,
+                          point_lights=lights[:n_lights])
+                got = shade.shade_primary(sc, attrs, light, **kw)
+                want = shade.shade_primary_torch(sc, attrs, light, **kw)
+                torch.cuda.synchronize()
+                tag = f"S3_{mode}_{filt}_{n_lights}pl{'' if directional else '_nodir'}"
+                diffs[tag] = _diff_elems(got, want)
+                max_err["S3"] = max(max_err["S3"], _max_abs(got, want))
+            ds = {k: _stage_counts()[k] - v for k, v in s0.items()}
+            phase("frame_kernels", set=name, size=f"{cam.width}x{cam.height}", exact=exact,
+                  instances=sc.num_instances, textured=sc.has_textures, misses=misses,
+                  carried=",".join(k for k in ("u", "n") if getattr(hits["carried"][2], k)
+                                   is not None), launches=ds,
+                  diffs=json.dumps(diffs, separators=(",", ":")))
+            check(misses > 0 or name == "cube", f"[frame_kernels] {name}: no miss to hold")
+            # S2: each hit record in both normal modes, and config 4's
+            # primary attributes that start the reflection rays
+            want_s2 = len(hits) * 2 + (name == "config4")
+            check(ds["S1"] == 1 and ds["S2"] == want_s2
+                  and ds["S3"] == len(FRAME_SHADE_CONFIGS[name]),
+                  f"[frame_kernels] {name}: the routers launched {ds}")
+            all_diffs[(name, exact)] = diffs
+            check(not any(diffs.values()), f"[frame_kernels] {name} exact={exact}: the kernels "
+                  f"differ from their plain versions: {diffs}")
+
+    # times on the flagship, its frame's inputs: S1 on the camera, S2 on
+    # K1's carried hit record, S3 flat (the flagship's) on its attributes
+    p = bcam.ray_params(dev)
+    args = (p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    o, d = generate_rays(fw, fh, *args)
+    h = traversal.cast_rays_cuda(bunny, o, d)
+    attrs = hit_attributes(bunny, o, d, h)
+    branch = "n" if h.n is not None and h.u is None else ("uv_n" if h.u is not None else "redo")
+    runs = {
+        "S1": (lambda: generate_rays(fw, fh, *args),
+               lambda: generate_rays_torch(fw, fh, *args),
+               _frame_bound(fw * fh * OPS_S1, fw * fh * 12 + 76)),
+        "S2": (lambda: hit_attributes(bunny, o, d, h),
+               lambda: hit_attributes_torch(bunny, o, d, h),
+               _frame_bound(fw * fh * (OPS_S2 + OPS_S2_BRANCH[branch]),
+                            _s2_bytes(bunny, o, d, h, branch))),
+        "S3": (lambda: shade.shade_primary(bunny, attrs),
+               lambda: shade.shade_primary_torch(bunny, attrs),
+               _frame_bound(fw * fh * (OPS_S3 + OPS_S3_MODE["flat"]),
+                            _s3_bytes(bunny, attrs, "flat"))),
+    }
+    sources = {"S1": "raygen: primary ray directions, one thread per pixel",
+               "S2": f"hit attributes (the {branch} branch, as the flagship's flat frame "
+                     "takes it), one thread per ray",
+               "S3": "primary shade (flat, the flagship's), one thread per ray"}
+    entries = []
+    for k, (fn, plain, b) in runs.items():
+        ms = device_ms(fn, FRAME_KERNEL_NAMES[k])
+        plain_ms = min(event_ms(plain, 5) for _ in range(3))
+        phase("frame_kernels_time", kernel=k, card=repr(card), ms=f"{ms:.6f}",
+              plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b['bound_ms']:.6f}",
+              bound_by=b["bound_by"], share_of_bound=f"{b['bound_ms'] / ms:.4f}",
+              mbytes=f"{b['mbytes']:.3f}", gflop=f"{b['gflop']:.4f}")
+        entries.append({
+            "name": f"{k} {FRAME_KERNEL_NAMES[k]} ({sources[k]}; no Pallas counterpart: "
+                    "replaces the XLA-fused stage; launches: the flagship frame; ms, bound "
+                    "and plain_ms: the flagship at 1920x1088)",
+            "route": "cuda",
+            "source": "tpu_raytracer_torch/kernels/csrc/frame.cu",
+            "replaces": FRAME_REPLACES[k],
+            "launches": main_launches[k],
+            "max_abs_err": max_err[k],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"],
+            "library_ms": None,
+        })
+    return entries
 
 
 def golden_renders(dev) -> dict:

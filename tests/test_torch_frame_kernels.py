@@ -1,0 +1,570 @@
+"""The frame stages' kernels S1 (raygen), S2 (hit attributes) and S3
+(primary shade) on the CPU: their per-ray code built for the host
+(``kernels/csrc/frame_host.cpp``, the ``frame.cuh`` the card runs)
+against the plain versions and the JAX package, and the routers.
+
+Inputs are small (at most 48x40 rays) and made from the scenes' seeded
+recipes and numpy poses. Tolerances:
+  * host build against the plain version with the same elementary
+    functions (``same_libm``: the C library's atanf, atan2f, asinf, log2f,
+    sinf, cosf and powf and an IEEE sqrt substituted for PyTorch's CPU ones, rsqrt as 1/sqrt
+    as ATen's CPU kernel takes it): every field bit for bit, misses
+    included. This holds the kernels' operation order, which on the card
+    meets the plain version's own functions;
+  * host build against the plain version as it is: the CPU's vectorised
+    atan, sin, cos, pow and sqrt differ from the C library's by an ulp
+    now and then, so floats within ``ATOL`` = 1e-6 (relative ``RTOL`` =
+    1e-5 for locations of any size); bools, integers and the u8 shade
+    exact (the shade's inputs are the same tensors);
+  * against the JAX package (XLA on the CPU): floats within ``ATOL`` and
+    ``RTOL``, integers exact, hit masks exact; the u8 shade of the same
+    attributes exact but for pixels a truncation step apart at most
+    ``JAX_U8_MAX`` (XLA contracts FMAs, which moves the cosine by ulps).
+"""
+
+import ctypes
+import functools
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import tpu_raytracer.app.scenes as jscenes
+import tpu_raytracer.scene as js
+from tpu_raytracer.render import generate_rays as jax_generate_rays
+from tpu_raytracer.render.renderer import Hit as JaxHit
+from tpu_raytracer.render.renderer import HitAttributes as JaxAttrs
+from tpu_raytracer.render.integrators import PointLight as JaxPointLight
+from tpu_raytracer.render.renderer import hit_attributes as jax_hit_attributes
+from tpu_raytracer.render.shade import shade_primary as jax_shade_primary
+from tpu_raytracer_torch import scene as ts
+from tpu_raytracer_torch.kernels import frame, traversal
+from tpu_raytracer_torch.render import camera, renderer, shade
+from tpu_raytracer_torch.render.camera import (
+    Camera, default_intrinsics, generate_rays, generate_rays_torch, reference_calibration,
+)
+from tpu_raytracer_torch.render.integrators import PointLight
+from tpu_raytracer_torch.render.renderer import Hit, hit_attributes, hit_attributes_torch
+from tpu_raytracer_torch.render.shade import shade_primary, shade_primary_torch
+from tpu_raytracer_torch.scene.scene import from_scene_arrays
+
+from test_torch_lights import vn_scenes
+from test_torch_scene import compiled, jax_fields
+from test_torch_texture import textured_scene
+
+torch.set_num_threads(1)
+
+ATOL = 1e-6
+RTOL = 1e-5
+JAX_U8_MAX = 4
+W, H = 48, 40
+# poses (x, y, z, yaw, pitch, roll) that see each scene and some sky
+POSES = {
+    "cube": (0.0, -3.2, 0.6, 0.15, -0.2, 0.05),
+    "instances": (0.0, -3.0, 0.3, 0.0, 0.3, 0.0),
+    "blob3": (0.1, -3.0, 0.3, 0.1, -0.1, 0.0),
+    "vn": (-0.5, -4.0, 0.0, 0.0, 0.0, 0.0),
+}
+# two point lights over config 4's floor and the demo's board
+POINT_LIGHTS = (PointLight((0.0, 2.0, 2.0), 4.0), PointLight((1.5, -1.0, 2.5), 6.0))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def gxx():
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+
+
+@functools.lru_cache(maxsize=None)
+def scene(name: str):
+    """(JAX arrays, port scene built from them, camera) of ``cube`` (config
+    1: textured, one instance), ``instances`` (config 4: four posed
+    instances, a TLAS), ``blob3`` (untextured), ``vn`` (vertex normals,
+    a nonuniformly scaled instance) or ``sky_demo`` (the app's textured
+    demo scene with a mip-mapped odd-sized texture and the sky map)."""
+    if name == "sky_demo":
+        cam = Camera.looking(W, H, fov_deg=60.0, pose=[-1.0, -4.0, 2.0, 0, 0, 0])
+        return (textured_scene(js, True).compile(),
+                textured_scene(ts, True).compile(device="cpu"), cam)
+    if name == "cube":
+        ja, _ = jscenes.scene_cube(W)
+    elif name == "instances":
+        ja, _ = jscenes.scene_instances(W, H)
+    elif name == "blob3":
+        ja, _ = compiled("blob3", "jax")
+    else:
+        ja = None
+    cam = Camera(W, H, default_intrinsics(W, H), pose=np.asarray(POSES[name], np.float32))
+    if name == "vn":
+        ja, sc = vn_scenes()  # jax_fields has no tri_vnorm
+        assert sc.tri_vnorm is not None
+        return ja, sc, cam
+    return ja, from_scene_arrays(jax_fields(ja), device="cpu"), cam
+
+
+def ray_args(cam: Camera):
+    p = cam.ray_params("cpu")
+    return p["K_inv"], p["D"], p["pose"], p["inv_pose"]
+
+
+def fisheye_camera():
+    K, D = reference_calibration(W, H)
+    return Camera(W, H, K, D, pose=np.array([0.3, -2.0, 0.5, 0.4, -0.25, 0.1], np.float32))
+
+
+def bits(x: torch.Tensor) -> np.ndarray:
+    x = x.contiguous()
+    return (x.view(torch.int32) if x.dtype == torch.float32 else x).numpy()
+
+
+def assert_bitwise(got, want):
+    assert type(got) is type(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(bits(a), bits(b))
+
+
+_LIBM = ctypes.CDLL("libm.so.6")
+for _f, _n in (("atanf", 1), ("sinf", 1), ("cosf", 1), ("powf", 2), ("atan2f", 2), ("asinf", 1),
+               ("log2f", 1)):
+    getattr(_LIBM, _f).restype = ctypes.c_float
+    getattr(_LIBM, _f).argtypes = [ctypes.c_float] * _n
+
+
+def _libm(name, x, *args):
+    fn = getattr(_LIBM, name)
+    a = x.contiguous().numpy()
+    out = np.array([fn(float(v), *args) for v in a.reshape(-1)], np.float32)
+    return torch.from_numpy(out.reshape(a.shape))
+
+
+def _libm2(name, x, y):
+    fn = getattr(_LIBM, name)
+    a, b = np.broadcast_arrays(x.contiguous().numpy(), y.contiguous().numpy())
+    out = np.array([fn(float(u), float(v)) for u, v in zip(a.reshape(-1), b.reshape(-1))],
+                   np.float32)
+    return torch.from_numpy(out.reshape(a.shape))
+
+
+@pytest.fixture
+def same_libm(monkeypatch):
+    """PyTorch's CPU atan, atan2, asin, log2, sin, cos, ``x ** p`` (p not
+    2 or 3, which ATen takes as products), sqrt and rsqrt replaced by the
+    C library's functions the host build calls."""
+    pow_ = torch.Tensor.__pow__
+
+    def power(x, p):
+        if isinstance(p, (int, float)) and p not in (2, 3):
+            return _libm("powf", x, float(p))
+        return pow_(x, p)
+
+    monkeypatch.setattr(torch, "atan", lambda x: _libm("atanf", x))
+    monkeypatch.setattr(torch, "atan2", lambda x, y: _libm2("atan2f", x, y))
+    monkeypatch.setattr(torch, "asin", lambda x: _libm("asinf", x))
+    monkeypatch.setattr(torch, "log2", lambda x: _libm("log2f", x))
+    monkeypatch.setattr(torch, "sin", lambda x: _libm("sinf", x))
+    monkeypatch.setattr(torch, "cos", lambda x: _libm("cosf", x))
+    monkeypatch.setattr(torch, "sqrt", lambda x: torch.from_numpy(np.sqrt(x.numpy())))
+    monkeypatch.setattr(torch, "rsqrt",
+                        lambda x: torch.from_numpy(np.float32(1.0) / np.sqrt(x.numpy())))
+    monkeypatch.setattr(torch.Tensor, "__pow__", power)
+
+
+# ---------------------------------------------------------------------------
+# S1 raygen
+# ---------------------------------------------------------------------------
+
+CAMERAS = {"pinhole": lambda: scene("cube")[2], "fisheye": fisheye_camera,
+           "instances": lambda: scene("instances")[2]}
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("cam", list(CAMERAS))
+def test_raygen_host_build_matches_plain_bitwise(same_libm, cam, exact):
+    c = CAMERAS[cam]()
+    got = frame.generate_rays_host(W, H, *ray_args(c), exact=exact)
+    want = generate_rays_torch(W, H, *ray_args(c), exact=exact)
+    assert got[1].shape == (H, W, 3)
+    assert_bitwise(got, want)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("cam", list(CAMERAS))
+def test_raygen_host_build_matches_plain_and_jax(cam, exact):
+    c = CAMERAS[cam]()
+    args = ray_args(c)
+    o, d = frame.generate_rays_host(W, H, *args, exact=exact)
+    po, pd = generate_rays_torch(W, H, *args, exact=exact)
+    jo, jd = jax_generate_rays(W, H, *(a.numpy() for a in args), exact=exact)
+    np.testing.assert_array_equal(o.numpy(), po.numpy())
+    np.testing.assert_allclose(d.numpy(), pd.numpy(), rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(o.numpy(), np.asarray(jo))
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=0, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# S2 hit attributes
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def rays_and_hits(name: str, carry: str):
+    """(scene, origin, directions, Hit) of ``name``'s primary rays cast by
+    the plain K1/K3 with the carried fields ``carry`` (``none`` for the
+    redo, ``uv_n``, ``n``, ``uv``)."""
+    _, sc, cam = scene(name)
+    o, d = generate_rays_torch(W, H, *ray_args(cam))
+    h = traversal.cast_rays(sc, o, d, want_normals="n" in carry, carry=carry != "none")
+    if carry == "uv" or (carry == "n" and h.u is not None):
+        h = h._replace(u=None, v=None) if carry == "n" else h._replace(n=None)
+    hit = h.tri >= 0
+    assert hit.any() and (~hit).any(), "the rays must hit and miss"
+    return sc, o, d, h
+
+
+ATTR_CASES = [("cube", "none"), ("cube", "uv_n"), ("cube", "uv"), ("cube", "n"),
+              ("instances", "none"), ("instances", "uv_n"), ("instances", "n"),
+              ("blob3", "none"), ("blob3", "n"), ("vn", "none"), ("vn", "n")]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("normal_mode", ["reference", "inverse_transpose"])
+@pytest.mark.parametrize("name,carry", ATTR_CASES)
+def test_attributes_host_build_matches_plain_bitwise(same_libm, name, carry, normal_mode,
+                                                     exact):
+    sc, o, d, h = rays_and_hits(name, carry)
+    if carry != "none":
+        assert (h.u is not None) == ("uv" in carry) and (h.n is not None) == ("n" in carry)
+    got = frame.hit_attributes_host(sc, o, d, h, exact, normal_mode)
+    want = hit_attributes_torch(sc, o, d, h, exact, normal_mode)
+    assert got.t is h.t
+    assert_bitwise(got, want)
+
+
+def test_attributes_host_build_takes_per_ray_origins(same_libm):
+    """Secondary rays: an origin per ray, the redo and the carried branch."""
+    sc, o, d, h = rays_and_hits("instances", "uv_n")
+    at = hit_attributes_torch(sc, o, d, h)
+    o2 = at.location + at.normal * 1e-3
+    d2 = -d
+    for carry in (False, True):
+        h2 = traversal.cast_rays(sc, o2, d2, want_normals=True, carry=carry)
+        assert_bitwise(frame.hit_attributes_host(sc, o2, d2, h2),
+                       hit_attributes_torch(sc, o2, d2, h2))
+
+
+@pytest.mark.parametrize("normal_mode", ["reference", "inverse_transpose"])
+@pytest.mark.parametrize("name,carry", [("cube", "uv_n"), ("instances", "none"),
+                                        ("instances", "uv_n"), ("vn", "none"),
+                                        ("blob3", "n")])
+def test_attributes_host_build_matches_plain_and_jax(name, carry, normal_mode):
+    ja = scene(name)[0]
+    sc, o, d, h = rays_and_hits(name, carry)
+    got = frame.hit_attributes_host(sc, o, d, h, normal_mode=normal_mode)
+    plain = hit_attributes_torch(sc, o, d, h, normal_mode=normal_mode)
+    jhit = JaxHit(*(None if x is None else x.numpy() for x in h))
+    want = jax_hit_attributes(ja, o.numpy(), d.numpy(), jhit, normal_mode=normal_mode)
+    hit = got.hit.numpy()
+    for ref in (plain, want):
+        np.testing.assert_array_equal(hit, np.asarray(ref.hit))
+        np.testing.assert_array_equal(got.material.numpy(), np.asarray(ref.material))
+        np.testing.assert_array_equal(got.inst.numpy(), np.asarray(ref.inst))
+        for key in ("location", "normal", "uv"):
+            np.testing.assert_allclose(getattr(got, key).numpy()[hit],
+                                       np.asarray(getattr(ref, key))[hit], rtol=RTOL,
+                                       atol=ATOL, err_msg=key)
+    # misses: the plain version's values (JAX's carry no meaning there)
+    for key in ("location", "normal", "uv"):
+        np.testing.assert_allclose(getattr(got, key).numpy(), getattr(plain, key).numpy(),
+                                   rtol=RTOL, atol=ATOL, err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# S3 primary shade
+# ---------------------------------------------------------------------------
+
+SHADE_CASES = [("cube", "flat"), ("cube", "lambert"), ("blob3", "lambert_shadow"),
+               ("cube", "blinn_phong"), ("instances", "flat"), ("instances", "lambert"),
+               ("instances", "lambert_shadow"), ("instances", "blinn_phong"),
+               ("blob3", "lambert"), ("vn", "blinn_phong")]
+
+
+# (scene, mode, texture filter, point lights) beyond SHADE_CASES: the sky
+# map, the bilinear and trilinear filters and point lights
+SHADE_CONFIG_CASES = [("sky_demo", "flat", "nearest", 0), ("sky_demo", "flat", "bilinear", 0),
+                      ("sky_demo", "flat", "trilinear", 0), ("sky_demo", "lambert", "trilinear", 1),
+                      ("sky_demo", "lambert_shadow", "bilinear", 2),
+                      ("sky_demo", "blinn_phong", "trilinear", 1),
+                      ("cube", "lambert", "bilinear", 0), ("cube", "flat", "trilinear", 0),
+                      ("instances", "lambert", "nearest", 2),
+                      ("instances", "lambert_shadow", "nearest", 1),
+                      ("instances", "lambert_shadow", "nearest", 2),
+                      ("instances", "blinn_phong", "nearest", 2)]
+
+
+def _carry(name: str) -> str:
+    return "uv_n" if name in ("cube", "instances", "sky_demo") else "n"
+
+
+def shade_inputs(name: str, mode: str, exact: bool = True, point_lights: tuple = (),
+                 light=shade.DEFAULT_LIGHT_DIRECTION):
+    """(scene, attributes, directions, lit, occ_t, plain_kw) of ``name``'s
+    primary hits for ``lambert_shadow``: ``lit`` the answer of shadow rays
+    from every hit toward the light (the router's skip those with a cosine
+    of 0.4 or less, whose answer cannot show, and these scenes shadow none
+    of the others), so that S3 takes both answers; ``occ_t`` the point
+    lights' answer as the router casts it; ``plain_kw`` the casts that hand
+    the plain version the same answers."""
+    sc, o, d, h = rays_and_hits(name, _carry(name))
+    at = hit_attributes_torch(sc, o, d, h, exact)
+    lit = occ_t = None
+    plain_kw = {}
+    if mode == "lambert_shadow":
+        if light is not None:
+            ldir = shade.light_vector(light, "cpu", exact)
+            lit = shade.shadow_lit(sc, at, ldir, torch.ones_like(at.t), (), "cuda")
+            assert lit[at.hit].any()
+            if name in ("blob3", "instances"):
+                assert (~lit[at.hit]).any()
+            t = torch.where(lit, torch.tensor(3.4028235e38), torch.tensor(-3e38))
+            plain_kw = {"cast_fn": lambda *_a, **_k: Hit(t, None, None),
+                        "nearest_cast_fn": shade.point_shadow_cast(mode)}
+        _, occ_t = shade.shadow_answers(sc, at, light, mode, exact, "cuda", point_lights)
+        assert (occ_t is None) == (not point_lights)
+    return sc, at, d, lit, occ_t, plain_kw
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("name,mode", SHADE_CASES)
+def test_shade_host_build_matches_plain_bitwise(same_libm, name, mode, exact):
+    sc, at, d, lit, _, plain_kw = shade_inputs(name, mode, exact)
+    want = shade_primary_torch(sc, at, mode=mode, exact=exact, directions=d, **plain_kw)
+    got = frame.shade_primary_host(sc, at, shade.DEFAULT_LIGHT_DIRECTION, mode, exact, d, lit)
+    assert got.dtype == torch.uint8 and got.shape == (H, W, 3)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    sky = (got.numpy() == np.array([255, 204, 153], np.uint8)).all(-1)
+    assert sky[~at.hit.numpy()].all()
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("name,mode,tex_filter,n_lights", SHADE_CONFIG_CASES)
+def test_shade_host_build_matches_plain_bitwise_on_every_config(same_libm, name, mode,
+                                                                tex_filter, n_lights, exact):
+    lights = POINT_LIGHTS[:n_lights]
+    sc, at, d, lit, occ_t, plain_kw = shade_inputs(name, mode, exact, lights)
+    want = shade_primary_torch(sc, at, mode=mode, exact=exact, directions=d,
+                               point_lights=lights, tex_filter=tex_filter, **plain_kw)
+    got = frame.shade_primary_host(sc, at, shade.DEFAULT_LIGHT_DIRECTION, mode, exact, d, lit,
+                                   lights, occ_t, tex_filter)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    if sc.has_sky:  # the sky map, not the flat colour, on the misses
+        flat = (got.numpy() == np.array(shade.SKY_COLOR, np.uint8)).all(-1)
+        assert not flat[~at.hit.numpy()].any()
+    if lights and mode == "lambert_shadow" and name == "instances":
+        # some point lights are shadowed
+        dist = torch.stack([shade.point_light_vector(at, pl)[0] for pl in lights])
+        assert (occ_t < dist)[:, at.hit].any()
+
+
+def test_shade_host_build_takes_point_lights_without_a_directional_light(same_libm):
+    sc, at, d, lit, occ_t, _ = shade_inputs("instances", "lambert_shadow", True, POINT_LIGHTS,
+                                            light=None)
+    assert lit is None and occ_t is not None
+    want = shade_primary_torch(sc, at, None, "lambert_shadow", directions=d,
+                               point_lights=POINT_LIGHTS)
+    got = frame.shade_primary_host(sc, at, None, "lambert_shadow", True, d, None, POINT_LIGHTS,
+                                   occ_t)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_shade_host_build_samples_bilinear_off_image_rows(same_libm):
+    """Trilinear on rays that are not image rows (no screen derivatives)
+    samples bilinear, as ``surface_color`` does."""
+    sc, at, d, *_ = shade_inputs("sky_demo", "flat")
+    flat = type(at)(*(x.reshape((-1,) + x.shape[2:]) for x in at))
+    d1 = d.reshape(-1, 3)
+    got = frame.shade_primary_host(sc, flat, None, "flat", True, d1, tex_filter="trilinear")
+    np.testing.assert_array_equal(got.numpy(), shade_primary_torch(
+        sc, flat, mode="flat", directions=d1, tex_filter="trilinear").numpy())
+    np.testing.assert_array_equal(got.numpy(), shade_primary_torch(
+        sc, flat, mode="flat", directions=d1, tex_filter="bilinear").numpy())
+
+
+def _u8_close(got, want, bound: int = JAX_U8_MAX):
+    off = (got != want).any(-1)
+    step = np.abs(got.astype(int) - want.astype(int)).max()
+    assert off.sum() <= bound and (step <= 1 or off.sum() == 0), (int(off.sum()), int(step))
+
+
+@pytest.mark.parametrize("name,mode", SHADE_CASES)
+def test_shade_host_build_matches_plain_and_jax(name, mode):
+    sc, at, d, lit, _, plain_kw = shade_inputs(name, mode)
+    ja = scene(name)[0]
+    light = shade.DEFAULT_LIGHT_DIRECTION
+    jcast = None
+    if mode == "lambert_shadow":
+        # the same shadow answer on both sides: JAX's cast through a cast_fn
+        # that returns the port's
+        occ_t = np.where(lit.numpy(), np.float32(3.4028235e38), np.float32(-3e38))
+        jcast = lambda *_a, **_k: JaxHit(occ_t, None, None)
+    plain = shade_primary_torch(sc, at, mode=mode, directions=d, **plain_kw)
+    got = frame.shade_primary_host(sc, at, light, mode, True, d, lit)
+    jat = JaxAttrs(*(x.numpy() for x in at))
+    want = np.asarray(jax_shade_primary(ja, jat, light, mode, directions=d.numpy(),
+                                        cast_fn=jcast))
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    _u8_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name,mode,tex_filter,n_lights",
+                         [c for c in SHADE_CONFIG_CASES if c[1] != "lambert_shadow"])
+def test_shade_host_build_on_every_config_matches_plain_and_jax(name, mode, tex_filter,
+                                                                n_lights):
+    """The configs with no shadow rays (JAX casts its own) against the
+    plain version as it is and JAX: both within ``JAX_U8_MAX`` pixels a
+    step apart (the sky map's atan2 and asin and the LOD's log2 are the
+    CPU's vectorised ones on the plain side, XLA's on JAX's)."""
+    lights = POINT_LIGHTS[:n_lights]
+    sc, at, d, *_ = shade_inputs(name, mode, True, lights)
+    light = shade.DEFAULT_LIGHT_DIRECTION
+    got = frame.shade_primary_host(sc, at, light, mode, True, d, None, lights, None, tex_filter)
+    plain = shade_primary_torch(sc, at, light, mode, directions=d, point_lights=lights,
+                                tex_filter=tex_filter)
+    jat = JaxAttrs(*(x.numpy() for x in at))
+    jlights = tuple(JaxPointLight(pl.position, pl.intensity) for pl in lights)
+    want = np.asarray(jax_shade_primary(scene(name)[0], jat, light, mode, directions=d.numpy(),
+                                        point_lights=jlights, tex_filter=tex_filter))
+    _u8_close(got.numpy(), plain.numpy())
+    _u8_close(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# Routers
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def no_kernels(monkeypatch):
+    """The kernel wrappers replaced by functions that fail the test."""
+    def refuse(*_a, **_k):
+        raise AssertionError("a CPU call reached a kernel wrapper")
+
+    for name in ("generate_rays_cuda", "hit_attributes_cuda", "shade_primary_cuda"):
+        monkeypatch.setattr(frame, name, refuse)
+
+
+def test_routers_take_the_plain_versions_on_the_cpu(no_kernels):
+    counts = (frame.LAUNCHES_RAYGEN, frame.LAUNCHES_ATTRS, frame.LAUNCHES_SHADE)
+    cam = scene("cube")[2]
+    assert_bitwise(generate_rays(W, H, *ray_args(cam)), generate_rays_torch(W, H, *ray_args(cam)))
+    sc, o, d, h = rays_and_hits("cube", "uv_n")
+    at = hit_attributes(sc, o, d, h, normal_mode="inverse_transpose")
+    assert_bitwise(at, hit_attributes_torch(sc, o, d, h, normal_mode="inverse_transpose"))
+    for mode in frame.MODES:
+        np.testing.assert_array_equal(
+            shade_primary(sc, at, mode=mode, directions=d).numpy(),
+            shade_primary_torch(sc, at, mode=mode, directions=d).numpy())
+    assert (frame.LAUNCHES_RAYGEN, frame.LAUNCHES_ATTRS, frame.LAUNCHES_SHADE) == counts
+
+
+def test_router_names_keep_their_signatures():
+    import inspect
+
+    for router, plain in ((camera.generate_rays, camera.generate_rays_torch),
+                          (renderer.hit_attributes, renderer.hit_attributes_torch),
+                          (shade.shade_primary, shade.shade_primary_torch)):
+        assert inspect.signature(router) == inspect.signature(plain)
+
+
+def test_router_modules_name_every_module_that_binds_a_router():
+    """``frame.ROUTER_MODULES`` (what swaps in the plain versions patches)
+    is every module of the package that binds a router by name."""
+    import importlib
+    import pkgutil
+
+    import tpu_raytracer_torch
+
+    routers = {"generate_rays": camera.generate_rays, "hit_attributes": renderer.hit_attributes,
+               "shade_primary": shade.shade_primary}
+    bound = set()
+    for info in pkgutil.walk_packages(tpu_raytracer_torch.__path__, "tpu_raytracer_torch."):
+        mod = importlib.import_module(info.name)
+        if any(getattr(mod, k, None) is fn for k, fn in routers.items()):
+            bound.add(info.name.removeprefix("tpu_raytracer_torch."))
+    assert bound == set(frame.ROUTER_MODULES)
+
+
+def test_shade_router_casts_the_shadow_rays_the_plain_version_casts():
+    """``shadow_answers`` (what the router hands S3) casts what
+    ``compute_illumination`` casts: the directional rays where the cosine
+    is above 0.4, all hits with point lights, and none outside
+    ``lambert_shadow``."""
+    sc, o, d, h = rays_and_hits("instances", "uv_n")
+    at = hit_attributes_torch(sc, o, d, h)
+    seen = []
+
+    def cast(scene_, ro, rd):
+        seen.append(rd)
+        return traversal.cast_rays(scene_, ro, rd, carry=False)
+
+    for mode in ("flat", "lambert", "blinn_phong"):
+        assert shade.shadow_answers(sc, at, mode=mode, point_lights=POINT_LIGHTS,
+                                    cast_fn=cast, nearest_cast_fn=cast) == (None, None)
+    assert not seen
+    light = shade.light_vector(shade.DEFAULT_LIGHT_DIRECTION, "cpu")
+    live = lambda rd: ~(rd == 1.0).all(-1)  # parked rays point along (1, 1, 1)
+    for lights, want in (((), at.hit & (shade.dot(at.normal, light) > 0.4)),
+                         (POINT_LIGHTS, at.hit)):
+        seen.clear()
+        lit, occ_t = shade.shadow_answers(sc, at, mode="lambert_shadow", point_lights=lights,
+                                          cast_fn=cast, nearest_cast_fn=cast)
+        assert len(seen) == 1 + len(lights) and lit.shape == at.hit.shape
+        assert torch.equal(live(seen[0]), want)
+        assert (occ_t is None) == (not lights)
+    with pytest.raises(ValueError, match="nearest_cast_fn"):
+        shade.shadow_answers(sc, at, mode="lambert", point_lights=POINT_LIGHTS, cast_fn=cast)
+
+
+def test_wrappers_reject_bad_dtypes_shapes_and_devices():
+    args = ray_args(scene("cube")[2])
+    with pytest.raises(ValueError, match="float32"):
+        frame.generate_rays_cuda(W, H, args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="shape"):
+        frame.generate_rays_cuda(W, H, args[0], torch.zeros(5), *args[2:])
+    with pytest.raises(ValueError, match="cuda"):
+        frame.generate_rays_cuda(W, H, *args)
+    with pytest.raises(ValueError, match="positive"):
+        frame.generate_rays_host(0, H, *args)
+    sc, o, d, h = rays_and_hits("cube", "uv_n")
+    with pytest.raises(ValueError, match="int32"):
+        frame.hit_attributes_cuda(sc, o, d, h._replace(tri=h.tri.long()))
+    with pytest.raises(ValueError, match="shape"):
+        frame.hit_attributes_cuda(sc, o, d, h._replace(t=h.t[:-1]))
+    with pytest.raises(ValueError, match="together"):
+        frame.hit_attributes_cuda(sc, o, d, h._replace(v=None))
+    with pytest.raises(ValueError, match="normal_mode"):
+        hit_attributes(sc, o, d, h, normal_mode="transpose")
+    with pytest.raises(ValueError, match="cuda"):
+        frame.hit_attributes_cuda(sc, o, d, h)
+    at = hit_attributes_torch(sc, o, d, h)
+    with pytest.raises(ValueError, match="shape"):
+        frame.shade_primary_cuda(sc, at._replace(uv=at.uv[..., :1]), None)
+    with pytest.raises(ValueError, match="int64"):
+        frame.shade_primary_cuda(sc, at._replace(material=at.material.int()), None)
+    with pytest.raises(ValueError, match="lit"):
+        frame.shade_primary_host(sc, at, shade.DEFAULT_LIGHT_DIRECTION, "lambert_shadow")
+    with pytest.raises(ValueError, match="modes"):
+        frame.shade_primary_host(sc, at, None, "phong")
+    with pytest.raises(ValueError, match="filter"):
+        frame.shade_primary_host(sc, at, None, tex_filter="cubic")
+    with pytest.raises(ValueError, match="point_occ_t"):
+        frame.shade_primary_host(sc, at, None, "lambert_shadow", point_lights=POINT_LIGHTS)
+    with pytest.raises(ValueError, match="shape"):
+        frame.shade_primary_host(sc, at, None, "lambert_shadow", point_lights=POINT_LIGHTS,
+                                 point_occ_t=torch.zeros(1, H, W))
+    with pytest.raises(ValueError, match="int64"):
+        frame.shade_primary_host(sc, at._replace(inst=at.inst.int()), None,
+                                 tex_filter="trilinear")
+    with pytest.raises(ValueError, match="cuda"):
+        frame.shade_primary_cuda(sc, at, None)

@@ -4,8 +4,11 @@ spill path), K6's card plan against its plain plan and K6's cast with
 no host sync, the config 5 path frame through K2 and K1, and the
 carrying kernels of K1 and K3 (u, v and n) with the lit frames they
 serve, K1 on a flattened scene, K1, K4 and K6 on a presplit colonnade,
-the PNG and OBJ readers on a machine without OpenCV or PIL, and the
-big-scene route (a scene past the leaf code's rows cast by K4 alone).
+the PNG and OBJ readers on a machine without OpenCV or PIL, the
+big-scene route (a scene past the leaf code's rows cast by K4 alone), and
+the frame stages' kernels S1 (raygen), S2 (hit attributes) and S3
+(primary shade) bit for bit against their plain versions, misses
+included.
 
 Marked ``gpu``: every test skips without a card. On a machine with one
 (and no JAX), run from the repository root with
@@ -39,7 +42,7 @@ from tpu_raytracer_torch.render import (
     Camera, RenderConfig, generate_rays, hit_attributes, render, render_image_whitted,
 )
 from tpu_raytracer_torch.render.integrators import _reflect
-from tpu_raytracer_torch.render.shade import DEFAULT_LIGHT_DIRECTION, SHADOW_EPS
+from tpu_raytracer_torch.render.shade import DEFAULT_LIGHT_DIRECTION, SHADOW_EPS, SKY_COLOR
 from tpu_raytracer_torch.render.sorted_cast import park_dead_rays
 from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene, procgen
 
@@ -867,7 +870,7 @@ def test_compiled_frames_replay_the_eager_frames_bitwise(cuda, case, monkeypatch
         for g, w in ((got, want),) if name != "render_aovs" else zip(got.values(), want.values()):
             assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
         assert frame.last.launches == launches and launches
-        assert case != "routed_k4" or launches == {"K4": 2}
+        assert case != "routed_k4" or launches == {"K4": 2, "S1": 1, "S2": 1, "S3": 1}
         return frame.last
 
     for step in range(3):
@@ -883,3 +886,155 @@ def test_compiled_frames_replay_the_eager_frames_bitwise(cuda, case, monkeypatch
         check(scene, prng.PRNGKey(8, device=cuda), 2, 2)
     assert frame.last.graph is graph and len(frame.entries) == 1
     pipeline.clear_compiled()
+
+
+def _frame_set(which, device):
+    """(scene, camera, cast) of a frame-stage set: the flagship mesh (K1,
+    untextured), config 4 (K3, textured floor), the textured cube (K1) or
+    the demo with its sky map under the reference fisheye calibration
+    (K3)."""
+    from tpu_raytracer_torch.app.scenes import build_demo_scene, scene_bunny
+    from tpu_raytracer_torch.render import reference_calibration
+
+    if which == "flagship":
+        scene, cam = scene_bunny(256, 144, subdivisions=4, device=device)
+        return scene, cam, traversal.cast_rays_cuda
+    if which == "config4":
+        scene, cam = scene_instances(256, 192, device=device)
+        return scene, cam, tlas.cast_rays_tlas_cuda
+    if which == "cube":
+        scene, cam = scene_cube(128, device=device)
+        return scene, cam, traversal.cast_rays_cuda
+    K, D = reference_calibration(192, 108)
+    cam = Camera(192, 108, K, D, pose=np.array([-1.0, -4.0, 2.0, 0, 0, 0], np.float32))
+    demo = build_demo_scene()
+    demo.set_sky(procgen.sky_gradient_texture())
+    return demo.compile(device), cam, tlas.cast_rays_tlas_cuda
+
+
+def _same_bits(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(_same_bits(x, y) for x, y in zip(a, b, strict=True))
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("which", ["flagship", "config4", "cube", "fisheye_demo"])
+def test_frame_kernels_match_plain_versions_bitwise(cuda, which, exact):
+    """S1, S2 (the carried and the redo hit records, both normal modes) and
+    S3 (every mode, the three texture filters, point lights with and
+    without the directional light) against their plain versions, every
+    field bit for bit, misses included; one launch each per call."""
+    from tpu_raytracer_torch.kernels import frame
+    from tpu_raytracer_torch.render.camera import generate_rays_torch
+    from tpu_raytracer_torch.render.integrators import PointLight
+    from tpu_raytracer_torch.render.renderer import hit_attributes_torch
+    from tpu_raytracer_torch.render.shade import shade_primary, shade_primary_torch
+
+    scene, cam, cast = _frame_set(which, cuda)
+    p = cam.ray_params(cuda)
+    args = (cam.width, cam.height, p["K_inv"], p["D"], p["pose"], p["inv_pose"], exact)
+    before = frame.LAUNCHES_RAYGEN
+    o, d = generate_rays(*args)
+    assert frame.LAUNCHES_RAYGEN == before + 1
+    assert _same_bits((o, d), generate_rays_torch(*args))
+    attrs = None
+    for h in (cast(scene, o, d, want_normals=True), cast(scene, o, d, carry=False)):
+        # config 4's primary rays hit everywhere; its reflection rays miss
+        # (test_frame_kernels_take_per_ray_origins)
+        assert (h.tri < 0).any() or which == "config4"
+        for normal_mode in ("reference", "inverse_transpose"):
+            before = frame.LAUNCHES_ATTRS
+            got = hit_attributes(scene, o, d, h, exact, normal_mode)
+            assert frame.LAUNCHES_ATTRS == before + 1 and got.t is h.t
+            assert _same_bits(tuple(got), tuple(hit_attributes_torch(scene, o, d, h, exact,
+                                                                     normal_mode)))
+            attrs = attrs or got
+    lights = (PointLight((0.0, 2.0, 2.0), 4.0), PointLight((1.5, -1.0, 2.5), 6.0))
+    configs = [(m, DEFAULT_LIGHT_DIRECTION, f, ()) for m in frame.MODES
+               for f in ("nearest", "trilinear")]
+    configs += [(m, DEFAULT_LIGHT_DIRECTION, "bilinear", lights) for m in frame.MODES]
+    configs += [("lambert_shadow", None, "nearest", lights)]
+    for mode, light, filt, pls in configs:
+        kw = dict(directions=d, point_lights=pls, tex_filter=filt)
+        before = frame.LAUNCHES_SHADE
+        got = shade_primary(scene, attrs, light, mode, exact, **kw)
+        assert frame.LAUNCHES_SHADE == before + 1
+        want = shade_primary_torch(scene, attrs, light, mode, exact, **kw)
+        assert torch.equal(got, want), (mode, light, filt, len(pls))
+    if which == "fisheye_demo":  # the sky map, not the flat colour, on the misses
+        assert not (got[~attrs.hit] == torch.tensor(SKY_COLOR, device=cuda)).all(-1).any()
+
+
+def test_frame_kernels_take_per_ray_origins(cuda):
+    """S2 on config 4's reflection rays (an origin per ray, parked dead
+    rays among them), carried and redone."""
+    from tpu_raytracer_torch.render.renderer import hit_attributes_torch
+
+    scene, cam, cast = _frame_set("config4", cuda)
+    o, d = _rays(cam, cuda)
+    a = hit_attributes(scene, o, d, cast(scene, o, d, want_normals=True))
+    rd = normalize(_reflect(d, a.normal))
+    ro, rd = park_dead_rays(a.location + rd * SHADOW_EPS, rd, a.hit)
+    for h in (cast(scene, ro, rd, want_normals=True), cast(scene, ro, rd, carry=False)):
+        assert (h.tri < 0).any() and (h.tri >= 0).any()
+        assert _same_bits(tuple(hit_attributes(scene, ro, rd, h)),
+                          tuple(hit_attributes_torch(scene, ro, rd, h)))
+
+
+@pytest.mark.parametrize("lighting", ["flat", "lambert_shadow"])
+def test_flagship_replay_launches_each_stage_once(cuda, lighting, monkeypatch):
+    """The compiled flagship frame: a replay launches S1, S2 and S3 once
+    each, no CUDA tensor reaches a plain stage, a replay at a new pose
+    equals the eager frame at that pose (the camera is read through
+    device pointers) and the frame through the plain stages."""
+    import importlib
+
+    from tpu_raytracer_torch.app.scenes import scene_bunny
+    from tpu_raytracer_torch.kernels import frame
+    from tpu_raytracer_torch.render import camera, pipeline, renderer, shade
+
+    pipeline.clear_compiled()
+    scene, cam = scene_bunny(256, 144, subdivisions=4, device=cuda)
+    config = RenderConfig(256, 144, lighting=lighting)
+    frames, start = [], cam.pose.copy()
+    for step in range(3):
+        cam.pose = start + np.float32(step) * np.array([0.05, -0.05, 0.02, 0.03, 0, 0],
+                                                       np.float32)
+        p = cam.ray_params(cuda)
+        args = (config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+        frames.append((pipeline.compiled_render_image(*args), args))
+    entry = pipeline.compiled_render_image.last
+    assert {k: entry.launches.get(k) for k in ("S1", "S2", "S3")} == {"S1": 1, "S2": 1, "S3": 1}
+    assert entry.replays == 3 and len(pipeline.compiled_render_image.entries) == 1
+    assert not torch.equal(frames[0][0], frames[2][0])
+    plain = {"generate_rays": camera.generate_rays_torch,
+             "hit_attributes": renderer.hit_attributes_torch,
+             "shade_primary": shade.shade_primary_torch}
+    for img, args in frames:
+        with monkeypatch.context() as m:
+            for mod, name in ((camera, "generate_rays_torch"),
+                              (renderer, "hit_attributes_torch"), (shade, "shade_primary_torch")):
+                m.setattr(mod, name, _refuse_cuda(getattr(mod, name)))
+            assert torch.equal(img, pipeline.render_image(*args))
+        with monkeypatch.context() as m:
+            for mod in map(importlib.import_module, (f"tpu_raytracer_torch.{x}"
+                                                     for x in frame.ROUTER_MODULES)):
+                for name, fn in plain.items():
+                    if hasattr(mod, name):
+                        m.setattr(mod, name, fn)
+            assert torch.equal(img, pipeline.render_image(*args))
+    pipeline.clear_compiled()
+
+
+def _refuse_cuda(fn):
+    def guarded(*args, **kwargs):
+        tensors = [a for a in list(args) + list(kwargs.values()) if isinstance(a, torch.Tensor)]
+        assert not any(t.is_cuda for t in tensors), f"a CUDA tensor reached {fn.__name__}"
+        return fn(*args, **kwargs)
+
+    return guarded

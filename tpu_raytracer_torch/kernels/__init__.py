@@ -9,6 +9,15 @@
 | K5 paged traversal, binary pages | ``kernels/paged.py:_paged_kernel`` | ``csrc/paged_traverse.cu``, ``csrc/paged_traverse.cuh``, ``csrc/walk.cuh`` | as K4, on binary tables |
 | K6 page-major paged traversal | ``kernels/paged_major.py:_page_major_kernel`` | ``csrc/paged_major.cu``, ``csrc/paged_traverse.cuh``, ``csrc/walk.cuh``; its plan ``csrc/page_plan.cu``, ``csrc/page_plan.cuh`` | ``paged_major.cast_rays_paged_major_cuda`` / ``paged_major.cast_rays_paged_major_torch``; plan ``paged_major.page_major_plan_cuda`` / ``paged_major.page_major_plan`` |
 
+Beside them, the frame's stages around the cast, which the JAX package
+leaves to XLA's fusions of its jitted frame, are kernels too:
+
+| Kernel | Replaces (JAX, XLA-fused) | Source | Wrapper / plain version |
+|---|---|---|---|
+| S1 raygen | ``render/camera.py:generate_rays`` | ``csrc/frame.cu``, ``csrc/frame.cuh`` | ``frame.generate_rays_cuda`` / ``render/camera.py:generate_rays_torch`` |
+| S2 hit attributes (redo and carried branches) | ``render/renderer.py:hit_attributes`` | ``csrc/frame.cu``, ``csrc/frame.cuh`` | ``frame.hit_attributes_cuda`` / ``render/renderer.py:hit_attributes_torch`` |
+| S3 primary shade (every lighting mode, point lights, the three texture filters, the sky map) | ``render/shade.py:shade_primary`` | ``csrc/frame.cu``, ``csrc/frame.cuh`` | ``frame.shade_primary_cuda`` / ``render/shade.py:shade_primary_torch`` |
+
 All are built into one library, one nvcc per source (``build.py``):
 every TPU kernel of the JAX package has its counterpart.
 """

@@ -2,11 +2,13 @@
 native BVH builder from ``accel/csrc`` and the native OBJ parser from
 ``scene/csrc``.
 
-The CUDA sources of K1/K2, K3, K4/K5, K6 and K6's plan are compiled for ``sm_90a`` by
-one ``nvcc`` process per source, all started together, and linked into
-one shared library with a plain C interface, loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds). The host build of the same
-traversal headers (``g++``) serves the CPU tests, and the BVH builder
+The CUDA sources of K1/K2, K3, K4/K5, K6, K6's plan and the frame stages
+S1-S3 (``frame.cu``) are compiled for ``sm_90a`` by one ``nvcc`` process
+per source, all started together, and linked into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
+a build takes seconds). The host builds of the same headers (``g++``:
+the traversal's in ``traverse_host.cpp``, S1-S3's in ``frame_host.cpp``)
+serve the CPU tests, and the BVH builder
 (``accel/csrc/bvh_builder.cpp``) and the OBJ parser
 (``scene/csrc/obj_loader.cpp``) are ``g++`` builds too. Libraries go to
 ``kernels/_build/<name>-<hash>/``, keyed by a hash of the sources and
@@ -31,7 +33,7 @@ OBJ_CSRC = pathlib.Path(__file__).resolve().parent.parent / "scene" / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
 
 CUDA_SOURCES = ("wide_traverse.cu", "tlas_traverse.cu", "paged_traverse.cu", "paged_major.cu",
-                "page_plan.cu")
+                "page_plan.cu", "frame.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -112,7 +114,8 @@ KERNEL_NAMES = ("paged_major_kernel", "binary_traverse_kernel", "wide_traverse_k
                 "wide_traverse_carry_kernel", "tlas_traverse_carry_kernel",
                 "tlas_traverse_kernel", "paged_wide_kernel", "paged_binary_kernel",
                 "page_plan_init_kernel", "page_plan_tiles_kernel", "page_plan_order_kernel",
-                "page_plan_lists_kernel")
+                "page_plan_lists_kernel", "frame_raygen_kernel", "frame_attrs_kernel",
+                "frame_shade_kernel")
 
 
 def ptxas_report(lib: pathlib.Path) -> dict[str, dict[str, int]]:
@@ -146,8 +149,8 @@ def ptxas_report(lib: pathlib.Path) -> dict[str, dict[str, int]]:
 
 
 def build_cuda() -> pathlib.Path:
-    """The kernels K1/K2, K3, K4/K5, K6 and K6's plan for sm_90a: one nvcc per source,
-    started together, linked into ``libtraverse.so``."""
+    """The kernels K1/K2, K3, K4/K5, K6, K6's plan and S1-S3 for sm_90a: one nvcc
+    per source, started together, linked into ``libtraverse.so``."""
     return _build("traverse", find_nvcc(), NVCC_FLAGS, CUDA_SOURCES,
                   link_flags=NVCC_LINK_FLAGS)
 
@@ -164,6 +167,12 @@ def build_host(short_stack: int) -> pathlib.Path:
     ``short_stack`` ring slots in the short stack of K1-K6."""
     return _build("traverse_host", _gxx(), GXX_FLAGS + (f"-DWT_HOST_SHORT_STACK={short_stack}",),
                   ("traverse_host.cpp",))
+
+
+def build_frame_host() -> pathlib.Path:
+    """g++ build of the frame stages' per-ray math (``frame.cuh``) for the
+    CPU tests."""
+    return _build("frame_host", _gxx(), GXX_FLAGS, ("frame_host.cpp",))
 
 
 def build_bvh_builder() -> pathlib.Path:
@@ -205,6 +214,22 @@ _NEAREST_RAY_ARGS = [_P, _I, _P, _I64, _P, _P, _P]
 _SHAPE_ARGS = [_I, _I64, _P]
 # short_stack, counter
 _WALK_ARGS = [_I, _P]
+_F = ctypes.c_float
+# S1: width, height, K_inv, D, inv_pose, exact, dirs
+_RAYGEN_ARGS = [_I, _I, _P, _P, _P, _I, _P]
+# S2: tri_v0, tri_v1, tri_v2, tri_normal, tri_uv0, tri_uv1, tri_uv2, tri_vnorm,
+# tri_mat, inst_pose, inst_inv_pose, inst_scale, inst_inv_scale, inst_material,
+# num_instances; origin, origin_stride, dirs, num_rays, t, tri, inst, u, v, n;
+# exact, normal_mode; hit, location, normal, uv, material, inst outputs
+_ATTRS_ARGS = [_P] * 14 + [_I] + [_P, _I, _P, _I64] + [_P] * 6 + [_I, _I] + [_P] * 6
+# S3: mat_albedo, mat_tex_start, mat_tex_w, mat_tex_h, mat_tex_mip_start,
+# num_levels, tex_atlas, atlas_size, textured; sky_tex_start, sky_tex_w,
+# sky_tex_h, has_sky; hit, normal, uv, material, inst, location, dirs, lit,
+# point_lights, point_occ_t, num_rays; mode, has_light, light xyz, exact,
+# specular, shininess, filter, height, width, num_point_lights,
+# point_shadows; out
+_SHADE_ARGS = ([_P] * 5 + [_I] + [_P, _I64, _I] + [_P] * 3 + [_I] + [_P] * 10 + [_I64]
+               + [_I, _I, _F, _F, _F, _I, _F, _F, _I, _I, _I, _I, _I] + [_P])
 _ENTRY_ARGS = {
     # ... + stream
     "cuda": {"wt_launch": [_I] + _SCENE_ARGS + _RAY_ARGS + _WALK_ARGS + [_P],
@@ -216,7 +241,10 @@ _ENTRY_ARGS = {
              "paged_launch": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS + _WALK_ARGS + [_P],
              "paged_major_launch": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS + _WALK_ARGS
              + [_P],
-             "page_plan_launch": _PLAN_IO_ARGS + [_P]},
+             "page_plan_launch": _PLAN_IO_ARGS + [_P],
+             "frame_raygen_launch": _RAYGEN_ARGS + [_P],
+             "frame_attrs_launch": _ATTRS_ARGS + [_P],
+             "frame_shade_launch": _SHADE_ARGS + [_P]},
     # ... + spills (one i64 out)
     "host": {"wt_trace_host": [_I] + _SCENE_ARGS + _RAY_ARGS + [_P],
              "tlas_trace_host": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_P],
@@ -225,23 +253,27 @@ _ENTRY_ARGS = {
              "paged_trace_host": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS + [_P],
              "paged_major_trace_host": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS + [_P],
              "page_plan_host": _PLAN_IO_ARGS},
+    "frame_host": {"frame_raygen_host": _RAYGEN_ARGS, "frame_attrs_host": _ATTRS_ARGS,
+                   "frame_shade_host": _SHADE_ARGS},
 }
 
 _loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def load(kind: str, short_stack: int | None = None) -> ctypes.CDLL:
-    """Build (at first use) and load the ``cuda`` or ``host`` library,
-    with every entry point's argument types declared. The host build
-    takes the short stack's ring slots (``short_stack``, default
-    ``wide4.SHORT_STACK``) at compile time; the card's at launch."""
+    """Build (at first use) and load the ``cuda``, ``host`` or
+    ``frame_host`` library, with every entry point's argument types
+    declared. The host build of the traversal takes the short stack's ring
+    slots (``short_stack``, default ``wide4.SHORT_STACK``) at compile
+    time; the card's at launch."""
     from .wide4 import SHORT_STACK
 
     if kind not in _ENTRY_ARGS:
         raise ValueError(f"unknown kernel library {kind!r}")
     key = (kind, short_stack or SHORT_STACK) if kind == "host" else (kind,)
     if key not in _loaded:
-        lib = ctypes.CDLL(str(build_cuda() if kind == "cuda" else build_host(key[1])))
+        path = {"cuda": build_cuda, "frame_host": build_frame_host}.get(kind)
+        lib = ctypes.CDLL(str(path() if path is not None else build_host(key[1])))
         for entry, argtypes in _ENTRY_ARGS[kind].items():
             fn = getattr(lib, entry)
             fn.argtypes = argtypes

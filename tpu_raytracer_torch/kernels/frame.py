@@ -1,0 +1,330 @@
+"""The frame's stages around the cast as hand-written kernels: S1 raygen,
+S2 hit attributes and S3 primary shade (``csrc/frame.cu``, per-ray math
+in ``csrc/frame.cuh``).
+
+The JAX package jits its frame, so XLA fuses the work on each side of the
+Pallas cast into a few passes: raygen before it
+(``tpu_raytracer/render/camera.py:113 generate_rays``), the attributes and
+the primary shading after it (``render/renderer.py:232 hit_attributes``,
+``render/shade.py:385 shade_primary``). The port's counterparts run them
+as one kernel each:
+
+  * ``generate_rays_cuda`` (S1) is the kernel of ``render/camera.py
+    generate_rays``, whose plain version is ``generate_rays_torch``;
+  * ``hit_attributes_cuda`` (S2) of ``render/renderer.py hit_attributes``
+    (plain: ``hit_attributes_torch``), every branch: the redo, the carried
+    u, v and or n, vertex normals, both normal modes, exact or ``q_rsqrt``
+    maths, one or many instances;
+  * ``shade_primary_cuda`` (S3) of ``render/shade.py shade_primary``
+    (plain: ``shade_primary_torch``) on every config: flat, Lambert,
+    Lambert with shadows and Blinn-Phong, point lights, nearest, bilinear
+    or trilinear textures or albedo, the flat sky or the scene's sky map.
+    The shadow rays' answers come in (``lit``, ``point_occ_t``): the router
+    prepares the rays and casts them between S2 and S3.
+
+Each public name routes: a CUDA tensor launches the kernel on the current
+stream (outputs allocated with ``torch.empty``) and counts the launch in
+``LAUNCHES_RAYGEN``, ``LAUNCHES_ATTRS`` or ``LAUNCHES_SHADE``, or raises;
+a CPU tensor takes the plain version; nothing falls back. Each kernel
+repeats its plain version's f32 operations in their order, built with
+``--fmad=false``, so the two agree bit for bit on the card, misses
+included. The per-frame inputs (the camera, the instance rows) are read
+through device pointers, so a CUDA graph replays them as copied in
+(``render/compiled.py``). ``*_host`` run the same per-ray code built with
+g++ (``csrc/frame_host.cpp``) on CPU tensors, for the tests.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Launches of S1, S2 and S3 since the counts were last reset (CPU calls,
+# which run the plain versions, do not count).
+LAUNCHES_RAYGEN = 0
+LAUNCHES_ATTRS = 0
+LAUNCHES_SHADE = 0
+
+# S3's lighting modes and texture filters and S2's normal modes, as
+# csrc/frame.cuh numbers them
+MODES = {"flat": 0, "lambert": 1, "lambert_shadow": 2, "blinn_phong": 3}
+FILTERS = {"nearest": 0, "bilinear": 1, "trilinear": 2}
+NORMAL_MODES = {"reference": 0, "inverse_transpose": 1}
+
+# The modules that bind the routers ``generate_rays``, ``hit_attributes`` and
+# ``shade_primary`` by name, for code that swaps in the plain versions.
+ROUTER_MODULES = ("render", "render.camera", "render.renderer", "render.shade",
+                  "render.pipeline", "render.integrators", "parallel.sharding",
+                  "parallel.scene_shard", "bench_paged")
+
+
+def _tensor(name: str, x, dtype: torch.dtype, shape: tuple | None = None) -> torch.Tensor:
+    """``x`` as a contiguous tensor, after checking its dtype and shape
+    (``shape`` None: any)."""
+    if not isinstance(x, torch.Tensor):
+        raise ValueError(f"{name} must be a tensor, got {type(x).__name__}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+    return x.contiguous()
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _same_device(device: torch.device, **tensors) -> None:
+    for name, x in tensors.items():
+        if x is not None and x.device != device:
+            raise ValueError(f"{name} on {x.device}, expected {device}")
+
+
+def _entry(device: torch.device, host: bool, name: str):
+    """The library function ``frame_<name>`` and its trailing arguments:
+    the card's launcher with the current stream for ``host`` False (CUDA
+    tensors only), else the host build (CPU tensors only)."""
+    from .build import load
+
+    if host:
+        if device.type != "cpu":
+            raise ValueError(f"the host build of {name} runs on cpu tensors, got {device}")
+        return getattr(load("frame_host"), f"frame_{name}_host"), ()
+    if device.type != "cuda":
+        raise ValueError(f"the {name} kernel runs on cuda tensors, got {device}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return getattr(load("cuda"), f"frame_{name}_launch"), (stream,)
+
+
+def _call(fn, args, tail, what: str) -> None:
+    err = fn(*args, *tail)
+    if err != 0:
+        raise RuntimeError(f"{what} failed with error {err}")
+
+
+# ---------------------------------------------------------------------------
+# S1 raygen
+# ---------------------------------------------------------------------------
+
+
+def _raygen(width: int, height: int, K_inv, D, pose, inv_pose, exact: bool, host: bool):
+    global LAUNCHES_RAYGEN
+    if int(width) <= 0 or int(height) <= 0:
+        raise ValueError(f"raygen needs a positive size, got {width}x{height}")
+    K_inv = _tensor("K_inv", K_inv, torch.float32, (3, 3))
+    D = _tensor("D", D, torch.float32, (4,))
+    pose = _tensor("pose", pose, torch.float32, (6,))
+    inv_pose = _tensor("inv_pose", inv_pose, torch.float32, (6,))
+    dev = K_inv.device
+    _same_device(dev, D=D, pose=pose, inv_pose=inv_pose)
+    fn, tail = _entry(dev, host, "raygen")
+    dirs = torch.empty((int(height), int(width), 3), dtype=torch.float32, device=dev)
+    _call(fn, (int(width), int(height), K_inv.data_ptr(), D.data_ptr(), inv_pose.data_ptr(),
+               int(exact), dirs.data_ptr()), tail, "S1 raygen")
+    if not host:
+        LAUNCHES_RAYGEN += 1
+    return pose[0:3], dirs
+
+
+def generate_rays_cuda(width: int, height: int, K_inv, D, pose, inv_pose, exact: bool = True):
+    """S1: (origin [3], directions [H, W, 3]) of the camera, on the card
+    (``render/camera.py generate_rays``)."""
+    return _raygen(width, height, K_inv, D, pose, inv_pose, exact, host=False)
+
+
+def generate_rays_host(width: int, height: int, K_inv, D, pose, inv_pose, exact: bool = True):
+    """S1's per-pixel code built for the host, on CPU tensors."""
+    return _raygen(width, height, K_inv, D, pose, inv_pose, exact, host=True)
+
+
+# ---------------------------------------------------------------------------
+# S2 hit attributes
+# ---------------------------------------------------------------------------
+
+
+def attr_tables(scene) -> list:
+    """S2's scene tables in ``frame_attrs_launch``'s order, checked:
+    triangle corners, normals and uv corners, vertex normals (or None),
+    triangle materials, the instance rows and materials."""
+    T, I = scene.num_triangles, scene.num_instances
+    f = lambda name, tail: _tensor(name, getattr(scene, name), torch.float32, (T,) + tail)
+    tables = [f("tri_v0", (3,)), f("tri_v1", (3,)), f("tri_v2", (3,)), f("tri_normal", (3,)),
+              f("tri_uv0", (2,)), f("tri_uv1", (2,)), f("tri_uv2", (2,)),
+              None if scene.tri_vnorm is None else f("tri_vnorm", (10,)),
+              _tensor("tri_mat", scene.tri_mat, torch.int32, (T,))]
+    for name, width in (("inst_pose", 6), ("inst_inv_pose", 6), ("inst_scale", 3),
+                        ("inst_inv_scale", 3)):
+        tables.append(_tensor(name, getattr(scene, name), torch.float32, (I, width)))
+    tables.append(_tensor("inst_material", scene.inst_material, torch.int32, (I,)))
+    return tables
+
+
+def _attributes(scene, origin, directions, hit, exact: bool, normal_mode: str, host: bool):
+    from ..render.renderer import HitAttributes
+
+    global LAUNCHES_ATTRS
+    if normal_mode not in NORMAL_MODES:
+        raise ValueError(f"unknown normal_mode {normal_mode!r}; one of {tuple(NORMAL_MODES)}")
+    if not isinstance(directions, torch.Tensor) or directions.shape[-1:] != (3,):
+        raise ValueError("directions must be a [..., 3] tensor")
+    directions = _tensor("directions", directions, torch.float32)
+    shape = directions.shape[:-1]
+    dev = directions.device
+    origin = _tensor("origin", origin, torch.float32)
+    if origin.shape == (3,):
+        stride = 0
+    else:
+        origin = origin.expand(directions.shape).contiguous()
+        stride = 3
+    t = _tensor("hit.t", hit.t, torch.float32, shape)
+    tri = _tensor("hit.tri", hit.tri, torch.int32, shape)
+    inst = _tensor("hit.inst", hit.inst, torch.int32, shape)
+    if (hit.u is None) != (hit.v is None):
+        raise ValueError("hit.u and hit.v are carried together")
+    u = None if hit.u is None else _tensor("hit.u", hit.u, torch.float32, shape)
+    v = None if hit.v is None else _tensor("hit.v", hit.v, torch.float32, shape)
+    n = None if hit.n is None else _tensor("hit.n", hit.n, torch.float32, directions.shape)
+    tables = attr_tables(scene)
+    _same_device(dev, origin=origin, t=t, tri=tri, inst=inst, u=u, v=v, n=n,
+                 scene=scene.tri_v0)
+    fn, tail = _entry(dev, host, "attrs")
+    r = t.numel()
+    out_hit = torch.empty(shape, dtype=torch.bool, device=dev)
+    location = torch.empty(directions.shape, dtype=torch.float32, device=dev)
+    normal = torch.empty(directions.shape, dtype=torch.float32, device=dev)
+    uv = torch.empty(shape + (2,), dtype=torch.float32, device=dev)
+    material = torch.empty(shape, dtype=torch.int64, device=dev)
+    out_inst = torch.empty(shape, dtype=torch.int64, device=dev)
+    if r > 0:
+        _call(fn, [*map(_ptr, tables), scene.num_instances, origin.data_ptr(), stride,
+                   directions.data_ptr(), r, t.data_ptr(), tri.data_ptr(), inst.data_ptr(),
+                   _ptr(u), _ptr(v), _ptr(n), int(exact), NORMAL_MODES[normal_mode],
+                   out_hit.data_ptr(), location.data_ptr(), normal.data_ptr(), uv.data_ptr(),
+                   material.data_ptr(), out_inst.data_ptr()], tail, "S2 hit attributes")
+        if not host:
+            LAUNCHES_ATTRS += 1
+    return HitAttributes(hit=out_hit, t=hit.t, location=location, normal=normal, uv=uv,
+                         material=material, inst=out_inst)
+
+
+def hit_attributes_cuda(scene, origin, directions, hit, exact: bool = True,
+                        normal_mode: str = "reference"):
+    """S2: ``HitAttributes`` of the hit record, on the card
+    (``render/renderer.py hit_attributes``); ``t`` is ``hit.t`` itself."""
+    return _attributes(scene, origin, directions, hit, exact, normal_mode, host=False)
+
+
+def hit_attributes_host(scene, origin, directions, hit, exact: bool = True,
+                        normal_mode: str = "reference"):
+    """S2's per-ray code built for the host, on CPU tensors."""
+    return _attributes(scene, origin, directions, hit, exact, normal_mode, host=True)
+
+
+# ---------------------------------------------------------------------------
+# S3 primary shade
+# ---------------------------------------------------------------------------
+
+
+def _shade(scene, attrs, light_direction, mode: str, exact: bool, directions, lit,
+           point_lights, point_occ_t, tex_filter: str, host: bool):
+    from ..core.vecmath import constant
+    from ..render.shade import BLINN_SHININESS, BLINN_SPECULAR
+
+    global LAUNCHES_SHADE
+    if mode not in MODES:
+        raise ValueError(f"S3 shades the modes {tuple(MODES)}, got {mode!r}")
+    if tex_filter not in FILTERS:
+        raise ValueError(f"unknown texture filter: {tex_filter!r}")
+    shape = attrs.hit.shape
+    hit = _tensor("attrs.hit", attrs.hit, torch.bool)
+    normal = _tensor("attrs.normal", attrs.normal, torch.float32, shape + (3,))
+    uv = _tensor("attrs.uv", attrs.uv, torch.float32, shape + (2,))
+    material = _tensor("attrs.material", attrs.material, torch.int64, shape)
+    dev = hit.device
+    has_light = mode != "flat" and light_direction is not None
+    light = (0.0, 0.0, 0.0)
+    if has_light:
+        light = tuple(float(x) for x in light_direction)
+        if len(light) != 3:
+            raise ValueError(f"light_direction must have 3 components, got {light_direction!r}")
+    if mode == "blinn_phong" and has_light and directions is None:
+        raise ValueError("blinn_phong needs the ray directions")
+    has_sky = bool(scene.has_sky) and directions is not None
+    if (mode == "blinn_phong" and has_light) or has_sky:
+        directions = _tensor("directions", directions, torch.float32, shape + (3,))
+    else:
+        directions = None
+    if mode == "lambert_shadow" and has_light:
+        if lit is None:
+            raise ValueError("lambert_shadow needs the shadow rays' answer (lit)")
+        lit = _tensor("lit", lit, torch.bool, shape)
+    else:
+        lit = None
+    # trilinear takes its LOD from the screen derivatives of image rows
+    height = width = 0
+    inst = None
+    if tex_filter == "trilinear" and len(shape) == 2:
+        height, width = (int(x) for x in shape)
+        inst = _tensor("attrs.inst", attrs.inst, torch.int64, shape)
+    lights = location = None
+    n_lights = len(point_lights) if mode != "flat" else 0
+    shadows = n_lights > 0 and mode == "lambert_shadow"
+    if n_lights:
+        lights = constant([float(x) for pl in point_lights
+                           for x in (*pl.position, pl.intensity)], torch.float32, dev)
+        location = _tensor("attrs.location", attrs.location, torch.float32, shape + (3,))
+    if shadows:
+        if point_occ_t is None:
+            raise ValueError("lambert_shadow with point lights needs their shadow rays' t "
+                             "(point_occ_t)")
+        point_occ_t = _tensor("point_occ_t", point_occ_t, torch.float32, (n_lights,) + shape)
+    else:
+        point_occ_t = None
+    tables = [_tensor("mat_albedo", scene.mat_albedo, torch.float32)]
+    tables += [_tensor(k, getattr(scene, k), torch.int32)
+               for k in ("mat_tex_start", "mat_tex_w", "mat_tex_h", "mat_tex_mip_start")]
+    mips = tables[-1]
+    if mips.dim() != 2 or mips.shape[0] != tables[0].shape[0] or mips.shape[1] < 1:
+        raise ValueError(f"mat_tex_mip_start must be [K, levels], got {tuple(mips.shape)}")
+    atlas = _tensor("tex_atlas", scene.tex_atlas, torch.int32)
+    textured = bool(scene.has_textures)
+    if textured and atlas.numel() == 0:
+        raise ValueError("a textured scene needs a texture atlas")
+    sky = [_tensor(k, getattr(scene, k), torch.int32, ()) if has_sky else None
+           for k in ("sky_tex_start", "sky_tex_w", "sky_tex_h")]
+    _same_device(dev, normal=normal, uv=uv, material=material, inst=inst, location=location,
+                 directions=directions, lit=lit, point_occ_t=point_occ_t, scene=tables[0],
+                 sky=sky[0])
+    fn, tail = _entry(dev, host, "shade")
+    out = torch.empty(shape + (3,), dtype=torch.uint8, device=dev)
+    r = hit.numel()
+    if r > 0:
+        _call(fn, [*map(_ptr, tables), mips.shape[1], atlas.data_ptr(), atlas.numel(),
+                   int(textured), *map(_ptr, sky), int(has_sky), hit.data_ptr(),
+                   normal.data_ptr(), uv.data_ptr(), material.data_ptr(), _ptr(inst),
+                   _ptr(location), _ptr(directions), _ptr(lit), _ptr(lights),
+                   _ptr(point_occ_t), r, MODES[mode], int(has_light), *light, int(exact),
+                   BLINN_SPECULAR, BLINN_SHININESS, FILTERS[tex_filter], height, width,
+                   n_lights, int(shadows), out.data_ptr()], tail, "S3 primary shade")
+        if not host:
+            LAUNCHES_SHADE += 1
+    return out
+
+
+def shade_primary_cuda(scene, attrs, light_direction, mode: str = "flat", exact: bool = True,
+                       directions=None, lit=None, point_lights: tuple = (), point_occ_t=None,
+                       tex_filter: str = "nearest") -> torch.Tensor:
+    """S3: uint8 [..., 3] of the primary hits, on the card
+    (``render/shade.py shade_primary``). The shadow rays' answers come in:
+    ``lit`` (bool, Lambert with shadows and a directional light) where the
+    ray toward the light escaped, ``point_occ_t`` ([L, ...] f32, Lambert
+    with shadows and point lights) the t of each light's shadow ray."""
+    return _shade(scene, attrs, light_direction, mode, exact, directions, lit, point_lights,
+                  point_occ_t, tex_filter, host=False)
+
+
+def shade_primary_host(scene, attrs, light_direction, mode: str = "flat", exact: bool = True,
+                       directions=None, lit=None, point_lights: tuple = (), point_occ_t=None,
+                       tex_filter: str = "nearest") -> torch.Tensor:
+    """S3's per-ray code built for the host, on CPU tensors."""
+    return _shade(scene, attrs, light_direction, mode, exact, directions, lit, point_lights,
+                  point_occ_t, tex_filter, host=True)

@@ -4,7 +4,8 @@ Counterpart of ``tpu_raytracer/render/camera.py``: pixel (x, y, 1) ->
 K_inv -> Kannala-Brandt radial scale (theta * (1 + D1 t + ... + D4 t^4))
 -> normalize -> axis swap to y-forward / z-up (x, z, -y) -> rotation by
 the inverse camera pose -> normalize. The origin is one ``[3]`` tensor
-shared by every ray.
+shared by every ray. ``generate_rays`` routes: kernel S1 on the card,
+``generate_rays_torch`` (its plain version) on the CPU.
 """
 
 from __future__ import annotations
@@ -93,7 +94,20 @@ class Camera:
 def generate_rays(width: int, height: int, K_inv: torch.Tensor, D: torch.Tensor,
                   pose: torch.Tensor, inv_pose: torch.Tensor, exact: bool = True):
     """Primary rays for the full image on ``K_inv``'s device: (origin [3],
-    directions [H, W, 3])."""
+    directions [H, W, 3]). CUDA tensors launch kernel S1
+    (``kernels/frame.py generate_rays_cuda``), CPU tensors take the plain
+    version ``generate_rays_torch``."""
+    if torch.as_tensor(K_inv).device.type == "cpu":
+        return generate_rays_torch(width, height, K_inv, D, pose, inv_pose, exact)
+    from ..kernels.frame import generate_rays_cuda
+
+    return generate_rays_cuda(width, height, K_inv, D, pose, inv_pose, exact)
+
+
+def generate_rays_torch(width: int, height: int, K_inv: torch.Tensor, D: torch.Tensor,
+                        pose: torch.Tensor, inv_pose: torch.Tensor, exact: bool = True):
+    """The plain version of ``generate_rays`` (and of kernel S1), on
+    ``K_inv``'s device."""
     dev = K_inv.device
     x = torch.arange(width, dtype=torch.float32, device=dev).expand(height, width)
     y = torch.arange(height, dtype=torch.float32, device=dev)[:, None].expand(height, width)

@@ -98,6 +98,8 @@ COUNTERS = (
     ("K3", "tlas", "LAUNCHES"), ("K3_carry", "tlas", "LAUNCHES_CARRY"),
     ("K4", "paged", "LAUNCHES_K4"), ("K5", "paged", "LAUNCHES_K5"),
     ("K6", "paged_major", "LAUNCHES"), ("K6_plan", "paged_major", "LAUNCHES_PLAN"),
+    ("S1", "frame", "LAUNCHES_RAYGEN"), ("S2", "frame", "LAUNCHES_ATTRS"),
+    ("S3", "frame", "LAUNCHES_SHADE"),
 )
 
 

@@ -3,7 +3,8 @@
 Counterpart of ``tpu_raytracer/render/renderer.py``. Every cast returns
 the compact ``Hit`` (t, tri, inst, and u, v, n where K1 or K3 carried
 them); ``hit_attributes`` rebuilds the shading inputs (world location,
-normal, uv, material) from it.
+normal, uv, material) from it, with kernel S2 on the card and its plain
+version ``hit_attributes_torch`` on the CPU.
 
 Backends: ``brute`` (the oracle, every triangle against every ray),
 ``bvh`` (kernel K2, the binary BVH walk, through ``cast_rays_bvh`` and
@@ -118,7 +119,21 @@ NORMAL_MODES = ("reference", "inverse_transpose")
 
 def hit_attributes(scene, origin, directions, hit: Hit, exact: bool = True,
                    normal_mode: str = "reference") -> HitAttributes:
-    """Shading inputs from the hit record, mapped to world space.
+    """Shading inputs from the hit record, mapped to world space
+    (``hit_attributes_torch`` says how). CUDA tensors launch kernel S2
+    (``kernels/frame.py hit_attributes_cuda``), CPU tensors take the plain
+    version ``hit_attributes_torch``."""
+    if torch.as_tensor(directions).device.type == "cpu":
+        return hit_attributes_torch(scene, origin, directions, hit, exact, normal_mode)
+    from ..kernels.frame import hit_attributes_cuda
+
+    return hit_attributes_cuda(scene, origin, directions, hit, exact, normal_mode)
+
+
+def hit_attributes_torch(scene, origin, directions, hit: Hit, exact: bool = True,
+                         normal_mode: str = "reference") -> HitAttributes:
+    """Shading inputs from the hit record, mapped to world space: the
+    plain version of ``hit_attributes`` (and of kernel S2).
 
     Without carried fields it re-runs the plane and barycentric math for
     the selected triangle of each ray (the redo). With them (``hit.u``/

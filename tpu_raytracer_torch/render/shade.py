@@ -11,7 +11,8 @@ trilinear over the packed mip chains with the LOD from screen-space uv
 derivatives; untextured ones take their albedo; illumination ends
 clamped to [0.4, 1]; the u8 cast truncates. ``lambert_shadow`` casts one
 any-hit shadow ray per lit hit toward the light, and one distance-bounded
-nearest-hit ray per point light.
+nearest-hit ray per point light. ``shade_primary`` routes: kernel S3 on
+the card, ``shade_primary_torch`` (its plain version) on the CPU.
 """
 
 from __future__ import annotations
@@ -33,27 +34,57 @@ TEXTURE_FILTERS = ("nearest", "bilinear", "trilinear")
 TEXEL_SCALE = 0.0039215  # the reference's literal 1/255
 
 
+def point_light_vector(attrs, light) -> tuple:
+    """(distance [...], unit direction [..., 3]) from each hit point
+    toward the point light ``light``."""
+    lpos = constant(light.position, torch.float32, attrs.t.device)
+    to_light = lpos - attrs.location
+    dist = torch.sqrt(dot(to_light, to_light))
+    return dist, to_light / torch.clamp(dist, min=1e-8)[..., None]
+
+
+def point_shadow_t(scene, attrs, ldir, cast) -> torch.Tensor:
+    """t of the nearest-hit shadow ray (``cast``) from each hit point
+    along the unit ``ldir`` toward a point light; rays whose primary
+    missed are parked."""
+    from .sorted_cast import park_dead_rays
+
+    return cast(scene, *park_dead_rays(attrs.location + ldir * SHADOW_EPS, ldir, attrs.hit)).t
+
+
+def point_shadow_cast(mode: str, backend: str = "cuda", cast_fn=None, nearest_cast_fn=None):
+    """The cast of the point lights' shadow rays: None (no shadows) but
+    in ``lambert_shadow``, there ``nearest_cast_fn`` or the backend's
+    nearest cast, sorted as its secondary casts are. A ``cast_fn``
+    override needs ``nearest_cast_fn`` beside it."""
+    if cast_fn is not None and nearest_cast_fn is None:
+        raise ValueError("point lights with a cast_fn override also need nearest_cast_fn: "
+                         "their shadows are distance-bounded, which the any-hit cast "
+                         "cannot answer")
+    if mode != "lambert_shadow":
+        return None
+    if nearest_cast_fn is not None:
+        return nearest_cast_fn
+    from .sorted_cast import secondary_cast_fn
+
+    return secondary_cast_fn(get_cast_fn(backend), backend)
+
+
 def point_light_illumination(scene, attrs, point_lights, cast=None) -> torch.Tensor:
     """Summed point-light term at the hit points: inverse-square falloff
     times the cosine, and, where ``cast`` is given, a hard shadow per
     light from a nearest-hit ray that counts only occluders nearer than
     the light."""
-    from .sorted_cast import park_dead_rays
-
     illum = torch.zeros(attrs.t.shape, dtype=torch.float32, device=attrs.t.device)
     for light in point_lights:
-        lpos = constant(light.position, torch.float32, attrs.t.device)
-        to_light = lpos - attrs.location
-        dist = torch.sqrt(dot(to_light, to_light))
-        ldir = to_light / torch.clamp(dist, min=1e-8)[..., None]
+        dist, ldir = point_light_vector(attrs, light)
         cos_i = torch.clamp(dot(attrs.normal, ldir), min=0.0)
         # a tensor numerator: PyTorch takes ``scalar / x`` as the scalar
         # times 1 / x, which rounds twice
         falloff = torch.full_like(dist, light.intensity) / torch.clamp(dist * dist, min=1e-8)
         if cast is not None:
-            occ = cast(scene, *park_dead_rays(attrs.location + ldir * SHADOW_EPS, ldir,
-                                              attrs.hit))
-            cos_i = torch.where(occ.t >= dist, cos_i, torch.zeros_like(cos_i))
+            occ_t = point_shadow_t(scene, attrs, ldir, cast)
+            cos_i = torch.where(occ_t >= dist, cos_i, torch.zeros_like(cos_i))
         illum = illum + cos_i * falloff
     return illum
 
@@ -228,6 +259,27 @@ def light_vector(light_direction, device, exact: bool = True) -> torch.Tensor:
     return normalize(constant(light_direction, torch.float32, device), exact=exact)
 
 
+def shadow_lit(scene, attrs, light_dir, cos_illum, point_lights: tuple = (),
+               backend: str = "cuda", cast_fn=None):
+    """Where the shadow ray from each hit toward the light (unit
+    ``light_dir`` [3], ``cos_illum`` the cosine to it) escapes: one any-hit
+    cast (``cast_fn``, default the backend's). Shadow rays go only where
+    the primary hit and, without point lights, where the cosine is above
+    0.4: below it the final clamp maps lit (cos) and shadowed (0.4 cos) to
+    the same 0.4, so the answer cannot show. The other rays are parked,
+    so they miss and read as lit."""
+    from .renderer import occlusion_cast_fn
+    from .sorted_cast import park_dead_rays
+
+    need = attrs.hit
+    if not point_lights:
+        need = need & (cos_illum > 0.4)
+    cast = cast_fn if cast_fn is not None else occlusion_cast_fn(backend)
+    occ = cast(scene, *park_dead_rays(attrs.location + light_dir * SHADOW_EPS,
+                                      light_dir.expand(attrs.location.shape), need))
+    return occ.t >= FLT_MAX
+
+
 def compute_illumination(scene, attrs, light_direction, mode: str, exact: bool = True,
                          backend: str = "cuda", directions=None, point_lights: tuple = (),
                          cast_fn=None, nearest_cast_fn=None) -> torch.Tensor:
@@ -262,38 +314,12 @@ def compute_illumination(scene, attrs, light_direction, mode: str, exact: bool =
             spec = torch.clamp(dot(attrs.normal, half), min=0.0)
             illum = illum + BLINN_SPECULAR * spec ** BLINN_SHININESS
         elif mode == "lambert_shadow":
-            from .renderer import occlusion_cast_fn
-            from .sorted_cast import park_dead_rays
-
-            cast = cast_fn if cast_fn is not None else occlusion_cast_fn(backend)
-            # Shadow rays only where the primary hit and, without point
-            # lights, where the cosine is above 0.4: below it the final
-            # clamp maps lit (cos) and shadowed (0.4 cos) to the same
-            # 0.4, so the answer cannot show. Parked rays miss, so they
-            # read as lit.
-            need = attrs.hit
-            if not point_lights:
-                need = need & (cos_illum > 0.4)
-            occ = cast(scene, *park_dead_rays(
-                attrs.location + light_dir * SHADOW_EPS,
-                light_dir.expand(attrs.location.shape), need))
-            lit = occ.t >= FLT_MAX
+            lit = shadow_lit(scene, attrs, light_dir, cos_illum, point_lights, backend, cast_fn)
             illum = torch.where(lit, cos_illum, 0.4 * cos_illum)
         elif mode != "lambert":
             raise ValueError(f"unknown lighting mode: {mode}")
     if point_lights and mode != "flat":
-        if cast_fn is not None and nearest_cast_fn is None:
-            raise ValueError("point lights with a cast_fn override also need nearest_cast_fn: "
-                             "their shadows are distance-bounded, which the any-hit cast "
-                             "cannot answer")
-        if mode != "lambert_shadow":
-            pcast = None
-        elif nearest_cast_fn is not None:
-            pcast = nearest_cast_fn
-        else:
-            from .sorted_cast import secondary_cast_fn
-
-            pcast = secondary_cast_fn(get_cast_fn(backend), backend)
+        pcast = point_shadow_cast(mode, backend, cast_fn, nearest_cast_fn)
         illum = illum + point_light_illumination(scene, attrs, point_lights, cast=pcast)
     illum = torch.clamp(illum, max=1.0)
     return torch.clamp(illum, min=0.4)
@@ -303,9 +329,53 @@ def shade_primary(scene, attrs, light_direction=DEFAULT_LIGHT_DIRECTION, mode: s
                   exact: bool = True, backend: str = "cuda", directions=None,
                   point_lights: tuple = (), tex_filter: str = "nearest", cast_fn=None,
                   nearest_cast_fn=None) -> torch.Tensor:
+    """Primary-hit shade -> uint8 [..., 3] (``shade_primary_torch`` says
+    how). CUDA tensors launch kernel S3 (``kernels/frame.py
+    shade_primary_cuda``) on every config; for Lambert with shadows the
+    shadow rays toward the light and the point lights are cast first
+    (``shadow_answers``) and S3 reads their answers. CPU
+    tensors take the plain version ``shade_primary_torch``."""
+    from ..kernels import frame
+
+    if attrs.hit.device.type == "cpu":
+        return shade_primary_torch(scene, attrs, light_direction, mode, exact, backend,
+                                   directions, point_lights, tex_filter, cast_fn,
+                                   nearest_cast_fn)
+    lit, occ_t = shadow_answers(scene, attrs, light_direction, mode, exact, backend,
+                                point_lights, cast_fn, nearest_cast_fn)
+    return frame.shade_primary_cuda(scene, attrs, light_direction, mode, exact, directions, lit,
+                                    point_lights, occ_t, tex_filter)
+
+
+def shadow_answers(scene, attrs, light_direction=DEFAULT_LIGHT_DIRECTION, mode: str = "flat",
+                   exact: bool = True, backend: str = "cuda", point_lights: tuple = (),
+                   cast_fn=None, nearest_cast_fn=None) -> tuple:
+    """The shadow rays' answers kernel S3 reads, cast as
+    ``compute_illumination`` casts them: (``lit`` [...] bool, where the
+    ray toward the directional light escaped, or None; ``occ_t`` [L, ...]
+    f32, the t of each point light's shadow ray, or None). Only
+    ``lambert_shadow`` casts."""
+    lit = occ_t = None
+    if mode == "lambert_shadow" and light_direction is not None:
+        light_dir = light_vector(light_direction, attrs.hit.device, exact)
+        lit = shadow_lit(scene, attrs, light_dir, dot(attrs.normal, light_dir), point_lights,
+                         backend, cast_fn)
+    if point_lights and mode != "flat":
+        pcast = point_shadow_cast(mode, backend, cast_fn, nearest_cast_fn)
+        if pcast is not None:
+            occ_t = torch.stack([point_shadow_t(scene, attrs, point_light_vector(attrs, pl)[1],
+                                                pcast) for pl in point_lights])
+    return lit, occ_t
+
+
+def shade_primary_torch(scene, attrs, light_direction=DEFAULT_LIGHT_DIRECTION,
+                        mode: str = "flat", exact: bool = True, backend: str = "cuda",
+                        directions=None, point_lights: tuple = (), tex_filter: str = "nearest",
+                        cast_fn=None, nearest_cast_fn=None) -> torch.Tensor:
     """Primary-hit shade -> uint8 [..., 3] in the reference's channel
     order; misses take the sky colour, or the sky map where the scene
-    has one and ``directions`` are given."""
+    has one and ``directions`` are given. The plain version of
+    ``shade_primary`` (and of kernel S3)."""
     ddx = ddy = None
     if tex_filter == "trilinear" and attrs.uv.dim() == 3:
         ddx, ddy = uv_screen_derivatives(attrs)
