@@ -189,8 +189,9 @@ attributes) and S3 (primary shade), in phases, one line each:
      pose they reach, one graph replayed 5 times with one K1 launch a
      replay, frame ms) and 3 frames in path mode (bitwise the sum of 3
      one-sample frames);
- 35. ``[app_profiling]``: ``FrameTimer`` over 10 flagship frames beside
-     ``bench.time_frames``; ``trace()`` writes a trace naming K1's kernel;
+ 35. ``[app_profiling]``: ``trace()`` around three compiled flagship
+     frames and an eager path frame writes a trace naming K1's kernel and
+     holding the port's ``rt.frame.<n>``, ``rt.cast`` and ``rt.sample`` spans;
  36. ``[app_driver]``: the demo driver's out.png against ``overlay_fps``
      of the frame it returns (unlabelled where OpenCV does not import);
  37. ``[examples]``: each ``examples/torch/*.py --device cuda`` in a
@@ -3088,53 +3089,57 @@ def app_interactive_phase(dev, card) -> None:
 
 
 def app_profiling_phase(dev, card) -> None:
-    """``[app_profiling]``: ``FrameTimer`` (CUDA events at enter and exit)
-    over 10 flagship frames beside ``bench.time_frames``' CUDA-event time
-    of a loop of 10; ``trace()`` around three frames writes a trace file
-    that names K1's kernel (up to three traces: the profiler now and then
+    """``[app_profiling]``: ``trace()`` around three compiled flagship
+    frames and one eager path-traced frame writes a trace file that names
+    K1's kernel and holds the port's spans ``rt.frame.<n>`` (a compiled
+    call), ``rt.cast`` and ``rt.sample`` (stages of the eager body; a
+    replay runs no Python) (up to three traces: the profiler now and then
     drops a trace's device activity, and each miss is printed)."""
     from tpu_raytracer_torch.app.scenes import scene_bunny
-    from tpu_raytracer_torch.bench import time_frames
-    from tpu_raytracer_torch.render import RenderConfig, render_image
-    from tpu_raytracer_torch.utils.profiling import FrameTimer, trace
+    from tpu_raytracer_torch.render import RenderConfig, pipeline
+    from tpu_raytracer_torch.utils import prng
+    from tpu_raytracer_torch.utils.profiling import trace
 
     scene, cam = scene_bunny(*APP_SIZE, device=dev)
     p = cam.ray_params(dev)
-    cfg = RenderConfig(cam.width, cam.height)
-    frame = lambda: render_image(cfg, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    args = (RenderConfig(cam.width, cam.height), scene, p["K_inv"], p["D"], p["pose"],
+            p["inv_pose"])
+    key = prng.PRNGKey(7, device=dev)
+    frame = lambda: pipeline.compiled_render_image(*args)
     frame()
-    timer = FrameTimer(cam.width * cam.height, device=dev)
-    for _ in range(10):
-        with timer:
-            frame()
-    loop_ms = min(time_frames(frame, 10, max_reps=5)) * 1e3 / 10
+    names = set()
     for attempt in range(3):  # a trace now and then comes back without its kernels
         with trace(tempfile.mkdtemp(), device=dev) as d:
             for _ in range(3):
                 frame()
+            pipeline.render_image_path_traced(*args, key, 1, 1)
             torch.cuda.synchronize(dev)
         files = [os.path.join(d, f) for f in os.listdir(d) if f.endswith(".pt.trace.json")]
         text = ""
         if len(files) == 1:
             with open(files[0]) as f:
                 text = f.read()
+        events = []
+        with contextlib.suppress(ValueError):
+            events = json.loads(text).get("traceEvents", [])
+        names = {e.get("name", "") for e in events if e.get("cat") == "user_annotation"}
         if "wide_traverse_kernel" in text:
             break
-        kernels = set()
-        with contextlib.suppress(ValueError):
-            kernels = {e.get("name", "")[:60] for e in json.loads(text).get("traceEvents", [])
-                       if e.get("cat") == "kernel"}
+        kernels = {e.get("name", "")[:60] for e in events if e.get("cat") == "kernel"}
         phase("profiler_retry", kernel="wide_traverse_kernel", attempt=attempt,
               trace_files=len(files), trace_bytes=len(text), kernels_seen=sorted(kernels)[:8])
-    phase("app_profiling", card=repr(card), frames=timer.frames,
-          frame_timer_ms=f"{timer.total_s * 1e3 / timer.frames:.4f}",
-          frame_timer_fps=f"{timer.fps:.2f}", frame_timer_mrays_s=f"{timer.mrays_per_s:.2f}",
-          time_frames_ms=f"{loop_ms:.4f}", summary=repr(timer.summary()),
-          trace_files=len(files), trace_bytes=len(text), traced_frames=3,
-          attempts=attempt + 1, names_k1="wide_traverse_kernel" in text)
-    check(timer.frames == 10 and timer.fps > 0, "FrameTimer counted no frames")
+    frames = sorted(n for n in names if n.startswith("rt.frame."))
+    spans = sorted(n for n in names if n.startswith("rt.") and n not in frames)
+    phase("app_profiling", card=repr(card), trace_files=len(files), trace_bytes=len(text),
+          traced_frames=3, attempts=attempt + 1, names_k1="wide_traverse_kernel" in text,
+          frame_spans=frames, spans=spans)
+    pipeline.clear_compiled()
     check(len(files) == 1 and "wide_traverse_kernel" in text,
           f"the trace in {d} does not name wide_traverse_kernel ({len(files)} files)")
+    check(len(frames) == 3 and {"rt.bind", "rt.replay", "rt.clone", "rt.cast",
+                                "rt.sample"} <= set(spans),
+          f"the trace in {d} holds the spans {frames + spans}, not three rt.frame.<n> with "
+          "rt.bind, rt.replay, rt.clone, rt.cast and rt.sample")
 
 
 def app_driver_phase(dev, card) -> None:

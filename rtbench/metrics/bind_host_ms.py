@@ -1,0 +1,11 @@
+"""Frame dispatch: the median host ms of the port's ``rt.bind`` span
+(``render/compiled.py FrameEntry.bind``: the call's inputs copied into the
+entry's buffers), over the traced frames: the span is recorded only while
+the profiler runs, so this is read under the profiler, as
+``device_idle_pct`` is."""
+
+from rtbench import program
+
+
+def read(ctx):
+    return program.host_ms(ctx, "bind")

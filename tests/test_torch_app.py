@@ -42,7 +42,7 @@ from tpu_raytracer_torch.app import driver, interactive
 from tpu_raytracer_torch.app.web import WebViewer
 from tpu_raytracer_torch.utils import overlay_fps
 from tpu_raytracer_torch.utils.image import decode_png
-from tpu_raytracer_torch.utils.profiling import FrameTimer, trace
+from tpu_raytracer_torch.utils.profiling import trace
 
 torch.set_num_threads(1)
 
@@ -314,19 +314,6 @@ def test_overlay_fps_without_opencv_is_unlabelled(monkeypatch):
     got = overlay_fps(img, 60.0)
     np.testing.assert_array_equal(got, img)
     assert not np.shares_memory(got, img)  # a copy
-
-
-def test_frame_timer():
-    t = FrameTimer(rays_per_frame=1000, device="cpu")
-    for _ in range(3):
-        with t:
-            time.sleep(0.01)
-    assert t.frames == 3
-    assert 0 < t.fps < 101 and 0 < t.last_fps < 101
-    assert t.mrays_per_s > 0
-    assert "3 frames" in t.summary()
-    t.reset()
-    assert t.frames == 0 and t.fps == 0.0
 
 
 def test_trace_writes_a_trace_on_the_cpu(tmp_path):

@@ -1,0 +1,259 @@
+"""The port's tracing (``utils/profiling.py``): host spans, set-up spans
+and the stage map of a captured frame.
+
+On the CPU: with no profiler ``span`` and ``stage`` record nothing and
+return one shared object; under ``torch.profiler`` the ``rt.*`` spans are
+in the exported trace as ``user_annotation`` events nested in their frame
+and in ``profiling.spans()``; set-up spans are recorded without a
+profiler; a ``StageMap`` records nested stages against its counter; the
+record stays bounded.
+
+Marked ``gpu`` (skipped without a card; on one, with no JAX, run from the
+repository root with
+``python -m pytest --noconftest -m gpu tests/test_torch_tracing.py -q``):
+on a small path frame and a small AO frame, the stage map covers
+``0..nodes`` with stages that nest and never partly overlap, a profiled
+replay runs exactly ``nodes`` device operations, ``capture_s`` is its
+span's duration, and each stage's device ms from a replay (by position
+in the graph) agrees within 10% with an eager frame's, where the
+profiler's launch correlation puts each kernel in its enclosing ``rt.*``
+span.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from tpu_raytracer_torch.render import Camera, RenderConfig, pipeline
+from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene, mesh, procgen
+from tpu_raytracer_torch.utils import profiling, prng
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+STAGES = ("raygen", "cast", "attrs", "sample", "bounce", "shade", "output")
+
+
+def _scene(device, subdivisions=1, cache_dir=False):
+    scene = Scene()
+    scene.add_material(Material(albedo=(0.8, 0.3, 0.2)))
+    scene.add_mesh(MeshPrimitive.from_triangles(*procgen.icosphere(subdivisions),
+                                                cache_dir=cache_dir))
+    scene.add_mesh_instance(MeshInstance(0, 0))
+    cam = Camera.looking(24, 16, fov_deg=55.0, pose=[0, -3.5, 0, 0, 0, 0])
+    return scene.compile(device), cam
+
+
+def _args(cam, device):
+    p = cam.ray_params(device)
+    return p["K_inv"], p["D"], p["pose"], p["inv_pose"]
+
+
+def _events(prof, tmp_path):
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+@pytest.fixture
+def record():
+    profiling.clear()
+    yield
+    profiling.clear()
+
+
+def test_off_without_a_profiler_records_nothing(record):
+    before = profiling.spans()
+    a, b, c = profiling.span("frame", 3), profiling.span("bind"), profiling.stage("sample")
+    assert a is b is c
+    with a, c:
+        prng.uniform(prng.PRNGKey(1), (4,))
+    assert profiling.spans() == before == []
+
+
+def test_rt_spans_in_the_trace_nested_in_their_frame(record, tmp_path):
+    scene, cam = _scene("cpu")
+    cfg = RenderConfig(cam.width, cam.height, backend="bvh")
+    key = prng.PRNGKey(5)
+    frame = lambda: pipeline.compiled_render_image_path_traced(cfg, scene, *_args(cam, "cpu"),
+                                                               key, 1, 2)
+    setup = profiling.spans()
+    frame()  # frame 0, untraced
+    assert profiling.spans() == setup
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        frame()
+        frame()
+    pipeline.clear_compiled()
+    rec = profiling.spans()
+    frames = {s.frame for s in rec}
+    assert frames == {1, 2}
+    by_frame = {f: [s for s in rec if s.frame == f] for f in frames}
+    for f, spans in by_frame.items():
+        top = [s for s in spans if s.name == "frame"]
+        assert len(top) == 1 and top[0].parent is None
+        names = {s.name for s in spans}
+        assert {"bind", "raygen", "cast", "attrs", "sample", "bounce", "output"} <= names
+        for s in spans:
+            assert top[0].t0_ns <= s.t0_ns <= s.t1_ns <= top[0].t1_ns
+            assert s.name == "frame" or s.parent is not None
+    assert {s.parent for s in rec if s.name == "bind"} == {"frame"}
+    assert "bounce" in {s.parent for s in rec if s.name == "sample"}
+
+    ann = [e for e in _events(prof, tmp_path)
+           if e.get("cat") == "user_annotation" and e["name"].startswith("rt.")]
+    tops = {e["name"]: e for e in ann if e["name"].startswith("rt.frame.")}
+    assert set(tops) == {"rt.frame.1", "rt.frame.2"}
+    inner = [e for e in ann if not e["name"].startswith("rt.frame.")]
+    assert len(inner) == sum(1 for s in rec if s.name != "frame")
+    for e in inner:
+        assert any(t["ts"] <= e["ts"] and e["ts"] + e["dur"] <= t["ts"] + t["dur"]
+                   for t in tops.values()), e["name"]
+    assert {e["name"] for e in inner} == {"rt." + s.name for s in rec if s.name != "frame"}
+
+
+def test_setup_spans_without_a_profiler(record, tmp_path, monkeypatch):
+    monkeypatch.setattr(mesh, "CACHE_MIN_TRIS", 0)
+    for _ in range(2):
+        _scene("cpu", cache_dir=str(tmp_path))
+    rec = profiling.spans()
+    bvh = [s for s in rec if s.name == "setup.bvh"]
+    assert [s.info for s in bvh] == [{"cache_hit": False}, {"cache_hit": True}]
+    compiles = [s for s in rec if s.name == "setup.compile"]
+    assert len(compiles) == 2 and all(s.t1_ns > s.t0_ns and s.parent is None for s in compiles)
+    assert {s.name for s in rec} == {"setup.bvh", "setup.compile"}
+
+
+def test_a_stage_map_records_nested_stages_against_its_counter(record):
+    ops = []
+    stages = profiling.StageMap(lambda: len(ops))
+    assert profiling.stage("cast") is profiling.span("cast")  # no capture, no profiler
+    with stages:
+        ops.append(0)
+        with profiling.stage("bounce"):
+            ops.append(1)
+            with profiling.stage("sample"):
+                ops += [2, 3]
+            with profiling.stage("cast"):
+                pass
+            ops.append(4)
+        with profiling.stage("output"):
+            ops.append(5)
+    assert stages.stages == [("bounce", 1, 5), ("sample", 2, 4), ("cast", 4, 4), ("output", 5, 6)]
+    assert profiling.spans() == []  # no profiler: the map alone
+    assert profiling.stage("cast") is profiling.span("cast")  # the map closed
+
+
+def test_the_record_stays_bounded(record):
+    for i in range(profiling.MAX_SPANS + 7):
+        with profiling.setup("bvh") as span:
+            span.info = {"i": i}
+    rec = profiling.spans()
+    assert len(rec) == profiling.MAX_SPANS
+    assert rec[0].info == {"i": 7} and rec[-1].info == {"i": profiling.MAX_SPANS + 6}
+
+
+# -- on the card ------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _card_scene(device):
+    scene = Scene()
+    scene.add_material(Material(albedo=(0.8, 0.8, 0.8)))
+    v0, v1, v2 = procgen.colonnade(4, 4, 16)
+    scene.add_mesh(MeshPrimitive.from_triangles(v0, v1, v2, cache_dir=False))
+    scene.add_mesh_instance(MeshInstance(0, 0))
+    cam = Camera.looking(512, 384, fov_deg=65.0, pose=[1.0, -2.0, 1.6, 0, 0, 0])
+    return scene.compile(str(device)), cam
+
+
+def _card_frames(device):
+    scene, cam = _card_scene(device)
+    cfg = RenderConfig(cam.width, cam.height, backend="cuda")
+    key = prng.PRNGKey(2 ** 31 + 11, device=device)
+    args = (cfg, scene) + _args(cam, device) + (key,)
+    return {"path": (pipeline.compiled_render_image_path_traced,
+                     pipeline.render_image_path_traced, args + (2, 2)),
+            "ao": (pipeline.compiled_render_image_ao, pipeline.render_image_ao,
+                   args + (8, 1.0))}
+
+
+def _innermost(stages, nodes):
+    labels = [None] * nodes
+    for name, first, end in stages:  # entered order: a nested stage after its outer one
+        labels[first:end] = [name] * (end - first)
+    return labels
+
+
+def _replay_stage_ms(entry, device, tmp_path, reps=3):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            entry.graph.replay()
+        torch.cuda.synchronize(device)
+    ops = sorted((e for e in _events(prof, tmp_path) if e.get("cat") in DEVICE_CATS),
+                 key=lambda e: e["ts"])
+    labels = _innermost(entry.stages, entry.nodes)
+    ms = {}
+    for i, e in enumerate(ops):
+        ms[labels[i % entry.nodes]] = ms.get(labels[i % entry.nodes], 0.0) + e["dur"] / 1e3 / reps
+    return len(ops), ms
+
+
+def _eager_stage_ms(fn, args, device, tmp_path, reps=3):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize(device)
+    events = _events(prof, tmp_path)
+    ann = [e for e in events if e.get("cat") == "user_annotation" and e["name"].startswith("rt.")]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    ms = {}
+    for e in events:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        src = launch.get(e.get("args", {}).get("correlation"))
+        label = None
+        if src is not None:
+            around = [a for a in ann if a["tid"] == src["tid"]
+                      and a["ts"] <= src["ts"] < a["ts"] + a["dur"]]
+            if around:
+                label = max(around, key=lambda a: a["ts"])["name"][len("rt."):]
+        ms[label] = ms.get(label, 0.0) + e["dur"] / 1e3 / reps
+    return ms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["path", "ao"])
+def test_stage_map_of_a_captured_frame(cuda, kind, record, tmp_path):
+    compiled, eager, args = _card_frames(cuda)[kind]
+    compiled(*args)
+    entry = compiled.last
+    cap = [s for s in profiling.spans() if s.name == "setup.capture"]
+    assert len(cap) == 1 and entry.capture_s == (cap[-1].t1_ns - cap[-1].t0_ns) / 1e9
+    assert entry.nodes >= sum(entry.launches.values())
+    covered = np.zeros(entry.nodes, bool)
+    for name, first, end in entry.stages:
+        assert name in STAGES and 0 <= first <= end <= entry.nodes
+        covered[first:end] = True
+    assert covered.all(), np.nonzero(~covered)[0][:20]
+    for i, (_, a0, a1) in enumerate(entry.stages):  # nested or apart, never partly over
+        for _, b0, b1 in entry.stages[i + 1:]:
+            assert b1 <= a0 or b0 >= a1 or (a0 <= b0 and b1 <= a1), (a0, a1, b0, b1)
+
+    n_ops, replay = _replay_stage_ms(entry, cuda, tmp_path)
+    assert n_ops == 3 * entry.nodes
+    eager_ms = _eager_stage_ms(eager, args, cuda, tmp_path)
+    print(f"[tracing_gpu] {kind} nodes={entry.nodes} replay_ms={json.dumps(replay)} "
+          f"eager_ms={json.dumps(eager_ms)}")
+    for name in ("sample", "bounce"):
+        assert abs(eager_ms[name] - replay[name]) <= 0.10 * replay[name], name
+    pipeline.clear_compiled()

@@ -2,8 +2,9 @@
 native BVH builder from ``accel/csrc`` and the native OBJ parser from
 ``scene/csrc``.
 
-The CUDA sources of K1/K2, K3, K4/K5, K6, K6's plan and the frame stages
-S1-S3 (``frame.cu``) are compiled for ``sm_90a`` by one ``nvcc`` process
+The CUDA sources of K1/K2, K3, K4/K5, K6, K6's plan, the frame stages
+S1-S3 (``frame.cu``) and the capture's node count (``capture.cu``, read by
+``utils/profiling.py``) are compiled for ``sm_90a`` by one ``nvcc`` process
 per source, all started together, and linked into one shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds). The host builds of the same headers (``g++``:
@@ -33,7 +34,7 @@ OBJ_CSRC = pathlib.Path(__file__).resolve().parent.parent / "scene" / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
 
 CUDA_SOURCES = ("wide_traverse.cu", "tlas_traverse.cu", "paged_traverse.cu", "paged_major.cu",
-                "page_plan.cu", "frame.cu")
+                "page_plan.cu", "frame.cu", "capture.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -244,7 +245,9 @@ _ENTRY_ARGS = {
              "page_plan_launch": _PLAN_IO_ARGS + [_P],
              "frame_raygen_launch": _RAYGEN_ARGS + [_P],
              "frame_attrs_launch": _ATTRS_ARGS + [_P],
-             "frame_shade_launch": _SHADE_ARGS + [_P]},
+             "frame_shade_launch": _SHADE_ARGS + [_P],
+             # stream, int64 out: the capture's kernel, memcpy and memset nodes
+             "capture_device_ops": [_P, _P]},
     # ... + spills (one i64 out)
     "host": {"wt_trace_host": [_I] + _SCENE_ARGS + _RAY_ARGS + [_P],
              "tlas_trace_host": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_P],
@@ -272,8 +275,12 @@ def load(kind: str, short_stack: int | None = None) -> ctypes.CDLL:
         raise ValueError(f"unknown kernel library {kind!r}")
     key = (kind, short_stack or SHORT_STACK) if kind == "host" else (kind,)
     if key not in _loaded:
-        path = {"cuda": build_cuda, "frame_host": build_frame_host}.get(kind)
-        lib = ctypes.CDLL(str(path() if path is not None else build_host(key[1])))
+        from ..utils.profiling import setup
+
+        with setup("library") as span:
+            span.info = {"kind": kind}
+            path = {"cuda": build_cuda, "frame_host": build_frame_host}.get(kind)
+            lib = ctypes.CDLL(str(path() if path is not None else build_host(key[1])))
         for entry, argtypes in _ENTRY_ARGS[kind].items():
             fn = getattr(lib, entry)
             fn.argtypes = argtypes

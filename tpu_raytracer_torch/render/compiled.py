@@ -72,6 +72,17 @@ The kernel wrappers count their launches in module counters
 captured and not when a graph replays. An entry records each counter's
 increase during its capture as ``launches``: the kernel launches of one
 replay.
+
+Tracing (``utils/profiling.py``, on while a ``torch.profiler`` session
+runs): a call is the span ``frame`` (its index the entry's ``replays``
+before the call), with the children ``bind``, ``replay`` and ``clone``;
+the capture is the set-up span ``setup.capture``, whose duration is the
+entry's ``capture_s``. While the body is captured its stages record the
+capture's node count (``profiling.StageMap``), kept as the entry's
+``stages``, ``(name, first_node, end_node)``, and ``nodes``, the kernel,
+memcpy and memset nodes of its graph: node k is the k-th device operation
+of every replay. A call's device operations are ``bind_ops`` copies, the
+replay's ``nodes``, then ``clone_ops`` copies.
 """
 
 from __future__ import annotations
@@ -80,9 +91,10 @@ import contextlib
 import dataclasses
 import importlib
 import threading
-import time
 
 import torch
+
+from ..utils import profiling
 
 # the scene's per-instance rows: what SceneTensors.update_instance
 # replaces besides the TLAS
@@ -226,7 +238,9 @@ class FrameEntry:
         self.graph = None
         self.out = None
         self.launches: dict = {}  # kernel launches per replay, from the capture
-        self.replays = 0
+        self.stages: list = []  # (name, first_node, end_node), from the capture
+        self.nodes = None  # kernel, memcpy and memset nodes of the graph
+        self.replays = 0  # frames run: graph replays on CUDA, body runs on the CPU
         self.capture_s = None  # warm-up and capture, to a synchronize
 
     def _buffer(self, x: torch.Tensor) -> torch.Tensor:
@@ -256,14 +270,27 @@ class FrameEntry:
         must fit the kernel's stack, as its capture checked."""
         from ..kernels.tlas import check_stack
 
-        sources = []
-        for x in list(args) + list(kwargs.values()):
-            sources += _runtime(x)
-            scene = _scene_of(x)
-            if scene is not None and scene.tlas is not None and self.device.type == "cuda":
-                check_stack(scene)
-        for buf, src in zip(self.buffers, sources, strict=True):
-            buf.copy_(src)
+        with profiling.span("bind"):
+            sources = []
+            for x in list(args) + list(kwargs.values()):
+                sources += _runtime(x)
+                scene = _scene_of(x)
+                if scene is not None and scene.tlas is not None and self.device.type == "cuda":
+                    check_stack(scene)
+            for buf, src in zip(self.buffers, sources, strict=True):
+                buf.copy_(src)
+
+    @property
+    def bind_ops(self) -> int:
+        """Device operations of a bind: one copy per non-empty buffer."""
+        return sum(1 for b in self.buffers if b.numel())
+
+    @property
+    def clone_ops(self) -> int:
+        """Device operations of the outputs' clone: one copy per non-empty
+        output."""
+        outs = self.out.values() if isinstance(self.out, dict) else [self.out]
+        return sum(1 for x in outs if x is not None and x.numel())
 
     def run(self):
         """The frame on the bound inputs: the body on the CPU; on CUDA,
@@ -271,43 +298,51 @@ class FrameEntry:
         its outputs."""
         if self.device.type != "cuda":
             with _body():
-                return self.fn(*self.args, **self.kwargs)
+                out = self.fn(*self.args, **self.kwargs)
+            self.replays += 1
+            return out
         with torch.cuda.device(self.device):
             if self.graph is None:
                 self._capture()
             try:
-                self.graph.replay()
+                with profiling.span("replay"):
+                    self.graph.replay()
             except RuntimeError as e:
                 raise RuntimeError(f"replay of {self.name} failed for the entry "
                                    f"{self.key}") from e
             self.replays += 1
-            if isinstance(self.out, dict):  # render_aovs
-                return {k: v.clone() for k, v in self.out.items()}
-            return self.out.clone()
+            with profiling.span("clone"):
+                if isinstance(self.out, dict):  # render_aovs
+                    return {k: v.clone() for k, v in self.out.items()}
+                return self.out.clone()
 
     def _capture(self) -> None:
-        t0 = time.perf_counter()
-        try:
-            # the eager warm-up builds and loads the kernel library, so no
-            # module loads inside the capture, and makes a group's first
-            # collectives on the stream the capture uses
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side), _body():
-                self.fn(*self.args, **self.kwargs)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            before = launch_counts()
-            # torch.cuda.graph synchronizes the device before it captures
-            with torch.cuda.graph(graph, stream=side), _body():
-                out = self.fn(*self.args, **self.kwargs)
-            after = launch_counts()
-            torch.cuda.synchronize(self.device)
-        except RuntimeError as e:
-            raise RuntimeError(f"capture of {self.name} failed for the entry {self.key}") from e
-        self.graph, self.out = graph, out
-        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        self.capture_s = time.perf_counter() - t0
+        with profiling.setup("capture") as span:
+            try:
+                # the eager warm-up builds and loads the kernel library, so
+                # no module loads inside the capture, and makes a group's
+                # first collectives on the stream the capture uses
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side), _body():
+                    self.fn(*self.args, **self.kwargs)
+                torch.cuda.current_stream(self.device).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                stages = profiling.StageMap(profiling.capture_counter(side))
+                before = launch_counts()
+                # torch.cuda.graph synchronizes the device before it captures
+                with torch.cuda.graph(graph, stream=side), _body(), stages:
+                    out = self.fn(*self.args, **self.kwargs)
+                    nodes = stages.count()
+                after = launch_counts()
+                torch.cuda.synchronize(self.device)
+            except RuntimeError as e:
+                raise RuntimeError(f"capture of {self.name} failed for the entry "
+                                   f"{self.key}") from e
+            self.graph, self.out = graph, out
+            self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            self.stages, self.nodes = stages.stages, nodes
+        self.capture_s = span.seconds
 
 
 class CompiledFrame:
@@ -348,8 +383,9 @@ class CompiledFrame:
             new = entry is None
             if new:
                 entry = FrameEntry(self.name, self.fn, key, args, kwargs)
-            entry.bind(args, kwargs)
-            out = entry.run()
+            with profiling.span("frame", entry.replays):
+                entry.bind(args, kwargs)
+                out = entry.run()
             if new:  # kept once its first frame ran
                 self.entries[key] = entry
             self.last = entry

@@ -20,6 +20,12 @@ combined over the ranks that each hold a chunk of the geometry. The
 hooks take the place of exactly the cast and attribute sites, so the
 sharded frame is this estimator's; without them nothing changes.
 
+The path tracer's and AO's work is cut into the frame's stages
+(``utils/profiling.py``): ``cast`` (each cast with its rays' prep),
+``attrs``, ``sample`` (the random draws and ``_cosine_sample``),
+``bounce`` (the rest of the bounce arithmetic, AO's accumulation) and
+``output`` (the mean over samples).
+
 Not ported: the Whitted ray retiling and the TPU packet geometry of
 bounce casts.
 """
@@ -33,6 +39,7 @@ import torch
 
 from ..core.vecmath import FLT_MAX, constant, dot, normalize
 from ..utils import prng
+from ..utils.profiling import stage
 from .renderer import get_cast_fn, hit_attributes, occlusion_cast_fn
 from .shade import (
     DEFAULT_LIGHT_DIRECTION, SHADOW_EPS, light_vector, point_light_illumination, sky_radiance,
@@ -71,8 +78,10 @@ def _direct_illumination(scene, cast, attrs, light_direction, point_lights, exac
         if shadows:
             thresh = clamp_floor if clamp_floor is not None and not point_lights else 0.0
             need = attrs.hit & (cos_i > thresh)
-            occ = (occ_cast or cast)(scene, *park_dead_rays(
-                attrs.location + ldir * SHADOW_EPS, ldir.expand(attrs.location.shape), need))
+            with stage("cast"):
+                occ = (occ_cast or cast)(scene, *park_dead_rays(
+                    attrs.location + ldir * SHADOW_EPS, ldir.expand(attrs.location.shape),
+                    need))
             lit = occ.t >= FLT_MAX
             cos_i = torch.where(lit, cos_i, shadow_floor * cos_i)
         illum = illum + cos_i
@@ -143,22 +152,23 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
 
 def _cosine_sample(key, normal, exact):
     """Cosine-weighted hemisphere sample around ``normal [..., 3]``."""
-    shape = normal.shape[:-1]
-    u = prng.uniform(key.to(normal.device), shape + (2,))
-    r = torch.sqrt(u[..., 0])
-    phi = 2.0 * math.pi * u[..., 1]
-    x = r * torch.cos(phi)
-    y = r * torch.sin(phi)
-    z = torch.sqrt(torch.clamp(1.0 - u[..., 0], min=0.0))
-    # orthonormal basis around n
-    n = normal
-    sign = torch.where(n[..., 2] >= 0.0, 1.0, -1.0)
-    a = -1.0 / (sign + n[..., 2])
-    b = n[..., 0] * n[..., 1] * a
-    t = torch.stack([1.0 + sign * n[..., 0] ** 2 * a, sign * b, -sign * n[..., 0]], -1)
-    bvec = torch.stack([b, sign + n[..., 1] ** 2 * a, -n[..., 1]], -1)
-    d = x[..., None] * t + y[..., None] * bvec + z[..., None] * n
-    return normalize(d, exact=exact)
+    with stage("sample"):
+        shape = normal.shape[:-1]
+        u = prng.uniform(key.to(normal.device), shape + (2,))
+        r = torch.sqrt(u[..., 0])
+        phi = 2.0 * math.pi * u[..., 1]
+        x = r * torch.cos(phi)
+        y = r * torch.sin(phi)
+        z = torch.sqrt(torch.clamp(1.0 - u[..., 0], min=0.0))
+        # orthonormal basis around n
+        n = normal
+        sign = torch.where(n[..., 2] >= 0.0, 1.0, -1.0)
+        a = -1.0 / (sign + n[..., 2])
+        b = n[..., 0] * n[..., 1] * a
+        t = torch.stack([1.0 + sign * n[..., 0] ** 2 * a, sign * b, -sign * n[..., 0]], -1)
+        bvec = torch.stack([b, sign + n[..., 1] ** 2 * a, -n[..., 1]], -1)
+        d = x[..., None] * t + y[..., None] * bvec + z[..., None] * n
+        return normalize(d, exact=exact)
 
 
 def lens_basis(directions: torch.Tensor, exact: bool = True):
@@ -218,9 +228,12 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
     inv_pi = 1.0 / math.pi
 
     def attrs_of(c, o, d):
-        # kernel wrappers take contiguous rays only (broadcast views are rejected)
-        o, d = o.contiguous(), d.contiguous()
-        return hit_attributes(scene, o, d, c(scene, o, d), exact=exact, normal_mode=normal_mode)
+        with stage("cast"):
+            # kernel wrappers take contiguous rays only (broadcast views are rejected)
+            o, d = o.contiguous(), d.contiguous()
+            hit = c(scene, o, d)
+        with stage("attrs"):
+            return hit_attributes(scene, o, d, hit, exact=exact, normal_mode=normal_mode)
 
     nee_cast, nee_occ = cast, occ_cast
     attrs_primary = lambda o, d: attrs_of(cast, o, d)
@@ -264,18 +277,22 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
         return o_next, d_next, throughput, radiance, live
 
     def run_bounces(state, a0, keys):
-        """Bounce chain from the primary attributes to the radiance."""
-        state = bounce_from_attrs(state, a0, keys[0])
-        for b in range(1, max_bounces + 1):
-            o, d = state[0], state[1]
-            if fast_tail and b == max_bounces:
-                # final bounce: visibility of the sky is the whole answer
-                throughput, radiance, active = state[2], state[3], state[4]
-                sky = sky_radiance(scene, d, exact=exact) * sky_strength
-                miss = active & (tail_occ(scene, o.contiguous(), d.contiguous()).t >= FLT_MAX)
-                return radiance + torch.where(miss[..., None], throughput * sky, 0.0)
-            state = bounce_from_attrs(state, attrs_bounce(o, d), keys[b])
-        return state[3]
+        """Bounce chain from the primary attributes to the radiance (the
+        ``bounce`` stage, its casts and samples stages of their own)."""
+        with stage("bounce"):
+            state = bounce_from_attrs(state, a0, keys[0])
+            for b in range(1, max_bounces + 1):
+                o, d = state[0], state[1]
+                if fast_tail and b == max_bounces:
+                    # final bounce: visibility of the sky is the whole answer
+                    throughput, radiance, active = state[2], state[3], state[4]
+                    sky = sky_radiance(scene, d, exact=exact) * sky_strength
+                    with stage("cast"):
+                        occ = tail_occ(scene, o.contiguous(), d.contiguous())
+                    miss = active & (occ.t >= FLT_MAX)
+                    return radiance + torch.where(miss[..., None], throughput * sky, 0.0)
+                state = bounce_from_attrs(state, attrs_bounce(o, d), keys[b])
+            return state[3]
 
     dof = lens_radius > 0.0
     if samples > 1 and sample_batch and not dof:
@@ -284,36 +301,47 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
         bc = lambda x: x[None].expand((samples,) + x.shape)
         a0 = type(a0)(*(bc(x) for x in a0))
         bshape = (samples,) + shape
-        state = (bc(origin.expand(directions.shape)), bc(directions),
-                 torch.ones(bshape + (3,), dtype=torch.float32, device=dev),
-                 torch.zeros(bshape + (3,), dtype=torch.float32, device=dev),
-                 torch.ones(bshape, dtype=torch.bool, device=dev))
-        return run_bounces(state, a0, prng.split(key, max_bounces + 1)).mean(dim=0)
+        with stage("bounce"):
+            state = (bc(origin.expand(directions.shape)), bc(directions),
+                     torch.ones(bshape + (3,), dtype=torch.float32, device=dev),
+                     torch.zeros(bshape + (3,), dtype=torch.float32, device=dev),
+                     torch.ones(bshape, dtype=torch.bool, device=dev))
+        radiance = run_bounces(state, a0, prng.split(key, max_bounces + 1))
+        with stage("output"):
+            return radiance.mean(dim=0)
 
     if dof:
-        right, up = lens_basis(directions, exact)
+        with stage("raygen"):
+            right, up = lens_basis(directions, exact)
     else:
         attrs0 = attrs_primary(origin, directions)
-    total = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
+    with stage("output"):
+        total = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
     for k in prng.split(key, samples):
         keys = prng.split(k, max_bounces + 2)
         o0, d0 = origin, directions
         if dof:
-            r = torch.sqrt(prng.uniform(keys[-1], shape)) * lens_radius
-            # an independent angle stream folded from the same key
-            phi = prng.uniform(prng.fold_in(keys[-1], 1), shape, 0.0, 2.0 * math.pi)
-            off = (r * torch.cos(phi))[..., None] * right + (r * torch.sin(phi))[..., None] * up
-            focal = origin + directions * focus_distance
-            o0 = origin.expand(directions.shape) + off
-            d0 = normalize(focal - o0, exact=exact)
+            with stage("raygen"):  # its draws are stage sample
+                r = torch.sqrt(prng.uniform(keys[-1], shape)) * lens_radius
+                # an independent angle stream folded from the same key
+                phi = prng.uniform(prng.fold_in(keys[-1], 1), shape, 0.0, 2.0 * math.pi)
+                off = ((r * torch.cos(phi))[..., None] * right
+                       + (r * torch.sin(phi))[..., None] * up)
+                focal = origin + directions * focus_distance
+                o0 = origin.expand(directions.shape) + off
+                d0 = normalize(focal - o0, exact=exact)
             a0 = attrs_primary(o0, d0)
         else:
             a0 = attrs0
-        state = (o0, d0, torch.ones(shape + (3,), dtype=torch.float32, device=dev),
-                 torch.zeros(shape + (3,), dtype=torch.float32, device=dev),
-                 torch.ones(shape, dtype=torch.bool, device=dev))
-        total = total + run_bounces(state, a0, keys)
-    return total / samples
+        with stage("bounce"):
+            state = (o0, d0, torch.ones(shape + (3,), dtype=torch.float32, device=dev),
+                     torch.zeros(shape + (3,), dtype=torch.float32, device=dev),
+                     torch.ones(shape, dtype=torch.bool, device=dev))
+        radiance = run_bounces(state, a0, keys)
+        with stage("output"):
+            total = total + radiance
+    with stage("output"):
+        return total / samples
 
 
 def render_ao(scene, origin, directions, key, samples: int = 8, radius: float = 1.0,
@@ -329,15 +357,23 @@ def render_ao(scene, origin, directions, key, samples: int = 8, radius: float = 
     directions = torch.as_tensor(directions, dtype=torch.float32)
     origin = torch.as_tensor(origin, dtype=torch.float32)
     shape = directions.shape[:-1]
-    attrs = hit_attributes(scene, origin, directions, cast0(scene, origin, directions),
-                           exact=exact, normal_mode=normal_mode)
-    total = torch.zeros(shape, dtype=torch.float32, device=directions.device)
+    with stage("cast"):
+        hit = cast0(scene, origin, directions)
+    with stage("attrs"):
+        attrs = hit_attributes(scene, origin, directions, hit, exact=exact,
+                               normal_mode=normal_mode)
+    with stage("bounce"):
+        total = torch.zeros(shape, dtype=torch.float32, device=directions.device)
     for k in prng.split(key.to(directions.device), samples):
         d = _cosine_sample(k, attrs.normal, exact)
-        o, dd = park_dead_rays(attrs.location + d * SHADOW_EPS, d, attrs.hit)
-        occluded = cast(scene, o, dd).t < radius
-        total = total + torch.where(attrs.hit, 1.0 - occluded.to(torch.float32), 1.0)
-    return total / samples
+        with stage("cast"):
+            o, dd = park_dead_rays(attrs.location + d * SHADOW_EPS, d, attrs.hit)
+            hit = cast(scene, o, dd)
+        with stage("bounce"):
+            occluded = hit.t < radius
+            total = total + torch.where(attrs.hit, 1.0 - occluded.to(torch.float32), 1.0)
+    with stage("output"):
+        return total / samples
 
 
 def to_u8(radiance: torch.Tensor) -> torch.Tensor:

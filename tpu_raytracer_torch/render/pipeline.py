@@ -19,6 +19,11 @@ as a CUDA graph and replayed. The eager functions keep their names.
 ``render`` and ``render_image_paged`` go through ``compiled_render_image``,
 as the JAX package's call its jitted ``render_image``; no compiled body
 calls them.
+
+The primary, path and AO frames are cut into the stages of
+``utils/profiling.py``: ``raygen``, ``cast``, ``attrs``, ``shade`` and
+``output`` (the supersampling mean, the tonemap and the u8 cast) here,
+the integrators' own in ``render/integrators.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import dataclasses
 import torch
 
 from ..core.vecmath import constant
+from ..utils.profiling import stage
 from .camera import Camera, generate_rays
 from .compiled import CompiledFrame
 from .renderer import get_cast_fn, hit_attributes
@@ -88,13 +94,15 @@ def _with_ssaa(config: RenderConfig, K_inv: torch.Tensor, body):
     # tensor factors: 1/s computed in f32 as the JAX package does
     inv_s = constant((1.0 / s, 1.0 / s, 1.0), torch.float32, K_inv.device)
     big = body(sub, torch.as_tensor(K_inv, dtype=torch.float32) * inv_s)
-    f = big.to(torch.float32).reshape(config.height, s, config.width, s, 3).mean(dim=(1, 3))
-    return torch.round(f).to(torch.uint8)
+    with stage("output"):
+        f = big.to(torch.float32).reshape(config.height, s, config.width, s, 3).mean(dim=(1, 3))
+        return torch.round(f).to(torch.uint8)
 
 def _rays(config: RenderConfig, scene, K_inv, D, pose, inv_pose):
     dev = scene.device
-    return generate_rays(config.width, config.height, K_inv.to(dev), D.to(dev),
-                         pose.to(dev), inv_pose.to(dev), exact=config.exact_math)
+    with stage("raygen"):
+        return generate_rays(config.width, config.height, K_inv.to(dev), D.to(dev),
+                             pose.to(dev), inv_pose.to(dev), exact=config.exact_math)
 
 
 def shade_rays(config: RenderConfig, scene, origin, directions) -> torch.Tensor:
@@ -102,12 +110,16 @@ def shade_rays(config: RenderConfig, scene, origin, directions) -> torch.Tensor:
     attributes and shade -> uint8 ``[..., 3]``. The cast carries normals
     where the lighting reads them (every mode but ``flat``)."""
     cast = get_cast_fn(config.backend, want_normals=config.lighting != "flat")
-    hit = cast(scene, origin, directions)
-    attrs = hit_attributes(scene, origin, directions, hit, exact=config.exact_math,
-                           normal_mode=config.normal_mode)
-    return shade_primary(scene, attrs, config.light_direction, config.lighting,
-                         exact=config.exact_math, backend=config.backend, directions=directions,
-                         point_lights=config.point_lights, tex_filter=config.texture_filter)
+    with stage("cast"):
+        hit = cast(scene, origin, directions)
+    with stage("attrs"):
+        attrs = hit_attributes(scene, origin, directions, hit, exact=config.exact_math,
+                               normal_mode=config.normal_mode)
+    with stage("shade"):
+        return shade_primary(scene, attrs, config.light_direction, config.lighting,
+                             exact=config.exact_math, backend=config.backend,
+                             directions=directions, point_lights=config.point_lights,
+                             tex_filter=config.texture_filter)
 
 
 def render_image(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,
@@ -197,7 +209,8 @@ def render_image_ao(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.T
         origin, directions = _rays(cfg, scene, K_inv_b, D, pose, inv_pose)
         ao = render_ao(scene, origin, directions, key, samples=samples, radius=radius,
                        backend=cfg.backend, exact=cfg.exact_math, normal_mode=cfg.normal_mode)
-        return to_u8(ao[..., None].expand(ao.shape + (3,)))
+        with stage("output"):
+            return to_u8(ao[..., None].expand(ao.shape + (3,)))
 
     return _with_ssaa(config, K_inv, body)
 
@@ -255,7 +268,8 @@ def render_image_path_traced(config: RenderConfig, scene, K_inv: torch.Tensor, D
                 radiance, torch.where(attrs.hit[..., None], attrs.normal, 0.0),
                 torch.where(attrs.hit, attrs.t, torch.full_like(attrs.t, float("inf"))),
                 iterations=cfg.denoise)
-        return to_u8(tonemap(radiance, cfg.tonemap, cfg.exposure))
+        with stage("output"):
+            return to_u8(tonemap(radiance, cfg.tonemap, cfg.exposure))
 
     return _with_ssaa(config, K_inv, body)
 

@@ -49,6 +49,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.profiling import setup
 from .instance import MeshInstance
 from .material import Material
 from .mesh import MeshPrimitive
@@ -406,6 +407,7 @@ class Scene:
         flat.add_mesh_instance(MeshInstance(0, 0))
         return flat, cat["mat"][merged.bvh.order]
 
+    @setup("compile")
     def compile(self, device="cuda", box_pad_ulp: float = BOX_PAD_ULP,
                 flatten_static: bool = False, auto_page: bool = True,
                 _tri_mat: np.ndarray | None = None) -> SceneTensors:

@@ -13,11 +13,16 @@ A key is an explicit int64 tensor ``[2]`` (or ``[..., 2]``) holding two
 uint32 words, passed in by the caller as in JAX; there is no global
 generator. Words live in int64 tensors masked to 32 bits, since PyTorch's
 uint32 lacks kernels on CUDA.
+
+``split``, ``fold_in`` and ``uniform`` are the frame's ``sample`` stage
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .profiling import stage
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -68,15 +73,17 @@ def _hash(key: torch.Tensor, shape):
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)`` -> ``[num, 2]`` keys."""
-    b1, b2 = _hash(key, (num,))
-    return torch.stack([b1, b2], dim=-1)
+    with stage("sample"):
+        b1, b2 = _hash(key, (num,))
+        return torch.stack([b1, b2], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for a 32-bit ``data``."""
-    zero = torch.zeros((), dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(key[0], key[1], zero, zero + (int(data) & MASK))
-    return torch.stack([b1, b2])
+    with stage("sample"):
+        zero = torch.zeros((), dtype=torch.int64, device=key.device)
+        b1, b2 = threefry2x32(key[0], key[1], zero, zero + (int(data) & MASK))
+        return torch.stack([b1, b2])
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
@@ -90,8 +97,9 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) 
     23 bits as the mantissa of a float in [1, 2), minus 1, scaled by
     ``maxval - minval`` (in f32), shifted by ``minval`` and clamped below
     at it."""
-    bits = (random_bits(key, tuple(shape)) >> 9) | 0x3F800000
-    floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
-    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    with stage("sample"):
+        bits = (random_bits(key, tuple(shape)) >> 9) | 0x3F800000
+        floats = bits.to(torch.int32).view(torch.float32) - 1.0
+        lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+        hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
+        return torch.maximum(lo, floats * (hi - lo) + lo)
