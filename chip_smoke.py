@@ -7,14 +7,15 @@ Drives the port's paths (``tpu_raytracer_torch``) through kernels K1 (the
 4-wide BVH cast), K2 (the binary BVH cast), K3 (the two-level TLAS cast)
 the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
 (page-major), and the frame stages around the cast, S1 (raygen), S2 (hit
-attributes) and S3 (primary shade), in phases, one line each:
+attributes), S3 (primary shade) and S4 (the path tracer's and AO's
+sample), in phases, one line each:
 
   1. device: the card's name and power limit;
   2. build: K1 and K2 (``kernels/csrc/wide_traverse.cu``), K3
      (``kernels/csrc/tlas_traverse.cu``), K4/K5
      (``kernels/csrc/paged_traverse.cu``), K6
      (``kernels/csrc/paged_major.cu``), K6's plan
-     (``kernels/csrc/page_plan.cu``) and S1-S3 (``kernels/csrc/frame.cu``)
+     (``kernels/csrc/page_plan.cu``) and S1-S4 (``kernels/csrc/frame.cu``)
      compiled for sm_90a by one nvcc per source, all started together,
      and linked into one library, with
      ptxas's report of each kernel (registers, stack frame, spills, static
@@ -45,7 +46,17 @@ attributes) and S3 (primary shade), in phases, one line each:
      trilinear filters and point lights, shadowed or not; each kernel's
      device ms on the flagship beside its bound (bytes: the per-ray
      inputs and outputs and each table row the rays name, once) and its
-     plain version's ms (``[frame_kernels_time]``);
+     plain version's ms (``[frame_kernels_time]``); then ``[sample_kernel]``:
+     S4 against its plain chain (``sample_cosine_torch``: ``utils/prng.py``'s
+     threefry ops and ``_cosine_sample`` on the card) at both call sites,
+     AO's draws on the flagship's normals and the path tracer's on the
+     batch expanded over its samples (stride 0) or contiguous, with the
+     lobe uniforms, the sequential chain of two words and the basis' edge
+     normals, directions and uniforms bit for bit; its launches in eager
+     AO and path frames (one a draw); and ``[frame_kernels_time]`` rows for
+     an AO and a path draw at 1920x1088 beside their bound (the uint32
+     hash operations over the card's int32 rate, the bytes over its
+     bandwidth) and the plain chain's ms;
   6. K3 against its plain version on config 4 (four posed instances) at
      1920x1088: primary rays, their first-bounce reflection rays, and the
      16-instance scene's primary rays;
@@ -225,7 +236,7 @@ attributes) and S3 (primary shade), in phases, one line each:
      a replay's launches those of the eager frame (S1 once, S2, and S3
      once in a primary frame), one entry per case, and the frame at the
      first pose 0 pixels from the same frame through the plain stages
-     (``plain_stages``: no S1-S3 launch);
+     (``plain_stages``: no S1-S4 launch);
      config 4 after ``update_instance`` and the path frame with a new key
      replayed by the same entry, a scene of the same shapes with other
      tables in an entry of its own; ``[graph_time]``: the flagship,
@@ -458,7 +469,7 @@ def main():
                 for kernel, k in carry_kernels})
     for kernel, r in report.items():
         r["shared_dynamic"] = dyn.get(kernel, 0)
-    phase("build", kernels="K1/K2+K3+K4/K5+K6+K6 plan+S1/S2/S3", seconds=f"{time.perf_counter() - t0:.2f}",
+    phase("build", kernels="K1/K2+K3+K4/K5+K6+K6 plan+S1/S2/S3/S4", seconds=f"{time.perf_counter() - t0:.2f}",
           lib=lib_path.name, commands=repr(compiles),
           ptxas=json.dumps(report, separators=(",", ":")))
     for src in build.CUDA_SOURCES:
@@ -522,7 +533,7 @@ def main():
           stage_launches=stage_launches, pixels_vs_plain=n_img,
           image_hit_fraction=f"{img_hit_frac:.4f}")
     check(launches >= 1, "render_image did not launch K1")
-    check(stage_launches == {"S1": 1, "S2": 1, "S3": 1},
+    check({k: v for k, v in stage_launches.items() if v} == {"S1": 1, "S2": 1, "S3": 1},
           f"render_image launched the frame stages {stage_launches}, not S1-S3 once each")
     check(img.shape == (1088, 1920, 3) and img.dtype == torch.uint8, "bad image")
     check(n_img == 0, f"{n_img} pixels differ from the plain path")
@@ -536,6 +547,7 @@ def main():
           f"golden mismatch {mism1}/{mism2} pixels (nearest-texel flips at "
           "checker boundaries allow at most 4)")
     frame_entries = frame_kernels_phase(dev, card, stage_launches)
+    frame_entries += sample_kernel_phase(dev, card, scene, origin, dirs, args)
 
     # 6. K3 against its plain version -----------------------------------
     inst4, cam4 = scene_instances(1920, 1088, device=dev)
@@ -1389,9 +1401,9 @@ def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
     a0 = params(poses[0])
     o5, d5 = generate_rays(PATH_SIZE, PATH_SIZE, *a0)
     at = hit_attributes(col, o5, d5, binary.cast_rays_binary_cuda(col, o5, d5))
-    key_b = prng.split(prng.PRNGKey(0), PATH_BOUNCES + 1)[0].to(dev)
-    nd = integrators._cosine_sample(key_b, at.normal[None].expand((PATH_SAMPLES,) + at.normal.shape),
-                                    True)
+    # (bounce 0's draw: split(PRNGKey(0), PATH_BOUNCES + 1)[0])
+    nd = integrators.sample_cosine(prng.PRNGKey(0, device=dev), (0,),
+                                   at.normal[None].expand((PATH_SAMPLES,) + at.normal.shape))
     bo, bd = park_dead_rays(at.location[None] + nd * SHADOW_EPS, nd,
                             at.hit[None].expand(nd.shape[:-1]))
     sets = {"flagship_primary": flagship, "config5_bounce1": (col, bo, bd)}
@@ -2227,7 +2239,7 @@ def _graph_shard_case(group, eager, fast, cfg, scene, args, extra) -> dict:
         diffs.append(_pixels(got, want))
         sums.append(hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest())
         if step == 0:
-            # the same frame through the plain stages: no S1-S3 launch
+            # the same frame through the plain stages: no S1-S4 launch
             s0 = _stage_counts()
             with plain_stages():
                 plain = eager(cfg, group, scene, *a, *extra)
@@ -2676,7 +2688,7 @@ def shard_phases(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
                   f"differ from the eager frames")
             check(all(x["pixels_vs_plain_stages"] == 0 and not x["plain_stage_launches"]
                       for x in res), f"[graph_shard] {name} at {world} ranks ({backend}): the "
-                  f"frame through S1-S3 differs from the frame through the plain stages")
+                  f"frame through S1-S4 differs from the frame through the plain stages")
             check(all(x["launches_per_replay"] and all(el == x["launches_per_replay"]
                                                        for el in x["eager_launches"])
                       for x in res), f"[graph_shard] {name}: a replay launches "
@@ -3397,7 +3409,7 @@ def graph_phase(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
             after = launch_counts()
             eager_launches.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
             diffs.append(_pixels(got, want))
-        # the same frame through the plain stages: no S1-S3 launch
+        # the same frame through the plain stages: no S1-S4 launch
         s0 = _stage_counts()
         with plain_stages():
             plain_frame = eager(config, sc, *_posed(args, 0), *extra)
@@ -3440,7 +3452,7 @@ def graph_phase(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
         check(diffs == [0] * GRAPH_POSES, f"{case}: the replayed frames differ from the eager "
               f"frames in {diffs} pixels")
         check(vs_plain == 0 and not plain_launches,
-              f"{case}: the frame through S1-S3 differs from the frame through the plain "
+              f"{case}: the frame through S1-S4 differs from the frame through the plain "
               f"stages in {vs_plain} pixels (their launches: {plain_launches})")
         # every frame casts its camera's rays (S1 once) and takes their
         # attributes (S2; once in a primary frame); the primary frames shade
@@ -3525,12 +3537,13 @@ def _path_stages(integrators, run) -> dict:
     """One path frame (``run``) with CUDA events around each cast — the
     primary, the bounce casts (with their sort), the any-hit tail and the
     NEE shadow casts — around ``hit_attributes`` and around the sampling
-    (``_cosine_sample`` with its threefry, and the lobe choice's draws).
-    The rest of the frame is shading and bookkeeping."""
+    (``sample_cosine``: S4, or its plain chain, with the lobe's draws,
+    and ``prng``'s draws of the thin lens). The rest of the frame is
+    shading and bookkeeping."""
     from types import SimpleNamespace
 
     names = ("get_cast_fn", "occlusion_cast_fn", "secondary_cast_fn", "hit_attributes",
-             "_cosine_sample", "prng")
+             "sample_cosine", "prng")
     saved = {n: getattr(integrators, n) for n in names}
     marks, depth = [], [0]
 
@@ -3561,7 +3574,7 @@ def _path_stages(integrators, run) -> dict:
     integrators.occlusion_cast_fn = lambda b: timed(saved["occlusion_cast_fn"](b), "nee")
     integrators.secondary_cast_fn = secondary
     integrators.hit_attributes = timed(saved["hit_attributes"], "attrs")
-    integrators._cosine_sample = timed(saved["_cosine_sample"], "sampling")
+    integrators.sample_cosine = timed(saved["sample_cosine"], "sampling")
     integrators.prng = SimpleNamespace(
         split=timed(prng.split, "sampling"), fold_in=timed(prng.fold_in, "sampling"),
         uniform=timed(prng.uniform, "sampling"))
@@ -3659,16 +3672,32 @@ OPS_S2_VNORM = 19
 OPS_S3 = 8 + 4 + 9
 OPS_S3_MODE = {"flat": 0, "lambert": OPS_NORM + 7, "lambert_shadow": OPS_NORM + 9,
                "blinn_phong": OPS_NORM + 7 + 34}
-# the JAX functions S1-S3 replace (XLA fuses them; no Pallas kernel)
+#   S4 per ray, f32: each uniform's subtract, scale, shift and clamp 4; the
+#   cosine sample (r, phi, cosf, sinf, x, y, z's three, the sign, a's
+#   three, b 2, t 7, the bitangent 4, d 15) 41 and normalize; the lobe's
+#   uniform 4.
+OPS_S4_F32 = 2 * 4 + 41 + OPS_NORM
+OPS_S4_LOBE_F32 = 4
+# uint32 operations of one threefry2x32 hash (kernels/csrc/frame.cuh): the
+# first key injection 2, 20 rounds of add, rotate (one funnel shift) and
+# xor, 5 injections of 2 adds; a uniform adds the xor of the two words, the
+# shift and the or of the exponent
+OPS_HASH = 2 + 20 * 3 + 5 * 2
+OPS_UNIFORM_INT = OPS_HASH + 3
+# the H100 SXM's int32 rate: 132 SMs x 64 INT32 lanes at the 1,980 MHz
+# boost clock (NVIDIA's Hopper white paper and data sheet)
+INT32_OPS_S = 132 * 64 * 1.98e9
+# the JAX functions S1-S4 replace (XLA fuses them; no Pallas kernel)
 FRAME_REPLACES = {"S1": "tpu_raytracer/render/camera.py:113",
                   "S2": "tpu_raytracer/render/renderer.py:232",
-                  "S3": "tpu_raytracer/render/shade.py:385"}
+                  "S3": "tpu_raytracer/render/shade.py:385",
+                  "S4": "tpu_raytracer/render/integrators.py:274"}
 FRAME_KERNEL_NAMES = {"S1": "frame_raygen_kernel", "S2": "frame_attrs_kernel",
-                      "S3": "frame_shade_kernel"}
+                      "S3": "frame_shade_kernel", "S4": "frame_sample_kernel"}
 
 
 def _stage_counts() -> dict:
-    """Launches of S1-S3 by kernel name."""
+    """Launches of S1-S4 by kernel name."""
     from tpu_raytracer_torch.render.compiled import launch_counts
 
     return {k: v for k, v in launch_counts().items() if k.startswith("S")}
@@ -3676,24 +3705,26 @@ def _stage_counts() -> dict:
 
 def _walks(launches: dict) -> dict:
     """The traversal kernels' part of a launch count (K1-K6 and K6's
-    plan), without the frame stages S1-S3."""
+    plan), without the frame stages S1-S4."""
     return {k: v for k, v in launches.items() if not k.startswith("S")}
 
 
 @contextlib.contextmanager
 def plain_stages():
-    """Raygen, hit attributes and the primary shade through their plain
-    versions (``generate_rays_torch``, ``hit_attributes_torch``,
-    ``shade_primary_torch``) for every caller of the routers, on the
-    rays' own device: no S1-S3 launch."""
+    """Raygen, hit attributes, the primary shade and the sample draws
+    through their plain versions (``generate_rays_torch``,
+    ``hit_attributes_torch``, ``shade_primary_torch``,
+    ``sample_cosine_torch``) for every caller of the routers, on the
+    rays' own device: no S1-S4 launch."""
     import importlib
 
     from tpu_raytracer_torch.kernels import frame
-    from tpu_raytracer_torch.render import camera, renderer, shade
+    from tpu_raytracer_torch.render import camera, integrators, renderer, shade
 
     plain = {"generate_rays": camera.generate_rays_torch,
              "hit_attributes": renderer.hit_attributes_torch,
-             "shade_primary": shade.shade_primary_torch}
+             "shade_primary": shade.shade_primary_torch,
+             "sample_cosine": integrators.sample_cosine_torch}
     saved = []
     for mod in frame.ROUTER_MODULES:
         m = importlib.import_module(f"tpu_raytracer_torch.{mod}")
@@ -3945,6 +3976,133 @@ def frame_kernels_phase(dev, card, main_launches: dict) -> list:
             "library_ms": None,
         })
     return entries
+
+
+def _sample_bound(rays: int, draws: int, nbytes: int, lobe: bool) -> dict:
+    """S4's bound on ``rays`` rays of ``draws`` draws: the larger of its
+    uint32 hash operations over the card's int32 rate, its f32 operations
+    over the f32 rate and ``nbytes`` over the bandwidth, each stated."""
+    hashes = 2 + int(lobe)
+    t_int = rays * draws * hashes * OPS_UNIFORM_INT / INT32_OPS_S * 1e3
+    t_f32 = rays * draws * (OPS_S4_F32 + OPS_S4_LOBE_F32 * lobe) / F32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    by = max((t_int, "int32 operations"), (t_f32, "f32 operations"), (t_bytes, "bytes"))
+    return {"bound_ms": by[0], "bound_by": by[1], "int_ms": t_int, "f32_ms": t_f32,
+            "bytes_ms": t_bytes, "mbytes": nbytes / 1e6, "gops_int": rays * draws * hashes
+            * OPS_UNIFORM_INT / 1e9, "library_ms": None}
+
+
+def sample_kernel_phase(dev, card, scene, origin, dirs, args) -> list:
+    """``[sample_kernel]``: S4 (``kernels/frame.py sample_cosine_cuda``)
+    against its plain chain (``render/integrators.py sample_cosine_torch``:
+    ``utils/prng.py``'s fold_in and uniform and ``_cosine_sample``, eager
+    ops on the card), directions and lobe uniforms bit for bit, misses
+    included, with ``exact_math`` on and off: AO's draws (the flagship's
+    normals at 1920x1088, chains (0,) and (7,)), the batched path tracer's
+    (bounce 0: the normals expanded over 2 samples with stride 0; bounce 1:
+    a contiguous batch; with the lobe uniforms), the sequential one's chain
+    (1, 2) and the basis' edge normals (n.z = +1, -1, -0.0, +0.0, the zero
+    normal of a miss); one launch a call. Then S4's launches in an eager AO
+    frame (one a sample) and path frame (one a bounce before the tail), and
+    ``[frame_kernels_time]`` rows for an AO draw and a path draw at
+    1920x1088: device ms beside the bound (``_sample_bound``) and the plain
+    chain's ms. Returns the kernels line's entry."""
+    from tpu_raytracer_torch.kernels import frame, traversal
+    from tpu_raytracer_torch.render import (
+        RenderConfig, hit_attributes, render_image_ao, render_image_path_traced,
+    )
+    from tpu_raytracer_torch.render.integrators import (
+        sample_cosine, sample_cosine_torch,
+    )
+    from tpu_raytracer_torch.utils import prng
+
+    h = traversal.cast_rays_cuda(scene, origin, dirs, want_normals=True)  # AO's primary cast
+    normal = hit_attributes(scene, origin, dirs, h).normal
+    misses = int((h.tri < 0).sum())
+    edges = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.6, 0.8, -0.0],
+                          [0.8, -0.6, 0.0], [0.0, 0.0, 0.0], [-0.0, 0.0, -0.0]], device=dev)
+    batch = normal[None].expand((PATH_SAMPLES,) + normal.shape)
+    # (normals, chain, lobe) of each call site
+    cases = {"ao_s0": (normal, (0,), False), "ao_s7": (normal, (7,), False),
+             "path_bounce0_expanded": (batch, (0,), True),
+             "path_bounce1_contiguous": (batch.contiguous(), (1,), True),
+             "path_sequential": (normal, (1, 2), True),
+             "edges": (edges.expand(4, 6, 3), (5,), True)}
+    key = prng.PRNGKey(2 ** 40 + 12345, device=dev)
+    diffs, launches = {}, {}
+    for exact in (True, False):
+        for tag, (n, chain, lobe) in cases.items():
+            before = frame.LAUNCHES_SAMPLE
+            got = sample_cosine(key, chain, n, exact, lobe)
+            launches[tag] = frame.LAUNCHES_SAMPLE - before
+            want = sample_cosine_torch(key, chain, n, exact, lobe)
+            torch.cuda.synchronize()
+            if not lobe:
+                got, want = (got,), (want,)
+            diffs[f"{tag}_{'exact' if exact else 'q_rsqrt'}"] = _diff_elems(got, want)
+    phase("sample_kernel", size=f"{dirs.shape[1]}x{dirs.shape[0]}", misses=misses,
+          stride_of_expanded_batch=batch.stride(0), launches=launches,
+          diffs=json.dumps(diffs, separators=(",", ":")))
+    check(misses > 0, "[sample_kernel] no miss among the flagship's rays")
+    check(all(v == 1 for v in launches.values()), f"[sample_kernel] launches {launches}")
+    check(not any(diffs.values()), f"[sample_kernel] S4 differs from its plain chain: {diffs}")
+
+    fw, fh = dirs.shape[1], dirs.shape[0]
+    frame_key = prng.PRNGKey(3, device=dev)
+    frames = {"ao": lambda: render_image_ao(RenderConfig(fw, fh), scene, *args, frame_key,
+                                            AO_SAMPLES, 1.0),
+              "path": lambda: render_image_path_traced(RenderConfig(fw, fh), scene, *args,
+                                                       frame_key, PATH_BOUNCES, PATH_SAMPLES)}
+    per_frame = {}
+    for tag, fn in frames.items():
+        _reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        per_frame[tag] = _stage_counts()["S4"]
+    phase("sample_kernel", frame_launches=per_frame)
+    check(per_frame == {"ao": AO_SAMPLES, "path": PATH_BOUNCES},
+          f"[sample_kernel] S4 launches a frame {per_frame}, not one a draw")
+
+    rays = fw * fh
+    runs = {"ao_draw": (lambda: sample_cosine(key, (0,), normal, True),
+                        lambda: sample_cosine_torch(key, (0,), normal, True),
+                        _sample_bound(rays, 1, rays * (12 + 12) + 16, False)),
+            "path_draw": (lambda: sample_cosine(key, (0,), batch, True, True),
+                          lambda: sample_cosine_torch(key, (0,), batch, True, True),
+                          _sample_bound(rays, PATH_SAMPLES, rays * 12
+                                        + PATH_SAMPLES * rays * (12 + 4) + 16, True))}
+    times = {}
+    for tag, (fn, plain, b) in runs.items():
+        ms = device_ms(fn, FRAME_KERNEL_NAMES["S4"])
+        plain_ms = min(event_ms(plain, 3) for _ in range(3))
+        times[tag] = (ms, plain_ms, b)
+        phase("frame_kernels_time", kernel="S4", draw=tag, card=repr(card), ms=f"{ms:.6f}",
+              plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b['bound_ms']:.6f}",
+              bound_by=b["bound_by"], int32_ops_ms=f"{b['int_ms']:.6f}",
+              f32_ops_ms=f"{b['f32_ms']:.6f}", bytes_ms=f"{b['bytes_ms']:.6f}",
+              share_of_bound=f"{b['bound_ms'] / ms:.4f}", mbytes=f"{b['mbytes']:.3f}",
+              gops_int32=f"{b['gops_int']:.4f}")
+    ms, plain_ms, b = times["ao_draw"]
+    pms, pplain, pb = times["path_draw"]
+    return [{
+        "name": f"S4 {FRAME_KERNEL_NAMES['S4']} (the path tracer's and AO's sample stage: "
+                "threefry, uniform and the cosine sample, one thread per ray, the key derived "
+                "once a block; no Pallas counterpart: replaces the XLA-fused draws; launches: "
+                f"an AO frame of {AO_SAMPLES} samples, a path frame {PATH_BOUNCES}; ms, bound "
+                f"and plain_ms: one AO draw at {fw}x{fh}; a path draw of {PATH_SAMPLES} "
+                f"samples with the lobe {pms:.4f} ms, bound {pb['bound_ms']:.4f} ms, plain "
+                f"{pplain:.4f} ms)",
+        "route": "cuda",
+        "source": "tpu_raytracer_torch/kernels/csrc/frame.cu",
+        "replaces": FRAME_REPLACES["S4"],
+        "launches": per_frame["ao"],
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "library_ms": None,
+    }]
 
 
 def golden_renders(dev) -> dict:

@@ -1,7 +1,7 @@
-"""The frame stages' kernels S1 (raygen), S2 (hit attributes) and S3
-(primary shade) on the CPU: their per-ray code built for the host
-(``kernels/csrc/frame_host.cpp``, the ``frame.cuh`` the card runs)
-against the plain versions and the JAX package, and the routers.
+"""The frame stages' kernels S1 (raygen), S2 (hit attributes), S3
+(primary shade) and S4 (sample) on the CPU: their per-ray code built for
+the host (``kernels/csrc/frame_host.cpp``, the ``frame.cuh`` the card
+runs) against the plain versions and the JAX package, and the routers.
 
 Inputs are small (at most 48x40 rays) and made from the scenes' seeded
 recipes and numpy poses. Tolerances:
@@ -24,6 +24,7 @@ recipes and numpy poses. Tolerances:
 
 import ctypes
 import functools
+import math
 import shutil
 
 import numpy as np
@@ -40,7 +41,7 @@ from tpu_raytracer.render.renderer import hit_attributes as jax_hit_attributes
 from tpu_raytracer.render.shade import shade_primary as jax_shade_primary
 from tpu_raytracer_torch import scene as ts
 from tpu_raytracer_torch.kernels import frame, traversal
-from tpu_raytracer_torch.render import camera, renderer, shade
+from tpu_raytracer_torch.render import camera, integrators, renderer, shade
 from tpu_raytracer_torch.render.camera import (
     Camera, default_intrinsics, generate_rays, generate_rays_torch, reference_calibration,
 )
@@ -48,6 +49,7 @@ from tpu_raytracer_torch.render.integrators import PointLight
 from tpu_raytracer_torch.render.renderer import Hit, hit_attributes, hit_attributes_torch
 from tpu_raytracer_torch.render.shade import shade_primary, shade_primary_torch
 from tpu_raytracer_torch.scene.scene import from_scene_arrays
+from tpu_raytracer_torch.utils import prng
 
 from test_torch_lights import vn_scenes
 from test_torch_scene import compiled, jax_fields
@@ -440,6 +442,127 @@ def test_shade_host_build_on_every_config_matches_plain_and_jax(name, mode, tex_
 
 
 # ---------------------------------------------------------------------------
+# S4 sample
+# ---------------------------------------------------------------------------
+
+# frame keys: small, past 32 bits, and with both words near 2**32
+SAMPLE_KEYS = (0, 7, 2 ** 40 + 12345, 2 ** 63 - 5)
+
+
+def sample_normals(shape) -> torch.Tensor:
+    """Unit normals ``shape + (3,)`` from a seeded generator, the first
+    rows set to the basis' edge cases: n.z = +1, -1, -0.0 and +0.0, and
+    the zero normal S2 gives a miss."""
+    g = torch.Generator().manual_seed(11)
+    n = torch.nn.functional.normalize(torch.randn(shape + (3,), generator=g), dim=-1)
+    flat = n.view(-1, 3)
+    flat[:6] = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.6, 0.8, -0.0],
+                             [0.8, -0.6, 0.0], [0.0, 0.0, 0.0], [-0.0, 0.0, -0.0]])
+    return n
+
+
+def sample_normal_layout(layout: str) -> torch.Tensor:
+    """AO's normals (one per pixel, contiguous), the path tracer's batch
+    (samples first) contiguous, or its first bounce's: one per pixel
+    expanded over the samples with stride 0."""
+    if layout == "ao":
+        return sample_normals((H, W))
+    if layout == "path":
+        return sample_normals((2, H, W))
+    n = sample_normals((H, W))[None].expand(2, H, W, 3)
+    assert n.stride(0) == 0
+    return n
+
+
+@pytest.mark.parametrize("lobe", [False, True])
+@pytest.mark.parametrize("chain", [(5,), (2, 1)])
+@pytest.mark.parametrize("layout", ["ao", "path", "path_expanded"])
+@pytest.mark.parametrize("exact", [True, False])
+def test_sample_host_build_matches_plain_bitwise(same_libm, exact, layout, chain, lobe):
+    n = sample_normal_layout(layout)
+    key = prng.PRNGKey(SAMPLE_KEYS[2])
+    got = frame.sample_cosine_host(key, chain, n, exact, lobe)
+    want = integrators.sample_cosine_torch(key, chain, n, exact, lobe)
+    if not lobe:
+        got, want = (got,), (want,)
+    assert got[0].shape == n.shape and got[0].is_contiguous()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):  # NaN patterns included: the bits themselves
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(bits(a), bits(b))
+    d = got[0].reshape(-1, 3)
+    np.testing.assert_allclose(d.norm(dim=-1).numpy(), 1.0, atol=2e-3)
+    n_flat = n.reshape(-1, 3)
+    lit = n_flat.norm(dim=-1) > 0
+    assert ((d * n_flat).sum(-1)[lit] >= -1e-6).all()  # above each surface
+
+
+@pytest.mark.parametrize("seed", SAMPLE_KEYS)
+def test_split_is_fold_in(seed):
+    """``split(key, n)[i]`` is ``fold_in(key, i)``, the equality S4's
+    chains rest on, for every n and i the integrators take."""
+    key = prng.PRNGKey(seed)
+    for n in (2, 3, 4, 8, 9):
+        keys = prng.split(key, n)
+        for i in range(n):
+            np.testing.assert_array_equal(keys[i].numpy(), prng.fold_in(key, i).numpy())
+
+
+@pytest.mark.parametrize("site", ["ao", "path_batched", "path_sequential"])
+def test_sample_chains_draw_the_integrators_split_keys(site):
+    """Each call site's chain draws what its split keys drew: AO's
+    ``split(key, 8)[s]``, the batched path tracer's ``split(key, 3)[b]``
+    with the lobe key ``fold_in(key_b, 3)``, the sequential one's
+    ``split(split(key, 2)[s], 4)[b]``."""
+    key = prng.PRNGKey(SAMPLE_KEYS[3])
+    n = sample_normals((H, W))
+    for chain in {"ao": [(s,) for s in range(8)], "path_batched": [(b,) for b in range(3)],
+                  "path_sequential": [(s, b) for s in range(2) for b in range(3)]}[site]:
+        k = prng.split(key, 8 if site == "ao" else (2 if len(chain) == 2 else 3))[chain[0]]
+        if len(chain) == 2:
+            k = prng.split(k, 4)[chain[1]]
+        d, u = integrators.sample_cosine_torch(key, chain, n, True, lobe=True)
+        np.testing.assert_array_equal(bits(d), bits(integrators._cosine_sample(k, n, True)))
+        np.testing.assert_array_equal(bits(u), bits(prng.uniform(prng.fold_in(k, 3), (H, W))))
+
+
+def test_two_pi_rounds_as_aten_rounds_a_python_scalar():
+    """``2.0 * math.pi * u`` multiplies by the double rounded once to f32,
+    the constant S4 takes (``frame.cuh`` kTwoPi)."""
+    u = prng.uniform(prng.PRNGKey(3), (4096,))
+    want = u.numpy() * np.float32(2.0 * math.pi)
+    np.testing.assert_array_equal(bits(2.0 * math.pi * u), want.view(np.int32))
+    assert np.float32(2.0 * math.pi).view(np.int32) == 0x40C90FDB
+
+
+@pytest.mark.parametrize("mode", ["ao", "path_batched", "path_sequential"])
+def test_integrators_through_the_host_build_render_the_plain_frames(same_libm, monkeypatch,
+                                                                    mode):
+    """AO and path frames with ``sample_cosine`` on S4's host build: bit for
+    bit the frames through the plain version."""
+    sc, o, d, _ = rays_and_hits("instances", "uv_n")
+    key = prng.PRNGKey(SAMPLE_KEYS[1])
+    if mode == "ao":
+        render = lambda: integrators.render_ao(sc, o, d, key, samples=3, backend="cuda")
+    else:
+        render = lambda: integrators.render_path_traced(
+            sc, o, d, key, max_bounces=2, samples=2, backend="cuda",
+            sample_batch=mode == "path_batched")
+    want = render()
+    calls = []
+
+    def host(*args, **kw):
+        calls.append(args[1])
+        return frame.sample_cosine_host(*args, **kw)
+
+    monkeypatch.setattr(integrators, "sample_cosine", host)
+    got = render()
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert calls == {"ao": [(0,), (1,), (2,)], "path_batched": [(0,), (1,)],
+                     "path_sequential": [(0, 0), (0, 1), (1, 0), (1, 1)]}[mode]
+
+
+# ---------------------------------------------------------------------------
 # Routers
 # ---------------------------------------------------------------------------
 
@@ -450,7 +573,8 @@ def no_kernels(monkeypatch):
     def refuse(*_a, **_k):
         raise AssertionError("a CPU call reached a kernel wrapper")
 
-    for name in ("generate_rays_cuda", "hit_attributes_cuda", "shade_primary_cuda"):
+    for name in ("generate_rays_cuda", "hit_attributes_cuda", "shade_primary_cuda",
+                 "sample_cosine_cuda"):
         monkeypatch.setattr(frame, name, refuse)
 
 
@@ -468,12 +592,23 @@ def test_routers_take_the_plain_versions_on_the_cpu(no_kernels):
     assert (frame.LAUNCHES_RAYGEN, frame.LAUNCHES_ATTRS, frame.LAUNCHES_SHADE) == counts
 
 
+@pytest.mark.parametrize("lobe", [False, True])
+def test_sample_router_takes_the_plain_version_on_the_cpu(no_kernels, lobe):
+    before = frame.LAUNCHES_SAMPLE
+    key, n = prng.PRNGKey(SAMPLE_KEYS[2]), sample_normal_layout("path_expanded")
+    got = integrators.sample_cosine(key, (1,), n, True, lobe)
+    want = integrators.sample_cosine_torch(key, (1,), n, True, lobe)
+    assert_bitwise(got if lobe else (got,), want if lobe else (want,))
+    assert frame.LAUNCHES_SAMPLE == before
+
+
 def test_router_names_keep_their_signatures():
     import inspect
 
     for router, plain in ((camera.generate_rays, camera.generate_rays_torch),
                           (renderer.hit_attributes, renderer.hit_attributes_torch),
-                          (shade.shade_primary, shade.shade_primary_torch)):
+                          (shade.shade_primary, shade.shade_primary_torch),
+                          (integrators.sample_cosine, integrators.sample_cosine_torch)):
         assert inspect.signature(router) == inspect.signature(plain)
 
 
@@ -486,7 +621,8 @@ def test_router_modules_name_every_module_that_binds_a_router():
     import tpu_raytracer_torch
 
     routers = {"generate_rays": camera.generate_rays, "hit_attributes": renderer.hit_attributes,
-               "shade_primary": shade.shade_primary}
+               "shade_primary": shade.shade_primary,
+               "sample_cosine": integrators.sample_cosine}
     bound = set()
     for info in pkgutil.walk_packages(tpu_raytracer_torch.__path__, "tpu_raytracer_torch."):
         mod = importlib.import_module(info.name)
@@ -568,3 +704,23 @@ def test_wrappers_reject_bad_dtypes_shapes_and_devices():
                                  tex_filter="trilinear")
     with pytest.raises(ValueError, match="cuda"):
         frame.shade_primary_cuda(sc, at, None)
+
+
+def test_sample_wrapper_rejects_bad_inputs():
+    key, n = prng.PRNGKey(1), sample_normals((4, 5))
+    with pytest.raises(ValueError, match="chain"):
+        frame.sample_cosine_host(key, (1, 2, 3, 4, 5), n)
+    with pytest.raises(ValueError, match="chain"):
+        frame.sample_cosine_host(key, (2 ** 32,), n)
+    with pytest.raises(ValueError, match="float32"):
+        frame.sample_cosine_host(key, (1,), n.double())
+    with pytest.raises(ValueError, match=r"\[\.\.\., 3\]"):
+        frame.sample_cosine_host(key, (1,), n[..., :2])
+    with pytest.raises(ValueError, match="int64"):
+        frame.sample_cosine_host(key.int(), (1,), n)
+    with pytest.raises(ValueError, match="shape"):
+        frame.sample_cosine_host(prng.split(key, 2), (1,), n)
+    with pytest.raises(ValueError, match="cuda"):
+        frame.sample_cosine_cuda(key, (1,), n)
+    d, u = frame.sample_cosine_host(key, (), n[:0], lobe=True)  # no ray: no launch
+    assert d.shape == (0, 5, 3) and u.shape == (0, 5)

@@ -6,9 +6,9 @@ carrying kernels of K1 and K3 (u, v and n) with the lit frames they
 serve, K1 on a flattened scene, K1, K4 and K6 on a presplit colonnade,
 the PNG and OBJ readers on a machine without OpenCV or PIL, the
 big-scene route (a scene past the leaf code's rows cast by K4 alone), and
-the frame stages' kernels S1 (raygen), S2 (hit attributes) and S3
-(primary shade) bit for bit against their plain versions, misses
-included.
+the frame stages' kernels S1 (raygen), S2 (hit attributes), S3 (primary
+shade) and S4 (the path tracer's and AO's sample draws) bit for bit
+against their plain versions, misses included.
 
 Marked ``gpu``: every test skips without a card. On a machine with one
 (and no JAX), run from the repository root with
@@ -1038,3 +1038,76 @@ def _refuse_cuda(fn):
         return fn(*args, **kwargs)
 
     return guarded
+
+
+def _sample_sites(device):
+    """(key, {call site: (normals, chain, lobe)}) of S4's draws on a
+    small colonnade frame with misses: AO's, the batched path tracer's
+    bounce 0 (the normals expanded over 2 samples, stride 0) and bounce 1
+    (a contiguous batch), the sequential one's chain of two words."""
+    from tpu_raytracer_torch.utils import prng
+
+    scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=device)
+    o, d = _rays(cam, device)
+    h = traversal.cast_rays_cuda(scene, o, d, want_normals=True)
+    assert (h.tri < 0).any() and (h.tri >= 0).any()
+    n = hit_attributes(scene, o, d, h).normal
+    batch = n[None].expand((2,) + n.shape)
+    assert batch.stride(0) == 0
+    return prng.PRNGKey(2 ** 40 + 12345, device=device), {
+        "ao": [(n, (s,), False) for s in (0, 7)],
+        "path": [(batch, (0,), True), (batch.contiguous(), (1,), True), (n, (1, 2), True)]}
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("site", ["ao", "path"])
+def test_sample_kernel_matches_plain_chain_bitwise(cuda, site, exact):
+    """S4 against its plain chain on the card (``utils/prng.py``'s eager
+    threefry ops and ``_cosine_sample``): directions and lobe uniforms bit
+    for bit, one launch a draw."""
+    from tpu_raytracer_torch.kernels import frame
+    from tpu_raytracer_torch.render.integrators import sample_cosine, sample_cosine_torch
+
+    key, sites = _sample_sites(cuda)
+    for n, chain, lobe in sites[site]:
+        before = frame.LAUNCHES_SAMPLE
+        got = sample_cosine(key, chain, n, exact, lobe)
+        assert frame.LAUNCHES_SAMPLE == before + 1
+        want = sample_cosine_torch(key, chain, n, exact, lobe)
+        if not lobe:
+            got, want = (got,), (want,)
+        assert got[0].shape == n.shape and _same_bits(got, want), (chain, lobe)
+
+
+@pytest.mark.parametrize("kind", ["ao", "path"])
+def test_compiled_sample_stage_is_s4_alone(cuda, kind, monkeypatch):
+    """The compiled AO and path frames draw through S4 alone: one launch a
+    draw in a replay (8 AO samples, 2 path bounces before the any-hit
+    tail), no threefry op on a CUDA tensor, every replay bitwise the eager
+    frame and the frame through the plain chain."""
+    from tpu_raytracer_torch.render import integrators, pipeline
+    from tpu_raytracer_torch.utils import prng
+
+    pipeline.clear_compiled()
+    scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
+    config = RenderConfig(128, 96)
+    name, extra = (("render_image_ao", (8, 1.0)) if kind == "ao"
+                   else ("render_image_path_traced", (2, 2)))
+    eager, compiled = getattr(pipeline, name), getattr(pipeline, "compiled_" + name)
+    p = cam.ray_params(cuda)
+    frames = []
+    with monkeypatch.context() as m:
+        m.setattr(prng, "threefry2x32", _refuse_cuda(prng.threefry2x32))
+        for seed in (7, 8):
+            args = (config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"],
+                    prng.PRNGKey(seed, device=cuda), *extra)
+            frames.append((compiled(*args), args))
+    entry = compiled.last
+    assert entry.launches.get("S4") == (8 if kind == "ao" else 2) and entry.replays == 2
+    assert not torch.equal(frames[0][0], frames[1][0])
+    for img, args in frames:
+        assert torch.equal(img, eager(*args))
+        with monkeypatch.context() as m:
+            m.setattr(integrators, "sample_cosine", integrators.sample_cosine_torch)
+            assert torch.equal(img, eager(*args))
+    pipeline.clear_compiled()

@@ -252,14 +252,14 @@ def bounce_rays(scene, o, d):
     sample (``chip_smoke.py``'s path phase)."""
     from .kernels.traversal import cast_rays
     from .render import hit_attributes
-    from .render.integrators import _cosine_sample
+    from .render.integrators import sample_cosine
     from .render.shade import SHADOW_EPS
     from .render.sorted_cast import park_dead_rays
     from .utils import prng
 
     at = hit_attributes(scene, o, d, cast_rays(scene, o, d))
-    key = prng.split(prng.PRNGKey(0), 3)[0].to(d.device)
-    nd = _cosine_sample(key, at.normal, True)
+    # the draw of split(PRNGKey(0), 3)[0]
+    nd = sample_cosine(prng.PRNGKey(0, device=d.device), (0,), at.normal, True)
     return park_dead_rays(at.location + nd * SHADOW_EPS, nd, at.hit)
 
 

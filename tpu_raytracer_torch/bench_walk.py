@@ -225,7 +225,7 @@ def ray_sets(dev):
     from .render import Camera
     from .core.vecmath import normalize
     from .render import generate_rays, hit_attributes
-    from .render.integrators import _cosine_sample, _reflect
+    from .render.integrators import _reflect, sample_cosine
     from .render.shade import DEFAULT_LIGHT_DIRECTION, SHADOW_EPS
     from .render.sorted_cast import park_dead_rays
     from .utils import prng
@@ -252,8 +252,9 @@ def ray_sets(dev):
     col, ccam = scene_colonnade(512, 512, device=dev)
     o5, d5, a5 = primary(col, ccam)
     # config 5's first bounce rays, as chip_smoke.py makes them (2 samples)
-    key = prng.split(prng.PRNGKey(0), 3)[0].to(dev)
-    nd = _cosine_sample(key, a5.normal[None].expand((2,) + a5.normal.shape), True)
+    # (the draw of split(PRNGKey(0), 3)[0])
+    nd = sample_cosine(prng.PRNGKey(0, device=dev), (0,),
+                       a5.normal[None].expand((2,) + a5.normal.shape), True)
     bounce = park_dead_rays(a5.location[None] + nd * SHADOW_EPS, nd,
                             a5.hit[None].expand(nd.shape[:-1]))
     inst4, cam4 = scene_instances(1920, 1088, device=dev)

@@ -3,12 +3,12 @@ native BVH builder from ``accel/csrc`` and the native OBJ parser from
 ``scene/csrc``.
 
 The CUDA sources of K1/K2, K3, K4/K5, K6, K6's plan, the frame stages
-S1-S3 (``frame.cu``) and the capture's node count (``capture.cu``, read by
+S1-S4 (``frame.cu``) and the capture's node count (``capture.cu``, read by
 ``utils/profiling.py``) are compiled for ``sm_90a`` by one ``nvcc`` process
 per source, all started together, and linked into one shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds). The host builds of the same headers (``g++``:
-the traversal's in ``traverse_host.cpp``, S1-S3's in ``frame_host.cpp``)
+the traversal's in ``traverse_host.cpp``, S1-S4's in ``frame_host.cpp``)
 serve the CPU tests, and the BVH builder
 (``accel/csrc/bvh_builder.cpp``) and the OBJ parser
 (``scene/csrc/obj_loader.cpp``) are ``g++`` builds too. Libraries go to
@@ -116,7 +116,7 @@ KERNEL_NAMES = ("paged_major_kernel", "binary_traverse_kernel", "wide_traverse_k
                 "tlas_traverse_kernel", "paged_wide_kernel", "paged_binary_kernel",
                 "page_plan_init_kernel", "page_plan_tiles_kernel", "page_plan_order_kernel",
                 "page_plan_lists_kernel", "frame_raygen_kernel", "frame_attrs_kernel",
-                "frame_shade_kernel")
+                "frame_shade_kernel", "frame_sample_kernel")
 
 
 def ptxas_report(lib: pathlib.Path) -> dict[str, dict[str, int]]:
@@ -150,7 +150,7 @@ def ptxas_report(lib: pathlib.Path) -> dict[str, dict[str, int]]:
 
 
 def build_cuda() -> pathlib.Path:
-    """The kernels K1/K2, K3, K4/K5, K6, K6's plan and S1-S3 for sm_90a: one nvcc
+    """The kernels K1/K2, K3, K4/K5, K6, K6's plan and S1-S4 for sm_90a: one nvcc
     per source, started together, linked into ``libtraverse.so``."""
     return _build("traverse", find_nvcc(), NVCC_FLAGS, CUDA_SOURCES,
                   link_flags=NVCC_LINK_FLAGS)
@@ -231,6 +231,10 @@ _ATTRS_ARGS = [_P] * 14 + [_I] + [_P, _I, _P, _I64] + [_P] * 6 + [_I, _I] + [_P]
 # point_shadows; out
 _SHADE_ARGS = ([_P] * 5 + [_I] + [_P, _I64, _I] + [_P] * 3 + [_I] + [_P] * 10 + [_I64]
                + [_I, _I, _F, _F, _F, _I, _F, _F, _I, _I, _I, _I, _I] + [_P])
+_U = ctypes.c_uint32
+# S4: key, chain_len, chain words w0-w3, lobe_word; normal, inner, its
+# strides (outer, inner, component), num_rays; exact; dirs, lobe outputs
+_SAMPLE_ARGS = [_P, _I] + [_U] * 5 + [_P] + [_I64] * 5 + [_I, _P, _P]
 _ENTRY_ARGS = {
     # ... + stream
     "cuda": {"wt_launch": [_I] + _SCENE_ARGS + _RAY_ARGS + _WALK_ARGS + [_P],
@@ -246,6 +250,7 @@ _ENTRY_ARGS = {
              "frame_raygen_launch": _RAYGEN_ARGS + [_P],
              "frame_attrs_launch": _ATTRS_ARGS + [_P],
              "frame_shade_launch": _SHADE_ARGS + [_P],
+             "frame_sample_launch": _SAMPLE_ARGS + [_P],
              # stream, int64 out: the capture's kernel, memcpy and memset nodes
              "capture_device_ops": [_P, _P]},
     # ... + spills (one i64 out)
@@ -257,7 +262,7 @@ _ENTRY_ARGS = {
              "paged_major_trace_host": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS + [_P],
              "page_plan_host": _PLAN_IO_ARGS},
     "frame_host": {"frame_raygen_host": _RAYGEN_ARGS, "frame_attrs_host": _ATTRS_ARGS,
-                   "frame_shade_host": _SHADE_ARGS},
+                   "frame_shade_host": _SHADE_ARGS, "frame_sample_host": _SAMPLE_ARGS},
 }
 
 _loaded: dict[tuple, ctypes.CDLL] = {}

@@ -1,5 +1,5 @@
-// CUDA entry points of the frame's stages S1 (raygen), S2 (hit attributes)
-// and S3 (primary shade), whose per-ray math is frame.cuh.
+// CUDA entry points of the frame's stages S1 (raygen), S2 (hit attributes),
+// S3 (primary shade) and S4 (sample), whose per-ray math is frame.cuh.
 //
 // S1 replaces render/camera.py generate_rays_torch (the JAX package's
 // tpu_raytracer/render/camera.py:113 generate_rays, which XLA fuses ahead
@@ -27,10 +27,24 @@
 // input give the same bits on every thread). Vectorized stores of the
 // 12-byte rows are later work.
 //
+// S4 (render/integrators.py sample_cosine_torch: utils/prng.py's threefry
+// draws and _cosine_sample, the frame's sample stage) is bounded by integer
+// operations: each ray hashes two counters (three with the path tracer's
+// lobe draw), ~100 uint32 operations a hash, against 24-28 bytes read and
+// written. It keeps every word in registers (the eager version makes one
+// int64 round trip through device memory per operation) and derives the
+// draw's key once per block: thread 0 folds the frame's key words, read
+// through a device pointer so a captured graph replays the key copied in,
+// with the chain's words into shared memory. The grid is capped at
+// kSampleBlocksPerSM blocks per SM, each striding over the rays, so that
+// derivation is paid by ~1,000 blocks rather than one block per 256 rays.
+//
 // Built with K1-K6 into one library (kernels/build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
 //        -Xcompiler -fPIC -c frame.cu
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "frame.cuh"
 
@@ -72,7 +86,51 @@ frame_shade_kernel(fr::ShadeScene s, fr::ShadeParams p, fr::ShadeRays in, int64_
   if (r < num_rays) fr::shade(s, p, in, r, out);
 }
 
+constexpr int kSampleBlocksPerSM = 8;
+
+__global__ void __launch_bounds__(kThreads)
+frame_sample_kernel(const int64_t* __restrict__ key, fr::SampleChain chain, fr::SampleArgs a) {
+  __shared__ uint32_t keys[4];
+  if (threadIdx.x == 0) fr::sample_keys(key, chain, keys);
+  __syncthreads();
+  const uint32_t k[4] = {keys[0], keys[1], keys[2], keys[3]};
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t r = thread_index(); r < a.num_rays; r += step) fr::sample(a, k, r);
+}
+
+// The SMs of the current device, read once per device.
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = n > 0 ? n : 132;
+  }
+  return counts[dev];
+}
+
 }  // namespace
+
+// S4 on `stream`: one draw's cosine samples dirs [num_rays, 3] around the
+// normals (read through their strides, fr::SampleArgs) and, where `lobe`
+// is not null, its lobe uniforms [num_rays]. `key` [2] lies on the card;
+// the chain's `chain_len` words (at most fr::kMaxChain) are w0..w3.
+extern "C" int frame_sample_launch(const int64_t* key, int chain_len, uint32_t w0, uint32_t w1,
+                                   uint32_t w2, uint32_t w3, uint32_t lobe_word,
+                                   const float* normal, int64_t inner, int64_t stride_outer,
+                                   int64_t stride_inner, int64_t stride_comp, int64_t num_rays,
+                                   int exact, float* dirs, float* lobe, void* stream) {
+  const fr::SampleChain c{chain_len, {w0, w1, w2, w3}, lobe != nullptr, lobe_word};
+  const fr::SampleArgs a{normal, inner, stride_outer, stride_inner, stride_comp, num_rays,
+                         exact, dirs, lobe};
+  if (key == nullptr || !fr::sample_args_ok(c, a)) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t cap = static_cast<int64_t>(sm_count()) * kSampleBlocksPerSM;
+  const int blocks = static_cast<int>(std::min<int64_t>(blocks_for(num_rays), cap));
+  frame_sample_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(key, c, a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // S1 on `stream`: directions [height, width, 3] of the camera whose K_inv
 // [3, 3], D [4] and inverse pose [6] lie on the card. Returns

@@ -14,6 +14,14 @@
 //      [0.4, 1]; the truncating u8 cast; the flat sky or the sky map.
 //      Replaces render/shade.py shade_primary_torch, the port of
 //      tpu_raytracer/render/shade.py:385 shade_primary.
+//   S4 sample (sample_keys, sample): the cosine-weighted hemisphere sample
+//      of one ray and, for the path tracer, its lobe draw, from the frame's
+//      key through a short chain of fold_in words: threefry2x32, uniform
+//      and _cosine_sample on uint32 and f32 in registers. Replaces
+//      render/integrators.py sample_cosine_torch (utils/prng.py fold_in and
+//      uniform, integrators._cosine_sample), the port of
+//      tpu_raytracer/render/integrators.py's _cosine_sample and the jax.random
+//      draws XLA fuses around it.
 //
 // Each function repeats its plain version's f32 operations in their order,
 // one rounding per PyTorch op: sums of dot products left to right (core/
@@ -609,6 +617,137 @@ FR_HD void shade(const ShadeScene& s, const ShadeParams& p, const ShadeRays& in,
   surface_color(s, p, in, r, color);
   const float illum = illumination(p, in, r);
   for (int k = 0; k < 3; ++k) px[k] = to_u8(illum * color[k] * 255.0f);
+}
+
+// ---------------------------------------------------------------------------
+// S4 sample
+// ---------------------------------------------------------------------------
+
+constexpr uint32_t kThreefryParity = 0x1BD11BDAu;  // utils/prng.py _PARITY
+constexpr int kMaxChain = 4;                      // kernels/frame.py MAX_CHAIN
+// 2.0 * math.pi as ATen rounds a Python scalar for an f32 tensor: the
+// double, rounded once to f32
+constexpr float kTwoPi = static_cast<float>(2.0 * 3.141592653589793);
+
+FR_HD uint32_t rotl32(uint32_t x, int r) {
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_l(x, x, r);
+#else
+  return (x << r) | (x >> (32 - r));
+#endif
+}
+
+// utils/prng.py threefry2x32: counter words x1, x2 hashed in place under
+// key words k1, k2; 5 groups of 4 rounds, a key injection after each.
+FR_HD void threefry2x32(uint32_t k1, uint32_t k2, uint32_t& x1, uint32_t& x2) {
+  const uint32_t ks[3] = {k1, k2, k1 ^ k2 ^ kThreefryParity};
+  constexpr int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x1 += ks[0];
+  x2 += ks[1];
+#pragma unroll
+  for (int g = 0; g < 5; ++g) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x1 += x2;
+      x2 = rotl32(x2, kRot[g % 2][i]) ^ x1;
+    }
+    x1 += ks[(g + 1) % 3];
+    x2 += ks[(g + 2) % 3] + static_cast<uint32_t>(g + 1);
+  }
+}
+
+// utils/prng.py fold_in(key, word), which is also split(key, n)[word]:
+// the hash of the counter (0, word).
+FR_HD void fold_in(uint32_t& k1, uint32_t& k2, uint32_t word) {
+  uint32_t x1 = 0, x2 = word;
+  threefry2x32(k1, k2, x1, x2);
+  k1 = x1;
+  k2 = x2;
+}
+
+// utils/prng.py uniform(key, shape) with minval 0, maxval 1 at the flat
+// index idx: the bits b1 ^ b2 of the counter (idx >> 32, idx & 0xFFFFFFFF),
+// their top 23 as the mantissa of a float in [1, 2), minus 1, times
+// (1 - 0), plus 0, clamped below at 0 (torch.maximum: no NaN can arise).
+FR_HD float uniform01(uint32_t k1, uint32_t k2, int64_t idx) {
+  uint32_t x1 = static_cast<uint32_t>(static_cast<uint64_t>(idx) >> 32);
+  uint32_t x2 = static_cast<uint32_t>(idx);
+  threefry2x32(k1, k2, x1, x2);
+  const uint32_t bits = ((x1 ^ x2) >> 9) | 0x3F800000u;
+  float f;
+  memcpy(&f, &bits, sizeof(f));
+  const float v = (f - 1.0f) * 1.0f + 0.0f;
+  return fmaxf(0.0f, v);
+}
+
+// render/integrators.py _cosine_sample of one ray: the direction around
+// n [3] of the uniforms u0, u1, normalized (core/vecmath.py normalize).
+// `-1.0 / x` is PyTorch's reciprocal times -1, which rounds as -1 / x.
+FR_HD void cosine_sample(float u0, float u1, const float* n, bool exact, float* out) {
+  const float r = sqrtf(u0);
+  const float phi = u1 * kTwoPi;
+  const float x = r * cosf(phi);
+  const float y = r * sinf(phi);
+  const float z = sqrtf(clamp_min(1.0f - u0, 0.0f));
+  const float sign = n[2] >= 0.0f ? 1.0f : -1.0f;
+  const float a = -(1.0f / (sign + n[2]));
+  const float b = n[0] * n[1] * a;
+  const float t[3] = {1.0f + sign * (n[0] * n[0]) * a, sign * b, -sign * n[0]};
+  const float bv[3] = {b, sign + (n[1] * n[1]) * a, -n[1]};
+  for (int k = 0; k < 3; ++k) out[k] = (x * t[k] + y * bv[k]) + z * n[k];
+  normalize(out, exact);
+}
+
+// The draw's key words: `key` [2] (uint32 values in int64) folded with
+// chain[0], ..., chain[len - 1] into keys[0..1], and, where `lobe`, folded
+// once more with `lobe_word` into keys[2..3] (the path tracer's lobe key).
+struct SampleChain {
+  int len;
+  uint32_t word[kMaxChain];
+  int lobe;
+  uint32_t lobe_word;
+};
+
+FR_HD void sample_keys(const int64_t* key, const SampleChain& c, uint32_t* keys) {
+  uint32_t k1 = static_cast<uint32_t>(key[0]), k2 = static_cast<uint32_t>(key[1]);
+  for (int i = 0; i < c.len; ++i) fold_in(k1, k2, c.word[i]);
+  keys[0] = k1;
+  keys[1] = k2;
+  if (c.lobe) fold_in(k1, k2, c.lobe_word);
+  keys[2] = k1;
+  keys[3] = k2;
+}
+
+// One draw over num_rays rays. The normals are read through their strides
+// as [num_rays / inner, inner, 3] (an expanded batch has stride_outer 0);
+// dirs [num_rays, 3] and lobe [num_rays] (null: not drawn) are contiguous.
+struct SampleArgs {
+  const float* normal;
+  int64_t inner;
+  int64_t stride_outer;
+  int64_t stride_inner;
+  int64_t stride_comp;
+  int64_t num_rays;
+  int exact;
+  float* dirs;
+  float* lobe;
+};
+
+// Ray r of the draw: uniforms 2r and 2r + 1 of shape + (2,) for the cosine
+// sample, uniform r of shape for the lobe.
+FR_HD void sample(const SampleArgs& a, const uint32_t* keys, int64_t r) {
+  const float u0 = uniform01(keys[0], keys[1], 2 * r);
+  const float u1 = uniform01(keys[0], keys[1], 2 * r + 1);
+  const int64_t o = r / a.inner;
+  const float* np = a.normal + o * a.stride_outer + (r - o * a.inner) * a.stride_inner;
+  const float n[3] = {np[0], np[a.stride_comp], np[2 * a.stride_comp]};
+  cosine_sample(u0, u1, n, a.exact != 0, a.dirs + 3 * r);
+  if (a.lobe != nullptr) a.lobe[r] = uniform01(keys[2], keys[3], r);
+}
+
+FR_HD bool sample_args_ok(const SampleChain& c, const SampleArgs& a) {
+  return c.len >= 0 && c.len <= kMaxChain && a.num_rays > 0 && a.inner > 0
+         && a.num_rays % a.inner == 0 && a.normal != nullptr && a.dirs != nullptr;
 }
 
 }  // namespace fr

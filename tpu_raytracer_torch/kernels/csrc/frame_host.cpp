@@ -1,5 +1,5 @@
 // Host builds of the frame stages' per-ray math (frame.cuh) for the CPU
-// tests: the code S1, S2 and S3 run on the card, looped over pixels or
+// tests: the code S1, S2, S3 and S4 run on the card, looped over pixels or
 // rays, with the same C interface as frame.cu's launchers less the stream.
 // The host has no rsqrtf: torch.rsqrt is 1/sqrtf here, as in ATen's CPU
 // kernel; atanf, atan2f, asinf, log2f, sinf, cosf and powf are the C
@@ -59,5 +59,20 @@ extern "C" int frame_shade_host(
                          point_occ_t, num_rays};
   if (!fr::shade_args_ok(s, p, in)) return 1;
   for (int64_t r = 0; r < num_rays; ++r) fr::shade(s, p, in, r, out);
+  return 0;
+}
+
+extern "C" int frame_sample_host(const int64_t* key, int chain_len, uint32_t w0, uint32_t w1,
+                                 uint32_t w2, uint32_t w3, uint32_t lobe_word,
+                                 const float* normal, int64_t inner, int64_t stride_outer,
+                                 int64_t stride_inner, int64_t stride_comp, int64_t num_rays,
+                                 int exact, float* dirs, float* lobe) {
+  const fr::SampleChain c{chain_len, {w0, w1, w2, w3}, lobe != nullptr, lobe_word};
+  const fr::SampleArgs a{normal, inner, stride_outer, stride_inner, stride_comp, num_rays,
+                         exact, dirs, lobe};
+  if (key == nullptr || !fr::sample_args_ok(c, a)) return 1;
+  uint32_t keys[4];
+  fr::sample_keys(key, c, keys);
+  for (int64_t r = 0; r < num_rays; ++r) fr::sample(a, keys, r);
   return 0;
 }

@@ -1,6 +1,6 @@
 """The frame's stages around the cast as hand-written kernels: S1 raygen,
-S2 hit attributes and S3 primary shade (``csrc/frame.cu``, per-ray math
-in ``csrc/frame.cuh``).
+S2 hit attributes, S3 primary shade and S4 sample (``csrc/frame.cu``,
+per-ray math in ``csrc/frame.cuh``).
 
 The JAX package jits its frame, so XLA fuses the work on each side of the
 Pallas cast into a few passes: raygen before it
@@ -20,11 +20,21 @@ as one kernel each:
     Lambert with shadows and Blinn-Phong, point lights, nearest, bilinear
     or trilinear textures or albedo, the flat sky or the scene's sky map.
     The shadow rays' answers come in (``lit``, ``point_occ_t``): the router
-    prepares the rays and casts them between S2 and S3.
+    prepares the rays and casts them between S2 and S3;
+  * ``sample_cosine_cuda`` (S4) of ``render/integrators.py sample_cosine``
+    (plain: ``sample_cosine_torch``, the threefry draws of ``utils/prng.py``
+    and ``_cosine_sample``), the path tracer's and AO's ``sample`` stage:
+    one draw's cosine-weighted directions, and the path tracer's lobe
+    uniforms where asked, from the frame's key folded with a static chain
+    of words (``split(key, n)[i]`` is ``fold_in(key, i)``), every uint32
+    word of the hash in registers. The key is read through a device
+    pointer and derived once per block; the normals through their
+    strides, so a batch expanded over the samples is not copied.
 
 Each public name routes: a CUDA tensor launches the kernel on the current
 stream (outputs allocated with ``torch.empty``) and counts the launch in
-``LAUNCHES_RAYGEN``, ``LAUNCHES_ATTRS`` or ``LAUNCHES_SHADE``, or raises;
+``LAUNCHES_RAYGEN``, ``LAUNCHES_ATTRS``, ``LAUNCHES_SHADE`` or
+``LAUNCHES_SAMPLE``, or raises;
 a CPU tensor takes the plain version; nothing falls back. Each kernel
 repeats its plain version's f32 operations in their order, built with
 ``--fmad=false``, so the two agree bit for bit on the card, misses
@@ -38,11 +48,19 @@ from __future__ import annotations
 
 import torch
 
-# Launches of S1, S2 and S3 since the counts were last reset (CPU calls,
-# which run the plain versions, do not count).
+# Launches of S1, S2, S3 and S4 since the counts were last reset (CPU
+# calls, which run the plain versions, do not count).
 LAUNCHES_RAYGEN = 0
 LAUNCHES_ATTRS = 0
 LAUNCHES_SHADE = 0
+LAUNCHES_SAMPLE = 0
+
+# S4's longest chain of fold_in words (csrc/frame.cuh kMaxChain), and the
+# word that folds a draw's key into the path tracer's lobe key:
+# fold_in(key_b, 3)
+MAX_CHAIN = 4
+LOBE_WORD = 3
+_WORD = 0xFFFFFFFF
 
 # S3's lighting modes and texture filters and S2's normal modes, as
 # csrc/frame.cuh numbers them
@@ -50,8 +68,9 @@ MODES = {"flat": 0, "lambert": 1, "lambert_shadow": 2, "blinn_phong": 3}
 FILTERS = {"nearest": 0, "bilinear": 1, "trilinear": 2}
 NORMAL_MODES = {"reference": 0, "inverse_transpose": 1}
 
-# The modules that bind the routers ``generate_rays``, ``hit_attributes`` and
-# ``shade_primary`` by name, for code that swaps in the plain versions.
+# The modules that bind the routers ``generate_rays``, ``hit_attributes``,
+# ``shade_primary`` and ``sample_cosine`` by name, for code that swaps in
+# the plain versions.
 ROUTER_MODULES = ("render", "render.camera", "render.renderer", "render.shade",
                   "render.pipeline", "render.integrators", "parallel.sharding",
                   "parallel.scene_shard", "bench_paged")
@@ -328,3 +347,52 @@ def shade_primary_host(scene, attrs, light_direction, mode: str = "flat", exact:
     """S3's per-ray code built for the host, on CPU tensors."""
     return _shade(scene, attrs, light_direction, mode, exact, directions, lit, point_lights,
                   point_occ_t, tex_filter, host=True)
+
+
+# ---------------------------------------------------------------------------
+# S4 sample
+# ---------------------------------------------------------------------------
+
+
+def _sample(key, chain, normal, exact: bool, lobe: bool, host: bool):
+    global LAUNCHES_SAMPLE
+    chain = tuple(int(w) for w in chain)
+    if len(chain) > MAX_CHAIN or any(not 0 <= w <= _WORD for w in chain):
+        raise ValueError(f"the chain is at most {MAX_CHAIN} words of 32 bits, got {chain}")
+    if not isinstance(normal, torch.Tensor) or normal.shape[-1:] != (3,):
+        raise ValueError("normal must be a [..., 3] tensor")
+    if normal.dtype != torch.float32:
+        raise ValueError(f"normal must be torch.float32, got {normal.dtype}")
+    key = _tensor("key", key, torch.int64, (2,))
+    dev = normal.device
+    _same_device(dev, key=key)
+    fn, tail = _entry(dev, host, "sample")
+    shape = normal.shape[:-1]
+    dirs = torch.empty(normal.shape, dtype=torch.float32, device=dev)
+    out = torch.empty(shape, dtype=torch.float32, device=dev) if lobe else None
+    r = dirs.numel() // 3
+    if r > 0:
+        # [outer, inner, 3]: a view wherever the layout allows one (a batch
+        # expanded over its first axis keeps its stride of 0)
+        outer = shape[0] if len(shape) >= 2 else 1
+        n3 = normal.reshape(outer, r // outer, 3)
+        words = chain + (0,) * (MAX_CHAIN - len(chain))
+        _call(fn, [key.data_ptr(), len(chain), *words, LOBE_WORD,
+                   n3.data_ptr(), n3.shape[1], *n3.stride(), r, int(exact), dirs.data_ptr(),
+                   _ptr(out)], tail, "S4 sample")
+        if not host:
+            LAUNCHES_SAMPLE += 1
+    return (dirs, out) if lobe else dirs
+
+
+def sample_cosine_cuda(key, chain, normal, exact: bool = True, lobe: bool = False):
+    """S4: cosine-weighted directions [..., 3] around ``normal`` under the
+    key ``key`` folded with each word of ``chain`` in turn, and with
+    ``lobe`` also the uniforms [...] of that key folded with ``LOBE_WORD``,
+    on the card (``render/integrators.py sample_cosine``)."""
+    return _sample(key, chain, normal, exact, lobe, host=False)
+
+
+def sample_cosine_host(key, chain, normal, exact: bool = True, lobe: bool = False):
+    """S4's per-ray code built for the host, on CPU tensors."""
+    return _sample(key, chain, normal, exact, lobe, host=True)

@@ -111,7 +111,7 @@ COUNTERS = (
     ("K4", "paged", "LAUNCHES_K4"), ("K5", "paged", "LAUNCHES_K5"),
     ("K6", "paged_major", "LAUNCHES"), ("K6_plan", "paged_major", "LAUNCHES_PLAN"),
     ("S1", "frame", "LAUNCHES_RAYGEN"), ("S2", "frame", "LAUNCHES_ATTRS"),
-    ("S3", "frame", "LAUNCHES_SHADE"),
+    ("S3", "frame", "LAUNCHES_SHADE"), ("S4", "frame", "LAUNCHES_SAMPLE"),
 )
 
 

@@ -5,8 +5,8 @@ Counterpart of ``tpu_raytracer/render/integrators.py``. Each bounce is a
 wavefront: the whole ray batch is cast through the backend's nearest-hit
 cast, with terminated rays parked rather than compacted; the directional
 light's hard shadows and the path tracer's final bounce use the any-hit
-cast. Random numbers come from ``utils/prng.py``, the JAX package's
-threefry streams: the same key draws the same numbers in both packages.
+cast. Random numbers are the JAX package's threefry streams
+(``utils/prng.py``): the same key draws the same numbers in both packages.
 Colours are float [0, 1] until ``to_u8``.
 
 The casts of the whole batch carry the face normal on the ``cuda``
@@ -22,9 +22,16 @@ sharded frame is this estimator's; without them nothing changes.
 
 The path tracer's and AO's work is cut into the frame's stages
 (``utils/profiling.py``): ``cast`` (each cast with its rays' prep),
-``attrs``, ``sample`` (the random draws and ``_cosine_sample``),
-``bounce`` (the rest of the bounce arithmetic, AO's accumulation) and
-``output`` (the mean over samples).
+``attrs``, ``sample`` (``sample_cosine``: each draw's cosine samples and
+the path tracer's lobe uniforms), ``bounce`` (the rest of the bounce
+arithmetic, AO's accumulation) and ``output`` (the mean over samples).
+``sample_cosine`` routes: CUDA tensors launch kernel S4 (``kernels/frame.py
+sample_cosine_cuda``), one launch a draw, CPU tensors take the plain
+version ``sample_cosine_torch``. A draw's key is the frame's key folded
+with a static chain of words, ``split(key, n)[i]`` being ``fold_in(key,
+i)``: AO's sample s draws with ``(s,)``, the batched path tracer's bounce b
+with ``(b,)``, the sequential one's sample s with ``(s, b)``; the lens
+draws of depth of field stay on ``utils/prng.py``.
 
 Not ported: the Whitted ray retiling and the TPU packet geometry of
 bounce casts.
@@ -38,6 +45,7 @@ import math
 import torch
 
 from ..core.vecmath import FLT_MAX, constant, dot, normalize
+from ..kernels.frame import LOBE_WORD
 from ..utils import prng
 from ..utils.profiling import stage
 from .renderer import get_cast_fn, hit_attributes, occlusion_cast_fn
@@ -150,6 +158,35 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
     return radiance
 
 
+def sample_cosine(key, chain, normal, exact: bool = True, lobe: bool = False):
+    """Cosine-weighted hemisphere samples around ``normal [..., 3]`` drawn
+    with ``key`` folded with each word of ``chain`` in turn; with ``lobe``
+    also the path tracer's lobe uniforms ``[...]``, drawn with that key
+    folded with ``kernels/frame.py LOBE_WORD``: (directions, uniforms).
+    CUDA tensors launch kernel S4
+    (``kernels/frame.py sample_cosine_cuda``), CPU tensors take the plain
+    version ``sample_cosine_torch``."""
+    if normal.device.type == "cpu":
+        return sample_cosine_torch(key, chain, normal, exact, lobe)
+    from ..kernels.frame import sample_cosine_cuda
+
+    with stage("sample"):
+        return sample_cosine_cuda(key, chain, normal, exact, lobe)
+
+
+def sample_cosine_torch(key, chain, normal, exact: bool = True, lobe: bool = False):
+    """The plain version of ``sample_cosine`` (and of kernel S4): the key's
+    ``prng.fold_in`` chain, ``prng.uniform`` and ``_cosine_sample``."""
+    with stage("sample"):
+        k = key.to(normal.device)
+        for word in chain:
+            k = prng.fold_in(k, word)
+        d = _cosine_sample(k, normal, exact)
+        if not lobe:
+            return d
+        return d, prng.uniform(prng.fold_in(k, LOBE_WORD), normal.shape[:-1])
+
+
 def _cosine_sample(key, normal, exact):
     """Cosine-weighted hemisphere sample around ``normal [..., 3]``."""
     with stage("sample"):
@@ -243,7 +280,7 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
         tail_occ = _sharded_hooks["occ"]
         nee_cast, nee_occ = _sharded_hooks["nearest"], _sharded_hooks["occ"]
 
-    def bounce_from_attrs(state, attrs, key_b):
+    def bounce_from_attrs(state, attrs, chain_b):
         o, d, throughput, radiance, active = state
         miss = active & ~attrs.hit
         sky = sky_radiance(scene, d, exact=exact) * sky_strength
@@ -262,25 +299,25 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
                                          exact, True, occ_cast=nee_occ, shadow_floor=0.0)
             wgt = (1.0 - refl) * illum * (inv_pi * sun_intensity)
             radiance = radiance + torch.where(live[..., None], throughput * wgt[..., None], 0.0)
-        d_diff = _cosine_sample(key_b, attrs.normal, exact)
+        d_diff, u = sample_cosine(key, chain_b, attrs.normal, exact, lobe=True)
         # glossy lobe: the mirror blended toward the cosine sample by
         # roughness, back to the cosine sample where it dips under the
         # surface
         mirror = _reflect(d, attrs.normal)
         d_spec = normalize((1.0 - rough) * mirror + rough * d_diff, exact=exact)
         d_spec = torch.where((dot(d_spec, attrs.normal) > 0.0)[..., None], d_spec, d_diff)
-        u = prng.uniform(prng.fold_in(key_b, 3), live.shape)
         d_new = torch.where((u < refl)[..., None], d_spec, d_diff)
         o_new = attrs.location + d_new * SHADOW_EPS
         o_next, d_next = park_dead_rays(torch.where(live[..., None], o_new, o),
                                         torch.where(live[..., None], d_new, d), live)
         return o_next, d_next, throughput, radiance, live
 
-    def run_bounces(state, a0, keys):
+    def run_bounces(state, a0, chain):
         """Bounce chain from the primary attributes to the radiance (the
-        ``bounce`` stage, its casts and samples stages of their own)."""
+        ``bounce`` stage, its casts and samples stages of their own); bounce
+        b draws with the key's chain ``chain + (b,)``."""
         with stage("bounce"):
-            state = bounce_from_attrs(state, a0, keys[0])
+            state = bounce_from_attrs(state, a0, chain + (0,))
             for b in range(1, max_bounces + 1):
                 o, d = state[0], state[1]
                 if fast_tail and b == max_bounces:
@@ -291,7 +328,7 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
                         occ = tail_occ(scene, o.contiguous(), d.contiguous())
                     miss = active & (occ.t >= FLT_MAX)
                     return radiance + torch.where(miss[..., None], throughput * sky, 0.0)
-                state = bounce_from_attrs(state, attrs_bounce(o, d), keys[b])
+                state = bounce_from_attrs(state, attrs_bounce(o, d), chain + (b,))
             return state[3]
 
     dof = lens_radius > 0.0
@@ -306,25 +343,29 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
                      torch.ones(bshape + (3,), dtype=torch.float32, device=dev),
                      torch.zeros(bshape + (3,), dtype=torch.float32, device=dev),
                      torch.ones(bshape, dtype=torch.bool, device=dev))
-        radiance = run_bounces(state, a0, prng.split(key, max_bounces + 1))
+        radiance = run_bounces(state, a0, ())
         with stage("output"):
             return radiance.mean(dim=0)
 
+    # sample s draws bounce b with split(split(key, samples)[s],
+    # max_bounces + 2)[b], the chain (s, b), and its lens with the last of
+    # those keys
     if dof:
         with stage("raygen"):
             right, up = lens_basis(directions, exact)
+            sample_keys = prng.split(key, samples)
     else:
         attrs0 = attrs_primary(origin, directions)
     with stage("output"):
         total = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
-    for k in prng.split(key, samples):
-        keys = prng.split(k, max_bounces + 2)
+    for s in range(samples):
         o0, d0 = origin, directions
         if dof:
             with stage("raygen"):  # its draws are stage sample
-                r = torch.sqrt(prng.uniform(keys[-1], shape)) * lens_radius
+                lens_key = prng.split(sample_keys[s], max_bounces + 2)[-1]
+                r = torch.sqrt(prng.uniform(lens_key, shape)) * lens_radius
                 # an independent angle stream folded from the same key
-                phi = prng.uniform(prng.fold_in(keys[-1], 1), shape, 0.0, 2.0 * math.pi)
+                phi = prng.uniform(prng.fold_in(lens_key, 1), shape, 0.0, 2.0 * math.pi)
                 off = ((r * torch.cos(phi))[..., None] * right
                        + (r * torch.sin(phi))[..., None] * up)
                 focal = origin + directions * focus_distance
@@ -337,7 +378,7 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
             state = (o0, d0, torch.ones(shape + (3,), dtype=torch.float32, device=dev),
                      torch.zeros(shape + (3,), dtype=torch.float32, device=dev),
                      torch.ones(shape, dtype=torch.bool, device=dev))
-        radiance = run_bounces(state, a0, keys)
+        radiance = run_bounces(state, a0, (s,))
         with stage("output"):
             total = total + radiance
     with stage("output"):
@@ -364,8 +405,9 @@ def render_ao(scene, origin, directions, key, samples: int = 8, radius: float = 
                                normal_mode=normal_mode)
     with stage("bounce"):
         total = torch.zeros(shape, dtype=torch.float32, device=directions.device)
-    for k in prng.split(key.to(directions.device), samples):
-        d = _cosine_sample(k, attrs.normal, exact)
+    key = key.to(directions.device)
+    for s in range(samples):
+        d = sample_cosine(key, (s,), attrs.normal, exact)
         with stage("cast"):
             o, dd = park_dead_rays(attrs.location + d * SHADOW_EPS, d, attrs.hit)
             hit = cast(scene, o, dd)

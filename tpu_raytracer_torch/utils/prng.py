@@ -5,9 +5,16 @@ arithmetic, bit-equal to ``jax.random`` (jax 0.9.0, whose default
 Counterpart of ``jax._src.prng`` (``threefry_seed``, the 20 rounds and
 key schedule of ``_threefry2x32_lowering``, ``_threefry_split_foldlike``,
 ``_threefry_fold_in``, ``_threefry_random_bits_partitionable``) and
-``jax._src.random._uniform``. The path tracer and AO take their random
-numbers from here, so that the port draws the JAX package's streams:
+``jax._src.random._uniform``. The port draws the JAX package's streams:
 the same key gives the same bits on the CPU and on the card.
+
+This is the plain version of the path tracer's and AO's ``sample`` stage
+(``render/integrators.py sample_cosine_torch``): on the card that stage
+is kernel S4 (``kernels/csrc/frame.cuh``), the same hash on uint32 words
+in registers, bit for bit these functions. On the card this module
+remains the path of the thin lens's draws (``minval`` not 0), of the
+viewers' and the sharded frames' per-frame and per-rank ``fold_in`` and
+``split`` of the key, and of ``random_bits``.
 
 A key is an explicit int64 tensor ``[2]`` (or ``[..., 2]``) holding two
 uint32 words, passed in by the caller as in JAX; there is no global
