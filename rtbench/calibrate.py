@@ -42,10 +42,10 @@ def main(argv=None) -> int:
     cell = spec.Cell(a.workload)
     system.import_port(spec.ROOT)
     traffic, config = cell.traffic, cell.config
-    tris = scenes.triangles(config)
+    desc = scenes.scene(config)
     camera = pose.CameraPath(config["camera"])
     intr = pose.intrinsics(traffic["width"], traffic["height"], config["fov_deg"])
-    port = system.Frames(config, traffic, tris, device, os.path.join(spec.ROOT, CACHE, "bvh"))
+    port = system.Frames(config, traffic, desc, device, os.path.join(spec.ROOT, CACHE, "bvh"))
     seeds = [int(s) % 2 ** 63 for s in a.seeds.split(",")]
     frames = {}
     t = time.perf_counter()
@@ -58,8 +58,8 @@ def main(argv=None) -> int:
     port.close()
     del port
     torch.cuda.empty_cache()
-    ref = check.Reference(config, traffic, tris, device)
-    low = check.Reference(config, traffic, tris, device, "bfloat16") if a.control_seeds else None
+    ref = check.Reference(config, traffic, desc, device)
+    low = check.Reference(config, traffic, desc, device, "bfloat16") if a.control_seeds else None
     lower, upper = {}, {}
     for seed in seeds:
         t = time.perf_counter()

@@ -22,7 +22,7 @@ import random
 
 import torch
 
-from . import prng, reference
+from . import prng, reference, spec
 
 NUMBERS = ("px_off_pct", "mean_abs")
 
@@ -45,25 +45,21 @@ def worst(readings: list) -> dict:
 
 
 class Reference:
-    """The reference's frames of one cell: its geometry built once."""
+    """The reference's frames of one cell: its geometry built once from the
+    scene description ``desc``, its frames drawn by the traffic's entry
+    module (``entries/<entry>.py``)."""
 
-    def __init__(self, config: dict, traffic: dict, tris, device, precision: str = "float32"):
-        self.config, self.traffic = config, traffic
-        self.geom = reference.Geometry(*tris, device, precision)
+    def __init__(self, config: dict, traffic: dict, desc: dict, device,
+                 precision: str = "float32"):
+        self.config, self.traffic, self.scene = config, traffic, desc
+        self.geom = reference.Geometry.from_scene(desc, device, precision)
         self.device = torch.device(device)
+        self.entry = spec.entry(traffic["entry"])
 
     def frame(self, K_inv, D, pose, inv_pose, key) -> torch.Tensor:
         t = self.traffic
         rays = reference.raygen(t["width"], t["height"], K_inv, D, pose, inv_pose, self.device)
-        albedo = tuple(self.config["albedo"])
-        if t["entry"] == "image":
-            return reference.primary(self.geom, rays, albedo, t.get("lighting", "flat"))
-        if t["entry"] == "path_traced":
-            return reference.path_traced(self.geom, rays, key, albedo, t["samples"],
-                                         t["max_bounces"])
-        if t["entry"] == "ao":
-            return reference.ambient_occlusion(self.geom, rays, key, t["samples"], t["radius"])
-        raise ValueError(f"the reference has no entry {t['entry']!r}")
+        return self.entry.reference(self, rays, key, self.config, t)
 
 
 def inputs(camera, intr, seed: int, frame: int, keyed: bool = True):

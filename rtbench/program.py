@@ -1,8 +1,9 @@
 """What the port records of itself, for the per-layer readers: its spans
 (``tpu_raytracer_torch.utils.profiling.spans()``) and the stage map of the
 cell's compiled entry (``FrameEntry.stages`` and ``nodes``), read through
-the port's public modules. The entry is the one the cell's traffic names
-(``system.ENTRIES``), the ``last`` of that compiled entry point.
+the port's public modules. The entry is the ``last`` of the compiled
+entry point that the traffic's entry module names (``COMPILED`` in
+``entries/<entry>.py``).
 
 Every reader of this module reads only where the entry was captured as a
 CUDA graph (it has ``nodes``): on the CPU, or with a port that records
@@ -23,7 +24,8 @@ import importlib
 import json
 import statistics
 
-from .system import ENTRIES, PORT
+from . import spec
+from .system import PORT
 
 
 def _port(module: str):
@@ -36,7 +38,8 @@ def _port(module: str):
 def entry(traffic: dict):
     """The cell's compiled entry if it was captured as a graph, else None."""
     pipeline = _port("render.pipeline")
-    frame = getattr(pipeline, ENTRIES.get(traffic.get("entry"), ""), None)
+    compiled = getattr(spec.entry(traffic["entry"]), "COMPILED", None)
+    frame = getattr(pipeline, compiled, None) if compiled else None
     last = getattr(frame, "last", None)
     return last if getattr(last, "nodes", None) else None
 

@@ -1,6 +1,6 @@
 """The plain reference: the cells' frames worked out again in plain
-PyTorch from the configuration's triangles and the run's camera inputs,
-importing nothing of the port (nor JAX).
+PyTorch from the configuration's scene description (``scenes.py``) and
+the run's camera inputs, importing nothing of the port (nor JAX).
 
 It follows the semantics the port documents, written down here from the
 description and not from the port's code paths:
@@ -9,6 +9,11 @@ description and not from the port's code paths:
     radial map with the distortion D, normalised, axes swapped to
     y-forward / z-up, rotated by the inverse pose, normalised again; the
     origin is the pose's position;
+  * instances: each instance's mesh baked to world space, ``apply_lre(
+    invert_lre(pose), v * scale)`` (the order the port documents for
+    ``Scene.flattened``), with the harness's own pose maths (``pose.py``);
+    an identity instance's triangles pass through untouched. World
+    triangles are numbered instance by instance, each mesh's in its order;
   * triangles are one-sided: a ray hits where d.n <= -1e-6 (n the
     normalised winding cross product), at t = ((v0 - o).n) / (d.n) >= 0,
     with the plane point's barycentrics u, v (affine rows of the
@@ -86,16 +91,56 @@ def _morton(q):
     return part(q[:, 0]) | (part(q[:, 1]) << 1) | (part(q[:, 2]) << 2)
 
 
-class Geometry:
-    """The triangles on ``device``: records (v0, n, rA, rB) and the
-    reference's tree."""
+IDS = ("instance", "mesh", "material", "local")
 
-    def __init__(self, v0, v1, v2, device, precision: str = "float32"):
+
+def bake(desc: dict) -> dict:
+    """A scene description's world triangles ``v0``, ``v1``, ``v2`` and,
+    for each, its ``instance``, ``mesh``, ``material`` and ``local`` (its
+    index in its mesh): numpy arrays, world triangles in instance order."""
+    from .pose import apply_lre, invert_lre
+
+    parts = {k: [] for k in ("v0", "v1", "v2") + IDS}
+    for i, (m, material, p, scale) in enumerate(desc["instances"]):
+        mesh = desc["meshes"][m]
+        p = torch.from_numpy(np.asarray(p, np.float32).reshape(6))
+        scale = torch.from_numpy(np.asarray(scale, np.float32).reshape(3))
+        moved = bool(p.any() or (scale != 1.0).any())
+        inv_pose = invert_lre(p)
+        for k in ("v0", "v1", "v2"):
+            v = np.asarray(mesh[k], np.float32).reshape(-1, 3)
+            parts[k].append(apply_lre(inv_pose, torch.from_numpy(v) * scale).numpy() if moved
+                            else v)
+        n = len(parts["v0"][-1])
+        for k, value in (("instance", i), ("mesh", m), ("material", material)):
+            parts[k].append(np.full(n, value, np.int64))
+        parts["local"].append(np.arange(n, dtype=np.int64))
+    return {k: np.concatenate(v) for k, v in parts.items()}
+
+
+class Geometry:
+    """The triangles on ``device``: records (v0, n, rA, rB), the
+    reference's tree and, for each triangle, ``instance``, ``mesh``,
+    ``material`` and ``local`` (its index in its mesh; int64 tensors)."""
+
+    @classmethod
+    def from_scene(cls, desc: dict, device, precision: str = "float32") -> "Geometry":
+        """A scene description's geometry, its instances baked (``bake``)."""
+        b = bake(desc)
+        return cls(b["v0"], b["v1"], b["v2"], device, precision, {k: b[k] for k in IDS})
+
+    def __init__(self, v0, v1, v2, device, precision: str = "float32", ids: dict | None = None):
         if precision not in PRECISIONS:
             raise ValueError(f"precision is one of {PRECISIONS}, got {precision!r}")
         self.device = torch.device(device)
         self.low = precision == "bfloat16"
         v0, v1, v2 = (np.asarray(v, np.float32).reshape(-1, 3) for v in (v0, v1, v2))
+        T = len(v0)
+        if ids is None:  # one mesh under one instance and material
+            ids = {"instance": np.zeros(T, np.int64), "mesh": np.zeros(T, np.int64),
+                   "material": np.zeros(T, np.int64), "local": np.arange(T, dtype=np.int64)}
+        for k in IDS:
+            setattr(self, k, torch.from_numpy(np.asarray(ids[k], np.int64)).to(self.device))
         n = np.cross(v1 - v0, v2 - v0)
         n = (n * (1.0 / np.sqrt(np.sum(n * n, axis=-1, keepdims=True)))).astype(np.float32)
         t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -297,7 +342,8 @@ def raygen(width, height, K_inv, D, pose, inv_pose, device):
 
 
 class Hits:
-    """A cast's shading inputs: hit mask, point, unit normal."""
+    """A cast's shading inputs: hit mask, point, unit normal, and ``tri``,
+    the world triangle hit (-1 on a miss)."""
 
     def __init__(self, geom, o, d, any_hit=False, t_max=FLT_MAX, live=None):
         shape = d.shape[:-1]
@@ -313,6 +359,7 @@ class Hits:
         hit = tri >= 0
         tp = torch.where(hit, t, torch.zeros_like(t))
         self.hit = hit.reshape(shape)
+        self.tri = tri.reshape(shape)
         self.t = t.reshape(shape)
         self.location = (o + tp[:, None] * d).reshape(shape + (3,))
         self.normal = normalize(geom.normal[torch.clamp(tri, min=0)]).reshape(shape + (3,))
@@ -329,7 +376,12 @@ def to_u8(x):
 def primary(geom, rays, albedo, lighting: str = "blinn_phong"):
     """The primary frame -> u8 [H, W, 3]."""
     o, d = rays
-    h = Hits(geom, o, d)
+    return shade(Hits(geom, o, d), d, albedo, lighting)
+
+
+def shade(h, d, albedo, lighting: str = "blinn_phong"):
+    """Primary hits ``h`` of rays ``d`` shaded -> u8 [H, W, 3]; ``albedo``
+    an RGB triple, or a tensor [H, W, 3] of each hit's surface colour."""
     dev = d.device
     if lighting == "flat":
         illum = torch.ones(h.t.shape, dtype=torch.float32, device=dev)
@@ -343,7 +395,8 @@ def primary(geom, rays, albedo, lighting: str = "blinn_phong"):
         elif lighting != "lambert":
             raise ValueError(f"the reference shades flat, lambert or blinn_phong, not {lighting!r}")
     illum = torch.clamp(torch.clamp(illum, max=1.0), min=0.4)
-    shaded = (illum[..., None] * _const(albedo, dev) * 255.0).to(torch.uint8)
+    color = albedo if isinstance(albedo, torch.Tensor) else _const(albedo, dev)
+    shaded = (illum[..., None] * color * 255.0).to(torch.uint8)
     sky = torch.tensor(SKY_COLOR, dtype=torch.uint8, device=dev)
     return torch.where(h.hit[..., None], shaded, sky)
 

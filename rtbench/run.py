@@ -4,11 +4,12 @@
 A run is one viewer-like caller in a closed loop on one card:
 
   * set-up (``setup_s``, from the process's start): the configuration's
-    triangles from the harness's frozen generator, the port's scene
-    (``Scene.compile("cuda")``, the BVH cached in the checkout), the
-    camera path's table, then the cell's compiled entry warmed on the
-    run's first three frames (the first call builds the kernel library,
-    where the checkout has none yet, and captures the graph);
+    scene description from the harness's generator (``scenes.py``), the
+    port's scene (``Scene.compile("cuda")``, each BVH cached in the
+    checkout), the camera path's table, then the traffic's entry
+    (``entries/<entry>.py``) warmed on the run's first three frames (the
+    first call builds the kernel library, where the checkout has none
+    yet, and captures the graph);
   * the window: for ``--seconds``, frame i takes the pose of step
     (seed + i) of the path and, for path tracing and AO, the key
     ``fold_in(PRNGKey(seed), i)`` (span ``rtbench.pose``), calls the entry
@@ -86,7 +87,8 @@ def _power_line(device) -> str:
 
 class Context:
     """What a per-layer reader reads: the trace, the host's dispatch
-    times, the cell's traffic and triangle count."""
+    times, the cell's traffic and the count of triangles its scene
+    stores (the sum over its meshes)."""
 
     def __init__(self, trace, dispatch_ms, traffic, triangles):
         self.trace, self.dispatch_ms = trace, dispatch_ms
@@ -120,10 +122,10 @@ def main(argv=None, t0: float | None = None, device=None, cell=None) -> int:
     traffic, config = cell.traffic, cell.config
 
     # set-up ---------------------------------------------------------------
-    tris = scenes.triangles(config)
+    desc = scenes.scene(config)
     camera = pose.CameraPath(config["camera"])
     intr = pose.intrinsics(traffic["width"], traffic["height"], config["fov_deg"])
-    port = system.Frames(config, traffic, tris, device, os.path.join(cache, "bvh"))
+    port = system.Frames(config, traffic, desc, device, os.path.join(cache, "bvh"))
     sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
     for i in range(WARM_FRAMES):
         port.frame(*check.inputs(camera, intr, seed, i, port.keyed))
@@ -174,7 +176,7 @@ def main(argv=None, t0: float | None = None, device=None, cell=None) -> int:
     metrics, extra = {}, {}
     if a.trace:
         tr = Trace(tracer.path, tracer.frames)
-        ctx = Context(tr, dispatch, traffic, len(tris[0]))
+        ctx = Context(tr, dispatch, traffic, scenes.triangle_count(desc))
         readers = spec.all_metric_readers()
         claimed = [p for r in readers.values() for p in getattr(r, "PATTERNS", ())]
         unclaimed = tr.unclaimed(claimed)
@@ -200,7 +202,7 @@ def main(argv=None, t0: float | None = None, device=None, cell=None) -> int:
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ref = check.Reference(config, traffic, tris, device)
+    ref = check.Reference(config, traffic, desc, device)
     readings = []
     for idx in sorted(kept):
         image = kept.pop(idx)

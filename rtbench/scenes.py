@@ -1,17 +1,35 @@
-"""Frozen copies of the port's scene generators: the configurations'
-geometry, made here so that a later change to the port cannot move it.
+"""A configuration's scene, made here so that a later change to the port
+cannot move it.
+
+``scene(config)`` gives the scene's description, which the port's side
+(``system.py``) and the reference (``reference.py``) both build from:
+
+  * ``meshes``: each a dict of ``MeshPrimitive.from_triangles`` keywords:
+    ``v0``, ``v1``, ``v2`` (``[T, 3]`` float32) and, optionally, ``uv0``-
+    ``uv2``, ``normal``, ``vn0``-``vn2``;
+  * ``materials``: each a dict of ``Material`` fields, ``texture`` an
+    ``[H, W, 3]`` uint8 array or absent;
+  * ``instances``: each ``(mesh, material, pose[6], scale[3])``, the pose
+    an lre (x, y, z, yaw, pitch, roll) as ``MeshInstance`` takes it.
+
+A configuration's ``"generator"`` is one of ``GENERATORS``, the frozen
+copies below, or the name of a file ``generators/<name>.py`` that defines
+``scene(**args)`` returning a description. Either takes its arguments
+from the configuration's ``"args"``.
 
 ``icosphere``, ``blob`` and ``colonnade`` copy
 ``tpu_raytracer_torch/scene/procgen.py`` (functions of the same names)
 line for line, so both give bit-identical triangles
 (``tests/test_rtbench_frozen.py`` holds them to it). Each returns
-``(v0, v1, v2)``, three ``[T, 3]`` float32 arrays, and takes its
-arguments from a configuration's ``"args"``.
+``(v0, v1, v2)``, three ``[T, 3]`` float32 arrays: one mesh, under one
+``Material(albedo=config["albedo"])`` and one identity instance.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from . import spec
 
 
 def icosphere(subdivisions: int = 3, radius: float = 1.0):
@@ -134,11 +152,21 @@ def colonnade(columns_x: int = 10, columns_y: int = 10, segs: int = 32, bands: i
     return tris[:, 0].copy(), tris[:, 1].copy(), tris[:, 2].copy()
 
 
-# a configuration's "generator" names one of these
+# a configuration's "generator" names one of these or a file of generators/
 GENERATORS = {"icosphere": icosphere, "blob": blob, "colonnade": colonnade}
 
 
-def triangles(config: dict):
-    """The configuration's triangles: ``GENERATORS[config["generator"]]``
-    on its ``"args"``."""
-    return GENERATORS[config["generator"]](**config["args"])
+def scene(config: dict) -> dict:
+    """The configuration's scene description."""
+    name = config["generator"]
+    if name in GENERATORS:
+        v0, v1, v2 = GENERATORS[name](**config["args"])
+        return {"meshes": [{"v0": v0, "v1": v1, "v2": v2}],
+                "materials": [{"albedo": tuple(config["albedo"])}],
+                "instances": [(0, 0, np.zeros(6, np.float32), np.ones(3, np.float32))]}
+    return spec.module("generators", name).scene(**config["args"])
+
+
+def triangle_count(desc: dict) -> int:
+    """The triangles the scene stores: the sum over its meshes."""
+    return sum(len(m["v0"]) for m in desc["meshes"])

@@ -2,9 +2,11 @@
 checkout's root, and under ``rtbench/`` one file per configuration
 (``configs/<name>.json``, named by ``BENCHMARK.json``), per traffic mix
 (``traffic/<name>.json``), per cell (``workloads/<name>.json``: the
-limits of its output check) and per per-layer metric
-(``metrics/<name>.py``: a reader). Adding any of them adds files and
-``BENCHMARK.json`` entries and edits none.
+limits of its output check), per per-layer metric (``metrics/<name>.py``:
+a reader), per entry (``entries/<name>.py``: how a traffic's ``entry``
+drives the port and draws its reference) and per scene generator beyond
+the frozen ones (``generators/<name>.py``). Adding any of them adds files
+and ``BENCHMARK.json`` entries and edits none.
 """
 
 from __future__ import annotations
@@ -57,15 +59,38 @@ class Cell:
         return self.name in metric.get("workloads", [self.name])
 
 
+def module(folder: str, name: str):
+    """The module ``<folder>/<name>.py`` under ``rtbench/``; raises
+    FileNotFoundError naming the file where there is none."""
+    path = os.path.join(HERE, folder, name + ".py")
+    if not NAME.match(name) or not os.path.isfile(path):
+        raise FileNotFoundError(f"{name!r} is not in rtbench/{folder}/: no file {path}")
+    spec = importlib.util.spec_from_file_location(f"rtbench.{folder}.{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def metric_reader(name: str):
     """The module ``metrics/<name>.py``: ``read(ctx)`` returns the metric's
     value, or None where it finds nothing to read; ``PATTERNS``, where it
     has them, are the kernel-name parts it claims."""
-    path = os.path.join(HERE, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(f"rtbench.metrics.{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return module("metrics", name)
+
+
+def entry(name: str):
+    """The module ``entries/<name>.py`` of a traffic's ``entry``:
+
+      * ``KEYED``: whether a frame takes a key;
+      * ``COMPILED`` (optional): the name of the compiled entry point of
+        the port's ``render/pipeline.py`` whose ``last`` entry holds the
+        stage map (``program.py``);
+      * ``bind(pipeline, scene, cfg, traffic)`` -> ``frame(K_inv, D,
+        pose, inv_pose, key)``, the u8 image on the scene's device;
+      * ``reference(ref, rays, key, config, traffic)`` -> the reference's
+        u8 frame (``ref`` a ``check.Reference``: ``geom``, ``scene``).
+    """
+    return module("entries", name)
 
 
 def all_metric_readers() -> dict:

@@ -1,6 +1,9 @@
 """A run of a cell at a size the CPU holds: the cell's files with the
-frame cut to 48 x 32 and the scene to a few hundred triangles, on the
-CPU (``run.main(device="cpu")`` skips the look for a card)."""
+frame cut to 48 x 32 and the scene to its configuration's ``tiny`` sizes
+(``{"args": {...}, "camera": {...}}``, each merged over its key; a few
+hundred triangles), on the CPU (``run.main(device="cpu")`` skips the
+look for a card). A configuration without ``tiny`` runs at its own
+size."""
 
 import json
 import os
@@ -20,11 +23,9 @@ SEED = 2 ** 31 + 77
 def tiny_cell(name: str):
     cell = spec.Cell(name)
     cell.traffic.update(width=48, height=32, check_within=4, trace_start=2, trace_frames=2)
-    if cell.config["generator"] == "blob":
-        cell.config["args"]["subdivisions"] = 2
-    else:
-        cell.config["args"].update(columns_x=4, columns_y=4, segs=8, bands=4)
-        cell.config["camera"].update(center=[5.0, 5.0], height=0.6, forward=0.2, yaw_step=0.1)
+    tiny = cell.config.get("tiny", {})
+    for key in ("args", "camera"):
+        cell.config[key].update(tiny.get(key, {}))
     return cell
 
 

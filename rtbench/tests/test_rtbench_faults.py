@@ -26,21 +26,23 @@ def _stale(monkeypatch):
 
 
 def _half(monkeypatch):
-    orig = system.Frames.frame
+    """Traffic that draws samples renders half of them on the port's side;
+    a primary frame loses its lower half of rows."""
+    orig_init, orig_frame = system.Frames.__init__, system.Frames.frame
+
+    def init(self, config, traffic, *rest):
+        self.halved = "samples" in traffic
+        if self.halved:
+            traffic = dict(traffic, samples=traffic["samples"] // 2)
+        orig_init(self, config, traffic, *rest)
 
     def frame(self, *inputs):
-        if not self.static:
-            image = orig(self, *inputs)
+        image = orig_frame(self, *inputs)
+        if not self.halved:
             image[image.shape[0] // 2:] = 0
-            return image
-        keep = self.static
-        i = {"path_traced": 1, "ao": 0}[self.kind]  # the samples among the static arguments
-        self.static = tuple(v // 2 if j == i else v for j, v in enumerate(keep))
-        try:
-            return orig(self, *inputs)
-        finally:
-            self.static = keep
+        return image
 
+    monkeypatch.setattr(system.Frames, "__init__", init)
     monkeypatch.setattr(system.Frames, "frame", frame)
 
 

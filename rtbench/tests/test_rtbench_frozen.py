@@ -22,7 +22,7 @@ from tpu_raytracer_torch.utils import prng as port_prng
     ("icosphere", {"subdivisions": 2}),
 ])
 def test_generators_give_the_ports_triangles_bit_for_bit(name, args):
-    ours = scenes.triangles({"generator": name, "args": args})
+    ours = scenes.GENERATORS[name](**args)
     theirs = getattr(procgen, name)(**args)
     for a, b in zip(ours, theirs):
         assert a.dtype == b.dtype == np.float32

@@ -5,13 +5,20 @@ its control (bfloat16 geometry) does not."""
 import pytest
 import torch
 
-from rtbench import check, pose, reference, scenes, spec
+from rtbench import check, pose, reference, scenes, spec, system
 
 SCENES = {
-    "blob": {"generator": "blob", "args": {"subdivisions": 3, "seed": 7}},
+    "blob": {"generator": "blob", "args": {"subdivisions": 3, "seed": 7},
+             "albedo": [0.85, 0.8, 0.75]},
     "colonnade": {"generator": "colonnade",
-                  "args": {"columns_x": 3, "columns_y": 3, "segs": 8, "bands": 6}},
+                  "args": {"columns_x": 3, "columns_y": 3, "segs": 8, "bands": 6},
+                  "albedo": [0.85, 0.8, 0.75]},
 }
+
+
+def _tris(name):
+    mesh = scenes.scene(SCENES[name])["meshes"][0]
+    return mesh["v0"], mesh["v1"], mesh["v2"]
 
 
 def _brute(geom, o, d, t_max=reference.FLT_MAX):
@@ -41,7 +48,7 @@ def _rays(tris, n, gen):
 @pytest.mark.parametrize("t_max", [reference.FLT_MAX, 0.7])
 @pytest.mark.parametrize("tail", [0, 500])
 def test_the_walk_finds_what_testing_every_triangle_finds(name, t_max, tail):
-    tris = scenes.triangles(SCENES[name])
+    tris = _tris(name)
     geom = reference.Geometry(*tris, "cpu")
     o, d = _rays(tris, 3000, torch.Generator().manual_seed(1))
     t, tri = reference.cast(geom, o, d, t_max, tail=tail)
@@ -52,16 +59,6 @@ def test_the_walk_finds_what_testing_every_triangle_finds(name, t_max, tail):
     assert (tri >= 0).float().mean() > 0.02
     t_any, tri_any = reference.cast(geom, o, d, t_max, any_hit=True, tail=tail)
     assert torch.equal(tri_any >= 0, tri >= 0)
-
-
-def _port_scene(tris, albedo):
-    from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene
-
-    s = Scene()
-    s.add_material(Material(albedo=albedo))
-    s.add_mesh(MeshPrimitive.from_triangles(*tris, cache_dir=False))
-    s.add_mesh_instance(MeshInstance(0, 0))
-    return s.compile("cpu")
 
 
 CASES = {
@@ -80,13 +77,13 @@ def _frame(case, precision="float32", width=40, height=24, backend="brute"):
 
     name, traffic, p, fov = CASES[case]
     traffic = dict(traffic, width=width, height=height)
-    config = {"albedo": [0.85, 0.8, 0.75]}
-    tris = scenes.triangles(SCENES[name])
+    config = SCENES[name]
+    desc = scenes.scene(config)
     _, K_inv, D = pose.intrinsics(width, height, fov)
     p = torch.tensor(p, dtype=torch.float32)
     inputs = (K_inv, D, p, pose.invert_lre(p), check.prng.frame_key(12345, 3))
-    ref = check.Reference(config, traffic, tris, "cpu", precision).frame(*inputs)
-    scene = _port_scene(tris, tuple(config["albedo"]))
+    ref = check.Reference(config, traffic, desc, "cpu", precision).frame(*inputs)
+    scene = system.build_scene(desc, "cpu", False)
     cfg = RenderConfig(width, height, backend=backend, lighting=traffic.get("lighting", "flat"))
     if traffic["entry"] == "image":
         port = pipeline.render_image(cfg, scene, *inputs[:4])
@@ -106,10 +103,11 @@ def test_the_walk_finds_the_ports_oracle_t(name):
     order, the reference in the configuration's)."""
     from tpu_raytracer_torch.render.renderer import cast_rays_brute
 
-    tris = scenes.triangles(SCENES[name])
+    tris = _tris(name)
     o, d = _rays(tris, 4000, torch.Generator().manual_seed(3))
     t, _ = reference.cast(reference.Geometry(*tris, "cpu"), o, d)
-    assert torch.equal(t, cast_rays_brute(_port_scene(tris, (1.0, 1.0, 1.0)), o, d).t)
+    scene = system.build_scene(scenes.scene(SCENES[name]), "cpu", False)
+    assert torch.equal(t, cast_rays_brute(scene, o, d).t)
 
 
 @pytest.mark.parametrize("backend", ["brute", "cuda"])
@@ -136,11 +134,11 @@ def test_the_control_fails_each_cells_check(cell, monkeypatch):
     monkeypatch.setattr(reference, "TAIL", 0)
     c = spec.Cell(cell)
     traffic = dict(c.traffic, width=96, height=54)
-    tris = scenes.triangles(c.config)
+    desc = scenes.scene(c.config)
     camera = pose.CameraPath(c.config["camera"])
     intr = pose.intrinsics(96, 54, c.config["fov_deg"])
-    ref = check.Reference(c.config, traffic, tris, "cpu")
-    low = check.Reference(c.config, traffic, tris, "cpu", "bfloat16")
+    ref = check.Reference(c.config, traffic, desc, "cpu")
+    low = check.Reference(c.config, traffic, desc, "cpu", "bfloat16")
     inp = check.inputs(camera, intr, 2 ** 31 + 9, 157)
     readings = [check.compare(low.frame(*inp), ref.frame(*inp))]
     correct, checks = check.judge(readings, [], c.limits)

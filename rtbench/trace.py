@@ -15,7 +15,10 @@ a fixed file in the checkout's cache and read back:
   * ``Trace.ms_per_frame(patterns)`` sums the device time of kernels whose
     name holds any of ``patterns``, per traced frame;
   * ``breakdown()`` lists the device operations that took the most time,
-    and the longest idle gaps labelled by the harness span the host was in.
+    and the longest idle gaps, each labelled by the innermost span the
+    host was in at its middle: one of the port's ``rt.*`` spans where
+    one holds it (``rt.frame.<n>`` as ``rt.frame``), else the harness
+    span, else ``between_spans``.
 """
 
 from __future__ import annotations
@@ -23,8 +26,11 @@ from __future__ import annotations
 import bisect
 import json
 import os
+import re
 
 SPANS = ("rtbench.pose", "rtbench.call", "rtbench.sync")
+PROGRAM = "rt."  # the port's spans (tpu_raytracer_torch/utils/profiling.py)
+FRAME_INDEX = re.compile(r"^(rt\.frame)\.\d+$")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -87,6 +93,15 @@ class Trace:
         self._starts = [s[0] for s in self.spans]
         self.t0 = self.spans[0][0]
         self.t1 = max(s[1] for s in self.spans)
+        # by start, and of equal starts the outer (longer) first
+        self.program_spans = sorted(
+            ((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+              FRAME_INDEX.sub(r"\1", e["name"])) for e in events
+             if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith(PROGRAM)
+             and "dur" in e and self.t0 <= float(e["ts"]) < self.t1),
+            key=lambda s: (s[0], -s[1]))
+        self._program_starts = [s[0] for s in self.program_spans]
+        self._program_longest = max((e - s for s, e, _ in self.program_spans), default=0.0)
         self.frames = frames
         dev = [(e.get("name", "?"), float(e["ts"]), float(e["dur"]), e["cat"]) for e in events
                if e.get("cat") in DEVICE_CATS and "dur" in e]
@@ -111,7 +126,14 @@ class Trace:
         return out
 
     def _span_at(self, t: float) -> str:
-        """The harness span the host was in at ``t`` (spans do not nest)."""
+        """The innermost span the host was in at ``t``: of the port's spans
+        that hold it, the one that started last (they nest); else the
+        harness span (those do not nest)."""
+        i = bisect.bisect_right(self._program_starts, t) - 1
+        while i >= 0 and self.program_spans[i][0] >= t - self._program_longest:
+            if t < self.program_spans[i][1]:
+                return self.program_spans[i][2]
+            i -= 1
         i = bisect.bisect_right(self._starts, t) - 1
         return self.spans[i][2] if i >= 0 and t < self.spans[i][1] else "between_spans"
 
