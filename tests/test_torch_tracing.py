@@ -11,7 +11,7 @@ record stays bounded.
 Marked ``gpu`` (skipped without a card; on one, with no JAX, run from the
 repository root with
 ``python -m pytest --noconftest -m gpu tests/test_torch_tracing.py -q``):
-on a small path frame and a small AO frame, the stage map covers
+on a small path frame, AO frame and Whitted frame (config 4), the stage map covers
 ``0..nodes`` with stages that nest and never partly overlap, a profiled
 replay runs exactly ``nodes`` device operations, ``capture_s`` is its
 span's duration, and each stage's device ms from a replay (by position
@@ -27,12 +27,13 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from tpu_raytracer_torch.app.scenes import scene_instances
 from tpu_raytracer_torch.render import Camera, RenderConfig, pipeline
 from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene, mesh, procgen
 from tpu_raytracer_torch.utils import profiling, prng
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-STAGES = ("raygen", "cast", "attrs", "sample", "bounce", "shade", "output")
+STAGES = ("raygen", "cast", "attrs", "sample", "bounce", "light", "shade", "output")
 
 
 def _scene(device, subdivisions=1, cache_dir=False):
@@ -146,6 +147,40 @@ def test_a_stage_map_records_nested_stages_against_its_counter(record):
     assert profiling.stage("cast") is profiling.span("cast")  # the map closed
 
 
+def _stage_sequence(frame):
+    """(name, parent) of each stage an eager ``frame()`` enters, in order."""
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        frame()
+    return [(s.name, s.parent) for s in sorted(profiling.spans(), key=lambda s: s.t0_ns)
+            if s.name in STAGES]
+
+
+def test_an_eager_whitted_frame_records_its_stages_in_order(record):
+    """The first cast's rays and the radiance's state, then each bounce:
+    the nearest cast, the attributes, the light (its shadow rays' any-hit
+    cast nested in it), the shading; then the output."""
+    scene, cam = scene_instances(16, 12, device="cpu")
+    cfg = RenderConfig(cam.width, cam.height, backend="cuda")
+    got = _stage_sequence(lambda: pipeline.render_image_whitted(cfg, scene, *_args(cam, "cpu"),
+                                                                2, True))
+    bounce = [("cast", None), ("attrs", None), ("light", None), ("cast", "light"),
+              ("shade", None)]
+    assert got == ([("raygen", None), ("cast", None), ("shade", None)] + 3 * bounce
+                   + [("output", None)])
+
+
+def test_a_path_frames_stages_are_as_they_were(record):
+    scene, cam = scene_instances(16, 12, device="cpu")
+    cfg = RenderConfig(cam.width, cam.height, backend="cuda")
+    got = _stage_sequence(lambda: pipeline.render_image_path_traced(
+        cfg, scene, *_args(cam, "cpu"), prng.PRNGKey(3), 2, 2))
+    draw = [("sample", "bounce")] + 5 * [("sample", "sample")]  # prng's own, on the CPU
+    assert got == ([("raygen", None), ("cast", None), ("attrs", None), ("bounce", None),
+                    ("bounce", None)] + draw + [("cast", "bounce"), ("attrs", "bounce")] + draw
+                   + [("cast", "bounce"), ("output", None), ("output", None)])
+
+
 def test_the_record_stays_bounded(record):
     for i in range(profiling.MAX_SPANS + 7):
         with profiling.setup("bvh") as span:
@@ -182,7 +217,20 @@ def _card_frames(device):
     return {"path": (pipeline.compiled_render_image_path_traced,
                      pipeline.render_image_path_traced, args + (2, 2)),
             "ao": (pipeline.compiled_render_image_ao, pipeline.render_image_ao,
-                   args + (8, 1.0))}
+                   args + (8, 1.0)),
+            "whitted": _card_whitted(device)}
+
+
+def _card_whitted(device):
+    scene, cam = scene_instances(512, 384, device=str(device))
+    args = (RenderConfig(cam.width, cam.height, backend="cuda"), scene) + _args(cam, device)
+    return (pipeline.compiled_render_image_whitted, pipeline.render_image_whitted,
+            args + (2, True))
+
+
+# the stages whose device ms a replay and an eager frame must agree on
+COMPARED = {"path": ("sample", "bounce"), "ao": ("sample", "bounce"),
+            "whitted": ("light", "shade")}
 
 
 def _innermost(stages, nodes):
@@ -232,7 +280,7 @@ def _eager_stage_ms(fn, args, device, tmp_path, reps=3):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["path", "ao"])
+@pytest.mark.parametrize("kind", ["path", "ao", "whitted"])
 def test_stage_map_of_a_captured_frame(cuda, kind, record, tmp_path):
     compiled, eager, args = _card_frames(cuda)[kind]
     compiled(*args)
@@ -254,6 +302,6 @@ def test_stage_map_of_a_captured_frame(cuda, kind, record, tmp_path):
     eager_ms = _eager_stage_ms(eager, args, cuda, tmp_path)
     print(f"[tracing_gpu] {kind} nodes={entry.nodes} replay_ms={json.dumps(replay)} "
           f"eager_ms={json.dumps(eager_ms)}")
-    for name in ("sample", "bounce"):
+    for name in COMPARED[kind]:
         assert abs(eager_ms[name] - replay[name]) <= 0.10 * replay[name], name
     pipeline.clear_compiled()

@@ -20,11 +20,16 @@ combined over the ranks that each hold a chunk of the geometry. The
 hooks take the place of exactly the cast and attribute sites, so the
 sharded frame is this estimator's; without them nothing changes.
 
-The path tracer's and AO's work is cut into the frame's stages
+The integrators' work is cut into the frame's stages
 (``utils/profiling.py``): ``cast`` (each cast with its rays' prep),
 ``attrs``, ``sample`` (``sample_cosine``: each draw's cosine samples and
-the path tracer's lobe uniforms), ``bounce`` (the rest of the bounce
-arithmetic, AO's accumulation) and ``output`` (the mean over samples).
+the path tracer's lobe uniforms), ``bounce`` (the rest of the path
+tracer's bounce arithmetic, AO's accumulation) and ``output`` (the mean
+over samples); Whitted's bounce is ``cast``, ``attrs``, ``light``
+(``_direct_illumination``: the shadow rays' set-up and the light term, its
+any-hit cast in a ``cast`` of its own) and ``shade`` (the sky, the surface
+colour, the radiance and throughput sums, the reflected rays and their
+parking).
 ``sample_cosine`` routes: CUDA tensors launch kernel S4 (``kernels/frame.py
 sample_cosine_cuda``), one launch a draw, CPU tensors take the plain
 version ``sample_cosine_torch``. A draw's key is the frame's key folded
@@ -119,42 +124,47 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
     if _sharded_hooks is not None:
         dcast, occ_cast = _sharded_hooks["nearest"], _sharded_hooks["occ"]
     directions = torch.as_tensor(directions, dtype=torch.float32)
-    origin = torch.as_tensor(origin, dtype=torch.float32).expand(directions.shape).contiguous()
     shape = directions.shape[:-1]
     dev = directions.device
-
-    radiance = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
-    throughput = torch.ones(shape + (3,), dtype=torch.float32, device=dev)
-    active = torch.ones(shape, dtype=torch.bool, device=dev)
+    with stage("cast"):  # the first cast's rays
+        origin = torch.as_tensor(origin, dtype=torch.float32).expand(directions.shape).contiguous()
+    with stage("shade"):
+        radiance = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
+        throughput = torch.ones(shape + (3,), dtype=torch.float32, device=dev)
+        active = torch.ones(shape, dtype=torch.bool, device=dev)
     o, d = origin, directions
     for bounce in range(max_bounces + 1):
         if _sharded_hooks is not None:
             attrs = _sharded_hooks["cast_attrs"](o, d)
         else:
-            hit = (cast if bounce == 0 else cast2)(scene, o, d)
-            attrs = hit_attributes(scene, o, d, hit, exact=exact, normal_mode=normal_mode)
+            with stage("cast"):
+                hit = (cast if bounce == 0 else cast2)(scene, o, d)
+            with stage("attrs"):
+                attrs = hit_attributes(scene, o, d, hit, exact=exact, normal_mode=normal_mode)
 
-        miss = active & ~attrs.hit
-        sky = sky_radiance(scene, d, exact=exact)
-        radiance = radiance + torch.where(miss[..., None], throughput * sky, 0.0)
+        with stage("light"):  # its shadow rays' any-hit cast is stage cast
+            illum = _direct_illumination(scene, dcast, attrs, light_direction, point_lights,
+                                         exact, shadows, occ_cast=occ_cast, clamp_floor=0.4)
+        with stage("shade"):
+            miss = active & ~attrs.hit
+            sky = sky_radiance(scene, d, exact=exact)
+            radiance = radiance + torch.where(miss[..., None], throughput * sky, 0.0)
 
-        live = active & attrs.hit
-        color = surface_color(scene, attrs, tex_filter)
-        illum = _direct_illumination(scene, dcast, attrs, light_direction, point_lights, exact,
-                                     shadows, occ_cast=occ_cast, clamp_floor=0.4)
-        illum = torch.clamp(illum, 0.4, 1.0)
-        refl = scene.mat_reflectivity[attrs.material]
-        emit = scene.mat_illumination[attrs.material]
-        local = color * illum[..., None] * (1.0 - refl[..., None]) + emit[..., None]
-        radiance = radiance + torch.where(live[..., None], throughput * local, 0.0)
+            live = active & attrs.hit
+            color = surface_color(scene, attrs, tex_filter)
+            illum = torch.clamp(illum, 0.4, 1.0)
+            refl = scene.mat_reflectivity[attrs.material]
+            emit = scene.mat_illumination[attrs.material]
+            local = color * illum[..., None] * (1.0 - refl[..., None]) + emit[..., None]
+            radiance = radiance + torch.where(live[..., None], throughput * local, 0.0)
 
-        if bounce == max_bounces:
-            break
-        throughput = throughput * torch.where(live[..., None], color * refl[..., None], 0.0)
-        active = live & (refl > 0.0)
-        d = normalize(_reflect(d, attrs.normal), exact=exact)
-        o = attrs.location + d * SHADOW_EPS
-        o, d = park_dead_rays(o, d, active)
+            if bounce == max_bounces:
+                break
+            throughput = throughput * torch.where(live[..., None], color * refl[..., None], 0.0)
+            active = live & (refl > 0.0)
+            d = normalize(_reflect(d, attrs.normal), exact=exact)
+            o = attrs.location + d * SHADOW_EPS
+            o, d = park_dead_rays(o, d, active)
     return radiance
 
 

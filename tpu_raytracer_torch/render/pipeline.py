@@ -20,7 +20,7 @@ as a CUDA graph and replayed. The eager functions keep their names.
 as the JAX package's call its jitted ``render_image``; no compiled body
 calls them.
 
-The primary, path and AO frames are cut into the stages of
+The primary, Whitted, path and AO frames are cut into the stages of
 ``utils/profiling.py``: ``raygen``, ``cast``, ``attrs``, ``shade`` and
 ``output`` (the supersampling mean, the tonemap and the u8 cast) here,
 the integrators' own in ``render/integrators.py``.
@@ -196,7 +196,8 @@ def whitted_rays(config: RenderConfig, scene, origin, directions, max_bounces: i
                               point_lights=config.point_lights, shadows=shadows,
                               exact=config.exact_math, tex_filter=config.texture_filter,
                               normal_mode=config.normal_mode, **kw)
-    return to_u8(tonemap(radiance, config.tonemap, config.exposure))
+    with stage("output"):
+        return to_u8(tonemap(radiance, config.tonemap, config.exposure))
 
 
 def render_image_ao(config: RenderConfig, scene, K_inv: torch.Tensor, D: torch.Tensor,

@@ -18,7 +18,7 @@ any ``torch.profiler.profile`` around the port's calls.
     name. The frame span's trace name carries its index
     (``rt.frame.<n>``), and its children nest inside it.
   * ``stage(name)``: a stage of a frame's body (``raygen``, ``cast``,
-    ``attrs``, ``sample``, ``bounce``, ``shade``, ``output``). In eager
+    ``attrs``, ``sample``, ``bounce``, ``light``, ``shade``, ``output``). In eager
     code it is a ``span``. While ``render/compiled.py`` captures a body
     into a CUDA graph (``StageMap``), each stage also records the count of
     device operations (kernel, memcpy and memset nodes) the capture holds
