@@ -242,7 +242,15 @@ sample), in phases, one line each:
      tables in an entry of its own; ``[graph_time]``: the flagship,
      Whitted and path frames eager against replayed, 21 each in turns
      (CUDA events around the call, the call's host ms), with the
-     capture's one-off seconds.
+     capture's one-off seconds;
+ 41. ``[ao_bound]`` (after phase 23): K1 on AO's first sample draw of the
+     benchmark's AO cell (the colonnade at its defaults, 1920x1080, poses
+     0, 150, 300 and 450 of its lap, radius 1.0) unbounded and bounded by
+     the radius: each cast's device ms in turns (unbounded, bounded,
+     bounded, unbounded), both bitwise their plain walks on a row sample
+     (every 12th row), and the plain walks' pops and triangle tests there:
+     the mean and 99th percentile per live ray, and the mean of their
+     maxima over 32 consecutive rays (a warp of K1's persistent loop).
 
 Every kernel's bound is the larger of its f32 operations over 67 TFLOP/s
 and its bytes over 3.35 TB/s (the H100's published peaks): operations
@@ -746,6 +754,7 @@ def main():
 
     paged_kernels, paged_ctx = paged_phases(dev, card)
     k2_entries, path_ctx = path_phases(dev, card, (scene, origin, dirs), shadow1)
+    ao_bound_phase(dev, card)
     flatten_phases(dev, card, (inst4, o4, d4, args4, img_w, k3_per_set),
                    (inst16, cam16, o16, d16))
     presplit_phase(dev, card, paged_ctx)
@@ -2165,6 +2174,90 @@ def scene_io_phases(dev, ctx) -> None:
 SHARD_REPS = 5
 
 
+# the benchmark's AO cell (rtbench/configs/colonnade.json,
+# rtbench/traffic/ao_1080p.json): the lap's centre, eye height, step and
+# yaw a frame, AO's radius, and the poses and rows of [ao_bound]
+AO_LAP = ((11.0, 11.0), 1.6, 0.05, 0.01)
+AO_RADIUS = 1.0
+AO_POSES = (0, 150, 300, 450)
+AO_ROW_STEP = 12
+WARP = 32
+
+
+def _lap_pose(k: int) -> list:
+    """Pose k of the AO cell's lap (``rtbench/pose.py lap``): vertex k of
+    the polygon that ``fly_through`` steps, looking along yaw k * step."""
+    (cx, cy), height, forward, yaw_step = AO_LAP
+    yaw = yaw_step * k
+    apothem = (forward / 2.0) / np.tan(yaw_step / 2.0)
+    return [cx - apothem * np.cos(yaw) - forward / 2.0 * np.sin(yaw),
+            cy + apothem * np.sin(yaw) - forward / 2.0 * np.cos(yaw), height, yaw, 0.0, 0.0]
+
+
+def _walk_counts(stats: dict, live: torch.Tensor) -> dict:
+    """Pops and tests per live ray (mean, 99th percentile) and the mean
+    over warps of 32 consecutive rays of their largest count."""
+    out = {}
+    for k in ("pops", "tests"):
+        c = stats[k].double()
+        out[f"{k}_mean"] = float(c[live].mean())
+        out[f"{k}_p99"] = float(torch.quantile(c[live], 0.99))
+        out[f"{k}_warp_max_mean"] = float(c.reshape(-1, WARP).amax(1).mean())
+    return out
+
+
+def ao_bound_phase(dev, card) -> None:
+    """``[ao_bound]``: K1 on AO's first sample draw of the benchmark's AO
+    cell, unbounded and bounded by its radius (phase 41 of the module
+    docstring)."""
+    from tpu_raytracer_torch.app.scenes import scene_colonnade
+    from tpu_raytracer_torch.kernels import traversal
+    from tpu_raytracer_torch.render import Camera, generate_rays, hit_attributes
+    from tpu_raytracer_torch.render.integrators import sample_cosine
+    from tpu_raytracer_torch.render.shade import SHADOW_EPS
+    from tpu_raytracer_torch.render.sorted_cast import park_dead_rays
+    from tpu_raytracer_torch.utils import prng
+
+    scene, _ = scene_colonnade(1920, 1080, device=dev)
+    key = prng.PRNGKey(2147500301, device=dev)
+    for k in AO_POSES:
+        p = Camera.looking(1920, 1080, fov_deg=65.0, pose=_lap_pose(k)).ray_params(dev)
+        o, d = generate_rays(1920, 1080, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+        attrs = hit_attributes(scene, o, d, traversal.cast_rays_cuda(scene, o, d,
+                                                                    want_normals=True))
+        nd = sample_cosine(key, (0,), attrs.normal)
+        ro, rd = park_dead_rays(attrs.location + nd * SHADOW_EPS, nd, attrs.hit)
+        casts = {"unbounded": lambda: traversal.cast_rays_cuda(scene, ro, rd),
+                 "bounded": lambda: traversal.cast_rays_cuda(scene, ro, rd, t_max=AO_RADIUS)}
+        ms = {name: [] for name in casts}
+        for name in ("unbounded", "bounded", "bounded", "unbounded"):
+            ms[name].append(device_ms(casts[name], "wide_traverse_kernel"))
+        rows = (slice(None, None, AO_ROW_STEP),)
+        so, sd = ro[rows].reshape(-1, 3), rd[rows].reshape(-1, 3)
+        live = attrs.hit[rows].reshape(-1)
+        counts, hits = {}, {}
+        for name, bound in (("unbounded", traversal.BIG), ("bounded", AO_RADIUS)):
+            hk = casts[name]()
+            hp, stats = traversal.cast_rays_wide_torch(scene, so, sd, stats=True, t_max=bound)
+            sel = lambda x: x[rows].reshape(-1)
+            check(torch.equal(_bits(sel(hk.t)), _bits(hp.t)) and torch.equal(sel(hk.tri), hp.tri)
+                  and torch.equal(sel(hk.inst), hp.inst),
+                  f"[ao_bound] K1 {name} differs from its plain walk at pose {k}")
+            counts[name], hits[name] = _walk_counts(stats, live), hp
+        occluded = {name: h.t < AO_RADIUS for name, h in hits.items()}
+        both = occluded["unbounded"] & occluded["bounded"]
+        flips = int((occluded["unbounded"] != occluded["bounded"]).sum())
+        t_diff = int((hits["unbounded"].t[both] != hits["bounded"].t[both]).sum())
+        phase("ao_bound", card=repr(card), pose=k, rays=rd.numel() // 3,
+              unbounded_ms=json.dumps([round(x, 6) for x in ms["unbounded"]]),
+              bounded_ms=json.dumps([round(x, 6) for x in ms["bounded"]]),
+              bounded_over_unbounded=f"{sum(ms['bounded']) / sum(ms['unbounded']):.4f}",
+              sample_rays=so.shape[0], live=int(live.sum()), occluded_flips=flips,
+              t_diff_occluded=t_diff,
+              unbounded=json.dumps({k2: round(v, 3) for k2, v in counts["unbounded"].items()}),
+              bounded=json.dumps({k2: round(v, 3) for k2, v in counts["bounded"].items()}))
+
+
 def _launch_counts() -> dict:
     """Each kernel's launches (its carrying kernel's included, not apart)."""
     from tpu_raytracer_torch.render.compiled import launch_counts
@@ -3515,12 +3608,13 @@ def plain_casts():
     real = renderer.get_cast_fn
     cuda_plain = _plain_router(traversal, tlas)
 
-    def plain(backend, want_normals=False):
+    def plain(backend, want_normals=False, t_max=None):
+        bound = {} if t_max is None else {"t_max": t_max}
         if backend == "bvh":
-            return binary.cast_rays_binary_torch
+            return functools.partial(binary.cast_rays_binary_torch, **bound)
         if backend == "cuda":
-            return functools.partial(cuda_plain, want_normals=want_normals)
-        return real(backend, want_normals)
+            return functools.partial(cuda_plain, want_normals=want_normals, **bound)
+        return real(backend, want_normals, t_max)
 
     modules = (renderer, integrators, pipeline, shade)
     saved = [m.get_cast_fn for m in modules]
@@ -3603,13 +3697,16 @@ def _plain_router(traversal, tlas):
     """``traversal.cast_rays`` with the kernels' plain versions in place
     of the kernels, on the rays' own device, carrying what the kernels
     would carry (``traversal.carry_fields``)."""
-    def cast(scene, origin, directions, occlusion=False, want_normals=False, carry=None):
-        uv, n = traversal.carry_fields(scene, directions, occlusion, want_normals, carry)
+    def cast(scene, origin, directions, occlusion=False, want_normals=False, carry=None,
+             t_max=traversal.BIG):
+        bounded = t_max < traversal.BIG  # a bounded cast carries nothing
+        uv, n = traversal.carry_fields(scene, directions, occlusion, want_normals,
+                                       False if bounded else carry)
         if scene.num_instances >= 2 and scene.tlas is not None:
             return tlas.cast_rays_tlas_torch(scene, origin, directions, occlusion,
                                              carry_uv=uv, carry_n=n)
         return traversal.cast_rays_wide_torch(scene, origin, directions, occlusion,
-                                              carry_uv=uv, carry_n=n)
+                                              carry_uv=uv, carry_n=n, t_max=t_max)
 
     return cast
 

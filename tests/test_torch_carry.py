@@ -157,13 +157,13 @@ def host_trace(name, short_stack=None, occlusion=False, fields=(True, True, True
     head = [w.wnode.data_ptr(), w.tri_rec.data_ptr(), inst_tab.data_ptr(), inst_root.data_ptr(),
             sc.num_instances]
     tail = [o.data_ptr(), 0, d.data_ptr(), r, int(occlusion), t.data_ptr(), tri.data_ptr(),
-            inst.data_ptr(), *outs, ctypes.byref(spills)]
+            inst.data_ptr(), *outs]
     if sc.tlas is not None:
         tl = sc.tlas
         rc = lib.tlas_trace_host(*head, tl.code.data_ptr(), tl.box.data_ptr(),
-                                 tl.inst_ids.data_ptr(), *tail)
-    else:
-        rc = lib.wt_trace_host(4, *head, *tail)
+                                 tl.inst_ids.data_ptr(), *tail, ctypes.byref(spills))
+    else:  # K1's carrying walk is unbounded
+        rc = lib.wt_trace_host(4, *head, *tail, traversal.BIG, ctypes.byref(spills))
     return rc, t, tri, inst, u, v, n
 
 

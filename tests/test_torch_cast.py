@@ -25,6 +25,7 @@ import torch
 
 from tpu_raytracer.kernels.dual import cast_rays_dual
 from tpu_raytracer.render.renderer import cast_rays_brute as jax_brute
+from tpu_raytracer_torch.core.vecmath import FLT_MAX
 from tpu_raytracer_torch.kernels import build, traversal
 from tpu_raytracer_torch.render.renderer import cast_rays_brute as port_brute
 from tpu_raytracer_torch.scene.scene import from_scene_arrays
@@ -131,12 +132,13 @@ def test_router_raises_for_unported_routes():
 
 
 def host_trace_spills(scene, origin, directions, occlusion=False, arity=4, short_stack=None,
-                      lib=None, node=None):
+                      lib=None, node=None, t_max=traversal.BIG):
     """The traversal header of K1 (``arity`` 4, the node records
     ``wnode``) or K2 (2, the binary records), built for the host with
     ``short_stack`` ring slots (default ``wide4.SHORT_STACK``), or the
     host library ``lib`` reading the node records ``node``, over every
-    ray: (t, tri, inst, entries the short stack spilled)."""
+    ray, each walk bounded by ``t_max``: (t, tri, inst, entries the short
+    stack spilled)."""
     lib = lib or build.load("host", short_stack)
     tables = scene.wide4
     tree = scene.binary if arity == 2 else None
@@ -156,15 +158,17 @@ def host_trace_spills(scene, origin, directions, occlusion=False, arity=4, short
         arity, node.data_ptr(), tables.tri_rec.data_ptr(), inst_tab.data_ptr(),
         inst_root.data_ptr(), ctypes.c_int(scene.num_instances), o.data_ptr(),
         0 if o.dim() == 1 else 3, d.data_ptr(), r, int(occlusion), t.data_ptr(),
-        tri.data_ptr(), inst.data_ptr(), None, None, None, ctypes.byref(spills),
+        tri.data_ptr(), inst.data_ptr(), None, None, None, t_max, ctypes.byref(spills),
     )
     assert rc == 0
     return t, tri, inst, spills.value
 
 
-def host_trace(scene, origin, directions, occlusion=False, arity=4, short_stack=None):
+def host_trace(scene, origin, directions, occlusion=False, arity=4, short_stack=None,
+               t_max=traversal.BIG):
     """``host_trace_spills`` without the spill count."""
-    return host_trace_spills(scene, origin, directions, occlusion, arity, short_stack)[:3]
+    return host_trace_spills(scene, origin, directions, occlusion, arity, short_stack,
+                             t_max=t_max)[:3]
 
 
 def assert_bitwise(t, tri, inst, want):
@@ -329,3 +333,94 @@ def test_walk_ab_variants_patch_the_current_sources(tmp_path):
         assert_bitwise(*host_trace_paged(pages, o, d, "K4", lib=lib)[:3], want_k4)
         assert_bitwise(*host_trace_paged(binary_pages, o, d, "K5", lib=lib)[:3], want_k5)
         assert_bitwise(*host_trace_paged(pages, o, d, "K6", lib=lib)[:3], want_k6)
+
+
+# AO's radius in the benchmark's AO cell (rtbench/traffic/ao_1080p.json)
+AO_RADIUS = 1.0
+
+
+def tiny_colonnade(width=48, height=32):
+    """(scene, origin, directions) of the benchmark's ``tiny`` colonnade
+    (rtbench/configs/colonnade.json: ``procgen.colonnade(4, 4, 8, 4)``,
+    1,026 triangles) on the CPU, with the primary rays of
+    ``scene_colonnade``'s camera."""
+    from tpu_raytracer_torch.render import Camera, generate_rays
+    from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene, procgen
+
+    sc = Scene()
+    sc.add_material(Material(albedo=(0.85, 0.8, 0.75)))
+    sc.add_mesh(MeshPrimitive.from_triangles(*procgen.colonnade(4, 4, 8, 4)))
+    sc.add_mesh_instance(MeshInstance(0, 0))
+    cam = Camera.looking(width, height, fov_deg=65.0, pose=[1.0, -2.0, 1.6, 0, 0, 0])
+    p = cam.ray_params("cpu")
+    return sc.compile("cpu"), *generate_rays(width, height, p["K_inv"], p["D"], p["pose"],
+                                             p["inv_pose"])
+
+
+def ao_sample_rays():
+    """(scene, origins, directions, live) of AO's first sample rays on
+    ``tiny_colonnade``, cast from the primary hits as ``render_ao`` casts
+    them, rays off missed pixels parked; ``live`` [R] marks the rays that
+    are not parked."""
+    from tpu_raytracer_torch.render import hit_attributes
+    from tpu_raytracer_torch.render.integrators import sample_cosine
+    from tpu_raytracer_torch.render.shade import SHADOW_EPS
+    from tpu_raytracer_torch.render.sorted_cast import park_dead_rays
+    from tpu_raytracer_torch.utils import prng
+
+    scene, o, d = tiny_colonnade()
+    attrs = hit_attributes(scene, o, d, traversal.cast_rays(scene, o, d))
+    nd = sample_cosine(prng.PRNGKey(2147500301), (0,), attrs.normal)
+    ro, rd = park_dead_rays(attrs.location + nd * SHADOW_EPS, nd, attrs.hit)
+    return scene, ro, rd, attrs.hit.reshape(-1)
+
+
+def plain_cast(arity):
+    from tpu_raytracer_torch.kernels import binary
+
+    return traversal.cast_rays_wide_torch if arity == 4 else binary.cast_rays_binary_torch
+
+
+@pytest.mark.parametrize("t_max", [AO_RADIUS, traversal.BIG])
+@pytest.mark.parametrize("arity", [4, 2])
+def test_bounded_host_walk_matches_plain_walk_on_ao_rays(arity, t_max):
+    """K1's (``arity`` 4) and K2's (2) walks bounded by AO's radius, or
+    unbounded at BIG (the plain walks' default, held to the JAX package's
+    casts above), equal their plain versions bit for bit on AO's sample
+    rays, nearest hit (t, tri, inst) and any hit; the rays hold hits,
+    misses and parked rays, and hits beyond the radius, which the bound
+    turns into misses."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    scene, o, d, live = ao_sample_rays()
+    cast = plain_cast(arity)
+    want = cast(scene, o, d, t_max=t_max)
+    t, tri, inst = host_trace(scene, o, d, arity=arity, t_max=t_max)
+    assert_bitwise(t, tri, inst, want)
+    occ = host_trace(scene, o, d, occlusion=True, arity=arity, t_max=t_max)[0]
+    want_occ = cast(scene, o, d, occlusion=True, t_max=t_max)
+    assert torch.equal(occ.view(torch.int32), want_occ.t.reshape(-1).view(torch.int32))
+    assert (live & (tri >= 0)).any() and (live & (tri < 0)).any()
+    assert (~live).any() and (tri[~live] < 0).all()
+    far = cast(scene, o, d).t.reshape(-1)
+    assert ((far >= AO_RADIUS) & (far < FLT_MAX)).any()
+
+
+@pytest.mark.parametrize("arity", [4, 2])
+def test_bounded_walk_keeps_the_hits_within_the_bound_and_pops_less(arity):
+    """The bounded plain walk reports exactly the unbounded walk's hits
+    nearer than the bound (t, tri, inst), misses elsewhere, and pops no
+    more nodes and tests no more triangles than the unbounded walk, summed
+    over AO's sample rays (fewer on these rays)."""
+    scene, o, d, _ = ao_sample_rays()
+    cast = plain_cast(arity)
+    near, far_stats = cast(scene, o, d, stats=True)
+    got, stats = cast(scene, o, d, stats=True, t_max=AO_RADIUS)
+    within = near.t < AO_RADIUS
+    assert within.any() and (~within & (near.t < FLT_MAX)).any()
+    assert torch.equal(got.t[within].view(torch.int32), near.t[within].view(torch.int32))
+    assert torch.equal(got.tri[within], near.tri[within])
+    assert torch.equal(got.inst[within], near.inst[within])
+    assert (got.t[~within] == FLT_MAX).all() and (got.tri[~within] == -1).all()
+    for k in ("pops", "tests"):
+        assert int(stats[k].sum()) < int(far_stats[k].sum()), k

@@ -8,7 +8,9 @@ the PNG and OBJ readers on a machine without OpenCV or PIL, the
 big-scene route (a scene past the leaf code's rows cast by K4 alone), and
 the frame stages' kernels S1 (raygen), S2 (hit attributes), S3 (primary
 shade) and S4 (the path tracer's and AO's sample draws) bit for bit
-against their plain versions, misses included.
+against their plain versions, misses included, and K1 and K2 bounded by
+AO's radius against their bounded plain versions, with the bounded
+launches a compiled AO frame counts.
 
 Marked ``gpu``: every test skips without a card. On a machine with one
 (and no JAX), run from the repository root with
@@ -1110,4 +1112,65 @@ def test_compiled_sample_stage_is_s4_alone(cuda, kind, monkeypatch):
         with monkeypatch.context() as m:
             m.setattr(integrators, "sample_cosine", integrators.sample_cosine_torch)
             assert torch.equal(img, eager(*args))
+    pipeline.clear_compiled()
+
+
+def _ao_sample_rays(device):
+    """(scene, origins, directions) of AO's first sample rays on a small
+    colonnade, dead rays parked, as ``render_ao`` casts them."""
+    from tpu_raytracer_torch.render.integrators import sample_cosine
+    from tpu_raytracer_torch.utils import prng
+
+    scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=device)
+    o, d = _rays(cam, device)
+    attrs = hit_attributes(scene, o, d, traversal.cast_rays_cuda(scene, o, d, want_normals=True))
+    nd = sample_cosine(prng.PRNGKey(2147500301, device=device), (0,), attrs.normal)
+    return (scene, *park_dead_rays(attrs.location + nd * SHADOW_EPS, nd, attrs.hit))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_bounded_walks_match_plain_versions_bitwise(cuda, kernel):
+    """K1 and K2 bounded by AO's radius (1.0) equal their plain versions
+    bit for bit on AO's sample rays (t, tri, inst), which hold hits within
+    the radius and hits beyond it that the bound turns into misses; K1
+    counts the launch as bounded."""
+    scene, o, d = _ao_sample_rays(cuda)
+    if kernel == "K1":
+        cast, plain = traversal.cast_rays_cuda, traversal.cast_rays_wide_torch
+    else:
+        cast, plain = binary.cast_rays_binary_cuda, binary.cast_rays_binary_torch
+    before = traversal.LAUNCHES_BOUNDED
+    got = cast(scene, o, d, t_max=1.0)
+    torch.cuda.synchronize()
+    assert traversal.LAUNCHES_BOUNDED == before + (kernel == "K1")
+    want = plain(scene, o, d, t_max=1.0)
+    assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
+    assert torch.equal(got.tri, want.tri) and torch.equal(got.inst, want.inst)
+    far = cast(scene, o, d).t
+    assert (got.tri >= 0).any() and ((far >= 1.0) & (far < FLT_MAX)).any()
+    assert torch.equal(got.t < 1.0, far < 1.0)
+
+
+@pytest.mark.parametrize("kind", ["ao", "path"])
+def test_compiled_frames_count_bounded_casts(cuda, kind):
+    """A compiled AO replay on a one-instance scene launches K1 nine
+    times: the carrying primary cast and 8 sample casts bounded by the
+    radius; a path replay launches no bounded cast."""
+    from tpu_raytracer_torch.render import pipeline
+    from tpu_raytracer_torch.utils import prng
+
+    pipeline.clear_compiled()
+    scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
+    name, extra = (("render_image_ao", (8, 1.0)) if kind == "ao"
+                   else ("render_image_path_traced", (2, 2)))
+    p = cam.ray_params(cuda)
+    frame = getattr(pipeline, "compiled_" + name)
+    frame(RenderConfig(128, 96), scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"],
+          prng.PRNGKey(7, device=cuda), *extra)
+    launches = frame.last.launches
+    if kind == "ao":
+        assert (launches.get("K1"), launches.get("K1_carry"), launches.get("K1_bounded")) \
+            == (9, 1, 8)
+    else:
+        assert launches.get("K1") == 3 and "K1_bounded" not in launches
     pipeline.clear_compiled()

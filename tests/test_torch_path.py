@@ -285,6 +285,43 @@ def test_ao_matches_jax():
     assert 0.0 < got.mean() < 1.0 and (got < 1.0).any()
 
 
+@pytest.mark.parametrize("backend", ["cuda", "bvh"])
+@pytest.mark.parametrize("which", ["tiny_colonnade", "cornell"])
+def test_ao_bounded_sample_casts_match_unbounded(which, backend, monkeypatch):
+    """``render_ao`` asks for its sample casts bounded by the radius and
+    its primary cast unbounded; the frame equals, pixel for pixel, the
+    frame whose sample casts are unbounded. The tiny colonnade is one
+    instance (K1's plain walk on ``cuda``), the Cornell box six (K3 on
+    ``cuda``, which ignores the bound; K2's plain walk on ``bvh``)."""
+    from tpu_raytracer_torch.render import generate_rays
+
+    from test_torch_cast import tiny_colonnade
+
+    if which == "cornell":
+        scene, cam = port_scenes.scene_cornell(16, device="cpu")
+        p = cam.ray_params("cpu")
+        o, d = generate_rays(16, 16, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    else:
+        scene, o, d = tiny_colonnade()
+    real = integrators.get_cast_fn
+    asked = []
+
+    def spy(backend, want_normals=False, t_max=None):
+        asked.append(t_max)
+        return real(backend, want_normals, t_max)
+
+    ao = lambda: integrators.render_ao(scene, o, d, prng.PRNGKey(4), samples=4, radius=1.0,
+                                       backend=backend)
+    monkeypatch.setattr(integrators, "get_cast_fn", spy)
+    bounded = ao()
+    assert asked == [None, 1.0]
+    monkeypatch.setattr(integrators, "get_cast_fn",
+                        lambda backend, want_normals=False, t_max=None: real(backend,
+                                                                             want_normals))
+    assert torch.equal(bounded, ao())
+    assert 0.0 < float(bounded.mean()) < 1.0 and (bounded < 1.0).any()
+
+
 def test_atrous_denoise_matches_jax():
     rng = np.random.default_rng(9)
     radiance = rng.uniform(0.0, 2.0, (32, 32, 3)).astype(np.float32)

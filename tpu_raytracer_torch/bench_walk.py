@@ -58,8 +58,8 @@ from .kernels.wide4 import SHORT_STACK
 from .utils.device import card_line
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# the interface of the b3ee60f build: K1-K3 without the carried outputs,
-# K4-K6 as now
+# the interface of the b3ee60f build: K1-K3 without the carried outputs
+# (and K1 and K2 without the bound), K4-K6 as now
 _OLD_SCENE = [_P, _P, _P, _P, _I]
 _OLD_RAYS = [_P, _I, _P, _I64, _I, _P, _P, _P]
 _OLD_ARGS = {
@@ -206,8 +206,10 @@ class Caster:
         head = {"K1": [4], "K2": [2], "K3": []}[kernel]
         self.fn = lib.tlas_launch if kernel == "K3" else lib.wt_launch
         carried = [] if old else [None if x is None else x.data_ptr() for x in self.carried]
+        # the current K1 and K2 take a bound after the rays: unbounded here
+        bound = [traversal.BIG] if not old and kernel != "K3" else []
         self.args = (head + scene_args + tlas_args + rays + [int(occlusion)] + outs + carried
-                     + walk)
+                     + bound + walk)
 
     def __call__(self):
         self.counter.zero_()

@@ -2,8 +2,8 @@
 
 | Kernel | Replaces (TPU) | Source | Wrapper / plain version |
 |---|---|---|---|
-| K1 4-wide BVH traversal, nearest and any hit | ``kernels/dual.py:_dual_kernel`` (+ ``traversal.py:make_test_tri``) | ``csrc/wide_traverse.cu``, ``csrc/walk.cuh`` | ``traversal.cast_rays_cuda`` / ``traversal.cast_rays_wide_torch`` |
-| K2 binary BVH traversal (K1's walk at arity 2), nearest and any hit; the ``bvh`` backend | ``kernels/traversal.py:_traversal_kernel`` (and the XLA walk ``render/renderer.py:cast_rays_bvh``) | ``csrc/wide_traverse.cu``, ``csrc/walk.cuh`` | ``binary.cast_rays_binary_cuda`` / ``binary.cast_rays_binary_torch`` |
+| K1 4-wide BVH traversal, nearest and any hit, optionally bounded by a t_max | ``kernels/dual.py:_dual_kernel`` (+ ``traversal.py:make_test_tri``) | ``csrc/wide_traverse.cu``, ``csrc/walk.cuh`` | ``traversal.cast_rays_cuda`` / ``traversal.cast_rays_wide_torch`` |
+| K2 binary BVH traversal (K1's walk at arity 2), nearest and any hit, optionally bounded; the ``bvh`` backend | ``kernels/traversal.py:_traversal_kernel`` (and the XLA walk ``render/renderer.py:cast_rays_bvh``) | ``csrc/wide_traverse.cu``, ``csrc/walk.cuh`` | ``binary.cast_rays_binary_cuda`` / ``binary.cast_rays_binary_torch`` |
 | K3 TLAS + 4-wide BLAS traversal, nearest and any hit | ``kernels/tlas.py:_tlas_kernel`` | ``csrc/tlas_traverse.cu``, ``csrc/tlas_traverse.cuh``, ``csrc/walk.cuh`` | ``tlas.cast_rays_tlas_cuda`` / ``tlas.cast_rays_tlas_torch`` |
 | K4 paged traversal, 4-wide pages; the ``cuda`` and ``bvh`` backends' cast of a scene past the leaf code's rows (``traversal.needs_paging``) | ``kernels/paged_wide.py:_paged_wide_kernel`` | ``csrc/paged_traverse.cu``, ``csrc/paged_traverse.cuh``, ``csrc/walk.cuh`` | ``paged.cast_rays_paged_cuda`` / ``paged.cast_rays_paged_torch`` |
 | K5 paged traversal, binary pages | ``kernels/paged.py:_paged_kernel`` | ``csrc/paged_traverse.cu``, ``csrc/paged_traverse.cuh``, ``csrc/walk.cuh`` | as K4, on binary tables |

@@ -97,26 +97,28 @@ def binary_tables(scene) -> BinaryTables:
 
 
 def cast_rays_binary_torch(scene, origin, directions, occlusion: bool = False,
-                           chunk: int = PLAIN_CHUNK, stats: bool = False):
+                           chunk: int = PLAIN_CHUNK, stats: bool = False, t_max: float = BIG):
     """Plain PyTorch version of K2: nearest hit (any hit with
-    ``occlusion``) of every ray over the scene's binary tables. With
-    ``stats`` it returns ``(hit, counters)`` (``traversal.new_stats``)."""
+    ``occlusion``) nearer than ``t_max`` of every ray over the scene's
+    binary tables. With ``stats`` it returns ``(hit, counters)``
+    (``traversal.new_stats``)."""
     tree = binary_tables(scene)
     return cast_rays_tree_torch(scene, tree.code, tree.box, 2, tree.root, origin, directions,
-                                occlusion, chunk, stats)
+                                occlusion, chunk, stats, t_max=t_max)
 
 
 def cast_rays_binary_cuda(scene, origin, directions, occlusion: bool = False,
-                          short_stack: int | None = None):
-    """K2: nearest (or, with ``occlusion``, any) hit over the binary
-    tables, every instance in index order. CUDA tensors launch the kernel
-    on the current stream, with ``short_stack`` ring slots per thread
-    (``traversal.launch``); CPU tensors run the plain version."""
+                          short_stack: int | None = None, t_max: float = BIG):
+    """K2: nearest (or, with ``occlusion``, any) hit nearer than
+    ``t_max`` over the binary tables, every instance in index order. CUDA
+    tensors launch the kernel on the current stream, with ``short_stack``
+    ring slots per thread (``traversal.launch``); CPU tensors run the
+    plain version."""
     global LAUNCHES
     origin, directions = _split_rays(origin, directions)
     if directions.device.type == "cpu":
-        return cast_rays_binary_torch(scene, origin, directions, occlusion)
+        return cast_rays_binary_torch(scene, origin, directions, occlusion, t_max=t_max)
     hit = launch("wt_launch", scene, origin, directions, occlusion, arity=2,
-                 short_stack=short_stack)
+                 short_stack=short_stack, t_max=t_max)
     LAUNCHES += 1
     return hit

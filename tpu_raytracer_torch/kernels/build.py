@@ -190,6 +190,7 @@ def build_obj_parser() -> pathlib.Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 # node records, tri_rec, inst_tab, inst_root, num_instances
 _SCENE_ARGS = [_P, _P, _P, _P, _I]
 # origin, origin_stride, dirs, num_rays, occlusion, t_out, tri_out, inst_out,
@@ -215,7 +216,6 @@ _NEAREST_RAY_ARGS = [_P, _I, _P, _I64, _P, _P, _P]
 _SHAPE_ARGS = [_I, _I64, _P]
 # short_stack, counter
 _WALK_ARGS = [_I, _P]
-_F = ctypes.c_float
 # S1: width, height, K_inv, D, inv_pose, exact, dirs
 _RAYGEN_ARGS = [_I, _I, _P, _P, _P, _I, _P]
 # S2: tri_v0, tri_v1, tri_v2, tri_normal, tri_uv0, tri_uv1, tri_uv2, tri_vnorm,
@@ -236,8 +236,8 @@ _U = ctypes.c_uint32
 # strides (outer, inner, component), num_rays; exact; dirs, lobe outputs
 _SAMPLE_ARGS = [_P, _I] + [_U] * 5 + [_P] + [_I64] * 5 + [_I, _P, _P]
 _ENTRY_ARGS = {
-    # ... + stream
-    "cuda": {"wt_launch": [_I] + _SCENE_ARGS + _RAY_ARGS + _WALK_ARGS + [_P],
+    # ... + stream (wt_launch takes t_max after the rays)
+    "cuda": {"wt_launch": [_I] + _SCENE_ARGS + _RAY_ARGS + [_F] + _WALK_ARGS + [_P],
              "tlas_launch": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + _WALK_ARGS + [_P],
              "wt_launch_shape": [_I, _I] + _SHAPE_ARGS,  # arity, occlusion
              "tlas_launch_shape": [_I] + _SHAPE_ARGS,  # occlusion
@@ -253,8 +253,8 @@ _ENTRY_ARGS = {
              "frame_sample_launch": _SAMPLE_ARGS + [_P],
              # stream, int64 out: the capture's kernel, memcpy and memset nodes
              "capture_device_ops": [_P, _P]},
-    # ... + spills (one i64 out)
-    "host": {"wt_trace_host": [_I] + _SCENE_ARGS + _RAY_ARGS + [_P],
+    # ... + spills (one i64 out; wt_trace_host takes t_max before it)
+    "host": {"wt_trace_host": [_I] + _SCENE_ARGS + _RAY_ARGS + [_F, _P],
              "tlas_trace_host": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_P],
              "wt_sort_host": [_I, _P, _I64, _P],
              "wt_host_short_stack": [],

@@ -50,34 +50,35 @@ void trace_all(int64_t num_rays, float* t_out, int32_t* tri_out, int32_t* inst_o
 extern "C" int wt_host_short_stack() { return kShortStack; }
 
 // K1 (`arity` 4) or K2 (2) over every ray, on the node records `node` of
-// that arity; `spills` receives the entries the short stack moved to
-// spill. Non-null `u_out`, `v_out`, `n_out` run K1's carrying walk (arity
-// 4, nearest hit only; 1 otherwise), as wt_launch does.
+// that arity, each walk bounded by `t_max` (kBig: unbounded); `spills`
+// receives the entries the short stack moved to spill. Non-null `u_out`,
+// `v_out`, `n_out` run K1's carrying walk (arity 4, nearest hit, t_max =
+// kBig only; 1 otherwise), as wt_launch does.
 extern "C" int wt_trace_host(int arity, const float* node, const float* tri_rec,
                              const float* inst_tab, const int32_t* inst_root, int num_instances,
                              const float* origin, int origin_stride, const float* dirs,
                              int64_t num_rays, int occlusion, float* t_out, int32_t* tri_out,
                              int32_t* inst_out, float* u_out, float* v_out, float* n_out,
-                             int64_t* spills) {
+                             float t_max, int64_t* spills) {
   if (arity != 4 && arity != 2) return 1;
   const wt::CarryOut carry{u_out, v_out, n_out};
-  if (carry.any() && (arity != 4 || occlusion)) return 1;
+  if (carry.any() && (arity != 4 || occlusion || t_max != wt::kBig)) return 1;
   const wt::Scene s{node, tri_rec, inst_tab, inst_root, num_instances};
   trace_all(num_rays, t_out, tri_out, inst_out, spills, [&](int64_t r, wt::ShortStack& st) {
     const float* wo = origin + r * origin_stride;
     const float* wd = dirs + 3 * r;
     if (carry.any()) {
       wt::Carry c;
-      const wt::Hit h = wt::trace_ray<4, false, true>(s, wo, wd, st, &c);
+      const wt::Hit h = wt::trace_ray<4, false, true>(s, wo, wd, st, wt::kBig, &c);
       carry.store(r, c);
       return h;
     }
     if (arity == 2) {
-      return occlusion ? wt::trace_ray<2, true>(s, wo, wd, st)
-                       : wt::trace_ray<2, false>(s, wo, wd, st);
+      return occlusion ? wt::trace_ray<2, true>(s, wo, wd, st, t_max)
+                       : wt::trace_ray<2, false>(s, wo, wd, st, t_max);
     }
-    return occlusion ? wt::trace_ray<4, true>(s, wo, wd, st)
-                     : wt::trace_ray<4, false>(s, wo, wd, st);
+    return occlusion ? wt::trace_ray<4, true>(s, wo, wd, st, t_max)
+                     : wt::trace_ray<4, false>(s, wo, wd, st, t_max);
   });
   return 0;
 }

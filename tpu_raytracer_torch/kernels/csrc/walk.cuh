@@ -36,12 +36,22 @@
 //    child order, internal ones pushed, then the leaves tested, and the
 //    walk stops at the first accepted triangle.
 //    This is exact because the cap cannot change before the first accept:
-//    an any-hit ray's t is kBig until a triangle is accepted (the walk then
-//    returns), so every slab test and every triangle test until then is
-//    made against the same cap, and the set of boxes and triangles a walk
+//    an any-hit ray's t is its t_max until a triangle is accepted (the walk
+//    then returns), so every slab test and every triangle test until then
+//    is made against the same cap, and the set of boxes and triangles a walk
 //    reaches before its first accept is the same in every visit order. The
 //    ray is blocked exactly when that set holds an accepted triangle, which
 //    is the nearest walk's answer.
+//  * A bound (K1 and K2): trace_ray starts the best hit at the launch's
+//    t_max instead of kBig. The walk reads its cap from the best hit, so a
+//    ray pops no box it enters past t_max * kCapSlack and accepts no
+//    triangle at t_max or beyond. Where the unbounded walk's hit lies
+//    nearer than t_max, the bounded walk returns it (t, tri and inst: it
+//    makes the unbounded walk's visits less the culled boxes, in the same
+//    order), unless that hit lies up to EDGE_EPS outside a leaf box that
+//    the lower cap culls (the triangle test's tolerance). A ray with no
+//    hit nearer than t_max ends with tri -1, a miss. At t_max = kBig the
+//    walk is the unbounded one, event for event.
 //  * Leaf starts relative to a `tri_base` (the pages of K4-K6, whose
 //    leaves count from the page's first triangle; 0 for K1-K3), added in
 //    test_leaf so that hit ids stay global.
@@ -402,13 +412,14 @@ WT_HD bool walk_instance(const Scene& s, int i, const float* wo, const float* wd
                                        s.num_instances == 1 ? -1 : i, st, best, carry);
 }
 
-// K1 (arity 4) and K2 (arity 2): nearest (or any) hit of one world ray
-// over every instance in index order, t carried across instances; with
-// kCarry (K1) the hit's carried fields in `carry`.
+// K1 (arity 4) and K2 (arity 2): nearest (or any) hit nearer than t_max
+// (kBig: unbounded) of one world ray over every instance in index order,
+// t carried across instances; with kCarry (K1) the hit's carried fields
+// in `carry`.
 template <int kArity, bool kAnyHit, bool kCarry = false>
 WT_HD Hit trace_ray(const Scene& s, const float* wo, const float* wd, ShortStack& st,
-                    Carry* carry = nullptr) {
-  Hit best{kBig, -1, -1};
+                    float t_max, Carry* carry = nullptr) {
+  Hit best{t_max, -1, -1};
   for (int i = 0; i < s.num_instances; ++i) {
     if (walk_instance<kArity, kAnyHit, kCarry>(s, i, wo, wd, st, &best, carry)) break;
   }

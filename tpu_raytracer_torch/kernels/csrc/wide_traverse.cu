@@ -22,9 +22,10 @@
 
 namespace {
 
-// One ray of K1 or K2 per call of for_each_ray's body.
+// One ray of K1 or K2 per call of for_each_ray's body, its walk bounded by
+// t_max (walk.cuh trace_ray).
 template <int kArity, bool kAnyHit>
-__device__ __forceinline__ void trace_rays(const wt::Scene& s, const wt::Rays& rays,
+__device__ __forceinline__ void trace_rays(const wt::Scene& s, const wt::Rays& rays, float t_max,
                                            int ring_mask, unsigned long long* counter) {
   extern __shared__ int32_t ring[];
   int32_t spill[wt::kStack];
@@ -32,7 +33,7 @@ __device__ __forceinline__ void trace_rays(const wt::Scene& s, const wt::Rays& r
     float wo[3], wd[3];
     rays.load(r, wo, wd);
     wt::ShortStack st(ring + threadIdx.x, blockDim.x, ring_mask, spill);
-    rays.store(r, wt::trace_ray<kArity, kAnyHit>(s, wo, wd, st));
+    rays.store(r, wt::trace_ray<kArity, kAnyHit>(s, wo, wd, st, t_max));
   });
 }
 
@@ -40,20 +41,22 @@ __device__ __forceinline__ void trace_rays(const wt::Scene& s, const wt::Rays& r
 // without the any-hit branches.
 template <bool kAnyHit>
 __global__ void __launch_bounds__(wt::kWalkThreads, wt::kK1MinBlocks)
-wide_traverse_kernel(wt::Scene s, wt::Rays rays, int ring_mask, unsigned long long* counter) {
-  trace_rays<4, kAnyHit>(s, rays, ring_mask, counter);
+wide_traverse_kernel(wt::Scene s, wt::Rays rays, float t_max, int ring_mask,
+                     unsigned long long* counter) {
+  trace_rays<4, kAnyHit>(s, rays, t_max, ring_mask, counter);
 }
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(wt::kWalkThreads, wt::kK2MinBlocks)
-binary_traverse_kernel(wt::Scene s, wt::Rays rays, int ring_mask, unsigned long long* counter) {
-  trace_rays<2, kAnyHit>(s, rays, ring_mask, counter);
+binary_traverse_kernel(wt::Scene s, wt::Rays rays, float t_max, int ring_mask,
+                       unsigned long long* counter) {
+  trace_rays<2, kAnyHit>(s, rays, t_max, ring_mask, counter);
 }
 
-// K1 with the carry (walk.cuh Carry): nearest hit only, its own name so
-// that the kernels without it keep their code and a profile tells them
-// apart. Replaces dual.py:_dual_kernel with make_test_tri's carry_uv and
-// carry_n (tpu_raytracer/kernels/traversal.py:145).
+// K1 with the carry (walk.cuh Carry): nearest hit only, unbounded, its
+// own name so that the kernels without it keep their code and a profile
+// tells them apart. Replaces dual.py:_dual_kernel with make_test_tri's
+// carry_uv and carry_n (tpu_raytracer/kernels/traversal.py:145).
 __global__ void __launch_bounds__(wt::kWalkThreads, wt::kK1MinBlocks)
 wide_traverse_carry_kernel(wt::Scene s, wt::Rays rays, wt::CarryOut out, int ring_mask,
                            unsigned long long* counter) {
@@ -64,18 +67,18 @@ wide_traverse_carry_kernel(wt::Scene s, wt::Rays rays, wt::CarryOut out, int rin
     rays.load(r, wo, wd);
     wt::ShortStack st(ring + threadIdx.x, blockDim.x, ring_mask, spill);
     wt::Carry c;
-    rays.store(r, wt::trace_ray<4, false, true>(s, wo, wd, st, &c));
+    rays.store(r, wt::trace_ray<4, false, true>(s, wo, wd, st, wt::kBig, &c));
     out.store(r, c);
   });
 }
 
 template <bool kAnyHit>
 int launch(int arity, int64_t num_rays, int short_stack, unsigned long long* counter,
-           cudaStream_t st, const wt::Scene& s, const wt::Rays& rays) {
+           cudaStream_t st, const wt::Scene& s, const wt::Rays& rays, float t_max) {
   return arity == 4 ? wt::launch_walk(wide_traverse_kernel<kAnyHit>, num_rays, short_stack,
-                                      counter, st, s, rays)
+                                      counter, st, s, rays, t_max)
                     : wt::launch_walk(binary_traverse_kernel<kAnyHit>, num_rays, short_stack,
-                                      counter, st, s, rays);
+                                      counter, st, s, rays, t_max);
 }
 
 }  // namespace
@@ -85,21 +88,27 @@ int launch(int arity, int64_t num_rays, int short_stack, unsigned long long* cou
 // after the launch (0 on success), or cudaErrorInvalidValue for any other
 // arity or a bad short stack. `origin_stride` is 0 for one origin shared
 // by every ray (primary rays) and 3 for per-ray origins [R, 3].
-// `occlusion` != 0 selects the any-hit mode. `short_stack` is S, the ring
-// slots per thread (a power of two, at most kMaxShortStack), and `counter`
-// one zeroed u64 for the persistent warps. `u_out`, `v_out` ([R]) and
-// `n_out` ([R, 3]) are the carried fields (walk.cuh Carry); any non-null
-// one launches K1's carrying kernel, which takes arity 4 and nearest hit
-// only (cudaErrorInvalidValue otherwise); null ones are not written.
+// `occlusion` != 0 selects the any-hit mode. `t_max` bounds the walk
+// (walk.cuh trace_ray): only hits nearer than it are found, the rest are
+// misses; kBig for the unbounded walk. `short_stack` is S, the ring slots
+// per thread (a power of two, at most kMaxShortStack), and `counter` one
+// zeroed u64 for the persistent warps. `u_out`, `v_out` ([R]) and `n_out`
+// ([R, 3]) are the carried fields (walk.cuh Carry); any non-null one
+// launches K1's carrying kernel, which takes arity 4, nearest hit and
+// t_max = kBig only (cudaErrorInvalidValue otherwise); null ones are not
+// written.
 extern "C" int wt_launch(int arity, const float* node, const float* tri_rec,
                          const float* inst_tab, const int32_t* inst_root, int num_instances,
                          const float* origin, int origin_stride, const float* dirs,
                          int64_t num_rays, int occlusion, float* t_out, int32_t* tri_out,
                          int32_t* inst_out, float* u_out, float* v_out, float* n_out,
-                         int short_stack, unsigned long long* counter, void* stream) {
+                         float t_max, int short_stack, unsigned long long* counter,
+                         void* stream) {
   if (arity != 4 && arity != 2) return static_cast<int>(cudaErrorInvalidValue);
   const wt::CarryOut carry{u_out, v_out, n_out};
-  if (carry.any() && (arity != 4 || occlusion)) return static_cast<int>(cudaErrorInvalidValue);
+  if (carry.any() && (arity != 4 || occlusion || t_max != wt::kBig)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (num_rays <= 0) return 0;
   const wt::Scene s{node, tri_rec, inst_tab, inst_root, num_instances};
   const wt::Rays rays{origin, origin_stride, dirs, num_rays, t_out, tri_out, inst_out};
@@ -108,8 +117,8 @@ extern "C" int wt_launch(int arity, const float* node, const float* tri_rec,
     return wt::launch_walk(wide_traverse_carry_kernel, num_rays, short_stack, counter, st, s,
                            rays, carry);
   }
-  return occlusion ? launch<true>(arity, num_rays, short_stack, counter, st, s, rays)
-                   : launch<false>(arity, num_rays, short_stack, counter, st, s, rays);
+  return occlusion ? launch<true>(arity, num_rays, short_stack, counter, st, s, rays, t_max)
+                   : launch<false>(arity, num_rays, short_stack, counter, st, s, rays, t_max);
 }
 
 // The launch K1 (`arity` 4) or K2 (2) makes for `num_rays` rays

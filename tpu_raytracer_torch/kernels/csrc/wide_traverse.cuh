@@ -133,10 +133,11 @@ WT_HD void object_ray(const float* q, const float* wo, const float* wd,
 }
 
 // The output record: a single-instance scene reports inst 0 on a hit
-// (dual.py output stage), and a miss reports t = FLT_MAX.
+// (dual.py output stage), and a miss (no triangle accepted; a bounded walk
+// ends one with t at its bound) reports t = FLT_MAX.
 WT_HD Hit finish_hit(Hit best, int num_instances) {
   if (num_instances == 1) best.inst = best.tri >= 0 ? 0 : -1;
-  if (best.t >= kBig) best.t = kFltMax;
+  if (best.tri < 0) best.t = kFltMax;
   return best;
 }
 

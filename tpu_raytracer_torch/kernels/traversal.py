@@ -40,6 +40,13 @@ mode): ``t`` is -BIG where the ray is blocked and FLT_MAX where it is
 clear; ``tri``/``inst`` carry no meaning. The kernels stop a ray at its
 first accepted triangle; the plain versions map the nearest hit, which
 gives the same answer because boxes are conservative.
+
+K1 and K2 (and their plain versions) take a bound ``t_max`` (default
+BIG, unbounded): each ray's walk starts its best hit there, so it pops no
+box it enters past the bound and reports only hits nearer than it; a ray
+with none is a miss (``csrc/walk.cuh`` says what else holds). A caller
+whose question is whether anything lies within a distance (AO) passes
+that distance.
 """
 
 from __future__ import annotations
@@ -66,9 +73,10 @@ PLAIN_CHUNK = 1 << 18
 # Launches of K1 since the count was last reset, carrying or not (CPU
 # casts, which run the plain version, do not count; K3 counts in
 # tlas.LAUNCHES), and of those the launches of K1's carrying kernel
-# (wide_traverse_carry_kernel).
+# (wide_traverse_carry_kernel) and those bounded by a t_max below BIG.
 LAUNCHES = 0
 LAUNCHES_CARRY = 0
+LAUNCHES_BOUNDED = 0
 
 
 def _hit(t, tri, inst, shape, carry=None):
@@ -319,17 +327,17 @@ def as_occlusion(hit):
 
 def cast_rays_wide_torch(scene, origin, directions, occlusion: bool = False,
                          chunk: int = PLAIN_CHUNK, stats: bool = False,
-                         carry_uv: bool = False, carry_n: bool = False):
-    """Plain PyTorch version of K1: nearest hit of every ray over the
-    scene's 4-wide tables, for any number of instances (any hit with
-    ``occlusion``), with the carried u and v (``carry_uv``) and face
-    normal (``carry_n``) on the Hit where asked (K1's carrying kernel).
-    With ``stats`` it returns ``(hit, counters)``, the per-ray counters
-    of ``new_stats`` (of the nearest-hit walk, which the any-hit walk
-    cuts short)."""
+                         carry_uv: bool = False, carry_n: bool = False, t_max: float = BIG):
+    """Plain PyTorch version of K1: nearest hit nearer than ``t_max`` of
+    every ray over the scene's 4-wide tables, for any number of instances
+    (any hit with ``occlusion``), with the carried u and v (``carry_uv``)
+    and face normal (``carry_n``) on the Hit where asked (K1's carrying
+    kernel). With ``stats`` it returns ``(hit, counters)``, the per-ray
+    counters of ``new_stats`` (of the nearest-hit walk, which the any-hit
+    walk cuts short)."""
     tables = _wide_tables(scene)
     return cast_rays_tree_torch(scene, tables.wcode, tables.wbox, 4, tables.wroot, origin,
-                                directions, occlusion, chunk, stats, carry_uv, carry_n)
+                                directions, occlusion, chunk, stats, carry_uv, carry_n, t_max)
 
 
 def new_carry(r: int, device):
@@ -358,12 +366,14 @@ def carried(carry, carry_uv: bool, carry_n: bool):
 
 def cast_rays_tree_torch(scene, code, box, arity: int, mesh_root, origin, directions,
                          occlusion: bool = False, chunk: int = PLAIN_CHUNK,
-                         stats: bool = False, carry_uv: bool = False, carry_n: bool = False):
+                         stats: bool = False, carry_uv: bool = False, carry_n: bool = False,
+                         t_max: float = BIG):
     """K1's and K2's walk (``trace_ray<arity>`` of ``csrc/walk.cuh``) in
     ``walk_tree``'s visit order, vectorised over rays: each ray walks the
     tree of ``code``/``box`` (roots ``mesh_root [M]``) of every instance
-    in index order. The plain version of K1 (4-wide tables, with the
-    carry where asked) and K2 (binary tables)."""
+    in index order, its best hit starting at ``t_max``. The plain version
+    of K1 (4-wide tables, with the carry where asked) and K2 (binary
+    tables)."""
     check_carry(occlusion, carry_uv, carry_n)
     origin, directions = _split_rays(origin, directions)
     shape = directions.shape[:-1]
@@ -374,7 +384,7 @@ def cast_rays_tree_torch(scene, code, box, arity: int, mesh_root, origin, direct
     num_inst = scene.num_instances
     dev = d_all.device
     r = d_all.shape[0]
-    t = torch.full((r,), BIG, dtype=torch.float32, device=dev)
+    t = torch.full((r,), t_max, dtype=torch.float32, device=dev)
     tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
     inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
     counters = new_stats(r, dev) if stats else None
@@ -396,12 +406,13 @@ def cast_rays_tree_torch(scene, code, box, arity: int, mesh_root, origin, direct
 def finish_plain(t, tri, inst, shape, num_instances: int, occlusion: bool = False,
                  counters=None, carry=None):
     """The plain walks' output record (``finish_hit`` of
-    ``csrc/wide_traverse.cuh``) with the carried (u, v, n) of
+    ``csrc/wide_traverse.cuh``: a ray that accepted no triangle is a miss,
+    whatever bound its t started at) with the carried (u, v, n) of
     ``carried``, as an any-hit record with ``occlusion``, and with
     ``counters`` beside it when they were kept."""
     if num_instances == 1:
         inst = torch.where(tri >= 0, 0, -1).to(torch.int32)
-    t = torch.where(t >= BIG, torch.full_like(t, FLT_MAX), t)
+    t = torch.where(tri < 0, torch.full_like(t, FLT_MAX), t)
     hit = _hit(t, tri, inst, shape, carry)
     hit = as_occlusion(hit) if occlusion else hit
     return hit if counters is None else (hit, counters)
@@ -458,16 +469,17 @@ def unexplained_differences(scene, origin, directions, a, b) -> int:
 
 def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
            arity: int | None = None, short_stack: int | None = None,
-           carry_uv: bool = False, carry_n: bool = False):
+           carry_uv: bool = False, carry_n: bool = False, t_max: float = BIG):
     """Check the inputs and launch ``entry`` of the kernel library on the
     current stream: ``wt_launch`` at ``arity`` 4 (K1, the 4-wide node
     records ``wnode``) or 2 (K2, the binary records of
-    ``kernels/binary.py``), or K3's ``tlas_launch`` (no arity; ``wnode``),
-    whose TLAS table pointers come in ``tlas_args``. Each takes
-    ``short_stack`` ring slots per thread (default ``SHORT_STACK``) and a
-    zeroed counter for its persistent warps. ``carry_uv``/``carry_n``
-    launch K1's or K3's carrying kernel with outputs for u, v and n.
-    Returns the Hit record; raises on a CUDA error at launch."""
+    ``kernels/binary.py``), bounded by ``t_max``, or K3's ``tlas_launch``
+    (no arity, no bound; ``wnode``), whose TLAS table pointers come in
+    ``tlas_args``. Each takes ``short_stack`` ring slots per thread
+    (default ``SHORT_STACK``) and a zeroed counter for its persistent
+    warps. ``carry_uv``/``carry_n`` launch K1's or K3's carrying kernel
+    (unbounded) with outputs for u, v and n. Returns the Hit record;
+    raises on a CUDA error at launch."""
     check_carry(occlusion, carry_uv, carry_n)
     if directions.device.type != "cuda":
         raise ValueError(f"{entry} runs on cuda tensors, got {directions.device}")
@@ -505,13 +517,13 @@ def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
 
     fn = getattr(load("cuda"), entry)
     stream = torch.cuda.current_stream(directions.device).cuda_stream
-    head = () if arity is None else (arity,)
+    head, bound = ((), ()) if arity is None else ((arity,), (t_max,))
     err = fn(
         *head, node.data_ptr(), tables.tri_rec.data_ptr(), inst_tab.data_ptr(),
         inst_root.data_ptr(), scene.num_instances, *tlas_args,
         origin.data_ptr(), 0 if origin.dim() == 1 else 3, directions.data_ptr(), r,
         int(occlusion), t.data_ptr(), tri.data_ptr(), inst.data_ptr(),
-        *(None if x is None else x.data_ptr() for x in carry), s,
+        *(None if x is None else x.data_ptr() for x in carry), *bound, s,
         counter.data_ptr(), stream,
     )
     if err != 0:
@@ -572,24 +584,29 @@ def launch_shape(kernel: str, occlusion: bool, num_rays: int,
 
 def cast_rays_cuda(scene, origin, directions, occlusion: bool = False,
                    short_stack: int | None = None, want_normals: bool = False,
-                   carry: bool | None = None):
-    """K1: nearest (or, with ``occlusion``, any) hit over the 4-wide
-    tables, with the carried fields ``carry_fields`` gives for
-    ``want_normals`` and ``carry`` (K1's carrying kernel). CUDA tensors
-    launch the kernel on the current stream, with ``short_stack`` ring
-    slots per thread (default ``SHORT_STACK``); CPU tensors run the plain
-    version."""
-    global LAUNCHES, LAUNCHES_CARRY
+                   carry: bool | None = None, t_max: float = BIG):
+    """K1: nearest (or, with ``occlusion``, any) hit nearer than
+    ``t_max`` over the 4-wide tables, with the carried fields
+    ``carry_fields`` gives for ``want_normals`` and ``carry`` (K1's
+    carrying kernel, which walks unbounded: a bounded cast carries
+    nothing). CUDA tensors launch the kernel on the current stream, with
+    ``short_stack`` ring slots per thread (default ``SHORT_STACK``); CPU
+    tensors run the plain version."""
+    global LAUNCHES, LAUNCHES_BOUNDED, LAUNCHES_CARRY
     origin, directions = _split_rays(origin, directions)
-    carry_uv, carry_n = carry_fields(scene, directions, occlusion, want_normals, carry)
+    bounded = t_max < BIG
+    carry_uv, carry_n = carry_fields(scene, directions, occlusion, want_normals,
+                                     False if bounded else carry)
     if directions.device.type == "cpu":
         return cast_rays_wide_torch(scene, origin, directions, occlusion, carry_uv=carry_uv,
-                                    carry_n=carry_n)
+                                    carry_n=carry_n, t_max=t_max)
     hit = launch("wt_launch", scene, origin, directions, occlusion, arity=4,
-                 short_stack=short_stack, carry_uv=carry_uv, carry_n=carry_n)
+                 short_stack=short_stack, carry_uv=carry_uv, carry_n=carry_n, t_max=t_max)
     LAUNCHES += 1
     if carry_uv or carry_n:
         LAUNCHES_CARRY += 1
+    if bounded:
+        LAUNCHES_BOUNDED += 1
     return hit
 
 
@@ -642,13 +659,15 @@ def cast_rays_paged_route(scene, origin, directions, occlusion: bool = False):
 
 
 def cast_rays(scene, origin, directions, occlusion: bool = False, want_normals: bool = False,
-              carry: bool | None = None):
+              carry: bool | None = None, t_max: float = BIG):
     """The cast of the ``cuda`` backend (counterpart of
     ``cast_rays_pallas``): a scene that needs paging through its page
     tables (``cast_rays_paged_route``), then K3 for scenes with two or
     more instances and a TLAS, K1 otherwise. ``want_normals`` and
     ``carry`` choose the carried fields of K1 and K3
-    (``carry_fields``)."""
+    (``carry_fields``). K1 walks bounded by ``t_max``; K3 and K4 ignore
+    it, so a hit nearer than ``t_max`` is reported on every route and one
+    beyond it may be."""
     if needs_paging(scene):
         return cast_rays_paged_route(scene, origin, directions, occlusion)
     _wide_tables(scene)
@@ -658,4 +677,4 @@ def cast_rays(scene, origin, directions, occlusion: bool = False, want_normals: 
         return cast_rays_tlas_cuda(scene, origin, directions, occlusion,
                                    want_normals=want_normals, carry=carry)
     return cast_rays_cuda(scene, origin, directions, occlusion, want_normals=want_normals,
-                          carry=carry)
+                          carry=carry, t_max=t_max)

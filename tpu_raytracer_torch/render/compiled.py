@@ -106,6 +106,7 @@ SCENE_FLAGS = ("has_sky", "has_textures", "has_emissive")
 # the kernel wrappers' launch counters: name, module of kernels/, attribute
 COUNTERS = (
     ("K1", "traversal", "LAUNCHES"), ("K1_carry", "traversal", "LAUNCHES_CARRY"),
+    ("K1_bounded", "traversal", "LAUNCHES_BOUNDED"),
     ("K2", "binary", "LAUNCHES"),
     ("K3", "tlas", "LAUNCHES"), ("K3_carry", "tlas", "LAUNCHES_CARRY"),
     ("K4", "paged", "LAUNCHES_K4"), ("K5", "paged", "LAUNCHES_K5"),

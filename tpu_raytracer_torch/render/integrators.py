@@ -402,9 +402,12 @@ def render_ao(scene, origin, directions, key, samples: int = 8, radius: float = 
     cosine-weighted directions above each primary hit whose nearest hit
     is not within ``radius`` (a distance-bounded query, so the
     nearest-hit cast); miss pixels are fully open. The primary cast
-    carries normals (``want_normals``), the sample casts nothing."""
+    carries normals (``want_normals``), the sample casts nothing and are
+    bounded by the radius (``get_cast_fn``'s ``t_max``: K1's and K2's
+    walks pop no box beyond it), which leaves ``hit.t < radius`` as it
+    was on every backend."""
     cast0 = get_cast_fn(backend, want_normals=True)
-    cast = get_cast_fn(backend)
+    cast = get_cast_fn(backend, t_max=radius)
     directions = torch.as_tensor(directions, dtype=torch.float32)
     origin = torch.as_tensor(origin, dtype=torch.float32)
     shape = directions.shape[:-1]

@@ -232,33 +232,44 @@ def occlusion_cast_fn(backend: str):
 BACKENDS = ("brute", "bvh", "cuda", "paged", "paged_major")
 
 
-def cast_rays_bvh(scene, origin, directions, occlusion: bool = False):
-    """The cast of the ``bvh`` backend: K2 (``kernels/binary.py``), or for
-    a scene that needs paging the ``cuda`` backend's paged route
-    (``traversal.cast_rays_paged_route``): the JAX ``bvh`` backend walks
-    any scene, and K2's leaf codes cannot address such a one."""
+def cast_rays_bvh(scene, origin, directions, occlusion: bool = False,
+                  t_max: float | None = None):
+    """The cast of the ``bvh`` backend: K2 (``kernels/binary.py``),
+    bounded by ``t_max`` (None: unbounded), or for a scene that needs
+    paging the ``cuda`` backend's paged route
+    (``traversal.cast_rays_paged_route``, which ignores the bound): the
+    JAX ``bvh`` backend walks any scene, and K2's leaf codes cannot
+    address such a one."""
     from ..kernels.binary import cast_rays_binary_cuda
-    from ..kernels.traversal import cast_rays_paged_route, needs_paging
+    from ..kernels.traversal import BIG, cast_rays_paged_route, needs_paging
 
     if needs_paging(scene):
         return cast_rays_paged_route(scene, origin, directions, occlusion)
-    return cast_rays_binary_cuda(scene, origin, directions, occlusion)
+    return cast_rays_binary_cuda(scene, origin, directions, occlusion,
+                                 t_max=BIG if t_max is None else t_max)
 
 
-def get_cast_fn(backend: str, want_normals: bool = False):
+def get_cast_fn(backend: str, want_normals: bool = False, t_max: float | None = None):
     """The nearest-hit cast of ``backend``: ``brute``, ``bvh``, ``cuda``,
     ``paged`` or ``paged_major``. ``want_normals``: the caller's shading
     reads normals, and the ``cuda`` cast then carries the face normal on
     ``Hit.n`` (K1's and K3's carry; on CUDA tensors); the other backends
-    ignore it."""
+    ignore it. ``t_max``: the caller asks only about hits nearer than it,
+    and the ``cuda`` and ``bvh`` casts then bound K1's and K2's walks by it
+    (a hit beyond comes back a miss); the other backends and kernels
+    ignore it, so a hit nearer than ``t_max`` keeps its t on every
+    backend."""
     if backend == "brute":
         return cast_rays_brute
     if backend == "bvh":
-        return cast_rays_bvh
+        return cast_rays_bvh if t_max is None else functools.partial(cast_rays_bvh, t_max=t_max)
     if backend == "cuda":
         from ..kernels.traversal import cast_rays
 
-        return functools.partial(cast_rays, want_normals=True) if want_normals else cast_rays
+        kw = {"want_normals": True} if want_normals else {}
+        if t_max is not None:
+            kw["t_max"] = t_max
+        return functools.partial(cast_rays, **kw) if kw else cast_rays
     if backend == "paged":
         from ..kernels.paged import cast_rays_paged_cuda
 
