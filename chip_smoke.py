@@ -70,10 +70,11 @@ sample), in phases, one line each:
  10. the demo driver (``app.driver.run("demo", ...)``), 3 frames at
      1920x1088 through the compiled ``render_image``: one graph, replayed
      3 times, K3 once per replay;
- 11. times from CUDA events: the casts of K1, K1 any-hit and K3 beside
-     their plain versions, the flagship and Whitted frames, and the
-     stages of each frame; K3's kernel time and bound on each kind of ray
-     the Whitted frame casts (primary, reflection, shadow: ``[time_k3]``);
+ 11. times: the casts of K1, K1 any-hit and K3 (CUDA events and their
+     kernels' device time) beside their plain versions; K3's kernel time
+     and bound on each kind of ray the Whitted frame casts (primary,
+     reflection, shadow: ``[time_k3]``). The benchmark (``python3 -m
+     rtbench``) times the frames and their stages;
  12. the paged path on config 5, the colonnade of ``bench_paged.py``
      (``scene_colonnade(columns=18, segs=40)``: ~1.04M triangles, one
      instance): host build seconds (the native BVH builder), triangle,
@@ -122,10 +123,8 @@ sample), in phases, one line each:
  22. ``render_image_ao`` (8 samples) and the path frame denoised (3
      iterations) against their plain-cast frames;
  23. times: the path frame at 512x512 (config 5) and at 1920x1088 (the
-     driver's 3 bounces, 4 samples) through both backends, and its
-     stages: primary, bounce and tail casts (sorted and unsorted on
-     ``cuda``), NEE shadow casts, attributes, sampling, the rest, and
-     the denoiser;
+     driver's 3 bounces, 4 samples) through both backends, and the
+     denoiser's 3 iterations on its radiance;
  24. ``[flatten]``: config 4 with its instances baked into one mesh
      (``scene_instances(flatten=True)``, bench_all's config 4b): K1
      carrying u, v and n against its plain version on the primary and
@@ -239,10 +238,7 @@ sample), in phases, one line each:
      (``plain_stages``: no S1-S4 launch);
      config 4 after ``update_instance`` and the path frame with a new key
      replayed by the same entry, a scene of the same shapes with other
-     tables in an entry of its own; ``[graph_time]``: the flagship,
-     Whitted and path frames eager against replayed, 21 each in turns
-     (CUDA events around the call, the call's host ms), with the
-     capture's one-off seconds;
+     tables in an entry of its own, and the capture's one-off seconds;
  41. ``[ao_bound]`` (after phase 23): K1 on AO's first sample draw of the
      benchmark's AO cell (the colonnade at its defaults, 1920x1080, poses
      0, 150, 300 and 450 of its lap, radius 1.0) unbounded and bounded by
@@ -436,7 +432,7 @@ def main():
     from tpu_raytracer_torch.kernels.wide4 import SHORT_STACK
     from tpu_raytracer_torch.render import (
         RenderConfig, generate_rays, hit_attributes, pipeline, render_image,
-        render_image_whitted, shade_primary,
+        render_image_whitted,
     )
     from tpu_raytracer_torch.render.camera import generate_rays_torch
     from tpu_raytracer_torch.render.integrators import _reflect
@@ -526,10 +522,10 @@ def main():
     # 4. main path ------------------------------------------------------
     config = RenderConfig(cam.width, cam.height, backend="cuda")
     args = (p["K_inv"], p["D"], p["pose"], p["inv_pose"])
-    _reset_launch_counts()
+    build.reset_launches()
     img = render_image(config, scene, *args)
     torch.cuda.synchronize()
-    launches = traversal.LAUNCHES
+    launches = build.LAUNCHES["K1"]
     stage_launches = _stage_counts()
     # the frame through plain versions alone: S1's, K1's, S2's and S3's
     img_plain = shade_primary_torch(scene, hit_attributes_torch(scene, origin, dirs, hp))
@@ -616,28 +612,27 @@ def main():
               answer_diff_vs_plain_nearest=n_bad, t_diff_vs_plain_any_hit=n_vals)
         check(n_bad == 0 and n_vals == 0, f"{tag} any-hit answers differ from the nearest cast")
     shadow_cfg = RenderConfig(cam.width, cam.height, lighting="lambert_shadow")
-    traversal.LAUNCHES = traversal.LAUNCHES_CARRY = 0
+    build.reset_launches()
     img_sh = render_image(shadow_cfg, scene, *args)
     torch.cuda.synchronize()
-    k1_shadow_launches = traversal.LAUNCHES
+    k1_shadow_launches = build.LAUNCHES["K1"]
     # the primary cast carries the normal (K1's carrying kernel), the
     # shadow cast is K1's any hit
-    k1_any_launches = k1_shadow_launches - traversal.LAUNCHES_CARRY
+    k1_any_launches = k1_shadow_launches - build.LAUNCHES["K1_carry"]
     phase("shadow_path", scene="flagship", lighting="lambert_shadow",
-          k1_launches=k1_shadow_launches, k1_carry_launches=traversal.LAUNCHES_CARRY,
+          k1_launches=k1_shadow_launches, k1_carry_launches=build.LAUNCHES["K1_carry"],
           lit_differs_from_flat=int((img_sh != img).any(-1).sum()))
     check(k1_shadow_launches == 2 and k1_any_launches == 1,
           "the shadowed flagship frame did not launch K1 twice, once in any-hit mode")
 
     # 8. Whitted main path ----------------------------------------------
     wcfg = RenderConfig(cam4.width, cam4.height, backend="cuda")
-    tlas.LAUNCHES = tlas.LAUNCHES_CARRY = 0
-    traversal.LAUNCHES = 0
+    build.reset_launches()
     img_w = render_image_whitted(wcfg, inst4, *args4)
     torch.cuda.synchronize()
-    k3_launches = tlas.LAUNCHES
-    k3_carry_launches = tlas.LAUNCHES_CARRY
-    k1_in_whitted = traversal.LAUNCHES
+    k3_launches = build.LAUNCHES["K3"]
+    k3_carry_launches = build.LAUNCHES["K3_carry"]
+    k1_in_whitted = build.LAUNCHES["K1"]
     saved_cast = traversal.cast_rays
     traversal.cast_rays = _plain_router(traversal, tlas)
     img_w_plain = render_image_whitted(wcfg, inst4, *args4)
@@ -666,10 +661,10 @@ def main():
     # capture records the launches of a replay; the counters move in the
     # warm-up frame and the capture
     pipeline.clear_compiled()
-    tlas.LAUNCHES = 0
+    build.reset_launches()
     demo = driver.run("demo", 1920, 1088, frames=3,
                       out=os.path.join(tempfile.mkdtemp(), "demo.png"), device="cuda")
-    demo_launches = tlas.LAUNCHES
+    demo_launches = build.LAUNCHES["K3"]
     demo_entry = pipeline.compiled_render_image.last
     phase("demo", shape=tuple(demo.shape), k3_launches=demo_launches,
           k3_per_replay=demo_entry.launches.get("K3"), replays=demo_entry.replays,
@@ -682,34 +677,18 @@ def main():
 
     # 11. time ----------------------------------------------------------
     cast = lambda: traversal.cast_rays_cuda(scene, origin, dirs)
-    frame = lambda: render_image(config, scene, *args)
-    for fn in (cast, frame):
-        fn()
+    cast()
     cast_ms = min(event_ms(cast, 10) for _ in range(5))
     k1_kernel_ms = device_ms(cast, "wide_traverse_kernel")
-    frame_ms = sorted(event_ms(frame, 10) for _ in range(5))
     plain_ms = event_ms(lambda: traversal.cast_rays_wide_torch(scene, origin, dirs), 1)
     rays = cam.width * cam.height
     phase("time", card=repr(card), k1_cast_ms=f"{cast_ms:.4f}",
           k1_kernel_ms=f"{k1_kernel_ms:.4f}",
-          k1_mrays_s=f"{rays / cast_ms / 1e3:.2f}",
-          frame_ms_best=f"{frame_ms[0]:.4f}", frame_ms_median=f"{frame_ms[2]:.4f}",
-          fps=f"{1e3 / frame_ms[0]:.2f}", plain_cast_ms=f"{plain_ms:.2f}")
-    attrs = hit_attributes(scene, origin, dirs, hk)
-    stages = {
-        "raygen": lambda: generate_rays(cam.width, cam.height, *args),
-        "cast": cast,
-        "attrs": lambda: hit_attributes(scene, origin, dirs, hk),
-        "shade": lambda: shade_primary(scene, attrs),
-    }
-    phase("stages", card=repr(card), **{
-        f"{k}_ms": f"{min(event_ms(fn, 10) for _ in range(3)):.4f}"
-        for k, fn in stages.items()})
+          k1_mrays_s=f"{rays / cast_ms / 1e3:.2f}", plain_cast_ms=f"{plain_ms:.2f}")
 
     k1_any = lambda: traversal.cast_rays_cuda(scene, *shadow1, occlusion=True)
     k3_cast = lambda: tlas.cast_rays_tlas_cuda(inst4, o4, d4, carry=False)
-    wframe = lambda: render_image_whitted(wcfg, inst4, *args4)
-    for fn in (k1_any, k3_cast, wframe):
+    for fn in (k1_any, k3_cast):
         fn()
     k1_any_ms = min(event_ms(k1_any, 10) for _ in range(5))
     k3_ms = min(event_ms(k3_cast, 10) for _ in range(5))
@@ -737,7 +716,6 @@ def main():
         phase("time_k3", card=repr(card), rays=f"config4_{tag}", n=n4, any_hit=occ4,
               kernel_ms=f"{ms4:.4f}", bound_ms=f"{b4['bound_ms']:.4f}",
               share_of_bound=f"{b4['bound_ms'] / ms4:.4f}")
-    w_best, w_median = best_and_median_ms(wframe)
     k1_any_plain_ms = event_ms(
         lambda: traversal.cast_rays_wide_torch(scene, *shadow1, occlusion=True), 1)
     k3_plain_ms = event_ms(lambda: tlas.cast_rays_tlas_torch(inst4, o4, d4), 1)
@@ -745,10 +723,7 @@ def main():
           k3_kernel_ms=f"{k3_kernel_ms:.4f}", k1_any_hit_kernel_ms=f"{k1_any_kernel_ms:.4f}",
           k3_mrays_s=f"{d4.numel() // 3 / k3_ms / 1e3:.2f}",
           k3_plain_ms=f"{k3_plain_ms:.2f}", k1_any_hit_ms=f"{k1_any_ms:.4f}",
-          k1_any_hit_plain_ms=f"{k1_any_plain_ms:.2f}",
-          whitted_frame_ms_best=f"{w_best:.4f}", whitted_frame_ms_median=f"{w_median:.4f}",
-          whitted_fps=f"{1e3 / w_best:.2f}")
-    phase("whitted_stages", card=repr(card), **_whitted_stages(traversal, wframe))
+          k1_any_hit_plain_ms=f"{k1_any_plain_ms:.2f}")
     carry_entries = carry_phases(dev, card, report, (scene, origin, dirs, args),
                                  (inst4, o4, d4, refl4, cam4), goldens)
 
@@ -865,7 +840,7 @@ def carry_phases(dev, card, report, flagship, config4, goldens) -> list:
     phase 3, ``config4`` (scene, origin, dirs, reflection rays, camera)
     of phase 6, ``goldens`` ``golden_renders``."""
     from tpu_raytracer_torch.app.scenes import build_demo_scene, scene_cube
-    from tpu_raytracer_torch.kernels import tlas, traversal
+    from tpu_raytracer_torch.kernels import build, tlas, traversal
     from tpu_raytracer_torch.render import (
         Camera, RenderConfig, generate_rays, hit_attributes, reference_calibration,
         render_aovs, render_image, render_image_whitted,
@@ -960,12 +935,10 @@ def carry_phases(dev, card, report, flagship, config4, goldens) -> list:
     }
     slice_launches = {"K1": 0, "K3": 0}
     for tag, (sc, fargs, normal_mode, fn) in frames.items():
-        traversal.LAUNCHES = traversal.LAUNCHES_CARRY = 0
-        tlas.LAUNCHES = tlas.LAUNCHES_CARRY = 0
+        build.reset_launches()
         img = fn()
         torch.cuda.synchronize()
-        n = {"K1": traversal.LAUNCHES, "K1_carry": traversal.LAUNCHES_CARRY,
-             "K3": tlas.LAUNCHES, "K3_carry": tlas.LAUNCHES_CARRY}
+        n = {k: build.LAUNCHES[k] for k in ("K1", "K1_carry", "K3", "K3_carry")}
         with plain_casts():
             n_plain = _pixels(img, fn())
         with carry_off():
@@ -1134,7 +1107,7 @@ def paged_phases(dev, card) -> tuple:
     their entries of the kernels line, and the colonnade, its rays and
     results for ``presplit_phase``."""
     from tpu_raytracer_torch.app.scenes import scene_colonnade, scene_colonnade_pair
-    from tpu_raytracer_torch.kernels import paged, paged_major, tlas, traversal
+    from tpu_raytracer_torch.kernels import build, paged, paged_major, traversal
     from tpu_raytracer_torch.render import (
         Camera, RenderConfig, generate_rays, hit_attributes, render_image, shade_primary,
     )
@@ -1262,22 +1235,16 @@ def paged_phases(dev, card) -> tuple:
     check(min(hits.values()) > 0, "the aerial camera did not hit both instances")
 
     # 16. the paged main paths ------------------------------------------
-    def reset():
-        traversal.LAUNCHES = tlas.LAUNCHES = 0
-        paged.LAUNCHES_K4 = paged.LAUNCHES_K5 = paged_major.LAUNCHES = 0
-        paged_major.LAUNCHES_PLAN = 0
-
     def counts():
-        return {"K1": traversal.LAUNCHES, "K3": tlas.LAUNCHES, "K4": paged.LAUNCHES_K4,
-                "K5": paged.LAUNCHES_K5, "K6": paged_major.LAUNCHES,
-                "plan": paged_major.LAUNCHES_PLAN}
+        return {**{k: build.LAUNCHES[k] for k in ("K1", "K3", "K4", "K5", "K6")},
+                "plan": build.LAUNCHES["K6_plan"]}
 
     img_k1 = render_image(RenderConfig(1920, 1088, backend="cuda"), col, *args)
     frames = {}
     for k, backend in (("K4", "paged"), ("K5", "paged"), ("K6", "paged_major")):
         sc = cases[k][0]
         config = RenderConfig(1920, 1088, backend=backend)
-        reset()
+        build.reset_launches()
         img = render_image(config, sc, *args)
         torch.cuda.synchronize()
         n = counts()
@@ -1374,7 +1341,7 @@ def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
     (origins, directions)."""
     from tpu_raytracer_torch.app.controls import fly_through
     from tpu_raytracer_torch.app.scenes import scene_colonnade
-    from tpu_raytracer_torch.kernels import binary, tlas, traversal
+    from tpu_raytracer_torch.kernels import binary, build, traversal
     from tpu_raytracer_torch.render import (
         Camera, RenderConfig, generate_rays, hit_attributes, integrators, render_image_ao,
         render_image_path_traced, render_radiance_path_traced,
@@ -1506,11 +1473,8 @@ def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
           sorted_cast_ms=f"{min(event_ms(sorted_cast, 10) for _ in range(3)):.4f}")
 
     # 20. the path main path: the fly-through through bvh and cuda ------
-    def reset():
-        binary.LAUNCHES = traversal.LAUNCHES = tlas.LAUNCHES = 0
-
     def counts():
-        return {"K1": traversal.LAUNCHES, "K2": binary.LAUNCHES, "K3": tlas.LAUNCHES}
+        return {k: build.LAUNCHES[k] for k in ("K1", "K2", "K3")}
 
     def frame(backend, k, **kw):
         config = RenderConfig(PATH_SIZE, PATH_SIZE, backend=backend, **kw.pop("config", {}))
@@ -1521,7 +1485,7 @@ def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
     for backend, kname in (("bvh", "K2"), ("cuda", "K1")):
         per_frame, imgs = [], []
         for k in range(FLY_FRAMES):
-            reset()
+            build.reset_launches()
             imgs.append(frame(backend, k))
             torch.cuda.synchronize()
             n = counts()
@@ -1531,7 +1495,7 @@ def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
                   f"frame {k} through {backend} launched {n}, not {kname} 3 times")
         with plain_casts():
             n_plain = int((imgs[0] != frame(backend, 0)).any(-1).sum())
-        reset()
+        build.reset_launches()
         lit = frame(backend, 0, config={"path_lights": True})
         torch.cuda.synchronize()
         lit_launches = counts()[kname]
@@ -1566,7 +1530,7 @@ def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
 
     # 22. AO and denoise against their plain-cast frames ----------------
     ao_cfg = RenderConfig(PATH_SIZE, PATH_SIZE, backend="bvh")
-    reset()
+    build.reset_launches()
     ao = render_image_ao(ao_cfg, col, *a0, prng.PRNGKey(0), AO_SAMPLES, 1.0)
     torch.cuda.synchronize()
     ao_launches = counts()["K2"]
@@ -1576,7 +1540,7 @@ def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
     phase("ao", backend="bvh", samples=AO_SAMPLES, launches=ao_launches,
           pixels_vs_plain=ao_plain, mean=f"{float(ao.float().mean()):.3f}")
     check(ao_launches == AO_SAMPLES + 1 and ao_plain == 0, "the AO frame is off")
-    reset()
+    build.reset_launches()
     den = frame("bvh", 0, config={"denoise": 3})
     torch.cuda.synchronize()
     den_launches = counts()["K2"]
@@ -1586,7 +1550,7 @@ def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
           pixels_vs_plain=den_plain, pixels_vs_noisy=int((den != images["bvh"][0]).any(-1).sum()))
     check(den_launches == 4 and den_plain == 0, "the denoised frame is off")
 
-    # 23. times of the path frame and its stages ------------------------
+    # 23. times of the path frame and of its denoiser --------------------
     for size, w, h, bounces, samples in PATH_TIMES:
         pa = params(poses[0], w, h)
         out = {}
@@ -1597,16 +1561,6 @@ def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
             fn()
             best, median = best_and_median_ms(fn, loops=3, n=2 if w > 512 else 5)
             out[f"{backend}_best_ms"], out[f"{backend}_median_ms"] = f"{best:.4f}", f"{median:.4f}"
-        phase("path_time", card=repr(card), size=size, samples=samples, bounces=bounces,
-              rays_per_bounce=samples * w * h, **out)
-        for backend, sort, lights in (("bvh", False, False), ("cuda", True, False),
-                                      ("cuda", False, False), ("cuda", True, True)):
-            cfg = RenderConfig(w, h, backend=backend, path_lights=lights)
-            run = lambda cfg=cfg, sort=sort: render_radiance_path_traced(
-                cfg, col, *pa, prng.PRNGKey(0), bounces, samples, sort_secondary=sort)
-            run()
-            phase("path_stages", card=repr(card), size=size, backend=backend, sorted=sort,
-                  path_lights=lights, **_path_stages(integrators, run))
         rad = render_radiance_path_traced(RenderConfig(w, h, backend="cuda"), col, *pa,
                                           prng.PRNGKey(0), bounces, samples)
         o_p, d_p = generate_rays(w, h, *pa)
@@ -1615,7 +1569,9 @@ def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
                   torch.where(g.hit, g.t, torch.full_like(g.t, float("inf"))))
         den_ms = min(event_ms(lambda: atrous_denoise(rad, *guides, iterations=3), 3)
                      for _ in range(3))
-        phase("path_stages", card=repr(card), size=size, denoise_3_iterations_ms=f"{den_ms:.4f}")
+        phase("path_time", card=repr(card), size=size, samples=samples, bounces=bounces,
+              rays_per_bounce=samples * w * h, **out,
+              denoise_3_iterations_ms=f"{den_ms:.4f}")
 
     flag = res["flagship_primary"]
     ctx = {"col": col, "poses": poses, "bounce": (bo, bd), "res": res}
@@ -1694,7 +1650,7 @@ def flatten_phases(dev, card, config4, instances16) -> None:
     dirs, camera args, Whitted frame, K3's per-set times) of phases 6-11,
     ``instances16`` (scene, camera, origin, dirs) of phase 6."""
     from tpu_raytracer_torch.app.scenes import scene_instances, scene_instances16
-    from tpu_raytracer_torch.kernels import tlas, traversal
+    from tpu_raytracer_torch.kernels import build, tlas, traversal
     from tpu_raytracer_torch.render import (
         RenderConfig, hit_attributes, render_image, render_image_whitted,
     )
@@ -1722,11 +1678,10 @@ def flatten_phases(dev, card, config4, instances16) -> None:
         return hk, stats
 
     def frame_checks(sc, fn, instanced_img):
-        traversal.LAUNCHES = traversal.LAUNCHES_CARRY = 0
-        tlas.LAUNCHES = 0
+        build.reset_launches()
         img = fn(sc)
         torch.cuda.synchronize()
-        n = {"K1": traversal.LAUNCHES, "K1_carry": traversal.LAUNCHES_CARRY, "K3": tlas.LAUNCHES}
+        n = {k: build.LAUNCHES[k] for k in ("K1", "K1_carry", "K3")}
         with plain_casts():
             n_plain = _pixels(img, fn(sc))
         share = float((img == instanced_img).all(-1).float().mean())
@@ -1819,7 +1774,7 @@ def presplit_phase(dev, card, ctx) -> None:
     frames against their plain casts' frames, and each kernel's device
     time on the unsplit and the split tree in turns, with bounds. ``ctx``
     is ``paged_phases``'."""
-    from tpu_raytracer_torch.kernels import paged, paged_major, tlas, traversal
+    from tpu_raytracer_torch.kernels import build, paged, paged_major, traversal
     from tpu_raytracer_torch.render import RenderConfig, hit_attributes, render_image, shade_primary
     from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene, procgen
 
@@ -1890,13 +1845,11 @@ def presplit_phase(dev, card, ctx) -> None:
     frames = {}
     for k, backend in (("K4", "paged"), ("K5", "paged"), ("K6", "paged_major")):
         sc = cases[k][0]
-        traversal.LAUNCHES = tlas.LAUNCHES = 0
-        paged.LAUNCHES_K4 = paged.LAUNCHES_K5 = paged_major.LAUNCHES = 0
-        paged_major.LAUNCHES_PLAN = 0
+        build.reset_launches()
         img = render_image(RenderConfig(d.shape[1], d.shape[0], backend=backend), sc, *args)
         torch.cuda.synchronize()
-        n = {"K1": traversal.LAUNCHES, "K3": tlas.LAUNCHES, "K4": paged.LAUNCHES_K4,
-             "K5": paged.LAUNCHES_K5, "K6": paged_major.LAUNCHES, "plan": paged_major.LAUNCHES_PLAN}
+        n = {**{k: build.LAUNCHES[k] for k in ("K1", "K3", "K4", "K5", "K6")},
+             "plan": build.LAUNCHES["K6_plan"]}
         n_img = _pixels(img, shade_primary(sc, hit_attributes(sc, o, d, hits[k])))
         frames[k] = n_img
         phase("presplit_main_path", kernel=k, backend=backend, launches=n, pixels_vs_plain=n_img)
@@ -1933,7 +1886,7 @@ def optimize_phase(dev, card, ctx) -> None:
     against its plain casts' frame, and K1's and K2's device time on the
     optimized and the plain tree in turns. ``ctx`` is ``path_phases``'."""
     from tpu_raytracer_torch.accel.bvh import sah_cost
-    from tpu_raytracer_torch.kernels import binary, tlas, traversal
+    from tpu_raytracer_torch.kernels import binary, build, traversal
     from tpu_raytracer_torch.render import Camera, RenderConfig, render_image_path_traced
     from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene, procgen
     from tpu_raytracer_torch.utils import prng
@@ -1997,10 +1950,10 @@ def optimize_phase(dev, card, ctx) -> None:
         cfg = RenderConfig(PATH_SIZE, PATH_SIZE, backend=backend)
         fn = lambda sc, cfg=cfg: render_image_path_traced(cfg, sc, *pargs, prng.PRNGKey(0),
                                                           PATH_BOUNCES, PATH_SAMPLES)
-        binary.LAUNCHES = traversal.LAUNCHES = tlas.LAUNCHES = 0
+        build.reset_launches()
         img = fn(opt)
         torch.cuda.synchronize()
-        n = {"K1": traversal.LAUNCHES, "K2": binary.LAUNCHES, "K3": tlas.LAUNCHES}
+        n = {k: build.LAUNCHES[k] for k in ("K1", "K2", "K3")}
         with plain_casts():
             n_plain = _pixels(img, fn(opt))
         times = {}
@@ -2266,12 +2219,9 @@ def _launch_counts() -> dict:
 
 
 def _reset_launch_counts() -> None:
-    import importlib
+    from tpu_raytracer_torch.kernels import build
 
-    from tpu_raytracer_torch.render.compiled import COUNTERS
-
-    for _, mod, attr in COUNTERS:
-        setattr(importlib.import_module(f"tpu_raytracer_torch.kernels.{mod}"), attr, 0)
+    build.reset_launches()
 
 
 def _frames(fn) -> dict:
@@ -3395,25 +3345,6 @@ def _in_turns(fns: dict, turns: int) -> dict:
     return out
 
 
-def _replay_profile(fn, n: int = 3) -> dict:
-    """Kernels (and copies) on the card per call of ``fn`` from a
-    ``torch.profiler`` trace of ``n`` calls: their count, their summed
-    device ms, and the four that take the most."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = lambda e: getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-    ev = [e for e in prof.key_averages() if us(e) > 0]
-    top = sorted(ev, key=us, reverse=True)[:4]
-    return {"kernels": sum(e.count for e in ev) / n, "device_ms": sum(map(us, ev)) / n / 1e3,
-            "top": [(e.key[:48], round(us(e) / n / 1e3, 4)) for e in top]}
-
-
 def graph_phase(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
     """``[graph]``: the compiled entry points (``render/pipeline.py``
     ``compiled_*``, ``render/compiled.py``), each static config captured
@@ -3427,12 +3358,8 @@ def graph_phase(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
     (``update_instance``: its rows and TLAS) and the path frame takes a
     new key: the same graph replays. A scene of the same shapes with
     other tables (config 4's albedos halved) gets an entry of its own and
-    renders its own frame. ``[graph_time]``: the flagship, Whitted and
-    path frames eager against replayed, ``GRAPH_TURNS`` each in turns,
-    CUDA events around the call and the call's host ms, with the
-    capture's one-off seconds; ``[graph_profile]``: a replay's kernels
-    from a ``torch.profiler`` trace (count, device ms, the largest four)
-    and its device busy share (their ms over the replay's median)."""
+    renders its own frame. The benchmark (``python3 -m rtbench``) times
+    the replayed frames and their stages."""
     import dataclasses
 
     from tpu_raytracer_torch.render import Camera, RenderConfig, pipeline
@@ -3571,29 +3498,6 @@ def graph_phase(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
             check(more["new_key_same_entry"] and more["new_key_pixels_vs_eager"] == 0
                   and more["new_key_changed_pixels"] > 0, f"{case}: a new key: {more}")
 
-    timed_cases = ("flagship_flat", "config4_whitted", "config5_path_cuda")
-    for case in timed_cases:
-        name, config, sc, args, extra, _ = cases[case]
-        eager, frame = getattr(pipeline, name), getattr(pipeline, "compiled_" + name)
-        call = (config, sc, *args, *extra)
-        times = _in_turns({"eager": lambda: eager(*call), "replay": lambda: frame(*call)},
-                          GRAPH_TURNS)
-        e, r = times["eager"], times["replay"]
-        phase("graph_time", card=repr(card), case=case, turns=GRAPH_TURNS,
-              eager_ms_best=f"{e['best_ms']:.4f}", eager_ms_median=f"{e['median_ms']:.4f}",
-              eager_spread_10_90_ms=f"{e['spread_10_90_ms']:.4f}",
-              eager_host_ms_best=f"{e['host_best_ms']:.4f}",
-              eager_host_ms_median=f"{e['host_median_ms']:.4f}",
-              replay_ms_best=f"{r['best_ms']:.4f}", replay_ms_median=f"{r['median_ms']:.4f}",
-              replay_spread_10_90_ms=f"{r['spread_10_90_ms']:.4f}",
-              replay_host_ms_best=f"{r['host_best_ms']:.4f}",
-              replay_host_ms_median=f"{r['host_median_ms']:.4f}",
-              capture_s=f"{frame.last.capture_s:.3f}",
-              speedup_median=f"{e['median_ms'] / r['median_ms']:.3f}")
-        prof = _replay_profile(lambda: frame(*call))
-        phase("graph_profile", card=repr(card), case=case, kernels_per_replay=prof["kernels"],
-              device_ms=f"{prof['device_ms']:.4f}",
-              busy_share=f"{prof['device_ms'] / r['median_ms']:.3f}", top=prof["top"])
     pipeline.clear_compiled()
     torch.cuda.empty_cache()
 
@@ -3627,72 +3531,6 @@ def plain_casts():
             m.get_cast_fn = f
 
 
-def _path_stages(integrators, run) -> dict:
-    """One path frame (``run``) with CUDA events around each cast — the
-    primary, the bounce casts (with their sort), the any-hit tail and the
-    NEE shadow casts — around ``hit_attributes`` and around the sampling
-    (``sample_cosine``: S4, or its plain chain, with the lobe's draws,
-    and ``prng``'s draws of the thin lens). The rest of the frame is
-    shading and bookkeeping."""
-    from types import SimpleNamespace
-
-    names = ("get_cast_fn", "occlusion_cast_fn", "secondary_cast_fn", "hit_attributes",
-             "sample_cosine", "prng")
-    saved = {n: getattr(integrators, n) for n in names}
-    marks, depth = [], [0]
-
-    def timed(fn, kind):
-        def call(*a, **kw):
-            if depth[0]:  # inside another timed call
-                return fn(*a, **kw)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            depth[0] += 1
-            try:
-                out = fn(*a, **kw)
-            finally:
-                depth[0] -= 1
-            end.record()
-            marks.append((kind, start, end))
-            return out
-        call.kind = kind
-        return call
-
-    def secondary(cast, backend, sort=False):
-        kind = "tail" if getattr(cast, "kind", "") == "nee" else "bounce"
-        return timed(saved["secondary_cast_fn"](cast, backend, sort), kind)
-
-    prng = saved["prng"]
-    integrators.get_cast_fn = lambda b, **kw: timed(saved["get_cast_fn"](b, **kw), "primary")
-    integrators.occlusion_cast_fn = lambda b: timed(saved["occlusion_cast_fn"](b), "nee")
-    integrators.secondary_cast_fn = secondary
-    integrators.hit_attributes = timed(saved["hit_attributes"], "attrs")
-    integrators.sample_cosine = timed(saved["sample_cosine"], "sampling")
-    integrators.prng = SimpleNamespace(
-        split=timed(prng.split, "sampling"), fold_in=timed(prng.fold_in, "sampling"),
-        uniform=timed(prng.uniform, "sampling"))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    try:
-        start.record()
-        run()
-        end.record()
-    finally:
-        for n, f in saved.items():
-            setattr(integrators, n, f)
-    end.synchronize()
-    frame_ms = start.elapsed_time(end)
-    out = {"frame_ms": f"{frame_ms:.4f}"}
-    for kind in ("primary", "bounce", "tail", "nee"):
-        ms = [s.elapsed_time(e) for k, s, e in marks if k == kind]
-        out[f"{kind}_ms"] = "/".join(f"{m:.4f}" for m in ms) or "none"
-    for kind in ("attrs", "sampling"):
-        out[f"{kind}_ms"] = f"{sum(s.elapsed_time(e) for k, s, e in marks if k == kind):.4f}"
-    out["rest_ms"] = f"{frame_ms - sum(s.elapsed_time(e) for _, s, e in marks):.4f}"
-    return out
-
-
 def _plain_router(traversal, tlas):
     """``traversal.cast_rays`` with the kernels' plain versions in place
     of the kernels, on the rays' own device, carrying what the kernels
@@ -3709,41 +3547,6 @@ def _plain_router(traversal, tlas):
                                               carry_uv=uv, carry_n=n, t_max=t_max)
 
     return cast
-
-
-def _whitted_stages(traversal, wframe) -> dict:
-    """One Whitted frame with CUDA events around every cast: the nearest
-    casts' and the any-hit (shadow) casts' milliseconds, and the rest of
-    the frame (raygen, attributes, shading)."""
-    saved = traversal.cast_rays
-    marks = []
-
-    def timed(scene, origin, directions, occlusion=False, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        hit = saved(scene, origin, directions, occlusion, **kw)
-        end.record()
-        marks.append(("any_hit" if occlusion else "nearest", start, end))
-        return hit
-
-    traversal.cast_rays = timed
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    wframe()
-    end.record()
-    traversal.cast_rays = saved
-    end.synchronize()
-    frame_ms = start.elapsed_time(end)
-    out = {"frame_ms": f"{frame_ms:.4f}"}
-    for kind in ("nearest", "any_hit"):
-        ms = [s.elapsed_time(e) for k, s, e in marks if k == kind]
-        out[f"{kind}_casts"] = len(ms)
-        out[f"{kind}_ms"] = "/".join(f"{m:.4f}" for m in ms)
-    cast_total = sum(s.elapsed_time(e) for _, s, e in marks)
-    out["rest_ms"] = f"{frame_ms - cast_total:.4f}"
-    return out
 
 
 # f32 operations of the frame stages' per-ray code, counted from
@@ -4104,7 +3907,7 @@ def sample_kernel_phase(dev, card, scene, origin, dirs, args) -> list:
     ``[frame_kernels_time]`` rows for an AO draw and a path draw at
     1920x1088: device ms beside the bound (``_sample_bound``) and the plain
     chain's ms. Returns the kernels line's entry."""
-    from tpu_raytracer_torch.kernels import frame, traversal
+    from tpu_raytracer_torch.kernels import traversal
     from tpu_raytracer_torch.render import (
         RenderConfig, hit_attributes, render_image_ao, render_image_path_traced,
     )
@@ -4129,9 +3932,9 @@ def sample_kernel_phase(dev, card, scene, origin, dirs, args) -> list:
     diffs, launches = {}, {}
     for exact in (True, False):
         for tag, (n, chain, lobe) in cases.items():
-            before = frame.LAUNCHES_SAMPLE
+            before = _stage_counts()["S4"]
             got = sample_cosine(key, chain, n, exact, lobe)
-            launches[tag] = frame.LAUNCHES_SAMPLE - before
+            launches[tag] = _stage_counts()["S4"] - before
             want = sample_cosine_torch(key, chain, n, exact, lobe)
             torch.cuda.synchronize()
             if not lobe:

@@ -34,7 +34,7 @@ import torch
 from tpu_raytracer.kernels.traversal import cast_rays_pallas
 from tpu_raytracer.render.renderer import cast_rays_brute as jax_brute
 from tpu_raytracer.render.renderer import cast_rays_bvh as jax_bvh
-from tpu_raytracer_torch.kernels import binary, traversal
+from tpu_raytracer_torch.kernels import binary, build, traversal
 from tpu_raytracer_torch.kernels.traversal import BIG, child_entry
 from tpu_raytracer_torch.render import Hit, RenderConfig, render_image, render_image_whitted
 from tpu_raytracer_torch.render.renderer import cast_rays_bvh, get_cast_fn, occlusion_cast_fn
@@ -222,9 +222,9 @@ def test_backend_routes_and_tables_follow_the_scene():
     scene = port_scene("two_instance")
     o, d = port_rays("two_instance")
     assert get_cast_fn("bvh") is cast_rays_bvh  # K2 below the paging rule
-    before = binary.LAUNCHES
+    before = dict(build.LAUNCHES)
     got = get_cast_fn("bvh")(scene, o, d)
-    assert binary.LAUNCHES == before  # CPU tensors run the plain version
+    assert build.LAUNCHES == before  # CPU tensors run the plain version
     want = binary.cast_rays_binary_torch(scene, o, d)
     for a, b in zip(got[:3], want[:3]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())

@@ -40,7 +40,7 @@ from tpu_raytracer.render.integrators import PointLight as JaxPointLight
 from tpu_raytracer.render.renderer import hit_attributes as jax_hit_attributes
 from tpu_raytracer.render.shade import shade_primary as jax_shade_primary
 from tpu_raytracer_torch import scene as ts
-from tpu_raytracer_torch.kernels import frame, traversal
+from tpu_raytracer_torch.kernels import build, frame, traversal
 from tpu_raytracer_torch.render import camera, integrators, renderer, shade
 from tpu_raytracer_torch.render.camera import (
     Camera, default_intrinsics, generate_rays, generate_rays_torch, reference_calibration,
@@ -579,7 +579,7 @@ def no_kernels(monkeypatch):
 
 
 def test_routers_take_the_plain_versions_on_the_cpu(no_kernels):
-    counts = (frame.LAUNCHES_RAYGEN, frame.LAUNCHES_ATTRS, frame.LAUNCHES_SHADE)
+    counts = dict(build.LAUNCHES)
     cam = scene("cube")[2]
     assert_bitwise(generate_rays(W, H, *ray_args(cam)), generate_rays_torch(W, H, *ray_args(cam)))
     sc, o, d, h = rays_and_hits("cube", "uv_n")
@@ -589,17 +589,70 @@ def test_routers_take_the_plain_versions_on_the_cpu(no_kernels):
         np.testing.assert_array_equal(
             shade_primary(sc, at, mode=mode, directions=d).numpy(),
             shade_primary_torch(sc, at, mode=mode, directions=d).numpy())
-    assert (frame.LAUNCHES_RAYGEN, frame.LAUNCHES_ATTRS, frame.LAUNCHES_SHADE) == counts
+    assert build.LAUNCHES == counts
 
 
 @pytest.mark.parametrize("lobe", [False, True])
 def test_sample_router_takes_the_plain_version_on_the_cpu(no_kernels, lobe):
-    before = frame.LAUNCHES_SAMPLE
+    before = dict(build.LAUNCHES)
     key, n = prng.PRNGKey(SAMPLE_KEYS[2]), sample_normal_layout("path_expanded")
     got = integrators.sample_cosine(key, (1,), n, True, lobe)
     want = integrators.sample_cosine_torch(key, (1,), n, True, lobe)
     assert_bitwise(got if lobe else (got,), want if lobe else (want,))
-    assert frame.LAUNCHES_SAMPLE == before
+    assert build.LAUNCHES == before
+
+
+def test_launch_counts_name_every_kernel_and_host_runs_count_none():
+    """``launch_counts()`` names the launch counts of K1-K6 and S1-S4, and
+    CPU runs of S1-S4's host builds and of K6's plan move none of them:
+    only launches on the card count."""
+    from tpu_raytracer_torch.kernels import paged_major
+    from tpu_raytracer_torch.render.compiled import launch_counts
+
+    before = launch_counts()
+    assert list(before) == ["K1", "K1_carry", "K1_bounded", "K2", "K3", "K3_carry", "K4", "K5",
+                            "K6", "K6_plan", "S1", "S2", "S3", "S4"]
+    assert before == build.LAUNCHES and before is not build.LAUNCHES
+    sc, o, d, h = rays_and_hits("cube", "uv_n")
+    o1, d1 = frame.generate_rays_host(W, H, *ray_args(scene("cube")[2]))
+    at = frame.hit_attributes_host(sc, o1, d1, h)
+    frame.shade_primary_host(sc, at, shade.DEFAULT_LIGHT_DIRECTION, "blinn_phong", True, d1)
+    frame.sample_cosine_host(prng.PRNGKey(1), (1,), at.normal, lobe=True)
+    pages = sc.with_paging(page_tris=32, page_nodes=64)
+    _, o_t, d_t = paged_major._tile_rays(o, d)
+    item_pid, item_iid, tile_start, tile_item = paged_major.page_major_plan_cuda(pages, o_t, d_t)
+    assert item_pid.numel() > 0 and int(tile_start[-1]) > 0
+    assert launch_counts() == before
+
+
+def _global_reads(table) -> set:
+    """The global names the functions under ``table`` (a ``symtable``)
+    read, nested functions, lambdas and comprehensions included."""
+    names = set()
+    for child in table.get_children():
+        if child.get_type() == "function":
+            names |= {s.get_name() for s in child.get_symbols()
+                      if s.is_global() and s.is_referenced()}
+        names |= _global_reads(child)
+    return names
+
+
+def test_chip_smoke_reads_only_names_it_defines_or_imports():
+    """Every global name a function of ``chip_smoke.py`` reads is defined
+    or imported at the script's top level, or is a builtin. The script runs
+    only on the card, so no other test would see a phase reach for a
+    helper or a constant that is gone."""
+    import builtins
+    import pathlib
+    import symtable
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    table = symtable.symtable(path.read_text(), str(path), "exec")
+    top = {s.get_name() for s in table.get_symbols() if s.is_assigned() or s.is_imported()}
+    top |= {"__file__", "__name__", "__doc__"}  # set on every module
+    reads = _global_reads(table)
+    assert {"check", "phase", "main"} <= reads | top
+    assert sorted(reads - top - set(dir(builtins))) == []
 
 
 def test_router_names_keep_their_signatures():

@@ -39,7 +39,8 @@ from tpu_raytracer_torch.app.scenes import (
     scene_colonnade, scene_colonnade_pair, scene_cube, scene_instances,
 )
 from tpu_raytracer_torch.core.vecmath import FLT_MAX, normalize
-from tpu_raytracer_torch.kernels import binary, paged, paged_major, tlas, traversal
+from tpu_raytracer_torch.kernels import binary, build, paged, paged_major, tlas, traversal
+from tpu_raytracer_torch.kernels.build import LAUNCHES
 from tpu_raytracer_torch.render import (
     Camera, RenderConfig, generate_rays, hit_attributes, render, render_image_whitted,
 )
@@ -86,10 +87,10 @@ def _rays(cam, device):
 def test_k1_matches_plain_version_bitwise(cuda, which):
     scene, cam = scene_cube(64, device=cuda) if which == "cube" else _two_instance(cuda)
     o, d = _rays(cam, cuda)
-    before = traversal.LAUNCHES
+    before = LAUNCHES["K1"]
     got = traversal.cast_rays_cuda(scene, o, d)
     torch.cuda.synchronize()
-    assert traversal.LAUNCHES == before + 1
+    assert LAUNCHES["K1"] == before + 1
     want = traversal.cast_rays_wide_torch(scene, o, d)
     assert (got.tri >= 0).any()
     assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
@@ -131,10 +132,10 @@ def _secondary_rays(scene, o, d, hit):
 def test_k3_matches_plain_version_bitwise(cuda):
     scene, cam = scene_instances(256, 256, device=cuda)
     o, d = _rays(cam, cuda)
-    before = tlas.LAUNCHES
+    before = LAUNCHES["K3"]
     got = tlas.cast_rays_tlas_cuda(scene, o, d)
     torch.cuda.synchronize()
-    assert tlas.LAUNCHES == before + 1
+    assert LAUNCHES["K3"] == before + 1
     refl, _ = _secondary_rays(scene, o, d, got)
     for ro, rd, hit in ((o, d, got), (*refl, tlas.cast_rays_tlas_cuda(scene, *refl))):
         want = tlas.cast_rays_tlas_torch(scene, ro, rd)
@@ -166,20 +167,20 @@ def test_short_stack_spill_path_matches_plain_version(cuda, kernel):
     answers equal to the plain any-hit cast's."""
     if kernel == "K1":
         scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
-        cast, plain, counter = traversal.cast_rays_cuda, traversal.cast_rays_wide_torch, traversal
+        cast, plain = traversal.cast_rays_cuda, traversal.cast_rays_wide_torch
     elif kernel == "K2":
         scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
-        cast, plain, counter = binary.cast_rays_binary_cuda, binary.cast_rays_binary_torch, binary
+        cast, plain = binary.cast_rays_binary_cuda, binary.cast_rays_binary_torch
     else:
         scene, cam = scene_instances(256, 256, device=cuda)
-        cast, plain, counter = tlas.cast_rays_tlas_cuda, tlas.cast_rays_tlas_torch, tlas
+        cast, plain = tlas.cast_rays_tlas_cuda, tlas.cast_rays_tlas_torch
     o, d = _rays(cam, cuda)
     refl, shadow = _secondary_rays(scene, o, d, cast(scene, o, d))
     for ro, rd in ((o, d), refl):
-        before = counter.LAUNCHES
+        before = LAUNCHES[kernel]
         got = cast(scene, ro, rd, short_stack=1)
         torch.cuda.synchronize()
-        assert counter.LAUNCHES == before + 1
+        assert LAUNCHES[kernel] == before + 1
         want = plain(scene, ro, rd)
         assert (got.tri >= 0).any()
         assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
@@ -195,10 +196,10 @@ def test_short_stack_spill_path_matches_plain_version(cuda, kernel):
 def test_config4_whitted_within_four_pixels_of_cpu_golden(cuda):
     scene, cam = scene_instances(64, 64, device=cuda)
     p = cam.ray_params(cuda)
-    before = tlas.LAUNCHES
+    before = LAUNCHES["K3"]
     img = render_image_whitted(RenderConfig(64, 64), scene, p["K_inv"], p["D"], p["pose"],
                                p["inv_pose"])
-    assert tlas.LAUNCHES >= before + 3
+    assert LAUNCHES["K3"] >= before + 3
     golden = np.load(os.path.join(GOLDEN_DIR, "config4_instances_whitted_64.npy"))
     assert (img.cpu().numpy() != golden).any(-1).sum() <= 4
 
@@ -222,16 +223,16 @@ def test_carrying_kernels_match_plain_versions_bitwise(cuda, short_stack):
     the plain versions' with the same carry, bit for bit, also through
     the short stack's spill path; the carry changes no t, tri or inst."""
     for kernel, scene, o, d in _carry_sets(cuda):
-        cast, plain, counts = (
-            (traversal.cast_rays_cuda, traversal.cast_rays_wide_torch, traversal)
-            if kernel == "K1" else (tlas.cast_rays_tlas_cuda, tlas.cast_rays_tlas_torch, tlas))
+        cast, plain = (
+            (traversal.cast_rays_cuda, traversal.cast_rays_wide_torch)
+            if kernel == "K1" else (tlas.cast_rays_tlas_cuda, tlas.cast_rays_tlas_torch))
         uv, n = traversal.carry_fields(scene, d, False, True)
         assert n and uv == scene.has_textures
-        before = (counts.LAUNCHES, counts.LAUNCHES_CARRY)
+        before = (LAUNCHES[kernel], LAUNCHES[kernel + "_carry"])
         got = cast(scene, o, d, short_stack=short_stack, want_normals=True)
         bare = cast(scene, o, d, short_stack=short_stack, carry=False)
         torch.cuda.synchronize()
-        assert (counts.LAUNCHES, counts.LAUNCHES_CARRY) == (before[0] + 2, before[1] + 1)
+        assert (LAUNCHES[kernel], LAUNCHES[kernel + "_carry"]) == (before[0] + 2, before[1] + 1)
         want = plain(scene, o, d, carry_uv=uv, carry_n=n)
         assert (got.tri >= 0).any() and got.n is not None and (got.u is not None) == uv
         for a, b, c in zip(got, want, tuple(bare) + (None,) * 3):
@@ -268,11 +269,11 @@ def test_carried_lit_frames_within_four_pixels_of_cpu_golden(cuda, golden, light
     scene, cam = (scene_cornell(64, device=cuda) if golden.startswith("config2")
                   else scene_bunny(96, 96, subdivisions=4, device=cuda))
     p = cam.ray_params(cuda)
-    counts = tlas if scene.num_instances >= 2 else traversal
-    before = counts.LAUNCHES_CARRY
+    carrying = "K3_carry" if scene.num_instances >= 2 else "K1_carry"
+    before = LAUNCHES[carrying]
     img = render_image(RenderConfig(cam.width, cam.height, lighting=lighting), scene,
                        p["K_inv"], p["D"], p["pose"], p["inv_pose"])
-    assert counts.LAUNCHES_CARRY == before + 1  # the primary cast carried the normal
+    assert LAUNCHES[carrying] == before + 1  # the primary cast carried the normal
     want = np.load(os.path.join(GOLDEN_DIR, golden + ".npy"))
     assert (img.cpu().numpy() != want).any(-1).sum() <= 4
 
@@ -282,10 +283,6 @@ PAGED = {
     "K5": (False, paged.cast_rays_paged_cuda, paged.cast_rays_paged_torch),
     "K6": (True, paged_major.cast_rays_paged_major_cuda, paged_major.cast_rays_paged_major_torch),
 }
-
-
-def _launches():
-    return {"K4": paged.LAUNCHES_K4, "K5": paged.LAUNCHES_K5, "K6": paged_major.LAUNCHES}
 
 
 def _paged_scene(which, device, wide=True):
@@ -305,10 +302,10 @@ def test_paged_kernels_match_plain_versions_bitwise(cuda, kernel, which):
     o, d = _rays(cam, cuda)
     refl, _ = _secondary_rays(scene, o, d, traversal.cast_rays_cuda(scene, o, d))
     for ro, rd in ((o, d), refl):
-        before = _launches()[kernel]
+        before = LAUNCHES[kernel]
         got = cast(scene, ro, rd)
         torch.cuda.synchronize()
-        assert _launches()[kernel] == before + 1
+        assert LAUNCHES[kernel] == before + 1
         want = plain(scene, ro, rd)
         assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
         assert torch.equal(got.tri, want.tri) and torch.equal(got.inst, want.inst)
@@ -326,10 +323,10 @@ def test_k4_short_stack_spill_path_matches_plain_version(cuda, which):
     o, d = _rays(cam, cuda)
     refl, _ = _secondary_rays(scene, o, d, traversal.cast_rays_cuda(scene, o, d))
     for ro, rd in ((o, d), refl):
-        before = paged.LAUNCHES_K4
+        before = LAUNCHES["K4"]
         got = paged.cast_rays_paged_cuda(scene, ro, rd, short_stack=1)
         torch.cuda.synchronize()
-        assert paged.LAUNCHES_K4 == before + 1
+        assert LAUNCHES["K4"] == before + 1
         want = paged.cast_rays_paged_torch(scene, ro, rd)
         assert (got.tri >= 0).any()
         assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
@@ -348,10 +345,10 @@ def test_k5_k6_short_stack_spill_path_matches_plain_version(cuda, kernel, which)
     o, d = _rays(cam, cuda)
     refl, _ = _secondary_rays(scene, o, d, traversal.cast_rays_cuda(scene, o, d))
     for ro, rd in ((o, d), refl):
-        before = _launches()[kernel]
+        before = LAUNCHES[kernel]
         got = cast(scene, ro, rd, short_stack=1)
         torch.cuda.synchronize()
-        assert _launches()[kernel] == before + 1
+        assert LAUNCHES[kernel] == before + 1
         want = plain(scene, ro, rd)
         assert (got.tri >= 0).any()
         assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
@@ -372,10 +369,10 @@ def test_card_plan_equals_plain_plan(cuda, which):
         _, to, td = paged_major._tile_rays(ro, rd)
         pid, iid, mask = paged_major.page_major_plan(scene, to, td)
         start, items = paged_major.tile_lists(mask)
-        before = paged_major.LAUNCHES_PLAN
+        before = LAUNCHES["K6_plan"]
         c_pid, c_iid, c_start, c_items = paged_major.page_major_plan_cuda(scene, to, td)
         torch.cuda.synchronize()
-        assert paged_major.LAUNCHES_PLAN == before + 1
+        assert LAUNCHES["K6_plan"] == before + 1
         n = pid.shape[0]
         assert n > 0 and c_pid.shape[0] == scene.num_instances * scene.paged.num_pages
         assert torch.equal(c_pid[:n], pid) and torch.equal(c_iid[:n], iid)
@@ -418,10 +415,10 @@ def test_k2_matches_plain_version_bitwise_in_both_modes(cuda):
     o, d = _rays(cam, cuda)
     refl, shadow = _secondary_rays(scene, o, d, traversal.cast_rays_cuda(scene, o, d))
     for ro, rd in ((o, d), refl):
-        before = binary.LAUNCHES
+        before = LAUNCHES["K2"]
         got = binary.cast_rays_binary_cuda(scene, ro, rd)
         torch.cuda.synchronize()
-        assert binary.LAUNCHES == before + 1
+        assert LAUNCHES["K2"] == before + 1
         want = binary.cast_rays_binary_torch(scene, ro, rd)
         assert (got.tri >= 0).any()
         assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
@@ -469,10 +466,10 @@ def test_config5_path_frame_matches_plain_casts(cuda, backend, monkeypatch):
     p = cam.ray_params(cuda)
     args = (p["K_inv"], p["D"], p["pose"], p["inv_pose"], prng.PRNGKey(7), 2, 2)
     config = RenderConfig(128, 96, backend=backend)
-    binary.LAUNCHES = traversal.LAUNCHES = 0
+    build.reset_launches()
     img = render_image_path_traced(config, scene, *args)
     torch.cuda.synchronize()
-    assert (binary.LAUNCHES if backend == "bvh" else traversal.LAUNCHES) == 3
+    assert LAUNCHES["K2" if backend == "bvh" else "K1"] == 3
     with monkeypatch.context() as m:
         _plain_casts(m)
         want = render_image_path_traced(config, scene, *args)
@@ -517,12 +514,12 @@ def test_k1_on_a_flattened_scene_matches_plain_version(cuda):
             if a is not None:
                 assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
                                    b.view(torch.int32) if b.is_floating_point() else b)
-    tlas.LAUNCHES = traversal.LAUNCHES = 0
+    build.reset_launches()
     p = cam.ray_params(cuda)
     render_image_whitted(RenderConfig(128, 96), scene, p["K_inv"], p["D"], p["pose"],
                          p["inv_pose"])
     torch.cuda.synchronize()
-    assert traversal.LAUNCHES == 6 and tlas.LAUNCHES == 0
+    assert LAUNCHES["K1"] == 6 and LAUNCHES["K3"] == 0
 
 
 def test_k1_k4_k6_on_a_presplit_colonnade_match_plain_versions(cuda):
@@ -797,20 +794,20 @@ def test_big_scene_route_launches_k4_alone(cuda, monkeypatch):
     forced = paged.cast_rays_paged_cuda(scene, o, d)
     plain = paged.cast_rays_paged_torch(scene, o, d)
     for backend in ("cuda", "bvh"):
-        before = (traversal.LAUNCHES, binary.LAUNCHES, paged.LAUNCHES_K4)
+        before = (LAUNCHES["K1"], LAUNCHES["K2"], LAUNCHES["K4"])
         hit = get_cast_fn(backend)(scene, o, d)
         occ = occlusion_cast_fn(backend)(scene, o, d)
-        assert (traversal.LAUNCHES, binary.LAUNCHES, paged.LAUNCHES_K4) == (
+        assert (LAUNCHES["K1"], LAUNCHES["K2"], LAUNCHES["K4"]) == (
             before[0], before[1], before[2] + 2)
         for a, b, c in zip(hit[:3], forced[:3], plain[:3]):
             assert torch.equal(a, b) and torch.equal(a, c)
         assert torch.equal(occ.t < FLT_MAX, forced.t < FLT_MAX)
         p = cam.ray_params(cuda)
-        before = (traversal.LAUNCHES, binary.LAUNCHES, tlas.LAUNCHES, paged.LAUNCHES_K4)
+        before = (LAUNCHES["K1"], LAUNCHES["K2"], LAUNCHES["K3"], LAUNCHES["K4"])
         img = render_image(RenderConfig(128, 96, backend=backend, lighting="lambert_shadow"),
                            scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
-        assert (traversal.LAUNCHES, binary.LAUNCHES, tlas.LAUNCHES) == before[:3]
-        assert paged.LAUNCHES_K4 == before[3] + 2
+        assert (LAUNCHES["K1"], LAUNCHES["K2"], LAUNCHES["K3"]) == before[:3]
+        assert LAUNCHES["K4"] == before[3] + 2
         want = render_image(RenderConfig(128, 96, backend="paged", lighting="lambert_shadow"),
                             scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
         assert torch.equal(img, want)
@@ -940,9 +937,9 @@ def test_frame_kernels_match_plain_versions_bitwise(cuda, which, exact):
     scene, cam, cast = _frame_set(which, cuda)
     p = cam.ray_params(cuda)
     args = (cam.width, cam.height, p["K_inv"], p["D"], p["pose"], p["inv_pose"], exact)
-    before = frame.LAUNCHES_RAYGEN
+    before = LAUNCHES["S1"]
     o, d = generate_rays(*args)
-    assert frame.LAUNCHES_RAYGEN == before + 1
+    assert LAUNCHES["S1"] == before + 1
     assert _same_bits((o, d), generate_rays_torch(*args))
     attrs = None
     for h in (cast(scene, o, d, want_normals=True), cast(scene, o, d, carry=False)):
@@ -950,9 +947,9 @@ def test_frame_kernels_match_plain_versions_bitwise(cuda, which, exact):
         # (test_frame_kernels_take_per_ray_origins)
         assert (h.tri < 0).any() or which == "config4"
         for normal_mode in ("reference", "inverse_transpose"):
-            before = frame.LAUNCHES_ATTRS
+            before = LAUNCHES["S2"]
             got = hit_attributes(scene, o, d, h, exact, normal_mode)
-            assert frame.LAUNCHES_ATTRS == before + 1 and got.t is h.t
+            assert LAUNCHES["S2"] == before + 1 and got.t is h.t
             assert _same_bits(tuple(got), tuple(hit_attributes_torch(scene, o, d, h, exact,
                                                                      normal_mode)))
             attrs = attrs or got
@@ -963,9 +960,9 @@ def test_frame_kernels_match_plain_versions_bitwise(cuda, which, exact):
     configs += [("lambert_shadow", None, "nearest", lights)]
     for mode, light, filt, pls in configs:
         kw = dict(directions=d, point_lights=pls, tex_filter=filt)
-        before = frame.LAUNCHES_SHADE
+        before = LAUNCHES["S3"]
         got = shade_primary(scene, attrs, light, mode, exact, **kw)
-        assert frame.LAUNCHES_SHADE == before + 1
+        assert LAUNCHES["S3"] == before + 1
         want = shade_primary_torch(scene, attrs, light, mode, exact, **kw)
         assert torch.equal(got, want), (mode, light, filt, len(pls))
     if which == "fisheye_demo":  # the sky map, not the flat colour, on the misses
@@ -1067,14 +1064,13 @@ def test_sample_kernel_matches_plain_chain_bitwise(cuda, site, exact):
     """S4 against its plain chain on the card (``utils/prng.py``'s eager
     threefry ops and ``_cosine_sample``): directions and lobe uniforms bit
     for bit, one launch a draw."""
-    from tpu_raytracer_torch.kernels import frame
     from tpu_raytracer_torch.render.integrators import sample_cosine, sample_cosine_torch
 
     key, sites = _sample_sites(cuda)
     for n, chain, lobe in sites[site]:
-        before = frame.LAUNCHES_SAMPLE
+        before = LAUNCHES["S4"]
         got = sample_cosine(key, chain, n, exact, lobe)
-        assert frame.LAUNCHES_SAMPLE == before + 1
+        assert LAUNCHES["S4"] == before + 1
         want = sample_cosine_torch(key, chain, n, exact, lobe)
         if not lobe:
             got, want = (got,), (want,)
@@ -1139,10 +1135,10 @@ def test_bounded_walks_match_plain_versions_bitwise(cuda, kernel):
         cast, plain = traversal.cast_rays_cuda, traversal.cast_rays_wide_torch
     else:
         cast, plain = binary.cast_rays_binary_cuda, binary.cast_rays_binary_torch
-    before = traversal.LAUNCHES_BOUNDED
+    before = LAUNCHES["K1_bounded"]
     got = cast(scene, o, d, t_max=1.0)
     torch.cuda.synchronize()
-    assert traversal.LAUNCHES_BOUNDED == before + (kernel == "K1")
+    assert LAUNCHES["K1_bounded"] == before + (kernel == "K1")
     want = plain(scene, o, d, t_max=1.0)
     assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
     assert torch.equal(got.tri, want.tri) and torch.equal(got.inst, want.inst)

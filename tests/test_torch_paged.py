@@ -205,14 +205,13 @@ def host_plan(scene, origin, directions, lib=None):
     return pid, iid, start, items[:int(start[-1])]
 
 
-def host_trace_paged(scene, origin, directions, kernel, short_stack=None, lib=None,
-                     card_plan=False):
+def host_trace_paged(scene, origin, directions, kernel, short_stack=None, card_plan=False):
     """The paged kernels' traversal header, built for the host with
-    ``short_stack`` ring slots (default ``wide4.SHORT_STACK``), or the host
-    library ``lib``, over every ray (K6 on the tile order and the plain
-    plan, or with ``card_plan`` the host build of the card's plan):
-    (t, tri, inst, entries the short stack spilled)."""
-    lib = lib or build.load("host", short_stack)
+    ``short_stack`` ring slots (default ``wide4.SHORT_STACK``), over every
+    ray (K6 on the tile order and the plain plan, or with ``card_plan`` the
+    host build of the card's plan): (t, tri, inst, entries the short stack
+    spilled)."""
+    lib = build.load("host", short_stack)
     pg = scene.paged
     if kernel == "K6":
         perm, o, d = paged_major._tile_rays(origin, directions)
@@ -494,13 +493,13 @@ def test_prepare_paged_guards():
 
 def test_wrappers_run_plain_versions_on_cpu_without_counting():
     scene, o, d = port_scene("colonnade", "tiny", True)
-    before = (paged.LAUNCHES_K4, paged.LAUNCHES_K5, paged_major.LAUNCHES)
+    before = dict(build.LAUNCHES)
     for wrapper, plain in ((paged.cast_rays_paged_cuda, paged.cast_rays_paged_torch),
                            (paged_major.cast_rays_paged_major_cuda,
                             paged_major.cast_rays_paged_major_torch)):
         for a, b in zip(wrapper(scene, o, d)[:3], plain(scene, o, d)[:3]):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
-    assert (paged.LAUNCHES_K4, paged.LAUNCHES_K5, paged_major.LAUNCHES) == before
+    assert build.LAUNCHES == before
     moved = scene.to("cpu")
     assert moved.paged.num_pages == scene.paged.num_pages
 

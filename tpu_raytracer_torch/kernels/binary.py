@@ -31,8 +31,8 @@ reciprocal direction is never 0 (``safe_reciprocal``).
 
   * ``cast_rays_binary_cuda`` is K2's wrapper: for CUDA tensors it
     launches the kernel (``csrc/wide_traverse.cu``,
-    ``binary_traverse_kernel``) and counts the launch in ``LAUNCHES``;
-    for CPU tensors it runs the plain version. A failed build or launch
+    ``binary_traverse_kernel``) and counts the launch in
+    ``build.LAUNCHES``; for CPU tensors it runs the plain version. A failed build or launch
     raises.
   * ``cast_rays_binary_torch`` is the plain version:
     ``traversal.walk_tree`` at arity 2 over the same tables, with the
@@ -50,10 +50,6 @@ from ..accel.wide import collapse2
 from .paged import _records
 from .traversal import BIG, PLAIN_CHUNK, _split_rays, cast_rays_tree_torch, launch
 from .wide4 import STACK_SIZE, _wide_depth, node_records, stack_needed
-
-# Launches of K2 since the count was last reset (CPU casts, which run the
-# plain version, do not count).
-LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,11 +110,8 @@ def cast_rays_binary_cuda(scene, origin, directions, occlusion: bool = False,
     tensors launch the kernel on the current stream, with ``short_stack``
     ring slots per thread (``traversal.launch``); CPU tensors run the
     plain version."""
-    global LAUNCHES
     origin, directions = _split_rays(origin, directions)
     if directions.device.type == "cpu":
         return cast_rays_binary_torch(scene, origin, directions, occlusion, t_max=t_max)
-    hit = launch("wt_launch", scene, origin, directions, occlusion, arity=2,
-                 short_stack=short_stack, t_max=t_max)
-    LAUNCHES += 1
-    return hit
+    return launch("wt_launch", scene, origin, directions, occlusion, arity=2,
+                  short_stack=short_stack, t_max=t_max, count=("K2",))

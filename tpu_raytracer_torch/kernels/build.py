@@ -15,6 +15,11 @@ serve the CPU tests, and the BVH builder
 ``kernels/_build/<name>-<hash>/``, keyed by a hash of the sources and
 flags, built at first use; the directory is listed in ``.gitignore``.
 Every failure raises: nothing falls back to another build.
+
+Every call into the card's library goes through ``launch``, which fills in
+the stream where the entry takes one, raises on a nonzero return and counts
+the launch in ``LAUNCHES`` (the one registry of launch counts, by kernel
+name); ``check_inputs`` checks the tensors a wrapper hands it.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import re
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BVH_CSRC = pathlib.Path(__file__).resolve().parent.parent / "accel" / "csrc"
@@ -187,6 +194,10 @@ def build_obj_parser() -> pathlib.Path:
     return _build("obj_parser", _gxx(), BVH_GXX_FLAGS, ("obj_loader.cpp",), src_dir=OBJ_CSRC)
 
 
+class _Stream(ctypes.c_void_p):
+    """The type of a CUDA stream argument, which ``launch`` fills in."""
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
@@ -236,23 +247,24 @@ _U = ctypes.c_uint32
 # strides (outer, inner, component), num_rays; exact; dirs, lobe outputs
 _SAMPLE_ARGS = [_P, _I] + [_U] * 5 + [_P] + [_I64] * 5 + [_I, _P, _P]
 _ENTRY_ARGS = {
-    # ... + stream (wt_launch takes t_max after the rays)
-    "cuda": {"wt_launch": [_I] + _SCENE_ARGS + _RAY_ARGS + [_F] + _WALK_ARGS + [_P],
-             "tlas_launch": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + _WALK_ARGS + [_P],
+    # ... + stream (wt_launch takes t_max after the rays); the shapes take none
+    "cuda": {"wt_launch": [_I] + _SCENE_ARGS + _RAY_ARGS + [_F] + _WALK_ARGS + [_Stream],
+             "tlas_launch": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + _WALK_ARGS + [_Stream],
              "wt_launch_shape": [_I, _I] + _SHAPE_ARGS,  # arity, occlusion
              "tlas_launch_shape": [_I] + _SHAPE_ARGS,  # occlusion
              "paged_launch_shape": [_I] + _SHAPE_ARGS,  # arity
              "paged_major_launch_shape": _SHAPE_ARGS,
-             "paged_launch": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS + _WALK_ARGS + [_P],
+             "paged_launch": _PAGE_ARGS + _TOP_ARGS + _NEAREST_RAY_ARGS + _WALK_ARGS
+             + [_Stream],
              "paged_major_launch": _PAGE_ARGS + _PLAN_ARGS + _NEAREST_RAY_ARGS + _WALK_ARGS
-             + [_P],
-             "page_plan_launch": _PLAN_IO_ARGS + [_P],
-             "frame_raygen_launch": _RAYGEN_ARGS + [_P],
-             "frame_attrs_launch": _ATTRS_ARGS + [_P],
-             "frame_shade_launch": _SHADE_ARGS + [_P],
-             "frame_sample_launch": _SAMPLE_ARGS + [_P],
+             + [_Stream],
+             "page_plan_launch": _PLAN_IO_ARGS + [_Stream],
+             "frame_raygen_launch": _RAYGEN_ARGS + [_Stream],
+             "frame_attrs_launch": _ATTRS_ARGS + [_Stream],
+             "frame_shade_launch": _SHADE_ARGS + [_Stream],
+             "frame_sample_launch": _SAMPLE_ARGS + [_Stream],
              # stream, int64 out: the capture's kernel, memcpy and memset nodes
-             "capture_device_ops": [_P, _P]},
+             "capture_device_ops": [_Stream, _P]},
     # ... + spills (one i64 out; wt_trace_host takes t_max before it)
     "host": {"wt_trace_host": [_I] + _SCENE_ARGS + _RAY_ARGS + [_F, _P],
              "tlas_trace_host": _SCENE_ARGS + _TLAS_ARGS + _RAY_ARGS + [_P],
@@ -292,3 +304,48 @@ def load(kind: str, short_stack: int | None = None) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _loaded[key] = lib
     return _loaded[key]
+
+
+# Launches of each kernel since the counts were last reset: K1-K6 and S1-S4
+# by the names of the kernel tables (``kernels/__init__.py``), K1_carry and
+# K3_carry the launches of K1's and K3's carrying kernels, K1_bounded K1's
+# launches bounded by a t_max below BIG, K6_plan the launches of K6's plan
+# (its four kernels). Plain versions and host builds count nothing.
+LAUNCHES = dict.fromkeys(("K1", "K1_carry", "K1_bounded", "K2", "K3", "K3_carry", "K4", "K5",
+                          "K6", "K6_plan", "S1", "S2", "S3", "S4"), 0)
+
+
+def reset_launches() -> None:
+    """Zero every count of ``LAUNCHES``."""
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+
+
+def launch(entry: str, *args, device=None, stream=None, count: tuple = ()) -> None:
+    """Call ``entry`` of the ``cuda`` library with ``args``, the stream
+    filled in where its interface takes one (``stream``, else the current
+    stream of ``device``), then count one launch of each kernel named in
+    ``count``. Raises ``RuntimeError`` naming the entry and the CUDA error
+    on a nonzero return."""
+    fn = getattr(load("cuda"), entry)
+    if _Stream in fn.argtypes:
+        at = fn.argtypes.index(_Stream)
+        handle = (torch.cuda.current_stream(device) if stream is None else stream).cuda_stream
+        args = args[:at] + (handle,) + args[at:]
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed with CUDA error {err}")
+    for name in count:
+        LAUNCHES[name] += 1
+
+
+def check_inputs(device, *tensors, aligned: tuple = ()) -> None:
+    """Raise a ``ValueError`` naming the first of ``tensors``, each
+    ``(name, tensor, dtype)``, that is not a contiguous tensor of its dtype
+    on ``device``, or, where its name is in ``aligned``, does not start on
+    a 16-byte boundary, as the kernels' 16-byte loads need."""
+    for name, x, dtype in tensors:
+        if x.dtype != dtype or not x.is_contiguous() or x.device != device:
+            raise ValueError(f"{name} must be contiguous {dtype} on {device}, got "
+                             f"{x.dtype} on {x.device} contiguous={x.is_contiguous()}")
+        if name in aligned and x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the kernel's 16-byte loads")

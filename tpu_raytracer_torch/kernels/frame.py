@@ -33,8 +33,7 @@ as one kernel each:
 
 Each public name routes: a CUDA tensor launches the kernel on the current
 stream (outputs allocated with ``torch.empty``) and counts the launch in
-``LAUNCHES_RAYGEN``, ``LAUNCHES_ATTRS``, ``LAUNCHES_SHADE`` or
-``LAUNCHES_SAMPLE``, or raises;
+``build.LAUNCHES`` (``S1``, ``S2``, ``S3`` or ``S4``), or raises;
 a CPU tensor takes the plain version; nothing falls back. Each kernel
 repeats its plain version's f32 operations in their order, built with
 ``--fmad=false``, so the two agree bit for bit on the card, misses
@@ -46,14 +45,9 @@ g++ (``csrc/frame_host.cpp``) on CPU tensors, for the tests.
 
 from __future__ import annotations
 
-import torch
+import functools
 
-# Launches of S1, S2, S3 and S4 since the counts were last reset (CPU
-# calls, which run the plain versions, do not count).
-LAUNCHES_RAYGEN = 0
-LAUNCHES_ATTRS = 0
-LAUNCHES_SHADE = 0
-LAUNCHES_SAMPLE = 0
+import torch
 
 # S4's longest chain of fold_in words (csrc/frame.cuh kMaxChain), and the
 # word that folds a draw's key into the path tracer's lobe key:
@@ -98,26 +92,27 @@ def _same_device(device: torch.device, **tensors) -> None:
             raise ValueError(f"{name} on {x.device}, expected {device}")
 
 
-def _entry(device: torch.device, host: bool, name: str):
-    """The library function ``frame_<name>`` and its trailing arguments:
-    the card's launcher with the current stream for ``host`` False (CUDA
-    tensors only), else the host build (CPU tensors only)."""
-    from .build import load
+def _entry(device: torch.device, host: bool, name: str, kernel: str):
+    """A call of the library function ``frame_<name>`` on its arguments:
+    for ``host`` False (CUDA tensors only) the card's launcher on the
+    current stream, counted as a launch of ``kernel``, else the host build
+    (CPU tensors only). Either raises on a nonzero return."""
+    from .build import launch, load
 
     if host:
         if device.type != "cpu":
             raise ValueError(f"the host build of {name} runs on cpu tensors, got {device}")
-        return getattr(load("frame_host"), f"frame_{name}_host"), ()
+        fn = getattr(load("frame_host"), f"frame_{name}_host")
+
+        def call(*args):
+            err = fn(*args)
+            if err != 0:
+                raise RuntimeError(f"frame_{name}_host failed with error {err}")
+
+        return call
     if device.type != "cuda":
         raise ValueError(f"the {name} kernel runs on cuda tensors, got {device}")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    return getattr(load("cuda"), f"frame_{name}_launch"), (stream,)
-
-
-def _call(fn, args, tail, what: str) -> None:
-    err = fn(*args, *tail)
-    if err != 0:
-        raise RuntimeError(f"{what} failed with error {err}")
+    return functools.partial(launch, f"frame_{name}_launch", device=device, count=(kernel,))
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +121,6 @@ def _call(fn, args, tail, what: str) -> None:
 
 
 def _raygen(width: int, height: int, K_inv, D, pose, inv_pose, exact: bool, host: bool):
-    global LAUNCHES_RAYGEN
     if int(width) <= 0 or int(height) <= 0:
         raise ValueError(f"raygen needs a positive size, got {width}x{height}")
     K_inv = _tensor("K_inv", K_inv, torch.float32, (3, 3))
@@ -135,12 +129,10 @@ def _raygen(width: int, height: int, K_inv, D, pose, inv_pose, exact: bool, host
     inv_pose = _tensor("inv_pose", inv_pose, torch.float32, (6,))
     dev = K_inv.device
     _same_device(dev, D=D, pose=pose, inv_pose=inv_pose)
-    fn, tail = _entry(dev, host, "raygen")
+    run = _entry(dev, host, "raygen", "S1")
     dirs = torch.empty((int(height), int(width), 3), dtype=torch.float32, device=dev)
-    _call(fn, (int(width), int(height), K_inv.data_ptr(), D.data_ptr(), inv_pose.data_ptr(),
-               int(exact), dirs.data_ptr()), tail, "S1 raygen")
-    if not host:
-        LAUNCHES_RAYGEN += 1
+    run(int(width), int(height), K_inv.data_ptr(), D.data_ptr(), inv_pose.data_ptr(), int(exact),
+        dirs.data_ptr())
     return pose[0:3], dirs
 
 
@@ -180,7 +172,6 @@ def attr_tables(scene) -> list:
 def _attributes(scene, origin, directions, hit, exact: bool, normal_mode: str, host: bool):
     from ..render.renderer import HitAttributes
 
-    global LAUNCHES_ATTRS
     if normal_mode not in NORMAL_MODES:
         raise ValueError(f"unknown normal_mode {normal_mode!r}; one of {tuple(NORMAL_MODES)}")
     if not isinstance(directions, torch.Tensor) or directions.shape[-1:] != (3,):
@@ -205,7 +196,7 @@ def _attributes(scene, origin, directions, hit, exact: bool, normal_mode: str, h
     tables = attr_tables(scene)
     _same_device(dev, origin=origin, t=t, tri=tri, inst=inst, u=u, v=v, n=n,
                  scene=scene.tri_v0)
-    fn, tail = _entry(dev, host, "attrs")
+    run = _entry(dev, host, "attrs", "S2")
     r = t.numel()
     out_hit = torch.empty(shape, dtype=torch.bool, device=dev)
     location = torch.empty(directions.shape, dtype=torch.float32, device=dev)
@@ -214,13 +205,11 @@ def _attributes(scene, origin, directions, hit, exact: bool, normal_mode: str, h
     material = torch.empty(shape, dtype=torch.int64, device=dev)
     out_inst = torch.empty(shape, dtype=torch.int64, device=dev)
     if r > 0:
-        _call(fn, [*map(_ptr, tables), scene.num_instances, origin.data_ptr(), stride,
-                   directions.data_ptr(), r, t.data_ptr(), tri.data_ptr(), inst.data_ptr(),
-                   _ptr(u), _ptr(v), _ptr(n), int(exact), NORMAL_MODES[normal_mode],
-                   out_hit.data_ptr(), location.data_ptr(), normal.data_ptr(), uv.data_ptr(),
-                   material.data_ptr(), out_inst.data_ptr()], tail, "S2 hit attributes")
-        if not host:
-            LAUNCHES_ATTRS += 1
+        run(*map(_ptr, tables), scene.num_instances, origin.data_ptr(), stride,
+            directions.data_ptr(), r, t.data_ptr(), tri.data_ptr(), inst.data_ptr(), _ptr(u),
+            _ptr(v), _ptr(n), int(exact), NORMAL_MODES[normal_mode], out_hit.data_ptr(),
+            location.data_ptr(), normal.data_ptr(), uv.data_ptr(), material.data_ptr(),
+            out_inst.data_ptr())
     return HitAttributes(hit=out_hit, t=hit.t, location=location, normal=normal, uv=uv,
                          material=material, inst=out_inst)
 
@@ -248,7 +237,6 @@ def _shade(scene, attrs, light_direction, mode: str, exact: bool, directions, li
     from ..core.vecmath import constant
     from ..render.shade import BLINN_SHININESS, BLINN_SPECULAR
 
-    global LAUNCHES_SHADE
     if mode not in MODES:
         raise ValueError(f"S3 shades the modes {tuple(MODES)}, got {mode!r}")
     if tex_filter not in FILTERS:
@@ -313,19 +301,16 @@ def _shade(scene, attrs, light_direction, mode: str, exact: bool, directions, li
     _same_device(dev, normal=normal, uv=uv, material=material, inst=inst, location=location,
                  directions=directions, lit=lit, point_occ_t=point_occ_t, scene=tables[0],
                  sky=sky[0])
-    fn, tail = _entry(dev, host, "shade")
+    run = _entry(dev, host, "shade", "S3")
     out = torch.empty(shape + (3,), dtype=torch.uint8, device=dev)
     r = hit.numel()
     if r > 0:
-        _call(fn, [*map(_ptr, tables), mips.shape[1], atlas.data_ptr(), atlas.numel(),
-                   int(textured), *map(_ptr, sky), int(has_sky), hit.data_ptr(),
-                   normal.data_ptr(), uv.data_ptr(), material.data_ptr(), _ptr(inst),
-                   _ptr(location), _ptr(directions), _ptr(lit), _ptr(lights),
-                   _ptr(point_occ_t), r, MODES[mode], int(has_light), *light, int(exact),
-                   BLINN_SPECULAR, BLINN_SHININESS, FILTERS[tex_filter], height, width,
-                   n_lights, int(shadows), out.data_ptr()], tail, "S3 primary shade")
-        if not host:
-            LAUNCHES_SHADE += 1
+        run(*map(_ptr, tables), mips.shape[1], atlas.data_ptr(), atlas.numel(), int(textured),
+            *map(_ptr, sky), int(has_sky), hit.data_ptr(), normal.data_ptr(), uv.data_ptr(),
+            material.data_ptr(), _ptr(inst), _ptr(location), _ptr(directions), _ptr(lit),
+            _ptr(lights), _ptr(point_occ_t), r, MODES[mode], int(has_light), *light,
+            int(exact), BLINN_SPECULAR, BLINN_SHININESS, FILTERS[tex_filter], height, width,
+            n_lights, int(shadows), out.data_ptr())
     return out
 
 
@@ -355,7 +340,6 @@ def shade_primary_host(scene, attrs, light_direction, mode: str = "flat", exact:
 
 
 def _sample(key, chain, normal, exact: bool, lobe: bool, host: bool):
-    global LAUNCHES_SAMPLE
     chain = tuple(int(w) for w in chain)
     if len(chain) > MAX_CHAIN or any(not 0 <= w <= _WORD for w in chain):
         raise ValueError(f"the chain is at most {MAX_CHAIN} words of 32 bits, got {chain}")
@@ -366,7 +350,7 @@ def _sample(key, chain, normal, exact: bool, lobe: bool, host: bool):
     key = _tensor("key", key, torch.int64, (2,))
     dev = normal.device
     _same_device(dev, key=key)
-    fn, tail = _entry(dev, host, "sample")
+    run = _entry(dev, host, "sample", "S4")
     shape = normal.shape[:-1]
     dirs = torch.empty(normal.shape, dtype=torch.float32, device=dev)
     out = torch.empty(shape, dtype=torch.float32, device=dev) if lobe else None
@@ -377,11 +361,8 @@ def _sample(key, chain, normal, exact: bool, lobe: bool, host: bool):
         outer = shape[0] if len(shape) >= 2 else 1
         n3 = normal.reshape(outer, r // outer, 3)
         words = chain + (0,) * (MAX_CHAIN - len(chain))
-        _call(fn, [key.data_ptr(), len(chain), *words, LOBE_WORD,
-                   n3.data_ptr(), n3.shape[1], *n3.stride(), r, int(exact), dirs.data_ptr(),
-                   _ptr(out)], tail, "S4 sample")
-        if not host:
-            LAUNCHES_SAMPLE += 1
+        run(key.data_ptr(), len(chain), *words, LOBE_WORD, n3.data_ptr(), n3.shape[1],
+            *n3.stride(), r, int(exact), dirs.data_ptr(), _ptr(out))
     return (dirs, out) if lobe else dirs
 
 

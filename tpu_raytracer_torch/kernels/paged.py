@@ -34,8 +34,8 @@ same pages.
     tensors it launches the hand-written kernel
     (``csrc/paged_traverse.cu``, arity from the tables: K4's
     ``paged_wide_kernel`` or K5's ``paged_binary_kernel``, both on the
-    walk of ``csrc/walk.cuh``) and counts the launch in ``LAUNCHES_K4`` or
-    ``LAUNCHES_K5``; for CPU tensors it runs the plain version. A CUDA
+    walk of ``csrc/walk.cuh``) and counts the launch in ``build.LAUNCHES``
+    (``K4`` or ``K5``); for CPU tensors it runs the plain version. A CUDA
     tensor never reaches the plain version and a failed build or launch
     raises.
   * ``cast_rays_paged_torch`` is the plain version: the same per-ray
@@ -59,6 +59,7 @@ import torch
 
 from ..accel.paging import PAGE_NODES, PAGE_TRIS, _subtree_extents, build_page_table
 from ..accel.wide import LEAF_ROWS, collapse2, collapse4
+from .build import check_inputs, launch
 from .tlas import _depth
 from .traversal import (
     PLAIN_CHUNK,
@@ -66,7 +67,6 @@ from .traversal import (
     _hit,
     _split_rays,
     box_stride,
-    check_aligned16,
     check_short_stack,
     child_entry,
     finish_plain,
@@ -81,11 +81,6 @@ TOP_STACK = 64  # the plain version's per-ray top-tree stack
 # In-page leaf starts are page-local, so a page may hold as many triangles
 # as a leaf code can address.
 MAX_PAGE_TRIS = LEAF_ROWS
-
-# Launches of K4 and K5 since the counts were last reset (CPU casts,
-# which run the plain version, do not count).
-LAUNCHES_K4 = 0
-LAUNCHES_K5 = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -407,24 +402,19 @@ def page_args(scene, directions) -> tuple:
     pg = _paged_tables(scene)
     tri_rec = scene.tri_rec
     inst_tab = instance_table(scene)
-    for name, x, dtype in (
-        ("directions", directions, torch.float32), ("node", pg.node, torch.float32),
-        ("node_base", pg.node_base, torch.int32), ("page_tri0", pg.page_tri0, torch.int32),
-        ("tri_rec", tri_rec, torch.float32), ("top_code", pg.top_code, torch.int32),
-        ("top_box", pg.top_box, torch.float32),
-    ):
-        if x.dtype != dtype or not x.is_contiguous() or x.device != directions.device:
-            raise ValueError(f"{name} must be contiguous {dtype} on {directions.device}, got "
-                             f"{x.dtype} on {x.device} contiguous={x.is_contiguous()}")
-    check_aligned16(node=pg.node, tri_rec=tri_rec, top_box=pg.top_box)
+    check_inputs(directions.device, ("directions", directions, torch.float32),
+                 ("node", pg.node, torch.float32), ("node_base", pg.node_base, torch.int32),
+                 ("page_tri0", pg.page_tri0, torch.int32), ("tri_rec", tri_rec, torch.float32),
+                 ("top_code", pg.top_code, torch.int32), ("top_box", pg.top_box, torch.float32),
+                 aligned=("node", "tri_rec", "top_box"))
     return (pg.arity, pg.node.data_ptr(), pg.node_base.data_ptr(), pg.page_tri0.data_ptr(),
             tri_rec.data_ptr(), inst_tab.data_ptr(), scene.num_instances), inst_tab
 
 
 def ray_args(origin, directions, outputs) -> tuple:
-    """(origin, origin_stride, dirs, num_rays, t, tri, inst) of a launch."""
-    if origin.dtype != torch.float32 or not origin.is_contiguous():
-        raise ValueError("origin must be contiguous float32")
+    """(origin, origin_stride, dirs, num_rays, t, tri, inst) of a launch,
+    the origin checked."""
+    check_inputs(directions.device, ("origin", origin, torch.float32))
     r = directions.numel() // 3
     return (origin.data_ptr(), 0 if origin.dim() == 1 else 3, directions.data_ptr(), r,
             *(x.data_ptr() for x in outputs))
@@ -435,7 +425,6 @@ def cast_rays_paged_cuda(scene, origin, directions, short_stack: int | None = No
     scene's page tables. CUDA tensors launch the kernel on the current
     stream with ``short_stack`` ring slots per thread (default
     ``wide4.SHORT_STACK``); CPU tensors run the plain version."""
-    global LAUNCHES_K4, LAUNCHES_K5
     origin, directions = _split_rays(origin, directions)
     if directions.device.type == "cpu":
         return cast_rays_paged_torch(scene, origin, directions)
@@ -455,16 +444,7 @@ def cast_rays_paged_cuda(scene, origin, directions, short_stack: int | None = No
     out = (torch.empty(r, dtype=torch.float32, device=directions.device),
            torch.empty(r, dtype=torch.int32, device=directions.device),
            torch.empty(r, dtype=torch.int32, device=directions.device))
-    from .build import load
-
-    stream = torch.cuda.current_stream(directions.device).cuda_stream
-    err = load("cuda").paged_launch(
-        *pages, pg.top_code.data_ptr(), pg.top_box.data_ptr(), top_root.data_ptr(),
-        *ray_args(origin, directions, out), s, counter.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"paged_launch failed with CUDA error {err}")
-    if pg.arity == 4:
-        LAUNCHES_K4 += 1
-    else:
-        LAUNCHES_K5 += 1
+    launch("paged_launch", *pages, pg.top_code.data_ptr(), pg.top_box.data_ptr(),
+           top_root.data_ptr(), *ray_args(origin, directions, out), s, counter.data_ptr(),
+           device=directions.device, count=("K4" if pg.arity == 4 else "K5",))
     return _hit(*out, directions.shape[:-1])

@@ -20,13 +20,14 @@ stream under, so K6 keeps the plan and the order and drops the staging
   * ``page_major_plan_cuda`` is the plan's wrapper: for CUDA tensors it
     launches the hand-written plan kernels (``csrc/page_plan.cu``),
     which give the same item order and lists with no host sync, and
-    counts the launch in ``LAUNCHES_PLAN``; for CPU tensors it runs the
-    plain version.
+    counts the launch in ``build.LAUNCHES`` (``K6_plan``); for CPU tensors
+    it runs the plain version.
   * ``cast_rays_paged_major_cuda`` is K6's wrapper: for CUDA tensors it
     makes the plan on the card and launches the hand-written kernel
     (``csrc/paged_major.cu``: each thread walks its tile's items in plan
     order with the walk of ``csrc/walk.cuh``, its best hit in
-    registers), counting the launch in ``LAUNCHES``, and the whole cast
+    registers), counting the launch in ``build.LAUNCHES`` (``K6``), and
+    the whole cast
     waits on the host for nothing; for CPU tensors it runs the plain
     version. An image's rays go in 16x16-pixel tiles, other ray sets in
     runs of ``TILE_RAYS``.
@@ -44,6 +45,7 @@ from __future__ import annotations
 
 import torch
 
+from .build import check_inputs, launch
 from .paged import _paged_tables, page_args, ray_args
 from .traversal import (
     BIG,
@@ -64,12 +66,6 @@ TILE_PIX = 16  # an image tile is TILE_PIX x TILE_PIX pixels
 # margins, traversal.py:_FRUSTUM_REL/_ABS): only adds visits.
 FRUSTUM_REL = 4e-6
 FRUSTUM_ABS = 1e-12
-
-# Launches of K6 and of its plan since the counts were last reset (CPU
-# casts, which run the plain versions, do not count). A plan launch is
-# the four kernels of csrc/page_plan.cu.
-LAUNCHES = 0
-LAUNCHES_PLAN = 0
 
 
 def tile_order(shape, device) -> torch.Tensor | None:
@@ -168,15 +164,11 @@ def plan_args(scene, origin, directions, inst_tab=None) -> tuple:
     k = scene.num_instances * pg.num_pages
     inst_tab = instance_table(scene) if inst_tab is None else inst_tab
     node0 = pg.page_node0
-    for name, x, dtype in (
-        ("origin", origin, torch.float32), ("directions", directions, torch.float32),
-        ("node_min", scene.node_min, torch.float32), ("node_max", scene.node_max, torch.float32),
-        ("page_node0", node0, torch.int32), ("mesh_root", scene.mesh_root, torch.int32),
-        ("inst_mesh", scene.inst_mesh, torch.int32), ("inst_tab", inst_tab, torch.float32),
-    ):
-        if x.dtype != dtype or not x.is_contiguous() or x.device != dev:
-            raise ValueError(f"{name} must be contiguous {dtype} on {dev}, got "
-                             f"{x.dtype} on {x.device} contiguous={x.is_contiguous()}")
+    f32, int32 = torch.float32, torch.int32
+    check_inputs(dev, ("origin", origin, f32), ("directions", directions, f32),
+                 ("node_min", scene.node_min, f32), ("node_max", scene.node_max, f32),
+                 ("page_node0", node0, int32), ("mesh_root", scene.mesh_root, int32),
+                 ("inst_mesh", scene.inst_mesh, int32), ("inst_tab", inst_tab, f32))
     i32 = lambda n: torch.empty(n, dtype=torch.int32, device=dev)
     wanted = torch.empty(n_tiles * k, dtype=torch.uint8, device=dev)
     tile_count, key = i32(n_tiles), torch.empty(k, dtype=torch.float32, device=dev)
@@ -199,18 +191,11 @@ def page_major_plan_cuda(scene, origin, directions, inst_tab=None):
     host. CPU tensors run the plain version (``page_major_plan`` and
     ``tile_lists``), whose items are the seen ones only. ``inst_tab`` is
     the scene's ``instance_table`` where the caller has it."""
-    global LAUNCHES_PLAN
     if directions.device.type == "cpu":
         item_pid, item_iid, mask = page_major_plan(scene, origin, directions)
         return (item_pid, item_iid, *tile_lists(mask))
     args, plan, keep_alive = plan_args(scene, origin, directions, inst_tab)
-    from .build import load
-
-    stream = torch.cuda.current_stream(directions.device).cuda_stream
-    err = load("cuda").page_plan_launch(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"page_plan_launch failed with CUDA error {err}")
-    LAUNCHES_PLAN += 1
+    launch("page_plan_launch", *args, device=directions.device, count=("K6_plan",))
     return plan
 
 
@@ -306,7 +291,6 @@ def cast_rays_paged_major_cuda(scene, origin, directions, short_stack: int | Non
     on the current stream, with ``short_stack`` ring slots per thread
     (default ``wide4.SHORT_STACK``), with no host sync; CPU tensors run
     the plain version."""
-    global LAUNCHES
     origin, directions = _split_rays(origin, directions)
     if directions.device.type == "cpu":
         return cast_rays_paged_major_torch(scene, origin, directions)
@@ -321,14 +305,7 @@ def cast_rays_paged_major_cuda(scene, origin, directions, short_stack: int | Non
     out = (torch.empty(r, dtype=torch.float32, device=d_t.device),
            torch.empty(r, dtype=torch.int32, device=d_t.device),
            torch.empty(r, dtype=torch.int32, device=d_t.device))
-    from .build import load
-
-    stream = torch.cuda.current_stream(d_t.device).cuda_stream
-    err = load("cuda").paged_major_launch(
-        *pages, item_pid.data_ptr(), item_iid.data_ptr(), tile_start.data_ptr(),
-        tile_item.data_ptr(), tile_start.shape[0] - 1, *ray_args(o_t, d_t, out), s, None,
-        stream)
-    if err != 0:
-        raise RuntimeError(f"paged_major_launch failed with CUDA error {err}")
-    LAUNCHES += 1
+    launch("paged_major_launch", *pages, item_pid.data_ptr(), item_iid.data_ptr(),
+           tile_start.data_ptr(), tile_item.data_ptr(), tile_start.shape[0] - 1,
+           *ray_args(o_t, d_t, out), s, None, device=d_t.device, count=("K6",))
     return _hit(*(_untile(perm, x) for x in out), directions.shape[:-1])

@@ -14,7 +14,8 @@ instances at their TLAS box.
   * ``cast_rays_tlas_cuda`` is K3's wrapper: for CUDA tensors it launches
     the hand-written kernel (``csrc/tlas_traverse.cu``, K1's walk of
     ``csrc/walk.cuh`` under the TLAS walk, one stack for both) and counts the
-    launch in ``LAUNCHES``; for CPU tensors it calls the plain version. A
+    launch in ``build.LAUNCHES`` (``K3``, ``K3_carry``); for CPU tensors it
+    calls the plain version. A
     CUDA tensor never reaches the plain version and a failed build or
     launch raises.
   * ``cast_rays_tlas_torch`` is the plain version: the same two-level
@@ -49,7 +50,6 @@ from .traversal import (
     _wide_tables,
     carried,
     carry_fields,
-    check_aligned16,
     check_carry,
     child_entry,
     finish_plain,
@@ -59,18 +59,12 @@ from .traversal import (
     new_stats,
     walk_instance,
 )
+from .build import check_inputs
 from .wide4 import NUDGE, STACK_SIZE, stack_needed
 
 # per-ray TLAS stack of the plain walk and the deepest TLAS build_tlas
 # makes; the kernel keeps TLAS entries in its one stack (csrc/walk.cuh)
 TLAS_STACK = 48
-
-# Launches of K3 since the count was last reset, carrying or not (CPU
-# casts, which run the plain version, do not count), and of those the
-# launches of its carrying kernel (tlas_traverse_carry_kernel).
-LAUNCHES = 0
-LAUNCHES_CARRY = 0
-
 
 @dataclasses.dataclass(frozen=True)
 class TlasTables:
@@ -277,23 +271,17 @@ def cast_rays_tlas_cuda(scene, origin, directions, occlusion: bool = False,
     launch the kernel on the current stream, with ``short_stack`` ring
     slots per thread (``traversal.launch``); CPU tensors run the plain
     version."""
-    global LAUNCHES, LAUNCHES_CARRY
     origin, directions = _split_rays(origin, directions)
     carry_uv, carry_n = carry_fields(scene, directions, occlusion, want_normals, carry)
     if directions.device.type == "cpu":
         return cast_rays_tlas_torch(scene, origin, directions, occlusion, carry_uv=carry_uv,
                                     carry_n=carry_n)
     tl = _tlas_tables(scene)
-    for name, x, dtype in (("tlas code", tl.code, torch.int32), ("tlas box", tl.box, torch.float32),
-                           ("tlas inst_ids", tl.inst_ids, torch.int32)):
-        if x.dtype != dtype or not x.is_contiguous() or x.device != directions.device:
-            raise ValueError(f"{name} must be contiguous {dtype} on {directions.device}")
-    check_aligned16(tlas_box=tl.box)
+    check_inputs(directions.device, ("tlas code", tl.code, torch.int32),
+                 ("tlas box", tl.box, torch.float32), ("tlas inst_ids", tl.inst_ids, torch.int32),
+                 aligned=("tlas box",))
     check_stack(scene)
-    hit = launch("tlas_launch", scene, origin, directions, occlusion,
-                 (tl.code.data_ptr(), tl.box.data_ptr(), tl.inst_ids.data_ptr()),
-                 short_stack=short_stack, carry_uv=carry_uv, carry_n=carry_n)
-    LAUNCHES += 1
-    if carry_uv or carry_n:
-        LAUNCHES_CARRY += 1
-    return hit
+    return launch("tlas_launch", scene, origin, directions, occlusion,
+                  (tl.code.data_ptr(), tl.box.data_ptr(), tl.inst_ids.data_ptr()),
+                  short_stack=short_stack, carry_uv=carry_uv, carry_n=carry_n,
+                  count=("K3",) + ("K3_carry",) * (carry_uv or carry_n))

@@ -8,7 +8,8 @@ routes single-instance scenes to).
   * ``cast_rays_cuda`` is K1's wrapper: for CUDA tensors it launches
     the hand-written kernel (``csrc/wide_traverse.cu``, the walk of
     ``csrc/walk.cuh`` over the node records ``wnode``) and counts the
-    launch in ``LAUNCHES``; for CPU tensors it calls the plain version.
+    launch in ``build.LAUNCHES`` (``K1``, ``K1_carry``, ``K1_bounded``);
+    for CPU tensors it calls the plain version.
     A CUDA tensor never reaches the plain version and a failed build or
     launch raises.
   * ``cast_rays_wide_torch`` is the plain version: the same per-ray
@@ -57,6 +58,7 @@ from ..accel import wide
 from ..core import transforms as T
 from ..core.vecmath import FLT_MAX
 from ..render.intersect import EDGE_EPS, PARALLEL_EPS, safe_reciprocal
+from . import build
 from .wide4 import SHORT_STACK, STACK_SIZE
 
 BIG = 3.0e38  # initial t_best; never a hit distance
@@ -69,15 +71,6 @@ MAX_LEAF_TRIS = (1 << LEAF_BITS) - 1
 # Rays the plain walk handles at once: bounds its [rays, leaf, 16]
 # record gathers to a few hundred MB at the flagship's 2M rays.
 PLAIN_CHUNK = 1 << 18
-
-# Launches of K1 since the count was last reset, carrying or not (CPU
-# casts, which run the plain version, do not count; K3 counts in
-# tlas.LAUNCHES), and of those the launches of K1's carrying kernel
-# (wide_traverse_carry_kernel) and those bounded by a t_max below BIG.
-LAUNCHES = 0
-LAUNCHES_CARRY = 0
-LAUNCHES_BOUNDED = 0
-
 
 def _hit(t, tri, inst, shape, carry=None):
     """The Hit record of flat outputs, with the carried (u, v, n) where
@@ -469,7 +462,8 @@ def unexplained_differences(scene, origin, directions, a, b) -> int:
 
 def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
            arity: int | None = None, short_stack: int | None = None,
-           carry_uv: bool = False, carry_n: bool = False, t_max: float = BIG):
+           carry_uv: bool = False, carry_n: bool = False, t_max: float = BIG,
+           count: tuple = ()):
     """Check the inputs and launch ``entry`` of the kernel library on the
     current stream: ``wt_launch`` at ``arity`` 4 (K1, the 4-wide node
     records ``wnode``) or 2 (K2, the binary records of
@@ -478,8 +472,9 @@ def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
     ``tlas_args``. Each takes ``short_stack`` ring slots per thread
     (default ``SHORT_STACK``) and a zeroed counter for its persistent
     warps. ``carry_uv``/``carry_n`` launch K1's or K3's carrying kernel
-    (unbounded) with outputs for u, v and n. Returns the Hit record;
-    raises on a CUDA error at launch."""
+    (unbounded) with outputs for u, v and n. ``count`` names the launch
+    counts it moves (``build.LAUNCHES``). Returns the Hit record; raises on
+    a CUDA error at launch."""
     check_carry(occlusion, carry_uv, carry_n)
     if directions.device.type != "cuda":
         raise ValueError(f"{entry} runs on cuda tensors, got {directions.device}")
@@ -490,53 +485,35 @@ def launch(entry: str, scene, origin, directions, occlusion: bool, tlas_args=(),
 
         tree = binary_tables(scene)
         node, mesh_root = tree.node, tree.root
-    if scene.device != directions.device:
-        raise ValueError(f"scene on {scene.device}, rays on {directions.device}")
-    for name, x, dtype in (
-        ("directions", directions, torch.float32), ("origin", origin, torch.float32),
-        ("node", node, torch.float32), ("tri_rec", tables.tri_rec, torch.float32),
-    ):
-        if x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {dtype}, got "
-                             f"{x.dtype} contiguous={x.is_contiguous()}")
-    check_aligned16(node=node, tri_rec=tables.tri_rec)
+    dev = directions.device
+    if scene.device != dev:
+        raise ValueError(f"scene on {scene.device}, rays on {dev}")
+    f32 = torch.float32
+    build.check_inputs(dev, ("directions", directions, f32), ("origin", origin, f32),
+                       ("node", node, f32), ("tri_rec", tables.tri_rec, f32),
+                       aligned=("node", "tri_rec"))
     s = check_short_stack(short_stack)
-    counter = torch.zeros(1, dtype=torch.int64, device=directions.device)
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
     shape = directions.shape[:-1]
     r = directions.numel() // 3
     inst_tab = instance_table(scene)
     inst_root = mesh_root[scene.inst_mesh.long()].to(torch.int32).contiguous()
-    t = torch.empty(r, dtype=torch.float32, device=directions.device)
-    tri = torch.empty(r, dtype=torch.int32, device=directions.device)
-    inst = torch.empty(r, dtype=torch.int32, device=directions.device)
+    t = torch.empty(r, dtype=f32, device=dev)
+    tri = torch.empty(r, dtype=torch.int32, device=dev)
+    inst = torch.empty(r, dtype=torch.int32, device=dev)
     # the kernel writes every ray's carried fields, 0 on a miss
-    carry = tuple(torch.empty(size, dtype=torch.float32, device=directions.device)
-                  if want else None
+    carry = tuple(torch.empty(size, dtype=f32, device=dev) if want else None
                   for want, size in ((carry_uv, (r,)), (carry_uv, (r,)), (carry_n, (r, 3))))
-    from .build import load
-
-    fn = getattr(load("cuda"), entry)
-    stream = torch.cuda.current_stream(directions.device).cuda_stream
     head, bound = ((), ()) if arity is None else ((arity,), (t_max,))
-    err = fn(
-        *head, node.data_ptr(), tables.tri_rec.data_ptr(), inst_tab.data_ptr(),
+    build.launch(
+        entry, *head, node.data_ptr(), tables.tri_rec.data_ptr(), inst_tab.data_ptr(),
         inst_root.data_ptr(), scene.num_instances, *tlas_args,
         origin.data_ptr(), 0 if origin.dim() == 1 else 3, directions.data_ptr(), r,
         int(occlusion), t.data_ptr(), tri.data_ptr(), inst.data_ptr(),
         *(None if x is None else x.data_ptr() for x in carry), *bound, s,
-        counter.data_ptr(), stream,
+        counter.data_ptr(), device=dev, count=count,
     )
-    if err != 0:
-        raise RuntimeError(f"{entry} failed with CUDA error {err}")
     return _hit(t, tri, inst, shape, carry)
-
-
-def check_aligned16(**tensors):
-    """Raise unless every tensor starts on a 16-byte boundary, as the
-    16-byte loads of K1-K6 need."""
-    for name, x in tensors.items():
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for the kernel's 16-byte loads")
 
 
 def check_short_stack(short_stack: int | None) -> int:
@@ -558,26 +535,21 @@ def launch_shape(kernel: str, occlusion: bool, num_rays: int,
     SM."""
     import ctypes
 
-    from .build import load
-
-    lib = load("cuda")
     s = SHORT_STACK if short_stack is None else short_stack
     out = (ctypes.c_int * 4)()
     if carry and (occlusion or kernel not in ("K1", "K3")):
         raise ValueError(f"no carrying kernel for {kernel} occlusion={occlusion}")
     mode = 2 if carry else int(occlusion)  # the C side's 2: the carrying kernel
     if kernel in ("K1", "K2"):
-        err = lib.wt_launch_shape(4 if kernel == "K1" else 2, mode, s, num_rays, out)
+        build.launch("wt_launch_shape", 4 if kernel == "K1" else 2, mode, s, num_rays, out)
     elif kernel == "K3":
-        err = lib.tlas_launch_shape(mode, s, num_rays, out)
+        build.launch("tlas_launch_shape", mode, s, num_rays, out)
     elif kernel in ("K4", "K5") and not occlusion:
-        err = lib.paged_launch_shape(4 if kernel == "K4" else 2, s, num_rays, out)
+        build.launch("paged_launch_shape", 4 if kernel == "K4" else 2, s, num_rays, out)
     elif kernel == "K6" and not occlusion:
-        err = lib.paged_major_launch_shape(s, num_rays, out)
+        build.launch("paged_major_launch_shape", s, num_rays, out)
     else:
         raise ValueError(f"no launch shape for {kernel} occlusion={occlusion}")
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch shape failed with CUDA error {err}")
     return {"blocks": out[0], "threads": out[1], "shared_bytes": out[2],
             "blocks_per_sm": out[3]}
 
@@ -592,7 +564,6 @@ def cast_rays_cuda(scene, origin, directions, occlusion: bool = False,
     nothing). CUDA tensors launch the kernel on the current stream, with
     ``short_stack`` ring slots per thread (default ``SHORT_STACK``); CPU
     tensors run the plain version."""
-    global LAUNCHES, LAUNCHES_BOUNDED, LAUNCHES_CARRY
     origin, directions = _split_rays(origin, directions)
     bounded = t_max < BIG
     carry_uv, carry_n = carry_fields(scene, directions, occlusion, want_normals,
@@ -600,14 +571,10 @@ def cast_rays_cuda(scene, origin, directions, occlusion: bool = False,
     if directions.device.type == "cpu":
         return cast_rays_wide_torch(scene, origin, directions, occlusion, carry_uv=carry_uv,
                                     carry_n=carry_n, t_max=t_max)
-    hit = launch("wt_launch", scene, origin, directions, occlusion, arity=4,
-                 short_stack=short_stack, carry_uv=carry_uv, carry_n=carry_n, t_max=t_max)
-    LAUNCHES += 1
-    if carry_uv or carry_n:
-        LAUNCHES_CARRY += 1
-    if bounded:
-        LAUNCHES_BOUNDED += 1
-    return hit
+    count = ("K1",) + ("K1_carry",) * (carry_uv or carry_n) + ("K1_bounded",) * bounded
+    return launch("wt_launch", scene, origin, directions, occlusion, arity=4,
+                  short_stack=short_stack, carry_uv=carry_uv, carry_n=carry_n, t_max=t_max,
+                  count=count)
 
 
 # The rows from which a scene is cast through page tables: the port's

@@ -67,7 +67,7 @@ body, and on CUDA they are captured into its graph:
     replays. A rank that replays alone, or makes a new entry while the
     others replay, hangs in its collectives until the group's timeout.
 
-The kernel wrappers count their launches in module counters
+The kernel wrappers count their launches in ``kernels.build.LAUNCHES``
 (``launch_counts``), which move while the body runs eagerly or is
 captured and not when a graph replays. An entry records each counter's
 increase during its capture as ``launches``: the kernel launches of one
@@ -94,6 +94,7 @@ import threading
 
 import torch
 
+from ..kernels.build import LAUNCHES
 from ..utils import profiling
 
 # the scene's per-instance rows: what SceneTensors.update_instance
@@ -103,23 +104,11 @@ INSTANCE_FIELDS = ("inst_mesh", "inst_material", "inst_pose", "inst_inv_pose", "
 TLAS_FIELDS = ("code", "box", "inst_ids")
 SCENE_FLAGS = ("has_sky", "has_textures", "has_emissive")
 
-# the kernel wrappers' launch counters: name, module of kernels/, attribute
-COUNTERS = (
-    ("K1", "traversal", "LAUNCHES"), ("K1_carry", "traversal", "LAUNCHES_CARRY"),
-    ("K1_bounded", "traversal", "LAUNCHES_BOUNDED"),
-    ("K2", "binary", "LAUNCHES"),
-    ("K3", "tlas", "LAUNCHES"), ("K3_carry", "tlas", "LAUNCHES_CARRY"),
-    ("K4", "paged", "LAUNCHES_K4"), ("K5", "paged", "LAUNCHES_K5"),
-    ("K6", "paged_major", "LAUNCHES"), ("K6_plan", "paged_major", "LAUNCHES_PLAN"),
-    ("S1", "frame", "LAUNCHES_RAYGEN"), ("S2", "frame", "LAUNCHES_ATTRS"),
-    ("S3", "frame", "LAUNCHES_SHADE"), ("S4", "frame", "LAUNCHES_SAMPLE"),
-)
-
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch counter, by kernel name."""
-    return {name: getattr(importlib.import_module(f"..kernels.{mod}", __package__), attr)
-            for name, mod, attr in COUNTERS}
+    """A copy of every kernel's launch count (``kernels.build.LAUNCHES``),
+    by kernel name."""
+    return dict(LAUNCHES)
 
 
 def _scene_of(x):

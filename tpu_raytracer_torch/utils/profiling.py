@@ -204,14 +204,12 @@ def capture_counter(stream: torch.cuda.Stream):
     of the graph being captured on ``stream`` (the kernel library's
     ``capture_device_ops``, which raises where the stream is not
     capturing)."""
-    from ..kernels.build import load
+    from ..kernels.build import launch
 
-    fn, handle, out = load("cuda").capture_device_ops, stream.cuda_stream, ctypes.c_int64()
+    out = ctypes.c_int64()
 
     def count() -> int:
-        err = fn(handle, ctypes.byref(out))
-        if err != 0:
-            raise RuntimeError(f"counting the capture's nodes failed: CUDA error {err}")
+        launch("capture_device_ops", ctypes.byref(out), stream=stream)
         return out.value
 
     return count
