@@ -7,15 +7,15 @@ Drives the port's paths (``tpu_raytracer_torch``) through kernels K1 (the
 4-wide BVH cast), K2 (the binary BVH cast), K3 (the two-level TLAS cast)
 the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
 (page-major), and the frame stages around the cast, S1 (raygen), S2 (hit
-attributes), S3 (primary shade) and S4 (the path tracer's and AO's
-sample), in phases, one line each:
+attributes), S3 (primary shade), S4 (the path tracer's and AO's
+sample) and S5 (the Whitted shade), in phases, one line each:
 
   1. device: the card's name and power limit;
   2. build: K1 and K2 (``kernels/csrc/wide_traverse.cu``), K3
      (``kernels/csrc/tlas_traverse.cu``), K4/K5
      (``kernels/csrc/paged_traverse.cu``), K6
      (``kernels/csrc/paged_major.cu``), K6's plan
-     (``kernels/csrc/page_plan.cu``) and S1-S4 (``kernels/csrc/frame.cu``)
+     (``kernels/csrc/page_plan.cu``) and S1-S5 (``kernels/csrc/frame.cu``)
      compiled for sm_90a by one nvcc per source, all started together,
      and linked into one library, with
      ptxas's report of each kernel (registers, stack frame, spills, static
@@ -56,7 +56,12 @@ sample), in phases, one line each:
      AO and path frames (one a draw); and ``[frame_kernels_time]`` rows for
      an AO and a path draw at 1920x1088 beside their bound (the uint32
      hash operations over the card's int32 rate, the bytes over its
-     bandwidth) and the plain chain's ms;
+     bandwidth) and the plain chain's ms; then ``[whitted_shade]``: S5
+     against its plain version (``whitted_shade_torch``) on the three
+     bounces of config 4's 1920x1088 Whitted frame and of the demo under
+     its sky map, every output bit for bit, its launches in an eager and a
+     compiled Whitted frame (one a bounce), and a ``[frame_kernels_time]``
+     row for config 4's first bounce beside its byte bound;
   6. K3 against its plain version on config 4 (four posed instances) at
      1920x1088: primary rays, their first-bounce reflection rays, and the
      16-instance scene's primary rays;
@@ -235,7 +240,7 @@ sample), in phases, one line each:
      a replay's launches those of the eager frame (S1 once, S2, and S3
      once in a primary frame), one entry per case, and the frame at the
      first pose 0 pixels from the same frame through the plain stages
-     (``plain_stages``: no S1-S4 launch);
+     (``plain_stages``: no S1-S5 launch);
      config 4 after ``update_instance`` and the path frame with a new key
      replayed by the same entry, a scene of the same shapes with other
      tables in an entry of its own, and the capture's one-off seconds;
@@ -473,7 +478,7 @@ def main():
                 for kernel, k in carry_kernels})
     for kernel, r in report.items():
         r["shared_dynamic"] = dyn.get(kernel, 0)
-    phase("build", kernels="K1/K2+K3+K4/K5+K6+K6 plan+S1/S2/S3/S4", seconds=f"{time.perf_counter() - t0:.2f}",
+    phase("build", kernels="K1/K2+K3+K4/K5+K6+K6 plan+S1/S2/S3/S4/S5", seconds=f"{time.perf_counter() - t0:.2f}",
           lib=lib_path.name, commands=repr(compiles),
           ptxas=json.dumps(report, separators=(",", ":")))
     for src in build.CUDA_SOURCES:
@@ -552,6 +557,7 @@ def main():
           "checker boundaries allow at most 4)")
     frame_entries = frame_kernels_phase(dev, card, stage_launches)
     frame_entries += sample_kernel_phase(dev, card, scene, origin, dirs, args)
+    frame_entries += whitted_shade_phase(dev, card)
 
     # 6. K3 against its plain version -----------------------------------
     inst4, cam4 = scene_instances(1920, 1088, device=dev)
@@ -2282,7 +2288,7 @@ def _graph_shard_case(group, eager, fast, cfg, scene, args, extra) -> dict:
         diffs.append(_pixels(got, want))
         sums.append(hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest())
         if step == 0:
-            # the same frame through the plain stages: no S1-S4 launch
+            # the same frame through the plain stages: no S1-S5 launch
             s0 = _stage_counts()
             with plain_stages():
                 plain = eager(cfg, group, scene, *a, *extra)
@@ -2731,7 +2737,7 @@ def shard_phases(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
                   f"differ from the eager frames")
             check(all(x["pixels_vs_plain_stages"] == 0 and not x["plain_stage_launches"]
                       for x in res), f"[graph_shard] {name} at {world} ranks ({backend}): the "
-                  f"frame through S1-S4 differs from the frame through the plain stages")
+                  f"frame through S1-S5 differs from the frame through the plain stages")
             check(all(x["launches_per_replay"] and all(el == x["launches_per_replay"]
                                                        for el in x["eager_launches"])
                       for x in res), f"[graph_shard] {name}: a replay launches "
@@ -3429,7 +3435,7 @@ def graph_phase(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
             after = launch_counts()
             eager_launches.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
             diffs.append(_pixels(got, want))
-        # the same frame through the plain stages: no S1-S4 launch
+        # the same frame through the plain stages: no S1-S5 launch
         s0 = _stage_counts()
         with plain_stages():
             plain_frame = eager(config, sc, *_posed(args, 0), *extra)
@@ -3472,7 +3478,7 @@ def graph_phase(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
         check(diffs == [0] * GRAPH_POSES, f"{case}: the replayed frames differ from the eager "
               f"frames in {diffs} pixels")
         check(vs_plain == 0 and not plain_launches,
-              f"{case}: the frame through S1-S4 differs from the frame through the plain "
+              f"{case}: the frame through S1-S5 differs from the frame through the plain "
               f"stages in {vs_plain} pixels (their launches: {plain_launches})")
         # every frame casts its camera's rays (S1 once) and takes their
         # attributes (S2; once in a primary frame); the primary frames shade
@@ -3578,6 +3584,11 @@ OPS_S3_MODE = {"flat": 0, "lambert": OPS_NORM + 7, "lambert_shadow": OPS_NORM + 
 #   uniform 4.
 OPS_S4_F32 = 2 * 4 + 41 + OPS_NORM
 OPS_S4_LOBE_F32 = 4
+#   S5 per ray: the sky term 6 and its select 3, the clamp 2, 1 - refl 1,
+#   the local term and its sum 15, the throughput 6, refl > 0 1, the
+#   reflection (dot 5, the doubling 1, 6) 12 and normalize, the origin 6,
+#   the nearest texel 8.
+OPS_S5 = 9 + 2 + 1 + 15 + 6 + 1 + 12 + OPS_NORM + 6 + 8
 # uint32 operations of one threefry2x32 hash (kernels/csrc/frame.cuh): the
 # first key injection 2, 20 rounds of add, rotate (one funnel shift) and
 # xor, 5 injections of 2 adds; a uniform adds the xor of the two words, the
@@ -3587,17 +3598,19 @@ OPS_UNIFORM_INT = OPS_HASH + 3
 # the H100 SXM's int32 rate: 132 SMs x 64 INT32 lanes at the 1,980 MHz
 # boost clock (NVIDIA's Hopper white paper and data sheet)
 INT32_OPS_S = 132 * 64 * 1.98e9
-# the JAX functions S1-S4 replace (XLA fuses them; no Pallas kernel)
+# the JAX functions S1-S5 replace (XLA fuses them; no Pallas kernel)
 FRAME_REPLACES = {"S1": "tpu_raytracer/render/camera.py:113",
                   "S2": "tpu_raytracer/render/renderer.py:232",
                   "S3": "tpu_raytracer/render/shade.py:385",
-                  "S4": "tpu_raytracer/render/integrators.py:274"}
+                  "S4": "tpu_raytracer/render/integrators.py:274",
+                  "S5": "tpu_raytracer/render/integrators.py render_whitted"}
 FRAME_KERNEL_NAMES = {"S1": "frame_raygen_kernel", "S2": "frame_attrs_kernel",
-                      "S3": "frame_shade_kernel", "S4": "frame_sample_kernel"}
+                      "S3": "frame_shade_kernel", "S4": "frame_sample_kernel",
+                      "S5": "frame_whitted_shade_kernel"}
 
 
 def _stage_counts() -> dict:
-    """Launches of S1-S4 by kernel name."""
+    """Launches of S1-S5 by kernel name."""
     from tpu_raytracer_torch.render.compiled import launch_counts
 
     return {k: v for k, v in launch_counts().items() if k.startswith("S")}
@@ -3605,17 +3618,17 @@ def _stage_counts() -> dict:
 
 def _walks(launches: dict) -> dict:
     """The traversal kernels' part of a launch count (K1-K6 and K6's
-    plan), without the frame stages S1-S4."""
+    plan), without the frame stages S1-S5."""
     return {k: v for k, v in launches.items() if not k.startswith("S")}
 
 
 @contextlib.contextmanager
 def plain_stages():
-    """Raygen, hit attributes, the primary shade and the sample draws
-    through their plain versions (``generate_rays_torch``,
+    """Raygen, hit attributes, the primary shade, the sample draws and the
+    Whitted shade through their plain versions (``generate_rays_torch``,
     ``hit_attributes_torch``, ``shade_primary_torch``,
-    ``sample_cosine_torch``) for every caller of the routers, on the
-    rays' own device: no S1-S4 launch."""
+    ``sample_cosine_torch``, ``whitted_shade_torch``) for every caller of
+    the routers, on the rays' own device: no S1-S5 launch."""
     import importlib
 
     from tpu_raytracer_torch.kernels import frame
@@ -3624,7 +3637,8 @@ def plain_stages():
     plain = {"generate_rays": camera.generate_rays_torch,
              "hit_attributes": renderer.hit_attributes_torch,
              "shade_primary": shade.shade_primary_torch,
-             "sample_cosine": integrators.sample_cosine_torch}
+             "sample_cosine": integrators.sample_cosine_torch,
+             "whitted_shade": integrators.whitted_shade_torch}
     saved = []
     for mod in frame.ROUTER_MODULES:
         m = importlib.import_module(f"tpu_raytracer_torch.{mod}")
@@ -3686,16 +3700,48 @@ def _s3_bytes(scene, attrs, mode: str) -> int:
     per_ray += 12 if mode == "blinn_phong" else 0
     per_ray += 8 if scene.has_textures else 0
     mats = torch.unique(attrs.material)
-    nbytes = r * per_ray + mats.numel() * (12 + 12)
-    if scene.has_textures:
-        m = attrs.material.reshape(-1).long()
-        start, w, h = scene.mat_tex_start[m], scene.mat_tex_w[m], scene.mat_tex_h[m]
-        uv = attrs.uv.reshape(-1, 2)
-        tx = torch.clamp(_c_mod((uv[:, 0] * w.float()).to(torch.int32), w), min=0)
-        ty = torch.clamp(_c_mod(((1.0 - uv[:, 1]) * h.float()).to(torch.int32), h), min=0)
-        idx = torch.clamp(start, min=0) + ty * w + tx
-        nbytes += int(torch.unique(idx[start >= 0]).numel()) * 4
-    return nbytes
+    return r * per_ray + mats.numel() * (12 + 12) + _nearest_texel_bytes(scene, attrs)
+
+
+def _nearest_texel_bytes(scene, attrs, rays=None) -> int:
+    """Bytes of the atlas words the nearest filter fetches at ``rays``
+    (default every ray), each once."""
+    from tpu_raytracer_torch.render.shade import _c_mod
+
+    if not scene.has_textures:
+        return 0
+    m = attrs.material.reshape(-1).long()
+    start, w, h = scene.mat_tex_start[m], scene.mat_tex_w[m], scene.mat_tex_h[m]
+    uv = attrs.uv.reshape(-1, 2)
+    tx = torch.clamp(_c_mod((uv[:, 0] * w.float()).to(torch.int32), w), min=0)
+    ty = torch.clamp(_c_mod(((1.0 - uv[:, 1]) * h.float()).to(torch.int32), h), min=0)
+    idx = torch.clamp(start, min=0) + ty * w + tx
+    keep = start >= 0 if rays is None else (start >= 0) & rays.reshape(-1)
+    return int(torch.unique(idx[keep]).numel()) * 4
+
+
+def _s5_bytes(scene, attrs, state, last: bool) -> int:
+    """Bytes S5 needs on one bounce, each once: every ray's hit flag, its
+    state written (and read past the first bounce, ``state`` None) and, but
+    at the last bounce, its next ray; the material and light term of the
+    live rays (active and hit), their uv where textured, the direction,
+    location and normal of those that bounce on (a mirror) and the
+    direction of the misses under a sky map; each material row (albedo,
+    texture start and size, reflectivity, emission) the live rays name and
+    each texel they fetch."""
+    r = attrs.hit.numel()
+    active = torch.ones_like(attrs.hit) if state is None else state[2]
+    live = active & attrs.hit
+    m = attrs.material
+    on = live & (scene.mat_reflectivity[m] > 0.0)
+    textured = live & (scene.mat_tex_start[m] >= 0) if scene.has_textures else live & False
+    count = lambda mask: int(mask.sum())
+    nbytes = r * (1 + 25 + (0 if state is None else 25) + (0 if last else 24))
+    nbytes += count(live) * (8 + 4) + count(textured) * 8 + count(on) * 36
+    if scene.has_sky:
+        nbytes += count(active & ~attrs.hit) * 12
+    mats = int(torch.unique(m[live]).numel())
+    return nbytes + mats * (12 + 12 + 4 + 4) + _nearest_texel_bytes(scene, attrs, live)
 
 
 def _frame_bound(ops: int, nbytes: int) -> dict:
@@ -3996,6 +4042,133 @@ def sample_kernel_phase(dev, card, scene, origin, dirs, args) -> list:
         "source": "tpu_raytracer_torch/kernels/csrc/frame.cu",
         "replaces": FRAME_REPLACES["S4"],
         "launches": per_frame["ao"],
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "library_ms": None,
+    }]
+
+
+def whitted_shade_phase(dev, card) -> list:
+    """``[whitted_shade]``: S5 (``kernels/frame.py whitted_shade_cuda``)
+    against its plain version (``render/integrators.py
+    whitted_shade_torch``, eager ops on the card), every output bit for
+    bit, misses and parked rays included, with ``exact_math`` on and off:
+    the three bounces of config 4's Whitted frame at 1920x1088 (the first
+    with no state in, the last with no rays out; the flat sky, nearest
+    texels) and of the demo under its sky map with trilinear texels (which
+    a bounce samples bilinear) and its materials made mirrors; one launch
+    a call. Then its launches in an eager and a compiled Whitted frame (one
+    a bounce), and a ``[frame_kernels_time]`` row for config 4's first
+    bounce: device ms beside the bound (``_s5_bytes`` over the bandwidth)
+    and the plain version's ms. Returns the kernels line's entry."""
+    import dataclasses
+
+    from tpu_raytracer_torch.app.scenes import build_demo_scene, scene_instances
+    from tpu_raytracer_torch.kernels import tlas
+    from tpu_raytracer_torch.render import (
+        Camera, RenderConfig, generate_rays, hit_attributes, pipeline, reference_calibration,
+        render_image_whitted,
+    )
+    from tpu_raytracer_torch.render.integrators import (
+        _direct_illumination, whitted_shade, whitted_shade_torch,
+    )
+    from tpu_raytracer_torch.render.shade import DEFAULT_LIGHT_DIRECTION
+    from tpu_raytracer_torch.scene import procgen
+
+    fw, fh = SLICE_SIZE
+    inst4, cam4 = scene_instances(fw, fh, device=dev)
+    demo = build_demo_scene()
+    demo.set_sky(procgen.sky_gradient_texture())
+    demo = demo.compile(dev)
+    k = demo.mat_albedo.shape[0]
+    demo = dataclasses.replace(demo, mat_reflectivity=torch.tensor(
+        [(0.8, 0.5, 0.0)[i % 3] for i in range(k)], device=dev))
+    K, D = reference_calibration(fw, fh)
+    dcam = Camera(fw, fh, K, D, pose=np.array([-1.0, -4.0, 2.0, 0, 0, 0], np.float32))
+    sets = {"config4": (inst4, cam4, "nearest"), "sky_demo": (demo, dcam, "trilinear")}
+
+    def bounce_inputs(sc, o, d, exact):
+        h = tlas.cast_rays_tlas_cuda(sc, o, d, want_normals=True)
+        attrs = hit_attributes(sc, o, d, h, exact)
+        illum = _direct_illumination(sc, tlas.cast_rays_tlas_cuda, attrs,
+                                     DEFAULT_LIGHT_DIRECTION, (), exact, True, clamp_floor=0.4)
+        return attrs, illum
+
+    diffs, launches, counts = {}, {}, {}
+    timed = None
+    for name, (sc, cam, filt) in sets.items():
+        p = cam.ray_params(dev)
+        for exact in (True, False):
+            o, d = generate_rays(fw, fh, p["K_inv"], p["D"], p["pose"], p["inv_pose"],
+                                 exact=exact)
+            state = None
+            for bounce in range(3):
+                attrs, illum = bounce_inputs(sc, o, d, exact)
+                last = bounce == 2
+                want = whitted_shade_torch(sc, d, attrs, illum, state, exact, filt, last)
+                mine = None if state is None else tuple(x.clone() for x in state)
+                before = _stage_counts()["S5"]
+                got = whitted_shade(sc, d, attrs, illum, mine, exact, filt, last)
+                torch.cuda.synchronize()
+                tag = f"{name}_{'exact' if exact else 'q_rsqrt'}_b{bounce}"
+                launches[tag] = _stage_counts()["S5"] - before
+                diffs[tag] = _diff_elems(got[0], want[0]) + (
+                    0 if last else _diff_elems(got[1], want[1]))
+                counts[tag] = (int((~attrs.hit).sum()), int((~want[0][2]).sum()))
+                if name == "config4" and exact and bounce == 0:
+                    timed = (sc, d, attrs, illum)
+                state = want[0]
+                if not last:
+                    o, d = want[1]
+    phase("whitted_shade", size=f"{fw}x{fh}", launches=launches,
+          misses_and_parked=json.dumps(counts, separators=(",", ":")),
+          diffs=json.dumps(diffs, separators=(",", ":")))
+    check(all(v == 1 for v in launches.values()), f"[whitted_shade] launches {launches}")
+    check(not any(diffs.values()), f"[whitted_shade] S5 differs from its plain version: {diffs}")
+    # config 4's primary rays hit everywhere; its reflection rays miss
+    check(all(sum(counts[f"{name}_exact_b{b}"][0] for b in range(3)) > 0 for name in sets),
+          "[whitted_shade] a frame without a miss")
+
+    p4 = cam4.ray_params(dev)
+    args4 = (RenderConfig(fw, fh), inst4, p4["K_inv"], p4["D"], p4["pose"], p4["inv_pose"])
+    _reset_launch_counts()
+    img = render_image_whitted(*args4)
+    torch.cuda.synchronize()
+    eager = {k: v for k, v in _stage_counts().items() if v}
+    pipeline.clear_compiled()
+    replay = pipeline.compiled_render_image_whitted(*args4)
+    entry = pipeline.compiled_render_image_whitted.last
+    phase("whitted_shade", eager_stage_launches=eager, compiled_launches=entry.launches,
+          nodes=entry.nodes, pixels_vs_eager=int((replay != img).any(-1).sum()))
+    check(eager == {"S1": 1, "S2": 3, "S5": 3}, f"[whitted_shade] an eager frame launched {eager}")
+    check(entry.launches == {"K3": 6, "K3_carry": 3, "S1": 1, "S2": 3, "S5": 3},
+          f"[whitted_shade] the compiled entry launches {entry.launches}")
+    check(torch.equal(replay, img), "[whitted_shade] the replay differs from the eager frame")
+    pipeline.clear_compiled()
+
+    sc, d, attrs, illum = timed
+    b = _frame_bound(fw * fh * OPS_S5, _s5_bytes(sc, attrs, None, False))
+    fn = lambda: whitted_shade(sc, d, attrs, illum)
+    plain = lambda: whitted_shade_torch(sc, d, attrs, illum)
+    ms = device_ms(fn, FRAME_KERNEL_NAMES["S5"])
+    plain_ms = min(event_ms(plain, 5) for _ in range(3))
+    phase("frame_kernels_time", kernel="S5", bounce="config4_first", card=repr(card),
+          ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b['bound_ms']:.6f}",
+          bound_by=b["bound_by"], share_of_bound=f"{b['bound_ms'] / ms:.4f}",
+          mbytes=f"{b['mbytes']:.3f}", gflop=f"{b['gflop']:.4f}")
+    return [{
+        "name": f"S5 {FRAME_KERNEL_NAMES['S5']} (one Whitted bounce's shade: the sky, the "
+                "texel, the radiance and throughput sums and the parked reflected rays, one "
+                "thread per ray; no Pallas counterpart: replaces the XLA-fused shade body; "
+                f"launches: the config 4 Whitted frame; ms, bound and plain_ms: its first "
+                f"bounce at {fw}x{fh})",
+        "route": "cuda",
+        "source": "tpu_raytracer_torch/kernels/csrc/frame.cu",
+        "replaces": FRAME_REPLACES["S5"],
+        "launches": entry.launches["S5"],
         "max_abs_err": 0.0,
         "ms": ms,
         "plain_ms": plain_ms,

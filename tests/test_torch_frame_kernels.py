@@ -1,5 +1,6 @@
 """The frame stages' kernels S1 (raygen), S2 (hit attributes), S3
-(primary shade) and S4 (sample) on the CPU: their per-ray code built for
+(primary shade), S4 (sample) and S5 (Whitted shade) on the CPU: their
+per-ray code built for
 the host (``kernels/csrc/frame_host.cpp``, the ``frame.cuh`` the card
 runs) against the plain versions and the JAX package, and the routers.
 
@@ -23,6 +24,7 @@ recipes and numpy poses. Tolerances:
 """
 
 import ctypes
+import dataclasses
 import functools
 import math
 import shutil
@@ -563,6 +565,107 @@ def test_integrators_through_the_host_build_render_the_plain_frames(same_libm, m
 
 
 # ---------------------------------------------------------------------------
+# S5 Whitted shade
+# ---------------------------------------------------------------------------
+
+# (scene, texture filter): albedo alone under the flat sky (blob3), config
+# 4's textured floor nearest and bilinear, the demo's textures under its sky
+# map nearest and trilinear (which samples bilinear: a bounce has no
+# screen derivatives)
+WHITTED_CASES = [("blob3", "nearest"), ("instances", "nearest"), ("instances", "bilinear"),
+                 ("sky_demo", "nearest"), ("sky_demo", "trilinear")]
+
+
+@functools.lru_cache(maxsize=None)
+def whitted_scene(name: str):
+    """``name``'s scene with its materials' reflectivity 0.8, 0.5 and 0 in
+    turn and material 1 emissive, so that rays bounce and the emission
+    counts whatever the recipe's materials are."""
+    sc = scene(name)[1]
+    k = sc.mat_albedo.shape[0]
+    return dataclasses.replace(
+        sc, mat_reflectivity=torch.tensor([(0.8, 0.5, 0.0)[i % 3] for i in range(k)]),
+        mat_illumination=torch.tensor([0.25 if i == 1 else 0.0 for i in range(k)]))
+
+
+def _whitted_inputs(sc, o, d, hit, exact: bool):
+    """(directions, attributes, light term) of one bounce: the directional
+    light's shadowed cosine plus a point light's term, so that the clamp
+    meets values under 0.4 and over 1."""
+    attrs = hit_attributes_torch(sc, o, d, hit, exact)
+    illum = integrators._direct_illumination(sc, traversal.cast_rays, attrs,
+                                             shade.DEFAULT_LIGHT_DIRECTION, POINT_LIGHTS[:1],
+                                             exact, True, clamp_floor=0.4)
+    return d, attrs, illum
+
+
+@functools.lru_cache(maxsize=None)
+def whitted_bounces(name: str, exact: bool, tex_filter: str):
+    """The first two bounces of ``name``'s Whitted frame: (directions,
+    attributes, light term) of the primary rays, and of the reflected rays
+    with the state the plain first bounce left (most of them parked)."""
+    sc = whitted_scene(name)
+    _, o, d, h = rays_and_hits(name, _carry(name))
+    first = _whitted_inputs(sc, o, d, h, exact)
+    state, (ro, rd) = integrators.whitted_shade_torch(sc, *first, None, exact, tex_filter)
+    h1 = traversal.cast_rays(sc, ro, rd, want_normals=True)
+    return first, _whitted_inputs(sc, ro, rd, h1, exact) + (state,)
+
+
+@pytest.mark.parametrize("bounce", ["first", "middle", "last", "first_last", "inactive"])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("name,tex_filter", WHITTED_CASES)
+def test_whitted_shade_host_build_matches_plain_bitwise(same_libm, name, tex_filter, exact,
+                                                        bounce):
+    """S5's host build against ``whitted_shade_torch`` at the first bounce
+    (no state in), a middle one (rays parked among them) and the last (no
+    rays out), every output bit for bit; the state is updated in place.
+    ``inactive``: the primary rays under the first bounce's state with every
+    throughput 0.75, so that only the active flags keep the inactive rays'
+    hits and misses out of the sums (a frame's dead rays carry 0)."""
+    sc = whitted_scene(name)
+    first, middle = whitted_bounces(name, exact, tex_filter)
+    d, attrs, illum, state = first + (None,) if bounce.startswith("first") else middle
+    if bounce == "inactive":
+        d, attrs, illum = first
+        state = (middle[3][0], torch.full_like(middle[3][1], 0.75), middle[3][2])
+    last = bounce.endswith("last")
+    want = integrators.whitted_shade_torch(sc, d, attrs, illum, state, exact, tex_filter, last)
+    mine = None if state is None else tuple(x.clone() for x in state)
+    got = frame.whitted_shade_host(sc, d, attrs, illum, mine, exact, tex_filter, last)
+    assert_bitwise(got[0], want[0])
+    assert (got[1] is None) == (want[1] is None) == last
+    if not last:
+        assert_bitwise(got[1], want[1])
+    if state is not None:
+        assert all(g is m for g, m in zip(got[0], mine))
+        assert state[2].any() and (~state[2]).any()
+    assert (~attrs.hit).any() and (attrs.hit.any() or name == "blob3")  # a convex blob
+
+
+def test_whitted_frames_through_the_host_build_render_the_plain_frames(same_libm, monkeypatch):
+    """Config 4's Whitted frame at 96x64 with each bounce's shade on S5's
+    host build: bit for bit the frame through the plain version."""
+    from tpu_raytracer_torch.app.scenes import scene_instances
+
+    sc, cam = scene_instances(96, 64, device="cpu")
+    p = cam.ray_params("cpu")
+    o, d = generate_rays_torch(96, 64, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    render = lambda: integrators.render_whitted(sc, o, d, max_bounces=2)
+    want = render()
+    calls = []
+
+    def host(*args):
+        calls.append(args[-1])
+        return frame.whitted_shade_host(*args)
+
+    monkeypatch.setattr(integrators, "whitted_shade", host)
+    got = render()
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert calls == [False, False, True]
+
+
+# ---------------------------------------------------------------------------
 # Routers
 # ---------------------------------------------------------------------------
 
@@ -574,7 +677,7 @@ def no_kernels(monkeypatch):
         raise AssertionError("a CPU call reached a kernel wrapper")
 
     for name in ("generate_rays_cuda", "hit_attributes_cuda", "shade_primary_cuda",
-                 "sample_cosine_cuda"):
+                 "sample_cosine_cuda", "whitted_shade_cuda"):
         monkeypatch.setattr(frame, name, refuse)
 
 
@@ -602,22 +705,35 @@ def test_sample_router_takes_the_plain_version_on_the_cpu(no_kernels, lobe):
     assert build.LAUNCHES == before
 
 
+def test_whitted_shade_router_takes_the_plain_version_on_the_cpu(no_kernels):
+    before = dict(build.LAUNCHES)
+    sc = whitted_scene("instances")
+    first, (d, attrs, illum, state) = whitted_bounces("instances", True, "nearest")
+    for args in (first + (None,), (d, attrs, illum, state)):
+        got = integrators.whitted_shade(sc, *args)
+        want = integrators.whitted_shade_torch(sc, *args)
+        assert_bitwise(got[0], want[0])
+        assert_bitwise(got[1], want[1])
+    assert build.LAUNCHES == before
+
+
 def test_launch_counts_name_every_kernel_and_host_runs_count_none():
-    """``launch_counts()`` names the launch counts of K1-K6 and S1-S4, and
-    CPU runs of S1-S4's host builds and of K6's plan move none of them:
+    """``launch_counts()`` names the launch counts of K1-K6 and S1-S5, and
+    CPU runs of S1-S5's host builds and of K6's plan move none of them:
     only launches on the card count."""
     from tpu_raytracer_torch.kernels import paged_major
     from tpu_raytracer_torch.render.compiled import launch_counts
 
     before = launch_counts()
     assert list(before) == ["K1", "K1_carry", "K1_bounded", "K2", "K3", "K3_carry", "K4", "K5",
-                            "K6", "K6_plan", "S1", "S2", "S3", "S4"]
+                            "K6", "K6_plan", "S1", "S2", "S3", "S4", "S5"]
     assert before == build.LAUNCHES and before is not build.LAUNCHES
     sc, o, d, h = rays_and_hits("cube", "uv_n")
     o1, d1 = frame.generate_rays_host(W, H, *ray_args(scene("cube")[2]))
     at = frame.hit_attributes_host(sc, o1, d1, h)
     frame.shade_primary_host(sc, at, shade.DEFAULT_LIGHT_DIRECTION, "blinn_phong", True, d1)
     frame.sample_cosine_host(prng.PRNGKey(1), (1,), at.normal, lobe=True)
+    frame.whitted_shade_host(sc, d1, at, torch.ones(H, W))
     pages = sc.with_paging(page_tris=32, page_nodes=64)
     _, o_t, d_t = paged_major._tile_rays(o, d)
     item_pid, item_iid, tile_start, tile_item = paged_major.page_major_plan_cuda(pages, o_t, d_t)
@@ -661,7 +777,8 @@ def test_router_names_keep_their_signatures():
     for router, plain in ((camera.generate_rays, camera.generate_rays_torch),
                           (renderer.hit_attributes, renderer.hit_attributes_torch),
                           (shade.shade_primary, shade.shade_primary_torch),
-                          (integrators.sample_cosine, integrators.sample_cosine_torch)):
+                          (integrators.sample_cosine, integrators.sample_cosine_torch),
+                          (integrators.whitted_shade, integrators.whitted_shade_torch)):
         assert inspect.signature(router) == inspect.signature(plain)
 
 
@@ -675,7 +792,8 @@ def test_router_modules_name_every_module_that_binds_a_router():
 
     routers = {"generate_rays": camera.generate_rays, "hit_attributes": renderer.hit_attributes,
                "shade_primary": shade.shade_primary,
-               "sample_cosine": integrators.sample_cosine}
+               "sample_cosine": integrators.sample_cosine,
+               "whitted_shade": integrators.whitted_shade}
     bound = set()
     for info in pkgutil.walk_packages(tpu_raytracer_torch.__path__, "tpu_raytracer_torch."):
         mod = importlib.import_module(info.name)
@@ -757,6 +875,23 @@ def test_wrappers_reject_bad_dtypes_shapes_and_devices():
                                  tex_filter="trilinear")
     with pytest.raises(ValueError, match="cuda"):
         frame.shade_primary_cuda(sc, at, None)
+    illum = torch.ones(H, W)
+    with pytest.raises(ValueError, match="float32"):
+        frame.whitted_shade_host(sc, d, at, illum.double())
+    with pytest.raises(ValueError, match="shape"):
+        frame.whitted_shade_host(sc, d, at._replace(uv=at.uv[..., :1]), illum)
+    with pytest.raises(ValueError, match="int64"):
+        frame.whitted_shade_host(sc, d, at._replace(material=at.material.int()), illum)
+    with pytest.raises(ValueError, match="filter"):
+        frame.whitted_shade_host(sc, d, at, illum, tex_filter="cubic")
+    state, _ = frame.whitted_shade_host(sc, d, at, illum)
+    with pytest.raises(ValueError, match="contiguous"):  # updated in place: no copy
+        frame.whitted_shade_host(sc, d, at, illum, (state[0].transpose(0, 1).contiguous()
+                                                    .transpose(0, 1), *state[1:]))
+    with pytest.raises(ValueError, match="shape"):
+        frame.whitted_shade_host(sc, d, at, illum, (state[0], state[1], state[2][:-1]))
+    with pytest.raises(ValueError, match="cuda"):
+        frame.whitted_shade_cuda(sc, d, at, illum)
 
 
 def test_sample_wrapper_rejects_bad_inputs():

@@ -7,8 +7,9 @@ serve, K1 on a flattened scene, K1, K4 and K6 on a presplit colonnade,
 the PNG and OBJ readers on a machine without OpenCV or PIL, the
 big-scene route (a scene past the leaf code's rows cast by K4 alone), and
 the frame stages' kernels S1 (raygen), S2 (hit attributes), S3 (primary
-shade) and S4 (the path tracer's and AO's sample draws) bit for bit
-against their plain versions, misses included, and K1 and K2 bounded by
+shade), S4 (the path tracer's and AO's sample draws) and S5 (the Whitted
+shade) bit for bit against their plain versions, misses included, and K1
+and K2 bounded by
 AO's radius against their bounded plain versions, with the bounded
 launches a compiled AO frame counts.
 
@@ -983,6 +984,73 @@ def test_frame_kernels_take_per_ray_origins(cuda):
         assert (h.tri < 0).any() and (h.tri >= 0).any()
         assert _same_bits(tuple(hit_attributes(scene, ro, rd, h)),
                           tuple(hit_attributes_torch(scene, ro, rd, h)))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("which", ["config4", "sky_demo"])
+def test_whitted_shade_kernel_matches_plain_version_bitwise(cuda, which, exact):
+    """S5 against ``whitted_shade_torch`` on each bounce of a 1920x1088
+    Whitted frame, config 4's (flat sky, nearest texels) and the demo's
+    under its sky map (trilinear, sampled bilinear; its materials made
+    mirrors): the state and the next rays bit for bit, misses and parked
+    rays included, one launch a call."""
+    import dataclasses
+
+    from tpu_raytracer_torch.render.integrators import (
+        _direct_illumination, whitted_shade, whitted_shade_torch,
+    )
+
+    if which == "config4":
+        scene, cam = scene_instances(1920, 1088, device=cuda)
+        filt = "nearest"
+    else:
+        scene, cam, _ = _frame_set("fisheye_demo", cuda)
+        k = scene.mat_albedo.shape[0]
+        scene = dataclasses.replace(scene, mat_reflectivity=torch.tensor(
+            [(0.8, 0.5, 0.0)[i % 3] for i in range(k)], device=cuda))
+        filt = "trilinear"
+    p = cam.ray_params(cuda)
+    o, d = generate_rays(cam.width, cam.height, p["K_inv"], p["D"], p["pose"], p["inv_pose"],
+                         exact=exact)
+    state, misses = None, 0
+    for bounce in range(3):
+        h = tlas.cast_rays_tlas_cuda(scene, o, d, want_normals=True)
+        attrs = hit_attributes(scene, o, d, h, exact)
+        illum = _direct_illumination(scene, tlas.cast_rays_tlas_cuda, attrs,
+                                     DEFAULT_LIGHT_DIRECTION, (), exact, True, clamp_floor=0.4)
+        last = bounce == 2
+        want = whitted_shade_torch(scene, d, attrs, illum, state, exact, filt, last)
+        before = LAUNCHES["S5"]
+        mine = None if state is None else tuple(x.clone() for x in state)
+        got = whitted_shade(scene, d, attrs, illum, mine, exact, filt, last)
+        assert LAUNCHES["S5"] == before + 1
+        assert _same_bits(got[0], want[0]), bounce
+        assert (got[1] is None) == last and (last or _same_bits(got[1], want[1])), bounce
+        state, misses = want[0], misses + int((~attrs.hit).sum())
+        if not last:
+            o, d = want[1]
+        assert bounce or (state[2].any() and (~state[2]).any())  # mirrors among the hits
+    assert misses > 0  # config 4's primary rays hit everywhere, its reflection rays miss
+
+
+def test_compiled_whitted_entry_shades_with_s5(cuda, monkeypatch):
+    """The compiled config 4 Whitted frame at 1920x1088: a replay launches
+    K3 six times (three carrying), S1 once, S2 and S5 three times, and
+    equals the eager frame and the frame through the plain shade."""
+    from tpu_raytracer_torch.render import integrators, pipeline
+
+    pipeline.clear_compiled()
+    scene, cam = scene_instances(1920, 1088, device=cuda)
+    p = cam.ray_params(cuda)
+    args = (RenderConfig(1920, 1088), scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    img = pipeline.compiled_render_image_whitted(*args)
+    entry = pipeline.compiled_render_image_whitted.last
+    assert entry.launches == {"K3": 6, "K3_carry": 3, "S1": 1, "S2": 3, "S5": 3}
+    assert torch.equal(img, pipeline.render_image_whitted(*args))
+    with monkeypatch.context() as m:
+        m.setattr(integrators, "whitted_shade", integrators.whitted_shade_torch)
+        assert torch.equal(img, pipeline.render_image_whitted(*args))
+    pipeline.clear_compiled()
 
 
 @pytest.mark.parametrize("lighting", ["flat", "lambert_shadow"])

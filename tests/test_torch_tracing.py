@@ -157,17 +157,16 @@ def _stage_sequence(frame):
 
 
 def test_an_eager_whitted_frame_records_its_stages_in_order(record):
-    """The first cast's rays and the radiance's state, then each bounce:
-    the nearest cast, the attributes, the light (its shadow rays' any-hit
-    cast nested in it), the shading; then the output."""
+    """The first cast's rays, then each bounce: the nearest cast, the
+    attributes, the light (its shadow rays' any-hit cast nested in it), the
+    shading (the first makes the radiance's state); then the output."""
     scene, cam = scene_instances(16, 12, device="cpu")
     cfg = RenderConfig(cam.width, cam.height, backend="cuda")
     got = _stage_sequence(lambda: pipeline.render_image_whitted(cfg, scene, *_args(cam, "cpu"),
                                                                 2, True))
     bounce = [("cast", None), ("attrs", None), ("light", None), ("cast", "light"),
               ("shade", None)]
-    assert got == ([("raygen", None), ("cast", None), ("shade", None)] + 3 * bounce
-                   + [("output", None)])
+    assert got == [("raygen", None), ("cast", None)] + 3 * bounce + [("output", None)]
 
 
 def test_a_path_frames_stages_are_as_they_were(record):

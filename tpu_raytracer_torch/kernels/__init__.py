@@ -18,6 +18,7 @@ leaves to XLA's fusions of its jitted frame, are kernels too:
 | S2 hit attributes (redo and carried branches) | ``render/renderer.py:hit_attributes`` | ``csrc/frame.cu``, ``csrc/frame.cuh`` | ``frame.hit_attributes_cuda`` / ``render/renderer.py:hit_attributes_torch`` |
 | S3 primary shade (every lighting mode, point lights, the three texture filters, the sky map) | ``render/shade.py:shade_primary`` | ``csrc/frame.cu``, ``csrc/frame.cuh`` | ``frame.shade_primary_cuda`` / ``render/shade.py:shade_primary_torch`` |
 | S4 sample (threefry, uniform and the cosine sample of one draw, the path tracer's lobe uniforms) | ``render/integrators.py:_cosine_sample`` and the ``jax.random`` draws around it | ``csrc/frame.cu``, ``csrc/frame.cuh`` | ``frame.sample_cosine_cuda`` / ``render/integrators.py:sample_cosine_torch`` |
+| S5 Whitted shade (one bounce: the sky, the texel, the radiance and throughput sums, the parked reflected rays) | the shade body of ``render/integrators.py:render_whitted`` | ``csrc/frame.cu``, ``csrc/frame.cuh`` | ``frame.whitted_shade_cuda`` / ``render/integrators.py:whitted_shade_torch`` |
 
 All are built into one library, one nvcc per source (``build.py``):
 every TPU kernel of the JAX package has its counterpart.

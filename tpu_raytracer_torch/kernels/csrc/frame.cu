@@ -1,5 +1,6 @@
 // CUDA entry points of the frame's stages S1 (raygen), S2 (hit attributes),
-// S3 (primary shade) and S4 (sample), whose per-ray math is frame.cuh.
+// S3 (primary shade), S4 (sample) and S5 (Whitted shade), whose per-ray
+// math is frame.cuh.
 //
 // S1 replaces render/camera.py generate_rays_torch (the JAX package's
 // tpu_raytracer/render/camera.py:113 generate_rays, which XLA fuses ahead
@@ -38,6 +39,15 @@
 // with the chain's words into shared memory. The grid is capped at
 // kSampleBlocksPerSM blocks per SM, each striding over the rays, so that
 // derivation is paid by ~1,000 blocks rather than one block per 256 rays.
+//
+// S5 (render/integrators.py whitted_shade_torch, the shade body of one
+// Whitted bounce, ~100 eager PyTorch ops) is bounded by bytes too: one
+// thread per ray reads ~90 bytes (the direction, the hit attributes, the
+// light term, the radiance and throughput carried over) and writes ~50
+// (radiance, throughput, the active flag, the next bounce's parked ray),
+// with the sky, the texel, the sums and the reflected ray in registers.
+// The first bounce reads no state (it starts from 0, 1 and true), and the
+// last writes no rays.
 //
 // Built with K1-K6 into one library (kernels/build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -84,6 +94,13 @@ frame_shade_kernel(fr::ShadeScene s, fr::ShadeParams p, fr::ShadeRays in, int64_
                    uint8_t* __restrict__ out) {
   const int64_t r = thread_index();
   if (r < num_rays) fr::shade(s, p, in, r, out);
+}
+
+__global__ void __launch_bounds__(kThreads)
+frame_whitted_shade_kernel(fr::ShadeScene s, fr::ShadeParams p, fr::ShadeRays in,
+                           fr::WhittedState w) {
+  const int64_t r = thread_index();
+  if (r < in.num_rays) fr::whitted_shade(s, p, in, w, r);
 }
 
 constexpr int kSampleBlocksPerSM = 8;
@@ -194,5 +211,35 @@ extern "C" int frame_shade_launch(
   if (!fr::shade_args_ok(s, p, in)) return static_cast<int>(cudaErrorInvalidValue);
   frame_shade_kernel<<<blocks_for(num_rays), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       s, p, in, num_rays, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// S5 on `stream` over one Whitted bounce of `num_rays` rays: `radiance`,
+// `throughput` [num_rays, 3] and `active` updated in place (at `first`
+// written from 0, 1 and true), and unless `last` the next bounce's rays in
+// `origin_out` and `dirs_out` [num_rays, 3]. `filter` fr::Filter
+// (trilinear samples bilinear); the tables are S3's, then the materials'
+// reflectivity and illumination [K].
+extern "C" int frame_whitted_shade_launch(
+    const float* mat_albedo, const int32_t* mat_tex_start, const int32_t* mat_tex_w,
+    const int32_t* mat_tex_h, const int32_t* mat_tex_mip_start, int num_levels,
+    const int32_t* tex_atlas, int64_t atlas_size, int textured, const int32_t* sky_tex_start,
+    const int32_t* sky_tex_w, const int32_t* sky_tex_h, int has_sky,
+    const float* mat_reflectivity, const float* mat_illumination, const float* dirs,
+    const uint8_t* hit, const float* location, const float* normal, const float* uv,
+    const int64_t* material, const float* illum, int64_t num_rays, int filter, int exact,
+    int first, int last, float* radiance, float* throughput, uint8_t* active,
+    float* origin_out, float* dirs_out, void* stream) {
+  const fr::ShadeScene s{mat_albedo, mat_tex_start, mat_tex_w, mat_tex_h, mat_tex_mip_start,
+                         num_levels, tex_atlas, atlas_size, textured, sky_tex_start, sky_tex_w,
+                         sky_tex_h, has_sky};
+  const fr::ShadeParams p{fr::kFlat, 0, {0.0f, 0.0f, 0.0f}, exact, 0.0f, 0.0f, filter, 0, 0, 0, 0};
+  const fr::ShadeRays in{hit, normal, uv, material, nullptr, location, dirs, nullptr, nullptr,
+                         nullptr, num_rays};
+  const fr::WhittedState w{illum, mat_reflectivity, mat_illumination, radiance, throughput,
+                           active, origin_out, dirs_out, first, last};
+  if (!fr::whitted_args_ok(s, p, in, w)) return static_cast<int>(cudaErrorInvalidValue);
+  frame_whitted_shade_kernel<<<blocks_for(num_rays), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(s, p, in, w);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-// The per-ray math of the frame's stages S1-S3, for nvcc and g++.
+// The per-ray math of the frame's stages S1-S5, for nvcc and g++.
 //
 //   S1 raygen (raygen): one primary ray direction per pixel. Replaces
 //      render/camera.py generate_rays_torch, the port of the JAX package's
@@ -22,6 +22,15 @@
 //      uniform, integrators._cosine_sample), the port of
 //      tpu_raytracer/render/integrators.py's _cosine_sample and the jax.random
 //      draws XLA fuses around it.
+//   S5 Whitted shade (whitted_shade): one bounce of render/integrators.py
+//      render_whitted after its light stage: the sky on a miss (flat, as
+//      f32 radiance, or the sky map), the surface colour (nearest, or
+//      bilinear: secondary rays have no screen derivatives), the clamped
+//      illumination, the material's reflectivity and emission, the two
+//      radiance sums and the throughput, and the next bounce's reflected
+//      rays, offset and parked. Replaces render/integrators.py
+//      whitted_shade_torch, the port of the shade body of
+//      tpu_raytracer/render/integrators.py's render_whitted.
 //
 // Each function repeats its plain version's f32 operations in their order,
 // one rounding per PyTorch op: sums of dot products left to right (core/
@@ -519,10 +528,10 @@ FR_HD uint8_t sky(int k) { return k == 0 ? 255 : (k == 1 ? 204 : 153); }
 // PyTorch's float -> uint8: through int64, wrapping.
 FR_HD uint8_t to_u8(float x) { return static_cast<uint8_t>(static_cast<int64_t>(x)); }
 
-// render/shade.py sky_radiance on the sky map, as u8: yaw about z from +y
-// for u, 0 at the zenith for v clamped half a texel from the poles, one
-// bilinear sample.
-FR_HD void sky_map(const ShadeScene& s, const float* dir, bool exact, uint8_t* out) {
+// render/shade.py sky_radiance on the sky map: yaw about z from +y for u,
+// 0 at the zenith for v clamped half a texel from the poles, one bilinear
+// sample.
+FR_HD void sky_map_radiance(const ShadeScene& s, const float* dir, bool exact, float* tex) {
   float d[3];
   load3(dir, d);
   normalize(d, exact);
@@ -532,8 +541,13 @@ FR_HD void sky_map(const ShadeScene& s, const float* dir, bool exact, uint8_t* o
   const int32_t h = *s.sky_tex_h;
   const float half = 0.5f / static_cast<float>(h > 1 ? h : 1);
   v = min_nan(max_nan(v, half), 1.0f - half);
-  float tex[3];
   sample_bilinear(s, *s.sky_tex_start, *s.sky_tex_w, h, u, v, tex);
+}
+
+// The sky map as u8 (render/shade.py shade_primary_torch).
+FR_HD void sky_map(const ShadeScene& s, const float* dir, bool exact, uint8_t* out) {
+  float tex[3];
+  sky_map_radiance(s, dir, exact, tex);
   for (int k = 0; k < 3; ++k) out[k] = to_u8(tex[k] * 255.0f);
 }
 
@@ -748,6 +762,129 @@ FR_HD void sample(const SampleArgs& a, const uint32_t* keys, int64_t r) {
 FR_HD bool sample_args_ok(const SampleChain& c, const SampleArgs& a) {
   return c.len >= 0 && c.len <= kMaxChain && a.num_rays > 0 && a.inner > 0
          && a.num_rays % a.inner == 0 && a.normal != nullptr && a.dirs != nullptr;
+}
+
+// ---------------------------------------------------------------------------
+// S5 Whitted shade
+// ---------------------------------------------------------------------------
+
+constexpr float kShadowEps = 1e-4f;   // render/shade.py SHADOW_EPS
+constexpr float kParkOrigin = 1.0e9f;  // render/sorted_cast.py PARK_ORIGIN
+constexpr float kParkDir = 1.0f;       // each lane of PARK_DIRECTION
+
+// render/shade.py sky_radiance's flat sky, lane k: SKY_COLOR / 255.0 as
+// ATen rounds a tensor over a Python scalar: on the card a multiply by the
+// f32 reciprocal, on the host an IEEE divide (lane 1 differs by an ulp).
+FR_HD float flat_sky(int k) {
+  const float c = static_cast<float>(sky(k));
+#if defined(__CUDA_ARCH__)
+  return c * (1.0f / 255.0f);
+#else
+  return c / 255.0f;
+#endif
+}
+
+// One bounce's light term and state, beside its rays and hit attributes
+// (ShadeRays: dirs, hit, location, normal, uv, material). `radiance`,
+// `throughput` [R, 3] and `active` are read (but at the first bounce,
+// which starts from 0, 1 and true) and written in place; `origin_out` and
+// `dirs_out` [R, 3] take the next bounce's rays, and are not written at
+// the last bounce.
+struct WhittedState {
+  const float* illum;             // [R] the light stage's term, unclamped
+  const float* mat_reflectivity;  // [K]
+  const float* mat_illumination;  // [K]
+  float* radiance;
+  float* throughput;
+  uint8_t* active;
+  float* origin_out;
+  float* dirs_out;
+  int first;
+  int last;
+};
+
+// Bounce r of render/integrators.py whitted_shade_torch. `p` holds exact
+// and the texture filter with width 0 (trilinear samples bilinear). A
+// lane's `x + where(c, y, 0)` is `x + (c ? y : 0)`, so a -0 sum rounds as
+// PyTorch's does.
+FR_HD void whitted_shade(const ShadeScene& s, const ShadeParams& p, const ShadeRays& in,
+                         const WhittedState& w, int64_t r) {
+  const bool hit = in.hit[r] != 0;
+  const bool active = w.first || w.active[r] != 0;
+  float rad[3], thr[3];
+  for (int k = 0; k < 3; ++k) {
+    rad[k] = w.first ? 0.0f : w.radiance[3 * r + k];
+    thr[k] = w.first ? 1.0f : w.throughput[3 * r + k];
+  }
+  const bool miss = active && !hit;
+  float sky_rgb[3] = {0.0f, 0.0f, 0.0f};
+  if (miss) {
+    if (s.has_sky && *s.sky_tex_start >= 0) {
+      sky_map_radiance(s, in.dirs + 3 * r, p.exact != 0, sky_rgb);
+    } else {
+      for (int k = 0; k < 3; ++k) sky_rgb[k] = flat_sky(k);
+    }
+  }
+  for (int k = 0; k < 3; ++k) rad[k] = rad[k] + (miss ? thr[k] * sky_rgb[k] : 0.0f);
+
+  const bool live = active && hit;
+  float color[3] = {0.0f, 0.0f, 0.0f}, local[3] = {0.0f, 0.0f, 0.0f}, refl = 0.0f;
+  if (live) {
+    surface_color(s, p, in, r, color);
+    const int64_t m = in.material[r];
+    refl = w.mat_reflectivity[m];
+    const float emit = w.mat_illumination[m];
+    const float illum = clamp_max(clamp_min(w.illum[r], kIllumFloor), kIllumCeil);
+    for (int k = 0; k < 3; ++k) local[k] = color[k] * illum * (1.0f - refl) + emit;
+  }
+  for (int k = 0; k < 3; ++k) {
+    rad[k] = rad[k] + (live ? thr[k] * local[k] : 0.0f);
+    w.radiance[3 * r + k] = rad[k];
+  }
+  if (w.last) {
+    if (w.first) {
+      for (int k = 0; k < 3; ++k) w.throughput[3 * r + k] = thr[k];
+      w.active[r] = 1;
+    }
+    return;
+  }
+
+  for (int k = 0; k < 3; ++k) {
+    w.throughput[3 * r + k] = thr[k] * (live ? color[k] * refl : 0.0f);
+  }
+  const bool next = live && refl > 0.0f;
+  w.active[r] = next ? 1 : 0;
+  float* o = w.origin_out + 3 * r;
+  float* d = w.dirs_out + 3 * r;
+  if (!next) {
+    for (int k = 0; k < 3; ++k) {
+      o[k] = kParkOrigin;
+      d[k] = kParkDir;
+    }
+    return;
+  }
+  float dir[3], n[3], loc[3], out[3];
+  load3(in.dirs + 3 * r, dir);
+  load3(in.normal + 3 * r, n);
+  load3(in.location + 3 * r, loc);
+  const float twice = 2.0f * dot3(dir, n);
+  for (int k = 0; k < 3; ++k) out[k] = dir[k] - twice * n[k];
+  normalize(out, p.exact != 0);
+  for (int k = 0; k < 3; ++k) {
+    o[k] = loc[k] + out[k] * kShadowEps;
+    d[k] = out[k];
+  }
+}
+
+FR_HD bool whitted_args_ok(const ShadeScene& s, const ShadeParams& p, const ShadeRays& in,
+                           const WhittedState& w) {
+  return in.num_rays > 0 && p.filter >= kNearest && p.filter <= kTrilinear && p.width == 0
+         && s.num_levels > 0 && !(s.has_sky && s.sky_tex_start == nullptr)
+         && in.dirs != nullptr && in.hit != nullptr && in.material != nullptr
+         && in.uv != nullptr && w.illum != nullptr && w.radiance != nullptr
+         && w.throughput != nullptr && w.active != nullptr
+         && (w.last || (w.origin_out != nullptr && w.dirs_out != nullptr
+                        && in.location != nullptr && in.normal != nullptr));
 }
 
 }  // namespace fr

@@ -1,6 +1,6 @@
 """The frame's stages around the cast as hand-written kernels: S1 raygen,
-S2 hit attributes, S3 primary shade and S4 sample (``csrc/frame.cu``,
-per-ray math in ``csrc/frame.cuh``).
+S2 hit attributes, S3 primary shade, S4 sample and S5 Whitted shade
+(``csrc/frame.cu``, per-ray math in ``csrc/frame.cuh``).
 
 The JAX package jits its frame, so XLA fuses the work on each side of the
 Pallas cast into a few passes: raygen before it
@@ -29,11 +29,19 @@ as one kernel each:
     of words (``split(key, n)[i]`` is ``fold_in(key, i)``), every uint32
     word of the hash in registers. The key is read through a device
     pointer and derived once per block; the normals through their
-    strides, so a batch expanded over the samples is not copied.
+    strides, so a batch expanded over the samples is not copied;
+  * ``whitted_shade_cuda`` (S5) of ``render/integrators.py whitted_shade``
+    (plain: ``whitted_shade_torch``), one Whitted bounce's ``shade`` stage:
+    the sky on a miss (flat or the sky map), the surface colour (nearest,
+    or bilinear for the bilinear and trilinear filters), the clamped light
+    term, the materials' reflectivity and emission, the radiance and
+    throughput sums updated in place, and the next bounce's reflected rays,
+    offset and parked. The first bounce takes no state, the last writes
+    no rays.
 
 Each public name routes: a CUDA tensor launches the kernel on the current
 stream (outputs allocated with ``torch.empty``) and counts the launch in
-``build.LAUNCHES`` (``S1``, ``S2``, ``S3`` or ``S4``), or raises;
+``build.LAUNCHES`` (``S1`` to ``S5``), or raises;
 a CPU tensor takes the plain version; nothing falls back. Each kernel
 repeats its plain version's f32 operations in their order, built with
 ``--fmad=false``, so the two agree bit for bit on the card, misses
@@ -63,8 +71,8 @@ FILTERS = {"nearest": 0, "bilinear": 1, "trilinear": 2}
 NORMAL_MODES = {"reference": 0, "inverse_transpose": 1}
 
 # The modules that bind the routers ``generate_rays``, ``hit_attributes``,
-# ``shade_primary`` and ``sample_cosine`` by name, for code that swaps in
-# the plain versions.
+# ``shade_primary``, ``sample_cosine`` and ``whitted_shade`` by name, for
+# code that swaps in the plain versions.
 ROUTER_MODULES = ("render", "render.camera", "render.renderer", "render.shade",
                   "render.pipeline", "render.integrators", "parallel.sharding",
                   "parallel.scene_shard", "bench_paged")
@@ -232,6 +240,29 @@ def hit_attributes_host(scene, origin, directions, hit, exact: bool = True,
 # ---------------------------------------------------------------------------
 
 
+def _material_tables(scene, has_sky: bool) -> tuple:
+    """The leading arguments of S3's and S5's launchers, checked: the
+    material tables, their mip levels, the texture atlas and its size,
+    ``textured``, the sky map's start, width and height (None unless
+    ``has_sky``) and ``has_sky``; and {name: tensor} of the tables whose
+    device the caller checks."""
+    tables = [_tensor("mat_albedo", scene.mat_albedo, torch.float32)]
+    tables += [_tensor(k, getattr(scene, k), torch.int32)
+               for k in ("mat_tex_start", "mat_tex_w", "mat_tex_h", "mat_tex_mip_start")]
+    mips = tables[-1]
+    if mips.dim() != 2 or mips.shape[0] != tables[0].shape[0] or mips.shape[1] < 1:
+        raise ValueError(f"mat_tex_mip_start must be [K, levels], got {tuple(mips.shape)}")
+    atlas = _tensor("tex_atlas", scene.tex_atlas, torch.int32)
+    textured = bool(scene.has_textures)
+    if textured and atlas.numel() == 0:
+        raise ValueError("a textured scene needs a texture atlas")
+    sky = [_tensor(k, getattr(scene, k), torch.int32, ()) if has_sky else None
+           for k in ("sky_tex_start", "sky_tex_w", "sky_tex_h")]
+    args = [*map(_ptr, tables), mips.shape[1], atlas.data_ptr(), atlas.numel(), int(textured),
+            *map(_ptr, sky), int(has_sky)]
+    return args, {"scene": tables[0], "sky": sky[0]}
+
+
 def _shade(scene, attrs, light_direction, mode: str, exact: bool, directions, lit,
            point_lights, point_occ_t, tex_filter: str, host: bool):
     from ..core.vecmath import constant
@@ -286,27 +317,14 @@ def _shade(scene, attrs, light_direction, mode: str, exact: bool, directions, li
         point_occ_t = _tensor("point_occ_t", point_occ_t, torch.float32, (n_lights,) + shape)
     else:
         point_occ_t = None
-    tables = [_tensor("mat_albedo", scene.mat_albedo, torch.float32)]
-    tables += [_tensor(k, getattr(scene, k), torch.int32)
-               for k in ("mat_tex_start", "mat_tex_w", "mat_tex_h", "mat_tex_mip_start")]
-    mips = tables[-1]
-    if mips.dim() != 2 or mips.shape[0] != tables[0].shape[0] or mips.shape[1] < 1:
-        raise ValueError(f"mat_tex_mip_start must be [K, levels], got {tuple(mips.shape)}")
-    atlas = _tensor("tex_atlas", scene.tex_atlas, torch.int32)
-    textured = bool(scene.has_textures)
-    if textured and atlas.numel() == 0:
-        raise ValueError("a textured scene needs a texture atlas")
-    sky = [_tensor(k, getattr(scene, k), torch.int32, ()) if has_sky else None
-           for k in ("sky_tex_start", "sky_tex_w", "sky_tex_h")]
+    tables, scene_tensors = _material_tables(scene, has_sky)
     _same_device(dev, normal=normal, uv=uv, material=material, inst=inst, location=location,
-                 directions=directions, lit=lit, point_occ_t=point_occ_t, scene=tables[0],
-                 sky=sky[0])
+                 directions=directions, lit=lit, point_occ_t=point_occ_t, **scene_tensors)
     run = _entry(dev, host, "shade", "S3")
     out = torch.empty(shape + (3,), dtype=torch.uint8, device=dev)
     r = hit.numel()
     if r > 0:
-        run(*map(_ptr, tables), mips.shape[1], atlas.data_ptr(), atlas.numel(), int(textured),
-            *map(_ptr, sky), int(has_sky), hit.data_ptr(), normal.data_ptr(), uv.data_ptr(),
+        run(*tables, hit.data_ptr(), normal.data_ptr(), uv.data_ptr(),
             material.data_ptr(), _ptr(inst), _ptr(location), _ptr(directions), _ptr(lit),
             _ptr(lights), _ptr(point_occ_t), r, MODES[mode], int(has_light), *light,
             int(exact), BLINN_SPECULAR, BLINN_SHININESS, FILTERS[tex_filter], height, width,
@@ -377,3 +395,75 @@ def sample_cosine_cuda(key, chain, normal, exact: bool = True, lobe: bool = Fals
 def sample_cosine_host(key, chain, normal, exact: bool = True, lobe: bool = False):
     """S4's per-ray code built for the host, on CPU tensors."""
     return _sample(key, chain, normal, exact, lobe, host=True)
+
+
+# ---------------------------------------------------------------------------
+# S5 Whitted shade
+# ---------------------------------------------------------------------------
+
+
+def _whitted_shade(scene, directions, attrs, illum, state, exact: bool, tex_filter: str,
+                   last: bool, host: bool):
+    from .build import check_inputs
+
+    if tex_filter not in FILTERS:
+        raise ValueError(f"unknown texture filter: {tex_filter!r}")
+    if not isinstance(directions, torch.Tensor) or directions.shape[-1:] != (3,):
+        raise ValueError("directions must be a [..., 3] tensor")
+    directions = _tensor("directions", directions, torch.float32)
+    shape, dev = directions.shape[:-1], directions.device
+    hit = _tensor("attrs.hit", attrs.hit, torch.bool, shape)
+    location = _tensor("attrs.location", attrs.location, torch.float32, directions.shape)
+    normal = _tensor("attrs.normal", attrs.normal, torch.float32, directions.shape)
+    uv = _tensor("attrs.uv", attrs.uv, torch.float32, shape + (2,))
+    material = _tensor("attrs.material", attrs.material, torch.int64, shape)
+    illum = _tensor("illum", illum, torch.float32, shape)
+    k = (scene.mat_albedo.shape[0],)
+    refl = _tensor("mat_reflectivity", scene.mat_reflectivity, torch.float32, k)
+    emit = _tensor("mat_illumination", scene.mat_illumination, torch.float32, k)
+    tables, scene_tensors = _material_tables(scene, bool(scene.has_sky))
+    first = state is None  # the kernel starts from 0, 1 and true
+    if first:
+        state = (torch.empty(directions.shape, dtype=torch.float32, device=dev),
+                 torch.empty(directions.shape, dtype=torch.float32, device=dev),
+                 torch.empty(shape, dtype=torch.bool, device=dev))
+    radiance, throughput, active = state
+    # updated in place: no copy may stand in for them
+    check_inputs(dev, ("radiance", radiance, torch.float32),
+                 ("throughput", throughput, torch.float32), ("active", active, torch.bool))
+    for name, x, want in (("radiance", radiance, directions.shape),
+                          ("throughput", throughput, directions.shape),
+                          ("active", active, shape)):
+        if x.shape != want:
+            raise ValueError(f"{name} must have shape {tuple(want)}, got {tuple(x.shape)}")
+    _same_device(dev, hit=hit, location=location, normal=normal, uv=uv, material=material,
+                 illum=illum, mat_reflectivity=refl, mat_illumination=emit, **scene_tensors)
+    run = _entry(dev, host, "whitted_shade", "S5")
+    rays = None if last else (torch.empty(directions.shape, dtype=torch.float32, device=dev),
+                              torch.empty(directions.shape, dtype=torch.float32, device=dev))
+    r = hit.numel()
+    if r > 0:
+        run(*tables, refl.data_ptr(), emit.data_ptr(), directions.data_ptr(), hit.data_ptr(),
+            location.data_ptr(), normal.data_ptr(), uv.data_ptr(), material.data_ptr(),
+            illum.data_ptr(), r, FILTERS[tex_filter], int(exact), int(first), int(last),
+            radiance.data_ptr(), throughput.data_ptr(), active.data_ptr(),
+            *(_ptr(x) for x in rays or (None, None)))
+    return state, rays
+
+
+def whitted_shade_cuda(scene, directions, attrs, illum, state=None, exact: bool = True,
+                       tex_filter: str = "nearest", last: bool = False):
+    """S5: one Whitted bounce's shade on the card (``render/integrators.py
+    whitted_shade``): ``state`` (radiance [..., 3], throughput [..., 3],
+    active [...]) updated in place, or made at the first bounce (None), and
+    the next bounce's rays (origins, directions), or None where ``last``:
+    (state, rays)."""
+    return _whitted_shade(scene, directions, attrs, illum, state, exact, tex_filter, last,
+                          host=False)
+
+
+def whitted_shade_host(scene, directions, attrs, illum, state=None, exact: bool = True,
+                       tex_filter: str = "nearest", last: bool = False):
+    """S5's per-ray code built for the host, on CPU tensors."""
+    return _whitted_shade(scene, directions, attrs, illum, state, exact, tex_filter, last,
+                          host=True)

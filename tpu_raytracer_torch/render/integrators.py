@@ -27,16 +27,18 @@ the path tracer's lobe uniforms), ``bounce`` (the rest of the path
 tracer's bounce arithmetic, AO's accumulation) and ``output`` (the mean
 over samples); Whitted's bounce is ``cast``, ``attrs``, ``light``
 (``_direct_illumination``: the shadow rays' set-up and the light term, its
-any-hit cast in a ``cast`` of its own) and ``shade`` (the sky, the surface
-colour, the radiance and throughput sums, the reflected rays and their
-parking).
+any-hit cast in a ``cast`` of its own) and ``shade`` (``whitted_shade``:
+the sky, the surface colour, the radiance and throughput sums, the
+reflected rays and their parking).
 ``sample_cosine`` routes: CUDA tensors launch kernel S4 (``kernels/frame.py
 sample_cosine_cuda``), one launch a draw, CPU tensors take the plain
 version ``sample_cosine_torch``. A draw's key is the frame's key folded
 with a static chain of words, ``split(key, n)[i]`` being ``fold_in(key,
 i)``: AO's sample s draws with ``(s,)``, the batched path tracer's bounce b
 with ``(b,)``, the sequential one's sample s with ``(s, b)``; the lens
-draws of depth of field stay on ``utils/prng.py``.
+draws of depth of field stay on ``utils/prng.py``. ``whitted_shade`` routes
+the same way: kernel S5 (``kernels/frame.py whitted_shade_cuda``), one
+launch a bounce, or the plain version ``whitted_shade_torch``.
 
 Not ported: the Whitted ray retiling and the TPU packet geometry of
 bounce casts.
@@ -116,7 +118,8 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
     continues with weight reflectivity. Illumination is clamped to
     [0.4, 1] as in the primary pass, so shadow rays with a cosine at or
     below 0.4 park (without point lights). Point lights' shadows take the
-    nearest-hit cast of the batch (``PointLight``)."""
+    nearest-hit cast of the batch (``PointLight``). Each bounce's shade is
+    ``whitted_shade``: kernel S5 on the card."""
     cast = get_cast_fn(backend, want_normals=True)
     cast2 = secondary_cast_fn(cast, backend, sort_secondary)
     occ_cast = occlusion_cast_fn(backend)
@@ -124,15 +127,9 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
     if _sharded_hooks is not None:
         dcast, occ_cast = _sharded_hooks["nearest"], _sharded_hooks["occ"]
     directions = torch.as_tensor(directions, dtype=torch.float32)
-    shape = directions.shape[:-1]
-    dev = directions.device
     with stage("cast"):  # the first cast's rays
         origin = torch.as_tensor(origin, dtype=torch.float32).expand(directions.shape).contiguous()
-    with stage("shade"):
-        radiance = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
-        throughput = torch.ones(shape + (3,), dtype=torch.float32, device=dev)
-        active = torch.ones(shape, dtype=torch.bool, device=dev)
-    o, d = origin, directions
+    o, d, state = origin, directions, None
     for bounce in range(max_bounces + 1):
         if _sharded_hooks is not None:
             attrs = _sharded_hooks["cast_attrs"](o, d)
@@ -145,27 +142,65 @@ def render_whitted(scene, origin, directions, max_bounces: int = 2, backend: str
         with stage("light"):  # its shadow rays' any-hit cast is stage cast
             illum = _direct_illumination(scene, dcast, attrs, light_direction, point_lights,
                                          exact, shadows, occ_cast=occ_cast, clamp_floor=0.4)
-        with stage("shade"):
-            miss = active & ~attrs.hit
-            sky = sky_radiance(scene, d, exact=exact)
-            radiance = radiance + torch.where(miss[..., None], throughput * sky, 0.0)
+        last = bounce == max_bounces
+        state, rays = whitted_shade(scene, d, attrs, illum, state, exact, tex_filter, last)
+        if not last:
+            o, d = rays
+    return state[0]
 
-            live = active & attrs.hit
-            color = surface_color(scene, attrs, tex_filter)
-            illum = torch.clamp(illum, 0.4, 1.0)
-            refl = scene.mat_reflectivity[attrs.material]
-            emit = scene.mat_illumination[attrs.material]
-            local = color * illum[..., None] * (1.0 - refl[..., None]) + emit[..., None]
-            radiance = radiance + torch.where(live[..., None], throughput * local, 0.0)
 
-            if bounce == max_bounces:
-                break
-            throughput = throughput * torch.where(live[..., None], color * refl[..., None], 0.0)
-            active = live & (refl > 0.0)
-            d = normalize(_reflect(d, attrs.normal), exact=exact)
-            o = attrs.location + d * SHADOW_EPS
-            o, d = park_dead_rays(o, d, active)
-    return radiance
+def whitted_shade(scene, directions, attrs, illum, state=None, exact: bool = True,
+                  tex_filter: str = "nearest", last: bool = False):
+    """One Whitted bounce's ``shade`` stage after its light term ``illum``
+    [...]: the radiance of the rays ``directions`` [..., 3] that missed and
+    of those that hit (``attrs``), and, unless ``last``, the reflected rays
+    of the next bounce, parked where the ray died or its surface is no
+    mirror. ``state`` is (radiance [..., 3], throughput [..., 3], active
+    [...]), None at the first bounce: (state, (origins, directions) or
+    None). CUDA tensors launch kernel S5 (``kernels/frame.py
+    whitted_shade_cuda``), which updates the state in place; CPU tensors
+    take the plain version ``whitted_shade_torch``."""
+    if directions.device.type == "cpu":
+        return whitted_shade_torch(scene, directions, attrs, illum, state, exact, tex_filter,
+                                   last)
+    from ..kernels.frame import whitted_shade_cuda
+
+    with stage("shade"):
+        return whitted_shade_cuda(scene, directions, attrs, illum, state, exact, tex_filter,
+                                  last)
+
+
+def whitted_shade_torch(scene, directions, attrs, illum, state=None, exact: bool = True,
+                        tex_filter: str = "nearest", last: bool = False):
+    """The plain version of ``whitted_shade`` (and of kernel S5): the
+    eager shade body of ``render_whitted``."""
+    with stage("shade"):
+        d = directions
+        if state is None:
+            shape, dev = d.shape[:-1], d.device
+            state = (torch.zeros(shape + (3,), dtype=torch.float32, device=dev),
+                     torch.ones(shape + (3,), dtype=torch.float32, device=dev),
+                     torch.ones(shape, dtype=torch.bool, device=dev))
+        radiance, throughput, active = state
+        miss = active & ~attrs.hit
+        sky = sky_radiance(scene, d, exact=exact)
+        radiance = radiance + torch.where(miss[..., None], throughput * sky, 0.0)
+
+        live = active & attrs.hit
+        color = surface_color(scene, attrs, tex_filter)
+        illum = torch.clamp(illum, 0.4, 1.0)
+        refl = scene.mat_reflectivity[attrs.material]
+        emit = scene.mat_illumination[attrs.material]
+        local = color * illum[..., None] * (1.0 - refl[..., None]) + emit[..., None]
+        radiance = radiance + torch.where(live[..., None], throughput * local, 0.0)
+
+        if last:
+            return (radiance, throughput, active), None
+        throughput = throughput * torch.where(live[..., None], color * refl[..., None], 0.0)
+        active = live & (refl > 0.0)
+        d = normalize(_reflect(d, attrs.normal), exact=exact)
+        o = attrs.location + d * SHADOW_EPS
+        return (radiance, throughput, active), park_dead_rays(o, d, active)
 
 
 def sample_cosine(key, chain, normal, exact: bool = True, lobe: bool = False):
