@@ -47,7 +47,7 @@ from tpu_raytracer_torch.render.pipeline import render_image_path_traced
 from tpu_raytracer_torch.render.renderer import get_cast_fn, occlusion_cast_fn
 from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene, procgen
 from tpu_raytracer_torch.scene.scene import SceneTensors, from_scene_arrays
-from tpu_raytracer_torch.utils import prng
+from tpu_raytracer_torch.utils import profiling, prng
 
 from test_pallas_interpret import _two_instance_scene
 from test_torch_scene import jax_fields
@@ -175,6 +175,39 @@ def test_scene_compile_auto_page(low_limit, tmp_path):
     assert loaded.paged is not None and loaded.wide4 is None
     for k in ("top_code", "code", "box", "page_tri0"):
         assert torch.equal(getattr(loaded.paged, k), getattr(scene.paged, k))
+
+
+def paging_spans() -> list:
+    return [s for s in profiling.spans() if s.name == "setup.paging"]
+
+
+def test_the_page_build_is_a_setup_span_inside_the_compile(low_limit):
+    """The host build of the page tables (``SceneTensors.with_paging``) is
+    the set-up span ``setup.paging``, inside ``setup.compile`` when the
+    compile pages a scene; its info the pages, the scene's triangle rows
+    and the tables' bytes. Tables already attached build nothing."""
+    profiling.clear()
+    scene = colonnade_scene().compile("cpu")
+    (span,) = paging_spans()
+    (compile_span,) = [s for s in profiling.spans() if s.name == "setup.compile"]
+    assert span.parent == "setup.compile" and span.t1_ns > span.t0_ns
+    assert compile_span.t0_ns <= span.t0_ns and span.t1_ns <= compile_span.t1_ns
+    pg = scene.paged
+    nbytes = sum(t.nbytes for t in vars(pg).values() if isinstance(t, torch.Tensor))
+    assert span.info == {"pages": pg.num_pages, "rows": scene.num_triangles, "bytes": nbytes}
+    assert span.info["rows"] >= LIMIT and span.info["bytes"] > 0
+    assert scene.with_paging() is scene and len(paging_spans()) == 1
+    binary = scene.with_paging(wide=False)  # called alone, a span of its own
+    assert [(s.parent, s.info["pages"]) for s in paging_spans()][1:] == [
+        (None, binary.paged.num_pages)]
+
+
+def test_a_resident_scene_opens_no_paging_span():
+    profiling.clear()
+    scene = colonnade_scene().compile("cpu")
+    assert not scene.needs_paging() and scene.paged is None and scene.wide4 is not None
+    assert paging_spans() == []
+    assert [s.name for s in profiling.spans()].count("setup.compile") == 1
 
 
 def test_resident_scenes_keep_their_tables():

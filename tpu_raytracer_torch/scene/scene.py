@@ -210,7 +210,10 @@ class SceneTensors:
         prepare_paged``; default capacities the JAX package's): 4-wide
         pages for K4 and K6 with ``wide``, binary pages for K5 without.
         Host work, once per scene: the scene itself comes back when tables
-        of that arity and those capacities are attached already."""
+        of that arity and those capacities are attached already. The build
+        is the set-up span ``setup.paging`` (inside ``setup.compile`` where
+        the compile attaches the tables), its info ``pages``, ``rows``
+        (the scene's triangle rows) and ``bytes`` (the tables' tensors)."""
         from ..kernels.paged import PAGE_NODES, PAGE_TRIS, prepare_paged
 
         tris = PAGE_TRIS if page_tris is None else page_tris
@@ -219,7 +222,12 @@ class SceneTensors:
         if pg is not None and (pg.arity, pg.page_tris, pg.page_nodes) == (
                 4 if wide else 2, tris, nodes):
             return self
-        return dataclasses.replace(self, paged=prepare_paged(self, tris, nodes, wide))
+        with setup("paging") as span:
+            pg = prepare_paged(self, tris, nodes, wide)
+            span.info = {"pages": pg.num_pages, "rows": self.num_triangles,
+                         "bytes": sum(t.nbytes for t in vars(pg).values()
+                                      if isinstance(t, torch.Tensor))}
+        return dataclasses.replace(self, paged=pg)
 
     def save(self, fp: str) -> None:
         """Write the array fields to an npz (the JAX ``SceneArrays.save``

@@ -30,9 +30,9 @@ any ``torch.profiler.profile`` around the port's calls.
     innermost stage. Nothing is added to the graph, so a replay costs the
     same with tracing on or off.
   * ``setup(name)``: a set-up span (``setup.bvh``, ``setup.compile``,
-    ``setup.library``, ``setup.capture``), recorded whether or not a
-    profiler runs; each runs once per scene, library or entry. It also
-    serves as a decorator.
+    ``setup.paging``, ``setup.library``, ``setup.capture``), recorded
+    whether or not a profiler runs; each runs once per scene, library or
+    entry. It also serves as a decorator.
   * ``trace(log_dir)``: a ``torch.profiler`` capture written as a trace
     that Perfetto or TensorBoard opens, holding the ``rt.*`` spans.
 
@@ -45,6 +45,9 @@ The spans and what reads them:
     ``render/integrators.py``, ``utils/prng.py``);
   * ``setup.bvh`` (``scene/mesh.py build_mesh_bvh``; info
     ``cache_hit``), ``setup.compile`` (``Scene.compile``),
+    ``setup.paging`` (``SceneTensors.with_paging``, the page tables'
+    host build: inside ``setup.compile`` for a scene that needs paging;
+    info ``pages``, ``rows``, ``bytes``),
     ``setup.library`` (``kernels/build.py load``; info ``kind``),
     ``setup.capture`` (``FrameEntry._capture``, whose duration is the
     entry's ``capture_s``).
