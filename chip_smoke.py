@@ -8,14 +8,15 @@ Drives the port's paths (``tpu_raytracer_torch``) through kernels K1 (the
 the paged kernels K4 (4-wide pages), K5 (binary pages) and K6
 (page-major), and the frame stages around the cast, S1 (raygen), S2 (hit
 attributes), S3 (primary shade), S4 (the path tracer's and AO's
-sample) and S5 (the Whitted shade), in phases, one line each:
+sample), S5 (the Whitted shade) and S6 (the path tracer's bounce), in
+phases, one line each:
 
   1. device: the card's name and power limit;
   2. build: K1 and K2 (``kernels/csrc/wide_traverse.cu``), K3
      (``kernels/csrc/tlas_traverse.cu``), K4/K5
      (``kernels/csrc/paged_traverse.cu``), K6
      (``kernels/csrc/paged_major.cu``), K6's plan
-     (``kernels/csrc/page_plan.cu``) and S1-S5 (``kernels/csrc/frame.cu``)
+     (``kernels/csrc/page_plan.cu``) and S1-S6 (``kernels/csrc/frame.cu``)
      compiled for sm_90a by one nvcc per source, all started together,
      and linked into one library, with
      ptxas's report of each kernel (registers, stack frame, spills, static
@@ -129,7 +130,13 @@ sample) and S5 (the Whitted shade), in phases, one line each:
      iterations) against their plain-cast frames;
  23. times: the path frame at 512x512 (config 5) and at 1920x1088 (the
      driver's 3 bounces, 4 samples) through both backends, and the
-     denoiser's 3 iterations on its radiance;
+     denoiser's 3 iterations on its radiance; then ``[path_bounce]``: S6
+     against its plain version (``path_bounce_torch``) on the bounces of
+     config 5's 2-sample path frame at 1920x1088 (the first on the primary
+     rows expanded over the samples, the second, the fast tail; with NEE
+     three full bounces), every output bit for bit, its launches in an
+     eager and a compiled path frame (three a frame), and
+     ``[frame_kernels_time]`` rows for each bounce beside its byte bound;
  24. ``[flatten]``: config 4 with its instances baked into one mesh
      (``scene_instances(flatten=True)``, bench_all's config 4b): K1
      carrying u, v and n against its plain version on the primary and
@@ -326,6 +333,8 @@ SLICE_SIZE = (1920, 1088)
 # The H100's published peaks (NVIDIA's data sheet, SXM, 700 W).
 F32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
+# bytes written between timed launches to evict the card's 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
 # f32 operations of the kernels' per-ray code, counted from
 # kernels/csrc/wide_traverse.cuh and paged_traverse.cuh (an add, multiply,
 # divide, min, max or compare counts one):
@@ -478,7 +487,7 @@ def main():
                 for kernel, k in carry_kernels})
     for kernel, r in report.items():
         r["shared_dynamic"] = dyn.get(kernel, 0)
-    phase("build", kernels="K1/K2+K3+K4/K5+K6+K6 plan+S1/S2/S3/S4/S5", seconds=f"{time.perf_counter() - t0:.2f}",
+    phase("build", kernels="K1/K2+K3+K4/K5+K6+K6 plan+S1/S2/S3/S4/S5/S6", seconds=f"{time.perf_counter() - t0:.2f}",
           lib=lib_path.name, commands=repr(compiles),
           ptxas=json.dumps(report, separators=(",", ":")))
     for src in build.CUDA_SOURCES:
@@ -735,6 +744,7 @@ def main():
 
     paged_kernels, paged_ctx = paged_phases(dev, card)
     k2_entries, path_ctx = path_phases(dev, card, (scene, origin, dirs), shadow1)
+    frame_entries += path_bounce_phase(dev, card, path_ctx)
     ao_bound_phase(dev, card)
     flatten_phases(dev, card, (inst4, o4, d4, args4, img_w, k3_per_set),
                    (inst16, cam16, o16, d16))
@@ -2288,7 +2298,7 @@ def _graph_shard_case(group, eager, fast, cfg, scene, args, extra) -> dict:
         diffs.append(_pixels(got, want))
         sums.append(hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest())
         if step == 0:
-            # the same frame through the plain stages: no S1-S5 launch
+            # the same frame through the plain stages: no S1-S6 launch
             s0 = _stage_counts()
             with plain_stages():
                 plain = eager(cfg, group, scene, *a, *extra)
@@ -2737,7 +2747,7 @@ def shard_phases(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
                   f"differ from the eager frames")
             check(all(x["pixels_vs_plain_stages"] == 0 and not x["plain_stage_launches"]
                       for x in res), f"[graph_shard] {name} at {world} ranks ({backend}): the "
-                  f"frame through S1-S5 differs from the frame through the plain stages")
+                  f"frame through S1-S6 differs from the frame through the plain stages")
             check(all(x["launches_per_replay"] and all(el == x["launches_per_replay"]
                                                        for el in x["eager_launches"])
                       for x in res), f"[graph_shard] {name}: a replay launches "
@@ -3435,7 +3445,7 @@ def graph_phase(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
             after = launch_counts()
             eager_launches.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
             diffs.append(_pixels(got, want))
-        # the same frame through the plain stages: no S1-S5 launch
+        # the same frame through the plain stages: no S1-S6 launch
         s0 = _stage_counts()
         with plain_stages():
             plain_frame = eager(config, sc, *_posed(args, 0), *extra)
@@ -3478,7 +3488,7 @@ def graph_phase(dev, card, flagship, config4, paged_ctx, path_ctx) -> None:
         check(diffs == [0] * GRAPH_POSES, f"{case}: the replayed frames differ from the eager "
               f"frames in {diffs} pixels")
         check(vs_plain == 0 and not plain_launches,
-              f"{case}: the frame through S1-S5 differs from the frame through the plain "
+              f"{case}: the frame through S1-S6 differs from the frame through the plain "
               f"stages in {vs_plain} pixels (their launches: {plain_launches})")
         # every frame casts its camera's rays (S1 once) and takes their
         # attributes (S2; once in a primary frame); the primary frames shade
@@ -3589,6 +3599,11 @@ OPS_S4_LOBE_F32 = 4
 #   reflection (dot 5, the doubling 1, 6) 12 and normalize, the origin 6,
 #   the nearest texel 8.
 OPS_S5 = 9 + 2 + 1 + 15 + 6 + 1 + 12 + OPS_NORM + 6 + 8
+#   S6 per ray: the sky term 6 and its select 3, the emission sum 6, the
+#   throughput 3, the mirror (dot 5, the doubling 1, 6) 12, the blend 10
+#   and normalize, the lobe's dot 5 and two compares, the origin 6; NEE's
+#   term adds 9.
+OPS_S6 = 9 + 6 + 3 + 12 + 10 + OPS_NORM + 7 + 6
 # uint32 operations of one threefry2x32 hash (kernels/csrc/frame.cuh): the
 # first key injection 2, 20 rounds of add, rotate (one funnel shift) and
 # xor, 5 injections of 2 adds; a uniform adds the xor of the two words, the
@@ -3598,19 +3613,20 @@ OPS_UNIFORM_INT = OPS_HASH + 3
 # the H100 SXM's int32 rate: 132 SMs x 64 INT32 lanes at the 1,980 MHz
 # boost clock (NVIDIA's Hopper white paper and data sheet)
 INT32_OPS_S = 132 * 64 * 1.98e9
-# the JAX functions S1-S5 replace (XLA fuses them; no Pallas kernel)
+# the JAX functions S1-S6 replace (XLA fuses them; no Pallas kernel)
 FRAME_REPLACES = {"S1": "tpu_raytracer/render/camera.py:113",
                   "S2": "tpu_raytracer/render/renderer.py:232",
                   "S3": "tpu_raytracer/render/shade.py:385",
                   "S4": "tpu_raytracer/render/integrators.py:274",
-                  "S5": "tpu_raytracer/render/integrators.py render_whitted"}
+                  "S5": "tpu_raytracer/render/integrators.py render_whitted",
+                  "S6": "tpu_raytracer/render/integrators.py render_path_traced"}
 FRAME_KERNEL_NAMES = {"S1": "frame_raygen_kernel", "S2": "frame_attrs_kernel",
                       "S3": "frame_shade_kernel", "S4": "frame_sample_kernel",
-                      "S5": "frame_whitted_shade_kernel"}
+                      "S5": "frame_whitted_shade_kernel", "S6": "frame_path_bounce_kernel"}
 
 
 def _stage_counts() -> dict:
-    """Launches of S1-S5 by kernel name."""
+    """Launches of S1-S6 by kernel name."""
     from tpu_raytracer_torch.render.compiled import launch_counts
 
     return {k: v for k, v in launch_counts().items() if k.startswith("S")}
@@ -3618,17 +3634,18 @@ def _stage_counts() -> dict:
 
 def _walks(launches: dict) -> dict:
     """The traversal kernels' part of a launch count (K1-K6 and K6's
-    plan), without the frame stages S1-S5."""
+    plan), without the frame stages S1-S6."""
     return {k: v for k, v in launches.items() if not k.startswith("S")}
 
 
 @contextlib.contextmanager
 def plain_stages():
-    """Raygen, hit attributes, the primary shade, the sample draws and the
-    Whitted shade through their plain versions (``generate_rays_torch``,
-    ``hit_attributes_torch``, ``shade_primary_torch``,
-    ``sample_cosine_torch``, ``whitted_shade_torch``) for every caller of
-    the routers, on the rays' own device: no S1-S5 launch."""
+    """Raygen, hit attributes, the primary shade, the sample draws, the
+    Whitted shade and the path bounce through their plain versions
+    (``generate_rays_torch``, ``hit_attributes_torch``,
+    ``shade_primary_torch``, ``sample_cosine_torch``,
+    ``whitted_shade_torch``, ``path_bounce_torch``) for every caller of the
+    routers, on the rays' own device: no S1-S6 launch."""
     import importlib
 
     from tpu_raytracer_torch.kernels import frame
@@ -3638,7 +3655,8 @@ def plain_stages():
              "hit_attributes": renderer.hit_attributes_torch,
              "shade_primary": shade.shade_primary_torch,
              "sample_cosine": integrators.sample_cosine_torch,
-             "whitted_shade": integrators.whitted_shade_torch}
+             "whitted_shade": integrators.whitted_shade_torch,
+             "path_bounce": integrators.path_bounce_torch}
     saved = []
     for mod in frame.ROUTER_MODULES:
         m = importlib.import_module(f"tpu_raytracer_torch.{mod}")
@@ -4169,6 +4187,175 @@ def whitted_shade_phase(dev, card) -> list:
         "source": "tpu_raytracer_torch/kernels/csrc/frame.cu",
         "replaces": FRAME_REPLACES["S5"],
         "launches": entry.launches["S5"],
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "library_ms": None,
+    }]
+
+
+def _s6_bytes(scene, attrs, state, illum, period: int, tail: bool) -> int:
+    """Bytes S6 needs on one call, each once: every ray's state written
+    (and read past the first bounce, ``state`` None) and, but in the tail,
+    its next ray; the hit flag of every one of the ``period`` rows; the rows
+    of the live rays (active and hit: location, normal, direction,
+    material, uv where textured), each row once, with their S4 sample and
+    lobe uniform and NEE's term where given; the direction of the misses
+    under a sky map; each material row (albedo, reflectivity, emission,
+    roughness) the live rays name. The tail: every ray's any-hit t, its
+    active flag and radiance read and the radiance written, the throughput
+    of the active misses (and their direction under a sky map)."""
+    from tpu_raytracer_torch.core.vecmath import FLT_MAX
+
+    active = torch.ones_like(attrs.t, dtype=torch.bool) if state is None else state[2]
+    r = active.numel()
+    count = lambda mask: int(mask.sum())
+    sky = 12 if scene.has_sky else 0
+    if tail:
+        miss = active & (attrs.t >= FLT_MAX)
+        return r * (4 + 1 + 12 + 12) + count(miss) * (12 + sky)
+    live = active & attrs.hit
+    rows = live.reshape(-1, period).any(0)
+    row = 12 + 12 + 12 + 8 + (8 if scene.has_textures else 0)
+    nbytes = r * ((0 if state is None else 25) + 25 + 24) + period * 1 + count(rows) * row
+    nbytes += count(live) * (16 + (4 if illum is not None else 0))
+    nbytes += count(active & ~attrs.hit) * sky
+    return nbytes + int(torch.unique(attrs.material[live]).numel()) * (12 + 12)
+
+
+def path_bounce_phase(dev, card, ctx) -> list:
+    """``[path_bounce]``: S6 (``kernels/frame.py path_bounce_cuda``)
+    against its plain version (``render/integrators.py path_bounce_torch``,
+    eager ops on the card, its draws S4's as the kernel's are), the state
+    and the next rays bit for bit, misses and parked rays included, with
+    ``exact_math`` on and off: the bounces of config 5's 2-sample path frame
+    at 1920x1088 at the fly-through's first pose (the first on the primary
+    rows expanded over the samples, the second per ray, the fast tail on
+    the any-hit cast; with NEE's light term three full bounces); one
+    launch a call. Then its launches in an eager and a compiled path frame
+    at PATH_SIZE (three a frame), and ``[frame_kernels_time]`` rows for the
+    first bounce, the second and the tail at 1920x1088: device ms (the L2
+    flushed before each launch) beside the bound (``_s6_bytes`` over the
+    bandwidth) and the plain version's ms.
+    Returns the kernels line's entry."""
+    import math
+
+    from tpu_raytracer_torch.render import (
+        Camera, RenderConfig, generate_rays, hit_attributes, pipeline, render_image_path_traced,
+    )
+    from tpu_raytracer_torch.render.integrators import (
+        _direct_illumination, path_bounce, path_bounce_torch,
+    )
+    from tpu_raytracer_torch.render.renderer import get_cast_fn, occlusion_cast_fn
+    from tpu_raytracer_torch.render.shade import DEFAULT_LIGHT_DIRECTION
+    from tpu_raytracer_torch.utils import prng
+
+    col, poses = ctx["col"], ctx["poses"]
+    fw, fh = SLICE_SIZE
+    cam = Camera.looking(fw, fh, fov_deg=65.0, pose=poses[0])
+    p = cam.ray_params(dev)
+    cast, occ = get_cast_fn("cuda", want_normals=True), occlusion_cast_fn("cuda")
+    key = prng.PRNGKey(2 ** 31 + 29, device=dev)
+    bc = lambda x: x[None].expand((PATH_SAMPLES,) + x.shape)
+    diffs, launches, counts, timed = {}, {}, {}, {}
+    for exact in (True, False):
+        o, d = generate_rays(fw, fh, p["K_inv"], p["D"], p["pose"], p["inv_pose"], exact=exact)
+        a0 = hit_attributes(col, o, d, cast(col, o, d), exact)
+        shading = dict(exact=exact, sky_strength=1.0, light_scale=1.0 / math.pi)
+        for nee in (False, True):
+            state, rd, attrs = None, bc(d), type(a0)(*map(bc, a0))
+            for b in range(PATH_BOUNCES + 1):
+                tail = b == PATH_BOUNCES and not nee
+                illum = None
+                if nee:
+                    illum = _direct_illumination(col, cast, attrs, DEFAULT_LIGHT_DIRECTION, (),
+                                                 exact, True, occ_cast=occ, shadow_floor=0.0)
+                if tail:
+                    attrs = occ(col, ro, rd)
+                args = (col, rd, attrs, state, key, (b,), illum)
+                want = path_bounce_torch(*args, tail=tail, **shading)
+                mine = None if state is None else tuple(x.clone() for x in state)
+                before = _stage_counts()["S6"]
+                got = path_bounce(*args[:3], mine, *args[4:], tail=tail, **shading)
+                torch.cuda.synchronize()
+                tag = f"{'exact' if exact else 'q_rsqrt'}{'_nee' if nee else ''}_b{b}"
+                launches[tag] = _stage_counts()["S6"] - before
+                diffs[tag] = _diff_elems(got[0], want[0]) + (
+                    0 if tail else _diff_elems(got[1], want[1]))
+                counts[tag] = int((~want[0][2]).sum())
+                if exact and not nee:
+                    timed[f"b{b}" if not tail else "tail"] = (args, tail)
+                state = want[0]
+                if not tail:
+                    ro, rd = want[1]
+                    attrs = hit_attributes(col, ro, rd, cast(col, ro, rd), exact)
+    phase("path_bounce", size=f"{fw}x{fh}", samples=PATH_SAMPLES, launches=launches,
+          parked=json.dumps(counts, separators=(",", ":")),
+          diffs=json.dumps(diffs, separators=(",", ":")))
+    check(all(v == 1 for v in launches.values()), f"[path_bounce] launches {launches}")
+    check(not any(diffs.values()), f"[path_bounce] S6 differs from its plain version: {diffs}")
+    check(max(counts.values()) > 0 and all(v < PATH_SAMPLES * fw * fh for v in counts.values()),
+          f"[path_bounce] no ray parked, or a bounce with no live ray: {counts}")
+
+    cfg = RenderConfig(PATH_SIZE, PATH_SIZE)
+    pp = Camera.looking(PATH_SIZE, PATH_SIZE, fov_deg=65.0, pose=poses[1]).ray_params(dev)
+    fargs = (cfg, col, pp["K_inv"], pp["D"], pp["pose"], pp["inv_pose"],
+             prng.PRNGKey(1, device=dev), PATH_BOUNCES, PATH_SAMPLES)
+    _reset_launch_counts()
+    img = render_image_path_traced(*fargs)
+    torch.cuda.synchronize()
+    eager = {k: v for k, v in _stage_counts().items() if v}
+    with plain_stages():
+        n_plain = _pixels(img, render_image_path_traced(*fargs))
+    pipeline.clear_compiled()
+    replay = pipeline.compiled_render_image_path_traced(*fargs)
+    entry = pipeline.compiled_render_image_path_traced.last
+    phase("path_bounce", eager_stage_launches=eager, compiled_launches=entry.launches,
+          nodes=entry.nodes, pixels_vs_eager=_pixels(replay, img), pixels_vs_plain=n_plain)
+    want_stages = {"S1": 1, "S2": 2, "S4": PATH_BOUNCES, "S6": PATH_BOUNCES + 1}
+    check(eager == want_stages, f"[path_bounce] an eager frame launched {eager}")
+    check({k: v for k, v in entry.launches.items() if k.startswith("S")} == want_stages,
+          f"[path_bounce] the compiled entry launches {entry.launches}")
+    check(torch.equal(replay, img) and n_plain == 0,
+          "[path_bounce] the replay or the plain stages' frame differs from the eager frame")
+    pipeline.clear_compiled()
+
+    rows = fw * fh
+    # each timed launch finds the L2 cold, as in a frame, where casts run
+    # between the bounces
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    for tag, (args, tail) in timed.items():
+        period = rows if tag == "b0" else PATH_SAMPLES * rows
+        b = _frame_bound(PATH_SAMPLES * rows * (OPS_S6 if not tail else 9),
+                         _s6_bytes(col, args[2], args[3], None, period, tail))
+        fresh = lambda s: None if s is None else tuple(x.clone() for x in s)
+        st = fresh(args[3])
+        fn = lambda: (flush.zero_(), path_bounce(*args[:3], st, *args[4:], tail=tail,
+                                                 exact=True, light_scale=1.0 / math.pi))
+        plain = lambda: path_bounce_torch(*args, tail=tail, exact=True, light_scale=1.0 / math.pi)
+        ms = device_ms(fn, FRAME_KERNEL_NAMES["S6"])
+        plain_ms = min(event_ms(plain, 5) for _ in range(3))
+        phase("frame_kernels_time", kernel="S6", bounce=f"config5_{tag}", card=repr(card),
+              rays=PATH_SAMPLES * rows, rows_read=period, ms=f"{ms:.6f}",
+              plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b['bound_ms']:.6f}",
+              bound_by=b["bound_by"], share_of_bound=f"{b['bound_ms'] / ms:.4f}",
+              mbytes=f"{b['mbytes']:.3f}", gflop=f"{b['gflop']:.4f}")
+        timed[tag] = (ms, plain_ms, b)
+    ms, plain_ms, b = timed["b0"]
+    return [{
+        "name": f"S6 {FRAME_KERNEL_NAMES['S6']} (one path-tracing bounce: the sky, the surface "
+                "colour, the emission, the throughput, the lobe blend and the parked next rays, "
+                "one thread per ray, the primary rows read through their period; the fast "
+                "tail's sky term; no Pallas counterpart: replaces the XLA-fused bounce body; "
+                f"launches: a config 5 path frame; ms, bound and plain_ms: its first bounce at "
+                f"{fw}x{fh}, {PATH_SAMPLES} samples; second bounce {timed['b1'][0]:.6f} ms, "
+                f"tail {timed['tail'][0]:.6f} ms)",
+        "route": "cuda",
+        "source": "tpu_raytracer_torch/kernels/csrc/frame.cu",
+        "replaces": FRAME_REPLACES["S6"],
+        "launches": entry.launches["S6"],
         "max_abs_err": 0.0,
         "ms": ms,
         "plain_ms": plain_ms,

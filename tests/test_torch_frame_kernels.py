@@ -1,6 +1,6 @@
 """The frame stages' kernels S1 (raygen), S2 (hit attributes), S3
-(primary shade), S4 (sample) and S5 (Whitted shade) on the CPU: their
-per-ray code built for
+(primary shade), S4 (sample), S5 (Whitted shade) and S6 (path bounce) on
+the CPU: their per-ray code built for
 the host (``kernels/csrc/frame_host.cpp``, the ``frame.cuh`` the card
 runs) against the plain versions and the JAX package, and the routers.
 
@@ -537,31 +537,64 @@ def test_two_pi_rounds_as_aten_rounds_a_python_scalar():
     assert np.float32(2.0 * math.pi).view(np.int32) == 0x40C90FDB
 
 
-@pytest.mark.parametrize("mode", ["ao", "path_batched", "path_sequential"])
+@pytest.mark.parametrize("mode", ["ao", "path_batched", "path_sequential", "path_nee",
+                                  "path_emissive", "path_dof"])
 def test_integrators_through_the_host_build_render_the_plain_frames(same_libm, monkeypatch,
                                                                     mode):
-    """AO and path frames with ``sample_cosine`` on S4's host build: bit for
-    bit the frames through the plain version."""
+    """AO and path frames with ``sample_cosine`` on S4's host build, and the
+    path frames' ``path_bounce`` on S6's (the router's kernel path: S4's
+    draw, then S6): bit for bit the frames through the plain versions. The
+    path frames: the batched wavefront (its first bounce on rows expanded
+    over the samples) and the sequential samples, each with the fast tail;
+    NEE with a point light and an emissive material, both without it; depth
+    of field (per-ray primary rows)."""
     sc, o, d, _ = rays_and_hits("instances", "uv_n")
     key = prng.PRNGKey(SAMPLE_KEYS[1])
+    if mode == "path_emissive":
+        k = sc.mat_albedo.shape[0]
+        sc = dataclasses.replace(sc, mat_illumination=torch.tensor(
+            [0.5 if i == 1 else 0.0 for i in range(k)]), has_emissive=True)
+    kw = {"path_nee": dict(light_direction=shade.DEFAULT_LIGHT_DIRECTION,
+                           point_lights=POINT_LIGHTS[:1], sun_intensity=2.0),
+          "path_dof": dict(lens_radius=0.05, focus_distance=3.0),
+          "path_sequential": dict(sample_batch=False)}.get(mode, {})
     if mode == "ao":
         render = lambda: integrators.render_ao(sc, o, d, key, samples=3, backend="cuda")
     else:
         render = lambda: integrators.render_path_traced(
-            sc, o, d, key, max_bounces=2, samples=2, backend="cuda",
-            sample_batch=mode == "path_batched")
+            sc, o, d, key, max_bounces=2, samples=2, backend="cuda", sky_strength=1.5, **kw)
     want = render()
-    calls = []
+    calls, bounces = [], []
 
     def host(*args, **kw):
         calls.append(args[1])
         return frame.sample_cosine_host(*args, **kw)
 
+    def bounce_host(scene, d, attrs, state=None, key=None, chain=(), illum=None, exact=True,
+                    tex_filter="nearest", sky_strength=1.0, light_scale=0.0, tail=False):
+        bounces.append((tail, illum is not None, d.stride(0) == 0))
+        samples = None if tail else integrators.sample_cosine(key, chain, attrs.normal, exact,
+                                                              lobe=True)
+        return frame.path_bounce_host(scene, d, attrs, samples, illum, state, exact, tex_filter,
+                                      sky_strength, light_scale, tail)
+
     monkeypatch.setattr(integrators, "sample_cosine", host)
+    monkeypatch.setattr(integrators, "path_bounce", bounce_host)
     got = render()
     np.testing.assert_array_equal(bits(got), bits(want))
-    assert calls == {"ao": [(0,), (1,), (2,)], "path_batched": [(0,), (1,)],
-                     "path_sequential": [(0, 0), (0, 1), (1, 0), (1, 1)]}[mode]
+    batched = [(0,), (1,)]
+    assert calls == {"ao": [(0,), (1,), (2,)], "path_batched": batched,
+                     "path_sequential": [(0, 0), (0, 1), (1, 0), (1, 1)],
+                     "path_nee": batched + [(2,)], "path_emissive": batched + [(2,)],
+                     "path_dof": [(0, 0), (0, 1), (1, 0), (1, 1)]}[mode]
+    # (tail, NEE's term given, directions expanded over the samples) a call
+    first, later, tail = (False, False, True), (False, False, False), (True, False, False)
+    per_sample = [later, later, tail]
+    assert bounces == {"ao": [], "path_batched": [first, later, tail],
+                       "path_sequential": 2 * per_sample, "path_dof": 2 * per_sample,
+                       "path_nee": [(False, True, True), (False, True, False),
+                                    (False, True, False)],
+                       "path_emissive": [first, later, later]}[mode]
 
 
 # ---------------------------------------------------------------------------
@@ -666,6 +699,165 @@ def test_whitted_frames_through_the_host_build_render_the_plain_frames(same_libm
 
 
 # ---------------------------------------------------------------------------
+# S6 path bounce
+# ---------------------------------------------------------------------------
+
+# (scene, texture filter): config 5's colonnade (one albedo, the flat sky),
+# config 4's textured floor among reflective, emissive and rough materials
+# (nearest), and the demo's textures under its sky map (trilinear, which a
+# bounce samples bilinear)
+PATH_SCENES = [("colonnade", "nearest"), ("instances", "nearest"), ("sky_demo", "trilinear")]
+# (bounce, layout of the primary rows, NEE): the first bounce on the rows
+# expanded over 2 samples (the batched wavefront) or one per ray (the
+# sequential samples, depth of field), a later bounce, and the fast tail
+PATH_BOUNCES = [("first", "expanded", False), ("first", "expanded", True),
+                ("first", "per_ray", False), ("first", "per_ray", True),
+                ("later", "per_ray", False), ("later", "per_ray", True),
+                ("later", "expanded", False), ("tail", "per_ray", False)]
+PATH_SKY = 1.5  # sky_strength
+PATH_LIGHT = (1.0 / math.pi) * 2.0  # light_scale: a sun of intensity 2
+
+
+@functools.lru_cache(maxsize=None)
+def path_scene(name: str):
+    """(scene, origins, directions, Hit) of ``name``'s primary rays cast by
+    the plain walk with normals. Config 4 and the demo take reflectivity
+    0.7, 0.35 and 0 in turn, roughness 0, 0.3 and 1 in turn and material 1
+    emissive, so that every lobe and the emission count."""
+    if name == "colonnade":
+        from tpu_raytracer_torch.app.scenes import scene_colonnade
+
+        sc, cam = scene_colonnade(W, H, columns=4, segs=8, device="cpu")
+        o, d = generate_rays_torch(W, H, *ray_args(cam))
+    else:
+        base, o, d, _ = rays_and_hits(name, "none")
+        k = base.mat_albedo.shape[0]
+        sc = dataclasses.replace(
+            base, mat_reflectivity=torch.tensor([(0.7, 0.35, 0.0)[i % 3] for i in range(k)]),
+            mat_roughness=torch.tensor([(0.0, 0.3, 1.0)[i % 3] for i in range(k)]),
+            mat_illumination=torch.tensor([0.25 if i == 1 else 0.0 for i in range(k)]))
+    h = traversal.cast_rays(sc, o, d, want_normals=True)
+    return sc, o, d, h
+
+
+def _path_light(sc, attrs, exact: bool, nee: bool):
+    """NEE's light term as ``render_path_traced`` takes it (the directional
+    light's shadowed cosine plus a point light), or None."""
+    if not nee:
+        return None
+    return integrators._direct_illumination(sc, traversal.cast_rays, attrs,
+                                            shade.DEFAULT_LIGHT_DIRECTION, POINT_LIGHTS[:1],
+                                            exact, True, shadow_floor=0.0)
+
+
+@functools.lru_cache(maxsize=None)
+def path_inputs(name: str, tex_filter: str, bounce: str, layout: str, nee: bool, exact: bool):
+    """(directions, attributes or the tail's Hit, state, chain, light term)
+    of one bounce of ``name``'s path frame: the first on the primary rays
+    (``expanded``: their rows expanded over 2 samples, stride 0), or, after
+    the plain first bounce, the second bounce on its rays or the any-hit
+    tail."""
+    sc, o, d, h = path_scene(name)
+    attrs = hit_attributes_torch(sc, o, d, h, exact)
+    if layout == "expanded":
+        d = d[None].expand((2,) + d.shape)
+        attrs = type(attrs)(*(x[None].expand((2,) + x.shape) for x in attrs))
+    key = prng.PRNGKey(SAMPLE_KEYS[2])
+    if bounce == "first":
+        return d, attrs, None, (0,), _path_light(sc, attrs, exact, nee)
+    state, (ro, rd) = integrators.path_bounce_torch(
+        sc, d, attrs, None, key, (0,), _path_light(sc, attrs, exact, nee), exact, tex_filter,
+        PATH_SKY, PATH_LIGHT)
+    if bounce == "tail":
+        return rd, traversal.cast_rays(sc, ro, rd, occlusion=True), state, (), None
+    h1 = traversal.cast_rays(sc, ro, rd, want_normals=True)
+    a1 = hit_attributes_torch(sc, ro, rd, h1, exact)
+    if layout == "expanded":  # the second bounce's rows of sample 0 for both
+        rd = rd[:1].expand(rd.shape)
+        a1 = type(a1)(*(x[:1].expand(x.shape) for x in a1))
+    return rd, a1, state, (1,), _path_light(sc, a1, exact, nee)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("bounce,layout,nee", PATH_BOUNCES)
+@pytest.mark.parametrize("name,tex_filter", PATH_SCENES)
+def test_path_bounce_host_build_matches_plain_bitwise(same_libm, name, tex_filter, bounce,
+                                                      layout, nee, exact):
+    """S6's host build against ``path_bounce_torch`` at the first bounce
+    (no state in), a later one (rays parked among them) and the fast tail,
+    on primary rows expanded over the samples or one per ray, with NEE's
+    light term and without: the state, updated in place, and the next rays
+    bit for bit. The host build takes S4's samples as the router's kernel
+    path does; the plain version draws them itself."""
+    sc = path_scene(name)[0]
+    d, attrs, state, chain, illum = path_inputs(name, tex_filter, bounce, layout, nee, exact)
+    key = prng.PRNGKey(SAMPLE_KEYS[2])
+    tail = bounce == "tail"
+    shading = (exact, tex_filter, PATH_SKY, PATH_LIGHT, tail)
+    want = integrators.path_bounce_torch(sc, d, attrs, state, key, chain, illum, *shading)
+    samples = None if tail else integrators.sample_cosine_torch(key, chain, attrs.normal, exact,
+                                                                lobe=True)
+    mine = None if state is None else tuple(x.clone() for x in state)
+    got = frame.path_bounce_host(sc, d, attrs, samples, illum, mine, *shading)
+    assert_bitwise(got[0], want[0])
+    assert (got[1] is None) == (want[1] is None) == tail
+    if not tail:
+        assert_bitwise(got[1], want[1])
+    if state is not None:
+        assert all(g is m for g, m in zip(got[0], mine))
+        assert state[2].any() and (~state[2]).any()
+    live = got[0][2]
+    if not tail:  # rays hit and miss; the misses take the sky
+        assert live.any() and (~live).any() and (got[0][0][~live] > 0).any()
+    if bounce == "first" and name != "colonnade":  # the glossy lobe is taken
+        u = samples[1]
+        refl = sc.mat_reflectivity[attrs.material]
+        assert (live & (u < refl)).any() and (live & (u >= refl)).any()
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("name,tex_filter", PATH_SCENES[1:])
+def test_path_bounce_host_build_takes_the_cosine_sample_under_the_surface(same_libm, name,
+                                                                          tex_filter, exact):
+    """The first bounce with every normal turned away from its ray, as a
+    back face's is: the glossy lobe dips under the surface and falls back
+    to the cosine sample. S6's host build bit for bit as the plain
+    version."""
+    sc = path_scene(name)[0]
+    d, attrs, _, chain, _ = path_inputs(name, tex_filter, "first", "per_ray", False, exact)
+    attrs = attrs._replace(normal=-attrs.normal)
+    key = prng.PRNGKey(SAMPLE_KEYS[2])
+    shading = (exact, tex_filter, PATH_SKY, PATH_LIGHT)
+    want = integrators.path_bounce_torch(sc, d, attrs, None, key, chain, None, *shading)
+    samples = integrators.sample_cosine_torch(key, chain, attrs.normal, exact, lobe=True)
+    got = frame.path_bounce_host(sc, d, attrs, samples, None, None, *shading)
+    assert_bitwise(got[0], want[0])
+    assert_bitwise(got[1], want[1])
+    glossy = want[0][2] & (samples[1] < sc.mat_reflectivity[attrs.material])
+    under = glossy & (got[1][1] == samples[0]).all(-1)
+    assert under.any() and (glossy & ~under).any()
+
+
+def test_path_bounce_reads_expanded_rows_through_their_period():
+    """The batched wavefront's primary rows, expanded over the samples,
+    reach S6 as their first row and its period, never copied; rows of any
+    other layout as contiguous tensors of every ray."""
+    d, attrs, *_ = path_inputs("instances", "nearest", "first", "expanded", False, True)
+    fields = [("directions", d, torch.float32, (3,)), ("hit", attrs.hit, torch.bool, ()),
+              ("uv", attrs.uv, torch.float32, (2,))]
+    rows, period = frame._primary_rows(d.shape[:-1], fields)
+    assert period == H * W
+    assert [x.data_ptr() for x in rows] == [x.data_ptr() for _, x, _, _ in fields]
+    assert [x.shape for x in rows] == [(H, W, 3), (H, W), (H, W, 2)]
+    fields[1] = ("hit", attrs.hit.contiguous(), torch.bool, ())
+    rows, period = frame._primary_rows(d.shape[:-1], fields)
+    assert period == 2 * H * W and rows[0].shape == (2, H, W, 3)
+    with pytest.raises(ValueError, match="shape"):
+        frame._primary_rows(d.shape[:-1], fields[:1] + [("uv", attrs.uv[..., :1],
+                                                         torch.float32, (2,))])
+
+
+# ---------------------------------------------------------------------------
 # Routers
 # ---------------------------------------------------------------------------
 
@@ -677,7 +869,7 @@ def no_kernels(monkeypatch):
         raise AssertionError("a CPU call reached a kernel wrapper")
 
     for name in ("generate_rays_cuda", "hit_attributes_cuda", "shade_primary_cuda",
-                 "sample_cosine_cuda", "whitted_shade_cuda"):
+                 "sample_cosine_cuda", "whitted_shade_cuda", "path_bounce_cuda"):
         monkeypatch.setattr(frame, name, refuse)
 
 
@@ -717,16 +909,33 @@ def test_whitted_shade_router_takes_the_plain_version_on_the_cpu(no_kernels):
     assert build.LAUNCHES == before
 
 
+@pytest.mark.parametrize("bounce", ["first", "later", "tail"])
+def test_path_bounce_router_takes_the_plain_version_on_the_cpu(no_kernels, bounce):
+    before = dict(build.LAUNCHES)
+    sc = path_scene("instances")[0]
+    d, attrs, state, chain, illum = path_inputs("instances", "nearest", bounce, "expanded"
+                                                if bounce == "first" else "per_ray", True, True)
+    key = prng.PRNGKey(SAMPLE_KEYS[2])
+    args = (sc, d, attrs, state, key, chain, illum, True, "nearest", PATH_SKY, PATH_LIGHT,
+            bounce == "tail")
+    got, want = integrators.path_bounce(*args), integrators.path_bounce_torch(*args)
+    assert_bitwise(got[0], want[0])
+    assert (got[1] is None) == (want[1] is None) == (bounce == "tail")
+    if got[1] is not None:
+        assert_bitwise(got[1], want[1])
+    assert build.LAUNCHES == before
+
+
 def test_launch_counts_name_every_kernel_and_host_runs_count_none():
-    """``launch_counts()`` names the launch counts of K1-K6 and S1-S5, and
-    CPU runs of S1-S5's host builds and of K6's plan move none of them:
+    """``launch_counts()`` names the launch counts of K1-K6 and S1-S6, and
+    CPU runs of S1-S6's host builds and of K6's plan move none of them:
     only launches on the card count."""
     from tpu_raytracer_torch.kernels import paged_major
     from tpu_raytracer_torch.render.compiled import launch_counts
 
     before = launch_counts()
     assert list(before) == ["K1", "K1_carry", "K1_bounded", "K2", "K3", "K3_carry", "K4", "K5",
-                            "K6", "K6_plan", "S1", "S2", "S3", "S4", "S5"]
+                            "K6", "K6_plan", "S1", "S2", "S3", "S4", "S5", "S6"]
     assert before == build.LAUNCHES and before is not build.LAUNCHES
     sc, o, d, h = rays_and_hits("cube", "uv_n")
     o1, d1 = frame.generate_rays_host(W, H, *ray_args(scene("cube")[2]))
@@ -734,6 +943,8 @@ def test_launch_counts_name_every_kernel_and_host_runs_count_none():
     frame.shade_primary_host(sc, at, shade.DEFAULT_LIGHT_DIRECTION, "blinn_phong", True, d1)
     frame.sample_cosine_host(prng.PRNGKey(1), (1,), at.normal, lobe=True)
     frame.whitted_shade_host(sc, d1, at, torch.ones(H, W))
+    state, _ = frame.path_bounce_host(sc, d1, at, (at.normal, torch.zeros(H, W)))
+    frame.path_bounce_host(sc, d1, h, state=state, tail=True)
     pages = sc.with_paging(page_tris=32, page_nodes=64)
     _, o_t, d_t = paged_major._tile_rays(o, d)
     item_pid, item_iid, tile_start, tile_item = paged_major.page_major_plan_cuda(pages, o_t, d_t)
@@ -778,7 +989,8 @@ def test_router_names_keep_their_signatures():
                           (renderer.hit_attributes, renderer.hit_attributes_torch),
                           (shade.shade_primary, shade.shade_primary_torch),
                           (integrators.sample_cosine, integrators.sample_cosine_torch),
-                          (integrators.whitted_shade, integrators.whitted_shade_torch)):
+                          (integrators.whitted_shade, integrators.whitted_shade_torch),
+                          (integrators.path_bounce, integrators.path_bounce_torch)):
         assert inspect.signature(router) == inspect.signature(plain)
 
 
@@ -793,7 +1005,8 @@ def test_router_modules_name_every_module_that_binds_a_router():
     routers = {"generate_rays": camera.generate_rays, "hit_attributes": renderer.hit_attributes,
                "shade_primary": shade.shade_primary,
                "sample_cosine": integrators.sample_cosine,
-               "whitted_shade": integrators.whitted_shade}
+               "whitted_shade": integrators.whitted_shade,
+               "path_bounce": integrators.path_bounce}
     bound = set()
     for info in pkgutil.walk_packages(tpu_raytracer_torch.__path__, "tpu_raytracer_torch."):
         mod = importlib.import_module(info.name)
@@ -912,3 +1125,44 @@ def test_sample_wrapper_rejects_bad_inputs():
         frame.sample_cosine_cuda(key, (1,), n)
     d, u = frame.sample_cosine_host(key, (), n[:0], lobe=True)  # no ray: no launch
     assert d.shape == (0, 5, 3) and u.shape == (0, 5)
+
+
+def test_path_bounce_wrapper_rejects_bad_inputs():
+    """S6's wrappers refuse a wrong dtype, shape or device of the rays, the
+    attributes, S4's samples, the light term and the state (updated in
+    place: no copy may stand in for it), a bounce without samples, and an
+    unknown filter; ``path_bounce_cuda`` refuses CPU tensors."""
+    sc = path_scene("instances")[0]
+    d, attrs, _, chain, illum = path_inputs("instances", "nearest", "first", "per_ray", True,
+                                            True)
+    samples = integrators.sample_cosine_torch(prng.PRNGKey(1), chain, attrs.normal, lobe=True)
+    bounce = functools.partial(frame.path_bounce_host, sc, d)
+    with pytest.raises(ValueError, match="float32"):
+        bounce(attrs, samples, illum.double())
+    with pytest.raises(ValueError, match="float32"):
+        bounce(attrs, (samples[0].half(), samples[1]))
+    with pytest.raises(ValueError, match="shape"):
+        bounce(attrs, (samples[0], samples[1][:-1]))
+    with pytest.raises(ValueError, match="shape"):
+        bounce(attrs._replace(uv=attrs.uv[..., :1]), samples)
+    with pytest.raises(ValueError, match="int64"):
+        bounce(attrs._replace(material=attrs.material.int()), samples)
+    with pytest.raises(ValueError, match="bool"):
+        bounce(attrs._replace(hit=attrs.hit.to(torch.uint8)), samples)
+    with pytest.raises(ValueError, match="samples"):
+        bounce(attrs)
+    with pytest.raises(ValueError, match="filter"):
+        bounce(attrs, samples, tex_filter="cubic")
+    with pytest.raises(ValueError, match=r"\[\.\.\., 3\]"):
+        frame.path_bounce_host(sc, d[..., :2], attrs, samples)
+    state, _ = bounce(attrs, samples)
+    with pytest.raises(ValueError, match="contiguous"):
+        bounce(attrs, samples, None, (state[0].transpose(0, 1).contiguous().transpose(0, 1),
+                                      *state[1:]))
+    with pytest.raises(ValueError, match="shape"):
+        bounce(attrs, samples, None, (state[0], state[1], state[2][:-1]))
+    with pytest.raises(ValueError, match="float32"):
+        frame.path_bounce_host(sc, d, traversal.cast_rays(sc, d * 0, d)._replace(
+            t=torch.zeros(d.shape[:-1], dtype=torch.float64)), state=state, tail=True)
+    with pytest.raises(ValueError, match="cuda"):
+        frame.path_bounce_cuda(sc, d, attrs, samples)

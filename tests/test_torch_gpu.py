@@ -7,9 +7,9 @@ serve, K1 on a flattened scene, K1, K4 and K6 on a presplit colonnade,
 the PNG and OBJ readers on a machine without OpenCV or PIL, the
 big-scene route (a scene past the leaf code's rows cast by K4 alone), and
 the frame stages' kernels S1 (raygen), S2 (hit attributes), S3 (primary
-shade), S4 (the path tracer's and AO's sample draws) and S5 (the Whitted
-shade) bit for bit against their plain versions, misses included, and K1
-and K2 bounded by
+shade), S4 (the path tracer's and AO's sample draws), S5 (the Whitted
+shade) and S6 (the path tracer's bounce) bit for bit against their plain
+versions, misses included, and K1 and K2 bounded by
 AO's radius against their bounded plain versions, with the bounded
 launches a compiled AO frame counts.
 
@@ -1051,6 +1051,123 @@ def test_compiled_whitted_entry_shades_with_s5(cuda, monkeypatch):
         m.setattr(integrators, "whitted_shade", integrators.whitted_shade_torch)
         assert torch.equal(img, pipeline.render_image_whitted(*args))
     pipeline.clear_compiled()
+
+
+def _path_scene(which, device):
+    """(scene, camera, texture filter) of an S6 set: config 5's small
+    colonnade (one albedo, the flat sky), or config 4 with its materials'
+    reflectivity 0.7, 0.35 and 0 in turn, roughness 0, 0.3 and 1 in turn
+    and material 1 emissive (its textured floor among them)."""
+    import dataclasses
+
+    if which == "config5":
+        scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=device)
+        return scene, cam, "nearest"
+    scene, cam = scene_instances(256, 192, device=device)
+    k = scene.mat_albedo.shape[0]
+    table = lambda vals: torch.tensor([vals[i % len(vals)] for i in range(k)], device=device)
+    scene = dataclasses.replace(
+        scene, mat_reflectivity=table((0.7, 0.35, 0.0)), mat_roughness=table((0.0, 0.3, 1.0)),
+        mat_illumination=torch.tensor([0.25 if i == 1 else 0.0 for i in range(k)], device=device))
+    return scene, cam, "bilinear"
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("which", ["config5", "config4"])
+def test_path_bounce_kernel_matches_plain_version_bitwise(cuda, which, exact):
+    """S6 against ``path_bounce_torch`` (eager ops on the card) on the
+    bounces of a batched 2-sample path frame: the first on the primary rows
+    expanded over the samples, the second per ray, then the fast tail on
+    the any-hit cast, or with NEE's light term a third full bounce; the
+    state and the next rays bit for bit, misses and parked rays included,
+    one launch a call. Both sides draw with S4."""
+    import math
+
+    from tpu_raytracer_torch.render.integrators import (
+        _direct_illumination, path_bounce, path_bounce_torch,
+    )
+    from tpu_raytracer_torch.render.renderer import get_cast_fn, occlusion_cast_fn
+    from tpu_raytracer_torch.utils import prng
+
+    scene, cam, filt = _path_scene(which, cuda)
+    cast, occ = get_cast_fn("cuda", want_normals=True), occlusion_cast_fn("cuda")
+    o, d = _rays(cam, cuda)
+    bc = lambda x: x[None].expand((2,) + x.shape)
+    attrs0 = hit_attributes(scene, o, d, cast(scene, o, d), exact)
+    key = prng.PRNGKey(2 ** 40 + 29, device=cuda)
+    shading = dict(exact=exact, tex_filter=filt, sky_strength=1.5,
+                   light_scale=(1.0 / math.pi) * 2.0)
+    for nee in (False, True):
+        state, rd, attrs, parked = None, bc(d), type(attrs0)(*map(bc, attrs0)), 0
+        for b in range(3):
+            tail = b == 2 and not nee
+            illum = None
+            if nee:
+                illum = _direct_illumination(scene, cast, attrs, DEFAULT_LIGHT_DIRECTION, (),
+                                             exact, True, occ_cast=occ, shadow_floor=0.0)
+            if tail:
+                attrs = occ(scene, ro, rd)
+            args = (scene, rd, attrs, state, key, (b,), illum)
+            want = path_bounce_torch(*args, tail=tail, **shading)
+            mine = None if state is None else tuple(x.clone() for x in state)
+            before = LAUNCHES["S6"]
+            got = path_bounce(*args[:3], mine, *args[4:], tail=tail, **shading)
+            assert LAUNCHES["S6"] == before + 1
+            assert _same_bits(got[0], want[0]), (nee, b)
+            assert (got[1] is None) == tail and (tail or _same_bits(got[1], want[1])), (nee, b)
+            state, parked = want[0], int((~want[0][2]).sum())
+            if not tail:
+                ro, rd = want[1]
+                attrs = hit_attributes(scene, ro, rd, cast(scene, ro, rd), exact)
+        assert 0 < parked < state[2].numel()
+
+
+@pytest.mark.parametrize("path_lights", [False, True])
+def test_compiled_path_entry_bounces_with_s6(cuda, path_lights, monkeypatch):
+    """The compiled config 5 path frame (2 samples, 2 bounces): a replay
+    launches S4 twice and S6 three times (two bounces and the fast tail; with
+    NEE's lights three draws and three bounces), and every replay equals
+    the eager frame and the frame through the plain stages, bit for bit; the
+    64x64 frame keeps within its golden's pixels."""
+    import importlib
+
+    from tpu_raytracer_torch.kernels import frame
+    from tpu_raytracer_torch.render import camera, integrators, pipeline, renderer, shade
+    from tpu_raytracer_torch.utils import prng
+
+    plain = {"generate_rays": camera.generate_rays_torch,
+             "hit_attributes": renderer.hit_attributes_torch,
+             "shade_primary": shade.shade_primary_torch,
+             "sample_cosine": integrators.sample_cosine_torch,
+             "whitted_shade": integrators.whitted_shade_torch,
+             "path_bounce": integrators.path_bounce_torch}
+    pipeline.clear_compiled()
+    for size in (128, 64):
+        scene, cam = scene_colonnade(size, 96 if size == 128 else 64, columns=4, segs=8,
+                                     device=cuda)
+        config = RenderConfig(cam.width, cam.height, path_lights=path_lights)
+        p = cam.ray_params(cuda)
+        frames = []
+        for seed in (7, 8):
+            args = (config, scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"],
+                    prng.PRNGKey(seed, device=cuda), 2, 2)
+            frames.append((pipeline.compiled_render_image_path_traced(*args), args))
+        entry = pipeline.compiled_render_image_path_traced.last
+        want = {"S4": 3, "S6": 3} if path_lights else {"S4": 2, "S6": 3}
+        assert {k: entry.launches.get(k) for k in want} == want and entry.replays == 2
+        for img, args in frames:
+            assert torch.equal(img, pipeline.render_image_path_traced(*args))
+            with monkeypatch.context() as m:
+                for mod in map(importlib.import_module, (f"tpu_raytracer_torch.{x}"
+                                                         for x in frame.ROUTER_MODULES)):
+                    for name, fn in plain.items():
+                        if hasattr(mod, name):
+                            m.setattr(mod, name, fn)
+                assert torch.equal(img, pipeline.render_image_path_traced(*args))
+        if size == 64 and not path_lights:
+            golden = np.load(os.path.join(GOLDEN_DIR, "config5_colonnade_path_64.npy"))
+            assert (frames[0][0].cpu().numpy() != golden).any(-1).sum() <= 16
+        pipeline.clear_compiled()
 
 
 @pytest.mark.parametrize("lighting", ["flat", "lambert_shadow"])

@@ -170,13 +170,16 @@ def test_an_eager_whitted_frame_records_its_stages_in_order(record):
 
 
 def test_a_path_frames_stages_are_as_they_were(record):
+    """The primary cast and attributes, then the bounces in one ``bounce``
+    stage (the first makes the radiance's state, as ``path_bounce``
+    does), each bounce's draw and the next cast nested in it, the tail's
+    any-hit cast; then the output."""
     scene, cam = scene_instances(16, 12, device="cpu")
     cfg = RenderConfig(cam.width, cam.height, backend="cuda")
     got = _stage_sequence(lambda: pipeline.render_image_path_traced(
         cfg, scene, *_args(cam, "cpu"), prng.PRNGKey(3), 2, 2))
     draw = [("sample", "bounce")] + 5 * [("sample", "sample")]  # prng's own, on the CPU
-    assert got == ([("raygen", None), ("cast", None), ("attrs", None), ("bounce", None),
-                    ("bounce", None)] + draw + [("cast", "bounce"), ("attrs", "bounce")] + draw
+    assert got == ([("raygen", None), ("cast", None), ("attrs", None), ("bounce", None)] + draw + [("cast", "bounce"), ("attrs", "bounce")] + draw
                    + [("cast", "bounce"), ("output", None), ("output", None)])
 
 

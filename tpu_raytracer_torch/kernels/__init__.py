@@ -19,6 +19,7 @@ leaves to XLA's fusions of its jitted frame, are kernels too:
 | S3 primary shade (every lighting mode, point lights, the three texture filters, the sky map) | ``render/shade.py:shade_primary`` | ``csrc/frame.cu``, ``csrc/frame.cuh`` | ``frame.shade_primary_cuda`` / ``render/shade.py:shade_primary_torch`` |
 | S4 sample (threefry, uniform and the cosine sample of one draw, the path tracer's lobe uniforms) | ``render/integrators.py:_cosine_sample`` and the ``jax.random`` draws around it | ``csrc/frame.cu``, ``csrc/frame.cuh`` | ``frame.sample_cosine_cuda`` / ``render/integrators.py:sample_cosine_torch`` |
 | S5 Whitted shade (one bounce: the sky, the texel, the radiance and throughput sums, the parked reflected rays) | the shade body of ``render/integrators.py:render_whitted`` | ``csrc/frame.cu``, ``csrc/frame.cuh`` | ``frame.whitted_shade_cuda`` / ``render/integrators.py:whitted_shade_torch`` |
+| S6 path bounce (one bounce: the sky, the surface colour, the emission and NEE sums, the throughput, the lobe blend, the parked next rays; the fast tail's sky term) | the bounce body of ``render/integrators.py:render_path_traced`` | ``csrc/frame.cu``, ``csrc/frame.cuh`` | ``frame.path_bounce_cuda`` / ``render/integrators.py:path_bounce_torch`` |
 
 All are built into one library, one nvcc per source (``build.py``):
 every TPU kernel of the JAX package has its counterpart.

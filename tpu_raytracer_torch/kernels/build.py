@@ -3,12 +3,12 @@ native BVH builder from ``accel/csrc`` and the native OBJ parser from
 ``scene/csrc``.
 
 The CUDA sources of K1/K2, K3, K4/K5, K6, K6's plan, the frame stages
-S1-S5 (``frame.cu``) and the capture's node count (``capture.cu``, read by
+S1-S6 (``frame.cu``) and the capture's node count (``capture.cu``, read by
 ``utils/profiling.py``) are compiled for ``sm_90a`` by one ``nvcc`` process
 per source, all started together, and linked into one shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds). The host builds of the same headers (``g++``:
-the traversal's in ``traverse_host.cpp``, S1-S5's in ``frame_host.cpp``)
+the traversal's in ``traverse_host.cpp``, S1-S6's in ``frame_host.cpp``)
 serve the CPU tests, and the BVH builder
 (``accel/csrc/bvh_builder.cpp``) and the OBJ parser
 (``scene/csrc/obj_loader.cpp``) are ``g++`` builds too. Libraries go to
@@ -123,7 +123,8 @@ KERNEL_NAMES = ("paged_major_kernel", "binary_traverse_kernel", "wide_traverse_k
                 "tlas_traverse_kernel", "paged_wide_kernel", "paged_binary_kernel",
                 "page_plan_init_kernel", "page_plan_tiles_kernel", "page_plan_order_kernel",
                 "page_plan_lists_kernel", "frame_raygen_kernel", "frame_attrs_kernel",
-                "frame_shade_kernel", "frame_sample_kernel", "frame_whitted_shade_kernel")
+                "frame_shade_kernel", "frame_sample_kernel", "frame_whitted_shade_kernel",
+                "frame_path_bounce_kernel")
 
 
 def ptxas_report(lib: pathlib.Path) -> dict[str, dict[str, int]]:
@@ -157,7 +158,7 @@ def ptxas_report(lib: pathlib.Path) -> dict[str, dict[str, int]]:
 
 
 def build_cuda() -> pathlib.Path:
-    """The kernels K1/K2, K3, K4/K5, K6, K6's plan and S1-S5 for sm_90a: one nvcc
+    """The kernels K1/K2, K3, K4/K5, K6, K6's plan and S1-S6 for sm_90a: one nvcc
     per source, started together, linked into ``libtraverse.so``."""
     return _build("traverse", find_nvcc(), NVCC_FLAGS, CUDA_SOURCES,
                   link_flags=NVCC_LINK_FLAGS)
@@ -251,6 +252,13 @@ _SAMPLE_ARGS = [_P, _I] + [_U] * 5 + [_P] + [_I64] * 5 + [_I, _P, _P]
 # material, illum, num_rays; filter, exact, first, last; radiance,
 # throughput, active, origin and dirs outputs
 _WHITTED_ARGS = _SHADE_ARGS[:13] + [_P] * 9 + [_I64] + [_I] * 4 + [_P] * 5
+# S6: S3's material and sky tables (mat_albedo ... has_sky);
+# mat_reflectivity, mat_illumination, mat_roughness; dirs, hit, location,
+# normal, uv, material, period; t, d_diff, lobe, illum, num_rays; filter,
+# exact, first, tail; sky_strength, light_scale; radiance, throughput,
+# active, origin and dirs outputs
+_PATH_ARGS = (_SHADE_ARGS[:13] + [_P] * 9 + [_I64] + [_P] * 4 + [_I64] + [_I] * 4 + [_F] * 2
+              + [_P] * 5)
 _ENTRY_ARGS = {
     # ... + stream (wt_launch takes t_max after the rays); the shapes take none
     "cuda": {"wt_launch": [_I] + _SCENE_ARGS + _RAY_ARGS + [_F] + _WALK_ARGS + [_Stream],
@@ -269,6 +277,7 @@ _ENTRY_ARGS = {
              "frame_shade_launch": _SHADE_ARGS + [_Stream],
              "frame_sample_launch": _SAMPLE_ARGS + [_Stream],
              "frame_whitted_shade_launch": _WHITTED_ARGS + [_Stream],
+             "frame_path_bounce_launch": _PATH_ARGS + [_Stream],
              # stream, int64 out: the capture's kernel, memcpy and memset nodes
              "capture_device_ops": [_Stream, _P]},
     # ... + spills (one i64 out; wt_trace_host takes t_max before it)
@@ -281,7 +290,8 @@ _ENTRY_ARGS = {
              "page_plan_host": _PLAN_IO_ARGS},
     "frame_host": {"frame_raygen_host": _RAYGEN_ARGS, "frame_attrs_host": _ATTRS_ARGS,
                    "frame_shade_host": _SHADE_ARGS, "frame_sample_host": _SAMPLE_ARGS,
-                   "frame_whitted_shade_host": _WHITTED_ARGS},
+                   "frame_whitted_shade_host": _WHITTED_ARGS,
+                   "frame_path_bounce_host": _PATH_ARGS},
 }
 
 _loaded: dict[tuple, ctypes.CDLL] = {}
@@ -313,13 +323,13 @@ def load(kind: str, short_stack: int | None = None) -> ctypes.CDLL:
     return _loaded[key]
 
 
-# Launches of each kernel since the counts were last reset: K1-K6 and S1-S5
+# Launches of each kernel since the counts were last reset: K1-K6 and S1-S6
 # by the names of the kernel tables (``kernels/__init__.py``), K1_carry and
 # K3_carry the launches of K1's and K3's carrying kernels, K1_bounded K1's
 # launches bounded by a t_max below BIG, K6_plan the launches of K6's plan
 # (its four kernels). Plain versions and host builds count nothing.
 LAUNCHES = dict.fromkeys(("K1", "K1_carry", "K1_bounded", "K2", "K3", "K3_carry", "K4", "K5",
-                          "K6", "K6_plan", "S1", "S2", "S3", "S4", "S5"), 0)
+                          "K6", "K6_plan", "S1", "S2", "S3", "S4", "S5", "S6"), 0)
 
 
 def reset_launches() -> None:

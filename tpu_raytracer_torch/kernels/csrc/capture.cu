@@ -9,7 +9,7 @@
 // The call adds nothing to the graph: cudaStreamGetCaptureInfo hands back
 // the graph under capture, which may be read while the capture goes on.
 //
-// Built with K1-K6 and S1-S5 into one library (kernels/build.py).
+// Built with K1-K6 and S1-S6 into one library (kernels/build.py).
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -1,6 +1,6 @@
 // CUDA entry points of the frame's stages S1 (raygen), S2 (hit attributes),
-// S3 (primary shade), S4 (sample) and S5 (Whitted shade), whose per-ray
-// math is frame.cuh.
+// S3 (primary shade), S4 (sample), S5 (Whitted shade) and S6 (path
+// bounce), whose per-ray math is frame.cuh.
 //
 // S1 replaces render/camera.py generate_rays_torch (the JAX package's
 // tpu_raytracer/render/camera.py:113 generate_rays, which XLA fuses ahead
@@ -48,6 +48,17 @@
 // with the sky, the texel, the sums and the reflected ray in registers.
 // The first bounce reads no state (it starts from 0, 1 and true), and the
 // last writes no rays.
+//
+// S6 (render/integrators.py path_bounce_torch, the bounce body of the path
+// tracer, ~50 eager PyTorch ops a bounce) is bounded by bytes as S5 is: one
+// thread per ray reads ~100 bytes (the direction, the hit attributes, S4's
+// cosine sample and lobe uniform, the state carried over) and writes ~50
+// (the state, the next bounce's parked ray). The batched wavefront's first
+// bounce hands its primary rows once for all samples (ray r reads row
+// r % period), never copied, and reads no state. A thread takes one row and
+// the rays that read it (q, q + period, ...), so each row is loaded from
+// device memory once and its other reads meet the cache. Its tail mode is
+// the fast tail's sky term after the any-hit cast: ~40 bytes a ray.
 //
 // Built with K1-K6 into one library (kernels/build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -101,6 +112,14 @@ frame_whitted_shade_kernel(fr::ShadeScene s, fr::ShadeParams p, fr::ShadeRays in
                            fr::WhittedState w) {
   const int64_t r = thread_index();
   if (r < in.num_rays) fr::whitted_shade(s, p, in, w, r);
+}
+
+__global__ void __launch_bounds__(kThreads)
+frame_path_bounce_kernel(fr::ShadeScene s, fr::ShadeParams p, fr::ShadeRays in,
+                         fr::PathBounce b) {
+  const int64_t q = thread_index();
+  if (q >= b.period) return;
+  for (int64_t r = q; r < in.num_rays; r += b.period) fr::path_bounce(s, p, in, b, r, q);
 }
 
 constexpr int kSampleBlocksPerSM = 8;
@@ -241,5 +260,41 @@ extern "C" int frame_whitted_shade_launch(
   if (!fr::whitted_args_ok(s, p, in, w)) return static_cast<int>(cudaErrorInvalidValue);
   frame_whitted_shade_kernel<<<blocks_for(num_rays), kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(s, p, in, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// S6 on `stream` over one path-tracing bounce of `num_rays` rays: `radiance`,
+// `throughput` [num_rays, 3] and `active` updated in place (at `first`
+// written from 0, 1 and true), and the next bounce's rays in `origin_out`
+// and `dirs_out` [num_rays, 3]; with `tail` the fast tail's sky term on the
+// radiance alone, from the any-hit cast's `t`. `dirs`, `hit`, `location`,
+// `normal`, `uv` and `material` hold `period` rows, ray r reading row
+// r % period; `t`, `d_diff`, `lobe` and `illum` (null: NEE off) one per
+// ray. `filter`
+// fr::Filter (trilinear samples bilinear); the tables are S3's, then the
+// materials' reflectivity, illumination and roughness [K].
+extern "C" int frame_path_bounce_launch(
+    const float* mat_albedo, const int32_t* mat_tex_start, const int32_t* mat_tex_w,
+    const int32_t* mat_tex_h, const int32_t* mat_tex_mip_start, int num_levels,
+    const int32_t* tex_atlas, int64_t atlas_size, int textured, const int32_t* sky_tex_start,
+    const int32_t* sky_tex_w, const int32_t* sky_tex_h, int has_sky,
+    const float* mat_reflectivity, const float* mat_illumination, const float* mat_roughness,
+    const float* dirs, const uint8_t* hit, const float* location, const float* normal,
+    const float* uv, const int64_t* material, int64_t period, const float* t,
+    const float* d_diff, const float* lobe, const float* illum, int64_t num_rays, int filter,
+    int exact, int first, int tail, float sky_strength, float light_scale, float* radiance,
+    float* throughput, uint8_t* active, float* origin_out, float* dirs_out, void* stream) {
+  const fr::ShadeScene s{mat_albedo, mat_tex_start, mat_tex_w, mat_tex_h, mat_tex_mip_start,
+                         num_levels, tex_atlas, atlas_size, textured, sky_tex_start, sky_tex_w,
+                         sky_tex_h, has_sky};
+  const fr::ShadeParams p{fr::kFlat, 0, {0.0f, 0.0f, 0.0f}, exact, 0.0f, 0.0f, filter, 0, 0, 0, 0};
+  const fr::ShadeRays in{hit, normal, uv, material, nullptr, location, dirs, nullptr, nullptr,
+                         nullptr, num_rays};
+  const fr::PathBounce b{mat_reflectivity, mat_illumination, mat_roughness, t, d_diff, lobe,
+                         illum, period, sky_strength, light_scale, radiance, throughput,
+                         active, origin_out, dirs_out, first, tail};
+  if (!fr::path_args_ok(s, p, in, b)) return static_cast<int>(cudaErrorInvalidValue);
+  frame_path_bounce_kernel<<<blocks_for(period), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(s, p, in, b);
   return static_cast<int>(cudaGetLastError());
 }

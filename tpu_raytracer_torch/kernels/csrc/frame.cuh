@@ -1,4 +1,4 @@
-// The per-ray math of the frame's stages S1-S5, for nvcc and g++.
+// The per-ray math of the frame's stages S1-S6, for nvcc and g++.
 //
 //   S1 raygen (raygen): one primary ray direction per pixel. Replaces
 //      render/camera.py generate_rays_torch, the port of the JAX package's
@@ -31,6 +31,16 @@
 //      rays, offset and parked. Replaces render/integrators.py
 //      whitted_shade_torch, the port of the shade body of
 //      tpu_raytracer/render/integrators.py's render_whitted.
+//   S6 path bounce (path_bounce): one bounce of render/integrators.py
+//      render_path_traced after its sample draw: the sky on a miss times
+//      its strength, the surface colour (as S5's), the emission, the
+//      throughput times the colour, the light term where NEE is on, the
+//      glossy lobe (the mirror blended toward the cosine sample by the
+//      roughness, the cosine sample below the surface) chosen by the lobe
+//      uniform, and the next bounce's rays, offset and parked; in its tail
+//      mode the fast tail's sky term after the any-hit cast. Replaces
+//      render/integrators.py path_bounce_torch, the port of the bounce body
+//      of tpu_raytracer/render/integrators.py's render_path_traced.
 //
 // Each function repeats its plain version's f32 operations in their order,
 // one rounding per PyTorch op: sums of dot products left to right (core/
@@ -885,6 +895,140 @@ FR_HD bool whitted_args_ok(const ShadeScene& s, const ShadeParams& p, const Shad
          && w.throughput != nullptr && w.active != nullptr
          && (w.last || (w.origin_out != nullptr && w.dirs_out != nullptr
                         && in.location != nullptr && in.normal != nullptr));
+}
+
+// ---------------------------------------------------------------------------
+// S6 path bounce
+// ---------------------------------------------------------------------------
+
+// One path-tracing bounce's inputs beside its rays and hit attributes
+// (ShadeRays: dirs, hit, location, normal, uv, material; null in the tail
+// but dirs), and its state. Ray r reads the rows of ShadeRays at row
+// r % period: the batched wavefront's first bounce hands the primary rows
+// once for every sample (period = the rays of one sample), every other
+// bounce per ray (period = num_rays). The per-ray inputs and the state are
+// read at r.
+// `radiance`, `throughput` [R, 3] and `active` are read (but at the first
+// bounce, which starts from 0, 1 and true) and written in place; the tail
+// writes the radiance alone (and at a first bounce the rest of the state),
+// a bounce also `origin_out` and `dirs_out` [R, 3].
+struct PathBounce {
+  const float* mat_reflectivity;  // [K]
+  const float* mat_illumination;  // [K]
+  const float* mat_roughness;     // [K]
+  const float* t;                 // [R] the tail's any-hit t (tail only)
+  const float* d_diff;            // [R, 3] S4's cosine samples (a bounce)
+  const float* lobe;              // [R] S4's lobe uniforms (a bounce)
+  const float* illum;             // [R] NEE's light term, or null: NEE off
+  int64_t period;
+  float sky_strength;
+  float light_scale;              // 1 / pi times the sun's intensity
+  float* radiance;
+  float* throughput;
+  uint8_t* active;
+  float* origin_out;
+  float* dirs_out;
+  int first;
+  int tail;
+};
+
+// Bounce r of render/integrators.py path_bounce_torch, whose rows are row q
+// (r % period). `p` holds exact and the texture filter with width 0
+// (trilinear samples bilinear). A lane's `x + where(c, y, 0)` is
+// `x + (c ? y : 0)` and `x * where(c, y, 1)` is `x * (c ? y : 1)`, so each
+// rounds as PyTorch's does.
+FR_HD void path_bounce(const ShadeScene& s, const ShadeParams& p, const ShadeRays& in,
+                       const PathBounce& b, int64_t r, int64_t q) {
+  const bool active = b.first || b.active[r] != 0;
+  float rad[3], thr[3];
+  for (int k = 0; k < 3; ++k) {
+    rad[k] = b.first ? 0.0f : b.radiance[3 * r + k];
+    thr[k] = b.first ? 1.0f : b.throughput[3 * r + k];
+  }
+  // the tail's answer is the any-hit t: a miss where t >= FLT_MAX
+  const bool hit = b.tail ? !(b.t[r] >= kFltMax) : in.hit[q] != 0;
+  const bool miss = active && !hit;
+  float sky_rgb[3] = {0.0f, 0.0f, 0.0f};
+  if (miss) {
+    if (s.has_sky && *s.sky_tex_start >= 0) {
+      sky_map_radiance(s, in.dirs + 3 * q, p.exact != 0, sky_rgb);
+    } else {
+      for (int k = 0; k < 3; ++k) sky_rgb[k] = flat_sky(k);
+    }
+    for (int k = 0; k < 3; ++k) sky_rgb[k] = sky_rgb[k] * b.sky_strength;
+  }
+  for (int k = 0; k < 3; ++k) rad[k] = rad[k] + (miss ? thr[k] * sky_rgb[k] : 0.0f);
+  if (b.tail) {
+    for (int k = 0; k < 3; ++k) b.radiance[3 * r + k] = rad[k];
+    if (b.first) {
+      for (int k = 0; k < 3; ++k) b.throughput[3 * r + k] = thr[k];
+      b.active[r] = 1;
+    }
+    return;
+  }
+
+  const bool live = active && hit;
+  float color[3] = {1.0f, 1.0f, 1.0f}, emit = 0.0f, refl = 0.0f, rough = 0.0f;
+  if (live) {
+    surface_color(s, p, in, q, color);
+    const int64_t m = in.material[q];
+    emit = b.mat_illumination[m];
+    refl = b.mat_reflectivity[m];
+    rough = b.mat_roughness[m];
+  }
+  for (int k = 0; k < 3; ++k) {
+    rad[k] = rad[k] + (live ? thr[k] * emit : 0.0f);
+    thr[k] = thr[k] * (live ? color[k] : 1.0f);
+  }
+  if (b.illum != nullptr) {
+    // the light's term on the diffuse part of the lobe mix
+    const float wgt = (1.0f - refl) * b.illum[r] * b.light_scale;
+    for (int k = 0; k < 3; ++k) rad[k] = rad[k] + (live ? thr[k] * wgt : 0.0f);
+  }
+  for (int k = 0; k < 3; ++k) {
+    b.radiance[3 * r + k] = rad[k];
+    b.throughput[3 * r + k] = thr[k];
+  }
+  b.active[r] = live ? 1 : 0;
+  float* o = b.origin_out + 3 * r;
+  float* d = b.dirs_out + 3 * r;
+  if (!live) {
+    for (int k = 0; k < 3; ++k) {
+      o[k] = kParkOrigin;
+      d[k] = kParkDir;
+    }
+    return;
+  }
+  // the glossy lobe: the mirror blended toward the cosine sample by the
+  // roughness, back to the cosine sample where it dips under the surface
+  float dir[3], n[3], diff[3], spec[3];
+  load3(in.dirs + 3 * q, dir);
+  load3(in.normal + 3 * q, n);
+  load3(b.d_diff + 3 * r, diff);
+  const float twice = 2.0f * dot3(dir, n);
+  const float keep = 1.0f - rough;
+  for (int k = 0; k < 3; ++k) spec[k] = keep * (dir[k] - twice * n[k]) + rough * diff[k];
+  normalize(spec, p.exact != 0);
+  const bool glossy = b.lobe[r] < refl;
+  const float* next = glossy && dot3(spec, n) > 0.0f ? spec : diff;
+  const float* loc = in.location + 3 * q;
+  for (int k = 0; k < 3; ++k) {
+    o[k] = loc[k] + next[k] * kShadowEps;
+    d[k] = next[k];
+  }
+}
+
+FR_HD bool path_args_ok(const ShadeScene& s, const ShadeParams& p, const ShadeRays& in,
+                        const PathBounce& b) {
+  const bool rows = b.tail ? b.t != nullptr
+                           : in.hit != nullptr && in.location != nullptr && in.normal != nullptr
+                                 && in.uv != nullptr && in.material != nullptr
+                                 && b.d_diff != nullptr && b.lobe != nullptr
+                                 && b.origin_out != nullptr && b.dirs_out != nullptr;
+  return in.num_rays > 0 && b.period > 0 && in.num_rays % b.period == 0 && p.filter >= kNearest
+         && p.filter <= kTrilinear && p.width == 0 && s.num_levels > 0
+         && !(s.has_sky && s.sky_tex_start == nullptr) && in.dirs != nullptr && rows
+         && b.radiance != nullptr && b.throughput != nullptr && b.active != nullptr;
 }
 
 }  // namespace fr

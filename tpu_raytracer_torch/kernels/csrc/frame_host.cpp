@@ -1,5 +1,5 @@
 // Host builds of the frame stages' per-ray math (frame.cuh) for the CPU
-// tests: the code S1-S5 run on the card, looped over pixels or
+// tests: the code S1-S6 run on the card, looped over pixels or
 // rays, with the same C interface as frame.cu's launchers less the stream.
 // The host has no rsqrtf: torch.rsqrt is 1/sqrtf here, as in ATen's CPU
 // kernel; atanf, atan2f, asinf, log2f, sinf, cosf and powf are the C
@@ -97,5 +97,32 @@ extern "C" int frame_whitted_shade_host(
                            active, origin_out, dirs_out, first, last};
   if (!fr::whitted_args_ok(s, p, in, w)) return 1;
   for (int64_t r = 0; r < num_rays; ++r) fr::whitted_shade(s, p, in, w, r);
+  return 0;
+}
+
+extern "C" int frame_path_bounce_host(
+    const float* mat_albedo, const int32_t* mat_tex_start, const int32_t* mat_tex_w,
+    const int32_t* mat_tex_h, const int32_t* mat_tex_mip_start, int num_levels,
+    const int32_t* tex_atlas, int64_t atlas_size, int textured, const int32_t* sky_tex_start,
+    const int32_t* sky_tex_w, const int32_t* sky_tex_h, int has_sky,
+    const float* mat_reflectivity, const float* mat_illumination, const float* mat_roughness,
+    const float* dirs, const uint8_t* hit, const float* location, const float* normal,
+    const float* uv, const int64_t* material, int64_t period, const float* t,
+    const float* d_diff, const float* lobe, const float* illum, int64_t num_rays, int filter,
+    int exact, int first, int tail, float sky_strength, float light_scale, float* radiance,
+    float* throughput, uint8_t* active, float* origin_out, float* dirs_out) {
+  const fr::ShadeScene s{mat_albedo, mat_tex_start, mat_tex_w, mat_tex_h, mat_tex_mip_start,
+                         num_levels, tex_atlas, atlas_size, textured, sky_tex_start, sky_tex_w,
+                         sky_tex_h, has_sky};
+  const fr::ShadeParams p{fr::kFlat, 0, {0.0f, 0.0f, 0.0f}, exact, 0.0f, 0.0f, filter, 0, 0, 0, 0};
+  const fr::ShadeRays in{hit, normal, uv, material, nullptr, location, dirs, nullptr, nullptr,
+                         nullptr, num_rays};
+  const fr::PathBounce b{mat_reflectivity, mat_illumination, mat_roughness, t, d_diff, lobe,
+                         illum, period, sky_strength, light_scale, radiance, throughput,
+                         active, origin_out, dirs_out, first, tail};
+  if (!fr::path_args_ok(s, p, in, b)) return 1;
+  for (int64_t q = 0; q < period; ++q) {
+    for (int64_t r = q; r < num_rays; r += period) fr::path_bounce(s, p, in, b, r, q);
+  }
   return 0;
 }

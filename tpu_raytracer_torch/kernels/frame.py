@@ -1,6 +1,6 @@
 """The frame's stages around the cast as hand-written kernels: S1 raygen,
-S2 hit attributes, S3 primary shade, S4 sample and S5 Whitted shade
-(``csrc/frame.cu``, per-ray math in ``csrc/frame.cuh``).
+S2 hit attributes, S3 primary shade, S4 sample, S5 Whitted shade and S6
+path bounce (``csrc/frame.cu``, per-ray math in ``csrc/frame.cuh``).
 
 The JAX package jits its frame, so XLA fuses the work on each side of the
 Pallas cast into a few passes: raygen before it
@@ -37,11 +37,22 @@ as one kernel each:
     term, the materials' reflectivity and emission, the radiance and
     throughput sums updated in place, and the next bounce's reflected rays,
     offset and parked. The first bounce takes no state, the last writes
-    no rays.
+    no rays;
+  * ``path_bounce_cuda`` (S6) of ``render/integrators.py path_bounce``
+    (plain: ``path_bounce_torch``), one path-tracing bounce's ``bounce``
+    stage after its S4 draw: the sky on a miss times its strength, the
+    surface colour (as S5's), the emission, the throughput, the light term
+    where NEE is on, the glossy lobe blended toward the cosine sample and
+    chosen by the lobe uniform, and the next bounce's rays, offset and
+    parked; or, in its tail mode, the fast tail's sky term after the
+    any-hit cast. The state is updated in place (the first bounce takes
+    none); the batched wavefront's first bounce hands its rays and hit
+    attributes expanded over the samples, and they are read through their
+    period, not copied.
 
 Each public name routes: a CUDA tensor launches the kernel on the current
 stream (outputs allocated with ``torch.empty``) and counts the launch in
-``build.LAUNCHES`` (``S1`` to ``S5``), or raises;
+``build.LAUNCHES`` (``S1`` to ``S6``), or raises;
 a CPU tensor takes the plain version; nothing falls back. Each kernel
 repeats its plain version's f32 operations in their order, built with
 ``--fmad=false``, so the two agree bit for bit on the card, misses
@@ -402,10 +413,33 @@ def sample_cosine_host(key, chain, normal, exact: bool = True, lobe: bool = Fals
 # ---------------------------------------------------------------------------
 
 
-def _whitted_shade(scene, directions, attrs, illum, state, exact: bool, tex_filter: str,
-                   last: bool, host: bool):
+def _bounce_state(state, directions) -> tuple:
+    """(state, first) of a bounce of the rays ``directions`` [..., 3] that
+    S5 or S6 updates in place: ``state`` (radiance [..., 3], throughput
+    [..., 3], active [...]) checked, or, at the first bounce (None), made
+    uninitialised, since the kernel starts from 0, 1 and true."""
     from .build import check_inputs
 
+    shape, dev = directions.shape[:-1], directions.device
+    first = state is None
+    if first:
+        state = (torch.empty(directions.shape, dtype=torch.float32, device=dev),
+                 torch.empty(directions.shape, dtype=torch.float32, device=dev),
+                 torch.empty(shape, dtype=torch.bool, device=dev))
+    radiance, throughput, active = state
+    # updated in place: no copy may stand in for them
+    check_inputs(dev, ("radiance", radiance, torch.float32),
+                 ("throughput", throughput, torch.float32), ("active", active, torch.bool))
+    for name, x, want in (("radiance", radiance, directions.shape),
+                          ("throughput", throughput, directions.shape),
+                          ("active", active, shape)):
+        if x.shape != want:
+            raise ValueError(f"{name} must have shape {tuple(want)}, got {tuple(x.shape)}")
+    return state, first
+
+
+def _whitted_shade(scene, directions, attrs, illum, state, exact: bool, tex_filter: str,
+                   last: bool, host: bool):
     if tex_filter not in FILTERS:
         raise ValueError(f"unknown texture filter: {tex_filter!r}")
     if not isinstance(directions, torch.Tensor) or directions.shape[-1:] != (3,):
@@ -422,20 +456,8 @@ def _whitted_shade(scene, directions, attrs, illum, state, exact: bool, tex_filt
     refl = _tensor("mat_reflectivity", scene.mat_reflectivity, torch.float32, k)
     emit = _tensor("mat_illumination", scene.mat_illumination, torch.float32, k)
     tables, scene_tensors = _material_tables(scene, bool(scene.has_sky))
-    first = state is None  # the kernel starts from 0, 1 and true
-    if first:
-        state = (torch.empty(directions.shape, dtype=torch.float32, device=dev),
-                 torch.empty(directions.shape, dtype=torch.float32, device=dev),
-                 torch.empty(shape, dtype=torch.bool, device=dev))
+    state, first = _bounce_state(state, directions)
     radiance, throughput, active = state
-    # updated in place: no copy may stand in for them
-    check_inputs(dev, ("radiance", radiance, torch.float32),
-                 ("throughput", throughput, torch.float32), ("active", active, torch.bool))
-    for name, x, want in (("radiance", radiance, directions.shape),
-                          ("throughput", throughput, directions.shape),
-                          ("active", active, shape)):
-        if x.shape != want:
-            raise ValueError(f"{name} must have shape {tuple(want)}, got {tuple(x.shape)}")
     _same_device(dev, hit=hit, location=location, normal=normal, uv=uv, material=material,
                  illum=illum, mat_reflectivity=refl, mat_illumination=emit, **scene_tensors)
     run = _entry(dev, host, "whitted_shade", "S5")
@@ -467,3 +489,97 @@ def whitted_shade_host(scene, directions, attrs, illum, state=None, exact: bool 
     """S5's per-ray code built for the host, on CPU tensors."""
     return _whitted_shade(scene, directions, attrs, illum, state, exact, tex_filter, last,
                           host=True)
+
+
+# ---------------------------------------------------------------------------
+# S6 path bounce
+# ---------------------------------------------------------------------------
+
+
+def _primary_rows(shape, fields) -> tuple:
+    """``fields`` ((name, tensor, dtype, lanes), ...), each of shape
+    ``shape + lanes``, checked, as (tensors, period): where every one is
+    expanded over the first axis (stride 0, the batched wavefront's first
+    bounce) its first row, read at ray r % period, else each contiguous
+    (period: every ray)."""
+    rays = 1
+    for n in shape:
+        rays *= int(n)
+    for name, x, _, lanes in fields:
+        if not isinstance(x, torch.Tensor) or tuple(x.shape) != tuple(shape) + lanes:
+            got = tuple(x.shape) if isinstance(x, torch.Tensor) else type(x).__name__
+            raise ValueError(f"{name} must have shape {tuple(shape) + lanes}, got {got}")
+    if len(shape) > 1 and shape[0] > 1 and all(x.stride(0) == 0 for _, x, _, _ in fields):
+        return ([_tensor(name, x[0], dtype) for name, x, dtype, _ in fields],
+                rays // int(shape[0]))
+    return [_tensor(name, x, dtype) for name, x, dtype, _ in fields], rays
+
+
+def _path_bounce(scene, directions, attrs, samples, illum, state, exact: bool, tex_filter: str,
+                 sky_strength: float, light_scale: float, tail: bool, host: bool):
+    if tex_filter not in FILTERS:
+        raise ValueError(f"unknown texture filter: {tex_filter!r}")
+    if not isinstance(directions, torch.Tensor) or directions.shape[-1:] != (3,):
+        raise ValueError("directions must be a [..., 3] tensor")
+    shape, dev = directions.shape[:-1], directions.device
+    rows = [("directions", directions, torch.float32, (3,))]
+    t = d_diff = lobe = None
+    if tail:  # attrs is the any-hit cast's Hit
+        t = _tensor("hit.t", attrs.t, torch.float32, shape)
+    else:
+        rows += [("attrs.hit", attrs.hit, torch.bool, ()),
+                 ("attrs.location", attrs.location, torch.float32, (3,)),
+                 ("attrs.normal", attrs.normal, torch.float32, (3,)),
+                 ("attrs.uv", attrs.uv, torch.float32, (2,)),
+                 ("attrs.material", attrs.material, torch.int64, ())]
+        if samples is None:
+            raise ValueError("a bounce needs S4's samples (directions, lobe uniforms)")
+        d_diff = _tensor("d_diff", samples[0], torch.float32, directions.shape)
+        lobe = _tensor("lobe", samples[1], torch.float32, shape)
+    (dirs, *primary), period = _primary_rows(shape, rows)
+    illum = None if illum is None or tail else _tensor("illum", illum, torch.float32, shape)
+    k = (scene.mat_albedo.shape[0],)
+    mats = [_tensor(name, getattr(scene, name), torch.float32, k)
+            for name in ("mat_reflectivity", "mat_illumination", "mat_roughness")]
+    tables, scene_tensors = _material_tables(scene, bool(scene.has_sky))
+    state, first = _bounce_state(state, directions)
+    radiance, throughput, active = state
+    _same_device(dev, dirs=dirs, **dict(zip(("hit", "location", "normal", "uv", "material"),
+                                            primary)),
+                 t=t, d_diff=d_diff, lobe=lobe, illum=illum, mat_reflectivity=mats[0],
+                 mat_illumination=mats[1], mat_roughness=mats[2], **scene_tensors)
+    run = _entry(dev, host, "path_bounce", "S6")
+    rays = None if tail else (torch.empty(directions.shape, dtype=torch.float32, device=dev),
+                              torch.empty(directions.shape, dtype=torch.float32, device=dev))
+    primary = primary or [None] * 5
+    r = radiance.numel() // 3
+    if r > 0:
+        run(*tables, *map(_ptr, mats), dirs.data_ptr(), *map(_ptr, primary), period, _ptr(t),
+            _ptr(d_diff), _ptr(lobe), _ptr(illum), r, FILTERS[tex_filter], int(exact),
+            int(first), int(tail), float(sky_strength), float(light_scale), radiance.data_ptr(),
+            throughput.data_ptr(), active.data_ptr(), *(_ptr(x) for x in rays or (None, None)))
+    return state, rays
+
+
+def path_bounce_cuda(scene, directions, attrs, samples=None, illum=None, state=None,
+                     exact: bool = True, tex_filter: str = "nearest", sky_strength: float = 1.0,
+                     light_scale: float = 0.0, tail: bool = False):
+    """S6: one path-tracing bounce's ``bounce`` stage on the card
+    (``render/integrators.py path_bounce``) on the rays ``directions`` and
+    their hit attributes ``attrs``, S4's ``samples`` (cosine directions,
+    lobe uniforms) and NEE's light term ``illum`` (None: NEE off, else
+    weighted by ``light_scale``): ``state`` (radiance [..., 3], throughput
+    [..., 3], active [...]) updated in place, or made at the first bounce
+    (None), and the next bounce's rays (origins, directions): (state,
+    rays). With ``tail`` the fast tail's sky term, ``attrs`` the any-hit
+    cast's ``Hit``: (state, None)."""
+    return _path_bounce(scene, directions, attrs, samples, illum, state, exact, tex_filter,
+                        sky_strength, light_scale, tail, host=False)
+
+
+def path_bounce_host(scene, directions, attrs, samples=None, illum=None, state=None,
+                     exact: bool = True, tex_filter: str = "nearest", sky_strength: float = 1.0,
+                     light_scale: float = 0.0, tail: bool = False):
+    """S6's per-ray code built for the host, on CPU tensors."""
+    return _path_bounce(scene, directions, attrs, samples, illum, state, exact, tex_filter,
+                        sky_strength, light_scale, tail, host=True)

@@ -23,9 +23,9 @@ sharded frame is this estimator's; without them nothing changes.
 The integrators' work is cut into the frame's stages
 (``utils/profiling.py``): ``cast`` (each cast with its rays' prep),
 ``attrs``, ``sample`` (``sample_cosine``: each draw's cosine samples and
-the path tracer's lobe uniforms), ``bounce`` (the rest of the path
-tracer's bounce arithmetic, AO's accumulation) and ``output`` (the mean
-over samples); Whitted's bounce is ``cast``, ``attrs``, ``light``
+the path tracer's lobe uniforms), ``bounce`` (``path_bounce``: the rest of
+the path tracer's bounce arithmetic; AO's accumulation) and ``output`` (the
+mean over samples); Whitted's bounce is ``cast``, ``attrs``, ``light``
 (``_direct_illumination``: the shadow rays' set-up and the light term, its
 any-hit cast in a ``cast`` of its own) and ``shade`` (``whitted_shade``:
 the sky, the surface colour, the radiance and throughput sums, the
@@ -38,7 +38,10 @@ i)``: AO's sample s draws with ``(s,)``, the batched path tracer's bounce b
 with ``(b,)``, the sequential one's sample s with ``(s, b)``; the lens
 draws of depth of field stay on ``utils/prng.py``. ``whitted_shade`` routes
 the same way: kernel S5 (``kernels/frame.py whitted_shade_cuda``), one
-launch a bounce, or the plain version ``whitted_shade_torch``.
+launch a bounce, or the plain version ``whitted_shade_torch``; and
+``path_bounce``: kernel S6 (``kernels/frame.py path_bounce_cuda``), one
+launch a bounce and one for the fast tail, or the plain version
+``path_bounce_torch``.
 
 Not ported: the Whitted ray retiling and the TPU packet geometry of
 bounce casts.
@@ -253,6 +256,80 @@ def _cosine_sample(key, normal, exact):
         return normalize(d, exact=exact)
 
 
+def path_bounce(scene, directions, attrs, state=None, key=None, chain: tuple = (), illum=None,
+                exact: bool = True, tex_filter: str = "nearest", sky_strength: float = 1.0,
+                light_scale: float = 0.0, tail: bool = False):
+    """One path-tracing bounce's ``bounce`` stage on the rays ``directions``
+    [..., 3] and their hit attributes ``attrs``: the sky (times
+    ``sky_strength``) where an active ray missed; where it hit, the
+    emission, the throughput times the surface colour and, where NEE's
+    light term ``illum`` [...] is given, that term on the diffuse part of
+    the lobe mix, weighted by ``light_scale``; then the next rays, drawn
+    with ``key`` folded with ``chain`` (``sample_cosine``'s lobe draw):
+    the glossy lobe with probability ``mat_reflectivity`` (the mirror
+    blended toward the cosine sample by ``mat_roughness``), else the
+    cosine sample, offset and parked where the ray died. ``state`` is
+    (radiance [..., 3], throughput [..., 3], active [...]), None at the
+    first bounce: (state, (origins, directions)). With ``tail`` (the fast
+    tail) ``attrs`` is the any-hit cast's ``Hit`` and the sky is added
+    where it missed: (state, None). CUDA tensors launch kernel S6
+    (``kernels/frame.py path_bounce_cuda``; a bounce after its S4 draw),
+    which updates the state in place; CPU tensors take the plain version
+    ``path_bounce_torch``."""
+    if directions.device.type == "cpu":
+        return path_bounce_torch(scene, directions, attrs, state, key, chain, illum, exact,
+                                 tex_filter, sky_strength, light_scale, tail)
+    from ..kernels.frame import path_bounce_cuda
+
+    samples = None if tail else sample_cosine(key, chain, attrs.normal, exact, lobe=True)
+    return path_bounce_cuda(scene, directions, attrs, samples, illum, state, exact, tex_filter,
+                            sky_strength, light_scale, tail)
+
+
+def path_bounce_torch(scene, directions, attrs, state=None, key=None, chain: tuple = (),
+                      illum=None, exact: bool = True, tex_filter: str = "nearest",
+                      sky_strength: float = 1.0, light_scale: float = 0.0, tail: bool = False):
+    """The plain version of ``path_bounce`` (and of kernel S6): the eager
+    bounce body of ``render_path_traced``."""
+    d = directions
+    if state is None:
+        shape, dev = d.shape[:-1], d.device
+        state = (torch.zeros(shape + (3,), dtype=torch.float32, device=dev),
+                 torch.ones(shape + (3,), dtype=torch.float32, device=dev),
+                 torch.ones(shape, dtype=torch.bool, device=dev))
+    radiance, throughput, active = state
+    sky = sky_radiance(scene, d, exact=exact) * sky_strength
+    if tail:
+        # final bounce: visibility of the sky is the whole answer
+        miss = active & (attrs.t >= FLT_MAX)
+        return (radiance + torch.where(miss[..., None], throughput * sky, 0.0), throughput,
+                active), None
+    miss = active & ~attrs.hit
+    radiance = radiance + torch.where(miss[..., None], throughput * sky, 0.0)
+    live = active & attrs.hit
+    color = surface_color(scene, attrs, tex_filter)
+    emit = scene.mat_illumination[attrs.material]
+    refl = scene.mat_reflectivity[attrs.material]
+    rough = scene.mat_roughness[attrs.material][..., None]
+    radiance = radiance + torch.where(live[..., None], throughput * emit[..., None], 0.0)
+    throughput = throughput * torch.where(live[..., None], color, 1.0)
+    if illum is not None:
+        # the light's term on the diffuse part of the lobe mix:
+        # T * (1 - refl) * albedo / pi * cos_i * vis * intensity
+        wgt = (1.0 - refl) * illum * light_scale
+        radiance = radiance + torch.where(live[..., None], throughput * wgt[..., None], 0.0)
+    d_diff, u = sample_cosine(key, chain, attrs.normal, exact, lobe=True)
+    # glossy lobe: the mirror blended toward the cosine sample by
+    # roughness, back to the cosine sample where it dips under the
+    # surface
+    mirror = _reflect(d, attrs.normal)
+    d_spec = normalize((1.0 - rough) * mirror + rough * d_diff, exact=exact)
+    d_spec = torch.where((dot(d_spec, attrs.normal) > 0.0)[..., None], d_spec, d_diff)
+    d_new = torch.where((u < refl)[..., None], d_spec, d_diff)
+    o_new = attrs.location + d_new * SHADOW_EPS
+    return (radiance, throughput, live), park_dead_rays(o_new, d_new, live)
+
+
 def lens_basis(directions: torch.Tensor, exact: bool = True):
     """(right, up): the thin lens's disk axes, perpendicular to the mean
     view axis of ``directions [..., 3]``. The reference vector is +z, or
@@ -307,7 +384,9 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
     shape = directions.shape[:-1]
     dev = directions.device
     key = key.to(dev)
-    inv_pi = 1.0 / math.pi
+    # NEE's weight: 1 / pi times the sun's intensity
+    shading = dict(exact=exact, tex_filter=tex_filter, sky_strength=sky_strength,
+                   light_scale=(1.0 / math.pi) * sun_intensity)
 
     def attrs_of(c, o, d):
         with stage("cast"):
@@ -325,70 +404,37 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
         tail_occ = _sharded_hooks["occ"]
         nee_cast, nee_occ = _sharded_hooks["nearest"], _sharded_hooks["occ"]
 
-    def bounce_from_attrs(state, attrs, chain_b):
-        o, d, throughput, radiance, active = state
-        miss = active & ~attrs.hit
-        sky = sky_radiance(scene, d, exact=exact) * sky_strength
-        radiance = radiance + torch.where(miss[..., None], throughput * sky, 0.0)
-        live = active & attrs.hit
-        color = surface_color(scene, attrs, tex_filter)
-        emit = scene.mat_illumination[attrs.material]
-        refl = scene.mat_reflectivity[attrs.material]
-        rough = scene.mat_roughness[attrs.material][..., None]
-        radiance = radiance + torch.where(live[..., None], throughput * emit[..., None], 0.0)
-        throughput = throughput * torch.where(live[..., None], color, 1.0)
+    def bounce_from_attrs(d, attrs, state, chain_b):
+        illum = None
         if nee:
-            # the light's term on the diffuse part of the lobe mix:
-            # T * (1 - refl) * albedo / pi * cos_i * vis * intensity
+            # its shadow rays' any-hit cast is stage cast
             illum = _direct_illumination(scene, nee_cast, attrs, light_direction, point_lights,
                                          exact, True, occ_cast=nee_occ, shadow_floor=0.0)
-            wgt = (1.0 - refl) * illum * (inv_pi * sun_intensity)
-            radiance = radiance + torch.where(live[..., None], throughput * wgt[..., None], 0.0)
-        d_diff, u = sample_cosine(key, chain_b, attrs.normal, exact, lobe=True)
-        # glossy lobe: the mirror blended toward the cosine sample by
-        # roughness, back to the cosine sample where it dips under the
-        # surface
-        mirror = _reflect(d, attrs.normal)
-        d_spec = normalize((1.0 - rough) * mirror + rough * d_diff, exact=exact)
-        d_spec = torch.where((dot(d_spec, attrs.normal) > 0.0)[..., None], d_spec, d_diff)
-        d_new = torch.where((u < refl)[..., None], d_spec, d_diff)
-        o_new = attrs.location + d_new * SHADOW_EPS
-        o_next, d_next = park_dead_rays(torch.where(live[..., None], o_new, o),
-                                        torch.where(live[..., None], d_new, d), live)
-        return o_next, d_next, throughput, radiance, live
+        return path_bounce(scene, d, attrs, state, key, chain_b, illum, **shading)
 
-    def run_bounces(state, a0, chain):
-        """Bounce chain from the primary attributes to the radiance (the
-        ``bounce`` stage, its casts and samples stages of their own); bounce
-        b draws with the key's chain ``chain + (b,)``."""
+    def run_bounces(d, a0, chain):
+        """Bounce chain from the primary rays ``d`` and attributes to the
+        radiance (the ``bounce`` stage, its casts and samples stages of
+        their own); bounce b draws with the key's chain ``chain + (b,)``."""
         with stage("bounce"):
-            state = bounce_from_attrs(state, a0, chain + (0,))
+            state, (o, d) = bounce_from_attrs(d, a0, None, chain + (0,))
             for b in range(1, max_bounces + 1):
-                o, d = state[0], state[1]
                 if fast_tail and b == max_bounces:
-                    # final bounce: visibility of the sky is the whole answer
-                    throughput, radiance, active = state[2], state[3], state[4]
-                    sky = sky_radiance(scene, d, exact=exact) * sky_strength
                     with stage("cast"):
                         occ = tail_occ(scene, o.contiguous(), d.contiguous())
-                    miss = active & (occ.t >= FLT_MAX)
-                    return radiance + torch.where(miss[..., None], throughput * sky, 0.0)
-                state = bounce_from_attrs(state, attrs_bounce(o, d), chain + (b,))
-            return state[3]
+                    state, _ = path_bounce(scene, d, occ, state, tail=True, **shading)
+                    break
+                state, (o, d) = bounce_from_attrs(d, attrs_bounce(o, d), state, chain + (b,))
+            return state[0]
 
     dof = lens_radius > 0.0
     if samples > 1 and sample_batch and not dof:
-        # one primary cast; every sample's bounces in one wavefront
+        # one primary cast; every sample's bounces in one wavefront, the
+        # primary rays and attributes expanded over the samples
         a0 = attrs_primary(origin, directions)
         bc = lambda x: x[None].expand((samples,) + x.shape)
         a0 = type(a0)(*(bc(x) for x in a0))
-        bshape = (samples,) + shape
-        with stage("bounce"):
-            state = (bc(origin.expand(directions.shape)), bc(directions),
-                     torch.ones(bshape + (3,), dtype=torch.float32, device=dev),
-                     torch.zeros(bshape + (3,), dtype=torch.float32, device=dev),
-                     torch.ones(bshape, dtype=torch.bool, device=dev))
-        radiance = run_bounces(state, a0, ())
+        radiance = run_bounces(bc(directions), a0, ())
         with stage("output"):
             return radiance.mean(dim=0)
 
@@ -404,7 +450,7 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
     with stage("output"):
         total = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
     for s in range(samples):
-        o0, d0 = origin, directions
+        d0 = directions
         if dof:
             with stage("raygen"):  # its draws are stage sample
                 lens_key = prng.split(sample_keys[s], max_bounces + 2)[-1]
@@ -419,11 +465,7 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
             a0 = attrs_primary(o0, d0)
         else:
             a0 = attrs0
-        with stage("bounce"):
-            state = (o0, d0, torch.ones(shape + (3,), dtype=torch.float32, device=dev),
-                     torch.zeros(shape + (3,), dtype=torch.float32, device=dev),
-                     torch.ones(shape, dtype=torch.bool, device=dev))
-        radiance = run_bounces(state, a0, (s,))
+        radiance = run_bounces(d0, a0, (s,))
         with stage("output"):
             total = total + radiance
     with stage("output"):
