@@ -27,9 +27,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from tpu_raytracer_torch.accel.bvh import sah_cost
 from tpu_raytracer_torch.app.scenes import scene_instances
 from tpu_raytracer_torch.render import Camera, RenderConfig, pipeline
 from tpu_raytracer_torch.scene import Material, MeshInstance, MeshPrimitive, Scene, mesh, procgen
+from tpu_raytracer_torch.kernels.wide4 import wide_sah
 from tpu_raytracer_torch.utils import profiling, prng
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -115,16 +117,85 @@ def test_rt_spans_in_the_trace_nested_in_their_frame(record, tmp_path):
     assert {e["name"] for e in inner} == {"rt." + s.name for s in rec if s.name != "frame"}
 
 
-def test_setup_spans_without_a_profiler(record, tmp_path, monkeypatch):
+@pytest.mark.parametrize("opt_rounds", [0, 2])
+def test_setup_spans_without_a_profiler(record, tmp_path, monkeypatch, opt_rounds):
+    """A build and a cache hit of one tree: ``setup.bvh``'s info (the
+    tree's ``sah`` on both), ``setup.optimize`` inside the build alone
+    where it runs the optimizer, ``setup.compile``'s wide tables' SAH."""
     monkeypatch.setattr(mesh, "CACHE_MIN_TRIS", 0)
+    v = procgen.colonnade(3, 3, 8, bands=8)
+    trees, scenes = [], []
     for _ in range(2):
-        _scene("cpu", cache_dir=str(tmp_path))
+        m = MeshPrimitive.from_triangles(*v, opt_rounds=opt_rounds, cache_dir=str(tmp_path))
+        scene = Scene()
+        scene.add_material(Material())
+        scene.add_mesh(m)
+        scene.add_mesh_instance(MeshInstance(0, 0))
+        trees.append(m.bvh)
+        scenes.append(scene.compile("cpu"))
     rec = profiling.spans()
     bvh = [s for s in rec if s.name == "setup.bvh"]
-    assert [s.info for s in bvh] == [{"cache_hit": False}, {"cache_hit": True}]
+    sah = sah_cost(trees[0])
+    assert sah_cost(trees[1]) == sah
+    assert [s.info for s in bvh] == [
+        {"cache_hit": hit, "opt_rounds": opt_rounds, "triangles": len(v[0]), "sah": sah}
+        for hit in (False, True)]
+    opt = [s for s in rec if s.name == "setup.optimize"]
+    if opt_rounds:
+        (o,) = opt
+        assert o.parent == "setup.bvh" and bvh[0].t0_ns <= o.t0_ns <= o.t1_ns <= bvh[0].t1_ns
+        assert o.info["rounds"] == 2 and 1 <= o.info["rounds_kept"] <= 2
+        assert o.info["sah_after"] == sah < o.info["sah_before"]
+        assert o.info["sah_before"] == sah_cost(mesh.build_mesh_bvh(*v, cache_dir=False))
+    else:
+        assert opt == []
     compiles = [s for s in rec if s.name == "setup.compile"]
     assert len(compiles) == 2 and all(s.t1_ns > s.t0_ns and s.parent is None for s in compiles)
-    assert {s.name for s in rec} == {"setup.bvh", "setup.compile"}
+    for s, scene in zip(compiles, scenes):
+        assert s.info == {"wide_sah": [wide_sah(scene.wide4)[0][0]],
+                          "wide_triangles": [len(v[0])]}
+    assert {s.name for s in rec} == {"setup.bvh", "setup.compile"} | (
+        {"setup.optimize"} if opt_rounds else set())
+
+
+def _direct_wide_sah(code, box, root):
+    """A mesh's 4-wide SAH, walked node by node in float64."""
+    def half_area(lo, hi):
+        s = hi - lo
+        return s[0] * (s[1] + s[2]) + s[1] * s[2]
+
+    total, tris, root_area, stack = 0.0, 0, None, [root]
+    while stack:
+        w = stack.pop()
+        kids = [c for c in range(4) if code[w, c] != -1]
+        lo = np.min([box[w, 6 * c:6 * c + 3] for c in kids], axis=0)
+        hi = np.max([box[w, 6 * c + 3:6 * c + 6] for c in kids], axis=0)
+        area = half_area(lo, hi)
+        root_area = area if root_area is None else root_area
+        total += area
+        for c in kids:
+            if code[w, c] >= 0:
+                stack.append(code[w, c])
+            else:
+                n = (-code[w, c] - 1) % 1024
+                total += half_area(box[w, 6 * c:6 * c + 3], box[w, 6 * c + 3:6 * c + 6]) * n
+                tris += n
+    return total / root_area, tris
+
+
+def test_wide_sah_is_the_sum_over_the_tables_of_each_mesh(record):
+    """Config 4 (three meshes under four instances): the compile's
+    ``wide_sah`` is each mesh's sum over its 4-wide nodes and leaves."""
+    scene = scene_instances(32, 24, device="cpu")[0]
+    code = scene.wide4.wcode.numpy()
+    box = scene.wide4.wbox.numpy().astype(np.float64)
+    roots = scene.wide4.wroot.tolist()
+    want = [_direct_wide_sah(code, box, r) for r in roots]
+    got = wide_sah(scene.wide4)
+    assert [t for _, t in got] == [t for _, t in want] == [5120, 12, 2]
+    np.testing.assert_allclose([c for c, _ in got], [c for c, _ in want], rtol=1e-5)
+    (s,) = [s for s in profiling.spans() if s.name == "setup.compile"]
+    assert s.info == {"wide_sah": [c for c, _ in got], "wide_triangles": [5120, 12, 2]}
 
 
 def test_a_stage_map_records_nested_stages_against_its_counter(record):

@@ -21,7 +21,7 @@ import heapq
 
 import numpy as np
 
-from .bvh import BVHArrays, _half_area
+from .bvh import BVHArrays, _half_area, sah_cost
 
 
 def _parents(child_a, child_b):
@@ -58,13 +58,20 @@ def optimize_bvh(
     rounds: int = 2,
     frac: float = 1.0,
     max_depth: int = 48,
+    report: dict | None = None,
 ) -> BVHArrays:
     """Reinsertion-optimize a built BVH; returns a new BVHArrays.
 
     ``rounds``: full passes over the candidate list. ``frac``: fraction
     of internal nodes attempted per round (1.0 = Bittner's everything,
     ranked worst-first). ``max_depth`` must match the builder cap (the
-    traversal kernels size their stacks from it)."""
+    traversal kernels size their stacks from it). ``report``, where
+    given, receives ``rounds_kept`` (the rounds neither reverted nor
+    skipped) and ``sah_before``, ``sah_after`` (``sah_cost`` of the tree
+    given and of the tree returned)."""
+    if report is not None:
+        report.update(rounds_kept=0, sah_before=sah_cost(bvh))
+        report["sah_after"] = report["sah_before"]
     node_min = bvh.node_min.astype(np.float32).copy()
     node_max = bvh.node_max.astype(np.float32).copy()
     child_a = bvh.child_a.astype(np.int32).copy()
@@ -220,12 +227,17 @@ def optimize_bvh(
             (node_min, node_max, child_a, child_b, parent, height,
              leaf_start, leaf_count, root) = snap
             break
+        if report is not None:
+            report["rounds_kept"] += 1
 
     # ---- re-emit in DFS preorder with leaf-contiguous triangles ----
-    return _renumber_dfs(
+    out = _renumber_dfs(
         bvh.order, node_min, node_max, child_a, child_b,
         leaf_start, leaf_count, root,
     )
+    if report is not None:
+        report["sah_after"] = sah_cost(out)
+    return out
 
 
 def _renumber_dfs(order, node_min, node_max, child_a, child_b,

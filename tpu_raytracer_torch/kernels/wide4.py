@@ -24,6 +24,9 @@ laid out for one thread per ray instead of 128-lane TPU rows:
   * ``wroot [M] i32`` (wide root per mesh), ``max_leaf`` (largest leaf
     triangle count) and ``depth`` (wide-tree depth, which bounds the
     per-ray stack).
+
+``wide_sah`` gives each mesh's SAH cost over these tables, as
+``accel/bvh.py sah_cost`` gives it over the binary tree.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..accel.wide import collapse4
+from ..accel.bvh import _half_area
+from ..accel.wide import LEAF_BITS, collapse4
 from ..render.intersect import WATERTIGHT_NUDGE, barycentric_rows
 
 NUDGE = WATERTIGHT_NUDGE
@@ -85,15 +89,19 @@ def node_records(code: np.ndarray, box: np.ndarray) -> np.ndarray:
     return rec
 
 
-def _wide_depth(wcode: np.ndarray, wroot: np.ndarray) -> int:
-    """Depth of the deepest wide node below any root (a root alone is 1)."""
-    depth = 0
-    level = np.unique(wroot)
+def _levels(wcode: np.ndarray, roots):
+    """The ids of the wide nodes under ``roots``, level by level, the
+    roots' first."""
+    level = np.unique(roots)
     while level.size:
-        depth += 1
+        yield level
         codes = wcode[level].reshape(-1)
         level = codes[codes >= 0]
-    return depth
+
+
+def _wide_depth(wcode: np.ndarray, wroot: np.ndarray) -> int:
+    """Depth of the deepest wide node below any root (a root alone is 1)."""
+    return sum(1 for _ in _levels(wcode, wroot))
 
 
 def build_tri_rec(scene) -> torch.Tensor:
@@ -140,3 +148,27 @@ def build_wide4(scene, tri_rec: torch.Tensor) -> Wide4Tables:
         depth=depth,
         wnode=torch.from_numpy(node_records(wcode, wbox)).to(dev),
     )
+
+
+def wide_sah(tables: Wide4Tables) -> list[tuple[float, int]]:
+    """``(cost, triangles)`` of each mesh's 4-wide tree, in ``wroot``
+    order: ``sah_cost`` with ``c_trav = c_isect = 1`` over the boxes K1
+    tests (``wbox``, nudged). The half-area of every wide node under the
+    mesh's root (a node's box the union of its children's) over the
+    root's, plus each leaf's half-area times its triangles over the
+    root's; ``triangles`` is the leaves' sum."""
+    code = tables.wcode.cpu().numpy()
+    box = tables.wbox.cpu().numpy()[:, :24].reshape(-1, 4, 6)
+    count = np.where(code < 0, (-code - 1) & ((1 << LEAF_BITS) - 1), 0)
+    present = ((code >= 0) | (count > 0))[..., None]
+    node_area = _half_area(np.where(present, box[..., :3], np.inf).min(1),
+                           np.where(present, box[..., 3:], -np.inf).max(1))
+    leaf = (count > 0)[..., None]  # absent children's inverted boxes left out
+    leaf_area = _half_area(np.where(leaf, box[..., :3], 0), np.where(leaf, box[..., 3:], 0))
+    leaf_cost = (leaf_area * count).sum(1)
+    out = []
+    for root in tables.wroot.cpu().numpy():
+        nodes = np.concatenate(list(_levels(code, [root])))
+        cost = node_area[nodes].sum(dtype=np.float64) + leaf_cost[nodes].sum(dtype=np.float64)
+        out.append((float(cost / max(float(node_area[root]), 1e-30)), int(count[nodes].sum())))
+    return out

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..accel import native
-from ..accel.bvh import BVHArrays, build_bvh
+from ..accel.bvh import BVHArrays, build_bvh, sah_cost
 from ..core.vecmath import q_rsqrt
 from ..utils.profiling import setup
 
@@ -110,54 +110,67 @@ def build_mesh_bvh(v0, v1, v2, max_depth: int = MAX_DEPTH, builder: str = "auto"
                    opt_rounds: int = 0, cache_dir=None) -> BVHArrays:
     """The BVH of a mesh under ``from_triangles``' build options, from the
     disk cache where it holds the tree; the set-up span ``setup.bvh``
-    (``utils/profiling.py``), its info ``cache_hit``."""
+    (``utils/profiling.py``), its info ``cache_hit``, ``opt_rounds``,
+    ``triangles`` and ``sah`` (``sah_cost`` of the tree returned), with
+    ``setup.optimize`` inside it where a build runs the optimizer."""
     with setup("bvh") as span:
-        span.info = {"cache_hit": False}
-        if builder not in BUILDERS:
-            raise ValueError(f"unknown builder {builder!r}; one of {BUILDERS}")
-        num = len(v0)
-        presplit = default_presplit(num) if presplit is None else float(presplit)
-
-        def build():
-            bvh = _build_tree(v0, v1, v2, max_depth, builder, presplit, presplit_gate)
-            if opt_rounds > 0:
-                from ..accel.optimize import optimize_bvh
-
-                bvh = optimize_bvh(bvh, rounds=opt_rounds, max_depth=max_depth)
-            return bvh
-
-        if cache_dir is False or num < CACHE_MIN_TRIS:
-            return build()
-        h = hashlib.sha256(BVH_BUILDER_VERSION)
-        h.update(b"sweep" if builder != "native" else b"reference")
-        h.update(b"opt%d" % opt_rounds)
-        h.update(b"presplit%r-%r" % (presplit, float(presplit_gate)) if presplit > 0 else b"")
-        h.update(np.int64([max_depth, MIN_LEAF_SIZE]).tobytes())
-        for a in (v0, v1, v2):
-            h.update(np.ascontiguousarray(a, np.float32).tobytes())
-        fp = os.path.join(cache_dir or default_cache_dir(), f"bvh_{h.hexdigest()[:24]}.npz")
-        if os.path.exists(fp):
-            try:
-                with np.load(fp) as data:
-                    bvh = BVHArrays(**{f.name: data[f.name]
-                                       for f in dataclasses.fields(BVHArrays)})
-                span.info["cache_hit"] = True
-                return bvh
-            except (OSError, ValueError, EOFError, KeyError, zipfile.BadZipFile, zlib.error):
-                os.unlink(fp)  # a corrupt entry: build again and replace it
-        bvh = build()
-        os.makedirs(os.path.dirname(fp), exist_ok=True)
-        # written whole to a temporary file, then renamed: a reader never sees
-        # a partial entry, and concurrent writers do not interleave (the .npz
-        # suffix stays, or np.savez would append one)
-        tmp = fp[:-4] + f".tmp.{os.getpid()}.npz"
-        try:
-            np.savez(tmp, **dataclasses.asdict(bvh))
-            os.replace(tmp, fp)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        bvh, hit = _cached_tree(v0, v1, v2, max_depth, builder, presplit, presplit_gate,
+                                opt_rounds, cache_dir)
+        span.info = {"cache_hit": hit, "opt_rounds": opt_rounds, "triangles": len(v0),
+                     "sah": sah_cost(bvh)}
         return bvh
+
+
+def _cached_tree(v0, v1, v2, max_depth, builder, presplit, presplit_gate, opt_rounds,
+                 cache_dir) -> tuple[BVHArrays, bool]:
+    """``build_mesh_bvh``'s tree, and whether it came from the cache."""
+    if builder not in BUILDERS:
+        raise ValueError(f"unknown builder {builder!r}; one of {BUILDERS}")
+    num = len(v0)
+    presplit = default_presplit(num) if presplit is None else float(presplit)
+
+    def build():
+        bvh = _build_tree(v0, v1, v2, max_depth, builder, presplit, presplit_gate)
+        if opt_rounds > 0:
+            from ..accel.optimize import optimize_bvh
+
+            with setup("optimize") as opt:
+                opt.info = {"rounds": opt_rounds}
+                bvh = optimize_bvh(bvh, rounds=opt_rounds, max_depth=max_depth,
+                                   report=opt.info)
+        return bvh
+
+    if cache_dir is False or num < CACHE_MIN_TRIS:
+        return build(), False
+    h = hashlib.sha256(BVH_BUILDER_VERSION)
+    h.update(b"sweep" if builder != "native" else b"reference")
+    h.update(b"opt%d" % opt_rounds)
+    h.update(b"presplit%r-%r" % (presplit, float(presplit_gate)) if presplit > 0 else b"")
+    h.update(np.int64([max_depth, MIN_LEAF_SIZE]).tobytes())
+    for a in (v0, v1, v2):
+        h.update(np.ascontiguousarray(a, np.float32).tobytes())
+    fp = os.path.join(cache_dir or default_cache_dir(), f"bvh_{h.hexdigest()[:24]}.npz")
+    if os.path.exists(fp):
+        try:
+            with np.load(fp) as data:
+                bvh = BVHArrays(**{f.name: data[f.name]
+                                   for f in dataclasses.fields(BVHArrays)})
+            return bvh, True
+        except (OSError, ValueError, EOFError, KeyError, zipfile.BadZipFile, zlib.error):
+            os.unlink(fp)  # a corrupt entry: build again and replace it
+    bvh = build()
+    os.makedirs(os.path.dirname(fp), exist_ok=True)
+    # written whole to a temporary file, then renamed: a reader never sees
+    # a partial entry, and concurrent writers do not interleave (the .npz
+    # suffix stays, or np.savez would append one)
+    tmp = fp[:-4] + f".tmp.{os.getpid()}.npz"
+    try:
+        np.savez(tmp, **dataclasses.asdict(bvh))
+        os.replace(tmp, fp)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return bvh, False
 
 
 @dataclasses.dataclass

@@ -415,7 +415,6 @@ class Scene:
         flat.add_mesh_instance(MeshInstance(0, 0))
         return flat, cat["mat"][merged.bvh.order]
 
-    @setup("compile")
     def compile(self, device="cuda", box_pad_ulp: float = BOX_PAD_ULP,
                 flatten_static: bool = False, auto_page: bool = True,
                 _tri_mat: np.ndarray | None = None) -> SceneTensors:
@@ -428,14 +427,30 @@ class Scene:
         compile ``flattened()`` instead, one instance with per-triangle
         materials (``tri_mat``, the source instance's material; -1
         elsewhere and on pad rows). ``auto_page=False`` builds the
-        resident tables, and raises for a scene that needs paging."""
-        if not self.meshes or not self.mesh_instances or not self.materials:
-            raise ValueError("scene needs at least one mesh, instance and material")
-        if flatten_static:
-            flat, tri_mat = self.flattened()
-            return flat.compile(device, box_pad_ulp=box_pad_ulp, auto_page=auto_page,
-                                _tri_mat=tri_mat)
+        resident tables, and raises for a scene that needs paging.
 
+        The set-up span ``setup.compile``; where the scene has 4-wide
+        tables, its info ``wide_sah`` and ``wide_triangles``, per mesh
+        (``kernels/wide4.py wide_sah``)."""
+        from ..kernels.wide4 import wide_sah
+
+        with setup("compile") as span:
+            if not self.meshes or not self.mesh_instances or not self.materials:
+                raise ValueError("scene needs at least one mesh, instance and material")
+            if flatten_static:
+                flat, tri_mat = self.flattened()
+                scene = flat._compile(device, box_pad_ulp, auto_page, tri_mat)
+            else:
+                scene = self._compile(device, box_pad_ulp, auto_page, _tri_mat)
+            if scene.wide4 is not None:
+                costs = wide_sah(scene.wide4)
+                span.info = {"wide_sah": [c for c, _ in costs],
+                             "wide_triangles": [t for _, t in costs]}
+            return scene
+
+    def _compile(self, device, box_pad_ulp: float, auto_page: bool,
+                 _tri_mat: np.ndarray | None) -> SceneTensors:
+        """``compile``'s scene, of this scene's meshes and instances as they are."""
         tri_parts = {k: [] for k in ("v0", "v1", "v2", "normal", "uv0", "uv1", "uv2")}
         node_parts = {k: [] for k in ("min", "max", "ca", "cb", "ls", "lc")}
         tri_mesh, tri_mat_parts, mesh_root, vnorm_parts = [], [], [], []

@@ -29,10 +29,11 @@ any ``torch.profiler.profile`` around the port's calls.
     stages were entered, attributes each replayed operation to its
     innermost stage. Nothing is added to the graph, so a replay costs the
     same with tracing on or off.
-  * ``setup(name)``: a set-up span (``setup.bvh``, ``setup.compile``,
-    ``setup.paging``, ``setup.library``, ``setup.capture``), recorded
-    whether or not a profiler runs; each runs once per scene, library or
-    entry. It also serves as a decorator.
+  * ``setup(name)``: a set-up span (``setup.bvh``, ``setup.optimize``,
+    ``setup.compile``, ``setup.paging``, ``setup.library``,
+    ``setup.capture``), recorded whether or not a profiler runs; each
+    runs once per mesh, scene, library or entry. It also serves as a
+    decorator.
   * ``trace(log_dir)``: a ``torch.profiler`` capture written as a trace
     that Perfetto or TensorBoard opens, holding the ``rt.*`` spans.
 
@@ -44,7 +45,13 @@ The spans and what reads them:
   * the stages, inside a frame's body (``render/pipeline.py``,
     ``render/integrators.py``, ``utils/prng.py``);
   * ``setup.bvh`` (``scene/mesh.py build_mesh_bvh``; info
-    ``cache_hit``), ``setup.compile`` (``Scene.compile``),
+    ``cache_hit``, ``opt_rounds``, ``triangles`` and the tree's ``sah``,
+    on a build and on a cache hit alike), ``setup.optimize`` (the
+    reinsertion optimizer, ``accel/optimize.py``, inside ``setup.bvh`` on
+    a build with ``opt_rounds``; info ``rounds``, ``rounds_kept``,
+    ``sah_before``, ``sah_after``), ``setup.compile`` (``Scene.compile``;
+    info ``wide_sah`` and ``wide_triangles`` per mesh where it builds
+    4-wide tables, ``kernels/wide4.py wide_sah``),
     ``setup.paging`` (``SceneTensors.with_paging``, the page tables'
     host build: inside ``setup.compile`` for a scene that needs paging;
     info ``pages``, ``rows``, ``bytes``),
