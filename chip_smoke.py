@@ -124,7 +124,8 @@ phases, one line each:
      fly-through through ``bvh`` (K2) and ``cuda`` (K1): launches per
      frame (3: primary, batched bounce, any-hit tail; 6 with
      ``path_lights``), frame 0 against the plain casts' frame, the
-     sorted bounce casts of ``cuda`` against unsorted, bvh against cuda;
+     unsorted bounce casts of ``cuda`` (the default) against sorted, bvh
+     against cuda;
  21. ``config5_colonnade_path_64`` against its CPU golden;
  22. ``render_image_ao`` (8 samples) and the path frame denoised (3
      iterations) against their plain-cast frames;
@@ -1474,9 +1475,10 @@ def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
     bound("K1 config5_bounce1", k1_counters, 4, bd.numel() // 3,
           (bo, bd, col.wide4.wnode, *traversal.cast_rays_cuda(col, bo, bd)[:3]), real_tri_rows(col))
 
-    # the coherence sort of the cuda backend's bounce casts: K1's kernel
-    # on the bounce rays in pixel order and in sort order, and the whole
-    # casts, the sorted one with its argsort, gathers and scatter
+    # the coherence sort that sort_secondary turns on for the cuda
+    # backend's bounce casts: K1's kernel on the bounce rays in pixel order
+    # (the default) and in sort order, and the whole casts, the sorted one
+    # with its argsort, gathers and scatter
     order = torch.argsort(ray_sort_keys(bo.reshape(-1, 3), bd.reshape(-1, 3)), stable=True)
     so, sd = bo.reshape(-1, 3)[order].contiguous(), bd.reshape(-1, 3)[order].contiguous()
     unsorted_cast = lambda: traversal.cast_rays_cuda(col, bo, bd)
@@ -1516,13 +1518,13 @@ def path_phases(dev, card, flagship, flagship_shadow) -> tuple:
         torch.cuda.synchronize()
         lit_launches = counts()[kname]
         fields = {}
-        if backend == "cuda":  # the bounce and tail casts are sorted by default
+        if backend == "cuda":  # the bounce and tail casts are unsorted by default
             fields["sorted_vs_unsorted_pixels"] = int(
-                (imgs[0] != frame("cuda", 0, sort_secondary=False)).any(-1).sum())
+                (imgs[0] != frame("cuda", 0, sort_secondary=True)).any(-1).sum())
             check(fields["sorted_vs_unsorted_pixels"] == 0, "the sort changed the path image")
         phase("path", backend=backend, kernel=kname, shape=tuple(imgs[0].shape),
               launches_per_frame=per_frame, launches_with_path_lights=lit_launches,
-              pixels_vs_plain=n_plain, bounce_casts_sorted=backend == "cuda", **fields,
+              pixels_vs_plain=n_plain, bounce_casts_sorted=False, **fields,
               image_mean=f"{float(torch.stack(imgs).float().mean()):.3f}")
         check(n_plain == 0, f"{n_plain} pixels of the {backend} path frame differ from the "
               "plain casts' frame")

@@ -1170,6 +1170,50 @@ def test_compiled_path_entry_bounces_with_s6(cuda, path_lights, monkeypatch):
         pipeline.clear_compiled()
 
 
+def test_compiled_path_entry_casts_bounces_unsorted(cuda):
+    """The compiled config 5 path frame with its defaults casts its bounce
+    rays and any-hit tail in wavefront order: its image is bitwise the
+    entry's with ``sort_secondary=True``, its graph holds fewer nodes, a
+    profiled replay runs no radix sort and no scatter (the sorted entry's
+    runs both) and fewer gathers (those left are each K1 launch's lookup
+    of the instance roots), and both replays launch the same kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_raytracer_torch.render import pipeline
+    from tpu_raytracer_torch.utils import prng
+
+    pipeline.clear_compiled()
+    scene, cam = scene_colonnade(128, 96, columns=4, segs=8, device=cuda)
+    p = cam.ray_params(cuda)
+    args = (RenderConfig(128, 96), scene, p["K_inv"], p["D"], p["pose"], p["inv_pose"],
+            prng.PRNGKey(7, device=cuda), 2, 2)
+    frame = pipeline.compiled_render_image_path_traced
+    entries, kernels = {}, {}
+    for sort in (False, True):
+        kw = {"sort_secondary": True} if sort else {}
+        img = frame(*args, **kw)
+        entries[sort] = (frame.last, img)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            frame(*args, **kw)
+            torch.cuda.synchronize()
+        kernels[sort] = {e.key: e.count for e in prof.key_averages()}
+    (plain, img), (sorted_, want) = entries[False], entries[True]
+    assert plain is not sorted_ and torch.equal(img, want)
+    assert plain.nodes < sorted_.nodes
+    launches = {"K1": 3, "K1_carry": 2, "S1": 1, "S2": 2, "S4": 2, "S6": 3}
+    assert plain.launches == launches and sorted_.launches == launches
+
+    def launched(sort, pattern):
+        return sum(n for k, n in kernels[sort].items() if pattern in k)
+
+    assert launched(False, "wide_traverse") == launched(True, "wide_traverse") == 3
+    for pattern in ("RadixSort", "index_put_kernel_impl"):
+        assert launched(False, pattern) == 0 < launched(True, pattern), pattern
+    assert launched(False, "index_kernel_impl") < launched(True, "index_kernel_impl")
+    pipeline.clear_compiled()
+
+
 @pytest.mark.parametrize("lighting", ["flat", "lambert_shadow"])
 def test_flagship_replay_launches_each_stage_once(cuda, lighting, monkeypatch):
     """The compiled flagship frame: a replay launches S1, S2 and S3 once

@@ -220,6 +220,40 @@ def test_sorted_cast_equals_unsorted_cast():
         is binary.cast_rays_binary_cuda
 
 
+def test_path_frame_casts_bounces_in_wavefront_order(monkeypatch):
+    """On the cuda backend ``render_path_traced`` casts its bounce rays and
+    its any-hit tail unsorted by default: ``cast_rays_sorted`` is never
+    called, and the radiance is bitwise the sorted frame's, which goes
+    through it for both casts."""
+    from tpu_raytracer_torch.render import generate_rays, sorted_cast
+
+    scene, cam = port_scenes.scene_colonnade(32, 32, columns=4, segs=8, device="cpu")
+    p = cam.ray_params("cpu")
+    o, d = generate_rays(cam.width, cam.height, p["K_inv"], p["D"], p["pose"], p["inv_pose"])
+    frame = lambda **kw: integrators.render_path_traced(scene, o, d, prng.PRNGKey(3), 2, 2,
+                                                        backend="cuda", **kw)
+    real, calls = sorted_cast.cast_rays_sorted, []
+
+    def counted(*args, **kw):
+        calls.append(getattr(args[0], "keywords", {}).get("occlusion", False))
+        return real(*args, **kw)
+
+    with monkeypatch.context() as m:
+        m.setattr(sorted_cast, "cast_rays_sorted", counted)
+        want = frame(sort_secondary=True)
+    assert calls == [False, True]  # the bounce cast, then the any-hit tail
+
+    def refuse(*args, **kw):
+        raise AssertionError("the default path frame sorted a cast")
+
+    monkeypatch.setattr(sorted_cast, "cast_rays_sorted", refuse)
+    with pytest.raises(AssertionError, match="sorted a cast"):
+        frame(sort_secondary=True)
+    got = frame()
+    assert (got > 0).any()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_cosine_sample_matches_jax():
     rng = np.random.default_rng(3)
     n = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
@@ -366,10 +400,10 @@ def test_config5_golden_through_bvh_and_cuda():
     print(f"config5_colonnade_path_64: {mismatch} pixels differ from the golden")
     assert mismatch <= GOLDEN5_MAX_MISMATCH
     assert abs(img.astype(np.float64).mean() / golden.mean() - 1.0) < 0.01
-    # the sorted bounce casts (the cuda default) give the unsorted image
-    unsorted = render_image_path_traced(RenderConfig(64, 64), scene, *args, prng.PRNGKey(7), 2,
-                                        2, sort_secondary=False).numpy()
-    np.testing.assert_array_equal(unsorted, images["cuda"])
+    # the sorted bounce casts give the unsorted image (the cuda default)
+    sorted_ = render_image_path_traced(RenderConfig(64, 64), scene, *args, prng.PRNGKey(7), 2,
+                                       2, sort_secondary=True).numpy()
+    np.testing.assert_array_equal(sorted_, images["cuda"])
     # the any-hit tail answers the last bounce's hit-or-miss as the
     # nearest cast does (no emissive material here)
     nearest_tail = render_image_path_traced(RenderConfig(64, 64, backend="bvh"), scene, *args,

@@ -291,7 +291,7 @@ def render_image_path_scene_sharded(config: RenderConfig, group: Group, shard: S
     origin, directions = _rays(config, shard, K_inv, D, pose, inv_pose)
     radiance = render_path_traced(shard.scene, origin, directions, key.to(directions.device),
                                   max_bounces=max_bounces, samples=samples,
-                                  sort_secondary=False, _sharded_hooks=_hooks(group, shard, config),
+                                  _sharded_hooks=_hooks(group, shard, config),
                                   **path_options(config))
     return to_u8(tonemap(radiance, config.tonemap, config.exposure))
 

@@ -103,7 +103,7 @@ def _band_path(config: RenderConfig, group: Group, scene, K_inv, D, pose, inv_po
     origin, d = band_rays(config, group, scene, K_inv, D, pose, inv_pose)
     key = prng.fold_in(key.to(scene.device), group.rank)
     radiance = render_path_traced(scene, origin, d, key, max_bounces=bounces, samples=samples,
-                                  sort_secondary=False, **path_options(config))
+                                  **path_options(config))
     return to_u8(tonemap(radiance, config.tonemap, config.exposure))
 
 

@@ -345,7 +345,7 @@ def lens_basis(directions: torch.Tensor, exact: bool = True):
 
 def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, samples: int = 4,
                        backend: str = "cuda", sky_strength: float = 1.0, exact: bool = True,
-                       sort_secondary: bool = True, tex_filter: str = "nearest",
+                       sort_secondary: bool = False, tex_filter: str = "nearest",
                        lens_radius: float = 0.0, focus_distance: float = 4.0,
                        light_direction=None, point_lights: tuple = (),
                        sun_intensity: float = 1.0, normal_mode: str = "reference",
@@ -368,9 +368,14 @@ def render_path_traced(scene, origin, directions, key, max_bounces: int = 3, sam
     primary cast; without it, or with a lens, samples run one after
     another. ``fast_tail`` (the JAX package's fast tail): with no emissive
     material and no NEE the last bounce's answer is hit or miss, so it
-    is cast with the any-hit cast. ``sort_secondary`` casts bounce rays
-    in coherence order on the ``cuda`` backend (``sorted_cast``); the
-    image does not change. ``key`` is a ``utils.prng`` key; the random
+    is cast with the any-hit cast. The bounce casts and the tail's any-hit
+    cast take the rays in wavefront order, ``(samples,) + shape``, as the
+    bounce writes them. ``sort_secondary`` casts them in coherence order
+    on the ``cuda`` backend instead (``sorted_cast``): the image does not
+    change, and on an H100 the sort's keys, argsort, gathers and scatter
+    cost ~3 ms of device time in a 1080p frame of 2 spp and 2 bounces,
+    several times what K1 gains from walking the rays in that order.
+    ``key`` is a ``utils.prng`` key; the random
     streams are the JAX package's. ``point_lights`` add to NEE: their
     shadows take the nearest-hit cast (distance-bounded)."""
     cast = get_cast_fn(backend, want_normals=True)

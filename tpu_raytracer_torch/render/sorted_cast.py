@@ -15,6 +15,16 @@ passes every other backend through, as the JAX package does. The JAX
 package's sort-key and sort-secondary knobs are TPU
 experiments and are not ported: the default key only, and the choice is
 the ``sort_secondary`` argument.
+
+No caller of the port sorts by default: every secondary cast (Whitted's,
+the shadow rays', the path tracer's bounces and any-hit tail, the
+sharded frames') takes its rays in wavefront order, as the stage before
+it writes them. On bounce batches the key is the direction octant alone
+(parked rays sit at ``PARK_ORIGIN``, so the batch's bounds put every
+live ray's Morton code at 0), and on an H100 the keys, argsort, gathers
+and scatter of a 1080p path frame's two sorted casts (2 spp) cost ~3 ms
+of device time, several times what K1 gains from walking the rays in
+that order.
 """
 
 from __future__ import annotations
